@@ -1,0 +1,255 @@
+"""The DFA blockmask kernel: its wrapper, its build, and its plain
+PyTorch version.
+
+``dfa_blockmask(segments, table, dev)`` maps [B, L] uint8 segments
+and a resident ``DfaTable`` to [B, n_patterns] uint16 blockmasks.
+On a CUDA tensor it launches the hand-written kernel
+(``csrc/dfa_blockmask.cu``) or raises; on a CPU tensor it runs
+``dfa_masks_torch``, the same function in plain PyTorch.
+
+The kernel is compiled with ``nvcc`` at first use into
+``trivy_tpu_torch/_build/<hash of source and flags>/`` and loaded
+with ``ctypes`` (a plain C interface — no PyTorch headers, so the
+build takes seconds).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+
+import torch
+
+from .dfa import chain_len
+from .keywords import MAX_CODE_LEN, N_BLOCKS, pack_code
+from .runs import erode, membership, shift_left
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCE = os.path.join(_PKG, "csrc", "dfa_blockmask.cu")
+BUILD_DIR = os.path.join(_PKG, "_build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+MAX_GROUP_CHUNKS = 4      # the kernel's literal groups: 1..4 words
+MAX_CHUNKS = 6            # MAX_CHAIN_LEN / MAX_CODE_LEN: 48-byte units
+
+_lib = None
+_lib_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    if not CUDA_HOME:
+        raise RuntimeError("no CUDA toolkit found to build the "
+                           "dfa_blockmask kernel (set CUDA_HOME)")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def build() -> str:
+    """Compile the kernel library if this source and these flags have
+    not been built yet; returns the path of the shared library."""
+    with open(SOURCE, "rb") as f:
+        src = f.read()
+    key = hashlib.sha256(src + repr(NVCC_FLAGS).encode()) \
+        .hexdigest()[:16]
+    out_dir = os.path.join(BUILD_DIR, key)
+    lib = os.path.join(out_dir, "libdfa_blockmask.so")
+    if os.path.exists(lib):
+        return lib
+    nvcc = _nvcc()
+    os.makedirs(out_dir, exist_ok=True)
+    tmp = f"{lib}.{os.getpid()}.tmp"
+    cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, SOURCE]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{proc.stderr}")
+    with open(os.path.join(out_dir, "ptxas.txt"), "w") as f:
+        f.write(proc.stderr)
+    os.replace(tmp, lib)
+    return lib
+
+
+def _load():
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            fn = lib.dfa_blockmask_launch
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_int, ctypes.c_void_p,
+                           ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            _lib = lib
+    return _lib
+
+
+def _check_cuda(segments: torch.Tensor, desc: torch.Tensor) -> None:
+    if segments.dtype != torch.uint8 or segments.dim() != 2:
+        raise ValueError(f"segments must be [B, L] uint8, got "
+                         f"{tuple(segments.shape)} {segments.dtype}")
+    if not segments.is_contiguous() or segments.data_ptr() % 16:
+        raise ValueError("segments must be contiguous and 16-byte "
+                         "aligned")
+    if segments.shape[1] % 128:
+        raise ValueError(f"segment length {segments.shape[1]} is not "
+                         f"a multiple of 128")
+    if desc.dtype != torch.int32 or desc.dim() != 1 or \
+            not desc.is_contiguous() or desc.device != segments.device:
+        raise ValueError("kernel descriptor must be a contiguous 1-D "
+                         "int32 tensor on the segments' device")
+
+
+def dfa_blockmask(segments: torch.Tensor, table, dev: tuple) \
+        -> torch.Tensor:
+    """[B, L] uint8 × resident table → [B, n_patterns] uint16
+    blockmasks. ``dev`` is ``table.device_tables(device)``."""
+    if segments.device.type == "cpu":
+        return dfa_masks_torch(segments, table, dev)
+    if segments.device.type != "cuda":
+        raise ValueError(f"no dfa_blockmask for {segments.device}")
+    desc = dev[-1]
+    _check_cuda(segments, desc)
+    if table.max_chunks > MAX_CHUNKS or any(
+            g.chunks > MAX_GROUP_CHUNKS for g in table.groups):
+        raise ValueError(f"table needs {table.max_chunks} word chunks "
+                         f"per literal; the kernel takes "
+                         f"{MAX_GROUP_CHUNKS} (literals) and "
+                         f"{MAX_CHUNKS} (chain units)")
+    lib = _load()
+    B, L = segments.shape
+    out = torch.empty((B, table.n_patterns), dtype=torch.uint16,
+                      device=segments.device)
+    if B == 0 or table.n_patterns == 0:
+        return out
+    n_sets = int(table.kernel_desc()[2])
+    with torch.cuda.device(segments.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.dfa_blockmask_launch(
+            segments.data_ptr(), B, L, desc.data_ptr(), desc.numel(),
+            table.n_patterns, n_sets, out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"dfa_blockmask launch failed: CUDA error "
+                           f"{err}")
+    dfa_blockmask.launches += 1
+    return out
+
+
+dfa_blockmask.launches = 0
+
+
+# ---------------------------------------------------------------------
+# the plain version (any device; what the CPU path runs)
+# ---------------------------------------------------------------------
+
+def _shift_right(a: torch.Tensor, k: int) -> torch.Tensor:
+    """a[:, i] ← a[:, i-k], zero-filled at the head."""
+    if k == 0:
+        return a
+    out = torch.zeros_like(a)
+    out[:, k:] = a[:, :-k]
+    return out
+
+
+def _blockmask(hits: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
+    """[B, L] bool → [B] int64 16-block position bitmask."""
+    B, L = hits.shape
+    hb = hits.reshape(B, N_BLOCKS, L // N_BLOCKS).any(dim=2)
+    return (hb.to(torch.int64) * bits).sum(dim=1)
+
+
+def _lit_pred(lo_sh: list, hi_sh: list, words) -> torch.Tensor:
+    """[B, L] bool: a literal whose chunk j packs to ``words[j]`` =
+    (lo, hi, lo_mask, hi_mask) starts at each position."""
+    p = None
+    for j, (klo, khi, mlo, mhi) in enumerate(words):
+        cmp = ((lo_sh[j] & mlo) == klo) & ((hi_sh[j] & mhi) == khi)
+        p = cmp if p is None else p & cmp
+    return p
+
+
+def window_words(segments: torch.Tensor, nch: int) -> tuple:
+    """Lowered little-endian window words: (lo_sh, hi_sh), each a list
+    of ``nch`` [B, L] int64 tensors, entry j the lo/hi word of the 8
+    bytes at position + 8j (zero past L)."""
+    # int64: PyTorch's uint32 has no shifts on the CPU
+    x = segments.to(torch.int64)
+    xl = torch.where((x >= 65) & (x <= 90), x + 32, x)
+    sh = [shift_left(xl, i) for i in range(8)]
+    lo = sh[0] | sh[1] << 8 | sh[2] << 16 | sh[3] << 24
+    hi = sh[4] | sh[5] << 8 | sh[6] << 16 | sh[7] << 24
+    return ([shift_left(lo, 8 * j) for j in range(nch)],
+            [shift_left(hi, 8 * j) for j in range(nch)])
+
+
+def chain_unit_preds(segments: torch.Tensor, table, words: tuple):
+    """Per chain, in table order: its units' [B, L] bool predicates in
+    unit order, each moved to the chain END (head zero-filled). A chain
+    hits where all of them hold. ``words`` is ``window_words``."""
+    lo_sh, hi_sh = words
+    xi = segments.to(torch.int32)
+    for units in table.chains:
+        K = chain_len(units)
+        preds = []
+        off = 0
+        for u in units:
+            if u[0] == "lit":
+                data = u[1]
+                pred = _lit_pred(lo_sh, hi_sh, [
+                    pack_code(data[j * MAX_CODE_LEN:
+                                   (j + 1) * MAX_CODE_LEN])
+                    for j in range(-(-len(data) // MAX_CODE_LEN))])
+                ulen = len(data)
+            else:
+                _, ranges, n = u
+                # membership on RAW bytes; past L nothing is a member
+                pred, ulen = erode(membership(xi, ranges), n), n
+            # start-position predicate, moved to the chain END
+            preds.append(_shift_right(pred, K - 1 - off))
+            off += ulen
+        yield preds
+
+
+def _masks_rows(segments: torch.Tensor, table, band: tuple) \
+        -> torch.Tensor:
+    B, L = segments.shape
+    dev = segments.device
+    bits = torch.ones(N_BLOCKS, dtype=torch.int64, device=dev) \
+        << torch.arange(N_BLOCKS, device=dev)
+    words = window_words(segments, table.max_chunks)
+    lo_sh, hi_sh = words
+
+    out = torch.zeros((B, table.n_patterns), dtype=torch.int64,
+                      device=dev)
+    for gi, g in enumerate(table.groups):
+        glo, ghi, glom, ghim = band[4 * gi:4 * gi + 4]
+        for k in range(g.count):      # pad columns are never computed
+            kw = [(glo[j, k], ghi[j, k], glom[j, k], ghim[j, k])
+                  for j in range(g.chunks)]
+            out[:, g.start + k] = _blockmask(
+                _lit_pred(lo_sh, hi_sh, kw), bits)
+
+    for ci, preds in enumerate(chain_unit_preds(segments, table, words)):
+        acc = preds[0]
+        for p in preds[1:]:
+            acc = acc & p
+        out[:, len(table.literals) + ci] = _blockmask(acc, bits)
+    return out.to(torch.uint16)
+
+
+def dfa_masks_torch(segments: torch.Tensor, table, dev: tuple,
+                    rows: int = 1024) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: [B, L] uint8 → [B,
+    n_patterns] uint16 blockmasks, on the segments' device, ``rows``
+    segments at a time to bound the int64 intermediates. ``dev`` is
+    ``table.device_tables(device)``: the int64 band arrays, then the
+    kernel descriptor (unused here)."""
+    band = dev[:-1]
+    B = segments.shape[0]
+    if B <= rows:
+        return _masks_rows(segments, table, band)
+    return torch.cat([_masks_rows(segments[i:i + rows], table, band)
+                      for i in range(0, B, rows)])
