@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py
 
-Builds the port's hand-written kernel (``trivy_tpu_torch/csrc``), then:
+Builds the port's hand-written kernels (``trivy_tpu_torch/csrc``, one
+``nvcc`` per source, all started together), then:
 
 1. kernel phase: a seeded corpus of ~8k source-like files (2-12 KB,
    one in 50 carrying a secret) is cut into [B, 2048] segments; the
@@ -10,7 +11,17 @@ Builds the port's hand-written kernel (``trivy_tpu_torch/csrc``), then:
    (``dfa_masks_torch``) exactly on the whole batch, on a random-byte
    batch and on a custom rule table, and the fused sieve (compaction,
    run hits) must equal the same function built from the plain masks;
-2. slice phase: the corpus is written to a directory inside the
+2. literal-sieve phase: the ``code_blockmask`` kernel must equal its
+   plain version (``code_blockmask_torch``) exactly with the builtin
+   table's literal codes over the whole corpus batch and with the
+   custom table's codes (pad codes, more than 128) over the
+   random-byte batch; every code column must agree with the DFA
+   masks (equal for literals of at most 8 bytes, a superset for
+   longer ones); then the literal sieve's entry points
+   (``make_fused_sieve``, ``make_full_sieve``, ``run_blockmask``) run
+   once each on the corpus batch and must equal the same functions
+   built from the plain masks;
+3. slice phase: the corpus is written to a directory inside the
    checkout and scanned with the port's ``fs`` entry (``scan_fs``) on
    the card. Every planted file must report its rule, and a seeded
    sample of files (plus every planted one) must have exactly the
@@ -31,6 +42,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -195,6 +207,18 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
+def timed(fn) -> tuple:
+    """(fn(), its ms on the card) for one call, from CUDA events."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def literal_ops(lit: bytes) -> int:
     """Operations of one literal test at one position: per 4-byte half
     of each 8-byte chunk, none where its mask is 0 (always true), one
@@ -260,13 +284,41 @@ def blockmask_ops(seg: torch.Tensor, table) -> float:
     return ops
 
 
+def roofline_ms(nbytes: float, ops: float) -> tuple:
+    """(the least time in ms, "bytes" or "operations"): the larger of
+    the bytes over the memory rate and the operations over the INT32
+    rate."""
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = ops / PEAK_INT32_OPS_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else \
+        (t_bytes, "bytes")
+
+
 def bound_ms(seg: torch.Tensor, table, desc_bytes: int) -> tuple:
     B, L = seg.shape
     nbytes = B * L + desc_bytes + B * table.n_patterns * 2
-    t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = blockmask_ops(seg, table) / PEAK_INT32_OPS_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else \
-        (t_bytes, "bytes")
+    return roofline_ms(nbytes, blockmask_ops(seg, table))
+
+
+def code_blockmask_ops(seg: torch.Tensor, table) -> float:
+    """Integer operations of the literal-code function on this [B, L]
+    batch with ``table``'s padded codes. Per position: lowering the
+    byte (3) and one funnel shift for its window word; per code and
+    position its test (``literal_ops``; a pad code, 0 under full
+    masks, is two compares and their AND) and one OR into its block
+    bit."""
+    B, L = seg.shape
+    n_pad = table.codes[0].shape[0] - table.n_codes
+    per_pos = 4 + sum(literal_ops(lit) + 1 for lit in table.literals) \
+        + n_pad * (3 + 1)
+    return float(per_pos) * B * L
+
+
+def code_bound_ms(seg: torch.Tensor, table) -> tuple:
+    B, L = seg.shape
+    Kp = table.codes[0].shape[0]
+    nbytes = B * L + 4 * 4 * Kp + B * Kp * 4
+    return roofline_ms(nbytes, code_blockmask_ops(seg, table))
 
 
 def adversarial_batch(rows: int, L: int, seed: int) -> np.ndarray:
@@ -377,13 +429,118 @@ def kernel_phase(files: list, device) -> dict:
                        iters=5, warmup=1)
     runs_ms = cuda_ms(lambda: run_hits(seg, specs), iters=5, warmup=1)
     b_ms, b_by = bound_ms(seg, table, int(dev[-1].numel()) * 4)
+    batches = {"scanner": bs, "custom": cs, "seg": seg, "adv": adv,
+               "real_rows": real_rows, "dfa_masks": want}
     return {"segments": real_rows, "padded_rows": B, "seg_len": L,
             "patterns": table.n_patterns, "hit_rows": hit_rows,
             "nhit": int(nhit), "max_abs_err": max_err, "ms": ms,
             "plain_ms": plain_ms, "fused_sieve_ms": fused_ms,
             "run_hits_ms": runs_ms,
             "bound_ms": b_ms, "bound_by": b_by,
-            "bytes_in": B * L}
+            "bytes_in": B * L}, batches
+
+
+def literal_phase(batches: dict, device) -> dict:
+    from trivy_tpu_torch.ops import keywords
+    from trivy_tpu_torch.ops.dfa import compact
+    from trivy_tpu_torch.ops.keywords_cuda import code_blockmask
+    from trivy_tpu_torch.ops.runs import run_hits
+
+    seg, adv = batches["seg"], batches["adv"]
+    dfa_table = batches["scanner"].table
+    lits = tuple(dfa_table.literals)
+    table = keywords.build_code_table(lits)
+    K = table.n_codes
+
+    def check(s, tbl, what) -> tuple:
+        """The kernel against its plain version: (max |error|, plain
+        masks, plain ms)."""
+        codes = tbl.codes
+        got = code_blockmask(s, keywords.code_words(codes, device))
+        want, ms = timed(lambda: keywords.code_blockmask_torch(s, *codes))
+        g, w = got.view(torch.int32), want.view(torch.int32)
+        err = int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+        if not torch.equal(g, w):
+            bad = (g != w).any(dim=1).nonzero().flatten()[:8]
+            raise AssertionError(f"{what}: code kernel != plain on rows "
+                                 f"{bad.tolist()}")
+        return err, want, ms
+
+    max_err, want, plain_ms = check(seg, table, "corpus, builtin codes")
+    ctable = keywords.build_code_table(batches["custom"].table.literals)
+    n_custom = ctable.codes[0].shape[0]
+    if not ctable.n_codes < n_custom or n_custom <= 128:
+        raise AssertionError(f"custom table: {ctable.n_codes} codes in "
+                             f"{n_custom} columns; wanted pad codes "
+                             f"past 128")
+    max_err = max(max_err, check(adv, ctable, "random bytes, custom "
+                                 "codes")[0])
+
+    # every code column against the DFA column of its literal: both
+    # report START blocks on lowered bytes, so they are equal for a
+    # literal of at most 8 bytes and the code column of a longer
+    # literal's 8-byte prefix contains the DFA column
+    code32 = want.view(torch.int32)
+    dfa32 = batches["dfa_masks"].to(torch.int32)
+    lit_cols = list(enumerate(dfa_table.literals))
+
+    def columns(short: bool) -> tuple:
+        pairs = [(c, table.index(lit)) for c, lit in lit_cols
+                 if (len(lit) <= keywords.MAX_CODE_LEN) == short]
+        dc, kc = zip(*pairs)
+        return (dfa32[:, torch.tensor(dc, device=device)],
+                code32[:, torch.tensor(kc, device=device)])
+
+    d, c = columns(short=True)
+    if not torch.equal(c, d):
+        raise AssertionError("code columns != DFA columns (≤8 bytes)")
+    d, c = columns(short=False)
+    if bool(((d & ~c) != 0).any()):
+        raise AssertionError("a DFA column (>8 bytes) is not inside "
+                             "its prefix's code column")
+
+    # the literal sieve's entry points, once each
+    want16 = want[:, :K].to(torch.uint16)
+    exp_n, exp_idx, exp_cm = compact(want16)
+    specs = tuple(batches["scanner"].plan.run_specs)
+    fused = keywords.make_fused_sieve(lits, specs, str(device))
+    full_fn = keywords.make_full_sieve(lits, str(device))
+    rows = seg[:batches["real_rows"]].cpu().numpy()
+    code_blockmask.launches = 0
+    t0 = time.perf_counter()
+    nhit, fidx, cm, hits = fused(seg)
+    full = full_fn(seg)
+    rb = keywords.run_blockmask(rows, table, backend=device.type)
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    launches = code_blockmask.launches
+    if launches != 3:
+        raise AssertionError(f"the literal sieve launched "
+                             f"code_blockmask {launches} times, not 3")
+    if int(nhit) != int(exp_n) or not torch.equal(fidx, exp_idx) or \
+            not torch.equal(cm.view(torch.int16),
+                            exp_cm.view(torch.int16)):
+        raise AssertionError("make_fused_sieve compaction != plain")
+    if not torch.equal(hits, run_hits(seg, specs)):
+        raise AssertionError("make_fused_sieve run hits != run_hits")
+    if not torch.equal(full.view(torch.int16), want16.view(torch.int16)):
+        raise AssertionError("make_full_sieve != plain masks")
+    if not np.array_equal(rb, want[:len(rows), :K].cpu().numpy()):
+        raise AssertionError("run_blockmask != plain masks")
+
+    cdev = keywords.code_words(table.codes, device)
+    ms = cuda_ms(lambda: code_blockmask(seg, cdev), iters=10, warmup=2)
+    fused_ms = cuda_ms(lambda: fused(seg), iters=5, warmup=1)
+    b_ms, b_by = code_bound_ms(seg, table)
+    return {"rows": seg.shape[0], "seg_len": seg.shape[1],
+            "literals": len(lits), "codes": K,
+            "custom_codes": ctable.n_codes, "custom_columns": n_custom,
+            "adversarial_rows": adv.shape[0], "nhit": int(nhit),
+            "launches": launches, "entry_points_s": path_s,
+            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "fused_sieve_ms": fused_ms, "bound_ms": b_ms,
+            "bound_by": b_by,
+            "ops_per_position": code_blockmask_ops(seg[:1, :1], table)}
 
 
 def slice_phase(files: list, planted: dict, device, work_dir: str) \
@@ -454,29 +611,38 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
-    from trivy_tpu_torch.ops import dfa_cuda
+    from trivy_tpu_torch.ops import dfa_cuda, keywords_cuda
 
     device = torch.device("cuda")
     print(gpu_line(), flush=True)
     t0 = time.perf_counter()
-    lib = dfa_cuda.build()
+    mods = (dfa_cuda, keywords_cuda)
+    with ThreadPoolExecutor(len(mods)) as ex:
+        libs = list(ex.map(lambda m: m.build(), mods))
     build_s = time.perf_counter() - t0
-    with open(os.path.join(os.path.dirname(lib), "ptxas.txt")) as f:
-        ptxas = [ln.strip() for ln in f if "registers" in ln
-                 or "bytes stack" in ln]
-    print(f"build: {build_s:.2f} s {' | '.join(ptxas)}", flush=True)
+    for lib in libs:
+        with open(os.path.join(os.path.dirname(lib), "ptxas.txt")) as f:
+            ptxas = [ln.strip() for ln in f if "registers" in ln
+                     or "bytes stack" in ln]
+        print(f"build {os.path.basename(lib)}: {' | '.join(ptxas)}",
+              flush=True)
+    print(f"build: {build_s:.2f} s", flush=True)
 
     t0 = time.perf_counter()
     files, planted = make_corpus(N_FILES, SEED)
     print(f"corpus: {len(files)} files in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
-    kern = kernel_phase(files, device)
+    kern, batches = kernel_phase(files, device)
     print("kernel phase: " + json.dumps(kern), flush=True)
+    lit = literal_phase(batches, device)
+    del batches
+    print("literal-sieve phase: " + json.dumps(lit), flush=True)
     os.makedirs(dfa_cuda.BUILD_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=dfa_cuda.BUILD_DIR) as work:
         sl = slice_phase(files, planted, device, work)
     print("slice phase: " + json.dumps(sl), flush=True)
 
+    note = "no single PyTorch call computes this function"
     kernels = [{
         "name": "dfa_blockmask", "route": "cuda",
         "source": "trivy_tpu_torch/csrc/dfa_blockmask.cu",
@@ -484,8 +650,15 @@ def main() -> int:
         "launches": sl["launches"], "max_abs_err": kern["max_abs_err"],
         "ms": kern["ms"], "plain_ms": kern["plain_ms"],
         "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
-        "library_ms": None, "tolerance": "exact equality",
-        "note": "no single PyTorch call computes this function",
+        "library_ms": None, "tolerance": "exact equality", "note": note,
+    }, {
+        "name": "code_blockmask", "route": "cuda",
+        "source": "trivy_tpu_torch/csrc/code_blockmask.cu",
+        "replaces": "trivy_tpu/ops/keywords_pallas.py:91",
+        "launches": lit["launches"], "max_abs_err": lit["max_abs_err"],
+        "ms": lit["ms"], "plain_ms": lit["plain_ms"],
+        "bound_ms": lit["bound_ms"], "bound_by": lit["bound_by"],
+        "library_ms": None, "tolerance": "exact equality", "note": note,
     }]
     phases = {k: sl[k] for k in ("total_s", "pack_s", "h2d_s", "sieve_s",
                                  "decode_s", "verify_s", "walk_read_s",

@@ -1,5 +1,6 @@
-"""The port on a CUDA card: the hand-written ``dfa_blockmask`` kernel
-against its plain PyTorch version, the fused sieve and a batch scan.
+"""The port on a CUDA card: the hand-written ``dfa_blockmask`` and
+``code_blockmask`` kernels against their plain PyTorch versions, the
+fused sieves, the literal-code entry points and a batch scan.
 Every output is an integer mask or an exact finding, so every
 comparison is exact equality.
 
@@ -13,10 +14,12 @@ import numpy as np
 import pytest
 import torch
 
-from trivy_tpu_torch.ops import keywords
+from trivy_tpu_torch.ops import keywords, keywords_cuda
 from trivy_tpu_torch.ops.dfa import build_table, chain_units, \
-    best_fixed_chain, fused_sieve
+    best_fixed_chain, compact, fused_sieve
 from trivy_tpu_torch.ops.dfa_cuda import dfa_blockmask, dfa_masks_torch
+from trivy_tpu_torch.ops.keywords_cuda import code_blockmask
+from trivy_tpu_torch.ops.runs import run_hits
 from trivy_tpu_torch.secret.batch import BatchSecretScanner
 from trivy_tpu_torch.secret.rx.anchor import strip_elastic
 from trivy_tpu_torch.secret.rx.parser import parse
@@ -157,3 +160,113 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda, scanner):
     with pytest.raises(ValueError):
         dfa_blockmask(torch.zeros((4, 4096), dtype=torch.uint8,
                                   device=cuda)[:, ::2], scanner.table, dev)
+
+
+# --- the literal-code kernel -----------------------------------------
+
+def _code_table(K: int):
+    """A code table of exactly K codes: the tokens' prefixes first,
+    then seeded random lowercase literals of 2-8 bytes."""
+    lits = [b"ghp_", b"akia", b"xoxb-", b"hooks.sl", b"-----begin",
+            b"glpat-"][:K]
+    rng = np.random.default_rng(K)
+    while keywords.build_code_table(lits).n_codes < K:
+        lits.append(bytes(rng.integers(97, 123, int(rng.integers(2, 9)))
+                          .astype(np.uint8)))
+    return keywords.build_code_table(lits)
+
+
+def _raw_codes(table) -> tuple:
+    return (table.lo, table.hi, table.lo_mask, table.hi_mask)
+
+
+@pytest.mark.parametrize("K", [1, 147])
+@pytest.mark.parametrize("L", [128, 2048])
+@pytest.mark.parametrize("B", [1, 300])
+def test_code_kernel_equals_plain(cuda, B, L, K):
+    table = _code_table(K)
+    buf = _batch(B * L + K, B, L)
+    for r in range(0, B, 3):                  # the table's own literals
+        lit = table.literals[(r * 7) % K]
+        at = (r * 37) % (L - 8)
+        buf[r, at:at + len(lit)] = np.frombuffer(lit.upper(), np.uint8)
+    seg = torch.from_numpy(buf).to(cuda)
+    # unpadded codes: K = 147 crosses 128 and is no multiple of 8
+    got = code_blockmask(seg, keywords.code_words(_raw_codes(table), cuda))
+    torch.cuda.synchronize()
+    want = keywords.code_blockmask_torch(seg, *_raw_codes(table))
+    assert got.dtype == torch.uint32 and got.shape == (B, K)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert (want.view(torch.int32) != 0).any()
+    # padded codes: the pad columns hit NUL tails, as in the plain version
+    got = code_blockmask(seg, keywords.code_words(table.codes, cuda))
+    want = keywords.code_blockmask_torch(seg, *table.codes)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_code_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    codes = keywords.code_words(_code_table(8).codes, cuda)
+    bad_segments = [
+        torch.zeros((4, 2048), dtype=torch.int8, device=cuda),
+        torch.zeros((4, 2000), dtype=torch.uint8, device=cuda),
+        torch.zeros((4, 4096), dtype=torch.uint8, device=cuda)[:, ::2],
+        torch.zeros(4 * 2048 + 16, dtype=torch.uint8,
+                    device=cuda)[1:1 + 4 * 2048].view(4, 2048),
+    ]
+    for seg in bad_segments:
+        with pytest.raises(ValueError):
+            code_blockmask(seg, codes)
+    seg = torch.zeros((4, 2048), dtype=torch.uint8, device=cuda)
+    for bad in (codes.to(torch.int64), codes.cpu(), codes[:6],
+                codes.view(4, -1).t()):
+        with pytest.raises(ValueError):
+            code_blockmask(seg, bad)
+
+
+def test_code_kernel_without_a_build_raises(cuda, monkeypatch, tmp_path):
+    def plain(*a, **k):
+        raise AssertionError("fell back to the plain version")
+
+    monkeypatch.setattr(keywords_cuda, "code_blockmask_torch", plain)
+    monkeypatch.setattr(keywords_cuda, "_lib", None)
+    monkeypatch.setattr(keywords_cuda, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr("torch.utils.cpp_extension.CUDA_HOME", None)
+    seg = torch.zeros((4, 2048), dtype=torch.uint8, device=cuda)
+    codes = keywords.code_words(_code_table(8).codes, cuda)
+    before = code_blockmask.launches
+    with pytest.raises(RuntimeError, match="CUDA toolkit"):
+        code_blockmask(seg, codes)
+    assert code_blockmask.launches == before
+    assert not any(tmp_path.iterdir())
+
+
+def test_literal_sieve_entry_points_launch_once(cuda, scanner):
+    lits = tuple(scanner.table.literals)
+    specs = tuple(scanner.plan.run_specs)
+    table = keywords.build_code_table(lits)
+    K = table.n_codes
+    buf = _batch(13, 200, 2048)
+    buf[::3] = ord("-")                   # rows that hit nothing
+    seg = torch.from_numpy(keywords.pad_batch(buf)).to(cuda)
+    want = keywords.code_blockmask_torch(seg, *table.codes)[:, :K] \
+        .to(torch.uint16)
+    exp_n, exp_idx, exp_cm = compact(want)
+    assert 0 < int(exp_n) < 200
+
+    fused = keywords.make_fused_sieve(lits, specs, "cuda")
+    before = code_blockmask.launches
+    nhit, idx, cm, hits = fused(seg)
+    assert code_blockmask.launches == before + 1
+    assert int(nhit) == int(exp_n) and torch.equal(idx, exp_idx)
+    assert torch.equal(cm.view(torch.int16), exp_cm.view(torch.int16))
+    assert torch.equal(hits, run_hits(seg, specs))
+
+    full = keywords.make_full_sieve(lits, "cuda")(seg)
+    assert code_blockmask.launches == before + 2
+    assert full.dtype == torch.uint16
+    assert torch.equal(full.view(torch.int16), want.view(torch.int16))
+
+    got = keywords.run_blockmask(buf, table, backend="cuda")
+    assert code_blockmask.launches == before + 3
+    np.testing.assert_array_equal(
+        got, keywords.run_blockmask(buf, table, backend="cpu-ref"))

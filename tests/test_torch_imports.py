@@ -1,6 +1,6 @@
 """The port stands alone: it imports neither JAX nor the JAX package,
 its entry points default to CUDA and refuse to drop to the CPU, and the
-kernel wrapper never falls back to the plain version for a CUDA
+kernel wrappers never fall back to the plain version for a CUDA
 tensor."""
 
 import ast
@@ -14,7 +14,7 @@ import pytest
 import torch
 
 import trivy_tpu_torch
-from trivy_tpu_torch.ops import dfa_cuda
+from trivy_tpu_torch.ops import dfa_cuda, keywords_cuda
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "trivy_tpu_torch")
@@ -129,6 +129,43 @@ def test_wrapper_checks_its_inputs():
     out = dfa_cuda.dfa_blockmask(torch.from_numpy(
         np.zeros((4, 128), np.uint8)), table, table.device_tables("cpu"))
     assert out.shape == (4, 1) and not out.any()
+
+
+def test_code_kernel_without_a_build_raises(monkeypatch, tmp_path):
+    """The same for the literal-code kernel: raise, never the plain
+    version, and build nothing."""
+    def plain(*a, **k):
+        raise AssertionError("fell back to the plain version")
+
+    monkeypatch.setattr(keywords_cuda, "code_blockmask_torch", plain)
+    monkeypatch.setattr(keywords_cuda, "_lib", None)
+    monkeypatch.setattr(keywords_cuda, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr("torch.utils.cpp_extension.CUDA_HOME", None)
+    seg, codes = _fake_cuda_segments()
+    before = keywords_cuda.code_blockmask.launches
+    with pytest.raises(RuntimeError, match="CUDA toolkit"):
+        keywords_cuda.code_blockmask(seg, codes)
+    assert keywords_cuda.code_blockmask.launches == before
+    assert not os.listdir(tmp_path)
+
+
+def test_code_wrapper_checks_its_inputs():
+    seg, codes = _fake_cuda_segments()
+    keywords_cuda._check_cuda(seg, codes)
+    for bad in ({"numel": lambda: 6}, {"numel": lambda: 0},
+                {"dtype": torch.int64}, {"dim": lambda: 2},
+                {"device": torch.device("cpu")}):
+        with pytest.raises(ValueError):
+            keywords_cuda._check_cuda(
+                seg, SimpleNamespace(**{**vars(codes), **bad}))
+    with pytest.raises(ValueError):
+        keywords_cuda._check_cuda(
+            SimpleNamespace(**{**vars(seg), "data_ptr": lambda: 4100}),
+            codes)
+    with pytest.raises(ValueError):
+        keywords_cuda.code_blockmask(
+            torch.zeros((32, 128), dtype=torch.uint8, device="meta"),
+            torch.zeros(8, dtype=torch.int32, device="meta"))
 
 
 def test_default_device_is_cuda_and_refuses_the_cpu(monkeypatch,

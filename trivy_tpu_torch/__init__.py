@@ -2,9 +2,10 @@
 
 The secret-scan path (``python -m trivy_tpu_torch fs DIR``) runs its
 multi-pattern sieve as a hand-written Hopper kernel
-(``csrc/dfa_blockmask.cu``). Entry points run on ``cuda`` unless the
-caller asks for ``cpu``; on the CPU every kernel is replaced by its
-plain PyTorch version.
+(``csrc/dfa_blockmask.cu``); the literal-code sieve
+(``ops/keywords.py``) runs ``csrc/code_blockmask.cu``. Entry points
+run on ``cuda`` unless the caller asks for ``cpu``; on the CPU every
+kernel is replaced by its plain PyTorch version.
 """
 
 from __future__ import annotations

@@ -1,2 +1,4 @@
 """Device operators of the port: the DFA sieve (its table, its CUDA
-kernel and plain version) and the class-run gate."""
+kernel and plain version), the literal-code sieve (its code table, its
+CUDA kernel and plain versions), the class-run gate, and the builder
+of the CUDA kernels."""

@@ -7,31 +7,25 @@ On a CUDA tensor it launches the hand-written kernel
 (``csrc/dfa_blockmask.cu``) or raises; on a CPU tensor it runs
 ``dfa_masks_torch``, the same function in plain PyTorch.
 
-The kernel is compiled with ``nvcc`` at first use into
-``trivy_tpu_torch/_build/<hash of source and flags>/`` and loaded
-with ``ctypes`` (a plain C interface — no PyTorch headers, so the
-build takes seconds).
+The kernel is built at first use by ``ops/cuda_build.py``.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import subprocess
 import threading
 
 import torch
 
+from . import cuda_build
 from .dfa import chain_len
-from .keywords import MAX_CODE_LEN, N_BLOCKS, pack_code
+from .keywords import MAX_CODE_LEN, block_bits, blockmask_bits, \
+    pack_code, window_words as _lo_hi_words
 from .runs import erode, membership, shift_left
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "dfa_blockmask.cu")
-BUILD_DIR = os.path.join(_PKG, "_build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+SOURCE = os.path.join(cuda_build.CSRC, "dfa_blockmask.cu")
+BUILD_DIR = cuda_build.BUILD_DIR
 MAX_GROUP_CHUNKS = 4      # the kernel's literal groups: 1..4 words
 MAX_CHUNKS = 6            # MAX_CHAIN_LEN / MAX_CODE_LEN: 48-byte units
 
@@ -39,68 +33,28 @@ _lib = None
 _lib_lock = threading.Lock()
 
 
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-    if not CUDA_HOME:
-        raise RuntimeError("no CUDA toolkit found to build the "
-                           "dfa_blockmask kernel (set CUDA_HOME)")
-    return os.path.join(CUDA_HOME, "bin", "nvcc")
-
-
 def build() -> str:
-    """Compile the kernel library if this source and these flags have
-    not been built yet; returns the path of the shared library."""
-    with open(SOURCE, "rb") as f:
-        src = f.read()
-    key = hashlib.sha256(src + repr(NVCC_FLAGS).encode()) \
-        .hexdigest()[:16]
-    out_dir = os.path.join(BUILD_DIR, key)
-    lib = os.path.join(out_dir, "libdfa_blockmask.so")
-    if os.path.exists(lib):
-        return lib
-    nvcc = _nvcc()
-    os.makedirs(out_dir, exist_ok=True)
-    tmp = f"{lib}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, SOURCE]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stderr}")
-    with open(os.path.join(out_dir, "ptxas.txt"), "w") as f:
-        f.write(proc.stderr)
-    os.replace(tmp, lib)
-    return lib
+    """Compile the kernel library if this source has not been built
+    yet; returns the path of the shared library."""
+    return cuda_build.build(SOURCE, "dfa_blockmask", BUILD_DIR)
 
 
 def _load():
     global _lib
     with _lib_lock:
         if _lib is None:
-            lib = ctypes.CDLL(build())
-            fn = lib.dfa_blockmask_launch
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_int, ctypes.c_void_p,
-                           ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            _lib = lib
+            _lib = cuda_build.load(
+                SOURCE, "dfa_blockmask", "dfa_blockmask_launch",
+                [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                 ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                 ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
+                BUILD_DIR)
     return _lib
 
 
 def _check_cuda(segments: torch.Tensor, desc: torch.Tensor) -> None:
-    if segments.dtype != torch.uint8 or segments.dim() != 2:
-        raise ValueError(f"segments must be [B, L] uint8, got "
-                         f"{tuple(segments.shape)} {segments.dtype}")
-    if not segments.is_contiguous() or segments.data_ptr() % 16:
-        raise ValueError("segments must be contiguous and 16-byte "
-                         "aligned")
-    if segments.shape[1] % 128:
-        raise ValueError(f"segment length {segments.shape[1]} is not "
-                         f"a multiple of 128")
-    if desc.dtype != torch.int32 or desc.dim() != 1 or \
-            not desc.is_contiguous() or desc.device != segments.device:
-        raise ValueError("kernel descriptor must be a contiguous 1-D "
-                         "int32 tensor on the segments' device")
+    cuda_build.check_segments(segments)
+    cuda_build.check_operand(desc, segments, "kernel descriptor")
 
 
 def dfa_blockmask(segments: torch.Tensor, table, dev: tuple) \
@@ -154,13 +108,6 @@ def _shift_right(a: torch.Tensor, k: int) -> torch.Tensor:
     return out
 
 
-def _blockmask(hits: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
-    """[B, L] bool → [B] int64 16-block position bitmask."""
-    B, L = hits.shape
-    hb = hits.reshape(B, N_BLOCKS, L // N_BLOCKS).any(dim=2)
-    return (hb.to(torch.int64) * bits).sum(dim=1)
-
-
 def _lit_pred(lo_sh: list, hi_sh: list, words) -> torch.Tensor:
     """[B, L] bool: a literal whose chunk j packs to ``words[j]`` =
     (lo, hi, lo_mask, hi_mask) starts at each position."""
@@ -175,12 +122,7 @@ def window_words(segments: torch.Tensor, nch: int) -> tuple:
     """Lowered little-endian window words: (lo_sh, hi_sh), each a list
     of ``nch`` [B, L] int64 tensors, entry j the lo/hi word of the 8
     bytes at position + 8j (zero past L)."""
-    # int64: PyTorch's uint32 has no shifts on the CPU
-    x = segments.to(torch.int64)
-    xl = torch.where((x >= 65) & (x <= 90), x + 32, x)
-    sh = [shift_left(xl, i) for i in range(8)]
-    lo = sh[0] | sh[1] << 8 | sh[2] << 16 | sh[3] << 24
-    hi = sh[4] | sh[5] << 8 | sh[6] << 16 | sh[7] << 24
+    lo, hi = _lo_hi_words(segments)
     return ([shift_left(lo, 8 * j) for j in range(nch)],
             [shift_left(hi, 8 * j) for j in range(nch)])
 
@@ -217,8 +159,7 @@ def _masks_rows(segments: torch.Tensor, table, band: tuple) \
         -> torch.Tensor:
     B, L = segments.shape
     dev = segments.device
-    bits = torch.ones(N_BLOCKS, dtype=torch.int64, device=dev) \
-        << torch.arange(N_BLOCKS, device=dev)
+    bits = block_bits(dev)
     words = window_words(segments, table.max_chunks)
     lo_sh, hi_sh = words
 
@@ -229,14 +170,14 @@ def _masks_rows(segments: torch.Tensor, table, band: tuple) \
         for k in range(g.count):      # pad columns are never computed
             kw = [(glo[j, k], ghi[j, k], glom[j, k], ghim[j, k])
                   for j in range(g.chunks)]
-            out[:, g.start + k] = _blockmask(
+            out[:, g.start + k] = blockmask_bits(
                 _lit_pred(lo_sh, hi_sh, kw), bits)
 
     for ci, preds in enumerate(chain_unit_preds(segments, table, words)):
         acc = preds[0]
         for p in preds[1:]:
             acc = acc & p
-        out[:, len(table.literals) + ci] = _blockmask(acc, bits)
+        out[:, len(table.literals) + ci] = blockmask_bits(acc, bits)
     return out.to(torch.uint16)
 
 
