@@ -7,10 +7,16 @@ Builds the port's hand-written kernels (``trivy_tpu_torch/csrc``, one
 
 1. kernel phase: a seeded corpus of ~8k source-like files (2-12 KB,
    one in 50 carrying a secret) is cut into [B, 2048] segments; the
-   ``dfa_blockmask`` kernel must equal its plain PyTorch version
-   (``dfa_masks_torch``) exactly on the whole batch, on a random-byte
-   batch and on a custom rule table, and the fused sieve (compaction,
-   run hits) must equal the same function built from the plain masks;
+   ``dfa_blockmask`` kernel's fused launch (masks and the class-run
+   gate's hits) and its launch without run specs must equal the plain
+   PyTorch versions (``dfa_masks_torch``, ``run_hits``) exactly on the
+   whole batch, on a random-byte batch and on a custom rule table, and
+   the fused sieve (compaction, run hits) must equal the same function
+   built from the plain versions. Then it times, in turns, the launch
+   without run specs plus torch ``run_hits``, the fused launch and the
+   fused sieve, and prints the bound's split by part
+   and, where the toolkit has ``cuobjdump``, the instruction counts of
+   the kernel's literal loops;
 2. literal-sieve phase: the ``code_blockmask`` kernel must equal its
    plain version (``code_blockmask_torch``) exactly with the builtin
    table's literal codes over the whole corpus batch and with the
@@ -186,6 +192,58 @@ def make_corpus(n_files: int, seed: int) -> tuple:
 
 # --- measurement helpers ---------------------------------------------
 
+def sass_vote_loops(lib: str) -> dict:
+    """Per kernel in ``lib``: its innermost loops (a backward branch and
+    the instructions back to its target, holding no other loop) that
+    vote, i.e. the block-mask literal loops, as (instructions, votes,
+    ISETP, LOP3, LDS), largest first. A loop of a shape of at most two
+    chunks tests two literals at POS positions. Empty when the toolkit
+    has no ``cuobjdump``."""
+    import re
+    import shutil
+    from collections import Counter
+    from torch.utils.cpp_extension import CUDA_HOME
+    tool = shutil.which("cuobjdump") or (
+        os.path.join(CUDA_HOME, "bin", "cuobjdump") if CUDA_HOME else "")
+    if not tool or not os.path.exists(tool):
+        return {}
+    text = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, timeout=300).stdout
+    funcs: dict = {}
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            insts = funcs[m.group(1)] = []
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m and funcs:
+            insts.append((int(m.group(1), 16), m.group(2)))
+    out = {}
+    for name, insts in funcs.items():
+        at = {addr: i for i, (addr, _) in enumerate(insts)}
+        loops = []
+        for i, (_, op) in enumerate(insts):
+            m = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", op)
+            j = at.get(int(m.group(1), 16)) if m else None
+            if j is not None and j <= i:
+                loops.append((j, i))
+        found = []
+        for j, i in loops:
+            if any(j <= a and b <= i and (a, b) != (j, i)
+                   for a, b in loops):
+                continue                      # not innermost
+            ops = Counter(
+                (o.split()[1] if o.startswith("@") else o.split()[0])
+                .split(".")[0] for _, o in insts[j:i + 1])
+            votes = ops["VOTE"] + ops["VOTEU"]
+            if votes:
+                found.append((i - j + 1, votes, ops["ISETP"], ops["LOP3"],
+                              ops["LDS"]))
+        if found:
+            out[name] = sorted(found, reverse=True)
+    return out
+
+
 def gpu_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -257,31 +315,51 @@ def chain_evals(seg: torch.Tensor, table, rows: int = 1024) -> list:
     return counts
 
 
-def blockmask_ops(seg: torch.Tensor, table) -> float:
-    """Integer operations the function needs on this [B, L] batch.
-    Per position: lowering the byte (3) and one funnel shift that
+def blockmask_ops(seg: torch.Tensor, table, specs: tuple = ()) -> dict:
+    """Integer operations the function needs on this [B, L] batch, by
+    part. Per position: lowering the byte (3) and one funnel shift that
     builds its 4-byte window word (the hi word and chunk j's words are
-    the lo words of later positions); every literal's test
-    (``literal_ops``) and one OR into its block bit; per distinct range
-    set its membership (a compare per one-byte range, two per wider
-    range, an OR between ranges); per chain one OR into its block bit.
-    Chain units count only where ``chain_evals`` says this data needs
-    them: a lit unit as a literal, a run unit as one shift and one
-    compare of the membership bitmap, and each unit after the first
-    one AND into the chain."""
+    the lo words of later positions), and every literal's test
+    (``literal_ops``) and one OR into its block bit. The rest is bit
+    logic on 32-bit bitmap words (32 positions each):
+      sets    per byte one class-table read per 32 sets, per set and
+              word one ballot; the sets are the distinct byte sets of
+              the chains' run units and of the run specs;
+      chains  a lit unit tested as a literal, and its bit ORed into its
+              bitmap, only where ``chain_evals`` says this data needs
+              it; per word a shift and an AND per step of each distinct
+              (set, n) erosion of a run unit, a shift and an AND per
+              chain term (a lit unit of more than 32 bytes is one term
+              per 32-byte piece), and a test and an OR into the chain's
+              block bits;
+      specs   per word a shift and an AND per step of each spec erosion
+              no chain has, and one OR per spec into its hit."""
+    from trivy_tpu_torch.ops.dfa import PIECE, erosion_steps
     B, L = seg.shape
-    per_pos = 4 + sum(literal_ops(lit) + 1 for lit in table.literals)
-    sets = {u[1] for units in table.chains for u in units
-            if u[0] == "run"}
-    per_pos += sum(sum(1 if lo == hi else 2 for lo, hi in rs)
-                   + len(rs) - 1 for rs in sets)
-    per_pos += len(table.chains)
-    ops = float(per_pos) * B * L
+    n = float(B * L)
+    words = n / 32
+    chain_eros = {(u[1], u[2]) for units in table.chains for u in units
+                  if u[0] == "run"}
+    sets = {r for r, _ in chain_eros} | {s.ranges for s in specs}
+    spec_eros = {(s.ranges, s.runlen) for s in specs} - chain_eros
+    terms = sum(-(-len(u[1]) // PIECE) if u[0] == "lit" else 1
+                for units in table.chains for u in units)
+    lit_units = 0.0
     for units, evals in zip(table.chains, chain_evals(seg, table)):
-        for u, (unit, n) in enumerate(zip(units, evals)):
-            cost = literal_ops(unit[1]) if unit[0] == "lit" else 2
-            ops += float(n) * (cost + (u > 0))
-    return ops
+        lit_units += sum(float(k) * (literal_ops(u[1]) + 1)
+                         for u, k in zip(units, evals) if u[0] == "lit")
+
+    def steps(eros) -> int:
+        return sum(len(erosion_steps(r)) for _, r in eros)
+
+    return {
+        "lowering": 4 * n,
+        "literals": n * sum(literal_ops(lit) + 1 for lit in table.literals),
+        "sets": n * -(-len(sets) // 32) + words * len(sets),
+        "chains": lit_units + words * (2 * steps(chain_eros) + 2 * terms
+                                       + 2 * len(table.chains)),
+        "specs": words * (2 * steps(spec_eros) + len(specs)),
+    }
 
 
 def roofline_ms(nbytes: float, ops: float) -> tuple:
@@ -294,10 +372,15 @@ def roofline_ms(nbytes: float, ops: float) -> tuple:
         (t_bytes, "bytes")
 
 
-def bound_ms(seg: torch.Tensor, table, desc_bytes: int) -> tuple:
+def bound_ms(seg: torch.Tensor, table, desc_bytes: int,
+             specs: tuple = ()) -> tuple:
+    """(ms, bound_by, {part: ms at the INT32 rate}) of the fused
+    function: masks and, with ``specs``, run hits."""
     B, L = seg.shape
-    nbytes = B * L + desc_bytes + B * table.n_patterns * 2
-    return roofline_ms(nbytes, blockmask_ops(seg, table))
+    nbytes = B * L + desc_bytes + B * table.n_patterns * 2 + B * len(specs)
+    parts = blockmask_ops(seg, table, specs)
+    split = {k: v / PEAK_INT32_OPS_S * 1e3 for k, v in parts.items()}
+    return (*roofline_ms(nbytes, sum(parts.values())), split)
 
 
 def code_blockmask_ops(seg: torch.Tensor, table) -> float:
@@ -375,6 +458,7 @@ def kernel_phase(files: list, device) -> dict:
 
     bs = BatchSecretScanner(device=device)
     table = bs.table
+    specs = tuple(bs.plan.run_specs)
     buf, _, _ = bs._segment([_FileEntry(p, c, i)
                              for i, (p, c) in enumerate(files)])
     real_rows = int(buf.shape[0])
@@ -382,30 +466,47 @@ def kernel_phase(files: list, device) -> dict:
     B, L = seg.shape
     dev = table.device_tables(device)
 
-    def check(s, tbl, tdev, what) -> tuple:
-        """The kernel against its plain version: (max |error|, plain)."""
-        got = dfa_blockmask(s, tbl, tdev)
-        want = dfa_masks_torch(s, tbl, tdev)
-        err = int((got.to(torch.int32) - want.to(torch.int32))
-                  .abs().max())
-        if not torch.equal(got, want):
-            bad = (got != want).any(dim=1).nonzero().flatten()[:8]
-            raise AssertionError(f"{what}: kernel != plain on rows "
-                                 f"{bad.tolist()}")
-        return err, want
+    def check(s, tbl, tdev, sp, what) -> tuple:
+        """The fused launch (masks and run hits) and the launch without
+        run specs against the plain versions: (max |error|, plain
+        masks, plain ms)."""
+        want, plain_ms = timed(lambda: (dfa_masks_torch(s, tbl, tdev),
+                                        run_hits(s, sp)))
+        masks_only, no_hits = dfa_blockmask(s, tbl, tdev)
+        if no_hits.shape != (s.shape[0], 0):
+            raise AssertionError(f"{what}: hits without run specs have "
+                                 f"shape {tuple(no_hits.shape)}")
+        err = 0
+        for masks, hits in (dfa_blockmask(s, tbl, tdev, sp),
+                            (masks_only, want[1])):
+            err = max(err, int((masks.to(torch.int32)
+                                - want[0].to(torch.int32)).abs().max()),
+                      int((hits.to(torch.int32)
+                           - want[1].to(torch.int32)).abs().max()))
+            if not torch.equal(masks, want[0]):
+                bad = (masks != want[0]).any(dim=1).nonzero().flatten()
+                raise AssertionError(f"{what}: kernel masks != plain on "
+                                     f"rows {bad[:8].tolist()}")
+            if not torch.equal(hits, want[1]):
+                bad = (hits != want[1]).any(dim=1).nonzero().flatten()
+                raise AssertionError(f"{what}: kernel run hits != "
+                                     f"run_hits on rows {bad[:8].tolist()}")
+        return err, want[0], plain_ms
 
-    max_err, want = check(seg, table, dev, "corpus")
+    max_err, want, plain_ms = check(seg, table, dev, specs, "corpus")
     hit_rows = int((want != 0).any(dim=1).sum())
 
     adv = torch.from_numpy(adversarial_batch(512, L, SEED + 1)).to(device)
-    max_err = max(max_err, check(adv, table, dev, "random bytes")[0])
+    max_err = max(max_err, check(adv, table, dev, specs,
+                                 "random bytes")[0])
     cs = BatchSecretScanner(scanner=custom_scanner(), device=device)
     cdev = cs.table.device_tables(device)
     both = torch.cat([seg[:2048], adv])
-    max_err = max(max_err, check(both, cs.table, cdev, "custom table")[0])
+    max_err = max(max_err, check(both, cs.table, cdev,
+                                 tuple(cs.plan.run_specs),
+                                 "custom table")[0])
 
     # the fused sieve against the same function built from plain masks
-    specs = tuple(bs.plan.run_specs)
     nhit, idx, cm, hits = fused_sieve(seg, table, dev, specs)
     rows = (want != 0).any(dim=1).nonzero().flatten()
     cap = min(keywords.SIEVE_CAP, B)
@@ -415,29 +516,34 @@ def kernel_phase(files: list, device) -> dict:
             or not torch.equal(cm.to(torch.int32),
                                want.to(torch.int32)[exp_idx]):
         raise AssertionError("fused sieve compaction != plain")
-    n_cpu = 4096
-    cpu_hits = run_hits(seg[:n_cpu].cpu(), specs)
-    if not torch.equal(hits[:n_cpu].cpu(), cpu_hits) or \
-            hits.shape != (B, len(specs)):
-        raise AssertionError("run hits on the card != on the CPU")
+    if not torch.equal(hits, run_hits(seg, specs)):
+        raise AssertionError("fused sieve run hits != run_hits")
 
-    ms = cuda_ms(lambda: dfa_blockmask(seg, table, dev), iters=10,
-                 warmup=2)
-    plain_ms = cuda_ms(lambda: dfa_masks_torch(seg, table, dev),
-                       iters=1, warmup=0)
-    fused_ms = cuda_ms(lambda: fused_sieve(seg, table, dev, specs),
-                       iters=5, warmup=1)
-    runs_ms = cuda_ms(lambda: run_hits(seg, specs), iters=5, warmup=1)
-    b_ms, b_by = bound_ms(seg, table, int(dev[-1].numel()) * 4)
+    # in turns: the launch without run specs + torch run_hits, the
+    # fused launch, the fused sieve; then backwards
+    runs = {
+        "masks_plus_run_hits_ms": lambda: (dfa_blockmask(seg, table, dev),
+                                           run_hits(seg, specs)),
+        "fused_ms": lambda: dfa_blockmask(seg, table, dev, specs),
+        "fused_sieve_ms": lambda: fused_sieve(seg, table, dev, specs),
+    }
+    times: dict = {k: [] for k in runs}
+    for name in list(runs) + list(reversed(runs)):
+        times[name].append(cuda_ms(runs[name], iters=10, warmup=2))
+    b_ms, b_by, split = bound_ms(seg, table,
+                                 int(table.kernel_desc(specs).nbytes), specs)
     batches = {"scanner": bs, "custom": cs, "seg": seg, "adv": adv,
                "real_rows": real_rows, "dfa_masks": want}
-    return {"segments": real_rows, "padded_rows": B, "seg_len": L,
-            "patterns": table.n_patterns, "hit_rows": hit_rows,
-            "nhit": int(nhit), "max_abs_err": max_err, "ms": ms,
-            "plain_ms": plain_ms, "fused_sieve_ms": fused_ms,
-            "run_hits_ms": runs_ms,
-            "bound_ms": b_ms, "bound_by": b_by,
-            "bytes_in": B * L}, batches
+    out = {"segments": real_rows, "padded_rows": B, "seg_len": L,
+           "patterns": table.n_patterns, "run_specs": len(specs),
+           "hit_rows": hit_rows, "nhit": int(nhit),
+           "max_abs_err": max_err, "plain_ms": plain_ms,
+           "bound_ms": b_ms, "bound_by": b_by,
+           "bound_split_ms": split, "bytes_in": B * L}
+    out.update({k: sum(v) / len(v) for k, v in times.items()})
+    out["turns_ms"] = times
+    out["ms"] = out["fused_ms"]          # the main path's launch
+    return out, batches
 
 
 def literal_phase(batches: dict, device) -> dict:
@@ -623,10 +729,13 @@ def main() -> int:
     for lib in libs:
         with open(os.path.join(os.path.dirname(lib), "ptxas.txt")) as f:
             ptxas = [ln.strip() for ln in f if "registers" in ln
-                     or "bytes stack" in ln]
+                     or "bytes stack" in ln or "Compiling entry" in ln]
         print(f"build {os.path.basename(lib)}: {' | '.join(ptxas)}",
               flush=True)
     print(f"build: {build_s:.2f} s", flush=True)
+    for name, loops in sass_vote_loops(libs[0]).items():
+        print(f"sass {name}: literal loops (instructions, votes, "
+              f"ISETP, LOP3, LDS): {loops}", flush=True)
 
     t0 = time.perf_counter()
     files, planted = make_corpus(N_FILES, SEED)
@@ -634,6 +743,8 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     kern, batches = kernel_phase(files, device)
     print("kernel phase: " + json.dumps(kern), flush=True)
+    print("dfa_blockmask bound split (ms at the INT32 rate): "
+          + json.dumps(kern["bound_split_ms"]), flush=True)
     lit = literal_phase(batches, device)
     del batches
     print("literal-sieve phase: " + json.dumps(lit), flush=True)
@@ -650,7 +761,8 @@ def main() -> int:
         "launches": sl["launches"], "max_abs_err": kern["max_abs_err"],
         "ms": kern["ms"], "plain_ms": kern["plain_ms"],
         "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
-        "library_ms": None, "tolerance": "exact equality", "note": note,
+        "library_ms": None, "tolerance": "exact equality",
+        "note": note + "; masks and the class-run gate in one launch",
     }, {
         "name": "code_blockmask", "route": "cuda",
         "source": "trivy_tpu_torch/csrc/code_blockmask.cu",

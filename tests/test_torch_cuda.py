@@ -1,6 +1,7 @@
-"""The port on a CUDA card: the hand-written ``dfa_blockmask`` and
-``code_blockmask`` kernels against their plain PyTorch versions, the
-fused sieves, the literal-code entry points and a batch scan.
+"""The port on a CUDA card: the hand-written ``dfa_blockmask`` (with
+the class-run gate fused into its launch) and ``code_blockmask``
+kernels against their plain PyTorch versions, the fused sieves, the
+literal-code entry points, a batch scan and an fs scan.
 Every output is an integer mask or an exact finding, so every
 comparison is exact equality.
 
@@ -19,7 +20,7 @@ from trivy_tpu_torch.ops.dfa import build_table, chain_units, \
     best_fixed_chain, compact, fused_sieve
 from trivy_tpu_torch.ops.dfa_cuda import dfa_blockmask, dfa_masks_torch
 from trivy_tpu_torch.ops.keywords_cuda import code_blockmask
-from trivy_tpu_torch.ops.runs import run_hits
+from trivy_tpu_torch.ops.runs import RunSpec, run_hits
 from trivy_tpu_torch.secret.batch import BatchSecretScanner
 from trivy_tpu_torch.secret.rx.anchor import strip_elastic
 from trivy_tpu_torch.secret.rx.parser import parse
@@ -65,15 +66,17 @@ def _batch(seed: int, B: int, L: int) -> np.ndarray:
 
 def _check(seg, table):
     dev = table.device_tables(seg.device)
-    got = dfa_blockmask(seg, table, dev)
+    got, hits = dfa_blockmask(seg, table, dev)
     torch.cuda.synchronize()
     want = dfa_masks_torch(seg, table, dev)
     assert got.dtype == torch.uint16 and got.shape == want.shape
+    assert hits.shape == (seg.shape[0], 0)
     assert torch.equal(got, want)
     return want
 
 
-@pytest.mark.parametrize("B,L", [(96, 2048), (33, 256), (1, 128)])
+@pytest.mark.parametrize("B,L", [(96, 2048), (33, 256), (1, 128),
+                                 (17, 4096)])
 def test_kernel_equals_plain_on_builtin_table(cuda, scanner, B, L):
     seg = torch.from_numpy(_batch(B + L, B, L)).to(cuda)
     want = _check(seg, scanner.table)
@@ -97,6 +100,100 @@ def test_kernel_equals_plain_on_custom_chains(cuda):
     buf[2, :30] = np.frombuffer(b"QQ" + b"x" * 20 + b"KK123456", np.uint8)
     want = _check(torch.from_numpy(buf).to(cuda), table)
     assert (want[:3] != 0).any(dim=1).all()
+
+
+def _check_fused(seg, table, specs):
+    dev = table.device_tables(seg.device)
+    before = dfa_blockmask.launches
+    masks, hits = dfa_blockmask(seg, table, dev, specs)
+    torch.cuda.synchronize()
+    assert dfa_blockmask.launches == before + 1
+    want = dfa_masks_torch(seg, table, dev)
+    assert hits.dtype == torch.bool and hits.shape == (seg.shape[0],
+                                                        len(specs))
+    assert torch.equal(masks, want)
+    assert torch.equal(hits, run_hits(seg, specs))
+    return want, hits
+
+
+@pytest.mark.parametrize("L", [128, 384, 2048, 4096])
+def test_fused_launch_equals_plain_masks_and_run_hits(cuda, scanner, L):
+    """At 8 positions per thread (L = 128, 384) and at 16 (L = 2048,
+    4096)."""
+    buf = _batch(L, 1000, L)
+    buf[7, 10:74] = ord("Q")                     # runs of every spec
+    buf[8, 40:60] = np.frombuffer(b"12345678901234567890", np.uint8)
+    seg = torch.from_numpy(buf).to(cuda)
+    _, hits = _check_fused(seg, scanner.table,
+                           tuple(scanner.plan.run_specs))
+    assert hits.any(dim=0).all()
+
+
+def test_masks_only_launch_without_run_specs(cuda, scanner):
+    seg = torch.from_numpy(_batch(5, 64, 2048)).to(cuda)
+    dev = scanner.table.device_tables(cuda)
+    before = dfa_blockmask.launches
+    got, hits = dfa_blockmask(seg, scanner.table, dev, ())
+    assert dfa_blockmask.launches == before + 1
+    assert hits.dtype == torch.bool and hits.shape == (64, 0)
+    assert torch.equal(got, dfa_masks_torch(seg, scanner.table, dev))
+    assert fused_sieve(seg, scanner.table, dev, ())[3].shape == (64, 0)
+    assert dfa_blockmask.launches == before + 2
+
+
+MANY_CHAINS = [(("lit", bytes([97 + i % 26]) + b"="),
+                ("run", ((48, 57), (65 + i, 65 + i)), 3 + i % 5))
+               for i in range(40)] + [
+    (("lit", b"0123456789abcdefghijklmnopqrstuvwxyz0123"),
+     ("run", ((48, 57),), 6))]
+MANY_SPECS = (RunSpec(((97, 122),), 70), RunSpec(((0, 255),), 100),
+              RunSpec(((48, 57), (97, 102)), 1), RunSpec(((65, 90),), 256),
+              RunSpec(((0, 0),), 300))
+
+
+@pytest.mark.parametrize("L", [128, 256, 2048])
+def test_more_than_32_sets_and_runs_longer_than_64(cuda, L):
+    table = build_table(
+        [b"k", b"ke", b"key", b"keys", b"keyst", b"keystor", b"keystore",
+         b"keystore1", b"keystore.key", b"keystore.jks1",
+         b"keystore.jks1234", b"0123456789abcdefghijklmnopqrstuv"],
+        MANY_CHAINS)
+    assert table.kernel_desc(MANY_SPECS)[1] > 32
+    buf = _batch(L, 48, L)
+    for i in range(12):
+        tok = bytes([97 + i % 26]) + b"=" + bytes([65 + i]) * 2 + b"123456"
+        buf[i, 5 * i:5 * i + len(tok)] = np.frombuffer(tok, np.uint8)
+    buf[12, L - 46:] = np.frombuffer(
+        b"0123456789ABCDEFGHIJKLMNOPQRSTUVWXYZ0123999999", np.uint8)
+    buf[13, 10:90] = ord("q")
+    buf[14, :] = ord("Z")
+    buf[15, L - 100:] = 0
+    want, hits = _check_fused(torch.from_numpy(buf).to(cuda), table,
+                              MANY_SPECS)
+    assert all(bool(want[i, table.chain_col(MANY_CHAINS[i])])
+               for i in range(12))
+    assert bool(want[12, table.chain_col(MANY_CHAINS[40])])
+    assert bool(hits[13, 0]) and bool(hits[14, 3]) == (L >= 256)
+
+
+def test_fs_scan_launches_once_and_runs_no_torch_run_hits(
+        cuda, monkeypatch, tmp_path):
+    from trivy_tpu_torch.cli import scan_fs
+    from trivy_tpu_torch.ops import dfa_cuda, runs
+
+    def torch_run_hits(*a, **k):
+        raise AssertionError("torch run_hits ran on the CUDA path")
+
+    for mod in (dfa_cuda, runs, keywords):
+        monkeypatch.setattr(mod, "run_hits", torch_run_hits)
+    for i in range(20):
+        (tmp_path / f"f{i}.env").write_bytes(
+            b"x = 1\n" * i + b"GITHUB_TOKEN=ghp_" + b"A" * 36 + b"\n")
+    before = dfa_blockmask.launches
+    report = scan_fs(str(tmp_path),
+                     scanner=BatchSecretScanner(device=cuda))
+    assert dfa_blockmask.launches == before + 1
+    assert len(report["Results"]) == 20
 
 
 def test_fused_sieve_and_lowered_cap(cuda, scanner, monkeypatch):

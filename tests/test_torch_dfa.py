@@ -17,6 +17,7 @@ from trivy_tpu.secret.scanner import new_scanner as j_new_scanner
 from trivy_tpu_torch.ops import dfa as tdfa
 from trivy_tpu_torch.ops import keywords as tkeywords
 from trivy_tpu_torch.ops.dfa_cuda import dfa_blockmask, dfa_masks_torch
+from trivy_tpu_torch.ops.runs import RunSpec as truns_spec
 from trivy_tpu_torch.secret.plan import build_scan_plan as t_build_plan
 from trivy_tpu_torch.secret.scanner import new_scanner as t_new_scanner
 
@@ -44,8 +45,8 @@ def ttable(jtable):
 
 def _port_masks(buf: np.ndarray, table) -> np.ndarray:
     seg = torch.from_numpy(buf)
-    got = dfa_blockmask(seg, table, table.device_tables("cpu"))
-    assert got.dtype == torch.uint16
+    got, hits = dfa_blockmask(seg, table, table.device_tables("cpu"))
+    assert got.dtype == torch.uint16 and hits.shape == (len(buf), 0)
     return got.numpy().astype(np.uint32)
 
 
@@ -94,13 +95,270 @@ class TestTableParity:
     def test_kernel_descriptor_covers_table(self, ttable):
         d = ttable.kernel_desc()
         assert d.dtype == np.int32
-        n_groups, n_chains, n_sets, n_patterns = d[:4]
-        assert (n_groups, n_chains, n_patterns) == \
-            (len(ttable.groups), len(ttable.chains), ttable.n_patterns)
-        runs = {u[1] for units in ttable.chains for u in units
+        assert (d[tdfa.H_CHAINS], d[tdfa.H_PATTERNS], d[tdfa.H_SPECS]) \
+            == (len(ttable.chains), ttable.n_patterns, 0)
+        runs = _runs(d)
+        cols = [c for code, c in runs if code % 2 == tdfa.MODE_COLUMN]
+        assert sorted(sum(cols, [])) == list(range(len(ttable.literals)))
+        # every literal of a run keeps table order inside it
+        assert all(c == sorted(c) for c in cols)
+        sets = {u[1] for units in ttable.chains for u in units
                 if u[0] == "run"}
-        assert n_sets == len(runs)
-        assert ttable.device_tables("cpu")[-1].dtype == torch.int32
+        assert d[tdfa.H_SETS] == len(sets)
+        assert d[tdfa.H_OFF_WORDS] % 4 == 0
+        assert ttable.device_desc("cpu").dtype == torch.int32
+        np.testing.assert_array_equal(ttable.device_desc("cpu").numpy(), d)
+
+
+# --- the kernel's algorithm over its descriptor, in numpy ------------
+
+def _runs(d) -> list:
+    """[(shape code, [cols])] of a descriptor's literal runs."""
+    o = int(d[tdfa.H_OFF_RUNS])
+    out = []
+    for r in range(int(d[tdfa.H_RUNS])):
+        code, count, _, co = (int(v) for v in d[o + 4 * r:o + 4 * r + 4])
+        out.append((code, [int(c) for c in d[co:co + count]]))
+    return out
+
+
+def _pack_bits(hit: np.ndarray) -> np.ndarray:
+    """[B, L] bool → [B, L/32] uint64: bit p % 32 of word p // 32."""
+    by = np.packbits(hit, axis=1, bitorder="little")
+    return np.ascontiguousarray(by).view("<u4").astype(np.uint64)
+
+
+def _blocks(words: np.ndarray) -> np.ndarray:
+    """[B, nw] bitmap words → [B] uint32 16-block masks."""
+    B, nw = words.shape
+    hit = np.unpackbits(words.astype("<u4").view(np.uint8), axis=1,
+                        bitorder="little").astype(bool)
+    hb = hit.reshape(B, 16, 32 * nw // 16).any(axis=2)
+    return (hb.astype(np.uint32) << np.arange(16, dtype=np.uint32)) \
+        .sum(axis=1, dtype=np.uint32)
+
+
+def _shl(bm: np.ndarray, k: int) -> np.ndarray:
+    """out[p] = in[p + k], zero past the row (word funnel shifts)."""
+    B, nw = bm.shape
+    q, r = divmod(k, 32)
+    ext = np.concatenate([bm, np.zeros((B, q + 2), np.uint64)], axis=1)
+    return ((ext[:, q + 1:q + 1 + nw] << np.uint64(32)
+             | ext[:, q:q + nw]) >> np.uint64(r)) & np.uint64(0xFFFFFFFF)
+
+
+def _shr(bm: np.ndarray, d: int) -> np.ndarray:
+    """out[p] = in[p - d], zero before the row start."""
+    B, nw = bm.shape
+    q, r = divmod(d, 32)
+    ext = np.concatenate([np.zeros((B, q + 1), np.uint64), bm], axis=1)
+    whole = ext[:, 1:1 + nw] << np.uint64(32) | ext[:, :nw]
+    return (whole << np.uint64(r)) >> np.uint64(32)
+
+
+def _ero_step(n: int, k: int) -> int:
+    """The shift of log-doubling step k of an erosion by n (0: done),
+    computed as the kernel's ``ero_step`` does."""
+    span, step = 1, 0
+    for _ in range(k + 1):
+        step = min(span, n - span) if span < n else 0
+        span += step
+    return step
+
+
+def desc_sieve(buf: np.ndarray, d: np.ndarray) -> tuple:
+    """What the kernel computes from descriptor ``d``, read the way it
+    reads it: literal runs by mask shape, the column list, the class
+    table, lockstep erosions, chain shifts. Returns (masks [B, K]
+    uint32, hits [B, n_specs] bool)."""
+    H = lambda i: int(d[i])                       # noqa: E731
+    u = d.view(np.uint32).astype(np.uint64)
+    B, L = buf.shape
+    nw = L // 32
+    x = buf.astype(np.uint64)
+    xl = np.where((x >= 65) & (x <= 90), x + 32, x)
+    xl = np.concatenate([xl, np.zeros((B, 40), np.uint64)], axis=1)
+    q = {t: xl[:, t:t + L] | xl[:, t + 1:t + 1 + L] << np.uint64(8)
+         | xl[:, t + 2:t + 2 + L] << np.uint64(16)
+         | xl[:, t + 3:t + 3 + L] << np.uint64(24)
+         for t in range(0, 8 * tdfa.DESC_MAX_CHUNKS, 4)}
+    masks = np.zeros((B, H(tdfa.H_PATTERNS)), np.uint32)
+    units = np.zeros((H(tdfa.H_UNITS), B, nw), np.uint64)
+    o = H(tdfa.H_OFF_RUNS)
+    for r in range(H(tdfa.H_RUNS)):
+        code, count, wo, co = (int(v) for v in d[o + 4 * r:o + 4 * r + 4])
+        C, tail, mode = code // 8 + 1, code // 2 % 4, code % 2
+        for k in range(count):
+            kw = u[wo + 4 * C * k:wo + 4 * C * (k + 1)].reshape(C, 4)
+            J = C - 1
+            lo, hi = q[8 * J], q[8 * J + 4]
+            klo, khi, mlo, mhi = kw[J]
+            z = {tdfa.TAIL_FF: (lo ^ klo) | (hi ^ khi),
+                 tdfa.TAIL_FP: (lo ^ klo) | ((hi & mhi) ^ khi),
+                 tdfa.TAIL_F0: lo ^ klo,
+                 tdfa.TAIL_P0: (lo & mlo) ^ klo}[tail]
+            for j in range(J):
+                z = z | (q[8 * j] ^ kw[j, 0]) | (q[8 * j + 4] ^ kw[j, 1])
+            bits = _pack_bits(z == 0)
+            if mode == tdfa.MODE_COLUMN:
+                masks[:, int(d[co + k])] = _blocks(bits)
+            else:
+                units[int(d[co + k])] = bits
+    W = H(tdfa.H_CLASS_WORDS)
+    oc = H(tdfa.H_OFF_CLASS)
+    cls = u[oc:oc + 256 * W].reshape(256, W)
+    setbm = [_pack_bits((cls[buf, s // 32] >> np.uint64(s % 32)) & 1 == 1)
+             for s in range(H(tdfa.H_SETS))]
+    ero = []
+    oe = H(tdfa.H_OFF_EROS)
+    for e in range(H(tdfa.H_EROS)):
+        s, n = (int(v) for v in d[oe + 2 * e:oe + 2 * e + 2])
+        bm = setbm[s]
+        for k in range(H(tdfa.H_ERO_PASSES)):
+            step = _ero_step(n, k)
+            if step:
+                bm = bm & _shl(bm, step)
+        ero.append(bm)
+    och, ot = H(tdfa.H_OFF_CHAINS), H(tdfa.H_OFF_TERMS)
+    for c in range(H(tdfa.H_CHAINS)):
+        col, nt, t0 = (int(v) for v in d[och + 3 * c:och + 3 * c + 3])
+        acc = np.full((B, nw), 0xFFFFFFFF, np.uint64)
+        for t in range(t0, t0 + nt):
+            kind, idx, shift = (int(v) for v in d[ot + 3 * t:ot + 3 * t + 3])
+            src = units[idx] if kind == tdfa.TERM_LIT else ero[idx]
+            acc &= _shr(src, shift)
+        masks[:, col] = _blocks(acc)
+    os_ = H(tdfa.H_OFF_SPECS)
+    hits = np.zeros((B, H(tdfa.H_SPECS)), bool)
+    for s in range(H(tdfa.H_SPECS)):
+        hits[:, s] = ero[int(d[os_ + s])].any(axis=1)
+    return masks, hits
+
+
+def _chain(p):
+    from trivy_tpu.secret.rx.anchor import strip_elastic
+    from trivy_tpu.secret.rx.parser import parse
+    core, _ = strip_elastic(parse(p))
+    return jdfa.chain_units(jdfa.best_fixed_chain(core))
+
+
+def _custom_tables() -> tuple:
+    """(port table, JAX table) of the custom chains of
+    ``test_custom_chains_at_row_edges``."""
+    chains = [_chain(r"[0-9a-f]{30}zz"), _chain(r"ab_[A-Z0-9]{24}"),
+              _chain(r"(?i)qq[a-z]{20}kk[0-9]{6}")]
+    jt = jdfa.build_table([b"ab_", b"zz"], chains)
+    return tdfa.DfaTable.from_reference(jt.literals, jt.chains,
+                                        jt._resident_arrays()), jt
+
+
+MANY_CHAINS = [(("lit", bytes([97 + i % 26]) + b"="),
+                ("run", ((48, 57), (65 + i, 65 + i)), 3 + i % 5))
+               for i in range(40)] + [
+    (("lit", b"0123456789abcdefghijklmnopqrstuvwxyz0123"),
+     ("run", ((48, 57),), 6))]
+
+
+def _many_sets_table():
+    """40 chains over 40 distinct byte sets, a chain lit unit longer
+    than one 32-byte piece, and literals of every mask shape."""
+    lits = [b"k", b"ke", b"key", b"keys", b"keyst", b"keystor",
+            b"keystore", b"keystore1", b"keystore.key", b"keystore.jks1",
+            b"keystore.jks1234", b"0123456789abcdefghijklmnopqrstuv"]
+    return tdfa.build_table(lits, MANY_CHAINS)
+
+
+MANY_SPECS = (truns_spec(((97, 122),), 70), truns_spec(((0, 255),), 100),
+              truns_spec(((48, 57), (97, 102)), 1),
+              truns_spec(((65, 90),), 256), truns_spec(((0, 0),), 300))
+
+
+def _many_sets_batch(L: int) -> np.ndarray:
+    rng = np.random.default_rng(L)
+    buf = rng.integers(32, 127, (24, L)).astype(np.uint8)
+    for i in range(12):
+        tok = bytes([97 + i % 26]) + b"=" + bytes([65 + i]) * 2 + b"123456"
+        buf[i, 5 * i:5 * i + len(tok)] = np.frombuffer(tok, np.uint8)
+    buf[12, L - 46:] = np.frombuffer(
+        b"0123456789ABCDEFGHIJKLMNOPQRSTUVWXYZ0123999999", np.uint8)
+    buf[13, 10:90] = ord("q")                       # 80 lowercase bytes
+    buf[14, :] = ord("Z")                           # a run as long as L
+    buf[15, L - 100:] = 0                           # NUL tail of 100
+    buf[16, :12] = np.frombuffer(b"KEYSTORE.JKS", np.uint8)
+    buf[17, L - 16:] = np.frombuffer(b"keystore.jks1234", np.uint8)
+    return buf
+
+
+def _desc_vs_plain(buf, table, specs=()):
+    d = table.kernel_desc(specs)
+    seg = torch.from_numpy(buf)
+    want = dfa_masks_torch(seg, table, table.device_tables("cpu"))
+    masks, hits = desc_sieve(buf, d)
+    np.testing.assert_array_equal(masks, want.numpy().astype(np.uint32))
+    from trivy_tpu_torch.ops.runs import run_hits
+    np.testing.assert_array_equal(hits, run_hits(seg, specs).numpy())
+    return masks, hits
+
+
+class TestKernelDescriptor:
+    """The descriptor read the way the kernel reads it gives exactly
+    the plain version's masks and run hits."""
+
+    @pytest.mark.parametrize("L", [128, 2048])
+    def test_builtin_table_random_bytes(self, ttable, L):
+        specs = tuple(t_build_plan(t_new_scanner().rules).run_specs)
+        buf = _planted(7 + L, 32, L, lo=0, hi=256)
+        buf[2, L // 2:] = 0
+        up = np.frombuffer(b"GHP_" + b"A1b2C3d4E5" * 4, np.uint8)
+        buf[20, L - len(up):] = up
+        buf[21, L - 20:] = up[:20]
+        buf[22, :len(up)] = up
+        buf[23, 3:43] = np.frombuffer(b"A1+/" * 10, np.uint8)
+        masks, hits = _desc_vs_plain(buf, ttable, specs)
+        assert masks[20].any() and masks[22].any() and hits[23].any()
+
+    def test_builtin_table_printable_text(self, ttable):
+        specs = tuple(t_build_plan(t_new_scanner().rules).run_specs)
+        masks, hits = _desc_vs_plain(_planted(5, 24, 2048), ttable, specs)
+        assert (masks != 0).any(axis=1).sum() >= len(TOKENS)
+        assert hits.any()
+
+    @pytest.mark.parametrize("L", [128, 384])
+    def test_custom_chain_table(self, L):
+        tt, _ = _custom_tables()
+        rng = np.random.default_rng(9)
+        buf = rng.integers(0, 256, (8, L)).astype(np.uint8)
+        buf[0, :32] = np.frombuffer(b"0123456789abcdef" * 2, np.uint8)
+        buf[0, 30:32] = np.frombuffer(b"zz", np.uint8)
+        buf[1, L - 27:] = np.frombuffer(b"AB_" + b"Q1" * 12, np.uint8)
+        buf[2, :30] = np.frombuffer(b"QQ" + b"x" * 20 + b"KK123456",
+                                    np.uint8)
+        buf[3, 1:31] = buf[2, :30]
+        masks, _ = _desc_vs_plain(buf, tt)
+        assert masks[0].any() and masks[1].any() and masks[2].any()
+
+    @pytest.mark.parametrize("L", [128, 256])
+    def test_more_than_32_sets_and_long_runs(self, L):
+        table = _many_sets_table()
+        d = table.kernel_desc(MANY_SPECS)
+        assert d[tdfa.H_SETS] > 32 and d[tdfa.H_CLASS_WORDS] == 2
+        # the 40-byte chain literal is cut into a 32- and an 8-byte piece
+        assert d[tdfa.H_UNITS] == 26 + 2
+        masks, hits = _desc_vs_plain(_many_sets_batch(L), table,
+                                     MANY_SPECS)
+        cols = [table.chain_col(c) for c in MANY_CHAINS]
+        assert all(masks[i, cols[i]] for i in range(12))
+        assert masks[12, cols[40]] and masks[16].any() and masks[17].any()
+        assert hits[13, 0] and hits[14, 3] == (L == 256)
+        assert not hits[:, 4].any()
+
+    def test_run_specs_share_erosions_with_chains(self, ttable):
+        specs = tuple(t_build_plan(t_new_scanner().rules).run_specs)
+        plain, fused = ttable.kernel_desc(), ttable.kernel_desc(specs)
+        assert fused is ttable.kernel_desc(specs)
+        # one spec (the base64 run of 40) is a chain's own run unit
+        assert fused[tdfa.H_EROS] == plain[tdfa.H_EROS] + len(specs) - 1
+        assert fused[tdfa.H_SPECS] == len(specs)
 
 
 class TestMasksParity:
@@ -241,6 +499,23 @@ class TestResidency:
         assert t.device_stats()["invalidations"] == 1
         assert t.device_tables("cpu") is not a
         assert t.device_stats()["uploads"] == 2
+
+    def test_descriptor_uploads_are_counted_and_invalidated(self):
+        """One descriptor per (device, run specs), counted with the
+        band's upload and dropped with it."""
+        t = tdfa.build_table([b"torch-resident-b", b"ghp_"], [])
+        specs = (truns_spec(((48, 57),), 12),)
+        d0 = t.device_desc("cpu")
+        d1 = t.device_desc("cpu", specs)
+        assert t.device_desc("cpu", specs) is d1 and d0 is not d1
+        assert t.device_desc("cpu", ()) is d0
+        st = t.device_stats()
+        assert st["uploads"] == 2 and st["upload_bytes"] == \
+            t.kernel_desc().nbytes + t.kernel_desc(specs).nbytes
+        np.testing.assert_array_equal(d1.numpy(), t.kernel_desc(specs))
+        t.invalidate_device()
+        assert t.device_desc("cpu", specs) is not d1
+        assert t.device_stats()["uploads"] == 3
 
     def test_dfa_masks_torch_row_chunks(self, ttable):
         buf = _planted(13, 24, 256)

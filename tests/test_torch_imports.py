@@ -126,9 +126,10 @@ def test_wrapper_checks_its_inputs():
         dfa_cuda.dfa_blockmask(torch.zeros((32, 128), dtype=torch.uint8,
                                            device="meta"), table,
                                table.device_tables("cpu"))
-    out = dfa_cuda.dfa_blockmask(torch.from_numpy(
+    out, hits = dfa_cuda.dfa_blockmask(torch.from_numpy(
         np.zeros((4, 128), np.uint8)), table, table.device_tables("cpu"))
     assert out.shape == (4, 1) and not out.any()
+    assert hits.shape == (4, 0)
 
 
 def test_code_kernel_without_a_build_raises(monkeypatch, tmp_path):

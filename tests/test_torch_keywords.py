@@ -313,7 +313,7 @@ class TestDfaRelation:
                 buf[r2, at + 3:at + 11] = np.frombuffer(lit[:8], np.uint8)
         buf[60:, 1900:] = 0
         seg = torch.from_numpy(buf)
-        dfa = dfa_blockmask(seg, table, table.device_tables("cpu"))
+        dfa, _ = dfa_blockmask(seg, table, table.device_tables("cpu"))
         dfa = dfa.numpy().astype(np.uint32)
         code = tk.code_blockmask_torch(seg, *ct.codes).numpy()
         n_long = n_strict = 0

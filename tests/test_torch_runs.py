@@ -69,3 +69,32 @@ def test_builtin_plan_specs():
 def test_no_specs_is_an_empty_column_set():
     got = truns.run_hits(torch.zeros((3, 128), dtype=torch.uint8), ())
     assert got.shape == (3, 0) and got.dtype == torch.bool
+
+
+@pytest.mark.parametrize("L", [128, 512])
+def test_fused_wrapper_on_the_cpu_is_the_plain_pair(L):
+    """``dfa_blockmask`` with run specs returns (masks, run hits); on
+    the CPU those are the plain versions, and the hits equal the
+    reference's for runs longer than 64 bytes and as long as L."""
+    from trivy_tpu_torch.ops.dfa import build_table
+    from trivy_tpu_torch.ops.dfa_cuda import dfa_blockmask, \
+        dfa_masks_torch
+    rng = np.random.default_rng(L)
+    buf = rng.integers(0, 256, (8, L)).astype(np.uint8)
+    buf[1, 20:120] = ord("k")
+    buf[2, :] = ord("7")
+    buf[3, L - 70:] = ord("x")
+    sets = [(B64, 70), (frozenset(b"0123456789"), L),
+            (frozenset(range(97, 123)), 100), (frozenset(b"k"), L + 1)]
+    jspecs = tuple(jruns.RunSpec.from_byteset(b, n) for b, n in sets)
+    tspecs = tuple(truns.RunSpec.from_byteset(b, n) for b, n in sets)
+    table = build_table([b"ab"], [])
+    seg = torch.from_numpy(buf)
+    dev = table.device_tables("cpu")
+    masks, hits = dfa_blockmask(seg, table, dev, tspecs)
+    assert torch.equal(masks, dfa_masks_torch(seg, table, dev))
+    want = jruns.run_hits_host(buf, jspecs)
+    np.testing.assert_array_equal(hits.numpy(), want)
+    assert want[1, 0] and want[2, 1] and want[3, 0] and not want[:, 3].any()
+    masks_only, no_hits = dfa_blockmask(seg, table, dev)
+    assert torch.equal(masks_only, masks) and no_hits.shape == (8, 0)

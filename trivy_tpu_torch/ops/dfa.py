@@ -25,7 +25,8 @@ ASCII-lowercased text, class memberships run on raw bytes with the
 AST's own folding.
 
 Residency: ``DfaTable`` uploads its band arrays and the kernel's
-chain descriptor once per device (ops/resident.py).
+descriptor once per device (ops/resident.py), and the descriptor that
+adds a plan's run specs once per (device, run specs).
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ import torch
 from . import keywords
 from .keywords import CODE_CHUNK, MAX_CODE_LEN, pack_code
 from .resident import ResidentTables
-from .runs import RunSpec, run_hits
+from .runs import RunSpec
 
 MAX_LIT_BYTES = 32        # literal patterns: up to 4 masked words
 MAX_CHAIN_LEN = 48        # fixed-chain cap — bounds segment overlap
@@ -221,11 +222,63 @@ class _LitGroup:
     count: int           # literals in the group
 
 
-# kernel descriptor layout (int32; see csrc/dfa_blockmask.cu)
-DESC_HEADER = 8          # n_groups, n_chains, n_sets, n_patterns,
-                         # off_groups, off_chains, off_units, off_sets
-UNIT_LIT, UNIT_RUN = 0, 1
-SET_INTS = 1 + 2 * MAX_CLASS_RANGES
+# kernel descriptor layout (int32; see csrc/dfa_blockmask.cu and
+# DfaTable.kernel_desc). Header slots:
+(H_RUNS, H_SETS, H_EROS, H_UNITS, H_CHAINS, H_SPECS, H_PATTERNS,
+ H_CLASS_WORDS, H_ERO_PASSES, H_OFF_RUNS, H_OFF_COLS, H_OFF_CLASS,
+ H_OFF_EROS, H_OFF_CHAINS, H_OFF_TERMS, H_OFF_SPECS,
+ H_OFF_WORDS) = range(17)
+DESC_HEADER = 20         # header ints (a multiple of 4)
+RUN_INTS = 4             # shape code, count, word offset, cols offset
+ERO_INTS = 2             # set, n
+CHAIN_INTS = 3           # column, n_terms, terms offset
+TERM_INTS = 3            # kind, index, shift
+TERM_LIT, TERM_RUN = 0, 1
+MODE_COLUMN, MODE_BITS = 0, 1   # a run's output: block mask, bitmap
+# the mask shape of a literal's last 8-byte chunk (every earlier chunk
+# is compared under full masks): its length in that chunk is 8, 5-7,
+# 4 or 1-3 bytes
+TAIL_FF, TAIL_FP, TAIL_F0, TAIL_P0 = range(4)
+DESC_MAX_CHUNKS = 4      # chunks per literal the kernel's loop takes
+PIECE = DESC_MAX_CHUNKS * MAX_CODE_LEN   # longer chain lits are split
+_FULL = 0xFFFFFFFF
+
+
+def shape_code(chunks: int, tail: int, mode: int) -> int:
+    """The kernel's switch index of a literal run."""
+    return ((chunks - 1) * 4 + tail) * 2 + mode
+
+
+def _lit_shape(chunks: list) -> tuple:
+    """(C, tail) of one literal from its packed chunks (lo, hi,
+    lo_mask, hi_mask): trailing always-true chunks (zero masks) are
+    dropped, every other chunk but the last must be fully masked."""
+    while chunks and chunks[-1][2] == 0 and chunks[-1][3] == 0:
+        chunks = chunks[:-1]
+    if not 1 <= len(chunks) <= DESC_MAX_CHUNKS or any(
+            (c[2], c[3]) != (_FULL, _FULL) for c in chunks[:-1]):
+        raise ValueError(f"literal of {len(chunks)} chunks has no "
+                         f"kernel shape")
+    lom, him = chunks[-1][2], chunks[-1][3]
+    if lom == _FULL:
+        tail = TAIL_FF if him == _FULL else \
+            TAIL_F0 if him == 0 else TAIL_FP
+    elif lom and not him:
+        tail = TAIL_P0
+    else:
+        raise ValueError(f"chunk masks {lom:#x}, {him:#x} have no "
+                         f"kernel shape")
+    return len(chunks), tail
+
+
+def erosion_steps(n: int) -> list:
+    """The shift of each log-doubling step of an erosion by n (the
+    order ``ops/runs.py::erode`` takes)."""
+    steps, span = [], 1
+    while span < n:
+        steps.append(min(span, n - span))
+        span += steps[-1]
+    return steps
 
 
 class DfaTable(ResidentTables):
@@ -268,7 +321,7 @@ class DfaTable(ResidentTables):
         self.rules_hash = hashlib.sha256(
             repr((self.literals, self.chains)).encode()
         ).hexdigest()[:16]
-        self._desc = None
+        self._descs: dict = {}       # run specs → kernel descriptor
 
     @classmethod
     def from_reference(cls, literals, chains, arrays) -> "DfaTable":
@@ -334,84 +387,147 @@ class DfaTable(ResidentTables):
 
     def _resident_arrays(self) -> tuple:
         # int64 copies of the band for the plain version (PyTorch's
-        # CPU uint32 has no shifts or compares), then the kernel's
-        # descriptor
-        return tuple(a.astype(np.int64) for a in self._arrays) \
-            + (self.kernel_desc(),)
+        # CPU uint32 has no shifts or compares)
+        return tuple(a.astype(np.int64) for a in self._arrays)
 
-    def kernel_desc(self) -> np.ndarray:
-        """The flat int32 descriptor the CUDA kernel reads: literal
-        groups with their packed words, and the chains as units over
-        distinct byte-range sets — so one binary serves every rule
-        set. Layout (all offsets in int32 elements from the start):
+    def device_desc(self, device, run_specs: tuple = ()) -> torch.Tensor:
+        """``kernel_desc(run_specs)`` on ``device``, uploaded once per
+        (device, run specs)."""
+        run_specs = tuple(run_specs)
+        return self.device_array(device, ("desc", run_specs),
+                                 lambda: self.kernel_desc(run_specs))
 
-          header  n_groups n_chains n_sets n_patterns
-                  off_groups off_chains off_units off_sets
-          group   chunks col_start count word_off
-                  (words: per literal, per chunk: lo hi lo_mask
-                  hi_mask — real literals only, no pad columns)
-          chain   col K n_units unit_off
-          unit    kind off ulen param (lit: word_off, chunks =
-                  ceil(ulen/8); run: set index)
-          set     n_ranges lo0 hi0 lo1 hi1 ... (SET_INTS ints)
-        """
-        if self._desc is not None:
-            return self._desc
-        sets: dict = {}
-        for units in self.chains:
-            for u in units:
-                if u[0] == "run":
-                    sets.setdefault(u[1], len(sets))
-        n_units = sum(len(u) for u in self.chains)
-        off_groups = DESC_HEADER
-        off_chains = off_groups + 4 * len(self.groups)
-        off_units = off_chains + 4 * len(self.chains)
-        off_sets = off_units + 4 * n_units
-        off_words = off_sets + SET_INTS * len(sets)
-        head: list = [len(self.groups), len(self.chains), len(sets),
-                      self.n_patterns, off_groups, off_chains,
-                      off_units, off_sets]
-        grp: list = []
-        words: list = []
-
-        def add_words(data: bytes) -> int:
-            at = off_words + len(words)
-            for j in range(-(-len(data) // MAX_CODE_LEN)):
-                words.extend(pack_code(
-                    data[j * MAX_CODE_LEN:(j + 1) * MAX_CODE_LEN]))
-            return at
-
+    def _literal_chunks(self):
+        """(column, [(lo, hi, lo_mask, hi_mask) per chunk]) for every
+        literal column, read from the band arrays."""
         ai = 0
         for g in self.groups:
             lo, hi, lom, him = self._arrays[ai:ai + 4]
             ai += 4
-            grp += [g.chunks, g.start, g.count,
-                    off_words + len(words)]
             for k in range(g.count):
-                for j in range(g.chunks):
-                    words += [int(lo[j, k]), int(hi[j, k]),
-                              int(lom[j, k]), int(him[j, k])]
-        chn: list = []
-        unt: list = []
+                yield g.start + k, [
+                    (int(lo[j, k]), int(hi[j, k]), int(lom[j, k]),
+                     int(him[j, k])) for j in range(g.chunks)]
+
+    def kernel_desc(self, run_specs: tuple = ()) -> np.ndarray:
+        """The flat int32 descriptor the CUDA kernel reads, so one
+        binary serves every rule set; ``run_specs`` (``RunSpec``s) add
+        the class-run gate to the same launch. All offsets are in
+        int32 elements from the start; the header slots are the
+        ``H_*`` constants.
+
+          runs    per literal run: shape_code(C, tail, mode), count,
+                  word offset, cols offset. A run holds literals of
+                  one mask shape: C 8-byte chunks, all but the last
+                  under full masks, the last of shape ``tail``. Mode
+                  COLUMN runs are the table's literals (cols: their
+                  pattern columns, in table order); mode BITS runs are
+                  the chains' lit units, cut into pieces of at most
+                  PIECE bytes (cols: their unit bitmap).
+          cols    one int per literal of every run
+          class   [256, class_words] uint32: bit s of byte b is set
+                  when b is in set s. The sets are the distinct byte
+                  sets of the chains' run units and of the run specs.
+          eros    per distinct (set, n) erosion: set, n
+          chains  per chain: column, n_terms, terms offset; a term is
+                  kind (TERM_LIT: a unit bitmap, TERM_RUN: an
+                  erosion), its index and the shift right that moves
+                  its START positions to the chain END
+          specs   per run spec: its erosion
+          words   16-byte aligned: per literal, per chunk: lo hi
+                  lo_mask hi_mask
+        """
+        run_specs = tuple(run_specs)
+        desc = self._descs.get(run_specs)
+        if desc is None:
+            desc = self._descs[run_specs] = self._build_desc(run_specs)
+        return desc
+
+    def _build_desc(self, run_specs: tuple) -> np.ndarray:
+        sets: dict = {}      # membership bytes → set index
+        eros: dict = {}      # (set, n) → erosion index
+        pieces: dict = {}    # lit unit piece → unit index
+
+        def erosion(ranges, n: int) -> int:
+            member = np.zeros(256, bool)
+            for lo, hi in ranges:
+                member[lo:hi + 1] = True
+            s = sets.setdefault(member.tobytes(), len(sets))
+            return eros.setdefault((s, max(n, 1)), len(eros))
+
+        chains: list = []
+        terms: list = []
         for ci, units in enumerate(self.chains):
-            chn += [len(self.literals) + ci, chain_len(units),
-                    len(units), off_units + len(unt)]
+            K = chain_len(units)
+            first = len(terms)
             off = 0
             for u in units:
                 if u[0] == "lit":
-                    unt += [UNIT_LIT, off, len(u[1]), add_words(u[1])]
-                    off += len(u[1])
+                    data = u[1]
+                    for j in range(0, len(data), PIECE):
+                        ui = pieces.setdefault(data[j:j + PIECE],
+                                               len(pieces))
+                        terms.append((TERM_LIT, ui, K - 1 - off - j))
+                    off += len(data)
                 else:
-                    unt += [UNIT_RUN, off, u[2], sets[u[1]]]
+                    terms.append((TERM_RUN, erosion(u[1], u[2]),
+                                  K - 1 - off))
                     off += u[2]
-        st: list = []
-        for ranges in sets:
-            row = [len(ranges)] + [v for r in ranges for v in r]
-            st += row + [0] * (SET_INTS - len(row))
-        flat = head + grp + chn + unt + st + words
-        self._desc = np.array(flat, np.int64).astype(np.uint32) \
-            .view(np.int32)
-        return self._desc
+            chains.append((len(self.literals) + ci, len(terms) - first,
+                           first))
+        specs = [erosion(s.ranges, s.runlen) for s in run_specs]
+
+        # literal runs: table literals, then the chains' lit pieces,
+        # each grouped by mask shape (columns keep table order inside)
+        runs: dict = {}
+        for col, chunks in self._literal_chunks():
+            C, tail = _lit_shape(chunks)
+            runs.setdefault(shape_code(C, tail, MODE_COLUMN), []) \
+                .append((col, chunks[:C]))
+        for piece, ui in pieces.items():
+            chunks = [pack_code(piece[j:j + MAX_CODE_LEN])
+                      for j in range(0, len(piece), MAX_CODE_LEN)]
+            C, tail = _lit_shape(chunks)
+            runs.setdefault(shape_code(C, tail, MODE_BITS), []) \
+                .append((ui, chunks))
+
+        W = -(-len(sets) // 32)
+        cls = np.zeros((256, W), np.uint32)
+        for key, s in sets.items():
+            cls[np.frombuffer(key, bool), s // 32] |= np.uint32(1 << s % 32)
+        n_lits = sum(len(r) for r in runs.values())
+        off_runs = DESC_HEADER
+        off_cols = off_runs + RUN_INTS * len(runs)
+        off_class = off_cols + n_lits
+        off_eros = off_class + cls.size
+        off_chains = off_eros + ERO_INTS * len(eros)
+        off_terms = off_chains + CHAIN_INTS * len(chains)
+        off_specs = off_terms + TERM_INTS * len(terms)
+        off_words = -(-(off_specs + len(specs)) // 4) * 4
+        head = [0] * DESC_HEADER
+        head[:17] = [
+            len(runs), len(sets), len(eros), len(pieces), len(chains),
+            len(specs), self.n_patterns, W,
+            max([1] + [len(erosion_steps(n)) for _, n in eros]),
+            off_runs, off_cols, off_class, off_eros, off_chains,
+            off_terms, off_specs, off_words]
+        run_rec: list = []
+        cols: list = []
+        words: list = []
+        for code in sorted(runs):
+            lits = runs[code]
+            run_rec += [code, len(lits), off_words + len(words),
+                        off_cols + len(cols)]
+            for target, chunks in lits:
+                cols.append(target)
+                for c in chunks:
+                    words.extend(c)
+        flat = head + run_rec + cols + cls.ravel().tolist() \
+            + [v for e in eros for v in e] \
+            + [v for c in chains for v in c] \
+            + [v for t in terms for v in t] + specs
+        flat += [0] * (off_words - len(flat)) + words
+        return np.array(flat, np.int64).astype(np.uint32).view(np.int32)
 
 
 _TABLE_CACHE: dict = {}
@@ -448,10 +564,11 @@ def build_table(literals, chains) -> DfaTable:
 
 def full_sieve(segments: torch.Tensor, table: DfaTable, dev: tuple,
                run_specs: tuple) -> tuple:
-    """(masks [B, K] uint16, run_hits [B, n_specs] bool)."""
+    """(masks [B, K] uint16, run_hits [B, n_specs] bool). On CUDA one
+    kernel launch computes both (the class-run gate rides in the
+    blockmask launch); on the CPU the plain versions do."""
     from .dfa_cuda import dfa_blockmask
-    masks = dfa_blockmask(segments, table, dev)
-    return masks, run_hits(segments, run_specs)
+    return dfa_blockmask(segments, table, dev, tuple(run_specs))
 
 
 def fused_sieve(segments: torch.Tensor, table: DfaTable, dev: tuple,

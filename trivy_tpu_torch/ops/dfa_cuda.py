@@ -1,11 +1,13 @@
 """The DFA blockmask kernel: its wrapper, its build, and its plain
 PyTorch version.
 
-``dfa_blockmask(segments, table, dev)`` maps [B, L] uint8 segments
-and a resident ``DfaTable`` to [B, n_patterns] uint16 blockmasks.
-On a CUDA tensor it launches the hand-written kernel
+``dfa_blockmask(segments, table, dev, run_specs)`` maps [B, L] uint8
+segments and a resident ``DfaTable`` to [B, n_patterns] uint16
+blockmasks and, from the same launch, the class-run gate's hits [B,
+n_specs] bool. On a CUDA tensor it launches the hand-written kernel
 (``csrc/dfa_blockmask.cu``) or raises; on a CPU tensor it runs
-``dfa_masks_torch``, the same function in plain PyTorch.
+``dfa_masks_torch`` (and ``ops/runs.py::run_hits``), the same function
+in plain PyTorch.
 
 The kernel is built at first use by ``ops/cuda_build.py``.
 """
@@ -19,15 +21,13 @@ import threading
 import torch
 
 from . import cuda_build
-from .dfa import chain_len
+from .dfa import H_EROS, H_SETS, H_UNITS, chain_len
 from .keywords import MAX_CODE_LEN, block_bits, blockmask_bits, \
     pack_code, window_words as _lo_hi_words
-from .runs import erode, membership, shift_left
+from .runs import erode, membership, run_hits, shift_left
 
 SOURCE = os.path.join(cuda_build.CSRC, "dfa_blockmask.cu")
 BUILD_DIR = cuda_build.BUILD_DIR
-MAX_GROUP_CHUNKS = 4      # the kernel's literal groups: 1..4 words
-MAX_CHUNKS = 6            # MAX_CHAIN_LEN / MAX_CODE_LEN: 48-byte units
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -47,7 +47,8 @@ def _load():
                 SOURCE, "dfa_blockmask", "dfa_blockmask_launch",
                 [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                  ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                 ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
+                 ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p],
                 BUILD_DIR)
     return _lib
 
@@ -57,39 +58,40 @@ def _check_cuda(segments: torch.Tensor, desc: torch.Tensor) -> None:
     cuda_build.check_operand(desc, segments, "kernel descriptor")
 
 
-def dfa_blockmask(segments: torch.Tensor, table, dev: tuple) \
-        -> torch.Tensor:
-    """[B, L] uint8 × resident table → [B, n_patterns] uint16
-    blockmasks. ``dev`` is ``table.device_tables(device)``."""
+def dfa_blockmask(segments: torch.Tensor, table, dev: tuple,
+                  run_specs: tuple = ()) -> tuple:
+    """[B, L] uint8 × resident table → (masks [B, n_patterns] uint16,
+    hits [B, n_specs] bool) from one launch; ``run_specs`` are
+    ``RunSpec``s (none: hits has no columns). ``dev`` is
+    ``table.device_tables(device)``, which the plain version reads."""
+    run_specs = tuple(run_specs)
     if segments.device.type == "cpu":
-        return dfa_masks_torch(segments, table, dev)
+        return (dfa_masks_torch(segments, table, dev),
+                run_hits(segments, run_specs))
     if segments.device.type != "cuda":
         raise ValueError(f"no dfa_blockmask for {segments.device}")
-    desc = dev[-1]
-    _check_cuda(segments, desc)
-    if table.max_chunks > MAX_CHUNKS or any(
-            g.chunks > MAX_GROUP_CHUNKS for g in table.groups):
-        raise ValueError(f"table needs {table.max_chunks} word chunks "
-                         f"per literal; the kernel takes "
-                         f"{MAX_GROUP_CHUNKS} (literals) and "
-                         f"{MAX_CHUNKS} (chain units)")
     lib = _load()
+    desc = table.device_desc(segments.device, run_specs)
+    _check_cuda(segments, desc)
+    head = table.kernel_desc(run_specs)
     B, L = segments.shape
     out = torch.empty((B, table.n_patterns), dtype=torch.uint16,
                       device=segments.device)
-    if B == 0 or table.n_patterns == 0:
-        return out
-    n_sets = int(table.kernel_desc()[2])
-    with torch.cuda.device(segments.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.dfa_blockmask_launch(
-            segments.data_ptr(), B, L, desc.data_ptr(), desc.numel(),
-            table.n_patterns, n_sets, out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"dfa_blockmask launch failed: CUDA error "
-                           f"{err}")
-    dfa_blockmask.launches += 1
-    return out
+    hits = torch.empty((B, len(run_specs)), dtype=torch.bool,
+                       device=segments.device)
+    if B:
+        with torch.cuda.device(segments.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = lib.dfa_blockmask_launch(
+                segments.data_ptr(), B, L, desc.data_ptr(), desc.numel(),
+                table.n_patterns, int(head[H_SETS]), int(head[H_EROS]),
+                int(head[H_UNITS]), out.data_ptr(), hits.data_ptr(),
+                stream)
+        if err != 0:
+            raise RuntimeError(f"dfa_blockmask launch failed: CUDA error "
+                               f"{err}")
+        dfa_blockmask.launches += 1
+    return out, hits
 
 
 dfa_blockmask.launches = 0
@@ -183,12 +185,11 @@ def _masks_rows(segments: torch.Tensor, table, band: tuple) \
 
 def dfa_masks_torch(segments: torch.Tensor, table, dev: tuple,
                     rows: int = 1024) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: [B, L] uint8 → [B,
+    """Plain PyTorch version of the kernel's masks: [B, L] uint8 → [B,
     n_patterns] uint16 blockmasks, on the segments' device, ``rows``
     segments at a time to bound the int64 intermediates. ``dev`` is
-    ``table.device_tables(device)``: the int64 band arrays, then the
-    kernel descriptor (unused here)."""
-    band = dev[:-1]
+    ``table.device_tables(device)``: the int64 band arrays."""
+    band = dev
     B = segments.shape[0]
     if B <= rows:
         return _masks_rows(segments, table, band)

@@ -2,7 +2,8 @@
 
 ``device_tables(device)`` uploads ``_resident_arrays()`` once per
 device and hands back the same tensors on every later call;
-``invalidate_device()`` drops them. A table's content is fixed at
+``device_array(device, name, make)`` does the same for one more array
+a launch picks by ``name``; ``invalidate_device()`` drops them all. A table's content is fixed at
 build (its ``rules_hash`` names it), so one upload per (rules_hash,
 device) is one upload per (table, device). ``device_stats()`` counts
 uploads and dispatches.
@@ -40,6 +41,20 @@ class ResidentTables:
                 self._device_stats["upload_bytes"] += int(
                     sum(a.nbytes for a in arrs))
             self._device_stats["dispatches"] += 1
+        return placed
+
+    def device_array(self, device, name, make) -> torch.Tensor:
+        """``make()`` (a numpy array) on ``device``, uploaded once per
+        (device, ``name``) and counted with the other uploads."""
+        key = (str(torch.device(device)), name)
+        with self._device_lock:
+            placed = self._device.get(key)
+            if placed is None:
+                arr = np.ascontiguousarray(make())
+                placed = torch.from_numpy(arr).to(key[0])
+                self._device[key] = placed
+                self._device_stats["uploads"] += 1
+                self._device_stats["upload_bytes"] += int(arr.nbytes)
         return placed
 
     def invalidate_device(self) -> None:
