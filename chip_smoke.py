@@ -32,10 +32,23 @@ Builds the port's hand-written kernels (``trivy_tpu_torch/csrc``, one
    the card. Every planted file must report its rule, and a seeded
    sample of files (plus every planted one) must have exactly the
    findings of the CPU-exact scanner.
+4. vuln phase: a seeded trivy-db-shaped advisory store of 1,000,000
+   rows (alpine, debian, ubuntu, rocky; npm, pip, maven, rubygems, go)
+   is compiled into the port's ``CompiledDB`` and its tables go to the
+   card once. A fleet of 2,000 SBOM-like package lists (Zipf-skewed
+   packages, four versions each) is joined into ``ResidentPairJob``s,
+   plus 20,000 classic ``PairJob``s. The interval match on the card
+   must equal numpy on the whole deduped, padded row sets;
+   ``dispatch_jobs`` on the card must return exactly the ``cpu-ref``
+   list, order included, three times with one upload and the resident
+   tensors unchanged; and a seeded sample of 4,000 jobs must equal the
+   per-pair host truth. It prints compile, upload, host-prep, device
+   and dispatch times, the interval match's ms against its bound (bytes
+   gathered and moved), and numpy's ms on the same rows.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}``
-line (times from CUDA events, the bound this run's inputs give), the
-per-phase seconds, and as its last line
+line (times from CUDA events, the bound this run's inputs give; the
+hand-written kernels only), the per-phase seconds, and as its last line
 ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is
 then non-zero and no result line is printed. Without CUDA it exits 2.
 """
@@ -275,6 +288,35 @@ def timed(fn) -> tuple:
     end.record()
     end.synchronize()
     return out, start.elapsed_time(end)
+
+
+def device_profile(fn) -> tuple:
+    """(fn(), {device operation: [count, device us]}, its wall ms on the
+    host clock): the operations are the CUDA activity ``torch.profiler``
+    records, kernels and copies, run one at a time on one stream; a
+    kernel is named up to its template arguments."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ops: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.name.replace("void ", "").split("<")[0].split("(")[0] \
+                .strip()
+            c = ops.setdefault(name, [0, 0.0])
+            c[0] += 1
+            c[1] += e.time_range.elapsed_us()
+    return out, ops, wall * 1e3
+
+
+def op_totals(ops: dict) -> tuple:
+    """(operations, their device ms) of a ``device_profile`` dict."""
+    return (sum(c for c, _ in ops.values()),
+            sum(us for _, us in ops.values()) / 1e3)
 
 
 def literal_ops(lit: bytes) -> int:
@@ -713,6 +755,341 @@ def slice_phase(files: list, planted: dict, device, work_dir: str) \
             "mb_per_s": n_bytes / total / 1e6}
 
 
+# --- the vulnerability match ------------------------------------------
+
+VULN_ROWS = 1_000_000
+VULN_SBOMS = 2000
+VULN_OS_PKGS = 60               # per SBOM, from its distro
+VULN_LIB_PKGS = 40              # per SBOM, from one or two ecosystems
+VULN_CLASSIC = 20_000
+VULN_SAMPLE = 4000
+# (bucket, grammar, share of the rows, report_unfixed of its driver)
+VULN_OS = (("alpine 3.16", "apk", 0.06, True),
+           ("debian 12", "deb", 0.22, True),
+           ("ubuntu 22.04", "deb", 0.22, True),
+           ("rocky 9", "rpm", 0.10, False))
+# (bucket, ecosystem, grammar, share of the rows)
+VULN_LIBS = (("npm::GitHub Security Advisory npm", "npm", "npm", 0.12),
+             ("pip::GitHub Security Advisory pip", "pip", "pep440", 0.08),
+             ("maven::GitHub Security Advisory Maven", "maven", "maven",
+              0.08),
+             ("rubygems::GitHub Security Advisory RubyGems", "rubygems",
+              "rubygems", 0.04),
+             ("go::GitHub Security Advisory Go", "go", "semver", 0.08))
+
+
+def _os_version(grammar: str, bucket: str, a: int, b: int, c: int,
+                r: int) -> str:
+    if grammar == "apk":
+        return f"{a}.{b}.{c}-r{r}"
+    if grammar == "rpm":
+        return f"{a}.{b}.{c}-{r}.el9" if r % 4 else f"1:{a}.{b}.{c}-{r}.el9_2"
+    if bucket.startswith("ubuntu"):
+        return f"{a}.{b}.{c}-{r}ubuntu0.{c % 3}"
+    return f"{a}.{b}.{c}-{r}" if r % 5 else f"1:{a}.{b}.{c}+dfsg-{r}"
+
+
+def _pkg_major(p: int) -> int:
+    return p % 7
+
+
+def installed_version(grammar: str, bucket: str, p: int, k: int) -> str:
+    """Variant ``k`` (0-3) of package ``p``'s installed version: four per
+    package, so a fleet repeats (package, version) pairs."""
+    a, b, c = _pkg_major(p), (p * 31 + k * 7) % 20, (p * 17 + k * 3) % 20
+    if grammar in ("apk", "deb", "rpm"):
+        return _os_version(grammar, bucket, a, b, c, 1 + k)
+    v = f"{a}.{b}.{c}"
+    if grammar == "npm" and (p + k) % 20 == 0:
+        return v + "-beta.1"          # a prerelease: the exact host path
+    return "v" + v if grammar == "semver" else v
+
+
+def make_advisory_store(n_rows: int, seed: int):
+    """A trivy-db-shaped ``AdvisoryStore`` of ``n_rows`` advisories.
+    OS buckets carry FixedVersion (about 5 % unfixed, some alpine rows
+    an AffectedVersion); library buckets carry GHSA-shaped
+    VulnerableVersions/PatchedVersions (the shapes of
+    tests/test_grammar_differential.py), 2.5 % of them (1 % of all
+    rows) with six alternatives: host-path rows. Every advisory has a
+    vulnerability record. Returns (store, {bucket: package count})."""
+    from trivy_tpu_torch.db import AdvisoryStore
+    rng = np.random.default_rng(seed)
+    store = AdvisoryStore()
+    n_pkgs = {}
+    vid = 0
+    plan = [(b, g, s, "os") for b, g, s, _ in VULN_OS] + \
+        [(b, g, s, "lib") for b, _, g, s in VULN_LIBS]
+    for bucket, grammar, share, kind in plan:
+        quota = int(n_rows * share) if bucket != plan[-1][0] \
+            else n_rows - vid
+        per_pkg = rng.geometric(0.25, quota)
+        nums = rng.integers(0, 20, (quota, 4))
+        roll = rng.random(quota)
+        sev = rng.integers(0, 5, quota)
+        p = k = 0
+        for i in range(quota):
+            if k >= per_pkg[p]:
+                p, k = p + 1, 0
+            k += 1
+            a = _pkg_major(p)
+            b, c, b2, c2 = (int(x) for x in nums[i])
+            name = f"{kind}-{grammar}-{p}"
+            cve = f"CVE-{2000 + vid % 24}-{vid:07d}"
+            if kind == "os":
+                value = {"Severity": int(sev[i])}
+                if roll[i] >= 0.05:
+                    value["FixedVersion"] = _os_version(
+                        grammar, bucket, a, b, c, 1 + c2 % 4)
+                if grammar == "apk" and roll[i] > 0.8:
+                    value["AffectedVersion"] = f"{a}.{b2 // 4}.0-r0"
+            else:
+                fixed, lo = f"{a}.{b}.{c + 1}", f"{a}.{b2 // 2}.0"
+                alt = f"{a + 1}.{b2}.{c2 + 1}"
+                if roll[i] < 0.4:
+                    vuln = [f"<{fixed}"]
+                elif roll[i] < 0.6:
+                    vuln = [f">={lo}, <{fixed}"]
+                elif roll[i] < 0.75:
+                    vuln = [f">= {lo}", f"<= {fixed}"]
+                elif roll[i] < 0.9:
+                    vuln = [f"<{fixed}", f">={fixed}, <{alt}"]
+                elif roll[i] < 0.975:
+                    vuln = [f"={fixed}"]
+                else:
+                    vuln = [f"={a}.{j}.{c}" for j in range(6)]
+                value = {"VulnerableVersions": vuln}
+                if roll[i] < 0.9:
+                    value["PatchedVersions"] = [f">={fixed}"]
+            store.put_advisory(bucket, name, cve, value)
+            store.put_vulnerability(cve, {
+                "Title": f"{name}: issue {vid}",
+                "Severity": ("LOW", "MEDIUM", "HIGH", "CRITICAL")[vid % 4]})
+            vid += 1
+        n_pkgs[bucket] = p + 1
+    return store, n_pkgs
+
+
+def fleet_jobs(cdb, n_pkgs: dict, seed: int) -> list:
+    """Pair jobs for a fleet of SBOM-like package lists, joined through
+    ``candidate_rows``/``candidate_rows_prefix`` as the scanner joins
+    them: each SBOM has a distro's packages and one or two ecosystems'
+    libraries, drawn with a Zipf skew (fleets repeat packages), each at
+    one of four versions. Then ``VULN_CLASSIC`` classic ``PairJob``s
+    with constraint strings and OS bounds. Payload: the job's index."""
+    from trivy_tpu_torch.detect.batch import PairJob, ResidentPairJob
+    rng = np.random.default_rng(seed)
+    jobs: list = []
+
+    def zipf(n: int, size: int) -> np.ndarray:
+        return (rng.zipf(1.3, size) - 1) % n
+
+    for _ in range(VULN_SBOMS):
+        bucket, grammar, _, unfixed = VULN_OS[int(rng.integers(0, 4))]
+        for p in zipf(n_pkgs[bucket], VULN_OS_PKGS):
+            v = installed_version(grammar, bucket, int(p),
+                                  int(rng.integers(0, 4)))
+            for row in cdb.candidate_rows(bucket, f"os-{grammar}-{p}"):
+                jobs.append(ResidentPairJob(
+                    cdb=cdb, row=row, grammar=grammar, pkg_version=v,
+                    report_unfixed=unfixed, payload=len(jobs)))
+        ecos = rng.choice(len(VULN_LIBS), int(rng.integers(1, 3)),
+                          replace=False)
+        for e in ecos:
+            bucket, eco, grammar, _ = VULN_LIBS[int(e)]
+            for p in zipf(n_pkgs[bucket], VULN_LIB_PKGS // len(ecos)):
+                v = installed_version(grammar, bucket, int(p),
+                                      int(rng.integers(0, 4)))
+                for row in cdb.candidate_rows_prefix(
+                        f"{eco}::", f"lib-{grammar}-{p}"):
+                    jobs.append(ResidentPairJob(
+                        cdb=cdb, row=row, grammar=grammar, pkg_version=v,
+                        payload=len(jobs)))
+    for k in range(VULN_CLASSIC):
+        grammar = ("semver", "npm", "pep440")[int(rng.integers(0, 3))]
+        v = (f"{int(rng.integers(0, 3))}."
+             f"{int(rng.integers(0, 5))}.{int(rng.integers(0, 5))}")
+        fixed = f"{int(rng.integers(1, 3))}.{int(rng.integers(0, 5))}.1"
+        roll = float(rng.random())
+        if roll < 0.6:
+            job = PairJob(grammar=grammar, pkg_version=v,
+                          vulnerable=[f"<{fixed}"], patched=[f">={fixed}"])
+        elif roll < 0.8:
+            lo = f"{int(rng.integers(0, 2))}.0.0"
+            job = PairJob(grammar=grammar, pkg_version=v,
+                          vulnerable=[f">={lo}, <{fixed}"],
+                          patched=[f">={fixed}"])
+        else:
+            job = PairJob(grammar="deb", pkg_version=f"1.{k % 4}-1",
+                          kind="ospkg", fixed_version=f"1.{k % 3 + 1}-1")
+        job.payload = len(jobs)
+        jobs.append(job)
+    return jobs
+
+
+def naive_truth(job) -> bool:
+    """One job evaluated alone on the host: no dedup, no ranks shared
+    with other jobs (the oracle of tests/test_mesh_dispatch.py)."""
+    from trivy_tpu_torch.db.compiled import F_UNFIXED
+    from trivy_tpu_torch.detect.batch import PairJob, _host_eval, \
+        detect_pairs
+    if isinstance(job, PairJob):
+        if job.kind == "ospkg":
+            return bool(detect_pairs([job], backend="cpu-ref", stats={}))
+        return _host_eval(job)
+    if (int(job.cdb.flags[job.row]) & F_UNFIXED) and not job.report_unfixed:
+        return False
+    return job.cdb.host_eval(job.row, job.pkg_version)
+
+
+def vuln_phase(device, n_rows: int = VULN_ROWS) -> dict:
+    """The vulnerability match on a ``n_rows`` advisory DB: compile,
+    upload once, the fleet's pair jobs through ``dispatch_jobs`` on the
+    card, every check exact."""
+    from trivy_tpu_torch.db import CompiledDB
+    from trivy_tpu_torch.detect.batch import (PairJob, ResidentPairJob,
+                                              _job_bucket, _pack_classic,
+                                              _prep_classic, _prep_resident,
+                                              dispatch_jobs)
+    from trivy_tpu_torch.ops.intervals import (interval_hits,
+                                               interval_hits_host,
+                                               interval_hits_resident)
+    backend = device.type
+    t0 = time.perf_counter()
+    store, n_pkgs = make_advisory_store(n_rows, SEED + 3)
+    store_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cdb = CompiledDB.compile(store)
+    compile_s = time.perf_counter() - t0
+    del store
+    resident_bytes = sum(int(a.nbytes) for a in cdb._resident_arrays())
+    tables, upload_ms = timed(lambda: cdb.device_tables(device))
+    keep = [t.clone() for t in tables]
+
+    t0 = time.perf_counter()
+    jobs = fleet_jobs(cdb, n_pkgs, SEED + 4)
+    jobs_s = time.perf_counter() - t0
+    resident = [j for j in jobs if isinstance(j, ResidentPairJob)]
+    classic = [j for j in jobs if isinstance(j, PairJob)]
+
+    # the dispatch's own host work, step by step: dedup, rank lookups,
+    # triage and packing of both job kinds
+    t0 = time.perf_counter()
+    _, _, kept, ranks, rows, host = _prep_resident(resident, cdb, {})
+    P = len(kept)
+    Pp = _job_bucket(P)
+    pkg_rank = np.zeros(Pp, np.int32)
+    row_idx = np.zeros(Pp, np.int32)
+    pkg_rank[:P], row_idx[:P] = ranks, rows
+    _, _, spaces, crows, chost = _prep_classic(classic, {})
+    for sp in spaces.values():
+        sp.finalize()
+    carrs = _pack_classic(crows, spaces, _job_bucket(len(crows)))
+    prep_s = time.perf_counter() - t0
+
+    # the interval functions on the card against numpy on the whole
+    # deduped, padded row sets
+    d_rank = torch.from_numpy(pkg_rank).to(device)
+    d_idx = torch.from_numpy(row_idx).to(device)
+    got = interval_hits_resident(d_rank, d_idx, *tables).cpu().numpy()
+    t0 = time.perf_counter()
+    want = interval_hits_host(pkg_rank, cdb.v_lo[row_idx],
+                              cdb.v_hi[row_idx], cdb.s_lo[row_idx],
+                              cdb.s_hi[row_idx], cdb.flags[row_idx])
+    host_ms = (time.perf_counter() - t0) * 1e3
+    if not np.array_equal(got, want):
+        raise AssertionError(
+            f"interval_hits_resident on the card != numpy on "
+            f"{int((got != want).sum())} of {Pp} rows")
+    cgot = interval_hits(*(torch.from_numpy(a).to(device)
+                           for a in carrs)).cpu().numpy()
+    if not np.array_equal(cgot, interval_hits_host(*carrs)):
+        raise AssertionError("interval_hits on the card != numpy on the "
+                             "classic rows")
+
+    # the dispatcher: the card's list equals numpy's, order included;
+    # three dispatches, one upload, resident tensors unchanged
+    t0 = time.perf_counter()
+    ref = dispatch_jobs(jobs, backend="cpu-ref", stats={})
+    ref_s = time.perf_counter() - t0
+    walls, stats = [], {}
+    for _ in range(3):
+        t0 = time.perf_counter()
+        out = dispatch_jobs(jobs, backend=backend, stats=stats)
+        walls.append(time.perf_counter() - t0)
+        if out != ref:
+            raise AssertionError("dispatch_jobs on the card != cpu-ref")
+    st = cdb.device_stats()
+    if st["uploads"] != 1:
+        raise AssertionError(f"{st['uploads']} uploads of the tables")
+    if not all(torch.equal(t, k) for t, k in zip(tables, keep)):
+        raise AssertionError("a dispatch wrote to the resident tables")
+    del keep
+    rng = np.random.default_rng(SEED + 5)
+    sample = sorted(int(i) for i in rng.choice(len(jobs), VULN_SAMPLE,
+                                               replace=False))
+    hit = set(out)
+    truth = [k for k in sample if naive_truth(jobs[k])]
+    if truth != [k for k in sample if k in hit]:
+        raise AssertionError("dispatch_jobs != the per-pair truth on the "
+                             "sample")
+    if not 0 < len(out) < len(jobs):
+        raise AssertionError(f"{len(out)} hits of {len(jobs)} jobs")
+
+    def resident_ms(n: int) -> float:
+        r, i = d_rank[:n], d_idx[:n]
+        return cuda_ms(lambda: interval_hits_resident(r, i, *tables),
+                       iters=20, warmup=3)
+
+    def resident_bound_ms(n: int) -> float:
+        # per row: 17 int32 gathered (16 bounds + flags), rank and row
+        # index in, one bool out
+        return n * (4 * (4 * 4 + 1) + 8 + 1) / PEAK_BYTES_S * 1e3
+
+    # what the card does in the interval match and in one whole dispatch
+    n8k = min(8192, Pp)
+    _, match_ops, _ = device_profile(
+        lambda: interval_hits_resident(d_rank, d_idx, *tables))
+    n_ops, busy_ms = op_totals(match_ops)
+    _, ops_8k, _ = device_profile(
+        lambda: interval_hits_resident(d_rank[:n8k], d_idx[:n8k], *tables))
+    prof_out, d_ops, d_wall_ms = device_profile(
+        lambda: dispatch_jobs(jobs, backend=backend, stats={}))
+    if prof_out != ref:
+        raise AssertionError("dispatch_jobs on the card != cpu-ref")
+    d_ops, d_busy_ms = op_totals(d_ops)
+    return {
+        "rows": cdb.stats["rows"],
+        "host_fallback_rate": cdb.stats["host_fallback_rate"],
+        "store_s": store_s, "compile_s": compile_s,
+        "resident_bytes": resident_bytes, "upload_ms": upload_ms,
+        "jobs_build_s": jobs_s, "host_prep_s": prep_s,
+        "jobs_in": stats["jobs_in"], "jobs_unique": stats["jobs_unique"],
+        "kernel_rows": P + len(crows), "resident_rows": P,
+        "padded_rows": Pp, "classic_rows": len(crows),
+        "host_rows": len(host) + len(chost), "hits": len(out),
+        "interval_hits_resident_ms": resident_ms(Pp),
+        "interval_hits_resident_bound_ms": resident_bound_ms(Pp),
+        "interval_hits_resident_8k_ms": resident_ms(n8k),
+        "interval_hits_resident_8k_bound_ms": resident_bound_ms(n8k),
+        "interval_hits_resident_8k_device_ms": op_totals(ops_8k)[1],
+        "interval_hits_resident_device_ops": n_ops,
+        "interval_hits_resident_device_ms": busy_ms,
+        "interval_hits_resident_ops_us": match_ops,
+        "cpu_ref_ms": host_ms,
+        "interval_hits_classic_ms": cuda_ms(
+            lambda: interval_hits(*(torch.from_numpy(a).to(device)
+                                    for a in carrs)), iters=5, warmup=1),
+        "dispatch_device_s": stats["device_s"],
+        "dispatch_wall_s": walls, "cpu_ref_dispatch_s": ref_s,
+        "pairs_per_s": stats["jobs_in"] / min(walls),
+        "profiled_dispatch": {"device_ops": d_ops, "device_ms": d_busy_ms,
+                              "wall_ms": d_wall_ms,
+                              "device_idle_share": 1 - d_busy_ms / d_wall_ms},
+        "uploads": st["uploads"], "sample_checked": len(sample),
+        "sample_hits": len(truth)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -752,6 +1129,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=dfa_cuda.BUILD_DIR) as work:
         sl = slice_phase(files, planted, device, work)
     print("slice phase: " + json.dumps(sl), flush=True)
+    vuln = vuln_phase(device)
+    print("vuln phase: " + json.dumps(vuln), flush=True)
 
     note = "no single PyTorch call computes this function"
     kernels = [{

@@ -1,7 +1,8 @@
 """The port on a CUDA card: the hand-written ``dfa_blockmask`` (with
 the class-run gate fused into its launch) and ``code_blockmask``
 kernels against their plain PyTorch versions, the fused sieves, the
-literal-code entry points, a batch scan and an fs scan.
+literal-code entry points, a batch scan and an fs scan; the interval
+match and the pair dispatcher against their numpy versions.
 Every output is an integer mask or an exact finding, so every
 comparison is exact equality.
 
@@ -15,7 +16,10 @@ import numpy as np
 import pytest
 import torch
 
-from trivy_tpu_torch.ops import keywords, keywords_cuda
+from trivy_tpu_torch.db import AdvisoryStore, CompiledDB
+from trivy_tpu_torch.detect.batch import PairJob, ResidentPairJob, \
+    dispatch_jobs
+from trivy_tpu_torch.ops import intervals, keywords, keywords_cuda
 from trivy_tpu_torch.ops.dfa import build_table, chain_units, \
     best_fixed_chain, compact, fused_sieve
 from trivy_tpu_torch.ops.dfa_cuda import dfa_blockmask, dfa_masks_torch
@@ -367,3 +371,82 @@ def test_literal_sieve_entry_points_launch_once(cuda, scanner):
     assert code_blockmask.launches == before + 3
     np.testing.assert_array_equal(
         got, keywords.run_blockmask(buf, table, backend="cpu-ref"))
+
+
+def _interval_tables(seed: int, n: int) -> tuple:
+    rng = np.random.default_rng(seed)
+    lo = rng.integers(0, 60, (2, n, intervals.MAX_INTERVALS))
+    hi = lo + rng.integers(0, 8, lo.shape)
+    empty = rng.random(lo.shape) < 0.4          # unused slots
+    lo = np.where(empty, intervals.POS_INF, lo).astype(np.int32)
+    hi = np.where(empty, intervals.NEG_INF, hi).astype(np.int32)
+    flags = rng.integers(0, 32, n).astype(np.int32)
+    return lo[0], hi[0], lo[1], hi[1], flags
+
+
+@pytest.mark.parametrize("P,N", [(64, 50), (8192, 100000), (20000, 3000)])
+def test_interval_functions_on_the_card_equal_numpy(cuda, P, N):
+    rng = np.random.default_rng(P)
+    table = _interval_tables(N, N)
+    rank = rng.integers(0, 64, P).astype(np.int32)
+    row_idx = rng.integers(0, N, P).astype(np.int32)
+    gathered = [a[row_idx] for a in table]
+    want = intervals.interval_hits_host(rank, *gathered)
+    assert 0 < want.sum() < P
+    dev = [torch.from_numpy(a).to(cuda) for a in table]
+    keep = [t.clone() for t in dev]
+    for idx in (torch.from_numpy(row_idx), torch.from_numpy(row_idx).long()):
+        got = intervals.interval_hits_resident(
+            torch.from_numpy(rank).to(cuda), idx.to(cuda), *dev)
+        assert got.dtype == torch.bool and got.is_cuda
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
+    for t, k in zip(dev, keep):
+        assert torch.equal(t, k)
+    got = intervals.interval_hits(*(torch.from_numpy(a).to(cuda)
+                                    for a in (rank, *gathered)))
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+def test_dispatch_jobs_on_the_card_equals_cpu_ref(cuda):
+    """A small seeded mix of classic and resident jobs, duplicates
+    included: the card's payload list equals the numpy backend's, order
+    included, and the tables go up once."""
+    rng = np.random.default_rng(41)
+    store = AdvisoryStore()
+    for i in range(40):
+        store.put_advisory("npm::Node.js", f"lib{i}", f"CVE-{i}",
+                           {"VulnerableVersions": [f"<1.{i % 6}.0"],
+                            "PatchedVersions": [f">=1.{i % 6}.0"]})
+        store.put_advisory("debian 12", f"pkg{i}", f"CVE-D{i}",
+                           {"FixedVersion": f"1.{i % 5}-1"}
+                           if i % 4 else {})
+    cdb = CompiledDB.compile(store)
+    jobs = []
+    for k in range(3000):
+        row = int(rng.integers(0, len(cdb.rows_meta)))
+        g = cdb.row_grammar[row]
+        v = (f"1.{int(rng.integers(0, 7))}.{int(rng.integers(0, 3))}"
+             if g == "npm" else f"1.{int(rng.integers(0, 6))}-1")
+        if g == "npm" and k % 50 == 0:
+            v += "-rc.1"
+        jobs.append(ResidentPairJob(cdb=cdb, row=row, grammar=g,
+                                    pkg_version=v,
+                                    report_unfixed=k % 3 != 0,
+                                    payload=("r", k)))
+        if k % 3 == 0:
+            fixed = f"{int(rng.integers(1, 3))}.{int(rng.integers(0, 5))}.1"
+            jobs.append(PairJob(
+                grammar=("semver", "npm", "pep440")[k // 3 % 3],
+                pkg_version=f"1.{int(rng.integers(0, 5))}.0",
+                vulnerable=[f"<{fixed}"], patched=[f">={fixed}"],
+                payload=("c", k)))
+    jobs += jobs[::4]
+    want = dispatch_jobs(jobs, backend="cpu-ref", stats={})
+    stats: dict = {}
+    for _ in range(3):
+        assert dispatch_jobs(jobs, backend="cuda", stats=stats) == want
+    assert dispatch_jobs(jobs, stats={}) == want          # the default
+    assert 0 < len(want) < len(jobs)
+    assert stats["jobs_unique"] < stats["jobs_in"] == len(jobs)
+    st = cdb.device_stats()
+    assert st["uploads"] == 1 and st["dispatches"] == 4

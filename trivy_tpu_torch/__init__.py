@@ -3,9 +3,12 @@
 The secret-scan path (``python -m trivy_tpu_torch fs DIR``) runs its
 multi-pattern sieve as a hand-written Hopper kernel
 (``csrc/dfa_blockmask.cu``); the literal-code sieve
-(``ops/keywords.py``) runs ``csrc/code_blockmask.cu``. Entry points
-run on ``cuda`` unless the caller asks for ``cpu``; on the CPU every
-kernel is replaced by its plain PyTorch version.
+(``ops/keywords.py``) runs ``csrc/code_blockmask.cu``. The
+vulnerability-detection engine (``vercmp``, ``db``, ``detect``)
+matches installed versions against advisory interval tables kept on
+the card (``ops/intervals.py``). Entry points run on ``cuda`` unless
+the caller asks for ``cpu``; on the CPU every kernel is replaced by
+its plain PyTorch version.
 """
 
 from __future__ import annotations

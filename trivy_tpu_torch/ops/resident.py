@@ -3,22 +3,45 @@
 ``device_tables(device)`` uploads ``_resident_arrays()`` once per
 device and hands back the same tensors on every later call;
 ``device_array(device, name, make)`` does the same for one more array
-a launch picks by ``name``; ``invalidate_device()`` drops them all. A table's content is fixed at
-build (its ``rules_hash`` names it), so one upload per (rules_hash,
-device) is one upload per (table, device). ``device_stats()`` counts
-uploads and dispatches.
+a launch picks by ``name``; ``invalidate_device()`` drops them all. A
+table's content is fixed once it is built or loaded, so one upload per
+device is one upload per (table, device). ``device_stats()`` counts
+uploads and dispatches; a subclass mirrors them into its own metrics
+through the ``_note_*`` hooks. Every table gets a process-monotonic
+``generation`` that tells "the same tables again" from a newer build.
+
+Resident tensors are never written: per-dispatch payloads are fresh
+tensors, and an array that numpy hands back read-only (``np.load``) is
+copied once on its way to the device.
 """
 
 from __future__ import annotations
 
+import itertools
 import threading
 
 import numpy as np
 import torch
 
+_GENERATIONS = itertools.count(1)
+_GENERATION_LOCK = threading.Lock()
+
+
+def _next_generation() -> int:
+    with _GENERATION_LOCK:
+        return next(_GENERATIONS)
+
+
+def _tensor(a: np.ndarray, device: str) -> torch.Tensor:
+    a = np.ascontiguousarray(a)
+    if not a.flags.writeable:
+        a = a.copy()
+    return torch.from_numpy(a).to(device)
+
 
 class ResidentTables:
     def _init_resident(self) -> None:
+        self.generation = _next_generation()
         self._device: dict = {}
         self._device_lock = threading.Lock()
         self._device_stats = {"uploads": 0, "upload_bytes": 0,
@@ -27,20 +50,29 @@ class ResidentTables:
     def _resident_arrays(self) -> tuple:
         raise NotImplementedError
 
+    def _note_upload(self, nbytes: int) -> None:
+        pass
+
+    def _note_dispatch(self) -> None:
+        pass
+
+    def _note_invalidation(self) -> None:
+        pass
+
     def device_tables(self, device) -> tuple:
         key = str(torch.device(device))
         with self._device_lock:
             placed = self._device.get(key)
             if placed is None:
                 arrs = self._resident_arrays()
-                placed = tuple(
-                    torch.from_numpy(np.ascontiguousarray(a)).to(key)
-                    for a in arrs)
+                placed = tuple(_tensor(a, key) for a in arrs)
+                nbytes = int(sum(a.nbytes for a in arrs))
                 self._device[key] = placed
                 self._device_stats["uploads"] += 1
-                self._device_stats["upload_bytes"] += int(
-                    sum(a.nbytes for a in arrs))
+                self._device_stats["upload_bytes"] += nbytes
+                self._note_upload(nbytes)
             self._device_stats["dispatches"] += 1
+        self._note_dispatch()
         return placed
 
     def device_array(self, device, name, make) -> torch.Tensor:
@@ -51,10 +83,11 @@ class ResidentTables:
             placed = self._device.get(key)
             if placed is None:
                 arr = np.ascontiguousarray(make())
-                placed = torch.from_numpy(arr).to(key[0])
+                placed = _tensor(arr, key[0])
                 self._device[key] = placed
                 self._device_stats["uploads"] += 1
                 self._device_stats["upload_bytes"] += int(arr.nbytes)
+                self._note_upload(int(arr.nbytes))
         return placed
 
     def invalidate_device(self) -> None:
@@ -64,7 +97,10 @@ class ResidentTables:
                 return
             self._device.clear()
             self._device_stats["invalidations"] += 1
+        self._note_invalidation()
 
     def device_stats(self) -> dict:
         with self._device_lock:
-            return dict(self._device_stats)
+            out = dict(self._device_stats)
+        out["generation"] = self.generation
+        return out

@@ -1,13 +1,38 @@
-"""The report types a secret scan needs, with the JSON field names and
-Go ``omitempty`` behaviour of the reference shapes
-(pkg/fanal/types Layer, Code/Line, SecretFinding, Secret)."""
+"""The report types the port's scans return, with the JSON field names
+and Go ``omitempty`` behaviour of the reference shapes (pkg/fanal/types
+Layer, Code/Line, SecretFinding, Secret; the severity enum, trivy-db
+DataSource and pkg/types DetectedVulnerability + Vulnerability)."""
 
 from __future__ import annotations
 
 import dataclasses
 import enum
 from dataclasses import dataclass, field
-from typing import Any
+from typing import Any, Optional
+
+
+class Severity(enum.IntEnum):
+    """Severity ordered low→high; string forms match the reference enum."""
+
+    UNKNOWN = 0
+    LOW = 1
+    MEDIUM = 2
+    HIGH = 3
+    CRITICAL = 4
+
+    def __str__(self) -> str:  # JSON uses the name
+        return self.name
+
+    @classmethod
+    def parse(cls, s: str) -> "Severity":
+        try:
+            return cls[s.strip().upper()]
+        except KeyError:
+            raise ValueError(f"unknown severity: {s}")
+
+
+SEVERITIES = [Severity.UNKNOWN, Severity.LOW, Severity.MEDIUM, Severity.HIGH,
+              Severity.CRITICAL]
 
 
 def omitempty(v: Any) -> bool:
@@ -133,3 +158,70 @@ class Secret:
 
     def to_dict(self) -> dict:
         return asdict_omitempty(self)
+
+
+@dataclass
+class DataSource:
+    """Advisory data source (reference: trivy-db types.DataSource)."""
+
+    id: str = jfield("ID", default="")
+    name: str = jfield("Name", default="")
+    url: str = jfield("URL", default="")
+
+    def to_dict(self) -> dict:
+        return asdict_omitempty(self)
+
+
+@dataclass
+class Vulnerability:
+    """Detail record from the vulnerability DB (trivy-db `vulnerability`
+    bucket; reference: pkg/vulnerability/vulnerability.go FillInfo)."""
+
+    title: str = jfield("Title", default="")
+    description: str = jfield("Description", default="")
+    severity: str = jfield("Severity", default="")
+    cwe_ids: list = jfield("CweIDs", default_factory=list)
+    vendor_severity: dict = jfield("VendorSeverity", default_factory=dict)
+    cvss: dict = jfield("CVSS", default_factory=dict)
+    references: list = jfield("References", default_factory=list)
+    published_date: Optional[str] = jfield("PublishedDate", default=None)
+    last_modified_date: Optional[str] = jfield("LastModifiedDate",
+                                               default=None)
+
+    def to_dict(self) -> dict:
+        d = asdict_omitempty(self)
+        # trivy-db tags VendorSeverity json:"-": internal only
+        d.pop("VendorSeverity", None)
+        return d
+
+
+@dataclass
+class DetectedVulnerability:
+    vulnerability_id: str = jfield("VulnerabilityID", default="")
+    vendor_ids: list = jfield("VendorIDs", default_factory=list)
+    pkg_id: str = jfield("PkgID", default="")
+    pkg_name: str = jfield("PkgName", default="")
+    pkg_path: str = jfield("PkgPath", default="")
+    installed_version: str = jfield("InstalledVersion", default="")
+    fixed_version: str = jfield("FixedVersion", default="")
+    layer: Layer = jfield("Layer", default_factory=Layer)
+    severity_source: str = jfield("SeveritySource", default="")
+    primary_url: str = jfield("PrimaryURL", default="")
+    ref: str = jfield("Ref", default="")
+    data_source: Optional[DataSource] = jfield("DataSource", default=None)
+    custom: object = jfield("Custom", default=None)
+    # Embedded Vulnerability detail (filled by enrichment)
+    vulnerability: Vulnerability = field(default_factory=Vulnerability)
+
+    def to_dict(self) -> dict:
+        d = asdict_omitempty(self)
+        d.pop("vulnerability", None)
+        if self.layer.empty():
+            d.pop("Layer", None)
+        # Go embeds the Vulnerability struct inline in JSON.
+        d.update(self.vulnerability.to_dict())
+        return d
+
+    @property
+    def severity(self) -> str:
+        return self.vulnerability.severity or "UNKNOWN"
