@@ -45,6 +45,18 @@ Builds the port's hand-written kernels (``trivy_tpu_torch/csrc``, one
    per-pair host truth. It prints compile, upload, host-prep, device
    and dispatch times, the interval match's ms against its bound (bytes
    gathered and moved), and numpy's ms on the same rows.
+5. sbom phase: two seeded CycloneDX image BOMs in the store's own
+   package spelling (a ``debian 12`` image with npm, pip and go
+   libraries; a ``rocky 9.2`` image with maven and rubygems ones) go
+   through the ``sbom`` entry (``scan_sbom``, the default filters, the
+   JSON writer) on the vuln phase's DB: once cold (tables dropped
+   first) and five times warm on the card, then on ``cpu`` and
+   ``cpu-ref``. Every report must be equal, carry OS and library
+   findings, cost one upload, and leave the resident tables unchanged.
+   Then the DB is saved and ``python -m trivy_tpu_torch sbom`` runs in
+   a subprocess on the first BOM; its report must equal the
+   in-process one. It prints each step's seconds, jobs and hits, and
+   the device ops, busy ms and idle share of one profiled warm scan.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}``
 line (times from CUDA events, the bound this run's inputs give; the
@@ -55,6 +67,7 @@ then non-zero and no result line is printed. Without CUDA it exits 2.
 
 from __future__ import annotations
 
+import io
 import json
 import os
 import subprocess
@@ -805,22 +818,31 @@ def installed_version(grammar: str, bucket: str, p: int, k: int) -> str:
     return "v" + v if grammar == "semver" else v
 
 
-def make_advisory_store(n_rows: int, seed: int):
+def make_advisory_store(n_rows: int, seed: int, store=None):
     """A trivy-db-shaped ``AdvisoryStore`` of ``n_rows`` advisories.
     OS buckets carry FixedVersion (about 5 % unfixed, some alpine rows
     an AffectedVersion); library buckets carry GHSA-shaped
     VulnerableVersions/PatchedVersions (the shapes of
     tests/test_grammar_differential.py), 2.5 % of them (1 % of all
     rows) with six alternatives: host-path rows. Every advisory has a
-    vulnerability record. Returns (store, {bucket: package count})."""
-    from trivy_tpu_torch.db import AdvisoryStore
+    vulnerability record (title, severity, NVD vendor severity and a
+    reference; one in four also CVSS, CWE ids and dates) and every
+    bucket a data source. ``store`` is filled if given (any class with
+    the ``AdvisoryStore`` writes), else a new port store. Returns
+    (store, {bucket: package count})."""
+    if store is None:
+        from trivy_tpu_torch.db import AdvisoryStore
+        store = AdvisoryStore()
     rng = np.random.default_rng(seed)
-    store = AdvisoryStore()
     n_pkgs = {}
     vid = 0
     plan = [(b, g, s, "os") for b, g, s, _ in VULN_OS] + \
         [(b, g, s, "lib") for b, _, g, s in VULN_LIBS]
     for bucket, grammar, share, kind in plan:
+        eco = bucket.split("::")[0] if kind == "lib" else bucket.split()[0]
+        store.put_data_source(bucket, {
+            "ID": "ghsa" if kind == "lib" else eco, "Name": bucket,
+            "URL": f"https://advisories.example/{eco}"})
         quota = int(n_rows * share) if bucket != plan[-1][0] \
             else n_rows - vid
         per_pkg = rng.geometric(0.25, quota)
@@ -862,9 +884,20 @@ def make_advisory_store(n_rows: int, seed: int):
                 if roll[i] < 0.9:
                     value["PatchedVersions"] = [f">={fixed}"]
             store.put_advisory(bucket, name, cve, value)
-            store.put_vulnerability(cve, {
+            detail = {
                 "Title": f"{name}: issue {vid}",
-                "Severity": ("LOW", "MEDIUM", "HIGH", "CRITICAL")[vid % 4]})
+                "Severity": ("LOW", "MEDIUM", "HIGH", "CRITICAL")[vid % 4],
+                "VendorSeverity": {"nvd": 1 + vid % 4},
+                "References": [f"https://nvd.example/{cve}"]}
+            if vid % 4 == 0:
+                detail.update(
+                    CweIDs=[f"CWE-{20 + vid % 700}"],
+                    CVSS={"nvd": {"V3Vector": "CVSS:3.1/AV:N/AC:L/PR:N/"
+                                  "UI:N/S:U/C:H/I:H/A:H",
+                                  "V3Score": 5.0 + vid % 50 / 10}},
+                    PublishedDate=f"20{10 + vid % 14}-0{1 + vid % 9}-"
+                                  f"1{vid % 10}T00:00:00Z")
+            store.put_vulnerability(cve, detail)
             vid += 1
         n_pkgs[bucket] = p + 1
     return store, n_pkgs
@@ -942,10 +975,11 @@ def naive_truth(job) -> bool:
     return job.cdb.host_eval(job.row, job.pkg_version)
 
 
-def vuln_phase(device, n_rows: int = VULN_ROWS) -> dict:
+def vuln_phase(device, n_rows: int = VULN_ROWS) -> tuple:
     """The vulnerability match on a ``n_rows`` advisory DB: compile,
     upload once, the fleet's pair jobs through ``dispatch_jobs`` on the
-    card, every check exact."""
+    card, every check exact. Returns (numbers, the compiled DB, its
+    {bucket: package count})."""
     from trivy_tpu_torch.db import CompiledDB
     from trivy_tpu_torch.detect.batch import (PairJob, ResidentPairJob,
                                               _job_bucket, _pack_classic,
@@ -1087,7 +1121,243 @@ def vuln_phase(device, n_rows: int = VULN_ROWS) -> dict:
                               "wall_ms": d_wall_ms,
                               "device_idle_share": 1 - d_busy_ms / d_wall_ms},
         "uploads": st["uploads"], "sample_checked": len(sample),
-        "sample_hits": len(truth)}
+        "sample_hits": len(truth)}, cdb, n_pkgs
+
+
+# --- the sbom entry -----------------------------------------------------
+
+# image -> (os family, os version, its bucket, grammar, purl type, OS
+# components, [(application type, path, bucket, grammar, purl type,
+# libraries)]); package names and versions are the store's own
+# (make_advisory_store, installed_version), so the joins hit
+SBOM_IMAGES = {
+    "A": ("debian", "12", "debian 12", "deb", "deb", 400, (
+        ("npm", "srv/app/package-lock.json",
+         "npm::GitHub Security Advisory npm", "npm", "npm", 1500),
+        ("pip", "srv/app/requirements.txt",
+         "pip::GitHub Security Advisory pip", "pep440", "pypi", 400),
+        ("gomod", "srv/app/go.sum", "go::GitHub Security Advisory Go",
+         "semver", "golang", 300))),
+    "B": ("rocky", "9.2", "rocky 9", "rpm", "rpm", 600, (
+        ("jar", "opt/app/lib", "maven::GitHub Security Advisory Maven",
+         "maven", "maven", 400),
+        ("bundler", "opt/app/Gemfile.lock",
+         "rubygems::GitHub Security Advisory RubyGems", "rubygems",
+         "gem", 200))),
+}
+SBOM_WARM = 5
+
+
+def _zipf_unique(rng, n: int, count: int) -> list:
+    """``count`` distinct package numbers below ``n``, drawn with the
+    vuln phase's Zipf skew, in the order first drawn."""
+    seen: dict = {}
+    while len(seen) < min(count, n):
+        for p in (rng.zipf(1.3, count) - 1) % n:
+            if len(seen) < count:
+                seen.setdefault(int(p), None)
+    return list(seen)
+
+
+def _prop(name: str, value: str) -> dict:
+    return {"name": "aquasecurity:trivy:" + name, "value": value}
+
+
+def make_bom(image: tuple, n_pkgs: dict, seed: int,
+             scale: float = 1.0) -> dict:
+    """A CycloneDX 1.4 JSON document as an image scan writes it: one
+    operating-system component with its packages (source package
+    properties, distro purls) and one application component per
+    lockfile with its libraries, all on the dependency graph. Counts
+    are ``image``'s times ``scale`` (at least 1 each)."""
+    family, os_ver, bucket, grammar, ptype, n_os, apps = image
+    rng = np.random.default_rng(seed)
+    comps, deps = [], []
+
+    def count(n: int) -> int:
+        return max(1, round(n * scale))
+
+    os_refs = []
+    for p in _zipf_unique(rng, n_pkgs[bucket], count(n_os)):
+        name = f"os-{grammar}-{p}"
+        ver = installed_version(grammar, bucket, p, int(rng.integers(0, 4)))
+        epoch, _, rest = ver.rpartition(":")
+        version, _, release = rest.rpartition("-")
+        quals = f"arch={'amd64' if ptype == 'deb' else 'x86_64'}" \
+            f"&distro={family}-{os_ver}"
+        props = [_prop("PkgID", f"{name}@{ver}"),
+                 _prop("SrcName", name), _prop("SrcVersion", version),
+                 _prop("SrcRelease", release),
+                 _prop("LayerDiffID", f"sha256:{p % 7:064x}")]
+        if epoch:
+            props.insert(4, _prop("SrcEpoch", epoch))
+        if ptype == "rpm":
+            purl = f"pkg:rpm/{family}/{name}@{rest}?{quals}" + \
+                (f"&epoch={epoch}" if epoch else "")
+        else:
+            purl = f"pkg:{ptype}/{family}/{name}@{ver}?{quals}"
+        comp = {"bom-ref": purl, "type": "library", "name": name,
+                "version": ver, "purl": purl, "properties": props}
+        if p % 3 == 0:
+            comp["licenses"] = [{"expression": "GPL-2.0-or-later"}]
+        comps.append(comp)
+        os_refs.append(purl)
+    comps.append({"bom-ref": "os", "type": "operating-system",
+                  "name": family, "version": os_ver,
+                  "properties": [_prop("Class", "os-pkgs"),
+                                 _prop("Type", family)]})
+    deps.append({"ref": "os", "dependsOn": os_refs})
+    for i, (atype, path, abucket, agrammar, aptype, n_libs) in \
+            enumerate(apps):
+        refs = []
+        for p in _zipf_unique(rng, n_pkgs[abucket], count(n_libs)):
+            name = f"lib-{agrammar}-{p}"
+            ver = installed_version(agrammar, abucket, p,
+                                    int(rng.integers(0, 4)))
+            purl = f"pkg:{aptype}/{name}@{ver}"
+            comps.append({"bom-ref": purl, "type": "library",
+                          "name": name, "version": ver, "purl": purl,
+                          "licenses": [{"expression": "MIT"}]})
+            refs.append(purl)
+        comps.append({"bom-ref": f"app-{i}", "type": "application",
+                      "name": path,
+                      "properties": [_prop("Class", "lang-pkgs"),
+                                     _prop("Type", atype)]})
+        deps.append({"ref": f"app-{i}", "dependsOn": refs})
+    root = f"image-{family}-{seed}"
+    deps.append({"ref": root,
+                 "dependsOn": ["os"] + [f"app-{i}"
+                                        for i in range(len(apps))]})
+    return {"bomFormat": "CycloneDX", "specVersion": "1.4",
+            "serialNumber": f"urn:uuid:00000000-0000-4000-8000-{seed:012d}",
+            "version": 1,
+            "metadata": {"timestamp": "2026-10-16T00:00:00+00:00",
+                         "component": {"bom-ref": root,
+                                       "type": "container",
+                                       "name": f"{family}:{os_ver}-app",
+                                       "properties": [
+                                           _prop("SchemaVersion", "2")]}},
+            "components": comps, "dependencies": deps}
+
+
+def scan_bom(path: str, db, backend: str) -> tuple:
+    """One ``sbom`` scan as ``python -m trivy_tpu_torch sbom PATH
+    --format json`` makes it: ``scan_sbom``, the default filters, the
+    JSON writer. Returns (report text, step seconds, dispatch stats)."""
+    from trivy_tpu_torch import __version__
+    from trivy_tpu_torch.cli import filter_report, scan_sbom
+    from trivy_tpu_torch.report.writer import write_report
+    steps, stats = {}, {}
+    t0 = time.perf_counter()
+    report = scan_sbom(path, db, backend, timings=steps, stats=stats)
+    t1 = time.perf_counter()
+    filter_report(report)
+    buf = io.StringIO()
+    write_report(report, fmt="json", output=buf, app_version=__version__)
+    t2 = time.perf_counter()
+    steps.update(filter_write_s=t2 - t1, total_s=t2 - t0)
+    return buf.getvalue(), steps, stats
+
+
+def _sorted_json(text: str) -> str:
+    return json.dumps(json.loads(text), sort_keys=True)
+
+
+def sbom_phase(device, cdb, n_pkgs: dict, work_dir: str) -> dict:
+    """The ``sbom`` entry on the vuln phase's DB: each image BOM once
+    cold (tables dropped first, so the upload is in it) and
+    ``SBOM_WARM`` times warm on the card, then on ``cpu`` and
+    ``cpu-ref``; every report must be equal, carry OS and library
+    vulnerabilities, and cost one upload per drop, the resident tables
+    unchanged. Then image A once more through the real entry point, in
+    a subprocess, on the DB saved to ``work_dir``."""
+    backend = device.type
+    t_phase = time.perf_counter()
+    out: dict = {}
+    paths, reports = {}, {}
+    for i, (key, image) in enumerate(SBOM_IMAGES.items()):
+        t0 = time.perf_counter()
+        bom = make_bom(image, n_pkgs, SEED + 10 + i)
+        paths[key] = os.path.join(work_dir, f"{key}.cdx.json")
+        with open(paths[key], "w") as f:
+            json.dump(bom, f)
+        make_s = time.perf_counter() - t0
+
+        cdb.invalidate_device()
+        up0 = cdb.device_stats()["uploads"]
+        text, cold, cold_stats = scan_bom(paths[key], cdb, backend)
+        keep = [t.clone() for t in cdb.device_tables(device)]
+        warm = [scan_bom(paths[key], cdb, backend) for _ in range(SBOM_WARM)]
+        (ptext, _, _), ops, wall_ms = device_profile(
+            lambda: scan_bom(paths[key], cdb, backend))
+        uploads = cdb.device_stats()["uploads"] - up0
+        if uploads != 1:
+            raise AssertionError(f"BOM {key}: {uploads} uploads of the "
+                                 f"tables after one drop")
+        if not all(torch.equal(t, k) for t, k in
+                   zip(cdb.device_tables(device), keep)):
+            raise AssertionError(f"BOM {key}: a scan wrote to the "
+                                 f"resident tables")
+        del keep
+        want = _sorted_json(text)
+        others = [w[0] for w in warm] + [ptext] + [
+            scan_bom(paths[key], cdb, b)[0] for b in ("cpu", "cpu-ref")]
+        if any(_sorted_json(t) != want for t in others):
+            raise AssertionError(f"BOM {key}: the reports of the card's "
+                                 f"scans, cpu and cpu-ref differ")
+        doc = json.loads(text)
+        classes = {r["Class"] for r in doc.get("Results", [])
+                   if r.get("Vulnerabilities")}
+        if classes != {"os-pkgs", "lang-pkgs"}:
+            raise AssertionError(f"BOM {key}: vulnerabilities only in "
+                                 f"{sorted(classes)}")
+        n_ops, busy_ms = op_totals(ops)
+        step_names = ("decode_s", "prepare_s", "dispatch_s", "finish_s",
+                      "filter_write_s", "total_s")
+        out[key] = {
+            "image": f"{image[0]} {image[1]}",
+            "components": len(bom["components"]),
+            "bom_bytes": os.path.getsize(paths[key]), "make_s": make_s,
+            "jobs_in": cold_stats["jobs_in"],
+            "jobs_unique": cold_stats["jobs_unique"],
+            "hits": cold_stats["hits"],
+            "vulnerabilities": sum(len(r.get("Vulnerabilities", []))
+                                   for r in doc.get("Results", [])),
+            "cold": {**{k: cold[k] for k in step_names},
+                     "device_s": cold_stats["device_s"]},
+            "warm": {**{k: [w[1][k] for w in warm] for k in step_names},
+                     "device_s": [w[2]["device_s"] for w in warm]},
+            "uploads": uploads,
+            "profiled_scan": {"device_ops": n_ops, "device_ms": busy_ms,
+                              "wall_ms": wall_ms,
+                              "device_idle_share": 1 - busy_ms / wall_ms,
+                              "ops_us": ops}}
+        reports[key] = want
+
+    # the real entry point: DB load, upload and scan in a new process
+    db_path = os.path.join(work_dir, "cdb")
+    t0 = time.perf_counter()
+    cdb.save(db_path)
+    out["save_s"] = time.perf_counter() - t0
+    out["db_bytes"] = os.path.getsize(db_path + ".npz")
+    report_path = os.path.join(work_dir, "A.report.json")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "trivy_tpu_torch", "sbom", paths["A"],
+         "--compiled-db", db_path, "--backend", backend,
+         "--format", "json", "--output", report_path],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        capture_output=True, text=True, timeout=600)
+    out["cli_wall_s"] = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"sbom CLI exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    with open(report_path) as f:
+        if _sorted_json(f.read()) != reports["A"]:
+            raise AssertionError("the sbom CLI's report != the in-process "
+                                 "report")
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
 
 
 def main() -> int:
@@ -1129,8 +1399,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=dfa_cuda.BUILD_DIR) as work:
         sl = slice_phase(files, planted, device, work)
     print("slice phase: " + json.dumps(sl), flush=True)
-    vuln = vuln_phase(device)
+    vuln, cdb, n_pkgs = vuln_phase(device)
     print("vuln phase: " + json.dumps(vuln), flush=True)
+    with tempfile.TemporaryDirectory(dir=dfa_cuda.BUILD_DIR) as work:
+        sb = sbom_phase(device, cdb, n_pkgs, work)
+    print("sbom phase: " + json.dumps(sb), flush=True)
 
     note = "no single PyTorch call computes this function"
     kernels = [{

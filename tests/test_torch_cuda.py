@@ -2,7 +2,8 @@
 the class-run gate fused into its launch) and ``code_blockmask``
 kernels against their plain PyTorch versions, the fused sieves, the
 literal-code entry points, a batch scan and an fs scan; the interval
-match and the pair dispatcher against their numpy versions.
+match and the pair dispatcher against their numpy versions; the
+``sbom`` entry's report against the CPU's.
 Every output is an integer mask or an exact finding, so every
 comparison is exact equality.
 
@@ -11,6 +12,8 @@ nor the JAX package, so they also run where JAX is not installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
+
+import json
 
 import numpy as np
 import pytest
@@ -450,3 +453,24 @@ def test_dispatch_jobs_on_the_card_equals_cpu_ref(cuda):
     assert stats["jobs_unique"] < stats["jobs_in"] == len(jobs)
     st = cdb.device_stats()
     assert st["uploads"] == 1 and st["dispatches"] == 4
+
+
+def test_sbom_on_the_card_equals_the_cpu(cuda, tmp_path, monkeypatch):
+    """The ``sbom`` entry on seeded image BOMs against a 20,000-row DB,
+    compiled (resident jobs) and as a plain store (classic jobs): the
+    card's filtered report equals the CPU's and numpy's."""
+    from chip_smoke import SBOM_IMAGES, make_advisory_store, make_bom
+    from trivy_tpu_torch.cli import filter_report, scan_sbom
+    monkeypatch.chdir(tmp_path)
+    store, n_pkgs = make_advisory_store(20000, 5)
+    cdb = CompiledDB.compile(store)
+    for i, image in enumerate(SBOM_IMAGES.values()):
+        path = tmp_path / f"{i}.cdx.json"
+        path.write_text(json.dumps(make_bom(image, n_pkgs, 60 + i, 0.1)))
+        for db in (cdb, store):
+            got = {b: json.dumps(filter_report(scan_sbom(
+                str(path), db, b)).to_dict(), sort_keys=True)
+                for b in ("cuda", "cpu", "cpu-ref")}
+            assert got["cuda"] == got["cpu"] == got["cpu-ref"]
+            assert '"Class": "os-pkgs"' in got["cuda"]
+            assert '"VulnerabilityID"' in got["cuda"]

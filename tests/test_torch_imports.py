@@ -51,7 +51,30 @@ def test_importing_the_port_loads_no_jax():
     assert proc.returncode == 0, proc.stderr[-2000:]
     n, bad = proc.stdout.strip().split(" ", 1)
     assert bad == "[]"
-    assert int(n) >= 15
+    assert int(n) >= 60
+
+
+# the sbom slice's modules: both checks above must reach them
+SBOM_SLICE = ("types/common.py", "types/artifact.py", "types/report.py",
+              "purl.py", "sbom/__init__.py", "sbom/cyclonedx.py",
+              "sbom/spdx.py", "artifact/cache.py",
+              "artifact/sbom.py", "applier.py", "detect/ospkg/drivers.py",
+              "detect/enrich.py", "scan/post.py", "scan/local.py",
+              "scan/filter.py", "report/writer.py", "cli.py")
+
+
+def test_the_scans_cover_the_sbom_slice():
+    import importlib
+    import pkgutil
+    walked = {m.name for m in pkgutil.walk_packages(
+        trivy_tpu_torch.__path__, "trivy_tpu_torch.")}
+    sources = set(_port_sources())
+    for rel in SBOM_SLICE:
+        assert os.path.join(PKG, rel) in sources, rel
+        name = "trivy_tpu_torch." + rel[:-3].replace("/", ".") \
+            .replace(".__init__", "")
+        assert name in walked, name
+        importlib.import_module(name)
 
 
 def test_no_import_statement_names_jax_or_the_jax_package():

@@ -6,14 +6,18 @@ multi-pattern sieve as a hand-written Hopper kernel
 (``ops/keywords.py``) runs ``csrc/code_blockmask.cu``. The
 vulnerability-detection engine (``vercmp``, ``db``, ``detect``)
 matches installed versions against advisory interval tables kept on
-the card (``ops/intervals.py``). Entry points run on ``cuda`` unless
-the caller asks for ``cpu``; on the CPU every kernel is replaced by
-its plain PyTorch version.
+the card (``ops/intervals.py``); the ``sbom`` entry
+(``python -m trivy_tpu_torch sbom BOM``) drives it through
+``scan/local.py LocalScanner`` and writes the report. Entry points run
+on ``cuda`` unless the caller asks for ``cpu``; on the CPU every
+kernel is replaced by its plain PyTorch version.
 """
 
 from __future__ import annotations
 
 import torch
+
+__version__ = "0.1.0"
 
 DEFAULT_DEVICE = "cuda"
 
@@ -30,4 +34,4 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-__all__ = ["DEFAULT_DEVICE", "resolve_device"]
+__all__ = ["DEFAULT_DEVICE", "__version__", "resolve_device"]

@@ -4,8 +4,8 @@ device-resident DB upload amortization.
 Process-wide by design: the constraint-interval cache is a process
 singleton, DB uploads happen once per (generation, device), and the
 numbers an operator watches are the cumulative totals. The counter
-names are the reference's (its purl-cache and packing-pool counters
-come with the modules that count them). Counter updates take one
+names are the reference's (its packing-pool counters come with the
+module that counts them). Counter updates take one
 short lock; nothing here sits on a per-byte hot path (per-job costs
 are batched by the dispatchers before they land here).
 """
@@ -23,6 +23,8 @@ class DetectMetrics:
         "jobs_in", "jobs_unique",
         # constraint-interval compile cache (detect/ccache.py)
         "interval_cache_hits", "interval_cache_misses",
+        # purl parse cache (purl.py)
+        "purl_cache_hits", "purl_cache_misses",
         # device-resident advisory tables (db/compiled.py)
         "db_uploads", "db_upload_bytes", "db_invalidations",
         "resident_dispatches",

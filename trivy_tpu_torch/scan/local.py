@@ -1,0 +1,373 @@
+"""Local scan driver (reference: pkg/scanner/local/scan.go:78-175).
+
+``prepare``: ApplyLayers → OS + language pair jobs; the caller runs
+them through one ``dispatch_jobs`` of the interval match;
+``finish``: vulnerability and secret results → FillInfo enrichment.
+Misconfiguration and license results are still to be ported: a scan
+that asks for the ``config`` or ``license`` check raises.
+"""
+
+from __future__ import annotations
+
+import logging
+from dataclasses import dataclass
+from typing import Optional
+
+from ..applier import apply_layers
+from ..db import AdvisoryStore
+from ..db.compiled import CompiledDB
+from ..detect.batch import PairJob, ResidentPairJob
+from ..detect.enrich import fill_info
+from ..detect.library import _TYPES as LIB_TYPES
+from ..detect.library import _fixed_versions, normalize_pkg_name
+from ..detect.ospkg.drivers import DRIVERS
+from ..types import (OS, DetectedVulnerability, Result, ResultClass,
+                     ScanOptions, Vulnerability)
+from ..types.common import SEVERITIES
+from .post import post_scan
+
+log = logging.getLogger("trivy_tpu_torch.scan.local")
+
+# checks whose results are still to be ported: check -> ROADMAP item
+_UNPORTED_CHECKS = {"config": "A.9 (misconfiguration results)",
+                    "license": "A.9 (license results)"}
+
+# pre-defined targets for aggregated package types (scan.go pkgTargets)
+_PKG_TARGETS = {
+    "python-pkg": "Python",
+    "node-pkg": "Node.js",
+    "gemspec": "Ruby",
+    "jar": "Java",
+}
+
+
+@dataclass
+class ScanTarget:
+    name: str
+    artifact_id: str
+    blob_ids: list
+
+
+@dataclass
+class PreparedScan:
+    """Phase-1 output: everything needed to finish once the interval
+    match returns."""
+
+    target: ScanTarget
+    options: object
+    detail: object
+    jobs: list
+    eosl: bool
+    pkg_results: list
+
+
+class LocalScanner:
+    """``store`` is an ``AdvisoryStore`` (classic ``PairJob``s) or a
+    ``CompiledDB`` (``ResidentPairJob``s on its resident tables)."""
+
+    def __init__(self, cache, store: Optional[AdvisoryStore] = None):
+        self.cache = cache
+        self.store = store or AdvisoryStore()
+        self.compiled: Optional[CompiledDB] = \
+            store if isinstance(store, CompiledDB) else None
+
+    def prepare(self, target: ScanTarget,
+                options: ScanOptions) -> PreparedScan:
+        """ApplyLayers + advisory name-join → pair jobs. No device
+        work happens here, so a caller can merge many targets' jobs
+        into one dispatch."""
+        for check, item in _UNPORTED_CHECKS.items():
+            if check in options.security_checks:
+                raise NotImplementedError(
+                    f"the {check!r} check is not ported yet "
+                    f"(ROADMAP {item})")
+        blobs = [self.cache.get_blob(b) for b in target.blob_ids]
+        detail = apply_layers(blobs)
+
+        # repository fallback BEFORE the "none" default — a
+        # distroless alpine has packages and an apk repositories
+        # stream but no release file (ref local/scan.go:82-97,
+        # where the Repository assignment overwrites the "none"
+        # default unconditionally)
+        if detail.os is None and detail.repository is not None:
+            detail.os = OS(family=detail.repository.family,
+                           name=detail.repository.release)
+        if detail.os is None and detail.packages:
+            detail.os = OS(family="none")
+
+        pkg_results: list = []
+        if options.list_all_packages:
+            r = self._os_pkgs_result(target.name, detail)
+            if r is not None:
+                pkg_results.append(r)
+            pkg_results.extend(self._lang_pkgs_results(detail))
+
+        jobs, eosl = ([], False)
+        if "vuln" in options.security_checks:
+            jobs, eosl = self._vuln_jobs(detail, options)
+        return PreparedScan(target=target, options=options,
+                            detail=detail, jobs=jobs, eosl=eosl,
+                            pkg_results=pkg_results)
+
+    def finish(self, prepared: PreparedScan,
+               detected: list) -> tuple:
+        """Assemble results from the detected pair payloads."""
+        options = prepared.options
+        detail = prepared.detail
+        results: list = []
+
+        if "vuln" in options.security_checks:
+            if detail.os is not None:
+                detail.os.eosl = prepared.eosl
+            vuln_results = self._vuln_results(
+                prepared.target.name, detail, detected,
+                options.vuln_type)
+            results.extend(self._fill_pkgs(prepared.pkg_results,
+                                           vuln_results))
+        else:
+            results.extend(prepared.pkg_results)
+
+        if "secret" in options.security_checks:
+            results.extend(self._secret_results(detail))
+
+        # module-collected custom resources ride a Result of class
+        # "custom" so post-scanners can read them (ref
+        # local/scan.go:154-163)
+        if detail.custom_resources:
+            results.append(Result(
+                target="", class_=ResultClass.CUSTOM,
+                custom_resources=list(detail.custom_resources)))
+
+        for r in results:
+            fill_info(self.store, r.vulnerabilities)
+
+        # post-scan hook chain (ref local/scan.go:170-174 post.Scan)
+        results = post_scan(results)
+
+        return results, detail.os
+
+    # --- vulnerabilities ---
+
+    def _vuln_jobs(self, detail, options) -> tuple:
+        jobs: list = []
+        eosl = False
+        cdb = self.compiled
+        if "os" in options.vuln_type and detail.os is not None \
+                and detail.packages:
+            driver = DRIVERS.get(detail.os.family)
+            if driver is not None:
+                eosl = not driver.is_supported(detail.os.name)
+                bucket = driver.bucket(detail.os.name,
+                                       detail.repository)
+                for pkg in detail.packages:
+                    installed = driver.installed(pkg)
+                    if cdb is not None:
+                        for row in cdb.candidate_rows(
+                                bucket, driver.src_name(pkg)):
+                            adv = cdb.rows_meta[row][2]
+                            if not driver.adv_match(
+                                    detail.os.name, pkg, adv):
+                                continue
+                            jobs.append(ResidentPairJob(
+                                cdb=cdb, row=row,
+                                grammar=driver.grammar,
+                                pkg_version=installed,
+                                report_unfixed=driver.report_unfixed,
+                                payload=("os", None, self._ospkg_vuln(
+                                    driver, pkg, installed, adv))))
+                    else:
+                        for adv in self.store.get(
+                                bucket, driver.src_name(pkg)):
+                            if not driver.adv_match(detail.os.name,
+                                                    pkg, adv):
+                                continue
+                            jobs.append(self._ospkg_job(
+                                driver, pkg, installed, adv))
+            elif detail.os.family not in ("none", ""):
+                log.warning("unsupported os: %s", detail.os.family)
+
+        if "library" in options.vuln_type:
+            for app in detail.applications:
+                if app.type not in LIB_TYPES:
+                    continue
+                eco, grammar = LIB_TYPES[app.type]
+                for lib in app.libraries:
+                    name = normalize_pkg_name(eco, lib.name)
+                    if cdb is not None:
+                        for row in cdb.candidate_rows_prefix(
+                                f"{eco}::", name):
+                            adv = cdb.rows_meta[row][2]
+                            jobs.append(ResidentPairJob(
+                                cdb=cdb, row=row, grammar=grammar,
+                                pkg_version=lib.version,
+                                payload=("lib",
+                                         (app.type, app.file_path),
+                                         self._lib_vuln(lib, adv))))
+                    else:
+                        for adv in self.store.get_advisories(
+                                f"{eco}::", name):
+                            jobs.append(self._lib_job(
+                                app, grammar, lib, adv))
+        return jobs, eosl
+
+    def _vuln_results(self, target: str, detail,
+                      detected: list, vuln_type: list) -> list:
+        os_vulns: list = []
+        app_vulns: dict = {}
+        for payload in detected:
+            kind, key, vuln = payload
+            if kind == "os":
+                os_vulns.append(vuln)
+            else:
+                app_vulns.setdefault(key, []).append(vuln)
+
+        results = []
+        # the os-pkgs result is emitted whenever a known distro was
+        # detected, even with zero findings (ref scan.go:243-271
+        # scanOSPkgs returns a Result unless the OS is unknown or
+        # unsupported; empty results are never filtered out)
+        # gated on the os vuln type, like scanVulnerabilities
+        # dispatch — `--vuln-type library` must not emit the husk
+        has_driver = ("os" in vuln_type
+                      and detail.os is not None
+                      and DRIVERS.get(detail.os.family) is not None)
+        if os_vulns or has_driver:
+            target_name = target
+            if detail.os is not None and detail.os.family and \
+                    detail.os.family != "none":
+                target_name = (f"{target} ({detail.os.family} "
+                               f"{detail.os.name})")
+            results.append(Result(
+                target=target_name,
+                class_=ResultClass.OSPKG,
+                type=detail.os.family if detail.os else "",
+                vulnerabilities=sorted(
+                    os_vulns, key=lambda v: (v.pkg_name,
+                                             v.vulnerability_id)),
+            ))
+        for app in detail.applications:
+            key = (app.type, app.file_path)
+            vulns = app_vulns.get(key)
+            if not vulns:
+                continue
+            target_name = app.file_path or \
+                _PKG_TARGETS.get(app.type, "")
+            results.append(Result(
+                target=target_name,
+                class_=ResultClass.LANGPKG,
+                type=app.type,
+                vulnerabilities=sorted(
+                    vulns, key=lambda v: (v.pkg_name,
+                                          v.vulnerability_id)),
+            ))
+        return results
+
+    def _ospkg_vuln(self, driver, pkg, installed,
+                    adv) -> DetectedVulnerability:
+        v = DetectedVulnerability(
+            vulnerability_id=adv.vulnerability_id,
+            vendor_ids=adv.vendor_ids,
+            pkg_id=pkg.id,
+            pkg_name=pkg.name,
+            installed_version=installed,
+            fixed_version=driver.fixed_version(adv),
+            layer=pkg.layer,
+            ref=pkg.ref,
+            data_source=adv.data_source,
+        )
+        if driver.severity_source and adv.severity:
+            v.severity_source = driver.severity_source
+            v.vulnerability = Vulnerability(
+                severity=str(SEVERITIES[adv.severity])
+                if 0 <= adv.severity < 5 else "UNKNOWN")
+        return v
+
+    def _ospkg_job(self, driver, pkg, installed, adv) -> PairJob:
+        v = self._ospkg_vuln(driver, pkg, installed, adv)
+        return PairJob(
+            grammar=driver.grammar,
+            pkg_version=installed,
+            fixed_version=adv.fixed_version,
+            affected_version=adv.affected_version,
+            report_unfixed=driver.report_unfixed,
+            kind="ospkg",
+            payload=("os", None, v),
+        )
+
+    def _lib_vuln(self, lib, adv) -> DetectedVulnerability:
+        return DetectedVulnerability(
+            vulnerability_id=adv.vulnerability_id,
+            pkg_id=lib.id,
+            pkg_name=lib.name,
+            pkg_path=lib.file_path,
+            installed_version=lib.version,
+            fixed_version=_fixed_versions(adv),
+            layer=lib.layer,
+            ref=lib.ref,
+            data_source=adv.data_source,
+        )
+
+    def _lib_job(self, app, grammar, lib, adv) -> PairJob:
+        v = self._lib_vuln(lib, adv)
+        return PairJob(
+            grammar=grammar,
+            pkg_version=lib.version,
+            vulnerable=adv.vulnerable_versions,
+            patched=adv.patched_versions,
+            unaffected=adv.unaffected_versions,
+            payload=("lib", (app.type, app.file_path), v),
+        )
+
+    # --- other result classes ---
+
+    def _os_pkgs_result(self, target, detail) -> Optional[Result]:
+        if not detail.packages or detail.os is None:
+            return None
+        pkgs = sorted(detail.packages, key=lambda p: p.name)
+        return Result(
+            target=f"{target} ({detail.os.family} {detail.os.name})",
+            class_=ResultClass.OSPKG,
+            type=detail.os.family,
+            packages=pkgs,
+        )
+
+    def _lang_pkgs_results(self, detail) -> list:
+        out = []
+        for app in detail.applications:
+            if not app.libraries:
+                continue
+            target = app.file_path or _PKG_TARGETS.get(app.type, "")
+            out.append(Result(target=target,
+                              class_=ResultClass.LANGPKG,
+                              type=app.type,
+                              packages=app.libraries))
+        return out
+
+    def _fill_pkgs(self, pkg_results, vuln_results) -> list:
+        """Merge package listings into matching vuln results
+        (scan.go fillPkgsInVulns)."""
+        if not pkg_results:
+            return vuln_results
+        out = []
+        used = set()
+        for vr in vuln_results:
+            for i, pr in enumerate(pkg_results):
+                if (pr.class_, pr.target) == (vr.class_, vr.target):
+                    vr.packages = pr.packages
+                    used.add(i)
+                    break
+            out.append(vr)
+        for i, pr in enumerate(pkg_results):
+            if i not in used:
+                out.append(pr)
+        return out
+
+    def _secret_results(self, detail) -> list:
+        out = []
+        for secret in detail.secrets:
+            out.append(Result(
+                target=secret.file_path,
+                class_=ResultClass.SECRET,
+                secrets=secret.findings,
+            ))
+        return out
