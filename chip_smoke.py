@@ -27,12 +27,7 @@ Builds the port's hand-written kernels (``trivy_tpu_torch/csrc``, one
    (``make_fused_sieve``, ``make_full_sieve``, ``run_blockmask``) run
    once each on the corpus batch and must equal the same functions
    built from the plain masks;
-3. slice phase: the corpus is written to a directory inside the
-   checkout and scanned with the port's ``fs`` entry (``scan_fs``) on
-   the card. Every planted file must report its rule, and a seeded
-   sample of files (plus every planted one) must have exactly the
-   findings of the CPU-exact scanner.
-4. vuln phase: a seeded trivy-db-shaped advisory store of 1,000,000
+3. vuln phase: a seeded trivy-db-shaped advisory store of 1,000,000
    rows (alpine, debian, ubuntu, rocky; npm, pip, maven, rubygems, go)
    is compiled into the port's ``CompiledDB`` and its tables go to the
    card once. A fleet of 2,000 SBOM-like package lists (Zipf-skewed
@@ -45,7 +40,7 @@ Builds the port's hand-written kernels (``trivy_tpu_torch/csrc``, one
    per-pair host truth. It prints compile, upload, host-prep, device
    and dispatch times, the interval match's ms against its bound (bytes
    gathered and moved), and numpy's ms on the same rows.
-5. sbom phase: two seeded CycloneDX image BOMs in the store's own
+4. sbom phase: two seeded CycloneDX image BOMs in the store's own
    package spelling (a ``debian 12`` image with npm, pip and go
    libraries; a ``rocky 9.2`` image with maven and rubygems ones) go
    through the ``sbom`` entry (``scan_sbom``, the default filters, the
@@ -57,6 +52,23 @@ Builds the port's hand-written kernels (``trivy_tpu_torch/csrc``, one
    a subprocess on the first BOM; its report must equal the
    in-process one. It prints each step's seconds, jobs and hits, and
    the device ops, busy ms and idle share of one profiled warm scan.
+5. fs phase: the corpus goes into a ``debian 12`` root (400 dpkg
+   packages, a ``package-lock.json`` of 1,500 npm packages, a
+   ``requirements.txt`` of 400 and a ``go.mod`` of 300, the store's
+   own names, Zipf-skewed) and the ``fs`` entry (``scan_fs``: walk,
+   analyzers, one ``dfa_blockmask`` sieve, prepare, one
+   ``dispatch_jobs``, finish; the default filters, the JSON writer)
+   scans it for vulnerabilities and secrets on the card, once cold and
+   three times warm, plus one profiled warm scan. Its vulnerabilities
+   must equal a numpy (``cpu-ref``) vuln-only scan's. The secret check
+   alone must report every planted file's rule and, on a seeded sample
+   of files, exactly the CPU-exact scanner's findings. An ``alpine
+   3.16`` rootfs (300 apk packages) must equal ``cpu-ref``; a reduced
+   tree (the OS root, the lockfiles and 512 corpus files) must give one
+   report on the card, ``cpu`` and ``cpu-ref``; and ``python -m
+   trivy_tpu_torch fs`` in a subprocess, on the sbom phase's npz, must
+   give the in-process report. It prints each step's seconds and the
+   ``dfa_blockmask`` launches of each path.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}``
 line (times from CUDA events, the bound this run's inputs give; the
@@ -318,8 +330,9 @@ def device_profile(fn) -> tuple:
     ops: dict = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            name = e.name.replace("void ", "").split("<")[0].split("(")[0] \
-                .strip()
+            name = e.name.replace("void ", "") \
+                .replace("(anonymous namespace)::", "") \
+                .split("<")[0].split("(")[0].strip()
             c = ops.setdefault(name, [0, 0.0])
             c[0] += 1
             c[1] += e.time_range.elapsed_us()
@@ -511,7 +524,7 @@ def kernel_phase(files: list, device) -> dict:
     from trivy_tpu_torch.ops.runs import run_hits
     from trivy_tpu_torch.secret.batch import BatchSecretScanner, _FileEntry
 
-    bs = BatchSecretScanner(device=device)
+    bs = BatchSecretScanner(backend="cuda")
     table = bs.table
     specs = tuple(bs.plan.run_specs)
     buf, _, _ = bs._segment([_FileEntry(p, c, i)
@@ -554,7 +567,7 @@ def kernel_phase(files: list, device) -> dict:
     adv = torch.from_numpy(adversarial_batch(512, L, SEED + 1)).to(device)
     max_err = max(max_err, check(adv, table, dev, specs,
                                  "random bytes")[0])
-    cs = BatchSecretScanner(scanner=custom_scanner(), device=device)
+    cs = BatchSecretScanner(scanner=custom_scanner(), backend="cuda")
     cdev = cs.table.device_tables(device)
     both = torch.cat([seg[:2048], adv])
     max_err = max(max_err, check(both, cs.table, cdev,
@@ -702,70 +715,6 @@ def literal_phase(batches: dict, device) -> dict:
             "fused_sieve_ms": fused_ms, "bound_ms": b_ms,
             "bound_by": b_by,
             "ops_per_position": code_blockmask_ops(seg[:1, :1], table)}
-
-
-def slice_phase(files: list, planted: dict, device, work_dir: str) \
-        -> dict:
-    from trivy_tpu_torch.cli import scan_fs
-    from trivy_tpu_torch.fs import secret_candidates
-    from trivy_tpu_torch.ops.dfa_cuda import dfa_blockmask
-    from trivy_tpu_torch.secret.batch import BatchSecretScanner
-    from trivy_tpu_torch.secret.scanner import new_scanner
-
-    for rel, content in files:
-        path = os.path.join(work_dir, rel)
-        os.makedirs(os.path.dirname(path), exist_ok=True)
-        with open(path, "wb") as f:
-            f.write(content)
-    scanner = BatchSecretScanner(device=device)
-
-    dfa_blockmask.launches = 0
-    t0 = time.perf_counter()
-    report = scan_fs(work_dir, scanner=scanner)
-    total = time.perf_counter() - t0
-    launches = dfa_blockmask.launches
-    if launches < 1:
-        raise AssertionError("the fs path launched no dfa_blockmask")
-    # the walk + gate + read alone, again (page cache now warm)
-    t0 = time.perf_counter()
-    secret_candidates(work_dir)
-    walk_warm = time.perf_counter() - t0
-
-    by_target = {r["Target"]: r["Secrets"]
-                 for r in report.get("Results", [])}
-    missing = [rel for rel, rule in planted.items()
-               if rule not in {f["RuleID"] for f in by_target.get(rel, [])}]
-    if missing:
-        raise AssertionError(f"planted secrets not reported: "
-                             f"{missing[:5]} ({len(missing)})")
-    exact = new_scanner()
-    rng = np.random.default_rng(SEED + 2)
-    pick = set(int(i) for i in rng.choice(len(files), SAMPLE,
-                                          replace=False))
-    pick |= {i for i, (rel, _) in enumerate(files) if rel in planted}
-    for i in sorted(pick):
-        rel, content = files[i]
-        found = exact.scan(rel, content).findings
-        found.sort(key=lambda f: (f.rule_id, f.start_line))
-        if [f.to_dict() for f in found] != by_target.get(rel, []):
-            raise AssertionError(f"{rel}: fs findings != exact scanner")
-
-    st = scanner.stats
-    n_bytes = sum(len(c) for _, c in files)
-    return {"files": len(files), "bytes": n_bytes,
-            "planted": len(planted), "checked_exact": len(pick),
-            "results": len(by_target), "launches": launches,
-            "total_s": total, "pack_s": st["pack_s"],
-            "h2d_s": st["h2d_s"],
-            "sieve_s": st["device_s"] - st["h2d_s"],
-            "decode_s": st["decode_s"], "verify_s": st["verify_s"],
-            "walk_read_s": total - st["pack_s"] - st["device_s"]
-            - st["decode_s"] - st["verify_s"],
-            "walk_read_warm_s": walk_warm,
-            "overflow": st["overflow"], "segments": st["segments"],
-            "files_gated": st["files_gated"],
-            "files_per_s": len(files) / total,
-            "mb_per_s": n_bytes / total / 1e6}
 
 
 # --- the vulnerability match ------------------------------------------
@@ -1240,6 +1189,106 @@ def make_bom(image: tuple, n_pkgs: dict, seed: int,
             "components": comps, "dependencies": deps}
 
 
+# the fs phase's trees: (OS family, version, advisory bucket, grammar,
+# OS packages, [(application type, path, bucket, grammar,
+# libraries)]); names and versions are the store's own
+FS_ROOTS = {
+    "fs": ("debian", "12", "debian 12", "deb", 400, (
+        ("npm", "srv/app/package-lock.json",
+         "npm::GitHub Security Advisory npm", "npm", 1500),
+        ("pip", "srv/app/requirements.txt",
+         "pip::GitHub Security Advisory pip", "pep440", 400),
+        ("gomod", "srv/app/go.mod", "go::GitHub Security Advisory Go",
+         "semver", 300))),
+    "rootfs": ("alpine", "3.16.2", "alpine 3.16", "apk", 300, ()),
+}
+
+
+def make_fs_tree(root: str, tree: tuple, n_pkgs: dict, seed: int,
+                 scale: float = 1.0, files=()) -> None:
+    """Write a scan tree under ``root``: the release files and package
+    database of ``tree``'s distro (``var/lib/dpkg/status`` or
+    ``lib/apk/db/installed``), its lockfiles (``package-lock.json``
+    v2, ``requirements.txt``, ``go.mod``) and ``files``
+    ([(rel_path, content)], e.g. the secret corpus). Packages are drawn
+    as ``make_bom`` draws them; counts are ``tree``'s times ``scale``
+    (at least 1 each)."""
+    family, os_ver, bucket, grammar, n_os, apps = tree
+    rng = np.random.default_rng(seed)
+
+    def count(n: int) -> int:
+        return max(1, round(n * scale))
+
+    def put(rel: str, data) -> None:
+        path = os.path.join(root, rel)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "wb") as f:
+            f.write(data.encode() if isinstance(data, str) else data)
+
+    def draw(bkt: str, gr: str, n: int, prefix: str) -> list:
+        return [(f"{prefix}-{gr}-{p}",
+                 installed_version(gr, bkt, p, int(rng.integers(0, 4))),
+                 p) for p in _zipf_unique(rng, n_pkgs[bkt], count(n))]
+
+    pkgs = draw(bucket, grammar, n_os, "os")
+    if family == "debian":
+        put("etc/os-release", f'PRETTY_NAME="Debian GNU/Linux {os_ver} '
+            f'(bookworm)"\nNAME="Debian GNU/Linux"\n'
+            f'VERSION_ID="{os_ver}"\nVERSION="{os_ver} (bookworm)"\n'
+            f"ID=debian\n")
+        put("etc/debian_version", f"{os_ver}.5\n")
+        paras = []
+        for i, (name, ver, p) in enumerate(pkgs):
+            lines = [f"Package: {name}", "Status: install ok installed",
+                     "Priority: optional", "Architecture: amd64"]
+            if p % 4 == 0:
+                lines.append(f"Source: {name}-src ({ver})")
+            lines.append(f"Version: {ver}")
+            if i and p % 3 == 0:
+                lines.append(f"Depends: {pkgs[i - 1][0]} (>= 1.0), "
+                             f"libc6")
+            lines.append(f"Description: package {p}")
+            paras.append("\n".join(lines))
+        put("var/lib/dpkg/status", "\n\n".join(paras) + "\n")
+    else:
+        put("etc/alpine-release", os_ver + "\n")
+        put("etc/os-release", f'NAME="Alpine Linux"\nID=alpine\n'
+            f"VERSION_ID={os_ver}\n")
+        put("etc/apk/repositories", "https://dl-cdn.alpinelinux.org/"
+            f"alpine/v{os_ver.rsplit('.', 1)[0]}/main\n")
+        paras = []
+        for i, (name, ver, p) in enumerate(pkgs):
+            dep = f"D:so:lib{pkgs[i - 1][2]}.so\n" if i and p % 3 == 0 \
+                else ""
+            paras.append(f"C:Q1{p:027d}=\nP:{name}\nV:{ver}\nA:x86_64\n"
+                         f"o:{name}\nL:MIT\n{dep}p:so:lib{p}.so\n"
+                         f"F:usr/lib\nR:lib{p}.so\n")
+        put("lib/apk/db/installed", "\n".join(paras))
+    for atype, path, abucket, agrammar, n_libs in apps:
+        libs = draw(abucket, agrammar, n_libs, "lib")
+        if atype == "npm":
+            packages = {"": {"name": "app", "version": "1.0.0"}}
+            for name, ver, p in libs:
+                meta = {"version": ver, "resolved": "https://registry."
+                        f"example/{name}/-/{name}-{ver}.tgz"}
+                if p % 5 == 0:
+                    meta["dev"] = True
+                packages[f"node_modules/{name}"] = meta
+            put(path, json.dumps({"name": "app", "version": "1.0.0",
+                                  "lockfileVersion": 2, "requires": True,
+                                  "packages": packages}, indent=2))
+        elif atype == "pip":
+            put(path, "".join(f"{name}=={ver}\n"
+                              for name, ver, _ in libs))
+        else:
+            put(path, "module example.com/app\n\ngo 1.20\n\nrequire (\n"
+                + "".join(f"\t{name} {ver}"
+                          + (" // indirect" if p % 3 == 0 else "") + "\n"
+                          for name, ver, p in libs) + ")\n")
+    for rel, content in files:
+        put(rel, content)
+
+
 def scan_bom(path: str, db, backend: str) -> tuple:
     """One ``sbom`` scan as ``python -m trivy_tpu_torch sbom PATH
     --format json`` makes it: ``scan_sbom``, the default filters, the
@@ -1261,6 +1310,215 @@ def scan_bom(path: str, db, backend: str) -> tuple:
 
 def _sorted_json(text: str) -> str:
     return json.dumps(json.loads(text), sort_keys=True)
+
+
+FS_WARM = 3
+FS_REDUCED = 512                # corpus files of the cross-backend tree
+
+
+def scan_tree(root: str, db, backend: str, scanner,
+              checks=("vuln", "secret")) -> tuple:
+    """One filesystem scan as ``python -m trivy_tpu_torch fs ROOT
+    --format json`` makes it: ``scan_fs``, the default filters, the
+    JSON writer. Returns (report text, step seconds, stats)."""
+    from trivy_tpu_torch import __version__
+    from trivy_tpu_torch.cli import filter_report, scan_fs
+    from trivy_tpu_torch.report.writer import write_report
+    steps, stats = {}, {}
+    t0 = time.perf_counter()
+    report = scan_fs(root, db, backend, security_checks=checks,
+                     scanner=scanner, timings=steps, stats=stats)
+    t1 = time.perf_counter()
+    filter_report(report)
+    buf = io.StringIO()
+    write_report(report, fmt="json", output=buf, app_version=__version__)
+    t2 = time.perf_counter()
+    steps.update(filter_write_s=t2 - t1, total_s=t2 - t0)
+    return buf.getvalue(), steps, stats
+
+
+def _results(text: str, *classes: str) -> str:
+    """The report's Results of ``classes``, as sorted JSON."""
+    return json.dumps([r for r in json.loads(text).get("Results", [])
+                       if r["Class"] in classes], sort_keys=True)
+
+
+def _fs_steps(steps: dict, stats: dict) -> dict:
+    """A scan's seconds by step, the secret sieve's split by its
+    ``BatchSecretScanner.stats``."""
+    sec = stats.get("secret", {})
+    return {"walk_analyze_s": steps["walk_analyze_s"],
+            "secret_s": steps["secret_s"],
+            **{f"secret_{k}": sec.get(k, 0.0)
+               for k in ("pack_s", "h2d_s", "device_s", "decode_s",
+                         "verify_s")},
+            "prepare_s": steps["prepare_s"],
+            "dispatch_s": steps["dispatch_s"],
+            "dispatch_device_s": stats.get("device_s", 0.0),
+            "finish_s": steps["finish_s"],
+            "filter_write_s": steps["filter_write_s"],
+            "total_s": steps["total_s"]}
+
+
+def fs_phase(device, cdb, n_pkgs: dict, files: list, planted: dict,
+             work_dir: str, db_path: str) -> dict:
+    """The ``fs`` entry (``scan_fs``: walk, analyzers, one secret sieve,
+    prepare, one ``dispatch_jobs``, finish) on the vuln phase's DB. The
+    full tree (a ``debian 12`` root with its lockfiles and the whole
+    corpus) once cold (tables dropped first) and ``FS_WARM`` times warm
+    on the card, plus one profiled warm scan; its vulnerabilities must
+    equal a ``cpu-ref`` vuln-only scan's. Then the secret check alone
+    (every planted secret found, a sample equal to the exact scanner),
+    the ``alpine 3.16`` rootfs (equal to ``cpu-ref``), the reduced tree
+    (the OS root, the lockfiles and ``FS_REDUCED`` corpus files) equal
+    on the card, ``cpu`` and ``cpu-ref``, and the CLI in a subprocess
+    on the reduced tree with the sbom phase's npz. ``dfa_blockmask``
+    launches are counted per path."""
+    from trivy_tpu_torch.cli import secret_scanner
+    from trivy_tpu_torch.ops.dfa_cuda import dfa_blockmask
+    from trivy_tpu_torch.secret.scanner import new_scanner
+    backend = device.type
+    t_phase = time.perf_counter()
+    out: dict = {}
+    full = os.path.join(work_dir, "fs-full")
+    t0 = time.perf_counter()
+    make_fs_tree(full, FS_ROOTS["fs"], n_pkgs, SEED + 20, files=files)
+    out["make_s"] = time.perf_counter() - t0
+    scanners = {b: secret_scanner(backend=b)
+                for b in (backend, "cpu", "cpu-ref")}
+    card = scanners[backend]
+    launches = {}
+
+    cdb.invalidate_device()
+    dfa_blockmask.launches = 0
+    text, cold, cold_stats = scan_tree(full, cdb, backend, card)
+    launches["fs"] = dfa_blockmask.launches
+    if launches["fs"] < 1:
+        raise AssertionError("the fs path launched no dfa_blockmask")
+    warm = [scan_tree(full, cdb, backend, card) for _ in range(FS_WARM)]
+    (ptext, _, _), ops, wall_ms = device_profile(
+        lambda: scan_tree(full, cdb, backend, card))
+    want = _sorted_json(text)
+    if any(_sorted_json(t) != want for t in [w[0] for w in warm] + [ptext]):
+        raise AssertionError("the card's fs scans disagree")
+    doc = json.loads(text)
+    classes = {r["Class"] for r in doc.get("Results", [])
+               if r.get("Vulnerabilities") or r.get("Secrets")}
+    if classes != {"os-pkgs", "lang-pkgs", "secret"}:
+        raise AssertionError(f"fs findings only in {sorted(classes)}")
+    vtext, vsteps, _ = scan_tree(full, cdb, "cpu-ref", None,
+                                 checks=("vuln",))
+    if _results(vtext, "os-pkgs", "lang-pkgs") != \
+            _results(text, "os-pkgs", "lang-pkgs"):
+        raise AssertionError("the card's fs vulnerabilities != cpu-ref's")
+    n_ops, busy_ms = op_totals(ops)
+    sec = cold_stats["secret"]
+    out["full"] = {
+        "files": sec["files_total"], "bytes": sec["bytes_total"],
+        "segments": sec["segments"], "files_gated": sec["files_gated"],
+        "overflow": sec["overflow"],
+        "jobs_in": cold_stats["jobs_in"],
+        "jobs_unique": cold_stats["jobs_unique"],
+        "hits": cold_stats["hits"],
+        "vulnerabilities": sum(len(r.get("Vulnerabilities", []))
+                               for r in doc.get("Results", [])),
+        "secret_results": sum(1 for r in doc.get("Results", [])
+                              if r["Class"] == "secret"),
+        "cold": _fs_steps(cold, cold_stats),
+        "warm": [_fs_steps(w[1], w[2]) for w in warm],
+        "cpu_ref_vuln_only_s": vsteps["total_s"],
+        "profiled_scan": {"device_ops": n_ops, "device_ms": busy_ms,
+                          "wall_ms": wall_ms,
+                          "device_idle_share": 1 - busy_ms / wall_ms,
+                          "ops_us": ops}}
+
+    # the secret check alone: the checks of the earlier slice phase
+    dfa_blockmask.launches = 0
+    stext, ssteps, sstats = scan_tree(full, None, backend, card,
+                                      checks=("secret",))
+    launches["fs_secret"] = dfa_blockmask.launches
+    if launches["fs_secret"] < 1:
+        raise AssertionError("the secret-only fs path launched no "
+                             "dfa_blockmask")
+    # the timed vuln+secret scans report what this checked scan does
+    if _results(stext, "secret") != _results(text, "secret"):
+        raise AssertionError("the fs scan's secrets != the secret-only "
+                             "scan's")
+    by_target = {r["Target"]: r["Secrets"]
+                 for r in json.loads(stext).get("Results", [])}
+    missing = [rel for rel, rule in planted.items()
+               if rule not in {f["RuleID"] for f in by_target.get(rel, [])}]
+    if missing:
+        raise AssertionError(f"planted secrets not reported: "
+                             f"{missing[:5]} ({len(missing)})")
+    exact = new_scanner()
+    rng = np.random.default_rng(SEED + 2)
+    pick = set(int(i) for i in rng.choice(len(files), SAMPLE,
+                                          replace=False))
+    pick |= {i for i, (rel, _) in enumerate(files) if rel in planted}
+    for i in sorted(pick):
+        rel, content = files[i]
+        found = exact.scan(rel, content).findings
+        found.sort(key=lambda f: (f.rule_id, f.start_line))
+        if [f.to_dict() for f in found] != by_target.get(rel, []):
+            raise AssertionError(f"{rel}: fs findings != exact scanner")
+    out["secret_only"] = {**_fs_steps(ssteps, sstats),
+                          "planted": len(planted),
+                          "checked_exact": len(pick),
+                          "results": len(by_target),
+                          "files_per_s": sstats["secret"]["files_total"]
+                          / ssteps["total_s"],
+                          "mb_per_s": sstats["secret"]["bytes_total"]
+                          / ssteps["total_s"] / 1e6}
+
+    # rootfs: an alpine root
+    rootfs = os.path.join(work_dir, "rootfs")
+    make_fs_tree(rootfs, FS_ROOTS["rootfs"], n_pkgs, SEED + 21)
+    dfa_blockmask.launches = 0
+    rtext, rsteps, rstats = scan_tree(rootfs, cdb, backend, card)
+    launches["rootfs"] = dfa_blockmask.launches
+    if _sorted_json(rtext) != _sorted_json(
+            scan_tree(rootfs, cdb, "cpu-ref", scanners["cpu-ref"])[0]):
+        raise AssertionError("rootfs: the card's report != cpu-ref's")
+    if '"Class": "os-pkgs"' not in rtext or \
+            '"VulnerabilityID"' not in rtext:
+        raise AssertionError("rootfs: no OS vulnerabilities")
+    out["rootfs"] = {**_fs_steps(rsteps, rstats),
+                     "jobs_in": rstats["jobs_in"], "hits": rstats["hits"]}
+
+    # the reduced tree on every backend, whole reports
+    reduced = os.path.join(work_dir, "fs-reduced")
+    make_fs_tree(reduced, FS_ROOTS["fs"], n_pkgs, SEED + 20,
+                 files=files[:FS_REDUCED])
+    dfa_blockmask.launches = 0
+    red = {b: scan_tree(reduced, cdb, b, scanners[b])
+           for b in (backend, "cpu", "cpu-ref")}
+    launches["reduced"] = dfa_blockmask.launches
+    texts = {b: _sorted_json(r[0]) for b, r in red.items()}
+    if len(set(texts.values())) != 1:
+        raise AssertionError("reduced tree: cuda, cpu and cpu-ref differ")
+    out["reduced"] = {b: r[1]["total_s"] for b, r in red.items()}
+
+    # the real entry point in a new process, on the sbom phase's npz
+    report_path = os.path.join(work_dir, "fs.report.json")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "trivy_tpu_torch", "fs", reduced,
+         "--compiled-db", db_path, "--backend", backend,
+         "--format", "json", "--output", report_path],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        capture_output=True, text=True, timeout=600)
+    out["cli_wall_s"] = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"fs CLI exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    with open(report_path) as f:
+        if _sorted_json(f.read()) != texts[backend]:
+            raise AssertionError("the fs CLI's report != the in-process "
+                                 "report")
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
 
 
 def sbom_phase(device, cdb, n_pkgs: dict, work_dir: str) -> dict:
@@ -1366,6 +1624,7 @@ def main() -> int:
         return 2
     from trivy_tpu_torch.ops import dfa_cuda, keywords_cuda
 
+    t_script = time.perf_counter()
     device = torch.device("cuda")
     print(gpu_line(), flush=True)
     t0 = time.perf_counter()
@@ -1395,22 +1654,23 @@ def main() -> int:
     lit = literal_phase(batches, device)
     del batches
     print("literal-sieve phase: " + json.dumps(lit), flush=True)
-    os.makedirs(dfa_cuda.BUILD_DIR, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=dfa_cuda.BUILD_DIR) as work:
-        sl = slice_phase(files, planted, device, work)
-    print("slice phase: " + json.dumps(sl), flush=True)
     vuln, cdb, n_pkgs = vuln_phase(device)
     print("vuln phase: " + json.dumps(vuln), flush=True)
+    os.makedirs(dfa_cuda.BUILD_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=dfa_cuda.BUILD_DIR) as work:
         sb = sbom_phase(device, cdb, n_pkgs, work)
-    print("sbom phase: " + json.dumps(sb), flush=True)
+        print("sbom phase: " + json.dumps(sb), flush=True)
+        fs = fs_phase(device, cdb, n_pkgs, files, planted, work,
+                      os.path.join(work, "cdb"))
+    print("fs phase: " + json.dumps(fs), flush=True)
 
     note = "no single PyTorch call computes this function"
     kernels = [{
         "name": "dfa_blockmask", "route": "cuda",
         "source": "trivy_tpu_torch/csrc/dfa_blockmask.cu",
         "replaces": "trivy_tpu/ops/dfa_pallas.py:211",
-        "launches": sl["launches"], "max_abs_err": kern["max_abs_err"],
+        "launches": sum(fs["launches"].values()),
+        "max_abs_err": kern["max_abs_err"],
         "ms": kern["ms"], "plain_ms": kern["plain_ms"],
         "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
         "library_ms": None, "tolerance": "exact equality",
@@ -1424,10 +1684,9 @@ def main() -> int:
         "bound_ms": lit["bound_ms"], "bound_by": lit["bound_by"],
         "library_ms": None, "tolerance": "exact equality", "note": note,
     }]
-    phases = {k: sl[k] for k in ("total_s", "pack_s", "h2d_s", "sieve_s",
-                                 "decode_s", "verify_s", "walk_read_s",
-                                 "files_per_s", "mb_per_s")}
-    print("phases: " + json.dumps(phases), flush=True)
+    print("fs scan, warm, by step: " + json.dumps(fs["full"]["warm"][-1]),
+          flush=True)
+    print(f"script: {time.perf_counter() - t_script:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,7 +3,7 @@ the class-run gate fused into its launch) and ``code_blockmask``
 kernels against their plain PyTorch versions, the fused sieves, the
 literal-code entry points, a batch scan and an fs scan; the interval
 match and the pair dispatcher against their numpy versions; the
-``sbom`` entry's report against the CPU's.
+``sbom``, ``fs`` and ``rootfs`` entries' reports against the CPU's.
 Every output is an integer mask or an exact finding, so every
 comparison is exact equality.
 
@@ -51,7 +51,7 @@ def cuda():
 
 @pytest.fixture(scope="module")
 def scanner(cuda):
-    return BatchSecretScanner(device=cuda)
+    return BatchSecretScanner(backend="cuda")
 
 
 def _batch(seed: int, B: int, L: int) -> np.ndarray:
@@ -197,10 +197,10 @@ def test_fs_scan_launches_once_and_runs_no_torch_run_hits(
         (tmp_path / f"f{i}.env").write_bytes(
             b"x = 1\n" * i + b"GITHUB_TOKEN=ghp_" + b"A" * 36 + b"\n")
     before = dfa_blockmask.launches
-    report = scan_fs(str(tmp_path),
-                     scanner=BatchSecretScanner(device=cuda))
+    report = scan_fs(str(tmp_path), security_checks=("secret",),
+                     scanner=BatchSecretScanner(backend="cuda"))
     assert dfa_blockmask.launches == before + 1
-    assert len(report["Results"]) == 20
+    assert len(report.results) == 20
 
 
 def test_fused_sieve_and_lowered_cap(cuda, scanner, monkeypatch):
@@ -233,7 +233,7 @@ def test_batch_scan_on_the_card_equals_the_cpu(cuda, scanner):
     before = dfa_blockmask.launches
     got = scanner.scan_files(files)
     assert dfa_blockmask.launches > before
-    want = BatchSecretScanner(device="cpu").scan_files(files)
+    want = BatchSecretScanner(backend="cpu").scan_files(files)
     assert sorted((i, s.to_dict()) for i, s in got) == \
         sorted((i, s.to_dict()) for i, s in want)
     assert len(got) == 41
@@ -242,12 +242,12 @@ def test_batch_scan_on_the_card_equals_the_cpu(cuda, scanner):
 def test_overflow_scan_launches_once(cuda, monkeypatch):
     monkeypatch.setattr(keywords, "SIEVE_CAP", 8)
     files = [(f"f{i}", b"pad " * i + TOKENS[1] + b"\n") for i in range(30)]
-    scanner = BatchSecretScanner(device=cuda)
+    scanner = BatchSecretScanner(backend="cuda")
     before = dfa_blockmask.launches
     got = scanner.scan_files(files)
     assert scanner.stats["overflow"] is True
     assert dfa_blockmask.launches == before + 1
-    want = BatchSecretScanner(device="cpu").scan_files(files)
+    want = BatchSecretScanner(backend="cpu").scan_files(files)
     assert sorted((i, s.to_dict()) for i, s in got) == \
         sorted((i, s.to_dict()) for i, s in want)
     assert len(got) == 30
@@ -474,3 +474,34 @@ def test_sbom_on_the_card_equals_the_cpu(cuda, tmp_path, monkeypatch):
             assert got["cuda"] == got["cpu"] == got["cpu-ref"]
             assert '"Class": "os-pkgs"' in got["cuda"]
             assert '"VulnerabilityID"' in got["cuda"]
+
+
+def test_fs_on_the_card_equals_the_cpu(cuda, tmp_path, monkeypatch):
+    """The ``fs`` and ``rootfs`` entries on seeded trees (a debian root
+    with lockfiles and planted secrets, an alpine root) against a
+    20,000-row DB, compiled and as a plain store: the card's filtered
+    report equals the CPU's and numpy's, and each scan launches
+    ``dfa_blockmask`` once."""
+    from chip_smoke import (FS_ROOTS, make_advisory_store, make_corpus,
+                            make_fs_tree)
+    from trivy_tpu_torch.cli import filter_report, scan_fs, secret_scanner
+    monkeypatch.chdir(tmp_path)
+    store, n_pkgs = make_advisory_store(20000, 5)
+    cdb = CompiledDB.compile(store)
+    corpus, planted = make_corpus(64, 9)
+    scanners = {b: secret_scanner(backend=b)
+                for b in ("cuda", "cpu", "cpu-ref")}
+    for kind, files in (("fs", corpus), ("rootfs", ())):
+        root = str(tmp_path / kind)
+        make_fs_tree(root, FS_ROOTS[kind], n_pkgs, 70, 0.1, files=files)
+        for db in (cdb, store):
+            before = dfa_blockmask.launches
+            got = {b: json.dumps(filter_report(scan_fs(
+                root, db, b, scanner=scanners[b])).to_dict(),
+                sort_keys=True) for b in ("cuda", "cpu", "cpu-ref")}
+            assert dfa_blockmask.launches == before + 1
+            assert got["cuda"] == got["cpu"] == got["cpu-ref"]
+            assert '"Class": "os-pkgs"' in got["cuda"]
+            assert '"VulnerabilityID"' in got["cuda"]
+            if kind == "fs" and planted:
+                assert '"Class": "secret"' in got["cuda"]

@@ -338,7 +338,9 @@ _UUID = re.compile(r"[0-9a-f]{8}-[0-9a-f]{4}-4[0-9a-f]{3}-[89ab][0-9a-f]{3}"
 def _normalized(text: str, fmt: str) -> str:
     """The report as sorted JSON; for cyclonedx with the timestamp and
     tool version blanked and each random serial renamed by order of
-    first appearance."""
+    first appearance; a table as it is."""
+    if fmt == "table":
+        return text
     doc = json.loads(text)
     if fmt == "cyclonedx":
         doc["metadata"]["timestamp"] = "T"
@@ -409,9 +411,10 @@ def _db_args(inputs, kind: str, small: bool) -> list:
 
 
 def _compare(inputs, target: str, db_args: list, fmt: str, flags: list,
-             tmp_path, monkeypatch) -> dict:
-    """Run both packages' ``sbom`` on one input and hold every port
-    backend's report and exit code to the reference's."""
+             tmp_path, monkeypatch) -> str:
+    """Run both packages' ``sbom`` on one input, hold every port
+    backend's report and exit code to the reference's, and return the
+    normalized report."""
     monkeypatch.setattr(yaml, "safe_load", _fast_yaml(yaml.safe_load))
     monkeypatch.chdir(tmp_path)
     common = ["sbom", target, "--format", fmt] + db_args + flags
@@ -425,7 +428,7 @@ def _compare(inputs, target: str, db_args: list, fmt: str, flags: list,
         tcode, out = _run(tmain, common + ["--backend", backend])
         assert tcode == rcode
         assert _normalized(out, fmt) == want
-    return json.loads(want)
+    return want
 
 
 def _vuln_ids(report: dict, fmt: str) -> list:
@@ -440,8 +443,9 @@ def _vuln_ids(report: dict, fmt: str) -> list:
 @pytest.mark.parametrize("doc", ["cdx", "spdx"])
 def test_sbom_fixture_documents_equal_reference(inputs, doc, kind, fmt,
                                                 tmp_path, monkeypatch):
-    report = _compare(inputs, inputs[doc], _db_args(inputs, kind, True),
-                      fmt, [], tmp_path, monkeypatch)
+    report = json.loads(_compare(inputs, inputs[doc],
+                                 _db_args(inputs, kind, True), fmt, [],
+                                 tmp_path, monkeypatch))
     assert _vuln_ids(report, fmt) == ["CVE-2019-14697", "CVE-2099-0001"]
 
 
@@ -469,6 +473,9 @@ SEEDED_CASES = [
     (3, "fixtures", "json", ["--list-all-pkgs", "--vuln-type", "library"]),
     (4, "compiled", "json", ["--exit-code", "5", "--severity", "LOW"]),
     (4, "fixtures", "cyclonedx", ["--list-all-pkgs"]),
+    (0, "compiled", "table", []),
+    (2, "compiled", "table", ["--dependency-tree", "--severity",
+                              "CRITICAL,LOW"]),
 ]
 
 
@@ -478,15 +485,18 @@ def test_sbom_seeded_boms_equal_reference(inputs, bom, kind, fmt, flags,
     report = _compare(inputs, inputs[f"bom{bom}"],
                       _db_args(inputs, kind, False), fmt, flags, tmp_path,
                       monkeypatch)
-    assert _vuln_ids(report, fmt)
+    if fmt == "table":
+        assert "Total: " in report
+    else:
+        assert _vuln_ids(json.loads(report), fmt)
 
 
 def test_sbom_ignorefile_is_read_from_the_current_directory(
         inputs, tmp_path, monkeypatch):
     (tmp_path / ".trivyignore").write_text("CVE-2019-14697\n")
-    report = _compare(inputs, inputs["cdx"],
-                      _db_args(inputs, "compiled", True), "json", [],
-                      tmp_path, monkeypatch)
+    report = json.loads(_compare(inputs, inputs["cdx"],
+                                 _db_args(inputs, "compiled", True), "json",
+                                 [], tmp_path, monkeypatch))
     assert _vuln_ids(report, "json") == ["CVE-2099-0001"]
 
 
@@ -502,7 +512,7 @@ def test_sbom_entry_defaults_and_errors(inputs, tmp_path, monkeypatch):
     # formats still to be ported fail cleanly, naming the ROADMAP item
     err = io.StringIO()
     with contextlib.redirect_stderr(err):
-        code, _ = _run(tmain, ["sbom", inputs["cdx"], "--format", "table",
+        code, _ = _run(tmain, ["sbom", inputs["cdx"], "--format", "spdx",
                                "--backend", "cpu"])
     assert code == 1 and "ROADMAP" in err.getvalue()
     # the card by default: without one it raises before any work
@@ -527,7 +537,7 @@ def test_unported_checks_raise(inputs, check):
 
 
 @pytest.mark.parametrize("argv,error", [
-    (["--format", "table", "--backend", "cpu"], None),
+    (["--format", "spdx", "--backend", "cpu"], None),
     (["--format", "sarif"], None),
     ([], RuntimeError)])
 def test_sbom_entry_refuses_before_loading_the_db(inputs, argv, error,

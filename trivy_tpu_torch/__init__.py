@@ -29,8 +29,8 @@ def resolve_device(device=None) -> torch.device:
     dev = torch.device(DEFAULT_DEVICE if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "CUDA is not available; pass device='cpu' (or "
-            "--device cpu) to run the plain PyTorch path on the CPU")
+            "CUDA is not available; pass backend='cpu' (or "
+            "--backend cpu) to run the plain PyTorch path on the CPU")
     return dev
 
 

@@ -41,7 +41,7 @@ import numpy as np
 import torch
 
 from . import keywords
-from .keywords import CODE_CHUNK, MAX_CODE_LEN, pack_code
+from .keywords import CODE_CHUNK, MAX_CODE_LEN, N_BLOCKS, pack_code
 from .resident import ResidentTables
 from .runs import RunSpec
 
@@ -559,6 +559,83 @@ def build_table(literals, chains) -> DfaTable:
 
 
 # ---------------------------------------------------------------------
+# NumPy reference (the cpu-ref backend of secret.batch)
+# ---------------------------------------------------------------------
+
+def dfa_masks_host(segments: np.ndarray, table: DfaTable) \
+        -> np.ndarray:
+    """[B, L] uint8 → [B, n_patterns] uint32 blockmasks in numpy: the
+    same masks as the kernel and ``dfa_masks_torch``."""
+    B, L = segments.shape
+    blk = L // N_BLOCKS
+    bitvals = (np.uint32(1) << np.arange(N_BLOCKS, dtype=np.uint32))
+
+    x = segments.astype(np.uint32)
+    xl = np.where((x >= 65) & (x <= 90), x + 32, x)
+
+    def shl(a, k):
+        return a if k == 0 else \
+            np.pad(a[:, k:], ((0, 0), (0, k)))
+
+    def shr(a, k):
+        return a if k == 0 else \
+            np.pad(a[:, :-k], ((0, 0), (k, 0)))
+
+    sh = [shl(xl, i) for i in range(8)]
+    lo = sh[0] | sh[1] << 8 | sh[2] << 16 | sh[3] << 24
+    hi = sh[4] | sh[5] << 8 | sh[6] << 16 | sh[7] << 24
+    nch = table.max_chunks
+    lo_sh = [shl(lo, 8 * j) for j in range(nch)]
+    hi_sh = [shl(hi, 8 * j) for j in range(nch)]
+
+    def blockmask(hits):
+        hb = hits.reshape(B, N_BLOCKS, blk).any(axis=2)
+        return (hb.astype(np.uint32) * bitvals).sum(
+            axis=1, dtype=np.uint32)
+
+    def lit_pred(data):
+        p = None
+        for j in range(-(-len(data) // MAX_CODE_LEN)):
+            part = data[j * MAX_CODE_LEN:(j + 1) * MAX_CODE_LEN]
+            klo, khi, mlo, mhi = pack_code(part)
+            cmp = ((lo_sh[j] & np.uint32(mlo)) == np.uint32(klo)) \
+                & ((hi_sh[j] & np.uint32(mhi)) == np.uint32(khi))
+            p = cmp if p is None else p & cmp
+        return p
+
+    out = np.zeros((B, table.n_patterns), np.uint32)
+    for col, lit in enumerate(table.literals):
+        out[:, col] = blockmask(lit_pred(lit))
+
+    xi = segments.astype(np.int32)
+    for ci, units in enumerate(table.chains):
+        K = chain_len(units)
+        acc = None
+        off = 0
+        for u in units:
+            if u[0] == "lit":
+                pred = lit_pred(u[1])
+                ulen = len(u[1])
+            else:
+                _, ranges, n = u
+                m = np.zeros(xi.shape, bool)
+                for a, b in ranges:
+                    m |= (xi >= a) & (xi <= b)
+                e = m
+                span = 1
+                while span < n:
+                    step = min(span, n - span)
+                    e = e & shl(e, step)
+                    span += step
+                pred, ulen = e, n
+            pred = shr(pred, K - 1 - off)
+            acc = pred if acc is None else acc & pred
+            off += ulen
+        out[:, len(table.literals) + ci] = blockmask(acc)
+    return out
+
+
+# ---------------------------------------------------------------------
 # the sieve: ONE pass over a device-resident segment buffer
 # ---------------------------------------------------------------------
 
@@ -613,5 +690,5 @@ def compact(masks: torch.Tensor) -> tuple:
 __all__ = [
     "MAX_LIT_BYTES", "MAX_CHAIN_LEN", "DfaTable", "build_table",
     "best_fixed_chain", "chain_units", "chain_len", "full_sieve",
-    "fused_sieve", "compact",
+    "fused_sieve", "compact", "dfa_masks_host",
 ]

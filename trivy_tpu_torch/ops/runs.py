@@ -13,6 +13,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 
@@ -70,3 +71,23 @@ def run_hits(segments: torch.Tensor, specs: tuple) -> torch.Tensor:
         return torch.zeros((segments.shape[0], 0), dtype=torch.bool,
                            device=segments.device)
     return torch.stack(cols, dim=1)
+
+
+def run_hits_host(segments: np.ndarray, specs: tuple) -> np.ndarray:
+    """NumPy reference of ``run_hits`` (the cpu-ref backend)."""
+    B, L = segments.shape
+    out = np.zeros((B, len(specs)), bool)
+    x = segments.astype(np.int32)
+    for si, spec in enumerate(specs):
+        m = np.zeros_like(x, bool)
+        for lo, hi in spec.ranges:
+            m |= (x >= lo) & (x <= hi)
+        e = m
+        span = 1
+        while span < spec.runlen:
+            step = min(span, spec.runlen - span)
+            shifted = np.pad(e[:, step:], ((0, 0), (0, step)))
+            e = e & shifted
+            span += step
+        out[:, si] = e.any(axis=1)
+    return out

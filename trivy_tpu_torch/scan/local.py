@@ -61,6 +61,16 @@ class PreparedScan:
     pkg_results: list
 
 
+def check_security_checks(checks) -> None:
+    """Raise ``NotImplementedError`` for a check whose results are
+    still to be ported."""
+    for check, item in _UNPORTED_CHECKS.items():
+        if check in checks:
+            raise NotImplementedError(
+                f"the {check!r} check is not ported yet "
+                f"(ROADMAP {item})")
+
+
 class LocalScanner:
     """``store`` is an ``AdvisoryStore`` (classic ``PairJob``s) or a
     ``CompiledDB`` (``ResidentPairJob``s on its resident tables)."""
@@ -76,11 +86,7 @@ class LocalScanner:
         """ApplyLayers + advisory name-join → pair jobs. No device
         work happens here, so a caller can merge many targets' jobs
         into one dispatch."""
-        for check, item in _UNPORTED_CHECKS.items():
-            if check in options.security_checks:
-                raise NotImplementedError(
-                    f"the {check!r} check is not ported yet "
-                    f"(ROADMAP {item})")
+        check_security_checks(options.security_checks)
         blobs = [self.cache.get_blob(b) for b in target.blob_ids]
         detail = apply_layers(blobs)
 

@@ -33,12 +33,14 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..ops.dfa import compact, full_sieve
+from ..ops.dfa import compact, dfa_masks_host, full_sieve
 from ..ops.keywords import MAX_CODE_LEN, N_BLOCKS, pad_batch
+from ..ops.runs import run_hits_host
 from .plan import ScanPlan, build_scan_plan
 from .scanner import Scanner, new_scanner
 
 SEG_LEN = 2048       # segment length in bytes
+BACKENDS = ("cuda", "cpu", "cpu-ref")
 OVERLAP = 16         # floor; raised to the plan's min_overlap
 
 _BUILTIN_RULES_FP = [None]
@@ -93,12 +95,20 @@ class _FileEntry:
 
 class BatchSecretScanner:
     """Scans many files per sieve dispatch. API mirrors Scanner.scan
-    but over a batch; results are CPU-engine-identical. Runs on
-    ``device`` (``cuda`` unless the caller names another)."""
+    but over a batch; results are CPU-engine-identical.
+
+    ``backend`` (the reference's ``tpu``/``cpu``/``cpu-ref``): ``cuda``
+    (the default) runs the fused kernel launch on the card, ``cpu``
+    the plain PyTorch sieve on the CPU, ``cpu-ref`` the numpy sieve."""
 
     def __init__(self, scanner: Optional[Scanner] = None,
-                 seg_len: int = SEG_LEN, device=None):
-        self.device = resolve_device(device)
+                 seg_len: int = SEG_LEN, backend: str = "cuda"):
+        if backend not in BACKENDS:
+            raise ValueError(f"unknown secret backend {backend!r} "
+                             f"(one of {', '.join(BACKENDS)})")
+        self.device = resolve_device(backend) if backend == "cuda" \
+            else torch.device("cpu")
+        self.backend = backend
         self.scanner = scanner if scanner is not None else new_scanner()
         self.plan: ScanPlan = build_scan_plan(self.scanner.rules)
         self.table = self.plan.table
@@ -274,6 +284,12 @@ class BatchSecretScanner:
         if buf.shape[0] == 0:
             handle["mode"] = "empty"
             return handle
+        if self.backend == "cpu-ref":
+            t0 = time.perf_counter()
+            handle["masks"] = dfa_masks_host(buf, self.table)
+            handle["mode"] = "host"
+            handle["device_s"] += time.perf_counter() - t0
+            return handle
         # the segment buffer crosses to the device ONCE; pattern
         # blockmasks + run hits come out of a single dispatch against
         # the resident table, and the mask fetch is compacted to the
@@ -303,26 +319,34 @@ class BatchSecretScanner:
         seg_file = handle["seg_file"]
         seg_pos = handle["seg_pos"]
         t0 = time.perf_counter()
-        B = buf.shape[0]
-        K = self.table.n_patterns
-        nhit = int(handle["nhit"])          # waits for the sieve
-        cm = handle["cm"]
-        if nhit > cm.shape[0]:
-            # more hit rows than the compacted fetch holds: fetch the
-            # full mask array the same launch produced
-            handle["overflow"] = True
-            masks = handle["masks"][:B, :K].cpu().numpy()
+        run_fetch = None
+        if handle["mode"] == "host":
+            # the numpy sieve already ran at dispatch; this nonzero
+            # walk is decode work
+            masks = handle["masks"]
             seg_nz, code_nz = np.nonzero(masks)
             hit_vals = masks[seg_nz, code_nz]
         else:
-            rows = cm[:nhit, :K].cpu().numpy()
-            ridx = handle["idx"][:nhit].cpu().numpy()
-            rnz, code_nz = np.nonzero(rows)
-            # padded rows (index ≥ B) never hit: zero segments
-            seg_nz = ridx[rnz]
-            hit_vals = rows[rnz, code_nz]
-        run_fetch = handle["h"][:B].cpu().numpy()
-        handle["device_s"] += time.perf_counter() - t0
+            B = buf.shape[0]
+            K = self.table.n_patterns
+            nhit = int(handle["nhit"])          # waits for the sieve
+            cm = handle["cm"]
+            if nhit > cm.shape[0]:
+                # more hit rows than the compacted fetch holds: fetch
+                # the full mask array the same launch produced
+                handle["overflow"] = True
+                masks = handle["masks"][:B, :K].cpu().numpy()
+                seg_nz, code_nz = np.nonzero(masks)
+                hit_vals = masks[seg_nz, code_nz]
+            else:
+                rows = cm[:nhit, :K].cpu().numpy()
+                ridx = handle["idx"][:nhit].cpu().numpy()
+                rnz, code_nz = np.nonzero(rows)
+                # padded rows (index ≥ B) never hit: zero segments
+                seg_nz = ridx[rnz]
+                hit_vals = rows[rnz, code_nz]
+            run_fetch = handle["h"][:B].cpu().numpy()
+            handle["device_s"] += time.perf_counter() - t0
         t0 = time.perf_counter()
 
         # run-hits decode is lazy: it happens at most once per batch,
@@ -332,7 +356,9 @@ class BatchSecretScanner:
 
         def file_runs(fidx) -> set:
             if not runs_ready[0]:
-                for si, sp in zip(*np.nonzero(run_fetch)):
+                hits = run_fetch if run_fetch is not None \
+                    else self._host_run_hits(buf, handle)
+                for si, sp in zip(*np.nonzero(hits)):
                     if seg_file[int(si)] < 0:
                         continue
                     runs_cache.setdefault(
@@ -416,6 +442,17 @@ class BatchSecretScanner:
                 out[fidx] = chosen
         handle["chain_gated"] = chain_gated
         return out
+
+    def _host_run_hits(self, buf: np.ndarray, handle: dict) \
+            -> np.ndarray:
+        """[B, n_specs] class-run hits from the numpy run detector over
+        the segment buffer the sieve used (the cpu-ref backend; the
+        fused launch returns them itself). Overlap ≥ max runlen keeps
+        it sound."""
+        t0 = time.perf_counter()
+        hits = run_hits_host(buf, tuple(self.plan.run_specs))
+        handle["device_s"] += time.perf_counter() - t0
+        return hits
 
     def _windows(self, fe: _FileEntry, rp, anchor_hits: list,
                  blk: int) -> list:
