@@ -69,6 +69,30 @@ Builds the port's hand-written kernels (``trivy_tpu_torch/csrc``, one
    trivy_tpu_torch fs`` in a subprocess, on the sbom phase's npz, must
    give the in-process report. It prints each step's seconds and the
    ``dfa_blockmask`` launches of each path.
+6. image phase: the fs phase's tree becomes a ``docker save`` image of
+   five layers (``image_layers``): L0 the ``debian 12`` base with one
+   planted secret (a history ``CMD`` ends the base, so its secrets are
+   not scanned), L1 the lockfiles, L2 and L3 the corpus in halves, L4
+   whiteouts of planted-secret files of L2, an opaque directory and
+   one L2 file rewritten with a secret of another rule. The ``image``
+   entry (``scan_image``: load, the layer walk, analyzers, one
+   ``dfa_blockmask`` sieve over the non-base layers, prepare, one
+   ``dispatch_jobs``, finish) scans it on the card once cold into an
+   empty on-disk ``FSCache`` and three times warm with a
+   ``MemoryCache`` (one launch each), then once more on the warm
+   ``FSCache`` (no layer missing, no launch, the same report), plus
+   one profiled warm scan. Its vulnerabilities must equal a
+   ``cpu-ref`` vuln-only scan's; every planted secret must come with
+   its rule and its layer's DiffID, the base's none, the rewritten
+   file once per layer, and a seeded sample exactly as the CPU-exact
+   scanner finds it. A reduced image (512 corpus files, an OCI layout
+   tar with gzipped layers) must give one report on the card, ``cpu``
+   and ``cpu-ref``, and ``python -m trivy_tpu_torch image`` in a
+   subprocess the in-process one. It prints each step's seconds, the
+   launches of each path and the profiled scan's device ops, busy ms
+   and idle share, the last over the profiled run's wall time and over
+   the median unprofiled warm scan's (the profiler stretches the
+   first).
 
 It prints the card's name and power limit, one ``{"kernels": [...]}``
 line (times from CUDA events, the bound this run's inputs give; the
@@ -79,11 +103,14 @@ then non-zero and no result line is printed. Without CUDA it exits 2.
 
 from __future__ import annotations
 
+import gzip
+import hashlib
 import io
 import json
 import os
 import subprocess
 import sys
+import tarfile
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -343,6 +370,17 @@ def op_totals(ops: dict) -> tuple:
     """(operations, their device ms) of a ``device_profile`` dict."""
     return (sum(c for c, _ in ops.values()),
             sum(us for _, us in ops.values()) / 1e3)
+
+
+def idle_shares(busy_ms: float, wall_ms: float, warm: list) -> dict:
+    """The device's idle share of a profiled scan, taken over two wall
+    times: the profiled run's own, which the profiler stretches, and
+    the median ``total_s`` of the same run's unprofiled warm scans."""
+    warm_ms = float(np.median([w["total_s"] for w in warm])) * 1e3
+    return {"device_ms": busy_ms, "wall_ms": wall_ms,
+            "device_idle_share": 1 - busy_ms / wall_ms,
+            "warm_median_ms": warm_ms,
+            "device_idle_share_of_warm": 1 - busy_ms / warm_ms}
 
 
 def literal_ops(lit: bytes) -> int:
@@ -1204,26 +1242,25 @@ FS_ROOTS = {
 }
 
 
-def make_fs_tree(root: str, tree: tuple, n_pkgs: dict, seed: int,
-                 scale: float = 1.0, files=()) -> None:
-    """Write a scan tree under ``root``: the release files and package
-    database of ``tree``'s distro (``var/lib/dpkg/status`` or
-    ``lib/apk/db/installed``), its lockfiles (``package-lock.json``
-    v2, ``requirements.txt``, ``go.mod``) and ``files``
-    ([(rel_path, content)], e.g. the secret corpus). Packages are drawn
-    as ``make_bom`` draws them; counts are ``tree``'s times ``scale``
-    (at least 1 each)."""
+def fs_tree_files(tree: tuple, n_pkgs: dict, seed: int,
+                  scale: float = 1.0) -> tuple:
+    """The files of a scan tree as ([(rel_path, bytes)] of the OS,
+    [(rel_path, bytes)] of the lockfiles): the release files and
+    package database of ``tree``'s distro (``var/lib/dpkg/status`` or
+    ``lib/apk/db/installed``) and its lockfiles (``package-lock.json``
+    v2, ``requirements.txt``, ``go.mod``). Packages are drawn as
+    ``make_bom`` draws them; counts are ``tree``'s times ``scale`` (at
+    least 1 each)."""
     family, os_ver, bucket, grammar, n_os, apps = tree
     rng = np.random.default_rng(seed)
+    os_files, app_files = [], []
 
     def count(n: int) -> int:
         return max(1, round(n * scale))
 
-    def put(rel: str, data) -> None:
-        path = os.path.join(root, rel)
-        os.makedirs(os.path.dirname(path), exist_ok=True)
-        with open(path, "wb") as f:
-            f.write(data.encode() if isinstance(data, str) else data)
+    def put(rel: str, data, into=os_files) -> None:
+        into.append((rel, data.encode() if isinstance(data, str)
+                     else data))
 
     def draw(bkt: str, gr: str, n: int, prefix: str) -> list:
         return [(f"{prefix}-{gr}-{p}",
@@ -1276,17 +1313,29 @@ def make_fs_tree(root: str, tree: tuple, n_pkgs: dict, seed: int,
                 packages[f"node_modules/{name}"] = meta
             put(path, json.dumps({"name": "app", "version": "1.0.0",
                                   "lockfileVersion": 2, "requires": True,
-                                  "packages": packages}, indent=2))
+                                  "packages": packages}, indent=2),
+                app_files)
         elif atype == "pip":
             put(path, "".join(f"{name}=={ver}\n"
-                              for name, ver, _ in libs))
+                              for name, ver, _ in libs), app_files)
         else:
             put(path, "module example.com/app\n\ngo 1.20\n\nrequire (\n"
                 + "".join(f"\t{name} {ver}"
                           + (" // indirect" if p % 3 == 0 else "") + "\n"
-                          for name, ver, p in libs) + ")\n")
-    for rel, content in files:
-        put(rel, content)
+                          for name, ver, p in libs) + ")\n", app_files)
+    return os_files, app_files
+
+
+def make_fs_tree(root: str, tree: tuple, n_pkgs: dict, seed: int,
+                 scale: float = 1.0, files=()) -> None:
+    """Write a scan tree under ``root``: ``fs_tree_files`` and ``files``
+    ([(rel_path, content)], e.g. the secret corpus)."""
+    os_files, app_files = fs_tree_files(tree, n_pkgs, seed, scale)
+    for rel, data in os_files + app_files + list(files):
+        path = os.path.join(root, rel)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "wb") as f:
+            f.write(data)
 
 
 def scan_bom(path: str, db, backend: str) -> tuple:
@@ -1413,6 +1462,7 @@ def fs_phase(device, cdb, n_pkgs: dict, files: list, planted: dict,
         raise AssertionError("the card's fs vulnerabilities != cpu-ref's")
     n_ops, busy_ms = op_totals(ops)
     sec = cold_stats["secret"]
+    warm_steps = [_fs_steps(w[1], w[2]) for w in warm]
     out["full"] = {
         "files": sec["files_total"], "bytes": sec["bytes_total"],
         "segments": sec["segments"], "files_gated": sec["files_gated"],
@@ -1425,11 +1475,10 @@ def fs_phase(device, cdb, n_pkgs: dict, files: list, planted: dict,
         "secret_results": sum(1 for r in doc.get("Results", [])
                               if r["Class"] == "secret"),
         "cold": _fs_steps(cold, cold_stats),
-        "warm": [_fs_steps(w[1], w[2]) for w in warm],
+        "warm": warm_steps,
         "cpu_ref_vuln_only_s": vsteps["total_s"],
-        "profiled_scan": {"device_ops": n_ops, "device_ms": busy_ms,
-                          "wall_ms": wall_ms,
-                          "device_idle_share": 1 - busy_ms / wall_ms,
+        "profiled_scan": {"device_ops": n_ops,
+                          **idle_shares(busy_ms, wall_ms, warm_steps),
                           "ops_us": ops}}
 
     # the secret check alone: the checks of the earlier slice phase
@@ -1516,6 +1565,372 @@ def fs_phase(device, cdb, n_pkgs: dict, files: list, planted: dict,
         if _sorted_json(f.read()) != texts[backend]:
             raise AssertionError("the fs CLI's report != the in-process "
                                  "report")
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+# --- the image entry ---------------------------------------------------
+
+# the image's history: the base image's layer, its CMD (the base ends
+# there), then one layer each for the lockfiles, the two halves of the
+# corpus and the clean-up, and this image's own trailing CMD
+IMAGE_HISTORY = (
+    ("/bin/sh -c #(nop) ADD file:3b16ab4a8e1ec1fa in / ", False),
+    ('/bin/sh -c #(nop)  CMD ["bash"]', True),
+    ("COPY srv/app /srv/app # buildkit", False),
+    ("COPY corpus/a / # buildkit", False),
+    ("COPY corpus/b / # buildkit", False),
+    ("RUN /bin/sh -c rm -rf /svc7 && ./rotate-keys # buildkit", False),
+    ('CMD ["/srv/app/run"]', True),
+)
+IMAGE_WARM = 3
+IMAGE_REDUCED = 512             # corpus files of the cross-backend image
+IMAGE_WHITEOUTS = 3             # planted-secret files of L2 whited out
+BASE_SECRET = ("opt/base/release.env", SECRETS[1][0])
+OPAQUE_DIR = "svc7"
+
+
+def layer_tar(files) -> bytes:
+    """[(path, content)] → an uncompressed layer tar."""
+    buf = io.BytesIO()
+    with tarfile.open(fileobj=buf, mode="w") as tf:
+        for path, content in files:
+            info = tarfile.TarInfo(path)
+            info.size = len(content)
+            info.mtime = 1700000000
+            tf.addfile(info, io.BytesIO(content))
+    return buf.getvalue()
+
+
+def image_config(diff_ids: list, history=IMAGE_HISTORY) -> dict:
+    """An image config over ``diff_ids`` with ``history`` ((created_by,
+    empty_layer) pairs; empty for no history)."""
+    cfg = {"architecture": "amd64", "os": "linux",
+           "created": "2026-10-01T00:00:00Z",
+           "config": {"Env": ["PATH=/usr/local/sbin:/usr/local/bin:"
+                              "/usr/sbin:/usr/bin:/sbin:/bin"],
+                      "Cmd": ["/srv/app/run"]},
+           "rootfs": {"type": "layers", "diff_ids": diff_ids}}
+    if history:
+        cfg["history"] = [
+            {"created": "2026-10-01T00:00:00Z", "created_by": by,
+             **({"empty_layer": True} if empty else {})}
+            for by, empty in history]
+    return cfg
+
+
+def _add(tf, name: str, data: bytes) -> None:
+    info = tarfile.TarInfo(name)
+    info.size = len(data)
+    info.mtime = 1700000000
+    tf.addfile(info, io.BytesIO(data))
+
+
+def write_docker_save(path: str, layers: list, history=IMAGE_HISTORY,
+                      repo_tag: str = "smoke/app:1") -> str:
+    """A ``docker save`` tarball of ``layers`` ([[(path, content)]],
+    bottom first): ``manifest.json``, the config and one uncompressed
+    ``layer.tar`` per layer."""
+    blobs = [layer_tar(files) for files in layers]
+    diff_ids = ["sha256:" + hashlib.sha256(b).hexdigest() for b in blobs]
+    config = json.dumps(image_config(diff_ids, history)).encode()
+    cname = hashlib.sha256(config).hexdigest() + ".json"
+    names = [f"{d[7:]}/layer.tar" for d in diff_ids]
+    with tarfile.open(path, "w") as tf:
+        _add(tf, cname, config)
+        for name, blob in zip(names, blobs):
+            _add(tf, name, blob)
+        _add(tf, "manifest.json", json.dumps([{
+            "Config": cname, "RepoTags": [repo_tag] if repo_tag else [],
+            "Layers": names}]).encode())
+    return path
+
+
+def write_oci_layout(path: str, layers: list, history=IMAGE_HISTORY,
+                     as_dir: bool = False) -> str:
+    """An OCI image layout of ``layers`` with gzipped layer blobs, as a
+    tarball (or, with ``as_dir``, a directory) at ``path``."""
+    blobs: dict = {}
+
+    def blob(data: bytes) -> dict:
+        digest = "sha256:" + hashlib.sha256(data).hexdigest()
+        blobs[f"blobs/sha256/{digest[7:]}"] = data
+        return {"digest": digest, "size": len(data)}
+
+    tars = [layer_tar(files) for files in layers]
+    diff_ids = ["sha256:" + hashlib.sha256(t).hexdigest() for t in tars]
+    layer_descs = [
+        {"mediaType": "application/vnd.oci.image.layer.v1.tar+gzip",
+         **blob(gzip.compress(t, mtime=0))} for t in tars]
+    config = {"mediaType": "application/vnd.oci.image.config.v1+json",
+              **blob(json.dumps(image_config(diff_ids, history))
+                     .encode())}
+    manifest = {"mediaType": "application/vnd.oci.image.manifest.v1+json",
+                **blob(json.dumps({"schemaVersion": 2, "config": config,
+                                   "layers": layer_descs}).encode())}
+    files = {"oci-layout": b'{"imageLayoutVersion": "1.0.0"}',
+             "index.json": json.dumps({"schemaVersion": 2,
+                                       "manifests": [manifest]}).encode(),
+             **blobs}
+    if as_dir:
+        for rel, data in files.items():
+            full = os.path.join(path, rel)
+            os.makedirs(os.path.dirname(full), exist_ok=True)
+            with open(full, "wb") as f:
+                f.write(data)
+        return path
+    with tarfile.open(path, "w") as tf:
+        for rel, data in files.items():
+            _add(tf, rel, data)
+    return path
+
+
+def image_layers(tree: tuple, n_pkgs: dict, seed: int, files: list,
+                 planted: dict, scale: float = 1.0,
+                 n_corpus: int = None) -> tuple:
+    """The layers of the smoke image and what they plant:
+    L0 (the base: the OS and one secret that must not be reported), L1
+    (the lockfiles), L2 and L3 (the two halves of ``files``, or its
+    first ``n_corpus`` in L2 alone), L4 (whiteouts of
+    ``IMAGE_WHITEOUTS`` planted-secret files of L2, fewer where L2
+    plants fewer, an opaque ``OPAQUE_DIR``, and one planted file of L2
+    rewritten with a secret of another rule). Returns (layers,
+    {"history": the image's history, "whiteouts": [...],
+    "rewritten": (path, rule of L2, rule of L4)})."""
+    os_files, app_files = fs_tree_files(tree, n_pkgs, seed, scale)
+    corpus = files if n_corpus is None else files[:n_corpus]
+    half = len(corpus) // 2 if n_corpus is None else len(corpus)
+    l2, l3 = corpus[:half], corpus[half:]
+    mine = [rel for rel, _ in l2 if rel in planted
+            and not rel.startswith(OPAQUE_DIR + "/")]
+    n_wh = min(IMAGE_WHITEOUTS, len(mine) - 1)    # one left to rewrite
+    wh, rew = mine[:n_wh], mine[n_wh]
+    new_sec, new_rule = next((sec, rule) for sec, rule in SECRETS
+                             if rule != planted[rew])
+    l4 = [(f"{os.path.dirname(rel)}/.wh.{os.path.basename(rel)}", b"")
+          for rel in wh]
+    l4 += [(f"{OPAQUE_DIR}/.wh..wh..opq", b""),
+           (rew, b"# rotated\n" + new_sec)]
+    layers = [os_files + [BASE_SECRET], app_files, l2] + \
+        ([l3] if l3 else []) + [l4]
+    history = IMAGE_HISTORY if l3 else tuple(
+        h for h in IMAGE_HISTORY if "corpus/b" not in h[0])
+    return layers, {"history": history, "whiteouts": wh,
+                    "rewritten": (rew, planted[rew], new_rule)}
+
+
+def scan_image_report(path: str, db, backend: str, scanner, cache=None,
+                      checks=("vuln", "secret")) -> tuple:
+    """One image scan as ``python -m trivy_tpu_torch image --input PATH
+    --format json`` makes it: ``scan_image``, the default filters, the
+    JSON writer. Returns (report text, step seconds, stats)."""
+    from trivy_tpu_torch import __version__
+    from trivy_tpu_torch.cli import filter_report, scan_image
+    from trivy_tpu_torch.report.writer import write_report
+    steps, stats = {}, {}
+    t0 = time.perf_counter()
+    report = scan_image(path, db, backend, security_checks=checks,
+                        scanner=scanner, cache=cache, timings=steps,
+                        stats=stats)
+    t1 = time.perf_counter()
+    filter_report(report)
+    buf = io.StringIO()
+    write_report(report, fmt="json", output=buf, app_version=__version__)
+    t2 = time.perf_counter()
+    steps.update(filter_write_s=t2 - t1, total_s=t2 - t0)
+    return buf.getvalue(), steps, stats
+
+
+def _image_steps(steps: dict, stats: dict) -> dict:
+    return {"load_s": steps["load_s"], **_fs_steps(steps, stats)}
+
+
+def image_phase(device, cdb, n_pkgs: dict, files: list, planted: dict,
+                work_dir: str, db_path: str) -> dict:
+    """The ``image`` entry (``scan_image``: load, the layer walk with
+    whiteouts and the guards, analyzers, one secret sieve over the
+    missing non-base layers, prepare, one ``dispatch_jobs``, finish) on
+    the vuln phase's DB. The full docker-save image (the fs phase's
+    tree as five layers, ``image_layers``) once cold into an empty
+    ``FSCache`` (tables dropped first) and ``IMAGE_WARM`` times warm
+    with a ``MemoryCache``, each launching ``dfa_blockmask`` once, plus
+    one profiled warm scan; then once more on the warm ``FSCache``: the
+    same report, no layer missing, no launch. Its vulnerabilities must
+    equal a ``cpu-ref`` vuln-only scan's; every planted secret of a
+    non-base layer is reported with its rule and its layer's DiffID
+    (whited-out files too: the reference keeps the secrets of every
+    layer), the base layer's none, the rewritten path once per layer,
+    and a seeded sample of files exactly as the CPU-exact scanner finds
+    them. The reduced image (``IMAGE_REDUCED`` corpus files, an OCI
+    layout tar with gzipped layers) must give one report on the card,
+    ``cpu`` and ``cpu-ref``, and ``python -m trivy_tpu_torch image``
+    in a subprocess on it, with the sbom phase's npz, the in-process
+    one."""
+    from trivy_tpu_torch.artifact import FSCache, MemoryCache
+    from trivy_tpu_torch.cli import secret_scanner
+    from trivy_tpu_torch.ops.dfa_cuda import dfa_blockmask
+    from trivy_tpu_torch.secret.scanner import new_scanner
+    backend = device.type
+    t_phase = time.perf_counter()
+    out: dict = {}
+    t0 = time.perf_counter()
+    layers, plan = image_layers(FS_ROOTS["fs"], n_pkgs, SEED + 20, files,
+                                planted)
+    full = write_docker_save(os.path.join(work_dir, "image.tar"), layers,
+                             plan["history"])
+    out["make_s"] = time.perf_counter() - t0
+    out["image_bytes"] = os.path.getsize(full)
+    out["layer_files"] = [len(la) for la in layers]
+    scanners = {b: secret_scanner(backend=b)
+                for b in (backend, "cpu", "cpu-ref")}
+    card = scanners[backend]
+    launches = {}
+
+    def counted(key: str, fn):
+        dfa_blockmask.launches = 0
+        res = fn()
+        launches[key] = dfa_blockmask.launches
+        return res
+
+    cdb.invalidate_device()
+    fsdir = os.path.join(work_dir, "image-cache")
+    text, cold, cold_stats = counted("cold", lambda: scan_image_report(
+        full, cdb, backend, card, FSCache(fsdir)))
+    warm = []
+    for k in range(IMAGE_WARM):
+        warm.append(counted(f"warm{k}", lambda: scan_image_report(
+            full, cdb, backend, card, MemoryCache())))
+    rerun = counted("fscache_rerun", lambda: scan_image_report(
+        full, cdb, backend, card, FSCache(fsdir)))
+    if [launches[k] for k in ["cold"] + [f"warm{k}" for k in
+                                        range(IMAGE_WARM)]] != \
+            [1] * (1 + IMAGE_WARM):
+        raise AssertionError(f"an uncached image scan did not launch "
+                             f"dfa_blockmask once: {launches}")
+    if launches["fscache_rerun"] != 0 or rerun[2]["missing"] != 0:
+        raise AssertionError(f"the FSCache rerun missed "
+                             f"{rerun[2]['missing']} layers and launched "
+                             f"{launches['fscache_rerun']} sieves")
+    if cold_stats["missing"] != len(layers):
+        raise AssertionError("the cold scan found cached layers")
+    (ptext, _, _), ops, wall_ms = device_profile(
+        lambda: scan_image_report(full, cdb, backend, card, MemoryCache()))
+    want = _sorted_json(text)
+    if any(_sorted_json(t) != want
+           for t in [w[0] for w in warm] + [rerun[0], ptext]):
+        raise AssertionError("the card's image scans disagree")
+    doc = json.loads(text)
+    if doc["ArtifactType"] != "container_image" or \
+            doc["Metadata"]["OS"]["Family"] != "debian" or \
+            len(doc["Metadata"]["DiffIDs"]) != len(layers):
+        raise AssertionError(f"the image report's metadata is wrong: "
+                             f"{doc['Metadata'].get('OS')}")
+    classes = {r["Class"] for r in doc.get("Results", [])
+               if r.get("Vulnerabilities") or r.get("Secrets")}
+    if classes != {"os-pkgs", "lang-pkgs", "secret"}:
+        raise AssertionError(f"image findings only in {sorted(classes)}")
+    vtext, vsteps, _ = scan_image_report(full, cdb, "cpu-ref", None,
+                                         checks=("vuln",))
+    if _results(vtext, "os-pkgs", "lang-pkgs") != \
+            _results(text, "os-pkgs", "lang-pkgs"):
+        raise AssertionError("the card's image vulnerabilities != "
+                             "cpu-ref's")
+
+    # secrets: by layer, rule and DiffID
+    diff_ids = doc["Metadata"]["DiffIDs"]
+    layer_of = {}
+    for li, la in enumerate(layers):
+        for rel, _ in la:
+            layer_of.setdefault(rel, []).append(diff_ids[li])
+    by_target = {r["Target"]: r["Secrets"]
+                 for r in doc.get("Results", []) if r["Class"] == "secret"}
+    if "/" + BASE_SECRET[0] in by_target:
+        raise AssertionError("a base-layer secret was reported")
+    rew, old_rule, new_rule = plan["rewritten"]
+    missing = []
+    for rel, rule in planted.items():
+        found = {(f["RuleID"], f["Layer"]["DiffID"])
+                 for f in by_target.get("/" + rel, [])}
+        if (rule, layer_of[rel][0]) not in found:
+            missing.append(rel)
+    if missing:
+        raise AssertionError(f"planted secrets not reported with their "
+                             f"layer: {missing[:5]} ({len(missing)})")
+    got = sorted((f["RuleID"], f["Layer"]["DiffID"])
+                 for f in by_target["/" + rew])
+    if got != sorted([(old_rule, layer_of[rew][0]),
+                      (new_rule, layer_of[rew][1])]):
+        raise AssertionError(f"{rew}: rewritten path findings {got}")
+    exact = new_scanner()
+    rng = np.random.default_rng(SEED + 3)
+    pick = set(int(i) for i in rng.choice(len(files), SAMPLE,
+                                          replace=False))
+    pick |= {i for i, (rel, _) in enumerate(files) if rel in planted}
+    pick -= {i for i, (rel, _) in enumerate(files) if rel == rew}
+    for i in sorted(pick):
+        rel, content = files[i]
+        found = exact.scan("/" + rel, content).findings
+        found.sort(key=lambda f: (f.rule_id, f.start_line))
+        want_f = [dict(f.to_dict(), Layer={"DiffID": layer_of[rel][0]})
+                  for f in found]
+        if want_f != by_target.get("/" + rel, []):
+            raise AssertionError(f"{rel}: image findings != exact scanner")
+    n_ops, busy_ms = op_totals(ops)
+    sec = cold_stats["secret"]
+    warm_steps = [_image_steps(w[1], w[2]) for w in warm]
+    out["full"] = {
+        "layers": len(layers), "files": sec["files_total"],
+        "bytes": sec["bytes_total"], "segments": sec["segments"],
+        "files_gated": sec["files_gated"], "overflow": sec["overflow"],
+        "jobs_in": cold_stats["jobs_in"],
+        "jobs_unique": cold_stats["jobs_unique"],
+        "hits": cold_stats["hits"],
+        "vulnerabilities": sum(len(r.get("Vulnerabilities", []))
+                               for r in doc.get("Results", [])),
+        "secret_results": len(by_target),
+        "whited_out_still_reported": len(plan["whiteouts"]),
+        "checked_exact": len(pick),
+        "cold_fscache": _image_steps(cold, cold_stats),
+        "warm": warm_steps,
+        "fscache_rerun": {**_image_steps(rerun[1], rerun[2]),
+                          "missing": rerun[2]["missing"]},
+        "cpu_ref_vuln_only_s": vsteps["total_s"],
+        "profiled_scan": {"device_ops": n_ops,
+                          **idle_shares(busy_ms, wall_ms, warm_steps),
+                          "ops_us": ops}}
+
+    # the reduced image, as an OCI layout tar with gzipped layers
+    rlayers, rplan = image_layers(FS_ROOTS["fs"], n_pkgs, SEED + 20,
+                                  files, planted, n_corpus=IMAGE_REDUCED)
+    reduced = write_oci_layout(os.path.join(work_dir, "image-oci.tar"),
+                               rlayers, rplan["history"])
+    red = {}
+    for b in (backend, "cpu", "cpu-ref"):
+        red[b] = counted(f"reduced_{b}", lambda: scan_image_report(
+            reduced, cdb, b, scanners[b]))
+    texts = {b: _sorted_json(r[0]) for b, r in red.items()}
+    if len(set(texts.values())) != 1:
+        raise AssertionError("reduced image: cuda, cpu and cpu-ref differ")
+    out["reduced"] = {b: r[1]["total_s"] for b, r in red.items()}
+
+    # the real entry point in a new process, on the sbom phase's npz
+    report_path = os.path.join(work_dir, "image.report.json")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "trivy_tpu_torch", "image", "--input",
+         reduced, "--compiled-db", db_path, "--backend", backend,
+         "--format", "json", "--output", report_path],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        capture_output=True, text=True, timeout=600)
+    out["cli_wall_s"] = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"image CLI exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    with open(report_path) as f:
+        if _sorted_json(f.read()) != texts[backend]:
+            raise AssertionError("the image CLI's report != the "
+                                 "in-process report")
     out["launches"] = launches
     out["phase_s"] = time.perf_counter() - t_phase
     return out
@@ -1662,14 +2077,18 @@ def main() -> int:
         print("sbom phase: " + json.dumps(sb), flush=True)
         fs = fs_phase(device, cdb, n_pkgs, files, planted, work,
                       os.path.join(work, "cdb"))
-    print("fs phase: " + json.dumps(fs), flush=True)
+        print("fs phase: " + json.dumps(fs), flush=True)
+        img = image_phase(device, cdb, n_pkgs, files, planted, work,
+                          os.path.join(work, "cdb"))
+    print("image phase: " + json.dumps(img), flush=True)
 
     note = "no single PyTorch call computes this function"
     kernels = [{
         "name": "dfa_blockmask", "route": "cuda",
         "source": "trivy_tpu_torch/csrc/dfa_blockmask.cu",
         "replaces": "trivy_tpu/ops/dfa_pallas.py:211",
-        "launches": sum(fs["launches"].values()),
+        "launches": sum(fs["launches"].values())
+        + sum(img["launches"].values()),
         "max_abs_err": kern["max_abs_err"],
         "ms": kern["ms"], "plain_ms": kern["plain_ms"],
         "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
@@ -1685,6 +2104,21 @@ def main() -> int:
         "library_ms": None, "tolerance": "exact equality", "note": note,
     }]
     print("fs scan, warm, by step: " + json.dumps(fs["full"]["warm"][-1]),
+          flush=True)
+    full = img["full"]
+    print("image scan, warm, by step: " + json.dumps(full["warm"][-1]),
+          flush=True)
+    print("image scan: " + json.dumps({
+        k: full[k] for k in ("layers", "files", "segments", "files_gated",
+                             "jobs_in", "jobs_unique", "hits")}) +
+          f"; dfa_blockmask launches by path: {json.dumps(img['launches'])}"
+          f"; profiled warm scan: {full['profiled_scan']['device_ops']} "
+          f"device ops, {full['profiled_scan']['device_ms']:.3f} ms busy; "
+          f"idle share {full['profiled_scan']['device_idle_share']:.5f} "
+          f"of its {full['profiled_scan']['wall_ms']:.1f} ms profiled, "
+          f"{full['profiled_scan']['device_idle_share_of_warm']:.5f} of "
+          f"the {full['profiled_scan']['warm_median_ms']:.1f} ms median "
+          f"unprofiled warm scan",
           flush=True)
     print(f"script: {time.perf_counter() - t_script:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -27,7 +27,7 @@ import trivy_tpu_torch.types as ttypes
 from tests.test_installed_pkgs import _go_binary
 from tests.test_rpm import make_bdb, make_header, make_ndb, make_sqlite
 from trivy_tpu.artifact.artifact import ArtifactOption, _effective_disabled
-from trivy_tpu_torch.artifact.artifact import DISABLED_ANALYZERS
+from trivy_tpu_torch.artifact import artifact as tartifact
 
 
 def _view(result) -> dict:
@@ -47,9 +47,10 @@ def _both(files: list, patterns=None) -> dict:
     # the reference's defaults (no misconfig, no license check) turn
     # off the analyzers that the port leaves out
     disabled = _effective_disabled(ArtifactOption())
-    assert disabled == list(DISABLED_ANALYZERS)
+    tdisabled = tartifact._effective_disabled()
+    assert disabled == tdisabled
     want = _analyze(ranalyzer, disabled, files, patterns)
-    got = _analyze(tanalyzer, list(DISABLED_ANALYZERS), files, patterns)
+    got = _analyze(tanalyzer, tdisabled, files, patterns)
     assert json.dumps(got, sort_keys=True) == \
         json.dumps(want, sort_keys=True)
     return want

@@ -505,3 +505,41 @@ def test_fs_on_the_card_equals_the_cpu(cuda, tmp_path, monkeypatch):
             assert '"VulnerabilityID"' in got["cuda"]
             if kind == "fs" and planted:
                 assert '"Class": "secret"' in got["cuda"]
+
+
+def test_image_on_the_card_equals_cpu_ref(cuda, tmp_path, monkeypatch):
+    """The ``image`` entry on a small seeded docker-save image (a
+    debian base with a planted secret, the lockfiles, a corpus layer
+    and a layer of whiteouts, an opaque dir and a rewritten file)
+    against a 20,000-row DB: the card's filtered report equals
+    numpy's, the cold scan into an empty ``FSCache`` launches
+    ``dfa_blockmask`` once, and the rerun on that cache misses no layer
+    and launches it no time."""
+    from chip_smoke import (FS_ROOTS, image_layers, make_advisory_store,
+                            make_corpus, write_docker_save)
+    from trivy_tpu_torch.artifact import FSCache
+    from trivy_tpu_torch.cli import filter_report, scan_image, secret_scanner
+    monkeypatch.chdir(tmp_path)
+    store, n_pkgs = make_advisory_store(20000, 5)
+    cdb = CompiledDB.compile(store)
+    corpus, planted = make_corpus(256, 9)
+    layers, plan = image_layers(FS_ROOTS["fs"], n_pkgs, 70, corpus,
+                                planted, scale=0.1)
+    path = write_docker_save(str(tmp_path / "image.tar"), layers,
+                             plan["history"])
+
+    def scan(backend, cache=None, stats=None):
+        return json.dumps(filter_report(scan_image(
+            path, cdb, backend, scanner=secret_scanner(backend=backend),
+            cache=cache, stats=stats)).to_dict(), sort_keys=True)
+
+    want = scan("cpu-ref")
+    runs = []
+    for _ in range(2):
+        stats = {}
+        before = dfa_blockmask.launches
+        got = scan("cuda", FSCache(str(tmp_path / "cache")), stats)
+        runs.append((dfa_blockmask.launches - before, stats["missing"]))
+        assert got == want
+    assert runs == [(1, len(layers)), (0, 0)]
+    assert '"Class": "secret"' in want and '"VulnerabilityID"' in want

@@ -277,6 +277,34 @@ def test_fs_trees_equal_reference(inputs, cmd, tree, fmt, db, flags,
         assert rout.strip()
 
 
+@pytest.mark.parametrize("cmd,tree,fmt,db", [
+    ("fs", "debian", "json", "fixtures"),
+    ("rootfs", "alpine", "table", "compiled"),
+    ("fs", "rocky", "json", "compiled"),
+    ("fs", "e2e", "json", "e2e"),
+])
+def test_fs_cache_dir_equals_reference(inputs, cmd, tree, fmt, db,
+                                       tmp_path, monkeypatch):
+    """With ``--cache-dir`` the port keeps the tree's blob in an
+    ``FSCache`` and reads it back through ``types/convert.py``: a cold
+    run and a rerun on the same directory, on both CPU backends, give
+    the reference's ``--no-cache`` report."""
+    monkeypatch.setattr(yaml, "safe_load", _fast_yaml(yaml.safe_load))
+    monkeypatch.chdir(tmp_path)
+    common = [cmd, inputs[tree], "--format", fmt] + _db(inputs, db)
+    rcode, rout = _run(rmain, common + [
+        "--backend", "cpu", "--no-cache", "--cache-dir",
+        str(tmp_path / "rcache")])
+    want = _norm(rout, fmt)
+    for backend in ("cpu", "cpu-ref"):
+        cache = tmp_path / f"cache-{backend}"
+        for _ in range(2):
+            tcode, out = _run(tmain, common + [
+                "--backend", backend, "--cache-dir", str(cache)])
+            assert (tcode, _norm(out, fmt)) == (rcode, want)
+        assert len(os.listdir(cache / "fanal" / "blob")) == 1
+
+
 def test_custom_secret_config_equals_reference(inputs, tmp_path,
                                                monkeypatch):
     """A rule file inside the tree is read for the rules and skipped by

@@ -80,6 +80,14 @@ FS_SLICE = ("analyzer/__init__.py", "analyzer/analyzer.py",
             "artifact/artifact.py")
 
 
+# the image slice's modules
+IMAGE_SLICE = ("guard/__init__.py", "guard/budget.py", "guard/safetar.py",
+               "artifact/__init__.py", "artifact/image.py",
+               "artifact/walker.py", "artifact/cache.py",
+               "artifact/artifact.py", "types/convert.py",
+               "analyzer/imgconf.py", "scan/local.py", "cli.py")
+
+
 def _covered(modules) -> None:
     import importlib
     import pkgutil
@@ -100,6 +108,10 @@ def test_the_scans_cover_the_sbom_slice():
 
 def test_the_scans_cover_the_fs_slice():
     _covered(FS_SLICE)
+
+
+def test_the_scans_cover_the_image_slice():
+    _covered(IMAGE_SLICE)
 
 
 def test_no_import_statement_names_jax_or_the_jax_package():
@@ -229,6 +241,8 @@ def test_default_device_is_cuda_and_refuses_the_cpu(monkeypatch,
         BatchSecretScanner()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main(["fs", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["image", "--input", str(tmp_path)])
     assert trivy_tpu_torch.resolve_device("cpu").type == "cpu"
 
 

@@ -6,9 +6,11 @@ multi-pattern sieve as a hand-written Hopper kernel
 (``ops/keywords.py``) runs ``csrc/code_blockmask.cu``. The
 vulnerability-detection engine (``vercmp``, ``db``, ``detect``)
 matches installed versions against advisory interval tables kept on
-the card (``ops/intervals.py``); the ``sbom`` entry
-(``python -m trivy_tpu_torch sbom BOM``) drives it through
-``scan/local.py LocalScanner`` and writes the report. Entry points run
+the card (``ops/intervals.py``); the ``image``, ``fs`` and ``sbom``
+entries (``python -m trivy_tpu_torch image X.tar``, ``fs DIR``,
+``sbom BOM``) drive both through the artifacts (``artifact/``, the
+analyzers, the ingest guards of ``guard/``) and ``scan/local.py
+LocalScanner``, and write the report. Entry points run
 on ``cuda`` unless the caller asks for ``cpu``; on the CPU every
 kernel is replaced by its plain PyTorch version.
 """

@@ -14,7 +14,7 @@ The registration order below is the reference's: ``_merge_os`` and
 ``AnalysisResult.merge`` depend on it. The config and license
 analyzers are still to be ported (ROADMAP A.9); ``config.py`` and
 ``licensing.py`` hold only the analyzer type names that
-``artifact.DISABLED_ANALYZERS`` turns off.
+``artifact._effective_disabled`` turns off.
 """
 
 from .analyzer import (AnalysisResult, Analyzer, AnalyzerGroup,

@@ -68,11 +68,18 @@ class RpmDBAnalyzer(Analyzer):
             rpkgs = list_packages(content)
         except ValueError as e:
             # a corrupt rpmdb is survivable hostile input: the scan
-            # completes without rpm packages. No ingest budget is
-            # active on the filesystem path (the reference notes the
-            # fault on one only when a budget watches), so it is
-            # logged here; the image path's budget comes with guard/
-            log.warning("corrupt rpmdb at %s: %s", path, e)
+            # completes without rpm packages, but an image scan
+            # reports status=degraded with an ingest-stage cause
+            # instead of silently pretending the image has no rpm
+            # database. The filesystem path has no ingest budget, so
+            # there the fault is logged
+            from ..guard.budget import current_budget
+            b = current_budget.get()
+            if b is not None:
+                b.note("malformed-archive",
+                       f"corrupt rpmdb at {path}: {e}")
+            else:
+                log.warning("corrupt rpmdb at %s: %s", path, e)
             return None
         pkgs = []
         system_files = []

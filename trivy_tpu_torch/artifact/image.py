@@ -1,0 +1,389 @@
+"""Container image loading: docker-save and OCI-layout tarballs/dirs.
+
+Reference: pkg/fanal/image (archive.go). The sources are local: a
+docker-save tar (manifest.json), an OCI image layout tar (index.json),
+or a directory in OCI layout form. Daemon, containerd and registry
+resolution plug in behind the same ImageSource interface with
+``registry.py`` (ROADMAP A.9).
+
+One ``tarfile.TarFile`` is opened per archive and shared by the
+format sniff, the manifest/config reads, and every layer open — the
+member index is parsed once (tarfile re-scans all headers per open,
+which dominates host time when each layer re-opens the outer
+tar). ``ImageSource.close()`` releases the handle; the image
+artifact closes it as soon as layer analysis is done.
+
+Hostile-input posture: ``load_image`` takes an optional per-scan
+:class:`ResourceBudget`. With one, manifest/config reads are capped
+(an oversize image config trips), layer blobs are size-checked
+before materializing, gzip layers stream through the bounded
+decompressor (a bomb trips the byte budget or the ratio
+tripwire), and structural tar errors surface as the typed
+:class:`MalformedArchiveError` instead of raw tarfile exceptions.
+The budget rides on the returned ``ImageSource`` so the artifact
+layer keeps charging the same counters while walking layers.
+"""
+
+from __future__ import annotations
+
+import gzip
+import hashlib
+import io
+import json
+import os
+import tarfile
+from dataclasses import dataclass, field
+from typing import Callable, Optional
+
+from ..guard.budget import (MalformedArchiveError, ResourceBudget,
+                            ResourceBudgetExceeded)
+from ..guard.safetar import open_layer_bytes
+
+
+@dataclass
+class LayerRef:
+    diff_id: str                    # sha256 of the UNCOMPRESSED tar
+    open: Callable                  # () -> tarfile.TarFile
+
+
+@dataclass
+class ImageSource:
+    name: str
+    id: str                         # image config digest
+    config: dict                    # parsed image config JSON
+    layers: list = field(default_factory=list)    # [LayerRef]
+    repo_tags: list = field(default_factory=list)
+    repo_digests: list = field(default_factory=list)
+    archive: Optional["_Archive"] = None
+    # the per-scan ingest budget the image was loaded under (None =
+    # guards off); the artifact layer picks it up so layer walking
+    # charges the same counters
+    ingest_budget: Optional[ResourceBudget] = None
+
+    @property
+    def diff_ids(self) -> list:
+        return [la.diff_id for la in self.layers]
+
+    def close(self) -> None:
+        """Release the shared archive handle (noop for OCI dirs).
+        Layer opens after close() re-open the archive on demand, so
+        closing early is always safe."""
+        if self.archive is not None:
+            self.archive.close()
+
+
+class _Archive:
+    """Shared handle on an image tarball: open lazily, parse the
+    member index once, re-open transparently if read after
+    close()."""
+
+    def __init__(self, path: str,
+                 budget: Optional[ResourceBudget] = None):
+        self.path = path
+        self.budget = budget
+        self._tf: Optional[tarfile.TarFile] = None
+
+    def tf(self) -> tarfile.TarFile:
+        if self._tf is None:
+            try:
+                self._tf = tarfile.open(self.path)
+            except tarfile.TarError as e:
+                if self.budget is not None:
+                    self.budget.malformed(
+                        f"unreadable image archive: {e}")
+                raise
+        return self._tf
+
+    def names(self) -> list:
+        try:
+            return self.tf().getnames()
+        except tarfile.TarError as e:
+            if self.budget is not None:
+                self.budget.malformed(
+                    f"unreadable image archive: {e}")
+            raise
+
+    def read(self, member: str,
+             limit: Optional[int] = None) -> bytes:
+        """Read one outer-tar member; with a budget, the member size
+        is checked against ``limit`` (metadata reads) or the
+        remaining decompressed-byte budget (layer blobs) BEFORE
+        materializing."""
+        budget = self.budget
+        try:
+            info = self.tf().getmember(member)
+        except KeyError:
+            raise ValueError(f"missing member {member}")
+        except tarfile.TarError as e:
+            if budget is not None:
+                budget.malformed(f"unreadable image archive: {e}")
+            raise
+        if budget is not None:
+            budget.check_deadline()
+            if info.size < 0:
+                budget.malformed(
+                    f"negative size for member {member!r}")
+            if limit is not None and info.size > limit:
+                raise ResourceBudgetExceeded(
+                    f"image metadata member {member!r} exceeds "
+                    f"{limit} bytes ({info.size})")
+            if limit is None and \
+                    info.size > budget.remaining_bytes():
+                budget.exceeded(
+                    f"layer blob {member!r} exceeds the remaining "
+                    f"decompressed-byte budget ({info.size})")
+        try:
+            f = self.tf().extractfile(member)
+            if f is None:
+                raise ValueError(f"missing member {member}")
+            return f.read()
+        except tarfile.TarError as e:
+            raise MalformedArchiveError(
+                f"truncated image archive at {member!r}: {e}") from e
+
+    def close(self) -> None:
+        if self._tf is not None:
+            self._tf.close()
+            self._tf = None
+
+
+def _meta_limit(budget: Optional[ResourceBudget]) -> Optional[int]:
+    return budget.limits.max_config_bytes if budget is not None \
+        else None
+
+
+def _parse_json(data: bytes, what: str,
+                budget: Optional[ResourceBudget]) -> dict:
+    try:
+        return json.loads(data)
+    except ValueError as e:
+        if budget is not None:
+            budget.malformed(f"invalid {what} JSON: {e}")
+        raise
+
+
+def load_image(path: str, name: Optional[str] = None,
+               budget: Optional[ResourceBudget] = None)\
+        -> ImageSource:
+    """Sniff + load a docker-save tar / OCI layout tar / OCI dir."""
+    name = name or path
+    if os.path.isdir(path):
+        try:
+            src = _load_oci_dir(path, name, budget)
+        except (KeyError, IndexError, TypeError) as e:
+            if budget is not None:
+                budget.malformed(f"malformed image metadata: {e!r}")
+            raise ValueError(
+                f"malformed image metadata: {e!r}") from e
+        src.ingest_budget = budget
+        return src
+    arch = _Archive(path, budget=budget)
+    try:
+        try:
+            names = arch.names()
+            if "manifest.json" in names:
+                src = _load_docker_save(arch, name)
+            elif "index.json" in names:
+                src = _load_oci_tar(arch, name)
+            else:
+                raise ValueError(
+                    f"unrecognized image archive: {path}")
+        except (KeyError, IndexError, TypeError) as e:
+            # crafted manifests/configs with missing or mistyped
+            # fields must fail as a typed load error, never a raw
+            # KeyError escaping the artifact boundary
+            if budget is not None:
+                budget.malformed(f"malformed image metadata: {e!r}")
+            raise ValueError(
+                f"malformed image metadata: {e!r}") from e
+    except Exception:
+        arch.close()
+        raise
+    src.ingest_budget = budget
+    return src
+
+
+# --- docker save format ---
+
+def _load_docker_save(arch: _Archive, name: str) -> ImageSource:
+    budget = arch.budget
+    lim = _meta_limit(budget)
+    doc = _parse_json(arch.read("manifest.json", limit=lim),
+                      "manifest", budget)
+    if not isinstance(doc, list) or not doc:
+        if budget is not None:
+            budget.malformed("empty or non-list manifest.json")
+        raise ValueError("empty or non-list manifest.json")
+    manifest = doc[0]
+    config = _parse_json(arch.read(manifest["Config"], limit=lim),
+                         "image config", budget)
+    diff_ids = config.get("rootfs", {}).get("diff_ids", [])
+    layer_paths = manifest.get("Layers", [])
+    layers = [
+        LayerRef(diff_id=d, open=_member_layer_opener(arch, lp))
+        for d, lp in zip(diff_ids, layer_paths)
+    ]
+    image_id = "sha256:" + hashlib.sha256(
+        _canon_json(config)).hexdigest()
+    return ImageSource(
+        name=name, id=image_id, config=config, layers=layers,
+        repo_tags=manifest.get("RepoTags") or [],
+        archive=arch,
+    )
+
+
+# --- OCI layout ---
+
+def _load_oci_tar(arch: _Archive, name: str) -> ImageSource:
+    budget = arch.budget
+    lim = _meta_limit(budget)
+    index = _parse_json(arch.read("index.json", limit=lim),
+                        "OCI index", budget)
+    src = _load_oci(index, lambda m: arch.read(m, limit=lim), name,
+                    opener=lambda p: _member_layer_opener(arch, p),
+                    budget=budget)
+    src.archive = arch
+    return src
+
+
+def _load_oci_dir(path: str, name: str,
+                  budget: Optional[ResourceBudget] = None)\
+        -> ImageSource:
+    lim = _meta_limit(budget)
+
+    def read(rel: str) -> bytes:
+        full = os.path.join(path, rel)
+        if budget is not None:
+            budget.check_deadline()
+            size = os.path.getsize(full)
+            if lim is not None and size > lim:
+                raise ResourceBudgetExceeded(
+                    f"image metadata blob {rel!r} exceeds "
+                    f"{lim} bytes ({size})")
+        with open(full, "rb") as f:
+            return f.read()
+
+    with open(os.path.join(path, "index.json"), "rb") as f:
+        raw = f.read(lim + 1 if lim is not None else -1)
+    if lim is not None and len(raw) > lim:
+        raise ResourceBudgetExceeded(
+            f"OCI index exceeds {lim} bytes")
+    index = _parse_json(raw, "OCI index", budget)
+
+    def opener(rel: str) -> Callable:
+        return lambda: _open_layer_file(os.path.join(path, rel),
+                                        budget)
+
+    return _load_oci(index, read, name, opener, budget=budget)
+
+
+def _load_oci(index: dict, read: Callable, name: str,
+              opener: Callable,
+              budget: Optional[ResourceBudget] = None)\
+        -> ImageSource:
+    manifests = index.get("manifests", [])
+    if not manifests:
+        raise ValueError("empty OCI index")
+    mdigest = manifests[0]["digest"]
+    manifest = _parse_json(read(_blob_path(mdigest)), "OCI manifest",
+                           budget)
+    if manifest.get("manifests"):        # nested index (multi-arch)
+        mdigest = manifest["manifests"][0]["digest"]
+        manifest = _parse_json(read(_blob_path(mdigest)),
+                               "OCI manifest", budget)
+    cdigest = manifest["config"]["digest"]
+    config = _parse_json(read(_blob_path(cdigest)), "image config",
+                         budget)
+    diff_ids = config.get("rootfs", {}).get("diff_ids", [])
+    layers = []
+    for d, desc in zip(diff_ids, manifest.get("layers", [])):
+        layers.append(LayerRef(
+            diff_id=d, open=opener(_blob_path(desc["digest"]))))
+    return ImageSource(name=name, id=cdigest, config=config,
+                       layers=layers)
+
+
+def _blob_path(digest: str) -> str:
+    # a digest names a blob FILE — validate before it becomes a
+    # path, or a crafted manifest ("sha256:../../../etc/secret")
+    # reads arbitrary host files into the report
+    from ..guard.safetar import validate_digest
+    algo, _, hex_ = validate_digest(digest).partition(":")
+    return f"blobs/{algo}/{hex_}"
+
+
+# --- helpers ---
+
+def _canon_json(obj) -> bytes:
+    return json.dumps(obj, separators=(",", ":"),
+                      sort_keys=True).encode()
+
+
+def _member_layer_opener(arch: _Archive, member: str) -> Callable:
+    def open_layer() -> tarfile.TarFile:
+        data = arch.read(member)
+        if arch.budget is not None:
+            return open_layer_bytes(data, arch.budget)
+        if data[:2] == b"\x1f\x8b":
+            data = gzip.decompress(data)
+        return tarfile.open(fileobj=io.BytesIO(data))
+    return open_layer
+
+
+def _open_layer_file(full: str,
+                     budget: Optional[ResourceBudget] = None)\
+        -> tarfile.TarFile:
+    if budget is not None:
+        budget.check_deadline()
+        size = os.path.getsize(full)
+        if size > budget.remaining_bytes():
+            budget.exceeded(
+                f"layer blob {full!r} exceeds the remaining "
+                f"decompressed-byte budget ({size})")
+    with open(full, "rb") as f:
+        data = f.read()
+    if budget is not None:
+        return open_layer_bytes(data, budget)
+    if data[:2] == b"\x1f\x8b":
+        data = gzip.decompress(data)
+    return tarfile.open(fileobj=io.BytesIO(data))
+
+
+def guess_base_layers(diff_ids: list, config: dict) -> list:
+    """Diff IDs belonging to the base image (ref image.go:407-459
+    guessBaseLayers): walk history bottom-up, skip the trailing
+    empty layers (this image's CMD/ENTRYPOINT), and treat the
+    nearest earlier CMD empty-layer as the end of the base image —
+    everything above it in history order is base. Empty layers are
+    absent from diff_ids, so the two lists are re-aligned while
+    collecting."""
+    history = (config or {}).get("history") or []
+    base_image_index = -1
+    found_non_empty = False
+    for i in range(len(history) - 1, -1, -1):
+        h = history[i]
+        empty = bool(h.get("empty_layer"))
+        if not found_non_empty:
+            if empty:
+                continue
+            found_non_empty = True
+        if not empty:
+            continue
+        created_by = h.get("created_by", "")
+        if created_by.startswith("/bin/sh -c #(nop)  CMD") or \
+                created_by.startswith("CMD"):      # BuildKit
+            base_image_index = i
+            break
+
+    out = []
+    diff_idx = 0
+    for i, h in enumerate(history):
+        if i > base_image_index:
+            break
+        if h.get("empty_layer"):
+            continue
+        if diff_idx >= len(diff_ids):
+            return []                   # history/diff mismatch
+        out.append(diff_ids[diff_idx])
+        diff_idx += 1
+    return out

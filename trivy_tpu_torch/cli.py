@@ -1,37 +1,52 @@
-"""Command line: ``python -m trivy_tpu_torch fs|rootfs DIR`` and
+"""Command line: ``python -m trivy_tpu_torch image X.tar``,
+``python -m trivy_tpu_torch fs|rootfs DIR`` and
 ``python -m trivy_tpu_torch sbom BOM``.
 
+``image`` scans a container image (the reference's ``trivy image
+--input X.tar``, by default for vulnerabilities and secrets): a
+docker-save tar, an OCI layout tar or an OCI layout directory is
+loaded under a per-target ingest budget, ``ImageArtifact`` walks every
+layer its cache keys miss (whiteouts, opaque dirs, the guards) through
+the analyzers and scans the secret candidates of every missing,
+non-base layer in one batched sieve, then ``LocalScanner`` prepares
+the advisory pair jobs, one ``dispatch_jobs`` runs the interval match,
+and the results are finished, filtered and written.
+
 ``fs`` (alias ``filesystem``) and ``rootfs`` scan a directory tree
-(the reference's ``trivy fs DIR``, by default for vulnerabilities and
-secrets): ``LocalFSArtifact`` walks it through the analyzers (OS
-release, apk/dpkg/rpm databases, language lockfiles, jars, binaries)
-and scans every secret candidate in one batched sieve, then
-``LocalScanner`` prepares the advisory pair jobs, one
-``dispatch_jobs`` runs the interval match, and the results are
-finished, filtered and written.
+(the reference's ``trivy fs DIR``): ``LocalFSArtifact`` walks it
+through the same analyzers into one blob and one batched sieve, then
+the same prepare, dispatch and finish.
 
 ``sbom`` scans a CycloneDX (JSON, XML, in-toto attestation) or SPDX
 (JSON, tag-value) document for vulnerabilities (the reference's
 ``trivy sbom BOM``): decode into one blob, the same prepare, dispatch
 and finish.
 
-Both write ``table`` (the default), ``json`` or ``cyclonedx``, and
-run on ``--backend cuda`` unless asked for ``cpu`` (the same torch
-code on the CPU) or ``cpu-ref`` (numpy).
+All write ``table`` (the default), ``json`` or ``cyclonedx``, and run
+on ``--backend cuda`` unless asked for ``cpu`` (the same torch code on
+the CPU) or ``cpu-ref`` (numpy). Blobs go to an in-memory cache unless
+``--cache-dir`` names a directory for the on-disk one (``--no-cache``
+keeps them in memory all the same); the findings memo is ROADMAP A.7,
+so every scan behaves as the reference's ``--no-memo``.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import re
 import sys
 import time
+from tarfile import TarError
 
 from . import __version__, resolve_device
-from .artifact import LocalFSArtifact, MemoryCache, SBOMArtifact
+from .artifact import (ArtifactOption, FSCache, ImageArtifact,
+                       LocalFSArtifact, MemoryCache, SBOMArtifact,
+                       load_image)
 from .db import AdvisoryStore, CompiledDB, load_fixtures
 from .detect.batch import dispatch_jobs
+from .guard import DEFAULT_LIMITS, make_budget
 from .handler.unpackaged import check_rekor
 from .report.writer import (FORMATS, UNPORTED_FORMATS, check_format,
                             write_report)
@@ -120,7 +135,7 @@ def scan_sbom(path: str, store, backend: str = "cuda", *,
 
 def secret_scanner(secret_config: str = "trivy-secret.yaml",
                    backend: str = "cuda"):
-    """The batched secret scanner of a filesystem scan on
+    """The batched secret scanner of a filesystem or image scan on
     ``backend``, with the rules of ``secret_config`` (the builtin
     rules when the file does not exist)."""
     from .secret.batch import BatchSecretScanner
@@ -131,13 +146,66 @@ def secret_scanner(secret_config: str = "trivy-secret.yaml",
         backend=backend)
 
 
+def make_cache(cache_dir: str = "", no_cache: bool = False):
+    """The blob cache of a scan (ref cli.py ``_cache``): the on-disk
+    ``FSCache`` under ``cache_dir``, else (or with ``no_cache``) a
+    ``MemoryCache``."""
+    if cache_dir and not no_cache:
+        return FSCache(cache_dir)
+    return MemoryCache()
+
+
+def _artifact_option(backend: str, security_checks, secret_config: str,
+                     scanner, skip_dirs, skip_files, file_patterns,
+                     ingest_guards: bool = True,
+                     ingest_limits=None) -> ArtifactOption:
+    """The artifact options of a scan (ref cli.py ``_artifact_option``):
+    with the ``secret`` check, ``scanner`` (built from
+    ``secret_config`` when None, on ``backend``) and the registered
+    secret analyzer told the rule config's path, which it never
+    scans (process-global, as in the reference)."""
+    checks = list(security_checks)
+    if "secret" not in checks:
+        scanner = None
+    elif scanner is None:
+        scanner = secret_scanner(secret_config, backend)
+    elif scanner.backend != backend:
+        raise ValueError(f"secret scanner on {scanner.backend!r}, "
+                         f"scan on {backend!r}")
+    if scanner is not None:
+        from .analyzer import registered_analyzers
+        for a in registered_analyzers():
+            if a.type == "secret":
+                a.config_path = secret_config
+        scanner.stats = {}
+    return ArtifactOption(
+        skip_dirs=list(skip_dirs), skip_files=list(skip_files),
+        file_patterns=dict(file_patterns or {}),
+        secret_scanner=scanner,
+        scan_secrets="secret" in checks,
+        ingest_guards=ingest_guards, ingest_limits=ingest_limits)
+
+
+def _secret_timings(t: dict, option: ArtifactOption,
+                    stats: dict) -> None:
+    """Split ``inspect_s`` into the batched secret scan (``secret_s``)
+    and the rest (``walk_analyze_s``)."""
+    scanner = option.secret_scanner
+    sstats = scanner.stats if scanner is not None else {}
+    t["secret_s"] = sstats.get("sieve_s", 0.0) + \
+        sstats.get("verify_s", 0.0)
+    t["walk_analyze_s"] = t["inspect_s"] - t["secret_s"]
+    if stats is not None:
+        stats["secret"] = dict(sstats)
+
+
 def scan_fs(root: str, store=None, backend: str = "cuda", *,
             security_checks=("vuln", "secret"),
             vuln_type=("os", "library"),
             list_all_packages: bool = False,
             secret_config: str = "trivy-secret.yaml",
             skip_dirs=(), skip_files=(), file_patterns=None,
-            scanner=None, timings: dict = None,
+            scanner=None, cache=None, timings: dict = None,
             stats: dict = None) -> Report:
     """Scan the directory tree under ``root`` and return the
     unfiltered report (ref cli.py ``run_fs``): ``LocalFSArtifact``
@@ -148,56 +216,124 @@ def scan_fs(root: str, store=None, backend: str = "cuda", *,
     the ``vuln`` check needs none. ``scanner`` reuses a built
     ``BatchSecretScanner`` (``secret_scanner``) on the same
     ``backend``, whose rules then win over ``secret_config``.
-    ``timings`` receives the seconds of ``inspect_s`` and, inside it,
-    ``secret_s`` (the batched secret scan) and ``walk_analyze_s`` (the
-    rest), then ``prepare_s``, ``dispatch_s`` and ``finish_s``;
-    ``stats`` receives ``dispatch_jobs``' counters, ``hits`` and the
-    secret scanner's ``secret`` stats. Raises before any host work
-    when ``cuda`` has no card, ``scanner`` runs on another backend,
-    or a check or the Rekor lookup is still to be ported."""
+    ``cache`` is the blob cache (``make_cache``; a new ``MemoryCache``
+    when None). ``timings`` receives the seconds of ``inspect_s`` and,
+    inside it, ``secret_s`` (the batched secret scan) and
+    ``walk_analyze_s`` (the rest), then ``prepare_s``, ``dispatch_s``
+    and ``finish_s``; ``stats`` receives ``dispatch_jobs``' counters,
+    ``hits`` and the secret scanner's ``secret`` stats. Raises before
+    any host work when ``cuda`` has no card, ``scanner`` runs on
+    another backend, or a check or the Rekor lookup is still to be
+    ported."""
     if backend == "cuda":
         resolve_device(backend)          # fail before the host work
     check_security_checks(security_checks)
     check_rekor()
     t = {} if timings is None else timings
-    checks = list(security_checks)
-    if "secret" not in checks:
-        scanner = None
-    elif scanner is None:
-        scanner = secret_scanner(secret_config, backend)
-    elif scanner.backend != backend:
-        raise ValueError(f"secret scanner on {scanner.backend!r}, "
-                         f"scan on {backend!r}")
-    if scanner is not None:
-        # the rule config itself is never scanned: the registered
-        # secret analyzer is told its path (ref cli.py:1684-1687;
-        # process-global, as in the reference)
-        from .analyzer import registered_analyzers
-        for a in registered_analyzers():
-            if a.type == "secret":
-                a.config_path = secret_config
-        scanner.stats = {}
-    cache = MemoryCache()
+    option = _artifact_option(backend, security_checks, secret_config,
+                              scanner, skip_dirs, skip_files,
+                              file_patterns)
+    cache = MemoryCache() if cache is None else cache
     t0 = time.perf_counter()
-    ref = LocalFSArtifact(root, cache, skip_dirs=skip_dirs,
-                          skip_files=skip_files,
-                          file_patterns=file_patterns,
-                          secret_scanner=scanner).inspect()
+    ref = LocalFSArtifact(root, cache, option).inspect()
     t["inspect_s"] = time.perf_counter() - t0
-    sstats = scanner.stats if scanner is not None else {}
-    t["secret_s"] = sstats.get("sieve_s", 0.0) + \
-        sstats.get("verify_s", 0.0)
-    t["walk_analyze_s"] = t["inspect_s"] - t["secret_s"]
-    if stats is not None:
-        stats["secret"] = dict(sstats)
+    _secret_timings(t, option, stats)
     options = ScanOptions(vuln_type=list(vuln_type),
-                          security_checks=checks,
+                          security_checks=list(security_checks),
                           list_all_packages=list_all_packages,
                           backend=backend)
     results, os_found = _scan(LocalScanner(cache, store), ref, options,
                               t, stats)
     return Report(artifact_name=root, artifact_type="filesystem",
                   metadata=Metadata(os=os_found), results=results)
+
+
+class ImageLoadError(ValueError):
+    """The image could not be loaded (a missing, unreadable or
+    malformed archive, or a guard trip while reading its metadata)."""
+
+
+def scan_image(path: str, store=None, backend: str = "cuda", *,
+               security_checks=("vuln", "secret"),
+               vuln_type=("os", "library"),
+               list_all_packages: bool = False,
+               scan_removed_packages: bool = False,
+               secret_config: str = "trivy-secret.yaml",
+               skip_dirs=(), skip_files=(), file_patterns=None,
+               scanner=None, ingest_guards: bool = True,
+               ingest_limits=None, cache=None, name: str = "",
+               timings: dict = None, stats: dict = None) -> Report:
+    """Scan the container image at ``path`` (a docker-save tar, an OCI
+    layout tar or an OCI layout directory) and return the unfiltered
+    report (ref cli.py ``run_image``): ``load_image`` under a
+    per-target ingest budget (none with ``ingest_guards=False``) →
+    ``ImageArtifact`` inspect (the layers the cache misses: walk,
+    analyzers, one batched secret sieve over every missing, non-base
+    layer) → ``LocalScanner`` prepare → one ``dispatch_jobs`` →
+    finish. A report whose budget noted soft faults is marked
+    ``degraded`` with ``ingest`` causes.
+
+    ``store``, ``scanner`` and ``cache`` are as ``scan_fs`` takes
+    them; ``name`` is the report's artifact name (``path`` when
+    empty). ``timings`` receives ``load_s``, ``inspect_s`` with
+    ``secret_s`` and ``walk_analyze_s`` inside it, ``prepare_s``,
+    ``dispatch_s`` and ``finish_s``; ``stats`` receives
+    ``dispatch_jobs``' counters, ``hits``, the secret scanner's
+    ``secret`` stats and the ``missing`` layer count. Raises
+    ``ImageLoadError`` when the image cannot be loaded, and a
+    ``GuardError`` (a ``ValueError``) when a layer trips a guard.
+    Raises before any host work when ``cuda`` has no card,
+    ``scanner`` runs on another backend, or a check or the Rekor
+    lookup is still to be ported."""
+    if backend == "cuda":
+        resolve_device(backend)          # fail before the host work
+    check_security_checks(security_checks)
+    check_rekor()
+    t = {} if timings is None else timings
+    option = _artifact_option(backend, security_checks, secret_config,
+                              scanner, skip_dirs, skip_files,
+                              file_patterns, ingest_guards,
+                              ingest_limits)
+    budget = make_budget(option.ingest_limits,
+                         enabled=option.ingest_guards, name=path)
+    t0 = time.perf_counter()
+    try:
+        image = load_image(path, name=name or path, budget=budget)
+    except (OSError, ValueError, TarError) as e:
+        raise ImageLoadError(
+            f"failed to load image {path!r}: {e}") from e
+    t["load_s"] = time.perf_counter() - t0
+    cache = MemoryCache() if cache is None else cache
+    artifact = ImageArtifact(image, cache, option=option, budget=budget)
+    t0 = time.perf_counter()
+    ref = artifact.inspect()
+    t["inspect_s"] = time.perf_counter() - t0
+    if stats is not None:
+        stats["missing"] = artifact.missing_layers
+    _secret_timings(t, option, stats)
+    options = ScanOptions(vuln_type=list(vuln_type),
+                          security_checks=list(security_checks),
+                          list_all_packages=list_all_packages,
+                          scan_removed_packages=scan_removed_packages,
+                          backend=backend)
+    results, os_found = _scan(LocalScanner(cache, store), ref, options,
+                              t, stats)
+    meta = ref.image_metadata
+    report = Report(
+        artifact_name=ref.name, artifact_type="container_image",
+        metadata=Metadata(os=os_found, image_id=meta.id,
+                          diff_ids=meta.diff_ids,
+                          repo_tags=meta.repo_tags,
+                          repo_digests=meta.repo_digests,
+                          image_config=meta.image_config),
+        results=results)
+    if budget is not None and budget.soft_faults:
+        # survivable hostile input: the scan is reported degraded
+        # with ingest-stage causes
+        report.mark_degraded(
+            [{"stage": "ingest", "kind": k, "message": m}
+             for k, m in budget.soft_faults])
+    return report
 
 
 def filter_report(report: Report, severity: str = DEFAULT_SEVERITIES,
@@ -335,13 +471,98 @@ def _run_fs(args) -> int:
                      secret_config=args.secret_config,
                      skip_dirs=_split(args.skip_dirs),
                      skip_files=_split(args.skip_files),
-                     file_patterns=patterns)
+                     file_patterns=patterns,
+                     cache=make_cache(args.cache_dir, args.no_cache))
+    return _finish(args, report)
+
+
+def _ingest_limits(args):
+    """--max-decompressed-bytes/--max-files/--ingest-deadline-s →
+    ResourceLimits (None = pure defaults; zero values keep each
+    default; ref cli.py ``_ingest_limits``)."""
+    overrides = {}
+    if args.max_decompressed_bytes:
+        overrides["max_decompressed_bytes"] = \
+            args.max_decompressed_bytes
+    if args.max_files:
+        overrides["max_files"] = args.max_files
+    if args.ingest_deadline_s:
+        overrides["ingest_deadline_s"] = args.ingest_deadline_s
+    if not overrides:
+        return None
+    return dataclasses.replace(DEFAULT_LIMITS, **overrides)
+
+
+def _refuse_image(args) -> str:
+    """The image options still to be ported, by ROADMAP item: each is
+    refused before any host work."""
+    if len(args.target) > 1:
+        return ("several image targets run through the batch runner "
+                "and the scheduler, which are not ported yet (ROADMAP "
+                "A.4/A.5); scan one image per run")
+    if args.target and not args.input and \
+            not os.path.exists(args.target[0]):
+        return (f"{args.target[0]!r} is not an existing path: daemon, "
+                "containerd and registry resolution are not ported yet "
+                "(ROADMAP A.9)")
+    for flag, value in (("--server", args.server),
+                        ("--fault-spec", args.fault_spec)):
+        if value:
+            return f"{flag} is not ported yet (ROADMAP A.9)"
+    if args.cache_backend != "fs":
+        return (f"--cache-backend {args.cache_backend!r} is not ported "
+                "yet (ROADMAP A.9); only 'fs' is")
+    return ""
+
+
+def _run_image(args) -> int:
+    refused = _refuse_image(args)
+    if refused:
+        print(f"error: {refused}", file=sys.stderr)
+        return 1
+    target = args.target[0] if args.target else ""
+    path = args.input or target
+    if not path:
+        print("error: image target or --input required",
+              file=sys.stderr)
+        return 2
+    if _refuse_early(args):
+        return 1
+    checks = _split(args.security_checks)
+    check_security_checks(checks)
+    try:
+        patterns = _file_patterns(args.file_patterns)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    store = load_store(args.db_fixtures, args.compiled_db,
+                       args.compile_db) if "vuln" in checks else None
+    try:
+        report = scan_image(
+            path, store, args.backend, security_checks=checks,
+            vuln_type=_split(args.vuln_type),
+            list_all_packages=_list_all(args),
+            scan_removed_packages=args.removed_pkgs,
+            secret_config=args.secret_config,
+            skip_dirs=_split(args.skip_dirs),
+            skip_files=_split(args.skip_files), file_patterns=patterns,
+            ingest_guards=not args.no_ingest_guards,
+            ingest_limits=_ingest_limits(args),
+            cache=make_cache(args.cache_dir, args.no_cache),
+            name=target or path)
+    except ValueError as e:
+        # a load failure, or a guard trip while walking the layers
+        # (ref cli.py ``main``: the typed trips are ValueErrors)
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    for c in report.failure_causes:
+        print(f"warning: {report.artifact_name}: degraded "
+              f"({c.stage}/{c.kind}): {c.message}", file=sys.stderr)
     return _finish(args, report)
 
 
 def _scan_flags(sp) -> None:
     """The reference's ``scan_flags`` that the port reads."""
-    sp.add_argument("target")
     sp.add_argument("--format", "-f", default="table",
                     choices=FORMATS + UNPORTED_FORMATS)
     sp.add_argument("--output", "-o", default="")
@@ -371,33 +592,85 @@ def _scan_flags(sp) -> None:
                     help="load a compiled advisory DB (npz path "
                     "prefix)")
     sp.add_argument("--no-cache", action="store_true",
-                    help="accepted for compatibility: the blob cache "
-                    "is always in memory")
+                    help="keep blobs in memory, even with --cache-dir "
+                    "(sbom always does)")
+
+
+def _tree_flags(sp) -> None:
+    """The flags of the scans that walk files (``fs``, ``image``)."""
+    sp.add_argument("--security-checks", default="vuln,secret")
+    sp.add_argument("--skip-dirs", default="")
+    sp.add_argument("--skip-files", default="")
+    sp.add_argument("--file-patterns", action="append",
+                    default=[], metavar="TYPE:REGEX",
+                    help="force files matching REGEX through the "
+                    "TYPE analyzer, e.g. pip:deps.txt; repeatable")
+    sp.add_argument("--secret-config", default="trivy-secret.yaml")
+    sp.add_argument("--cache-dir", default="",
+                    help="keep analyzed blobs on disk under "
+                    "DIR/fanal (default: in memory, for this run "
+                    "only); not shared with the JAX package")
+
+
+def _image_flags(sp) -> None:
+    """``image``'s own flags (ref cli.py ``build_parser``)."""
+    sp.add_argument("target", nargs="*", default=[])
+    sp.add_argument("--input", default="",
+                    help="image tarball path (docker save / OCI)")
+    sp.add_argument("--removed-pkgs", action="store_true",
+                    help="also scan packages installed and later "
+                    "removed in the Dockerfile (reconstructed from RUN "
+                    "history; alpine only, needs "
+                    "TRIVY_APK_INDEX_ARCHIVE_URL)")
+    sp.add_argument("--no-memo", action="store_true",
+                    help="accepted: the findings memo is not ported "
+                    "yet, every scan runs without it")
+    sp.add_argument("--no-ingest-guards", action="store_true",
+                    help="disable the ingest resource budgets and "
+                    "safe-tar checks (unsafe on untrusted images)")
+    sp.add_argument("--max-decompressed-bytes", type=int, default=0,
+                    help="ingest guard: per-target decompressed-byte "
+                    "budget (default 1 GiB)")
+    sp.add_argument("--max-files", type=int, default=0,
+                    help="ingest guard: per-target archive entry "
+                    "budget (default 100000)")
+    sp.add_argument("--ingest-deadline-s", type=float, default=0.0,
+                    help="ingest guard: per-target wall-clock "
+                    "deadline for image load + layer walking "
+                    "(default 300s)")
+    # refused by name (ROADMAP A.9)
+    sp.add_argument("--server", default="", help=argparse.SUPPRESS)
+    sp.add_argument("--fault-spec", default="", help=argparse.SUPPRESS)
+    sp.add_argument("--cache-backend", default="fs",
+                    help=argparse.SUPPRESS)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m trivy_tpu_torch")
     sub = ap.add_subparsers(dest="command", required=True)
+    img = sub.add_parser("image", help="scan a container image "
+                         "(docker-save or OCI tarball, OCI layout "
+                         "directory) for vulnerabilities and secrets")
+    _image_flags(img)
+    _scan_flags(img)
+    _tree_flags(img)
     for name, aliases, what in (
             ("fs", ["filesystem"], "a directory tree"),
             ("rootfs", [], "an unpacked root filesystem")):
         fs = sub.add_parser(name, aliases=aliases,
                             help=f"scan {what} for vulnerabilities "
                             "and secrets")
+        fs.add_argument("target")
         _scan_flags(fs)
-        fs.add_argument("--security-checks", default="vuln,secret")
-        fs.add_argument("--skip-dirs", default="")
-        fs.add_argument("--skip-files", default="")
-        fs.add_argument("--file-patterns", action="append",
-                        default=[], metavar="TYPE:REGEX",
-                        help="force files matching REGEX through the "
-                        "TYPE analyzer, e.g. pip:deps.txt; repeatable")
-        fs.add_argument("--secret-config", default="trivy-secret.yaml")
+        _tree_flags(fs)
 
     sb = sub.add_parser("sbom", help="scan an SBOM document "
                         "(CycloneDX/SPDX) for vulnerabilities")
+    sb.add_argument("target")
     _scan_flags(sb)
     args = ap.parse_args(argv)
+    if args.command == "image":
+        return _run_image(args)
     if args.command == "sbom":
         return _run_sbom(args)
     return _run_fs(args)

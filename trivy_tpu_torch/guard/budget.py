@@ -1,0 +1,393 @@
+"""Per-scan resource budgets for the ingest path.
+
+The reference bounds what it reads (pkg/fanal/walker caps file sizes
+and skips system dirs); this module generalizes that into one
+explicit, per-target budget every ingest primitive consults:
+
+* **bytes** — decompressed output is charged chunk-wise, with a
+  compression-ratio tripwire that catches bombs long before the
+  absolute cap (a 10 GB/10 KB gzip trips at ``ratio_min_bytes``
+  decompressed, not at 1 GiB);
+* **entries** — every tar entry counts, so a million-entry header
+  flood trips without reading a single payload byte;
+* **per-file size / path depth / name length** — absurd single
+  members trip before materializing;
+* **wall clock** — ``start_stage`` arms a monotonic deadline that
+  the same chunk/entry loops check, so ingest can never run past
+  its deadline by more than one bounded chunk. The checks sit at
+  every point that consumes attacker-controlled input — the
+  cooperative form of a watchdog, with the bound guaranteed by the
+  chunk size rather than a sampling thread.
+
+A budget is **per target**: trips fail (or degrade) that target only,
+through the degraded-mode report status. All trips also increment
+the process-wide :data:`GUARD_METRICS` (the scheduler's metrics that
+export them come with ROADMAP A.5).
+
+``current_budget`` is a contextvar letting deep parsers (the rpmdb
+openers, analyzers) report *soft* faults — input that is malformed
+but survivable (the scan completes without that parser's output,
+status ``degraded``) — without threading the budget through every
+analyzer signature.
+"""
+
+from __future__ import annotations
+
+import contextvars
+import threading
+import time
+from dataclasses import dataclass, replace
+from typing import Optional
+
+
+@dataclass(frozen=True)
+class ResourceLimits:
+    """Static limits one scan runs under (the budget's config half).
+
+    The defaults are the CLI defaults; ``--max-decompressed-bytes``,
+    ``--max-files`` and ``--ingest-deadline-s`` override the common
+    ones and ``--no-ingest-guards`` disables the budget entirely (the
+    differential baseline)."""
+
+    max_decompressed_bytes: int = 1 << 30      # 1 GiB per target
+    max_compression_ratio: float = 200.0       # bomb tripwire …
+    ratio_min_bytes: int = 4 << 20             # … armed past 4 MiB
+    max_files: int = 100_000                   # tar entries per target
+    max_file_bytes: int = 512 << 20            # one member's payload
+    max_config_bytes: int = 4 << 20            # image config/manifest
+    max_depth: int = 64                        # path components
+    max_name_bytes: int = 4096                 # one member's name
+    ingest_deadline_s: float = 300.0           # per-stage wall clock
+
+    def scaled(self, scale: float) -> "ResourceLimits":
+        """Proportionally smaller limits (tests/bench use miniature
+        corpora; deadline and ratio are kept as-is)."""
+        return replace(
+            self,
+            max_decompressed_bytes=max(
+                1, int(self.max_decompressed_bytes * scale)),
+            ratio_min_bytes=max(1, int(self.ratio_min_bytes * scale)),
+            max_files=max(1, int(self.max_files * scale)),
+            max_file_bytes=max(1, int(self.max_file_bytes * scale)),
+            max_config_bytes=max(
+                1, int(self.max_config_bytes * scale)),
+        )
+
+
+DEFAULT_LIMITS = ResourceLimits()
+
+
+class GuardError(ValueError):
+    """Base of every ingest-guard trip. A ValueError so the existing
+    per-slot load-error handling catches it; ``stage``/``kind`` map
+    straight onto the degraded-mode FailureCause schema."""
+
+    stage = "ingest"
+    kind = "resource-budget"
+
+
+class ResourceBudgetExceeded(GuardError):
+    """A budget limit was hit (bytes, entries, size, depth)."""
+
+    kind = "resource-budget"
+
+
+class MalformedArchiveError(GuardError):
+    """The input is structurally hostile or broken (traversal names,
+    link escapes, truncated/corrupt streams, undecodable names)."""
+
+    kind = "malformed-archive"
+
+
+class IngestDeadlineExceeded(ResourceBudgetExceeded):
+    """The per-stage ingest deadline passed."""
+
+
+class GuardMetrics:
+    """Process-wide guard counters (thread-safe)."""
+
+    _FIELDS = ("budget_trips", "malformed_archives",
+               "deadline_trips", "soft_faults", "entries_walked",
+               "bytes_decompressed", "traversal_rejected",
+               "link_escapes")
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.counters = {f: 0 for f in self._FIELDS}
+
+    def inc(self, name: str, n: int = 1) -> None:
+        with self._lock:
+            # lint: disable=unbounded-label-cardinality -- counter
+            # names are code-literal call sites, never
+            # request-derived strings
+            self.counters[name] = self.counters.get(name, 0) + n
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return dict(self.counters)
+
+
+GUARD_METRICS = GuardMetrics()
+
+# The budget of the scan currently ingesting on this thread/context —
+# lets the rpmdb openers and analyzers record soft faults without a
+# budget parameter in every signature. Set by ResourceBudget.activate.
+current_budget: contextvars.ContextVar = contextvars.ContextVar(
+    "trivy_tpu_torch_ingest_budget", default=None)
+
+
+def make_budget(limits: Optional[ResourceLimits], enabled: bool = True,
+                name: str = "") -> Optional["ResourceBudget"]:
+    """The one constructor call sites share: None when guards are off
+    (``--no-ingest-guards``), else a fresh per-target budget."""
+    if not enabled:
+        return None
+    return ResourceBudget(limits or DEFAULT_LIMITS, name=name)
+
+
+class ResourceBudget:
+    """Mutable per-target counters against one :class:`ResourceLimits`.
+
+    Not shared across targets — a fresh instance per scan slot keeps
+    the blast radius of any trip at exactly one target."""
+
+    # global-metrics flush batching: the per-entry counters would
+    # otherwise take the process-wide metrics lock once per tar
+    # entry across every worker thread
+    _FLUSH_ENTRIES = 64
+    _FLUSH_BYTES = 4 << 20
+
+    def __init__(self, limits: Optional[ResourceLimits] = None,
+                 name: str = "", metrics: GuardMetrics = GUARD_METRICS):
+        self.limits = limits or DEFAULT_LIMITS
+        self.name = name
+        self.metrics = metrics
+        self.decompressed = 0
+        self.entries = 0
+        self.deadline: Optional[float] = None
+        # soft faults: [(kind, message)] — survivable malformed input
+        # (e.g. a corrupt rpmdb); the slot completes status=degraded
+        self.soft_faults: list = []
+        self._lock = threading.Lock()
+        self._unflushed_entries = 0
+        self._unflushed_bytes = 0
+        self.start_stage()
+
+    # --- lifecycle ---
+
+    def start_stage(self, deadline_s: Optional[float] = None) -> None:
+        """(Re)arm the wall-clock deadline for the stage beginning
+        now. Every chunk/entry check below consults it."""
+        s = self.limits.ingest_deadline_s if deadline_s is None \
+            else deadline_s
+        self.deadline = (time.monotonic() + s) if s and s > 0 else None
+
+    def activate(self) -> "_BudgetContext":
+        """``with budget.activate():`` — publish this budget as the
+        thread's current_budget for the duration (soft-fault hook)."""
+        return _BudgetContext(self)
+
+    # --- trips ---
+
+    def flush_metrics(self) -> None:
+        """Push the batched walk counters to the global metrics —
+        called when a scan slot's ingest completes (and on every
+        trip), so small images are not lost to the batching."""
+        self._flush_metrics()
+
+    def _flush_metrics(self) -> None:
+        if self._unflushed_entries:
+            self.metrics.inc("entries_walked",
+                             self._unflushed_entries)
+            self._unflushed_entries = 0
+        if self._unflushed_bytes:
+            self.metrics.inc("bytes_decompressed",
+                             self._unflushed_bytes)
+            self._unflushed_bytes = 0
+
+    def _trip(self, exc_cls, msg: str) -> None:
+        self._flush_metrics()
+        if issubclass(exc_cls, MalformedArchiveError):
+            self.metrics.inc("malformed_archives")
+        elif issubclass(exc_cls, IngestDeadlineExceeded):
+            self.metrics.inc("deadline_trips")
+        self.metrics.inc("budget_trips")
+        prefix = f"{self.name}: " if self.name else ""
+        # the reference also records the trip as a trace event on
+        # the active span; the tracer comes with ROADMAP A.8
+        raise exc_cls(prefix + msg)
+
+    def malformed(self, msg: str) -> None:
+        self._trip(MalformedArchiveError, msg)
+
+    def exceeded(self, msg: str) -> None:
+        self._trip(ResourceBudgetExceeded, msg)
+
+    def note(self, kind: str, message: str) -> None:
+        """Record a soft fault: the slot survives but reports
+        status=degraded with an ingest-stage cause."""
+        with self._lock:
+            self.soft_faults.append((kind, message))
+        self.metrics.inc("soft_faults")     # trace event: A.8
+
+    # --- checks (called from the safetar/walker hot loops) ---
+
+    def check_deadline(self) -> None:
+        if self.deadline is not None and \
+                time.monotonic() >= self.deadline:
+            self._trip(IngestDeadlineExceeded,
+                       f"ingest deadline of "
+                       f"{self.limits.ingest_deadline_s}s exceeded")
+
+    def remaining_bytes(self) -> int:
+        return max(0, self.limits.max_decompressed_bytes -
+                   self.decompressed)
+
+    def charge_decompressed(self, n: int) -> None:
+        """Charge ``n`` freshly produced bytes. Counters are
+        single-writer (one budget per scan slot), so no lock on the hot
+        path."""
+        self.decompressed += n
+        total = self.decompressed
+        self._unflushed_bytes += n
+        if self._unflushed_bytes >= self._FLUSH_BYTES:
+            self._flush_metrics()
+        lim = self.limits
+        if total > lim.max_decompressed_bytes:
+            self.exceeded(
+                f"decompressed bytes exceed budget "
+                f"({total} > {lim.max_decompressed_bytes})")
+
+    def check_ratio(self, produced: int, compressed: int) -> None:
+        """The ratio tripwire of one compressed input: ``produced``,
+        the bytes it has inflated to so far, against ``compressed``,
+        its size. The JAX package holds the target's running total
+        against one input's size instead, so there a small gzipped
+        layer after 4 MiB of earlier layers trips as a bomb (ROADMAP
+        Queue C)."""
+        lim = self.limits
+        if produced > lim.ratio_min_bytes and \
+                produced > lim.max_compression_ratio * compressed:
+            self.exceeded(
+                f"compression ratio tripwire: {produced} bytes from "
+                f"{compressed} compressed "
+                f"(> {lim.max_compression_ratio:g}x)")
+
+    def charge_entry(self) -> None:
+        self.charge_entries(1)
+
+    def charge_entries(self, n: int) -> None:
+        """Bulk entry charge — the walker counts locally and charges
+        every 32 entries, so the per-entry guard cost in the hot
+        loop is one increment and a branch. The deadline and the
+        global-metrics flush ride the same amortized schedule; the
+        entry cap therefore trips at most one batch late, which the
+        batch size bounds."""
+        if n <= 0:
+            return
+        self.entries += n
+        self._unflushed_entries += n
+        if self._unflushed_entries >= self._FLUSH_ENTRIES:
+            self._flush_metrics()
+            self.check_deadline()
+        if self.entries > self.limits.max_files:
+            self.exceeded(
+                f"archive entry count exceeds budget "
+                f"(> {self.limits.max_files})")
+
+    def roll_up(self, bytes_n: int = 0, entries_n: int = 0) -> None:
+        """Aggregate a child (per-layer) budget's charges into this
+        per-target budget. Unlike the single-writer hot-path charges
+        above, roll-ups arrive concurrently from streaming prefetch
+        workers, so the counters move under the lock; the cap checks
+        run outside it (a trip raises, and ``_trip`` takes the
+        metrics lock). Global metrics are NOT incremented here — the
+        child budget already counted the same bytes/entries — and
+        the ratio tripwire stays with the child, which knows its own
+        compressed input size."""
+        if bytes_n <= 0 and entries_n <= 0:
+            return
+        with self._lock:
+            self.decompressed += bytes_n
+            self.entries += entries_n
+            total_bytes = self.decompressed
+            total_entries = self.entries
+        lim = self.limits
+        if bytes_n > 0 and total_bytes > lim.max_decompressed_bytes:
+            self.exceeded(
+                f"decompressed bytes exceed budget "
+                f"({total_bytes} > {lim.max_decompressed_bytes})")
+        if entries_n > 0 and total_entries > lim.max_files:
+            self.exceeded(
+                f"archive entry count exceeds budget "
+                f"(> {lim.max_files})")
+
+    def check_file_size(self, size: int, path: str = "") -> None:
+        if size < 0:
+            self.malformed(f"negative member size for {path!r}")
+        if size > self.limits.max_file_bytes:
+            self.exceeded(
+                f"member {path!r} exceeds per-file budget "
+                f"({size} > {self.limits.max_file_bytes})")
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {"decompressed": self.decompressed,
+                    "entries": self.entries,
+                    "soft_faults": len(self.soft_faults)}
+
+
+class LayerBudget(ResourceBudget):
+    """A per-layer sub-budget for the streaming ingest path that
+    rolls every charge up to the per-target parent budget.
+
+    Two bounds hold simultaneously, neither weakened by streaming:
+    the layer trips at the same thresholds a materialized scan of
+    that layer alone would (same limits, same ratio tripwire armed
+    with the layer's own compressed size), AND the aggregate across
+    all of an image's layers still respects the per-target cap via
+    the parent roll-up. Global :data:`GUARD_METRICS` are counted
+    once — by this child budget's charges; :meth:`ResourceBudget.
+    roll_up` deliberately skips them. Soft faults delegate to the
+    parent so degraded-mode reporting sees one list per target on
+    both runner paths, and the hot-path charges stay single-writer
+    per layer (one prefetch worker per layer)."""
+
+    def __init__(self, parent: ResourceBudget, name: str = ""):
+        self.parent = parent
+        super().__init__(parent.limits, name=name or parent.name,
+                         metrics=parent.metrics)
+
+    def charge_decompressed(self, n: int) -> None:
+        super().charge_decompressed(n)
+        try:
+            self.parent.roll_up(bytes_n=n)
+        except GuardError:
+            self._flush_metrics()
+            raise
+
+    def charge_entries(self, n: int) -> None:
+        if n <= 0:
+            return
+        super().charge_entries(n)
+        try:
+            self.parent.roll_up(entries_n=n)
+        except GuardError:
+            self._flush_metrics()
+            raise
+
+    def note(self, kind: str, message: str) -> None:
+        self.parent.note(kind, message)
+
+
+class _BudgetContext:
+    def __init__(self, budget: ResourceBudget):
+        self.budget = budget
+        self._token = None
+
+    def __enter__(self) -> ResourceBudget:
+        self._token = current_budget.set(self.budget)
+        return self.budget
+
+    def __exit__(self, *exc) -> None:
+        current_budget.reset(self._token)

@@ -90,6 +90,17 @@ class LocalScanner:
         blobs = [self.cache.get_blob(b) for b in target.blob_ids]
         detail = apply_layers(blobs)
 
+        if options.scan_removed_packages:
+            # packages installed-then-deleted in the Dockerfile:
+            # reconstructed from RUN history at inspect time, merged
+            # with installed packages taking priority by name
+            # (ref local/scan.go:181-182,523-536 mergePkgs)
+            info = self.cache.get_artifact(target.artifact_id)
+            history = getattr(info, "history_packages", None) or []
+            present = {p.name for p in detail.packages}
+            detail.packages.extend(
+                p for p in history if p.name not in present)
+
         # repository fallback BEFORE the "none" default — a
         # distroless alpine has packages and an apk repositories
         # stream but no release file (ref local/scan.go:82-97,

@@ -321,5 +321,6 @@ class ScanOptions:
     vuln_type: list = field(default_factory=lambda: ["os", "library"])
     security_checks: list = field(default_factory=lambda: ["vuln", "secret"])
     list_all_packages: bool = False
+    scan_removed_packages: bool = False
     # dispatch_jobs backend: "cuda" (default), "cpu" or "cpu-ref"
     backend: str = "cuda"
