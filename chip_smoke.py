@@ -93,6 +93,27 @@ Builds the port's hand-written kernels (``trivy_tpu_torch/csrc``, one
    and idle share, the last over the profiled run's wall time and over
    the median unprofiled warm scan's (the profiler stretches the
    first).
+7. fleet phase: 16 ``docker save`` targets (``fleet_targets``: the same
+   base and a shared secret layer in every image, lockfiles of their
+   own drawn from the store's packages, the corpus in quarters, one per
+   group of four images, one image again under a second tag, one
+   truncated tar) go through the fleet runtime's direct path
+   (``BatchScanRunner(sched="off").scan_paths``: every image analyzed
+   and joined, ONE ``dfa_blockmask`` sieve over every image's missing
+   non-base layers, the interval match in waves of 4,096 rows kept in
+   flight by a ``DispatchRing`` on a CUDA side stream): cold into a
+   fresh ``MemoryCache`` at dispatch depth 1, 2 and 4, warm at depth 2
+   (no layer missing, no launch: a re-sweep after a DB update), cold at
+   depth 4 with waves of 256 rows, and once profiled. Every run's
+   reports must be equal and equal to each target scanned alone through
+   the image entry; the twin's must be its image's but for its name and
+   tag, the truncated tar must fail alone, each cold fleet must launch
+   the sieve once, and no run may upload the resident tables again. A
+   4-target fleet must give the same reports on the card and on
+   ``cpu-ref``. It prints each run's wall time, images/s, its split
+   (loads, the batch, the garbage collection at its end) and the
+   runner's ``last_stats``, the same targets' time alone, and the
+   profiled fleet's busy ms and idle share.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}``
 line (times from CUDA events, the bound this run's inputs give; the
@@ -1725,21 +1746,30 @@ def scan_image_report(path: str, db, backend: str, scanner, cache=None,
     """One image scan as ``python -m trivy_tpu_torch image --input PATH
     --format json`` makes it: ``scan_image``, the default filters, the
     JSON writer. Returns (report text, step seconds, stats)."""
-    from trivy_tpu_torch import __version__
-    from trivy_tpu_torch.cli import filter_report, scan_image
-    from trivy_tpu_torch.report.writer import write_report
+    from trivy_tpu_torch.cli import scan_image
     steps, stats = {}, {}
     t0 = time.perf_counter()
     report = scan_image(path, db, backend, security_checks=checks,
                         scanner=scanner, cache=cache, timings=steps,
                         stats=stats)
     t1 = time.perf_counter()
+    text = report_text(report)
+    t2 = time.perf_counter()
+    steps.update(filter_write_s=t2 - t1, total_s=t2 - t0)
+    return text, steps, stats
+
+
+def report_text(report) -> str:
+    """``report`` as the ``image`` entry writes it with ``--format
+    json`` (one element of the array, for several targets): the
+    default filters, the JSON writer."""
+    from trivy_tpu_torch import __version__
+    from trivy_tpu_torch.cli import filter_report
+    from trivy_tpu_torch.report.writer import write_report
     filter_report(report)
     buf = io.StringIO()
     write_report(report, fmt="json", output=buf, app_version=__version__)
-    t2 = time.perf_counter()
-    steps.update(filter_write_s=t2 - t1, total_s=t2 - t0)
-    return buf.getvalue(), steps, stats
+    return buf.getvalue()
 
 
 def _image_steps(steps: dict, stats: dict) -> dict:
@@ -1936,6 +1966,260 @@ def image_phase(device, cdb, n_pkgs: dict, files: list, planted: dict,
     return out
 
 
+# --- the fleet: several images in one batch ---------------------------
+
+FLEET_IMAGES = 16               # targets: distinct images, a twin, a broken tar
+FLEET_GROUP = 4                 # images that share one part of the corpus
+FLEET_HISTORY = (
+    ("/bin/sh -c #(nop) ADD file:3b16ab4a8e1ec1fa in / ", False),
+    ('/bin/sh -c #(nop)  CMD ["bash"]', True),
+    ("COPY srv/shared /srv/shared # buildkit", False),
+    ("COPY srv/app /srv/app # buildkit", False),
+    ("COPY corpus / # buildkit", False),
+    ('CMD ["/srv/app/run"]', True),
+)
+SHARED_SECRET = ("srv/shared/deploy.env", SECRETS[0][0])
+
+
+def fleet_targets(work_dir: str, tree: tuple, n_pkgs: dict, seed: int,
+                  files: list, n_images: int = FLEET_IMAGES,
+                  scale: float = 1.0) -> dict:
+    """Write a fleet of ``n_images`` docker-save targets under
+    ``work_dir``. Every image has the same base (``tree``'s OS files
+    and a planted secret; the history's ``CMD`` ends the base, so the
+    secret is never reported), the same layer with one shared secret
+    (``SHARED_SECRET``), its own lockfiles (``tree``'s, drawn under the
+    seed ``seed + 1 + i``: versions that differ across images) and one
+    part of ``files``, one part per group of ``FLEET_GROUP`` images,
+    so that a fleet holds ``files`` once. The last two targets are
+    the one before them under a second tag (its twin) and an image of
+    its own cut off in the middle (it fails to load). Returns
+    {"paths": [...], "twin": (i, its twin's index), "broken": index}."""
+    os_files, _ = fs_tree_files(tree, n_pkgs, seed, scale)
+    base = os_files + [BASE_SECRET]
+    n_groups = -(-n_images // FLEET_GROUP)
+    part = -(-len(files) // n_groups)
+    paths, twin, broken = [], n_images - 2, n_images - 1
+    for i in range(n_images):
+        k = i - 1 if i == twin else i
+        _, lockfiles = fs_tree_files(tree, n_pkgs, seed + 1 + k, scale)
+        g = k // FLEET_GROUP
+        layers = [base, [SHARED_SECRET], lockfiles,
+                  files[g * part:(g + 1) * part]]
+        path = os.path.join(work_dir, f"fleet{i}.tar")
+        tag = f"smoke/fleet:{k}" + ("-alias" if i == twin else "")
+        write_docker_save(path, layers, FLEET_HISTORY, repo_tag=tag)
+        if i == broken:
+            with open(path, "r+b") as f:
+                f.truncate(os.path.getsize(path) // 2)
+        paths.append(path)
+    return {"paths": paths, "twin": (twin - 1, twin), "broken": broken}
+
+
+FLEET_DEPTHS = (1, 2, 4)
+FLEET_WAVE_ROWS = 256           # the many-slots run's wave size
+FLEET_REDUCED = 4               # targets of the cross-backend fleet
+FLEET_REDUCED_SCALE = 0.25      # its package counts, of the full fleet's
+
+
+def run_fleet(paths: list, db, backend: str, scanner, cache,
+              depth: int, wave_rows: int = None) -> dict:
+    """One ``BatchScanRunner(sched="off").scan_paths`` over ``paths``
+    (with waves of ``wave_rows`` rows when given), its sieve launches
+    counted from 0: {"texts": one sorted JSON report text per target,
+    None for a failed one, "failed": [(index, status, causes)] of the
+    failed ones, "wall_s" (the runner's),
+    "split_s" (the wall's parts: the loads, the batch itself, and the
+    garbage collection ``defer_gc`` runs when the batch ends),
+    "write_s" (filters + JSON writer), "launches", "stats"}."""
+    import trivy_tpu_torch.detect.batch as dbatch
+    from trivy_tpu_torch.ops.dfa_cuda import dfa_blockmask
+    from trivy_tpu_torch.runtime import BatchScanRunner
+    runner = BatchScanRunner(store=db, cache=cache, backend=backend,
+                             secret_scanner=scanner,
+                             dispatch_depth=depth)
+    spans: dict = {}
+
+    def clocked(name: str, fn):
+        def run(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                spans[name] = time.perf_counter() - t
+        return run
+
+    # the runner's own two levels, timed from outside: scan_images
+    # (defer_gc around the batch) and _scan_images (the batch)
+    runner.scan_images = clocked("outer", runner.scan_images)
+    runner._scan_images = clocked("batch", runner._scan_images)
+    saved = dbatch._WAVE_ROWS
+    if wave_rows:
+        dbatch._WAVE_ROWS = wave_rows
+    dfa_blockmask.launches = 0
+    try:
+        t0 = time.perf_counter()
+        results = runner.scan_paths(paths)
+        wall = time.perf_counter() - t0
+    finally:
+        dbatch._WAVE_ROWS = saved
+    launches = dfa_blockmask.launches
+    t0 = time.perf_counter()
+    texts = [None if r.error else _sorted_json(report_text(r.report))
+             for r in results]
+    failed = [(i, r.status, [c.to_dict() for c in r.causes])
+              for i, r in enumerate(results) if r.error]
+    # the reports go now: a run must not grow the heap the next run's
+    # garbage collection walks
+    del results
+    return {"texts": texts, "failed": failed, "wall_s": wall,
+            "split_s": {"load": wall - spans["outer"],
+                        "batch": spans["batch"],
+                        "gc": spans["outer"] - spans["batch"]},
+            "write_s": time.perf_counter() - t0, "launches": launches,
+            "stats": runner.last_stats}
+
+
+def fleet_phase(device, cdb, n_pkgs: dict, files: list,
+                work_dir: str) -> dict:
+    """The fleet runtime's direct path (``BatchScanRunner`` with
+    ``sched="off"``: every image analyzed and joined, ONE sieve over
+    every image's missing non-base layers, the interval match in waves
+    kept in flight by a ``DispatchRing`` on a CUDA side stream) on the
+    vuln phase's DB, over ``FLEET_IMAGES`` docker-save targets
+    (``fleet_targets``: a shared base, a shared secret layer, lockfiles
+    of their own, the corpus in quarters, a twin under a second tag, a
+    truncated tar). Cold into a fresh ``MemoryCache`` at each depth of
+    ``FLEET_DEPTHS``, again at depth 2 on the warm cache (no sieve: a
+    re-sweep after a DB update), cold at depth 4 with waves of
+    ``FLEET_WAVE_ROWS`` rows, and one profiled cold fleet at depth 2.
+    Every run's reports must be equal, equal to a ``scan_image_report``
+    of each target alone on the card; the twin's must be its image's
+    but for the name and tag, the broken tar must fail alone; each
+    cold fleet launches ``dfa_blockmask`` once, the warm rerun none,
+    and no run uploads the resident tables again. A reduced fleet of
+    ``FLEET_REDUCED`` targets must give the same reports on the card
+    and on ``cpu-ref``."""
+    from trivy_tpu_torch.artifact import MemoryCache
+    from trivy_tpu_torch.cli import secret_scanner
+    backend = device.type
+    t_phase = time.perf_counter()
+    out: dict = {}
+    fdir = os.path.join(work_dir, "fleet")
+    os.makedirs(fdir)
+    t0 = time.perf_counter()
+    plan = fleet_targets(fdir, FS_ROOTS["fs"], n_pkgs, SEED + 40, files)
+    paths = plan["paths"]
+    out["make_s"] = time.perf_counter() - t0
+    out["targets"] = len(paths)
+    out["fleet_bytes"] = sum(os.path.getsize(p) for p in paths)
+    card = secret_scanner(backend=backend)
+    cdb.device_tables(device)           # resident since the vuln phase
+    up0 = cdb.device_stats()["uploads"]
+
+    # each run's cache lives as long as the run (depth 2's until its
+    # warm rerun), as one fleet's cache would in a process
+    runs = {}
+    for depth in FLEET_DEPTHS:
+        cache = MemoryCache()
+        runs[f"cold_d{depth}"] = run_fleet(paths, cdb, backend, card,
+                                           cache, depth)
+        if depth == 2:
+            runs["warm_d2"] = run_fleet(paths, cdb, backend, card,
+                                        cache, 2)
+        del cache
+    runs[f"cold_d4_w{FLEET_WAVE_ROWS}"] = run_fleet(
+        paths, cdb, backend, card, MemoryCache(), 4, FLEET_WAVE_ROWS)
+    prof, ops, wall_ms = device_profile(lambda: run_fleet(
+        paths, cdb, backend, card, MemoryCache(), 2))
+    runs["profiled_d2"] = prof
+    launches = {k: r["launches"] for k, r in runs.items()}
+    if any(n != (0 if k == "warm_d2" else 1)
+           for k, n in launches.items()):
+        raise AssertionError(f"sieve launches per fleet: {launches} "
+                             f"(1 per cold fleet, 0 warm)")
+    want = runs["cold_d1"]["texts"]
+    for k, r in runs.items():
+        if r["texts"] != want:
+            raise AssertionError(f"fleet run {k}'s reports differ from "
+                                 f"the depth-1 run's")
+    if cdb.device_stats()["uploads"] != up0:
+        raise AssertionError("a fleet run uploaded the resident tables "
+                             "again")
+    failed = runs["cold_d1"]["failed"]
+    if [(i, status) for i, status, _ in failed] != \
+            [(plan["broken"], "failed")]:
+        raise AssertionError(f"the broken tar did not fail alone: "
+                             f"{failed}")
+    docs = []
+    for i in plan["twin"]:
+        doc = json.loads(want[i])
+        doc["Metadata"].pop("RepoTags")
+        docs.append(json.dumps(doc, sort_keys=True)
+                    .replace(paths[i], "NAME"))
+    if docs[0] != docs[1]:
+        raise AssertionError("the twin's report differs from its image's")
+    doc = json.loads(want[0])
+    classes = {r["Class"] for r in doc.get("Results", [])
+               if r.get("Vulnerabilities") or r.get("Secrets")}
+    if classes != {"os-pkgs", "lang-pkgs", "secret"}:
+        raise AssertionError(f"fleet findings only in {sorted(classes)}")
+
+    # each target alone through the image entry, on the card
+    singles = []
+    for i, path in enumerate(paths):
+        if i == plan["broken"]:
+            continue
+        text, steps, _ = scan_image_report(path, cdb, backend, card,
+                                           MemoryCache())
+        if _sorted_json(text) != want[i]:
+            raise AssertionError(f"fleet target {i}'s report != its "
+                                 f"image scanned alone")
+        singles.append(steps["total_s"])
+
+    # the reduced fleet: the card against numpy
+    rdir = os.path.join(work_dir, "fleet-reduced")
+    os.makedirs(rdir)
+    rplan = fleet_targets(rdir, FS_ROOTS["fs"], n_pkgs, SEED + 50,
+                          files[:IMAGE_REDUCED], n_images=FLEET_REDUCED,
+                          scale=FLEET_REDUCED_SCALE)
+    red = {b: run_fleet(rplan["paths"], cdb, b,
+                        card if b == backend else secret_scanner(backend=b),
+                        MemoryCache(), 2) for b in (backend, "cpu-ref")}
+    launches["reduced"] = red[backend]["launches"]
+    if red[backend]["texts"] != red["cpu-ref"]["texts"]:
+        raise AssertionError("reduced fleet: the card's reports != "
+                             "cpu-ref's")
+
+    n_ops, busy_ms = op_totals(ops)
+    cold_walls = [runs[f"cold_d{d}"]["wall_s"] for d in FLEET_DEPTHS]
+    stats = runs["cold_d2"]["stats"]
+    out.update({
+        "runs": {k: {"wall_s": r["wall_s"], "split_s": r["split_s"],
+                     "images_per_s": len(paths) / r["wall_s"],
+                     "write_s": r["write_s"], "launches": r["launches"],
+                     "stats": {k2: v for k2, v in r["stats"].items()
+                               if k2 != "secret"}}
+                 for k, r in runs.items()},
+        "secret": {k: stats["secret"].get(k) for k in (
+            "files_total", "bytes_total", "segments", "files_gated",
+            "files_with_findings", "overflow", "sieve_s", "pack_s",
+            "h2d_s", "device_s", "decode_s", "verify_s")},
+        "singles_total_s": sum(singles),
+        "singles_s": singles,
+        "reduced_s": {b: r["wall_s"] for b, r in red.items()},
+        "profiled": {"device_ops": n_ops,
+                     **idle_shares(busy_ms, wall_ms,
+                                   [{"total_s": w} for w in cold_walls]),
+                     "ops_us": ops},
+        "launches": launches,
+        "broken_causes": failed[0][2],
+        "uploads": cdb.device_stats()["uploads"] - up0,
+    })
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def sbom_phase(device, cdb, n_pkgs: dict, work_dir: str) -> dict:
     """The ``sbom`` entry on the vuln phase's DB: each image BOM once
     cold (tables dropped first, so the upload is in it) and
@@ -2080,7 +2364,9 @@ def main() -> int:
         print("fs phase: " + json.dumps(fs), flush=True)
         img = image_phase(device, cdb, n_pkgs, files, planted, work,
                           os.path.join(work, "cdb"))
-    print("image phase: " + json.dumps(img), flush=True)
+        print("image phase: " + json.dumps(img), flush=True)
+        fleet = fleet_phase(device, cdb, n_pkgs, files, work)
+    print("fleet phase: " + json.dumps(fleet), flush=True)
 
     note = "no single PyTorch call computes this function"
     kernels = [{
@@ -2088,7 +2374,8 @@ def main() -> int:
         "source": "trivy_tpu_torch/csrc/dfa_blockmask.cu",
         "replaces": "trivy_tpu/ops/dfa_pallas.py:211",
         "launches": sum(fs["launches"].values())
-        + sum(img["launches"].values()),
+        + sum(img["launches"].values())
+        + sum(fleet["launches"].values()),
         "max_abs_err": kern["max_abs_err"],
         "ms": kern["ms"], "plain_ms": kern["plain_ms"],
         "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
@@ -2120,6 +2407,25 @@ def main() -> int:
           f"the {full['profiled_scan']['warm_median_ms']:.1f} ms median "
           f"unprofiled warm scan",
           flush=True)
+    runs = fleet["runs"]
+    print(f"fleet of {fleet['targets']} targets: " + json.dumps({
+        k: {"wall_s": r["wall_s"], "images_per_s": r["images_per_s"],
+            "launches": r["launches"], "split_s": r["split_s"],
+            **{s: r["stats"][s] for s in (
+                "analyze_s", "secret_batch_s", "squash_join_s",
+                "interval_dispatch_s", "interval_device_s",
+                "interval_jobs", "interval_jobs_unique",
+                "interval_dedup_ratio", "interval_waves",
+                "dispatch_overlap_ratio")}}
+        for k, r in runs.items()}) +
+          f"; the same targets alone: {fleet['singles_total_s']:.3f} s; "
+          f"profiled cold fleet: {fleet['profiled']['device_ops']} device "
+          f"ops, {fleet['profiled']['device_ms']:.3f} ms busy; idle share "
+          f"{fleet['profiled']['device_idle_share']:.5f} of its "
+          f"{fleet['profiled']['wall_ms']:.1f} ms profiled, "
+          f"{fleet['profiled']['device_idle_share_of_warm']:.5f} of the "
+          f"{fleet['profiled']['warm_median_ms']:.1f} ms median unprofiled "
+          f"cold fleet", flush=True)
     print(f"script: {time.perf_counter() - t_script:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

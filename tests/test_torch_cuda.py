@@ -543,3 +543,100 @@ def test_image_on_the_card_equals_cpu_ref(cuda, tmp_path, monkeypatch):
         assert got == want
     assert runs == [(1, len(layers)), (0, 0)]
     assert '"Class": "secret"' in want and '"VulnerabilityID"' in want
+
+
+# --- the fleet runtime: async waves on CUDA streams ------------------
+
+def _seeded_jobs(n_rows: int, seed: int) -> tuple:
+    """(compiled store, resident + classic jobs with duplicates), from
+    the smoke script's store and fleet builders."""
+    from chip_smoke import fleet_jobs, make_advisory_store
+    store, n_pkgs = make_advisory_store(n_rows, seed)
+    cdb = CompiledDB.compile(store)
+    jobs = fleet_jobs(cdb, n_pkgs, seed + 1)
+    return cdb, jobs[::7] + jobs[::29]
+
+
+def test_async_waves_on_the_card_equal_dispatch_jobs(cuda):
+    """Waves of 64 rows at depth 4 through a ring: the payload list
+    equals the synchronous ``dispatch_jobs`` on the card and numpy's,
+    order included, three times over, with one upload of the tables."""
+    from trivy_tpu_torch.detect.batch import (collect_dispatch,
+                                              dispatch_jobs_async)
+    from trivy_tpu_torch.runtime.ring import DispatchRing
+    cdb, jobs = _seeded_jobs(20000, 31)
+    want = dispatch_jobs(jobs, backend="cpu-ref", stats={})
+    assert dispatch_jobs(jobs, backend="cuda", stats={}) == want
+    up0 = cdb.device_stats()["uploads"]
+    ring = DispatchRing(depth=4, name="t-card")
+    try:
+        for _ in range(3):
+            stats: dict = {}
+            h = dispatch_jobs_async(jobs, backend="cuda", stats=stats,
+                                    ring=ring, max_wave_rows=64)
+            assert collect_dispatch(h) == want
+            assert h.waves > 8 and stats["device_s"] > 0
+    finally:
+        ring.close()
+    assert cdb.device_stats()["uploads"] == up0 == 1
+    assert 0 < len(want) < len(jobs)
+
+
+def test_first_use_of_the_tables_from_a_side_stream(cuda):
+    """A fresh ``CompiledDB`` whose tables first go up while another
+    stream is current (the upload-ordering trap): the waves on their
+    own stream equal numpy, and so does a second dispatch."""
+    from trivy_tpu_torch.detect.batch import (collect_dispatch,
+                                              dispatch_jobs_async)
+    from trivy_tpu_torch.runtime.ring import DispatchRing
+    cdb, jobs = _seeded_jobs(20000, 37)
+    want = dispatch_jobs(jobs, backend="cpu-ref", stats={})
+    side = torch.cuda.Stream()
+    ring = DispatchRing(depth=2, name="t-first")
+    try:
+        with torch.cuda.stream(side):
+            h = dispatch_jobs_async(jobs, backend="cuda", stats={},
+                                    ring=ring, max_wave_rows=256)
+        assert collect_dispatch(h) == want
+        h = dispatch_jobs_async(jobs, backend="cuda", stats={},
+                                ring=ring)
+        assert collect_dispatch(h) == want
+    finally:
+        ring.close()
+    assert cdb.device_stats()["uploads"] == 1
+
+
+def test_sieve_and_waves_from_two_threads(cuda, scanner):
+    """A sieve launched on one thread while waves launch on another
+    (as the runner enqueues the sieve on the host pool): each equals
+    its sequential result."""
+    import threading
+    from chip_smoke import make_corpus
+    from trivy_tpu_torch.detect.batch import (collect_dispatch,
+                                              dispatch_jobs_async)
+    from trivy_tpu_torch.runtime.ring import DispatchRing
+    cdb, jobs = _seeded_jobs(20000, 43)
+    files, planted = make_corpus(512, 13)
+    want_secrets = [(i, s.to_dict()) for i, s in
+                    scanner.scan_files(files)]
+    want_jobs = dispatch_jobs(jobs, backend="cuda", stats={})
+    got: dict = {}
+
+    def sieve():
+        handle = scanner.dispatch_files(files)
+        got["secrets"] = [(i, s.to_dict())
+                          for i, s in scanner.collect(handle)]
+
+    t = threading.Thread(target=sieve)
+    ring = DispatchRing(depth=2, name="t-threads")
+    try:
+        t.start()
+        h = dispatch_jobs_async(jobs, backend="cuda", stats={},
+                                ring=ring, max_wave_rows=128)
+        got["jobs"] = collect_dispatch(h)
+        t.join(120)
+    finally:
+        ring.close()
+    assert not t.is_alive()
+    assert got["jobs"] == want_jobs
+    assert got["secrets"] == want_secrets and len(planted) > 0

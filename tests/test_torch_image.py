@@ -352,7 +352,9 @@ def test_blob_round_trip_is_lossless(inputs, tmp_path):
 # --- refusals --------------------------------------------------------
 
 REFUSALS = {
-    "several_targets": (["a.tar", "b.tar"], "A.4/A.5"),
+    # several targets run the batch runner; --sched on (the default)
+    # is the scheduler
+    "several_targets": (["a.tar", "b.tar"], "A.5"),
     "target_not_a_path": (["registry.example/app:1"], "A.9"),
     "server": (["@alpine", "--server", "http://localhost:1"], "A.9"),
     "fault_spec": (["@alpine", "--fault-spec", "poison-image"], "A.9"),

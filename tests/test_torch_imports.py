@@ -88,6 +88,14 @@ IMAGE_SLICE = ("guard/__init__.py", "guard/budget.py", "guard/safetar.py",
                "analyzer/imgconf.py", "scan/local.py", "cli.py")
 
 
+# the fleet runtime's modules
+RUNTIME_SLICE = ("runtime/__init__.py", "runtime/batch.py",
+                 "runtime/ring.py", "runtime/hostpool.py",
+                 "utils/__init__.py", "detect/batch.py",
+                 "detect/metrics.py", "secret/batch.py",
+                 "ops/resident.py", "artifact/artifact.py", "cli.py")
+
+
 def _covered(modules) -> None:
     import importlib
     import pkgutil
@@ -112,6 +120,10 @@ def test_the_scans_cover_the_fs_slice():
 
 def test_the_scans_cover_the_image_slice():
     _covered(IMAGE_SLICE)
+
+
+def test_the_scans_cover_the_runtime_slice():
+    _covered(RUNTIME_SLICE)
 
 
 def test_no_import_statement_names_jax_or_the_jax_package():
@@ -243,6 +255,11 @@ def test_default_device_is_cuda_and_refuses_the_cpu(monkeypatch,
         main(["fs", str(tmp_path)])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main(["image", "--input", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["image", str(tmp_path), str(tmp_path), "--sched", "off"])
+    from trivy_tpu_torch.runtime import BatchScanRunner
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        BatchScanRunner()
     assert trivy_tpu_torch.resolve_device("cpu").type == "cpu"
 
 

@@ -47,6 +47,12 @@ class ArtifactOption:
     # across targets).
     ingest_guards: bool = True
     ingest_limits: object = None       # ResourceLimits or None
+    # secret rule-set fingerprint (secret.batch.rules_fingerprint):
+    # cached blob CONTENT includes secret findings, so two rule
+    # configurations must never share blob cache keys. Empty =
+    # derive from ``secret_scanner`` (builtin when None); the batch
+    # runner stamps its shared sieve's (runtime/batch.py)
+    secret_rules_fp: str = ""
 
 
 def _secret_scanner(opt: ArtifactOption):
@@ -196,8 +202,11 @@ class ImageArtifact:
         )
 
     def _rules_fp(self) -> str:
-        """Secret rule-set fingerprint for the blob cache key: the
-        option's scanner's, else builtin."""
+        """Secret rule-set fingerprint for the blob cache key: an
+        explicit fingerprint wins (the batch runner stamps its
+        shared sieve's), else the option's scanner, else builtin."""
+        if self.opt.secret_rules_fp:
+            return self.opt.secret_rules_fp
         from ..secret.batch import rules_fingerprint
         return rules_fingerprint(self.opt.secret_scanner)
 

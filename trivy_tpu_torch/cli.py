@@ -12,6 +12,16 @@ non-base layer in one batched sieve, then ``LocalScanner`` prepares
 the advisory pair jobs, one ``dispatch_jobs`` runs the interval match,
 and the results are finished, filtered and written.
 
+``image a.tar b.tar ...`` scans a fleet in one batch (the reference's
+``--sched off`` direct path, ``runtime/batch.py``): every image's
+missing layers are walked, ONE sieve runs over every secret candidate
+of every image, and the interval match over every image's pairs runs
+in waves kept in flight by a dispatch ring (``--dispatch-depth``).
+``json`` writes one array of reports, ``table`` one table after
+another; a target that fails prints ``error: NAME: ...`` and the run
+exits 1. The continuous-batching scheduler (``--sched on``, the
+reference's default for several targets) is ROADMAP A.5 and refused.
+
 ``fs`` (alias ``filesystem``) and ``rootfs`` scan a directory tree
 (the reference's ``trivy fs DIR``): ``LocalFSArtifact`` walks it
 through the same analyzers into one blob and one batched sieve, then
@@ -34,6 +44,8 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import io
+import json
 import os
 import re
 import sys
@@ -50,6 +62,7 @@ from .guard import DEFAULT_LIMITS, make_budget
 from .handler.unpackaged import check_rekor
 from .report.writer import (FORMATS, UNPORTED_FORMATS, check_format,
                             write_report)
+from .runtime import BatchScanRunner
 from .scan import LocalScanner, ScanTarget, filter_results
 from .scan.filter import (IgnorePolicyError, load_ignore_file,
                           load_ignore_policy)
@@ -497,10 +510,10 @@ def _refuse_image(args) -> str:
     """The image options still to be ported, by ROADMAP item: each is
     refused before any host work."""
     if len(args.target) > 1:
-        return ("several image targets run through the batch runner "
-                "and the scheduler, which are not ported yet (ROADMAP "
-                "A.4/A.5); scan one image per run")
-    if args.target and not args.input and \
+        refused = _refuse_batch(args)
+        if refused:
+            return refused
+    elif args.target and not args.input and \
             not os.path.exists(args.target[0]):
         return (f"{args.target[0]!r} is not an existing path: daemon, "
                 "containerd and registry resolution are not ported yet "
@@ -515,11 +528,42 @@ def _refuse_image(args) -> str:
     return ""
 
 
+def _refuse_batch(args) -> str:
+    """The fleet options still to be ported: the scheduler (the
+    reference's default for several targets) and its tenancy, the
+    multi-host pod."""
+    if args.sched == "on":
+        return ("several image targets with --sched on run through the "
+                "continuous-batching scheduler, which is not ported yet "
+                "(ROADMAP A.5); pass --sched off for the direct batch "
+                "path")
+    for flag, value in (("--tenant-config", args.tenant_config),
+                        ("--tenant-budget", args.tenant_budget)):
+        if value:
+            return f"{flag} is not ported yet (ROADMAP A.5)"
+    for flag, value in (("--coordinator", args.coordinator),
+                        ("--num-processes", args.num_processes),
+                        ("--process-id", args.process_id >= 0)):
+        if value:
+            return (f"{flag}: the multi-host pod is not ported yet "
+                    "(ROADMAP A.6)")
+    return ""
+
+
 def _run_image(args) -> int:
+    if len(args.target) > 1 and args.input:
+        # silently dropping --input next to a target list would scan
+        # a different fleet than the user asked for
+        print("error: --input cannot be combined with multiple "
+              "image targets; list the archive as a target "
+              "instead", file=sys.stderr)
+        return 2
     refused = _refuse_image(args)
     if refused:
         print(f"error: {refused}", file=sys.stderr)
         return 1
+    if len(args.target) > 1:
+        return _run_image_batch(args)
     target = args.target[0] if args.target else ""
     path = args.input or target
     if not path:
@@ -559,6 +603,113 @@ def _run_image(args) -> int:
         print(f"warning: {report.artifact_name}: degraded "
               f"({c.stage}/{c.kind}): {c.message}", file=sys.stderr)
     return _finish(args, report)
+
+
+def _run_image_batch(args) -> int:
+    """``image a.tar b.tar ...`` on the direct path (ref cli.py
+    ``_run_image_batch`` with ``--sched off``): one
+    ``BatchScanRunner.scan_paths`` over every target, then
+    ``_finish_many``."""
+    if args.format not in ("table", "json", "template"):
+        # per-slot writers would concatenate complete documents into
+        # one stream — invalid SBOM output; refuse up front (the
+        # template writer is refused below, ROADMAP A.9)
+        print(f"error: multi-image scans support table/json/"
+              f"template output, not {args.format}", file=sys.stderr)
+        return 2
+    if _refuse_early(args):
+        return 1
+    checks = _split(args.security_checks)
+    check_security_checks(checks)
+    check_rekor()
+    try:
+        patterns = _file_patterns(args.file_patterns)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    store = load_store(args.db_fixtures, args.compiled_db,
+                       args.compile_db) if "vuln" in checks else None
+    opt = _artifact_option(args.backend, checks, args.secret_config,
+                           None, _split(args.skip_dirs),
+                           _split(args.skip_files), patterns,
+                           not args.no_ingest_guards,
+                           _ingest_limits(args))
+    runner = BatchScanRunner(
+        store=store, cache=make_cache(args.cache_dir, args.no_cache),
+        backend=args.backend, secret_scanner=opt.secret_scanner,
+        artifact_option=opt, dispatch_depth=args.dispatch_depth)
+    options = ScanOptions(vuln_type=_split(args.vuln_type),
+                          security_checks=checks,
+                          list_all_packages=_list_all(args),
+                          scan_removed_packages=args.removed_pkgs,
+                          backend=args.backend)
+    results = runner.scan_paths(args.target, options)
+    if args.sched_stats:
+        print(json.dumps(runner.last_stats, indent=2), file=sys.stderr)
+    return _finish_many(args, results)
+
+
+def _finish_many(args, results) -> int:
+    """Render one report per batch slot (ref cli.py ``_finish_many``):
+    ``json`` emits a single array, other formats append to the same
+    stream. A failed slot reports on stderr and exits 1; a degraded
+    slot warns and keeps its exit code."""
+    try:
+        policy = load_ignore_policy(args.ignore_policy)
+    except (OSError, IgnorePolicyError) as e:
+        print(f"error: ignore policy failed: {e}", file=sys.stderr)
+        return 1
+    ignored = load_ignore_file(args.ignorefile)
+    severities = _severities(args.severity)
+    code = 0
+    docs = []
+    out = open(args.output, "w") if args.output else sys.stdout
+    try:
+        for res in results:
+            if res.error:
+                print(f"error: {res.name}: {res.error}",
+                      file=sys.stderr)
+                code = max(code, 1)
+                continue
+            if res.status == "degraded":
+                causes = "; ".join(f"{c.stage}/{c.kind}"
+                                   for c in res.causes)
+                print(f"warning: {res.name}: degraded ({causes})",
+                      file=sys.stderr)
+            report = res.report
+            try:
+                report.results = filter_results(
+                    report.results, severities,
+                    ignore_unfixed=args.ignore_unfixed,
+                    ignored_ids=ignored, policy=policy)
+            except IgnorePolicyError as e:
+                print(f"error: ignore policy failed: {e}",
+                      file=sys.stderr)
+                return 1
+            if args.format == "json":
+                buf = io.StringIO()
+                write_report(report, fmt="json", output=buf,
+                             severities=[str(s) for s in severities],
+                             app_version=__version__)
+                docs.append(json.loads(buf.getvalue()))
+            else:
+                write_report(report, fmt=args.format, output=out,
+                             severities=[str(s) for s in severities],
+                             app_version=__version__,
+                             dependency_tree=args.dependency_tree)
+            if args.exit_code and \
+                    any(r.failed() for r in report.results):
+                code = args.exit_code
+        if args.format == "json":
+            json.dump(docs, out, indent=2)
+            out.write("\n")
+    except (ValueError, OSError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    finally:
+        if args.output:
+            out.close()
+    return code
 
 
 def _scan_flags(sp) -> None:
@@ -638,6 +789,28 @@ def _image_flags(sp) -> None:
                     help="ingest guard: per-target wall-clock "
                     "deadline for image load + layer walking "
                     "(default 300s)")
+    sp.add_argument("--sched", default="on", choices=["on", "off"],
+                    help="several targets: off = the direct batch "
+                    "path; on (the default, the continuous-batching "
+                    "scheduler) is not ported yet and is refused")
+    sp.add_argument("--sched-stats", action="store_true",
+                    help="several targets: dump the batch's phase "
+                    "timings and dispatch counters to stderr")
+    sp.add_argument("--dispatch-depth", type=int, default=0,
+                    help="several targets: interval waves in flight "
+                    "(2 uploads wave N+1 while N computes, 1 restores "
+                    "the synchronous ladder; 0 = "
+                    "TRIVY_TPU_DISPATCH_DEPTH or 2)")
+    # refused by name (ROADMAP A.5, A.6)
+    sp.add_argument("--tenant-config", default="",
+                    help=argparse.SUPPRESS)
+    sp.add_argument("--tenant-budget", default="",
+                    help=argparse.SUPPRESS)
+    sp.add_argument("--coordinator", default="", help=argparse.SUPPRESS)
+    sp.add_argument("--num-processes", type=int, default=0,
+                    help=argparse.SUPPRESS)
+    sp.add_argument("--process-id", type=int, default=-1,
+                    help=argparse.SUPPRESS)
     # refused by name (ROADMAP A.9)
     sp.add_argument("--server", default="", help=argparse.SUPPRESS)
     sp.add_argument("--fault-spec", default="", help=argparse.SUPPRESS)

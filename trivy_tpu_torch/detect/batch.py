@@ -21,6 +21,12 @@ raises without one), ``"cpu"`` (the same torch functions on the CPU)
 or ``"cpu-ref"`` (numpy). The result is a list of payloads: device
 hits in job order, then host-path hits in job order. ``mesh=`` waits
 for the multi-GPU port and raises.
+
+``dispatch_jobs`` is the synchronous ladder (upload, match, copy back,
+then the next store); ``dispatch_jobs_async`` + ``collect_dispatch``
+split the same work into bounded waves on a CUDA side stream that a
+``runtime.ring.DispatchRing`` keeps in flight while the host packs the
+next one (the fleet runtime's path, ``runtime/batch.py``).
 """
 
 from __future__ import annotations
@@ -487,4 +493,290 @@ def dispatch_jobs(jobs: list, backend: str = "cuda", mesh=None,
     for js in by_db.values():
         out.extend(detect_pairs_resident(js, backend=backend,
                                          stats=sink))
+    return out
+
+
+# ---- async slot dispatch (reference detect/batch.py:565-852) ----
+#
+# dispatch_jobs_async() splits the kernel rows into bounded WAVES and
+# launches every wave without waiting for it; collect_dispatch() — or,
+# when a DispatchRing is passed, the ring's drain thread — waits for
+# wave N while the submitting thread packs and launches wave N+1.
+#
+# On the card each segment owns a side stream. A wave's launch runs on
+# the submitting thread: the side stream first waits for that thread's
+# current stream (so it sees whatever was enqueued before it, the
+# resident tables' upload included), then the wave's operands are
+# staged in pinned host buffers, copied up without blocking, matched,
+# and the hit vector is copied back into a pinned buffer, all on the
+# side stream; an event recorded there closes the wave. Its collect
+# waits on that event alone and reads the pinned hits: a plain
+# ``.cpu()`` on the drain thread would run on that thread's current
+# stream, which does not wait for the side stream. Every buffer of a
+# wave (pinned and on the card) stays referenced by the wave until its
+# event has completed, so neither the caching allocator nor the pinned
+# host allocator hands it to the next wave early; the resident tables
+# are only read, and the wave keeps them referenced too. On the CPU
+# the same segments run with the same ring and waves, in plain torch:
+# a wave's work is done when its launch returns.
+
+_WAVE_ROWS = 4096      # max kernel rows launched per wave
+
+
+class _EagerSegment:
+    """Backend with no async device path (cpu-ref): the synchronous
+    ladder already ran at dispatch; collect replays its output."""
+
+    def __init__(self, out: list):
+        self.out = out
+
+    def collect(self) -> list:
+        return self.out
+
+
+class _WaveSegment:
+    """Shared wave bookkeeping for the classic and resident async
+    paths: launch waves, collect them FIFO, fan hits back out
+    through the dedup members exactly like the synchronous path."""
+
+    def __init__(self, jobs: list, dev: torch.device, sink: dict, ring):
+        self.jobs = jobs
+        self.dev = dev
+        self.sink = sink
+        self.ring = ring
+        self.stream = torch.cuda.Stream(device=dev) \
+            if dev.type == "cuda" else None
+        self.waves: list = []
+        self.members: list = []
+        self.reps: list = []
+
+    def _launch_wave(self, k: int, build) -> None:
+        """``build()`` stages, uploads and enqueues one wave and
+        returns its dict. With a ring it runs as the submit's
+        ``launch`` callable, AFTER capacity is acquired — so a full
+        ring parks before wave k+1 stages any buffer (the depth bound
+        covers staged buffers, not just bookkeeping)."""
+        if self.ring is not None:
+            built: dict = {}
+
+            def _launch():
+                built["wave"] = build()
+                return built["wave"]
+
+            slot = self.ring.submit(self._collect_wave, launch=_launch,
+                                    label=f"interval:w{k}")
+            wave = built["wave"]
+            wave["slot"] = slot
+        else:
+            wave = build()
+        self.waves.append(wave)
+
+    def _enqueue(self, arrays: list, compute, rows: int, groups: list,
+                 keep=()) -> dict:
+        """One wave: ``compute(*tensors)`` → [Pp] bool hits over the
+        numpy ``arrays``. ``keep`` holds what the wave reads and must
+        outlive it (the resident tables)."""
+        if self.stream is None:
+            t0 = time.perf_counter()
+            out = compute(*(torch.from_numpy(a) for a in arrays))
+            return {"out": out, "rows": rows, "groups": groups,
+                    "compute_s": time.perf_counter() - t0}
+        stream = self.stream
+        stream.wait_stream(torch.cuda.current_stream(self.dev))
+        with torch.cuda.stream(stream):
+            pinned = [torch.from_numpy(a).pin_memory() for a in arrays]
+            dev_in = [t.to(self.dev, non_blocking=True) for t in pinned]
+            hits = compute(*dev_in)
+            out = torch.empty(hits.shape, dtype=hits.dtype,
+                              pin_memory=True)
+            out.copy_(hits, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(stream)
+        return {"out": out, "event": event, "rows": rows,
+                "groups": groups, "buffers": (pinned, dev_in, hits, keep)}
+
+    def _collect_wave(self, wave: dict) -> None:
+        t0 = time.perf_counter()
+        event = wave.get("event")
+        if event is not None:
+            # the wave's own event: its copy back has landed
+            event.synchronize()
+        wave["hits"] = wave["out"].numpy()
+        # the wave's buffers may go back to their allocators only now
+        wave["buffers"] = wave["event"] = None
+        self.sink["device_s"] = self.sink.get("device_s", 0.0) + \
+            wave.get("compute_s", 0.0) + time.perf_counter() - t0
+
+    def _kernel_hits(self) -> list:
+        hit_jobs: list = []
+        for wave in self.waves:
+            slot = wave.get("slot")
+            if slot is not None:
+                slot.wait()
+            elif "hits" not in wave:
+                self._collect_wave(wave)
+            for i in np.nonzero(wave["hits"][:wave["rows"]])[0]:
+                hit_jobs.extend(self.members[wave["groups"][i]])
+        return hit_jobs
+
+    def _host_hits(self, host_groups: list, eval_fn) -> list:
+        host_hits: list = []
+        for gi in host_groups:
+            if eval_fn(self.reps[gi]):
+                host_hits.extend(self.members[gi])
+        return host_hits
+
+
+class _ClassicSegment(_WaveSegment):
+    def __init__(self, jobs: list, dev: torch.device, sink: dict, ring,
+                 max_wave_rows: int):
+        super().__init__(jobs, dev, sink, ring)
+        (self.reps, self.members, spaces, rows,
+         self.host_groups) = _prep_classic(jobs, sink)
+        for sp in spaces.values():
+            sp.finalize()
+        if not rows:
+            return
+        w = max(1, int(max_wave_rows))
+        slices = [rows[a:a + w] for a in range(0, len(rows), w)]
+
+        def _pack(sl):
+            return _pack_classic(sl, spaces, _job_bucket(len(sl)))
+
+        # pool-parallel wave packing: the fancy-index fills of every
+        # wave run on the host pool while this thread uploads and
+        # enqueues the waves in order
+        # (imported here: the runtime package imports this module)
+        from ..runtime.hostpool import get_host_pool, on_pool_thread
+        futs = None
+        if len(slices) > 1 and not on_pool_thread():
+            pool = get_host_pool()
+            if pool is not None:
+                futs = [pool.submit(_pack, sl) for sl in slices]
+        for k, sl in enumerate(slices):
+
+            def build(k=k, sl=sl):
+                arrays = futs[k].result() if futs is not None \
+                    else _pack(sl)
+                return self._enqueue(list(arrays), interval_hits,
+                                     len(sl), [r[0] for r in sl])
+
+            self._launch_wave(k, build)
+
+    def collect(self) -> list:
+        hit_jobs = self._kernel_hits()
+        out = [self.jobs[i].payload for i in sorted(hit_jobs)]
+        host_hits = self._host_hits(self.host_groups, _host_eval)
+        out.extend(self.jobs[i].payload for i in sorted(host_hits))
+        return out
+
+
+class _ResidentSegment(_WaveSegment):
+    def __init__(self, jobs: list, cdb, dev: torch.device, sink: dict,
+                 ring, max_wave_rows: int):
+        super().__init__(jobs, dev, sink, ring)
+        (self.reps, self.members, kept, ranks, rows,
+         self.host_groups) = _prep_resident(jobs, cdb, sink)
+        if not kept:
+            return
+        w = max(1, int(max_wave_rows))
+        # uploaded (once per device) on this thread's current stream,
+        # which every wave's side stream waits for
+        tables = cdb.device_tables(dev)
+
+        def match(pkg_rank, row_idx):
+            return interval_hits_resident(pkg_rank, row_idx, *tables)
+
+        for k, a in enumerate(range(0, len(kept), w)):
+
+            def build(a=a):
+                sl_kept = kept[a:a + w]
+                P = len(sl_kept)
+                Pp = _job_bucket(P)
+                pkg_rank = np.zeros(Pp, np.int32)
+                row_idx = np.zeros(Pp, np.int32)
+                pkg_rank[:P] = ranks[a:a + w]
+                row_idx[:P] = rows[a:a + w]
+                # the gather operands are this wave's alone; the
+                # resident tables are shared and only read
+                return self._enqueue([pkg_rank, row_idx], match, P,
+                                     sl_kept, keep=tables)
+
+            self._launch_wave(k, build)
+
+    def collect(self) -> list:
+        hit_jobs = self._kernel_hits()
+        out = [self.jobs[i].payload for i in sorted(hit_jobs)]
+        host_hits = self._host_hits(
+            self.host_groups,
+            lambda job: job.cdb.host_eval(job.row, job.pkg_version))
+        out.extend(self.jobs[i].payload for i in sorted(host_hits))
+        return out
+
+
+class IntervalDispatch:
+    """Handle returned by :func:`dispatch_jobs_async`; pass it to
+    :func:`collect_dispatch` (exactly once) to fetch results."""
+
+    def __init__(self):
+        self.segments: list = []
+
+    @property
+    def waves(self) -> int:
+        # eager (cpu-ref) segments count as one synchronous dispatch;
+        # wave segments count their actual launches — a segment whose
+        # jobs all took the host path launched ZERO waves
+        return sum(len(s.waves) if hasattr(s, "waves") else 1
+                   for s in self.segments)
+
+
+def dispatch_jobs_async(jobs: list, backend: str = "cuda", mesh=None,
+                        stats: Optional[dict] = None, ring=None,
+                        max_wave_rows: Optional[int] = None) \
+        -> IntervalDispatch:
+    """Async half of :func:`dispatch_jobs`: dedup + compile + pack,
+    then launch every wave without waiting for it. ``ring`` (a
+    ``runtime.ring.DispatchRing``) bounds in-flight waves and collects
+    them on its drain thread; without one the waves collect inside
+    :func:`collect_dispatch` on the calling thread. Output (via
+    collect_dispatch) is identical to dispatch_jobs for any wave size
+    and ring depth. ``max_wave_rows`` defaults to ``_WAVE_ROWS``, read
+    at the call. ``cpu-ref`` runs the synchronous numpy ladder now."""
+    _no_mesh(mesh)
+    dev = _device(backend)
+    if max_wave_rows is None:
+        max_wave_rows = _WAVE_ROWS
+    sink = stats if stats is not None else last_dispatch_stats
+    sink["device_s"] = 0.0
+    sink["jobs_in"] = 0
+    sink["jobs_unique"] = 0
+    handle = IntervalDispatch()
+    if dev is None:
+        # the exact host reference engine has no device work to
+        # overlap (the differential baseline stays the baseline)
+        handle.segments.append(_EagerSegment(dispatch_jobs(
+            jobs, backend=backend, stats=sink)))
+        return handle
+    plain = [j for j in jobs if isinstance(j, PairJob)]
+    resident = [j for j in jobs if isinstance(j, ResidentPairJob)]
+    if plain:
+        handle.segments.append(_ClassicSegment(
+            plain, dev, sink, ring, max_wave_rows))
+    by_db: dict = {}
+    for j in resident:
+        by_db.setdefault(id(j.cdb), []).append(j)
+    for js in by_db.values():
+        handle.segments.append(_ResidentSegment(
+            js, js[0].cdb, dev, sink, ring, max_wave_rows))
+    return handle
+
+
+def collect_dispatch(handle: IntervalDispatch) -> list:
+    """Blocking half: wait for every wave (FIFO), fan hits out to the
+    duplicate payloads, evaluate host-fallback pairs — the same
+    output, in the same order, as the synchronous dispatcher. A
+    wave's error is re-raised here."""
+    out: list = []
+    for seg in handle.segments:
+        out.extend(seg.collect())
     return out

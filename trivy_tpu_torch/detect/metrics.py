@@ -4,9 +4,9 @@ device-resident DB upload amortization.
 Process-wide by design: the constraint-interval cache is a process
 singleton, DB uploads happen once per (generation, device), and the
 numbers an operator watches are the cumulative totals. The counter
-names are the reference's (its packing-pool counters come with the
-module that counts them). Counter updates take one
-short lock; nothing here sits on a per-byte hot path (per-job costs
+names are the reference's (``pack_tasks`` counts the host pool's
+tasks, ``runtime/hostpool.py``). Counter updates take one short
+lock; nothing here sits on a per-byte hot path (per-job costs
 are batched by the dispatchers before they land here).
 """
 
@@ -28,6 +28,8 @@ class DetectMetrics:
         # device-resident advisory tables (db/compiled.py)
         "db_uploads", "db_upload_bytes", "db_invalidations",
         "resident_dispatches",
+        # host-pool packing/decode tasks (runtime/hostpool.py)
+        "pack_tasks",
     )
 
     def __init__(self):

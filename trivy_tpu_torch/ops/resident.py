@@ -13,6 +13,12 @@ through the ``_note_*`` hooks. Every table gets a process-monotonic
 Resident tensors are never written: per-dispatch payloads are fresh
 tensors, and an array that numpy hands back read-only (``np.load``) is
 copied once on its way to the device.
+
+An upload runs on the stream that is current on the thread that first
+asks for the tables, and the host waits for it before the tables are
+handed out (``_settled``): a caller that reads them on another stream
+(the interval waves' side streams, ``detect/batch.py``, or the sieve
+on a host-pool thread) never sees a half-copied table.
 """
 
 from __future__ import annotations
@@ -30,6 +36,14 @@ _GENERATION_LOCK = threading.Lock()
 def _next_generation() -> int:
     with _GENERATION_LOCK:
         return next(_GENERATIONS)
+
+
+def _settled(device: str) -> None:
+    """Wait on the host until the upload just enqueued on ``device``'s
+    current stream has completed (a no-op off CUDA)."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.current_stream(dev).synchronize()
 
 
 def _tensor(a: np.ndarray, device: str) -> torch.Tensor:
@@ -66,6 +80,7 @@ class ResidentTables:
             if placed is None:
                 arrs = self._resident_arrays()
                 placed = tuple(_tensor(a, key) for a in arrs)
+                _settled(key)
                 nbytes = int(sum(a.nbytes for a in arrs))
                 self._device[key] = placed
                 self._device_stats["uploads"] += 1
@@ -84,6 +99,7 @@ class ResidentTables:
             if placed is None:
                 arr = np.ascontiguousarray(make())
                 placed = _tensor(arr, key[0])
+                _settled(key[0])
                 self._device[key] = placed
                 self._device_stats["uploads"] += 1
                 self._device_stats["upload_bytes"] += int(arr.nbytes)

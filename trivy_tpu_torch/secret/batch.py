@@ -180,15 +180,24 @@ class BatchSecretScanner:
 
     def _segment(self, files: list) -> tuple:
         """Flatten files into [B, L] uint8 with per-file overlap
-        chaining. Returns (buffer, seg_file, seg_pos)."""
+        chaining. Returns (buffer, seg_file, seg_pos). Row filling is
+        bulk strided copies into disjoint rows, fanned over the host
+        pool when the batch is large enough to amortize it
+        (reference ``secret/batch.py:253-277``)."""
+        # imported here: the runtime package imports this module
+        from ..runtime.hostpool import map_in_pool
         metas = self._metas(files)
         if not metas:
             return np.zeros((0, self.seg_len), np.uint8), [], []
         lay = self._layout(metas)
         buf = np.zeros((lay["B"], self.seg_len), np.uint8)
-        for row0, mi in lay["layout"]:
+
+        def fill(task) -> None:
+            row0, mi = task
             fe, _n, n_segs = metas[mi]
             self._fill_rows(buf, row0, fe.content, n_segs)
+
+        map_in_pool(fill, lay["layout"])
         return buf, lay["seg_file"], lay["seg_pos"]
 
     # --- the public API ---
