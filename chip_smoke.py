@@ -59,7 +59,7 @@ Builds the port's hand-written kernels (``trivy_tpu_torch/csrc``, one
    analyzers, one ``dfa_blockmask`` sieve, prepare, one
    ``dispatch_jobs``, finish; the default filters, the JSON writer)
    scans it for vulnerabilities and secrets on the card, once cold and
-   three times warm, plus one profiled warm scan. Its vulnerabilities
+   twice warm, plus one profiled warm scan. Its vulnerabilities
    must equal a numpy (``cpu-ref``) vuln-only scan's. The secret check
    alone must report every planted file's rule and, on a seeded sample
    of files, exactly the CPU-exact scanner's findings. An ``alpine
@@ -102,7 +102,7 @@ Builds the port's hand-written kernels (``trivy_tpu_torch/csrc``, one
    and joined, ONE ``dfa_blockmask`` sieve over every image's missing
    non-base layers, the interval match in waves of 4,096 rows kept in
    flight by a ``DispatchRing`` on a CUDA side stream): cold into a
-   fresh ``MemoryCache`` at dispatch depth 1, 2 and 4, warm at depth 2
+   fresh ``MemoryCache`` at dispatch depth 1 and 2, warm at depth 2
    (no layer missing, no launch: a re-sweep after a DB update), cold at
    depth 4 with waves of 256 rows, and once profiled. Every run's
    reports must be equal and equal to each target scanned alone through
@@ -114,6 +114,28 @@ Builds the port's hand-written kernels (``trivy_tpu_torch/csrc``, one
    (loads, the batch, the garbage collection at its end) and the
    runner's ``last_stats``, the same targets' time alone, and the
    profiled fleet's busy ms and idle share.
+
+8. sched phase: the fleet phase's 16 targets go through the
+   continuous-batching scheduler (``BatchScanRunner(sched=SchedConfig(
+   dispatch_depth=2)).scan_paths``: every target one request, loaded,
+   analyzed and joined on the scheduler's host workers, coalesced into
+   device batches, each batch one ``dfa_blockmask`` sieve and its
+   interval waves launched from the executor thread and collected on
+   the dispatch ring's drain thread, each behind its own CUDA event):
+   cold once into a fresh ``MemoryCache`` and once profiled. Each run
+   must give the fleet phase's ``--sched off`` reports, the truncated
+   tar failing alone with the direct path's cause and then the
+   scheduler's ``obs/trace`` one, every other slot ``ok``, nothing
+   quarantined, no host fallback, one ``dfa_blockmask`` launch per
+   launched batch with candidates and no upload of the resident
+   tables. A poisoned target of the reduced fleet (``PoisonInjector``)
+   must be the only slot ``degraded``, with a ``quarantined`` cause,
+   every other slot as in the healthy run; four threads calling
+   ``submit_path`` at once must each get their target's report. It
+   prints each run's wall time, images/s and the scheduler's counters
+   (batches, occupancy, overlap, device busy, sieve launches) beside
+   the fleet phase's ``--sched off`` wall, and the profiled run's busy
+   ms, idle share and how long a sieve and another kernel ran at once.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}``
 line (times from CUDA events, the bound this run's inputs give; the
@@ -365,9 +387,21 @@ def timed(fn) -> tuple:
 
 def device_profile(fn) -> tuple:
     """(fn(), {device operation: [count, device us]}, its wall ms on the
-    host clock): the operations are the CUDA activity ``torch.profiler``
-    records, kernels and copies, run one at a time on one stream; a
-    kernel is named up to its template arguments."""
+    host clock), from ``profile_spans``."""
+    out, spans, wall_ms = profile_spans(fn)
+    ops: dict = {}
+    for name, start, end in spans:
+        c = ops.setdefault(name, [0, 0.0])
+        c[0] += 1
+        c[1] += end - start
+    return out, ops, wall_ms
+
+
+def profile_spans(fn) -> tuple:
+    """(fn(), [(device operation, start us, end us)], its wall ms on
+    the host clock): the operations are the CUDA activity
+    ``torch.profiler`` records, kernels and copies; a kernel is named
+    up to its template arguments."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -375,16 +409,15 @@ def device_profile(fn) -> tuple:
         out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    ops: dict = {}
+    spans = []
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             name = e.name.replace("void ", "") \
                 .replace("(anonymous namespace)::", "") \
                 .split("<")[0].split("(")[0].strip()
-            c = ops.setdefault(name, [0, 0.0])
-            c[0] += 1
-            c[1] += e.time_range.elapsed_us()
-    return out, ops, wall * 1e3
+            spans.append((name, float(e.time_range.start),
+                          float(e.time_range.end)))
+    return out, spans, wall * 1e3
 
 
 def op_totals(ops: dict) -> tuple:
@@ -1382,7 +1415,7 @@ def _sorted_json(text: str) -> str:
     return json.dumps(json.loads(text), sort_keys=True)
 
 
-FS_WARM = 3
+FS_WARM = 2
 FS_REDUCED = 512                # corpus files of the cross-backend tree
 
 
@@ -2016,7 +2049,7 @@ def fleet_targets(work_dir: str, tree: tuple, n_pkgs: dict, seed: int,
     return {"paths": paths, "twin": (twin - 1, twin), "broken": broken}
 
 
-FLEET_DEPTHS = (1, 2, 4)
+FLEET_DEPTHS = (1, 2)          # depth 4 runs with waves of 256 rows
 FLEET_WAVE_ROWS = 256           # the many-slots run's wave size
 FLEET_REDUCED = 4               # targets of the cross-backend fleet
 FLEET_REDUCED_SCALE = 0.25      # its package counts, of the full fleet's
@@ -2081,7 +2114,7 @@ def run_fleet(paths: list, db, backend: str, scanner, cache,
 
 
 def fleet_phase(device, cdb, n_pkgs: dict, files: list,
-                work_dir: str) -> dict:
+                work_dir: str, keep: dict = None) -> dict:
     """The fleet runtime's direct path (``BatchScanRunner`` with
     ``sched="off"``: every image analyzed and joined, ONE sieve over
     every image's missing non-base layers, the interval match in waves
@@ -2099,7 +2132,9 @@ def fleet_phase(device, cdb, n_pkgs: dict, files: list,
     cold fleet launches ``dfa_blockmask`` once, the warm rerun none,
     and no run uploads the resident tables again. A reduced fleet of
     ``FLEET_REDUCED`` targets must give the same reports on the card
-    and on ``cpu-ref``."""
+    and on ``cpu-ref``. ``keep`` (optional) receives both fleets'
+    targets, their reports and the secret scanner, for the sched
+    phase."""
     from trivy_tpu_torch.artifact import MemoryCache
     from trivy_tpu_torch.cli import secret_scanner
     backend = device.type
@@ -2190,6 +2225,10 @@ def fleet_phase(device, cdb, n_pkgs: dict, files: list,
     if red[backend]["texts"] != red["cpu-ref"]["texts"]:
         raise AssertionError("reduced fleet: the card's reports != "
                              "cpu-ref's")
+    if keep is not None:
+        keep.update(plan=plan, texts=want, failed=failed, rplan=rplan,
+                    red_texts=red[backend]["texts"], scanner=card,
+                    off_wall_s=runs["cold_d2"]["wall_s"])
 
     n_ops, busy_ms = op_totals(ops)
     cold_walls = [runs[f"cold_d{d}"]["wall_s"] for d in FLEET_DEPTHS]
@@ -2216,6 +2255,262 @@ def fleet_phase(device, cdb, n_pkgs: dict, files: list,
         "broken_causes": failed[0][2],
         "uploads": cdb.device_stats()["uploads"] - up0,
     })
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+# --- the scheduler: the fleet as continuous-batching requests --------
+
+SCHED_COLD = 1                  # unprofiled cold scheduled fleets
+SCHED_CLIENTS = 4               # concurrent submit_path callers
+
+
+class PoisonInjector:
+    """Stands in for the JAX package's ``faults.FaultInjector`` with a
+    ``poison`` list: every device dispatch whose batch names a target
+    containing ``marker`` raises, as an injected device fault does."""
+
+    def __init__(self, marker: str):
+        self.marker = marker
+        self.dispatches = 0
+
+    def on_host_analyze(self, name: str) -> None:
+        pass
+
+    def on_image_load(self, name: str) -> None:
+        pass
+
+    def on_device_dispatch(self, names: list) -> None:
+        self.dispatches += 1
+        poisoned = [n for n in names if self.marker in (n or "")]
+        if poisoned:
+            raise RuntimeError(f"injected poison dispatch: "
+                               f"{poisoned[0]!r}")
+
+
+def run_sched(paths: list, db, backend: str, scanner, cache,
+              injector=None) -> dict:
+    """One ``BatchScanRunner(sched=SchedConfig(dispatch_depth=2))
+    .scan_paths`` over ``paths``, its sieve launches counted from 0 and
+    the candidates of every batch the executor launched recorded:
+    {"texts", "failed" (as ``run_fleet``), "status" of every slot,
+    "wall_s", "launches", "batches" (candidate files per launched
+    batch), "stats" (the scheduler's)}."""
+    from trivy_tpu_torch.ops.dfa_cuda import dfa_blockmask
+    from trivy_tpu_torch.runtime import BatchScanRunner
+    from trivy_tpu_torch.sched import SchedConfig
+    runner = BatchScanRunner(store=db, cache=cache, backend=backend,
+                             secret_scanner=scanner,
+                             sched=SchedConfig(dispatch_depth=2),
+                             fault_injector=injector)
+    sched = runner.scheduler
+    batches = []
+    launch = sched._launch
+
+    def counted(reqs, *args, **kwargs):
+        batches.append(sum(len(r.work.candidates) for r in reqs))
+        return launch(reqs, *args, **kwargs)
+
+    sched._launch = counted
+    dfa_blockmask.launches = 0
+    try:
+        t0 = time.perf_counter()
+        results = runner.scan_paths(paths)
+        wall = time.perf_counter() - t0
+    finally:
+        runner.close()
+    launches = dfa_blockmask.launches
+    out = {"texts": [None if r.error else _sorted_json(report_text(
+        r.report)) for r in results],
+           "failed": [(i, r.status, [c.to_dict() for c in r.causes])
+                      for i, r in enumerate(results) if r.error],
+           "status": [r.status for r in results],
+           "causes": [[c.to_dict() for c in r.causes] for r in results],
+           "wall_s": wall, "launches": launches, "batches": batches,
+           "stats": runner.last_stats["sched"]}
+    del results
+    return out
+
+
+def _strip_status(text: str) -> str:
+    doc = json.loads(text)
+    doc.pop("Status", None)
+    doc.pop("FailureCauses", None)
+    return json.dumps(doc, sort_keys=True)
+
+
+def sieve_wave_overlap_us(spans: list) -> float:
+    """Device microseconds during which a ``dfa_blockmask`` launch and
+    another kernel ran at once, from a profiled run's kernel spans
+    [(name, start us, end us)]: 0 when every interval wave waited for
+    the sieve enqueued before it."""
+    sieves = [(a, b) for n, a, b in spans if n.startswith("dfa_blockmask")]
+    others = [(a, b) for n, a, b in spans
+              if not n.startswith("dfa_blockmask")
+              and not n.startswith("Memcpy") and not n.startswith("Memset")]
+    return float(sum(max(0.0, min(b, d) - max(a, c))
+                     for a, b in sieves for c, d in others))
+
+
+def sched_phase(device, cdb, fleet: dict) -> dict:
+    """The continuous-batching scheduler (``BatchScanRunner`` with
+    ``sched=SchedConfig(dispatch_depth=2)``: every target one request,
+    loaded, analyzed and joined on the scheduler's host workers,
+    coalesced into device batches, each batch one ``dfa_blockmask``
+    sieve and its interval waves launched from the executor thread and
+    collected on the dispatch ring's drain thread) on the fleet
+    phase's targets and the vuln phase's DB. ``fleet`` is what
+    ``fleet_phase`` kept. ``SCHED_COLD`` cold fleets into a fresh
+    ``MemoryCache`` and one profiled: each must give the ``--sched
+    off`` reports, the truncated tar failing alone with the direct
+    path's cause and then the scheduler's ``obs/trace`` one, every
+    other slot ``ok``, nothing quarantined, no host fallback, one
+    ``dfa_blockmask`` launch per launched batch with candidates, and
+    no upload of the resident tables. Then, on the reduced fleet, a
+    poisoned target (``PoisonInjector``) must be the one slot
+    ``degraded`` with a ``quarantined`` cause, every other slot as in
+    the healthy run; and ``SCHED_CLIENTS`` threads calling
+    ``submit_path`` at once must each get its target's report."""
+    import threading
+    from trivy_tpu_torch.artifact import MemoryCache
+    from trivy_tpu_torch.runtime import BatchScanRunner
+    from trivy_tpu_torch.sched import SchedConfig
+    backend = device.type
+    t_phase = time.perf_counter()
+    plan, want, card = fleet["plan"], fleet["texts"], fleet["scanner"]
+    paths = plan["paths"]
+    up0 = cdb.device_stats()["uploads"]
+
+    def check(run: dict, name: str) -> None:
+        if run["texts"] != want:
+            raise AssertionError(f"sched {name}: reports != --sched off")
+        direct = fleet["failed"][0][2]
+        (i, status, causes), = run["failed"]
+        if (i, status) != (plan["broken"], "failed") or \
+                causes[:-1] != direct or causes[-1]["Kind"] != "trace":
+            raise AssertionError(f"sched {name}: the broken tar: "
+                                 f"{run['failed']}")
+        if any(st != "ok" for k, st in enumerate(run["status"])
+               if k != plan["broken"]):
+            raise AssertionError(f"sched {name}: slots {run['status']}")
+        c = run["stats"]["counters"]
+        if c.get("quarantined", 0) or c.get("host_fallbacks", 0):
+            raise AssertionError(f"sched {name}: quarantined or host "
+                                 f"fallback on a healthy run: {c}")
+        with_candidates = sum(1 for n in run["batches"] if n)
+        if run["launches"] != with_candidates or \
+                len(run["batches"]) != c["batches"]:
+            raise AssertionError(
+                f"sched {name}: {run['launches']} sieve launches for "
+                f"{with_candidates} batches with candidates "
+                f"({c['batches']} batches)")
+
+    runs = {}
+    for k in range(SCHED_COLD):
+        runs[f"cold{k}"] = run_sched(paths, cdb, backend, card,
+                                     MemoryCache())
+    prof, spans, wall_ms = profile_spans(lambda: run_sched(
+        paths, cdb, backend, card, MemoryCache()))
+    runs["profiled"] = prof
+    for name, run in runs.items():
+        check(run, name)
+    if cdb.device_stats()["uploads"] != up0:
+        raise AssertionError("a scheduled fleet uploaded the resident "
+                             "tables again")
+
+    # the poisoned reduced fleet: one slot cornered, the rest as healthy
+    rplan, red = fleet["rplan"], fleet["red_texts"]
+    rpaths = rplan["paths"]
+    victim = 1
+    marker = os.path.basename(rpaths[victim])
+    poison = run_sched(rpaths, cdb, backend, card, MemoryCache(),
+                       PoisonInjector(marker))
+    pc = poison["stats"]["counters"]
+    degraded = [i for i, st in enumerate(poison["status"])
+                if st == "degraded"]
+    if degraded != [victim] or pc.get("quarantined") != 1 or \
+            [c["Kind"] for c in poison["causes"][victim]] != \
+            ["quarantined", "trace"]:
+        raise AssertionError(f"poison not cornered: {poison['status']}, "
+                             f"{pc}")
+    for i, text in enumerate(poison["texts"]):
+        got = _strip_status(text) if i == victim and text else text
+        if got != red[i]:
+            raise AssertionError(f"poisoned fleet: slot {i} differs "
+                                 f"from the healthy run")
+
+    # concurrent serving: SCHED_CLIENTS callers of submit_path at once
+    runner = BatchScanRunner(store=cdb, cache=MemoryCache(),
+                             backend=backend, secret_scanner=card,
+                             sched=SchedConfig(dispatch_depth=2))
+    served: dict = {}
+
+    def client(i: int) -> None:
+        try:
+            res = runner.submit_path(rpaths[i]).result(timeout=600)
+            served[i] = _sorted_json(report_text(res.report))
+        except Exception as e:      # noqa: BLE001 — compared below
+            served[i] = e
+
+    t0 = time.perf_counter()
+    try:
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(SCHED_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        serve_stats = runner.scheduler.stats()
+    finally:
+        runner.close()
+    serve_s = time.perf_counter() - t0
+    for i in range(SCHED_CLIENTS):
+        if i == rplan["broken"]:
+            if not isinstance(served.get(i), ValueError):
+                raise AssertionError(f"served broken tar: {served.get(i)}")
+        elif served.get(i) != red[i]:
+            raise AssertionError(f"served target {i} != its report")
+
+    def summary(run: dict) -> dict:
+        st = run["stats"]
+        return {"wall_s": run["wall_s"],
+                "images_per_s": len(paths) / run["wall_s"],
+                "launches": run["launches"],
+                "batches": st["counters"]["batches"],
+                "candidates_per_batch": run["batches"],
+                "mean_items": st["batch"]["mean_items"],
+                "occupancy": st["batch"]["occupancy"],
+                "overlap_ratio": st["overlap_ratio"],
+                "device_busy_s": st["device_busy_s"],
+                "host_busy_s": st["host_busy_s"],
+                "interval_kernel_s": st["interval_kernel_s"],
+                "dispatch_overlap_ratio":
+                    st["dispatch"]["dispatch_overlap_ratio"],
+                "latency_p50_s": st["latency"]["request"]["p50_s"],
+                "latency_max_s": st["latency"]["request"]["max_s"],
+                "quarantined": st["counters"].get("quarantined", 0),
+                "host_fallbacks": st["counters"].get("host_fallbacks",
+                                                     0)}
+
+    busy_ms = sum(b - a for _, a, b in spans) / 1e3
+    cold_walls = [runs[f"cold{k}"]["wall_s"] for k in range(SCHED_COLD)]
+    out = {"targets": len(paths),
+           "runs": {k: summary(r) for k, r in runs.items()},
+           "off_wall_s": fleet["off_wall_s"],
+           "profiled": {"device_ops": len(spans),
+                        "sieve_wave_overlap_us":
+                            sieve_wave_overlap_us(spans),
+                        **idle_shares(busy_ms, wall_ms,
+                                      [{"total_s": w}
+                                       for w in cold_walls])},
+           "poison": {"wall_s": poison["wall_s"],
+                      "counters": {k: pc.get(k, 0) for k in (
+                          "batches", "batch_bisects", "quarantined",
+                          "host_fallbacks", "completed", "failed")}},
+           "serving": {"clients": SCHED_CLIENTS, "wall_s": serve_s,
+                       "batches": serve_stats["counters"]["batches"]},
+           "launches": {k: r["launches"] for k, r in runs.items()},
+           "uploads": cdb.device_stats()["uploads"] - up0}
     out["phase_s"] = time.perf_counter() - t_phase
     return out
 
@@ -2365,8 +2660,12 @@ def main() -> int:
         img = image_phase(device, cdb, n_pkgs, files, planted, work,
                           os.path.join(work, "cdb"))
         print("image phase: " + json.dumps(img), flush=True)
-        fleet = fleet_phase(device, cdb, n_pkgs, files, work)
-    print("fleet phase: " + json.dumps(fleet), flush=True)
+        kept: dict = {}
+        fleet = fleet_phase(device, cdb, n_pkgs, files, work, kept)
+        print("fleet phase: " + json.dumps(fleet), flush=True)
+        sched = sched_phase(device, cdb, kept)
+        del kept
+    print("sched phase: " + json.dumps(sched), flush=True)
 
     note = "no single PyTorch call computes this function"
     kernels = [{
@@ -2375,7 +2674,8 @@ def main() -> int:
         "replaces": "trivy_tpu/ops/dfa_pallas.py:211",
         "launches": sum(fs["launches"].values())
         + sum(img["launches"].values())
-        + sum(fleet["launches"].values()),
+        + sum(fleet["launches"].values())
+        + sum(sched["launches"].values()),
         "max_abs_err": kern["max_abs_err"],
         "ms": kern["ms"], "plain_ms": kern["plain_ms"],
         "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
@@ -2426,6 +2726,24 @@ def main() -> int:
           f"{fleet['profiled']['device_idle_share_of_warm']:.5f} of the "
           f"{fleet['profiled']['warm_median_ms']:.1f} ms median unprofiled "
           f"cold fleet", flush=True)
+    runs = sched["runs"]
+    print(f"scheduled fleet of {sched['targets']} targets "
+          f"(--sched on, SchedConfig(dispatch_depth=2)): " + json.dumps(
+              {k: {s: r[s] for s in (
+                  "wall_s", "images_per_s", "launches", "batches",
+                  "occupancy", "overlap_ratio", "device_busy_s",
+                  "dispatch_overlap_ratio", "quarantined",
+                  "host_fallbacks")} for k, r in runs.items()}) +
+          f"; dfa_blockmask launches = batches with candidates: "
+          f"{json.dumps(sched['launches'])}; the same fleet --sched off "
+          f"(cold, depth 2): {sched['off_wall_s']:.3f} s; profiled: "
+          f"{sched['profiled']['device_ops']} device ops, "
+          f"{sched['profiled']['device_ms']:.3f} ms busy, idle share "
+          f"{sched['profiled']['device_idle_share_of_warm']:.5f} of the "
+          f"{sched['profiled']['warm_median_ms']:.1f} ms median cold "
+          f"fleet; sieve/wave overlap "
+          f"{sched['profiled']['sieve_wave_overlap_us']:.1f} us",
+          flush=True)
     print(f"script: {time.perf_counter() - t_script:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -640,3 +640,111 @@ def test_sieve_and_waves_from_two_threads(cuda, scanner):
     assert not t.is_alive()
     assert got["jobs"] == want_jobs
     assert got["secrets"] == want_secrets and len(planted) > 0
+
+
+def test_sieve_launched_on_one_thread_collected_on_another(cuda, scanner):
+    """The scheduler launches a batch's sieve on its executor thread
+    and collects it on the ring's drain thread. The handle's own event
+    orders the collect: here the collecting thread reads on a side
+    stream of its own, which nothing else orders after the launch."""
+    import threading
+    from chip_smoke import make_corpus
+    files, planted = make_corpus(512, 17)
+    want = [(i, s.to_dict()) for i, s in scanner.scan_files(files)]
+    handles, got = [], {}
+    launcher = threading.Thread(
+        target=lambda: handles.append(scanner.dispatch_files(files)))
+    launcher.start()
+    launcher.join(120)
+    assert handles and handles[0]["event"] is not None
+
+    def collect():
+        with torch.cuda.stream(torch.cuda.Stream()):
+            got["secrets"] = [(i, s.to_dict())
+                              for i, s in scanner.collect(handles[0])]
+
+    collector = threading.Thread(target=collect)
+    collector.start()
+    collector.join(120)
+    assert got["secrets"] == want and len(planted) > 0
+    assert handles[0]["event"] is None and handles[0]["seg"] is None
+
+
+def test_scheduled_fleet_on_the_card_equals_cpu_ref(cuda, tmp_path):
+    """``BatchScanRunner(sched=SchedConfig(...))`` on the card: the
+    same reports as on ``cpu-ref``, one ``dfa_blockmask`` launch per
+    coalesced batch with candidates, no quarantine, no host
+    fallback."""
+    from chip_smoke import (FS_ROOTS, fleet_targets, make_advisory_store,
+                            make_corpus)
+    from trivy_tpu_torch.runtime import BatchScanRunner
+    from trivy_tpu_torch.sched import SchedConfig
+    store, n_pkgs = make_advisory_store(3000, 23)
+    cdb = CompiledDB.compile(store)
+    files, _ = make_corpus(64, 29)
+    plan = fleet_targets(str(tmp_path), FS_ROOTS["fs"], n_pkgs, 5, files,
+                         n_images=6, scale=0.04)
+    out = {}
+    for backend in ("cuda", "cpu-ref"):
+        runner = BatchScanRunner(
+            store=cdb, backend=backend,
+            sched=SchedConfig(max_batch_items=2, flush_timeout_s=0.01))
+        before = dfa_blockmask.launches
+        batches = []
+        launch = runner.scheduler._launch
+
+        def counted(reqs, *args, launch=launch, **kwargs):
+            batches.append(sum(len(r.work.candidates) for r in reqs))
+            return launch(reqs, *args, **kwargs)
+
+        runner.scheduler._launch = counted
+        try:
+            res = runner.scan_paths(plan["paths"])
+        finally:
+            runner.close()
+        c = runner.last_stats["sched"]["counters"]
+        assert not c.get("quarantined") and not c.get("host_fallbacks")
+        if backend == "cuda":
+            assert dfa_blockmask.launches - before == \
+                sum(1 for n in batches if n)
+        out[backend] = [(r.name, r.error or json.dumps(
+            r.report.to_dict(), sort_keys=True)) for r in res]
+    assert out["cuda"] == out["cpu-ref"]
+
+
+def test_a_card_dispatch_error_fails_its_slots_not_to_the_host(
+        cuda, tmp_path, monkeypatch):
+    """A sieve dispatch on the card that raises an error no fault
+    injector raised fails the slots of its batch with the device's
+    cause (exit 1 on the CLI); nothing is quarantined or finished on
+    the host."""
+    from chip_smoke import (FS_ROOTS, fleet_targets, make_advisory_store,
+                            make_corpus)
+    from trivy_tpu_torch.runtime import BatchScanRunner
+    from trivy_tpu_torch.sched import SchedConfig
+    store, n_pkgs = make_advisory_store(3000, 23)
+    cdb = CompiledDB.compile(store)
+    files, _ = make_corpus(64, 29)
+    plan = fleet_targets(str(tmp_path), FS_ROOTS["fs"], n_pkgs, 5, files,
+                         n_images=4, scale=0.04)
+    runner = BatchScanRunner(
+        store=cdb, backend="cuda",
+        sched=SchedConfig(max_batch_items=2, flush_timeout_s=0.01))
+
+    def broken(files):
+        raise RuntimeError("sieve launch failed")
+
+    monkeypatch.setattr(runner.scheduler.secret_scanner, "dispatch_files",
+                        broken)
+    try:
+        res = runner.scan_paths(plan["paths"])
+    finally:
+        runner.close()
+    c = runner.last_stats["sched"]["counters"]
+    assert not c.get("quarantined") and not c.get("host_fallbacks")
+    failed = [r for i, r in enumerate(res)
+              if i != plan["broken"] and r.status == "failed"]
+    assert failed and c["device_failures"] == len(failed)
+    for r in failed:
+        assert r.causes[0].kind == "dispatch_failed"
+        assert "sieve launch failed" in r.error

@@ -11,6 +11,7 @@ import torch
 
 import jax.numpy as jnp
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
 from trivy_tpu.ops import dfa as jdfa
 from trivy_tpu.secret.plan import build_scan_plan as j_build_plan
 from trivy_tpu.secret.scanner import new_scanner as j_new_scanner

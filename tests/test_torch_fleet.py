@@ -29,6 +29,7 @@ import trivy_tpu_torch.detect.batch as tbatch
 from chip_smoke import (FS_ROOTS, SBOM_IMAGES, fleet_targets,
                         make_advisory_store, make_bom, make_corpus)
 from tests.test_torch_scan_local import _fast_yaml, _fixture_docs
+from tests.torch_threads import one_torch_thread  # noqa: F401
 from trivy_tpu.cli import main as rmain
 from trivy_tpu.runtime import BatchScanRunner as RRunner
 from trivy_tpu_torch.cli import main as tmain
@@ -255,34 +256,52 @@ def test_cli_sched_stats_dumps_the_batch(fleet, tmp_path, monkeypatch):
 # --- refusals --------------------------------------------------------
 
 REFUSALS = {
-    "sched_on_by_default": ([], "A.5"),
-    "sched_on": (["--sched", "on"], "A.5"),
-    "tenant_config": (["--sched", "off", "--tenant-config", "a:rate=1"],
-                      "A.5"),
-    "tenant_budget": (["--sched", "off", "--tenant-budget",
-                       "a:device_s=1"], "A.5"),
     "coordinator": (["--sched", "off", "--coordinator", "h:1"], "A.6"),
     "num_processes": (["--sched", "off", "--num-processes", "2"], "A.6"),
     "process_id": (["--sched", "off", "--process-id", "0"], "A.6"),
     "fault_spec": (["--sched", "off", "--fault-spec", "poison-image"],
                    "A.9"),
 }
+# refused until the scheduler was ported (ROADMAP A.5): they run now
+LIFTED = {
+    "sched_on_by_default": [],
+    "sched_on": ["--sched", "on"],
+    "tenant_config": ["--tenant-config", "a:rate=1"],
+    "tenant_budget": ["--tenant-budget", "a:device_s=1"],
+}
 
 
-@pytest.mark.parametrize("case", sorted(REFUSALS))
+@pytest.mark.parametrize("case", sorted(REFUSALS) + sorted(LIFTED))
 def test_fleet_refuses_before_any_host_work(fleet, case, monkeypatch,
                                             tmp_path):
+    """Each option still to be ported is refused by name before any
+    host work; the scheduler's options (``--sched on``, its default,
+    and ``--tenant-*``) run the scheduled scan, whose reports equal
+    the reference's with the same options and the port's direct
+    path's."""
     import trivy_tpu_torch.cli as tcli
+
+    monkeypatch.chdir(tmp_path)
+    argv = ["image", *fleet["plan"]["paths"][:2], "--backend", "cpu"]
+    if case in LIFTED:
+        db = ["--compiled-db", fleet["compiled"], "--format", "json"]
+        code, out, said, _ = _run(tcli.main, argv + LIFTED[case] + db)
+        want = _run(rmain, argv + LIFTED[case] + db
+                    + ["--no-cache", "--no-memo"])
+        off = _run(tcli.main, argv + ["--sched", "off"] + db)
+        assert (code, said) == (0, []) == (want[0], want[2])
+        assert _out(out, "json") == _out(want[1], "json")
+        assert off[:3] == (0, out, [])
+        assert len(json.loads(out)) == 2
+        return
 
     def no_work(*args, **kwargs):
         raise AssertionError("host work before the refusal")
 
     for name in ("load_image", "load_store", "BatchScanRunner"):
         monkeypatch.setattr(tcli, name, no_work)
-    monkeypatch.chdir(tmp_path)
     flags, item = REFUSALS[case]
-    code, out, said, _ = _run(tcli.main, [
-        "image", *fleet["plan"]["paths"][:2], *flags, "--backend", "cpu"])
+    code, out, said, _ = _run(tcli.main, argv + flags)
     assert code == 1 and out == ""
     assert len(said) == 1 and f"ROADMAP {item}" in said[0]
 
@@ -303,11 +322,36 @@ def test_fleet_usage_errors_as_reference(fleet, flags, monkeypatch,
 
 
 def test_runner_takes_the_direct_path_only(fleet):
-    with pytest.raises(NotImplementedError, match="A.5"):
-        TRunner(backend="cpu", sched="on")
-    for arg in ("mesh", "memo", "tracer", "fault_injector",
-                "sched_config"):
+    """``sched="off"`` is the direct path; ``"on"``, a ``SchedConfig``
+    or a shared ``ScanScheduler`` take the scheduled route (ROADMAP
+    A.5, ported), whose reports equal the direct path's. ``mesh`` and
+    ``memo`` stay refused (A.6, A.7), in the runner and in the
+    scheduler."""
+    from trivy_tpu_torch.sched import ScanScheduler, SchedConfig
+    from trivy_tpu_torch.secret.batch import BatchSecretScanner
+    paths = fleet["plan"]["paths"][:2]
+    store = fleet["stores"]["compiled"][1]
+    want = _norm(TRunner(store=store, backend="cpu",
+                         sched="off").scan_paths(paths))
+    # a shared scheduler sieves with the scanner it was built with
+    shared = ScanScheduler(backend="cpu",
+                           secret_scanner=BatchSecretScanner(backend="cpu"))
+    try:
+        for sched in ("on", SchedConfig(workers=2), shared):
+            runner = TRunner(store=store, backend="cpu", sched=sched)
+            assert runner.sched == "on"
+            try:
+                assert _norm(runner.scan_paths(paths)) == want
+                assert (runner.scheduler is shared) == (sched is shared)
+            finally:
+                runner.close()
+        assert not shared.queue.closed      # the caller's to close
+    finally:
+        shared.close()
+    for arg in ("mesh", "memo"):
         with pytest.raises(TypeError):
             TRunner(backend="cpu", **{arg: None})
+    with pytest.raises(NotImplementedError, match="A.6"):
+        ScanScheduler(backend="cpu", mesh=object())
     assert not hasattr(TRunner, "scan_registry_refs")
     assert not hasattr(TRunner, "blob_keyer")

@@ -29,6 +29,7 @@ from chip_smoke import (FS_ROOTS, _zipf_unique, installed_version,
                         make_advisory_store, make_corpus, make_fs_tree)
 from tests.test_rpm import make_header, make_sqlite
 from tests.test_torch_scan_local import _fast_yaml, _fixture_docs
+from tests.torch_threads import one_torch_thread  # noqa: F401
 from trivy_tpu.artifact.walker import walk_fs as r_walk
 from trivy_tpu.cli import main as rmain
 from trivy_tpu_torch.artifact.walker import walk_fs as t_walk

@@ -4,8 +4,9 @@ on the same inputs: each case of tests/test_hostile.py's
 ``TestWalkerPaths`` and ``TestBudgetPrimitives`` runs through both
 packages and must end the same way (the same result, or the same
 exception class and message), and still as that test expects. The
-scheduler-metrics case of ``TestBudgetPrimitives`` becomes a case on
-the counters themselves: the scheduler is not ported (ROADMAP A.5)."""
+scheduler-metrics case of ``TestBudgetPrimitives`` runs on each
+package's own ``ScanScheduler``, beside a case on the counters
+themselves."""
 
 import dataclasses
 import gzip
@@ -220,6 +221,19 @@ def _metric_counters(guard, budget, safetar, walker):
     return sorted(snap), all(isinstance(v, int) for v in snap.values())
 
 
+def _guard_metrics_in_scheduler_stats(guard, budget, safetar, walker):
+    import importlib
+    sched = importlib.import_module(
+        guard.__name__.split(".")[0] + ".sched")
+    s = sched.ScanScheduler(backend="cpu")
+    try:
+        snap = s.stats()
+    finally:
+        s.close()
+    return ("budget_trips" in snap["guard"],
+            sorted(snap["guard"]) == sorted(guard.GUARD_METRICS.snapshot()))
+
+
 def _named_trip(guard, budget, safetar, walker):
     budget.ResourceBudget(name="img.tar").exceeded("too big")
 
@@ -314,6 +328,8 @@ PRIMITIVE_CASES = {
         _trips_are_value_errors,
         [True] * 5 + ["malformed-archive", "ingest"]),
     "guard_metric_counters": (_metric_counters, None),
+    "guard_metrics_in_scheduler_stats": (
+        _guard_metrics_in_scheduler_stats, (True, True)),
     "named_trip_prefix": (_named_trip, ("ResourceBudgetExceeded",
                                         "img.tar: too big")),
     "scaled_limits": (_scaled_limits, None),

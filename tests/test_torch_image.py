@@ -38,6 +38,7 @@ from chip_smoke import (FS_ROOTS, IMAGE_HISTORY, image_layers,
 import tests.test_e2e_image as e2e
 from tests.test_torch_fs import _secret_files
 from tests.test_torch_scan_local import _fast_yaml, _fixture_docs
+from tests.torch_threads import one_torch_thread  # noqa: F401
 from trivy_tpu.analyzer.imgconf import analyze_image_config as r_imgconf
 from trivy_tpu.artifact import ArtifactOption as RArtifactOption
 from trivy_tpu.artifact import ImageArtifact as RImageArtifact
@@ -352,9 +353,10 @@ def test_blob_round_trip_is_lossless(inputs, tmp_path):
 # --- refusals --------------------------------------------------------
 
 REFUSALS = {
-    # several targets run the batch runner; --sched on (the default)
-    # is the scheduler
-    "several_targets": (["a.tar", "b.tar"], "A.5"),
+    # several targets run the batch runner through the scheduler (its
+    # default --sched on), refused until ROADMAP A.5 was ported: they
+    # run now, each missing target failing its own slot
+    "several_targets": (["a.tar", "b.tar"], None),
     "target_not_a_path": (["registry.example/app:1"], "A.9"),
     "server": (["@alpine", "--server", "http://localhost:1"], "A.9"),
     "fault_spec": (["@alpine", "--fault-spec", "poison-image"], "A.9"),
@@ -368,15 +370,25 @@ def test_image_refuses_before_any_host_work(inputs, case, monkeypatch,
                                             tmp_path):
     import trivy_tpu_torch.cli as tcli
 
+    monkeypatch.chdir(tmp_path)
+    args, item = REFUSALS[case]
+    argv = ["image"] + [inputs[a[1:]] if a.startswith("@") else a
+                        for a in args]
+    if item is None:
+        # no refusal: the fleet runs, and each missing target fails
+        # its own slot (ref cli.py ``_finish_many``)
+        code, out, said = _run(tcli.main, argv + ["--backend", "cpu"])
+        assert code == 1 and out == ""
+        assert [ln.split(":")[1] for ln in said] == [" a.tar", " b.tar"]
+        assert all(ln.startswith("error: ") and "ROADMAP" not in ln
+                   for ln in said)
+        return
+
     def no_work(*args, **kwargs):
         raise AssertionError("host work before the refusal")
 
     for name in ("load_image", "load_store", "scan_image"):
         monkeypatch.setattr(tcli, name, no_work)
-    monkeypatch.chdir(tmp_path)
-    args, item = REFUSALS[case]
-    argv = ["image"] + [inputs[a[1:]] if a.startswith("@") else a
-                        for a in args]
     code, out, said = _run(tcli.main, argv + ["--backend", "cpu"])
     assert code == 1 and out == ""
     assert len(said) == 1 and f"ROADMAP {item}" in said[0]

@@ -96,6 +96,15 @@ RUNTIME_SLICE = ("runtime/__init__.py", "runtime/batch.py",
                  "ops/resident.py", "artifact/artifact.py", "cli.py")
 
 
+# the scheduler's modules (sched/ with the obs/ pieces it threads)
+SCHED_SLICE = ("sched/__init__.py", "sched/queue.py",
+               "sched/coalescer.py", "sched/metrics.py",
+               "sched/tenant.py", "sched/scheduler.py",
+               "obs/__init__.py", "obs/trace.py", "obs/recorder.py",
+               "obs/cost.py", "obs/slo.py", "runtime/batch.py",
+               "secret/batch.py", "cli.py")
+
+
 def _covered(modules) -> None:
     import importlib
     import pkgutil
@@ -124,6 +133,10 @@ def test_the_scans_cover_the_image_slice():
 
 def test_the_scans_cover_the_runtime_slice():
     _covered(RUNTIME_SLICE)
+
+
+def test_the_scans_cover_the_sched_slice():
+    _covered(SCHED_SLICE)
 
 
 def test_no_import_statement_names_jax_or_the_jax_package():
@@ -257,9 +270,15 @@ def test_default_device_is_cuda_and_refuses_the_cpu(monkeypatch,
         main(["image", "--input", str(tmp_path)])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main(["image", str(tmp_path), str(tmp_path), "--sched", "off"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["image", str(tmp_path), str(tmp_path)])   # --sched on
     from trivy_tpu_torch.runtime import BatchScanRunner
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         BatchScanRunner()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        BatchScanRunner(sched="on")
+    from trivy_tpu_torch.sched import ScanScheduler
+    assert ScanScheduler().backend == "cuda"
     assert trivy_tpu_torch.resolve_device("cpu").type == "cpu"
 
 

@@ -11,6 +11,7 @@ from tests.test_secret_fuzz_mesh import SAMPLES as FUZZ_SAMPLES
 from tests.test_secret_fuzz_mesh import _corpus
 from tests import test_secret_tpu
 from tests.test_secret_tpu import SAMPLES as TPU_SAMPLES
+from tests.torch_threads import one_torch_thread  # noqa: F401
 from trivy_tpu.secret.batch import BatchSecretScanner as JBatch
 from trivy_tpu.secret.batch import rules_fingerprint as j_fingerprint
 from trivy_tpu_torch.ops import keywords as tkeywords

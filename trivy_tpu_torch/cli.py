@@ -12,15 +12,20 @@ non-base layer in one batched sieve, then ``LocalScanner`` prepares
 the advisory pair jobs, one ``dispatch_jobs`` runs the interval match,
 and the results are finished, filtered and written.
 
-``image a.tar b.tar ...`` scans a fleet in one batch (the reference's
-``--sched off`` direct path, ``runtime/batch.py``): every image's
-missing layers are walked, ONE sieve runs over every secret candidate
-of every image, and the interval match over every image's pairs runs
-in waves kept in flight by a dispatch ring (``--dispatch-depth``).
-``json`` writes one array of reports, ``table`` one table after
+``image a.tar b.tar ...`` scans a fleet (``runtime/batch.py``). By
+default (``--sched on``) every target is one request of the
+continuous-batching scheduler (``sched/``): loaded, analyzed and
+joined on its host workers (``--sched-workers``), coalesced into
+device batches by volume or after ``--sched-flush-ms``, each batch
+one sieve launch and its interval waves, collected on a dispatch ring
+(``--dispatch-depth``), with tenancy and budgets from
+``--tenant-config`` and ``--tenant-budget``. ``--sched off`` is the
+direct path: every image's missing layers are walked, ONE sieve runs
+over every secret candidate of every image, and the interval match
+over every image's pairs runs in waves kept in flight by a dispatch
+ring. ``json`` writes one array of reports, ``table`` one table after
 another; a target that fails prints ``error: NAME: ...`` and the run
-exits 1. The continuous-batching scheduler (``--sched on``, the
-reference's default for several targets) is ROADMAP A.5 and refused.
+exits 1.
 
 ``fs`` (alias ``filesystem``) and ``rootfs`` scan a directory tree
 (the reference's ``trivy fs DIR``): ``LocalFSArtifact`` walks it
@@ -62,11 +67,14 @@ from .guard import DEFAULT_LIMITS, make_budget
 from .handler.unpackaged import check_rekor
 from .report.writer import (FORMATS, UNPORTED_FORMATS, check_format,
                             write_report)
+from .obs.cost import parse_budget_config
 from .runtime import BatchScanRunner
+from .runtime.ring import resolve_dispatch_depth
 from .scan import LocalScanner, ScanTarget, filter_results
 from .scan.filter import (IgnorePolicyError, load_ignore_file,
                           load_ignore_policy)
 from .scan.local import check_security_checks
+from .sched import SchedConfig, parse_tenant_config
 from .types import Metadata, Report, ScanOptions, Severity
 
 DEFAULT_SEVERITIES = "UNKNOWN,LOW,MEDIUM,HIGH,CRITICAL"
@@ -529,18 +537,7 @@ def _refuse_image(args) -> str:
 
 
 def _refuse_batch(args) -> str:
-    """The fleet options still to be ported: the scheduler (the
-    reference's default for several targets) and its tenancy, the
-    multi-host pod."""
-    if args.sched == "on":
-        return ("several image targets with --sched on run through the "
-                "continuous-batching scheduler, which is not ported yet "
-                "(ROADMAP A.5); pass --sched off for the direct batch "
-                "path")
-    for flag, value in (("--tenant-config", args.tenant_config),
-                        ("--tenant-budget", args.tenant_budget)):
-        if value:
-            return f"{flag} is not ported yet (ROADMAP A.5)"
+    """The fleet options still to be ported: the multi-host pod."""
     for flag, value in (("--coordinator", args.coordinator),
                         ("--num-processes", args.num_processes),
                         ("--process-id", args.process_id >= 0)):
@@ -605,10 +602,36 @@ def _run_image(args) -> int:
     return _finish(args, report)
 
 
+def _sched_config(args):
+    """The scheduler's knobs from the flags (ref cli.py
+    ``_sched_config``); a malformed tenant table or budget raises
+    ``ValueError``."""
+    tenancy = None
+    if getattr(args, "tenant_config", ""):
+        # a typo'd tenant table must fail the run up front — a
+        # malformed QoS config silently granting unlimited service
+        # is exactly the overload hole tenancy exists to close
+        tenancy = parse_tenant_config(args.tenant_config)
+    budgets = None
+    if getattr(args, "tenant_budget", ""):
+        # same eager-validation contract: a typo'd budget silently
+        # metering nothing would defeat the admission gate
+        budgets = parse_budget_config(args.tenant_budget)
+    return SchedConfig(
+        max_queue=getattr(args, "sched_queue", 256),
+        workers=getattr(args, "sched_workers", 4),
+        flush_timeout_s=getattr(args, "sched_flush_ms", 50.0)
+        / 1000.0,
+        dispatch_depth=resolve_dispatch_depth(
+            getattr(args, "dispatch_depth", 0) or 0),
+        tenancy=tenancy,
+        budgets=budgets)
+
+
 def _run_image_batch(args) -> int:
-    """``image a.tar b.tar ...`` on the direct path (ref cli.py
-    ``_run_image_batch`` with ``--sched off``): one
-    ``BatchScanRunner.scan_paths`` over every target, then
+    """``image a.tar b.tar ...`` (ref cli.py ``_run_image_batch``):
+    one ``BatchScanRunner.scan_paths`` over every target, through the
+    scheduler (``--sched on``, the default) or the direct path, then
     ``_finish_many``."""
     if args.format not in ("table", "json", "template"):
         # per-slot writers would concatenate complete documents into
@@ -634,18 +657,30 @@ def _run_image_batch(args) -> int:
                            _split(args.skip_files), patterns,
                            not args.no_ingest_guards,
                            _ingest_limits(args))
+    try:
+        sched_config = _sched_config(args)
+    except ValueError as e:
+        print(f"error: --tenant-config/--tenant-budget: {e}",
+              file=sys.stderr)
+        return 2
     runner = BatchScanRunner(
         store=store, cache=make_cache(args.cache_dir, args.no_cache),
         backend=args.backend, secret_scanner=opt.secret_scanner,
+        sched=args.sched, sched_config=sched_config,
         artifact_option=opt, dispatch_depth=args.dispatch_depth)
     options = ScanOptions(vuln_type=_split(args.vuln_type),
                           security_checks=checks,
                           list_all_packages=_list_all(args),
                           scan_removed_packages=args.removed_pkgs,
                           backend=args.backend)
-    results = runner.scan_paths(args.target, options)
+    try:
+        results = runner.scan_paths(args.target, options)
+        stats = runner.last_stats
+    finally:
+        runner.close()
     if args.sched_stats:
-        print(json.dumps(runner.last_stats, indent=2), file=sys.stderr)
+        print(json.dumps(stats.get("sched", stats), indent=2),
+              file=sys.stderr)
     return _finish_many(args, results)
 
 
@@ -790,22 +825,41 @@ def _image_flags(sp) -> None:
                     "deadline for image load + layer walking "
                     "(default 300s)")
     sp.add_argument("--sched", default="on", choices=["on", "off"],
-                    help="several targets: off = the direct batch "
-                    "path; on (the default, the continuous-batching "
-                    "scheduler) is not ported yet and is refused")
+                    help="continuous-batching scheduler for "
+                    "multi-image scans (docs/serving.md); off = the "
+                    "direct single-batch path")
     sp.add_argument("--sched-stats", action="store_true",
-                    help="several targets: dump the batch's phase "
-                    "timings and dispatch counters to stderr")
+                    help="dump scheduler metrics (queue depth, batch "
+                    "occupancy, host/device overlap, latency "
+                    "histograms) to stderr after the scan; with "
+                    "--sched off, the batch's phase timings and "
+                    "dispatch counters")
+    sp.add_argument("--sched-flush-ms", type=float, default=50.0,
+                    help="coalescer flush timeout in ms")
+    sp.add_argument("--sched-queue", type=int, default=256,
+                    help="admission queue bound (backpressure)")
+    sp.add_argument("--sched-workers", type=int, default=4,
+                    help="host worker pool size")
     sp.add_argument("--dispatch-depth", type=int, default=0,
-                    help="several targets: interval waves in flight "
-                    "(2 uploads wave N+1 while N computes, 1 restores "
-                    "the synchronous ladder; 0 = "
-                    "TRIVY_TPU_DISPATCH_DEPTH or 2)")
-    # refused by name (ROADMAP A.5, A.6)
+                    help="device slots in flight (2 uploads batch N+1 "
+                    "while N computes, 1 restores the synchronous "
+                    "ladder; 0 = TRIVY_TPU_DISPATCH_DEPTH or 2)")
     sp.add_argument("--tenant-config", default="",
-                    help=argparse.SUPPRESS)
+                    help="multi-tenant QoS table (docs/serving.md): a "
+                    "JSON file path or an inline spec like "
+                    "'alice:weight=4,rate=100;default:rate=50' — "
+                    "per-tenant WFQ weights, max_queued/max_inflight "
+                    "quotas, and token-bucket rate/burst limits "
+                    "(429 + Retry-After)")
     sp.add_argument("--tenant-budget", default="",
-                    help=argparse.SUPPRESS)
+                    help="per-tenant device-second budgets "
+                    "(docs/observability.md 'Cost attribution & "
+                    "goodput'): JSON file or inline "
+                    "'alice:device_s=2.5,window_s=60,action=throttle;"
+                    "bob:device_s=1' — a tenant over its windowed "
+                    "spend is throttled (429 + Retry-After) or "
+                    "deprioritized to the budget's priority floor")
+    # refused by name (ROADMAP A.6)
     sp.add_argument("--coordinator", default="", help=argparse.SUPPRESS)
     sp.add_argument("--num-processes", type=int, default=0,
                     help=argparse.SUPPRESS)

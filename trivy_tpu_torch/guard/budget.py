@@ -21,8 +21,8 @@ explicit, per-target budget every ingest primitive consults:
 
 A budget is **per target**: trips fail (or degrade) that target only,
 through the degraded-mode report status. All trips also increment
-the process-wide :data:`GUARD_METRICS` (the scheduler's metrics that
-export them come with ROADMAP A.5).
+the process-wide :data:`GUARD_METRICS`, which the scheduler's metrics
+export (``sched/metrics.py``).
 
 ``current_budget`` is a contextvar letting deep parsers (the rpmdb
 openers, analyzers) report *soft* faults — input that is malformed

@@ -21,16 +21,20 @@ Cached images skip 1-2 entirely (content-addressed ``missing_blobs``).
 Two kernel dispatches per BATCH — not per image — amortize dispatch
 latency across the whole fleet.
 
-Only the direct path is here: ``sched`` must be ``"off"`` (the
-continuous-batching scheduler is ROADMAP A.5). The reference's
-``mesh`` (A.6), ``memo`` (A.7), ``tracer`` (A.8) and
-``fault_injector`` (A.9) arguments are not taken until their items
-are ported, nor are ``blob_keyer`` and ``scan_registry_refs`` (A.9).
+With ``sched`` other than ``"off"`` every image (or BOM) becomes one
+request of the continuous-batching scheduler (``sched/``): it is
+loaded, analyzed and joined on the scheduler's host workers, joins
+whichever device batch is forming, and is finished back on the pool
+(``_scan_scheduled``, ``submit_path``). The reference's ``mesh`` (A.6)
+and ``memo`` (A.7) arguments are not taken until their items are
+ported, nor are ``blob_keyer`` and ``scan_registry_refs`` (A.9); the
+direct path's trace spans are A.8.
 """
 
 from __future__ import annotations
 
 import copy
+import logging
 import tarfile
 import time
 from dataclasses import dataclass, field
@@ -45,7 +49,12 @@ from ..db import AdvisoryStore
 from ..detect.batch import (collect_dispatch, dispatch_jobs,
                             dispatch_jobs_async)
 from ..guard.budget import GuardError, make_budget
+from ..obs.trace import get_tracer, trace_cause
 from ..scan.local import LocalScanner, ScanTarget
+from ..sched import (AnalyzedWork, DeadlineExceeded, QueueFullError,
+                     RateLimitedError, ScanRequest, ScanScheduler,
+                     SchedConfig, SchedulerClosed)
+from ..sched.queue import DeviceDispatchError
 from ..secret.batch import BatchSecretScanner, rules_fingerprint
 from ..types import Metadata, Report, ScanOptions
 from ..types.report import FailureCause
@@ -53,6 +62,8 @@ from ..utils import defer_gc
 from .hostpool import get_host_pool, map_in_pool
 from .ring import (RING_METRICS, DispatchRing, RingMetrics,
                    TeeRingMetrics, resolve_dispatch_depth)
+
+log = logging.getLogger("trivy_tpu_torch.runtime.batch")
 
 
 @dataclass
@@ -89,12 +100,9 @@ class BatchScanResult:
 class BatchScanRunner:
     def __init__(self, store: Optional[AdvisoryStore] = None,
                  cache=None, backend: str = "cuda",
-                 secret_scanner=None, sched="off",
-                 artifact_option=None, dispatch_depth: int = 0):
-        if sched != "off":
-            raise NotImplementedError(
-                "the continuous-batching scheduler is not ported yet "
-                "(ROADMAP A.5); pass sched='off'")
+                 secret_scanner=None, sched="off", sched_config=None,
+                 artifact_option=None, fault_injector=None,
+                 tracer=None, dispatch_depth: int = 0):
         self.store = store if store is not None else AdvisoryStore()
         self.cache = cache if cache is not None else MemoryCache()
         # dispatch_depth: bound on in-flight interval waves — the
@@ -106,7 +114,56 @@ class BatchScanRunner:
             secret_scanner = BatchSecretScanner(backend=backend)
         self.secret_scanner = secret_scanner
         self.artifact_option = artifact_option
+        # tracer: obs.trace.Tracer — per-request span trees on the
+        # scheduled path (the direct path's spans are ROADMAP A.8)
+        self.tracer = tracer if tracer is not None else get_tracer()
+        # fault_injector: duck-typed (on_device_dispatch(names),
+        # on_host_analyze(name), on_image_load(name)) — threads into
+        # the scheduler's device dispatch and this runner's host
+        # phases; the reference's faults/ package and --fault-spec
+        # are ROADMAP A.9
+        self.fault_injector = fault_injector
+        # sched: "off" = the direct single-batch ladder below;
+        # "on"/SchedConfig/ScanScheduler = continuous batching with
+        # pipelined host/device overlap (sched/)
+        self.sched_config = sched_config
+        self._scheduler = None
+        self._owns_scheduler = False
+        if hasattr(sched, "submit"):       # a ScanScheduler
+            self._scheduler = sched        # shared — caller closes
+            self.sched = "on"
+        elif sched not in (None, "off", False):
+            self.sched = "on"
+            if isinstance(sched, SchedConfig):
+                self.sched_config = sched
+        else:
+            self.sched = "off"
         self.last_stats: dict = {}   # phase timings of the last batch
+
+    # --- scheduler plumbing ---
+
+    @property
+    def scheduler(self):
+        if self._scheduler is None:
+            cfg = self.sched_config
+            if cfg is None:
+                # propagate the runner's slot depth so --sched on
+                # and off honor the same --dispatch-depth knob
+                cfg = SchedConfig(dispatch_depth=self.dispatch_depth)
+            self._scheduler = ScanScheduler(
+                config=cfg, backend=self.backend,
+                secret_scanner=self.secret_scanner,
+                tracer=self.tracer)
+            self._scheduler.fault_injector = self.fault_injector
+            self._owns_scheduler = True
+        return self._scheduler
+
+    def close(self) -> None:
+        # only tear down a scheduler this runner constructed — an
+        # externally provided one may serve other request sources
+        if self._scheduler is not None and self._owns_scheduler:
+            self._scheduler.close()
+            self._scheduler = None
 
     def _store_view(self) -> tuple:
         """``(db, release|None)``: plain stores pass through untouched
@@ -118,9 +175,16 @@ class BatchScanRunner:
 
     def scan_paths(self, paths: list,
                    options: Optional[ScanOptions] = None) -> list:
+        if self.sched == "on":
+            # lazy image load inside analyze() — tar walking is host
+            # work that should overlap device execution too
+            return self._scan_scheduled(
+                [(p, None) for p in paths], options)
         images, failures = [], {}
         for i, p in enumerate(paths):
             try:
+                if self.fault_injector is not None:
+                    self.fault_injector.on_image_load(p)
                 images.append((i, load_image(
                     p, budget=self._ingest_budget(p))))
             except (OSError, ValueError, tarfile.TarError) as e:
@@ -134,6 +198,10 @@ class BatchScanRunner:
 
     def scan_images(self, images: list,
                     options: Optional[ScanOptions] = None) -> list:
+        if self.sched == "on":
+            return self._scan_scheduled(
+                [(getattr(img, "name", ""), img) for img in images],
+                options)
         with defer_gc():
             return self._scan_images(images, options)
 
@@ -166,6 +234,182 @@ class BatchScanRunner:
             opt.secret_rules_fp = rules_fingerprint(
                 self.secret_scanner)
         return opt
+
+    # --- the scheduled (continuous-batching) route ---
+
+    def _scan_scheduled(self, items: list,
+                        options: Optional[ScanOptions] = None) -> list:
+        """``items``: [(name, image-or-None)] — None loads the path
+        lazily inside analyze(). Submits one request per image to the
+        scheduler and gathers results in input order; per-request
+        failures (load errors, deadline expiry) fail their own slot,
+        never the fleet."""
+        options = options or ScanOptions(backend=self.backend)
+        sched = self.scheduler
+        reqs = []
+        for name, img in items:
+            req = self._image_request(sched, name, img, options)
+            while True:
+                try:
+                    reqs.append(sched.submit(req, block=True))
+                    break
+                except RateLimitedError as e:
+                    # closed-loop fleet semantics: block=True means
+                    # "wait for capacity", and a tenant rate limit
+                    # is capacity too — sleep the shed hint and
+                    # retry instead of killing the whole fleet.
+                    # Serving callers (submit_path) still surface
+                    # the 429 to the client.
+                    time.sleep(min(max(e.retry_after_s, 0.01), 5.0))
+        out = []
+        for (name, _), req in zip(items, reqs):
+            try:
+                out.append(req.result())
+            except Exception as e:       # noqa: BLE001 — one slot's
+                # failure (typed or not) must never crash the fleet
+                # gather; the cause lands in the slot's report
+                out.append(_failed_slot(name, e,
+                                        trace_id=req.trace_id,
+                                        tracer=self.tracer))
+        self.last_stats = {"images": len(items),
+                           "sched": sched.stats()}
+        for k, v in self.last_stats["sched"].items():
+            if k.endswith("_s") or k == "overlap_ratio":
+                self.last_stats[k] = v
+        return out
+
+    def submit_path(self, path: str,
+                    options: Optional[ScanOptions] = None,
+                    tenant: str = "", priority: int = 0,
+                    trace_id: str = "", parent_span_id: str = ""):
+        """Serving-mode entry: enqueue ONE image scan through the
+        scheduler and return its ScanRequest future (``.result()``
+        blocks; raises QueueFullError on backpressure, or
+        RateLimitedError when the ``tenant`` is over its quota or
+        rate limit — docs/serving.md "Multi-tenant QoS"). The batch
+        composition is the scheduler's business — concurrent
+        submitters share device dispatches across tenants."""
+        options = options or ScanOptions(backend=self.backend)
+        sched = self.scheduler
+        return sched.submit(
+            self._image_request(sched, path, None, options,
+                                tenant=tenant, priority=priority,
+                                trace_id=trace_id,
+                                parent_span_id=parent_span_id))
+
+    def _image_request(self, sched, name: str, image, options,
+                       tenant: str = "", priority: int = 0,
+                       trace_id: str = "", parent_span_id: str = ""):
+        scan_secrets = "secret" in options.security_checks
+
+        def analyze(req):
+            inj = self.fault_injector
+            if inj is not None:
+                # host failure domains: corrupt layer tar fails this
+                # slot only; a slow-host stall eats into the deadline
+                inj.on_host_analyze(name)
+                inj.on_image_load(name)
+            db, release = self._store_view()
+            if release is not None:
+                # the reader is held from analyze to resolution so a
+                # DB hot swap waits for this scan; chained AFTER any
+                # caller-provided on_done, released exactly once at
+                # whatever resolution path fires first
+                prev = req.on_done
+
+                def _done(r, _prev=prev, _rel=release):
+                    try:
+                        if _prev is not None:
+                            _prev(r)
+                    finally:
+                        _rel()
+                req.on_done = _done
+            budget = self._ingest_budget(name)
+            img = image if image is not None \
+                else load_image(name, budget=budget)
+            owns_img = image is None
+            opt = self._image_opt(scan_secrets)
+            a = _SchedImageArtifact(img, self.cache, opt,
+                                    budget=budget)
+            # register pending blob writes BEFORE the analyzed blobs
+            # land in the cache (the _batch_secrets hook fires between
+            # analysis and put_blob), so a concurrent request can
+            # never observe an unpatched blob without also seeing the
+            # dependency that guards it
+            a._sched = sched
+            a._sched_req = req
+            try:
+                ref = a.inspect()
+            finally:
+                if owns_img:
+                    # after inspect every analyzed byte lives in the
+                    # cache; release the archive now
+                    try:
+                        img.close()
+                    except Exception:   # noqa: BLE001 — cleanup
+                        log.debug("source close failed for %r",
+                                  name, exc_info=True)
+            a.reference = ref
+            if a.budget is not None:
+                # survivable hostile input (e.g. a corrupt rpmdb):
+                # the slot completes but reports status=degraded
+                # with ingest-stage causes
+                for kind, msg in a.budget.soft_faults:
+                    req.record_fault("ingest", kind, msg)
+            scanner = LocalScanner(self.cache, db)
+            prepared = scanner.prepare(
+                ScanTarget(name=ref.name, artifact_id=ref.id,
+                           blob_ids=ref.blob_ids), options)
+            candidates = []
+            patch = None
+            deps = []
+            if scan_secrets:
+                # collected paths already carry the image '/' prefix
+                candidates = [(path, content)
+                              for _, path, content in a.collected]
+                deps = sched.blob_deps(ref.blob_ids, req)
+                if a.collected:
+                    patch = _make_patch(self.cache, a)
+
+            def finish(found, detected):
+                if scan_secrets:
+                    blobs = [self.cache.get_blob(b)
+                             for b in ref.blob_ids]
+                    prepared.detail.secrets = \
+                        merge_layer_secrets(blobs)
+                results, os_found = scanner.finish(prepared,
+                                                   detected)
+                return BatchScanResult(
+                    name=ref.name,
+                    report=Report(
+                        artifact_name=ref.name,
+                        artifact_type="container_image",
+                        metadata=Metadata(
+                            os=os_found,
+                            image_id=ref.image_metadata.id,
+                            diff_ids=ref.image_metadata.diff_ids,
+                            repo_tags=ref.image_metadata.repo_tags,
+                            image_config=ref.image_metadata
+                            .image_config,
+                        ),
+                        results=results,
+                    ))
+
+            return AnalyzedWork(candidates=candidates,
+                                jobs=prepared.jobs, patch=patch,
+                                finish=finish, deps=deps)
+
+        # The reference folds an ambient propagated trace context
+        # (obs/propagate.py::current_context) into a request that
+        # names no trace of its own; nothing in the port opens such a
+        # context yet (ROADMAP A.9), so every request starts its own.
+        return ScanRequest(name=name or getattr(image, "name", ""),
+                           analyze=analyze,
+                           deadline_s=getattr(options, "deadline_s",
+                                              0.0) or 0.0,
+                           tenant=tenant, priority=priority,
+                           trace_id=trace_id[:64],
+                           parent_span_id=parent_span_id[:64])
 
     def _scan_images(self, images: list,
                      options: Optional[ScanOptions] = None) -> list:
@@ -357,8 +601,68 @@ class BatchScanRunner:
         (name, raw-bytes). No tar walking, no analyzers: decode →
         name-join → ONE interval dispatch for the whole fleet against
         the resident advisory tables."""
+        if self.sched == "on":
+            return self._scan_boms_scheduled(boms, options)
         with defer_gc():
             return self._scan_boms(boms, options)
+
+    def _scan_boms_scheduled(self, boms: list,
+                             options: Optional[ScanOptions] = None)\
+            -> list:
+        options = options or ScanOptions(
+            backend=self.backend, security_checks=["vuln"])
+        sched = self.scheduler
+        reqs = [sched.submit(self._bom_request(name, data, options),
+                             block=True)
+                for name, data in boms]
+        out = []
+        for (name, _), req in zip(boms, reqs):
+            try:
+                out.append(req.result())
+            except Exception as e:       # noqa: BLE001
+                out.append(_failed_slot(name, e))
+        self.last_stats = {"sboms": len(boms),
+                           "sched": sched.stats()}
+        return out
+
+    def _bom_request(self, name: str, data: bytes, options):
+        def analyze(req):
+            db, release = self._store_view()
+            if release is not None:
+                prev = req.on_done
+
+                def _done(r, _prev=prev, _rel=release):
+                    try:
+                        if _prev is not None:
+                            _prev(r)
+                    finally:
+                        _rel()
+                req.on_done = _done
+            # a malformed document fails its own slot, never the
+            # fleet (ValueError resolves this request only)
+            atype, decoded, blob, blob_id = decode_to_blob(data)
+            self.cache.put_blob(blob_id, blob)
+            scanner = LocalScanner(self.cache, db)
+            prepared = scanner.prepare(
+                ScanTarget(name=name, artifact_id=blob_id,
+                           blob_ids=[blob_id]), options)
+
+            def finish(found, detected):
+                results, os_found = scanner.finish(prepared,
+                                                   detected)
+                return BatchScanResult(
+                    name=name,
+                    report=Report(artifact_name=name,
+                                  artifact_type=atype,
+                                  metadata=Metadata(os=os_found),
+                                  results=results,
+                                  cyclonedx=decoded.cyclonedx))
+
+            return AnalyzedWork(jobs=prepared.jobs, finish=finish)
+
+        return ScanRequest(name=name, analyze=analyze,
+                           deadline_s=getattr(options, "deadline_s",
+                                              0.0) or 0.0)
 
     def _scan_boms(self, boms: list,
                    options: Optional[ScanOptions] = None) -> list:
@@ -461,21 +765,82 @@ class _CollectingImageArtifact(ImageArtifact):
         return {}
 
 
-def _failed_slot(name: str, err: BaseException) -> BatchScanResult:
-    """One failed fleet slot with a machine-readable cause: an ingest
-    guard trip keeps its typed stage and kind, a load error is
-    ``host/load_failed``, anything else ``sched/error`` (the
-    reference's scheduler kinds come with ROADMAP A.5)."""
+class _SchedImageArtifact(_CollectingImageArtifact):
+    """Collecting artifact that additionally announces which cache
+    blobs this request will patch — registered with the scheduler
+    BEFORE put_blob runs, so concurrent requests sharing a layer
+    always see either the patched blob or the pending-write event."""
+
+    _sched = None
+    _sched_req = None
+
+    def _inspect_layers(self, todo, blob_ids, base):
+        self._sched_blob_ids = blob_ids
+        return super()._inspect_layers(todo, blob_ids, base)
+
+    def _batch_secrets(self, candidates: list) -> dict:
+        if candidates and self._sched is not None and \
+                self.opt.scan_secrets:
+            ids = sorted({self._sched_blob_ids[li]
+                          for li, _, _ in candidates})
+            self._sched.register_blob_writes(ids, self._sched_req)
+        return super()._batch_secrets(candidates)
+
+
+def _failed_slot(name: str, err: BaseException, trace_id: str = "",
+                 tracer=None) -> BatchScanResult:
+    """One failed fleet slot with a machine-readable cause: the
+    typed scheduler errors map to distinct kinds so a caller can
+    tell backpressure (retryable) from deadline (not) from a broken
+    image. When the slot was traced, a trailing ``obs/trace`` cause
+    references the flight-recorder dump (the primary cause stays
+    first — callers key off ``causes[0]``)."""
     if isinstance(err, GuardError):
         # resource-budget (bombs, floods, deadlines) or
         # malformed-archive (traversal, truncation, undecodable names)
         stage, kind = err.stage, err.kind
+    elif isinstance(err, DeadlineExceeded):
+        stage, kind = "sched", "deadline_exceeded"
+    elif isinstance(err, QueueFullError):
+        stage, kind = "sched", "queue_full"
+    elif isinstance(err, SchedulerClosed):
+        stage, kind = "sched", "shutdown"
+    elif isinstance(err, DeviceDispatchError):
+        stage, kind = "device", "dispatch_failed"
     elif isinstance(err, (OSError, ValueError, tarfile.TarError)):
         stage, kind = "host", "load_failed"
     else:
         stage, kind = "sched", "error"
-    return BatchScanResult(name=name, error=str(err)).mark_failed(
+    res = BatchScanResult(name=name, error=str(err)).mark_failed(
         stage, kind, str(err))
+    if trace_id and tracer is not None:
+        res.causes.append(
+            FailureCause.coerce(trace_cause(tracer, trace_id)))
+    return res
+
+
+def _make_patch(cache, artifact):
+    """Per-request secret patch: map batch sieve results back to this
+    artifact's layers by the LOCAL candidate index and rewrite the
+    affected cached blobs (the one-artifact slice of _patch_blobs)."""
+
+    def patch(found: list) -> None:
+        by_layer: dict = {}
+        for idx, s in found:
+            li = artifact.collected[idx][0]
+            by_layer.setdefault(li, []).append(s)
+        for li, secrets in by_layer.items():
+            blob_id = artifact.reference.blob_ids[li]
+            blob = cache.get_blob(blob_id)
+            if blob is not None:
+                secrets.sort(key=lambda s: s.file_path)
+                for s in secrets:
+                    s.findings.sort(key=lambda f: (f.rule_id,
+                                                   f.start_line))
+                blob.secrets = secrets
+                cache.put_blob(blob_id, blob)
+
+    return patch
 
 
 def _patch_blobs(cache, artifacts, found) -> None:

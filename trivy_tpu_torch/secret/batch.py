@@ -215,7 +215,9 @@ class BatchSecretScanner:
 
     def dispatch_files(self, files: Iterable) -> dict:
         """Async half of scan_files: build the segment buffer, upload
-        it and ENQUEUE the sieve without waiting for its results."""
+        it and ENQUEUE the sieve without waiting for its results. On
+        the card the handle carries a CUDA event recorded behind the
+        sieve, so :meth:`collect` may run on any thread."""
         entries = [
             _FileEntry(path=p, content=c, index=i)
             for i, (p, c) in enumerate(files)
@@ -226,8 +228,9 @@ class BatchSecretScanner:
         return handle
 
     def collect(self, handle: dict) -> list:
-        """Blocking half of scan_files: fetch sieve outputs, decode
-        candidates, run the windowed/whole-file exact verify."""
+        """Blocking half of scan_files: wait for the handle's own
+        event, fetch sieve outputs, decode candidates, run the
+        windowed/whole-file exact verify."""
         entries = handle["entries"]
         t0 = time.perf_counter()
         candidates = self._decode(handle)
@@ -310,8 +313,18 @@ class BatchSecretScanner:
         handle["h2d_s"] = time.perf_counter() - t0
         masks, h = full_sieve(dev, self.table, tbl, specs)
         nhit, idx, cm = compact(masks)
+        event = None
+        if dev.is_cuda:
+            # the upload, the sieve and its compaction are enqueued on
+            # THIS thread's current stream; collect may run on another
+            # thread (the scheduler's ring drain), whose current stream
+            # is not ordered after this one. It waits on this event,
+            # and no other, before any read; the handle keeps the
+            # segments alive until then.
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(dev.device))
         handle.update(mode="fused", masks=masks, nhit=nhit, idx=idx,
-                      cm=cm, h=h)
+                      cm=cm, h=h, event=event, seg=dev)
         handle["device_s"] += time.perf_counter() - t0
         return handle
 
@@ -338,7 +351,9 @@ class BatchSecretScanner:
         else:
             B = buf.shape[0]
             K = self.table.n_patterns
-            nhit = int(handle["nhit"])          # waits for the sieve
+            if handle.get("event") is not None:
+                handle["event"].synchronize()   # waits for the sieve
+            nhit = int(handle["nhit"])
             cm = handle["cm"]
             if nhit > cm.shape[0]:
                 # more hit rows than the compacted fetch holds: fetch
@@ -355,6 +370,8 @@ class BatchSecretScanner:
                 seg_nz = ridx[rnz]
                 hit_vals = rows[rnz, code_nz]
             run_fetch = handle["h"][:B].cpu().numpy()
+            # the segments may go back to the allocator only now
+            handle["seg"] = handle["event"] = None
             handle["device_s"] += time.perf_counter() - t0
         t0 = time.perf_counter()
 
