@@ -103,8 +103,9 @@ Builds the port's hand-written kernels (``trivy_tpu_torch/csrc``, one
    non-base layers, the interval match in waves of 4,096 rows kept in
    flight by a ``DispatchRing`` on a CUDA side stream): cold into a
    fresh ``MemoryCache`` at dispatch depth 1 and 2, warm at depth 2
-   (no layer missing, no launch: a re-sweep after a DB update), cold at
-   depth 4 with waves of 256 rows, and once profiled. Every run's
+   (no layer missing, no launch: a re-sweep after a DB update), and
+   once profiled (no depth-4 run here, to leave room for the mesh
+   phase; the card tests run waves of 64 rows at depth 4). Every run's
    reports must be equal and equal to each target scanned alone through
    the image entry; the twin's must be its image's but for its name and
    tag, the truncated tar must fail alone, each cold fleet must launch
@@ -137,9 +138,33 @@ Builds the port's hand-written kernels (``trivy_tpu_torch/csrc``, one
    the fleet phase's ``--sched off`` wall, and the profiled run's busy
    ms, idle share and how long a sieve and another kernel ran at once.
 
+9. mesh phase, on a mesh of every visible card or, on one card, that
+   card named four times (``smoke_mesh``: 2 × 2, data 2, rules 2),
+   in three parts run where their inputs are at hand. After the
+   literal-sieve phase, on the kernel phase's batch: the sharded
+   sieve (``DfaTable.mesh_sieve``: one ``dfa_blockmask`` launch per
+   device of the mesh, each on a side stream of its device behind its
+   own event) and ``sharded_blockmask`` / ``run_blockmask(mesh=...)``
+   with the literal-sieve phase's codes (one ``code_blockmask`` launch
+   per (data, rules) block) must equal one unsharded launch and the
+   plain versions, with exact launch counts; it times one launch, the
+   shards joined and one shard alone, in turns. After the vuln phase:
+   its jobs through ``dispatch_jobs(mesh=...)``, the DB's device
+   copies dropped first, must give the ``cpu-ref`` list with one upload
+   per distinct device. After the sched phase: the fleet phase's 16
+   targets through ``BatchScanRunner(mesh=...)``, direct at depth 2 and
+   scheduled, must give the fleet phase's reports, one sieve launch
+   per device per sieve, no quarantine, no host fallback and no upload;
+   then two simulated hosts (``python -m
+   trivy_tpu_torch.parallel.simhost``, each a process on the card)
+   split the reduced fleet, each with its own 20,000-row fixture DB
+   (reduced: each host compiles its own DB), and their union must
+   equal one single-host run.
+
 It prints the card's name and power limit, one ``{"kernels": [...]}``
-line (times from CUDA events, the bound this run's inputs give; the
-hand-written kernels only), the per-phase seconds, and as its last line
+line (times from CUDA events, the bound this run's inputs give, each
+kernel's per-shard times under ``mesh``; the hand-written kernels
+only), the per-phase seconds, and as its last line
 ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is
 then non-zero and no result line is printed. Without CUDA it exits 2.
 """
@@ -619,8 +644,8 @@ def kernel_phase(files: list, device) -> dict:
     bs = BatchSecretScanner(backend="cuda")
     table = bs.table
     specs = tuple(bs.plan.run_specs)
-    buf, _, _ = bs._segment([_FileEntry(p, c, i)
-                             for i, (p, c) in enumerate(files)])
+    buf, _, _, _ = bs._segment([_FileEntry(p, c, i)
+                                for i, (p, c) in enumerate(files)])
     real_rows = int(buf.shape[0])
     seg = torch.from_numpy(keywords.pad_batch(buf)).to(device)
     B, L = seg.shape
@@ -794,6 +819,7 @@ def literal_phase(batches: dict, device) -> dict:
     if not np.array_equal(rb, want[:len(rows), :K].cpu().numpy()):
         raise AssertionError("run_blockmask != plain masks")
 
+    batches["code_masks"] = want
     cdev = keywords.code_words(table.codes, device)
     ms = cuda_ms(lambda: code_blockmask(seg, cdev), iters=10, warmup=2)
     fused_ms = cuda_ms(lambda: fused(seg), iters=5, warmup=1)
@@ -1016,11 +1042,12 @@ def naive_truth(job) -> bool:
     return job.cdb.host_eval(job.row, job.pkg_version)
 
 
-def vuln_phase(device, n_rows: int = VULN_ROWS) -> tuple:
+def vuln_phase(device, n_rows: int = VULN_ROWS, held: dict = None) -> tuple:
     """The vulnerability match on a ``n_rows`` advisory DB: compile,
     upload once, the fleet's pair jobs through ``dispatch_jobs`` on the
     card, every check exact. Returns (numbers, the compiled DB, its
-    {bucket: package count})."""
+    {bucket: package count}); ``held`` (optional) receives the jobs and
+    the ``cpu-ref`` and card payload lists, for the mesh phase."""
     from trivy_tpu_torch.db import CompiledDB
     from trivy_tpu_torch.detect.batch import (PairJob, ResidentPairJob,
                                               _job_bucket, _pack_classic,
@@ -1110,6 +1137,8 @@ def vuln_phase(device, n_rows: int = VULN_ROWS) -> tuple:
                              "sample")
     if not 0 < len(out) < len(jobs):
         raise AssertionError(f"{len(out)} hits of {len(jobs)} jobs")
+    if held is not None:
+        held.update(jobs=jobs, ref=ref, card=out)
 
     def resident_ms(n: int) -> float:
         r, i = d_rank[:n], d_idx[:n]
@@ -2049,27 +2078,26 @@ def fleet_targets(work_dir: str, tree: tuple, n_pkgs: dict, seed: int,
     return {"paths": paths, "twin": (twin - 1, twin), "broken": broken}
 
 
-FLEET_DEPTHS = (1, 2)          # depth 4 runs with waves of 256 rows
-FLEET_WAVE_ROWS = 256           # the many-slots run's wave size
+FLEET_DEPTHS = (1, 2)
 FLEET_REDUCED = 4               # targets of the cross-backend fleet
 FLEET_REDUCED_SCALE = 0.25      # its package counts, of the full fleet's
 
 
 def run_fleet(paths: list, db, backend: str, scanner, cache,
-              depth: int, wave_rows: int = None) -> dict:
+              depth: int, mesh=None) -> dict:
     """One ``BatchScanRunner(sched="off").scan_paths`` over ``paths``
-    (with waves of ``wave_rows`` rows when given), its sieve launches
-    counted from 0: {"texts": one sorted JSON report text per target,
-    None for a failed one, "failed": [(index, status, causes)] of the
+    (over ``mesh`` when given: then ``scanner`` None lets the runner
+    build its sharded one), its sieve launches counted from 0:
+    {"texts": one sorted JSON report text per target, None for a
+    failed one, "failed": [(index, status, causes)] of the
     failed ones, "wall_s" (the runner's),
     "split_s" (the wall's parts: the loads, the batch itself, and the
     garbage collection ``defer_gc`` runs when the batch ends),
     "write_s" (filters + JSON writer), "launches", "stats"}."""
-    import trivy_tpu_torch.detect.batch as dbatch
     from trivy_tpu_torch.ops.dfa_cuda import dfa_blockmask
     from trivy_tpu_torch.runtime import BatchScanRunner
     runner = BatchScanRunner(store=db, cache=cache, backend=backend,
-                             secret_scanner=scanner,
+                             secret_scanner=scanner, mesh=mesh,
                              dispatch_depth=depth)
     spans: dict = {}
 
@@ -2086,16 +2114,10 @@ def run_fleet(paths: list, db, backend: str, scanner, cache,
     # (defer_gc around the batch) and _scan_images (the batch)
     runner.scan_images = clocked("outer", runner.scan_images)
     runner._scan_images = clocked("batch", runner._scan_images)
-    saved = dbatch._WAVE_ROWS
-    if wave_rows:
-        dbatch._WAVE_ROWS = wave_rows
     dfa_blockmask.launches = 0
-    try:
-        t0 = time.perf_counter()
-        results = runner.scan_paths(paths)
-        wall = time.perf_counter() - t0
-    finally:
-        dbatch._WAVE_ROWS = saved
+    t0 = time.perf_counter()
+    results = runner.scan_paths(paths)
+    wall = time.perf_counter() - t0
     launches = dfa_blockmask.launches
     t0 = time.perf_counter()
     texts = [None if r.error else _sorted_json(report_text(r.report))
@@ -2124,8 +2146,8 @@ def fleet_phase(device, cdb, n_pkgs: dict, files: list,
     of their own, the corpus in quarters, a twin under a second tag, a
     truncated tar). Cold into a fresh ``MemoryCache`` at each depth of
     ``FLEET_DEPTHS``, again at depth 2 on the warm cache (no sieve: a
-    re-sweep after a DB update), cold at depth 4 with waves of
-    ``FLEET_WAVE_ROWS`` rows, and one profiled cold fleet at depth 2.
+    re-sweep after a DB update), and one profiled cold fleet at depth
+    2.
     Every run's reports must be equal, equal to a ``scan_image_report``
     of each target alone on the card; the twin's must be its image's
     but for the name and tag, the broken tar must fail alone; each
@@ -2163,8 +2185,6 @@ def fleet_phase(device, cdb, n_pkgs: dict, files: list,
             runs["warm_d2"] = run_fleet(paths, cdb, backend, card,
                                         cache, 2)
         del cache
-    runs[f"cold_d4_w{FLEET_WAVE_ROWS}"] = run_fleet(
-        paths, cdb, backend, card, MemoryCache(), 4, FLEET_WAVE_ROWS)
     prof, ops, wall_ms = device_profile(lambda: run_fleet(
         paths, cdb, backend, card, MemoryCache(), 2))
     runs["profiled_d2"] = prof
@@ -2289,9 +2309,10 @@ class PoisonInjector:
 
 
 def run_sched(paths: list, db, backend: str, scanner, cache,
-              injector=None) -> dict:
+              injector=None, mesh=None) -> dict:
     """One ``BatchScanRunner(sched=SchedConfig(dispatch_depth=2))
-    .scan_paths`` over ``paths``, its sieve launches counted from 0 and
+    .scan_paths`` over ``paths`` (over ``mesh`` when given, as
+    ``run_fleet``), its sieve launches counted from 0 and
     the candidates of every batch the executor launched recorded:
     {"texts", "failed" (as ``run_fleet``), "status" of every slot,
     "wall_s", "launches", "batches" (candidate files per launched
@@ -2300,7 +2321,7 @@ def run_sched(paths: list, db, backend: str, scanner, cache,
     from trivy_tpu_torch.runtime import BatchScanRunner
     from trivy_tpu_torch.sched import SchedConfig
     runner = BatchScanRunner(store=db, cache=cache, backend=backend,
-                             secret_scanner=scanner,
+                             secret_scanner=scanner, mesh=mesh,
                              sched=SchedConfig(dispatch_depth=2),
                              fault_injector=injector)
     sched = runner.scheduler
@@ -2327,7 +2348,9 @@ def run_sched(paths: list, db, backend: str, scanner, cache,
            "status": [r.status for r in results],
            "causes": [[c.to_dict() for c in r.causes] for r in results],
            "wall_s": wall, "launches": launches, "batches": batches,
-           "stats": runner.last_stats["sched"]}
+           "stats": runner.last_stats["sched"],
+           "occupancy": runner.secret_scanner.stats.get(
+               "shard_occupancy", [])}
     del results
     return out
 
@@ -2612,6 +2635,403 @@ def sbom_phase(device, cdb, n_pkgs: dict, work_dir: str) -> dict:
     return out
 
 
+# --- the mesh: the same work split over a device mesh -----------------
+
+MESH_SIM_ROWS = 20_000          # the simulated hosts' own fixture DB
+MESH_SIM_HOSTS = 2
+
+
+def smoke_mesh():
+    """The mesh phase's mesh: every visible card, or the one card named
+    four times (2 × 2: data 2, rules 2)."""
+    from trivy_tpu_torch.parallel import make_mesh
+    n = torch.cuda.device_count()
+    cards = [torch.device("cuda", i) for i in range(n)]
+    return make_mesh(devices=cards if n > 1 else cards * 4)
+
+
+def joined(launched: list) -> list:
+    """Make the current stream wait for every shard event of
+    ``per_shard`` (so a CUDA event recorded next closes them all)."""
+    for _, event in launched:
+        if event is not None:
+            torch.cuda.current_stream().wait_event(event)
+    return launched
+
+
+def in_turns(runs: dict, rounds: int = 3) -> tuple:
+    """({name: [ms of each turn]}, {name: [segments of each turn]}):
+    ``cuda_ms`` of each run (10 calls after 2 warm-up calls), in order
+    and then backwards, ``rounds`` times in all, and the device memory
+    segments the caching allocator took from the device
+    (``cudaMalloc``) during each turn."""
+    times: dict = {k: [] for k in runs}
+    segments: dict = {k: [] for k in runs}
+    order = list(runs)
+    for i in range(rounds):
+        for name in (order if i % 2 == 0 else order[::-1]):
+            seg0 = torch.cuda.memory_stats()["segment.all.allocated"]
+            times[name].append(cuda_ms(runs[name], iters=10, warmup=2))
+            segments[name].append(
+                torch.cuda.memory_stats()["segment.all.allocated"] - seg0)
+    return times, segments
+
+
+def fresh_streams(mesh, fn) -> list:
+    """``per_shard`` with a stream taken from the pool for every shard
+    on every call, instead of shard k's kept side stream: the control
+    for what keeping the streams saves (the allocator's free blocks are
+    per stream)."""
+    launched = []
+    for k, dev in enumerate(mesh.flat):
+        stream = torch.cuda.Stream(device=dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            out = fn(k, dev)
+            event = torch.cuda.Event()
+            event.record(stream)
+        launched.append((out, event))
+    return launched
+
+
+def mesh_kernel_phase(batches: dict, device, mesh) -> dict:
+    """Both kernels launched per shard on the kernel phase's batch: the
+    sharded sieve (``DfaTable.mesh_sieve``: one ``dfa_blockmask``
+    launch per device of the mesh) and ``sharded_blockmask`` (one
+    ``code_blockmask`` launch per (data, rules) block, with the
+    literal-sieve phase's codes), each equal to one unsharded launch and
+    to the plain version; launches counted from 0. Times from CUDA
+    events, the median of three turns (``in_turns``) and the first turn
+    beside it: one unsharded launch, every shard joined, one shard
+    alone, and for ``dfa_blockmask`` every shard joined on fresh pool
+    streams (``fresh_streams``), with the allocator segments each turn
+    took."""
+    from trivy_tpu_torch.ops import keywords
+    from trivy_tpu_torch.ops.dfa_cuda import dfa_blockmask
+    from trivy_tpu_torch.ops.keywords_cuda import code_blockmask
+    from trivy_tpu_torch.ops.runs import run_hits
+    from trivy_tpu_torch.parallel import mesh_axis_sizes, sharded_blockmask
+    from trivy_tpu_torch.parallel.mesh import per_shard, wait_all
+    from trivy_tpu_torch.parallel.secret_shard import rules_shard_codes
+    t_phase = time.perf_counter()
+    bs = batches["scanner"]
+    table, specs = bs.table, tuple(bs.plan.run_specs)
+    seg = batches["seg"]
+    B, L = seg.shape
+    buf = seg.cpu().numpy()
+    n_flat = int(mesh.devices.size)
+    d, r = mesh_axis_sizes(mesh)
+    dev = table.device_tables(device)
+    one_masks, one_hits = dfa_blockmask(seg, table, dev, specs)
+    want_hits = run_hits(seg, specs)
+
+    dfa_blockmask.launches = 0
+    t0 = time.perf_counter()
+    launched = table.mesh_sieve(mesh, buf, specs)
+    wait_all(launched)
+    sieve_s = time.perf_counter() - t0
+    sieve_launches = dfa_blockmask.launches
+    if sieve_launches != n_flat:
+        raise AssertionError(f"the sharded sieve launched dfa_blockmask "
+                             f"{sieve_launches} times, not {n_flat}")
+    masks = torch.cat([p["masks"].to(device) for p, _ in launched])
+    hits = torch.cat([p["hits"].to(device) for p, _ in launched])
+    del launched
+    err = max(int((masks.to(torch.int32) - batches["dfa_masks"]
+                   .to(torch.int32)).abs().max()),
+              int((hits.to(torch.int32) - want_hits.to(torch.int32))
+                  .abs().max()))
+    if not (torch.equal(masks, batches["dfa_masks"])
+            and torch.equal(masks, one_masks)):
+        raise AssertionError("sharded sieve masks != one launch's / plain")
+    if not (torch.equal(hits, want_hits) and torch.equal(hits, one_hits)):
+        raise AssertionError("sharded sieve run hits != one launch's / "
+                             "run_hits")
+    rows = B // n_flat
+    chunks = [seg[k * rows:(k + 1) * rows].to(dd)
+              for k, dd in enumerate(mesh.flat)]
+    tbls = table.device_tables(mesh)
+
+    def dfa_shard(k, dd):
+        return dfa_blockmask(chunks[k], table, tbls[k], specs)
+
+    dfa_runs = {
+        "one_ms": lambda: dfa_blockmask(seg, table, dev, specs),
+        "mesh_ms": lambda: joined(per_shard(mesh, dfa_shard)),
+        "shard_ms": lambda: dfa_blockmask(chunks[0], table, tbls[0], specs),
+        "fresh_ms": lambda: joined(fresh_streams(mesh, dfa_shard)),
+    }
+    dfa_times, dfa_segments = in_turns(dfa_runs)
+    shard_bound, shard_by, _ = bound_ms(
+        chunks[0], table, int(table.kernel_desc(specs).nbytes), specs)
+
+    # the literal kernel over both axes, with the literal phase's codes
+    ctable = keywords.build_code_table(tuple(table.literals))
+    want_codes = batches["code_masks"].view(torch.int32).cpu().numpy() \
+        .view(np.uint32)
+    one_codes = code_blockmask(seg, keywords.code_words(ctable.codes,
+                                                        device))
+    real = batches["real_rows"]
+    code_blockmask.launches = 0
+    t0 = time.perf_counter()
+    got = sharded_blockmask(mesh, buf, ctable.codes)
+    code_s = time.perf_counter() - t0
+    code_launches = code_blockmask.launches
+    rb = keywords.run_blockmask(buf[:real], ctable, backend=device.type,
+                                mesh=mesh)
+    rb_launches = code_blockmask.launches - code_launches
+    if code_launches != d * r or rb_launches != d * r:
+        raise AssertionError(f"sharded_blockmask launched code_blockmask "
+                             f"{code_launches} and {rb_launches} times, "
+                             f"not {d * r} = data × rules")
+    code_err = int(np.abs(got.astype(np.int64)
+                          - want_codes.astype(np.int64)).max())
+    if not (np.array_equal(got, want_codes) and np.array_equal(
+            got, one_codes.view(torch.int32).cpu().numpy()
+            .view(np.uint32))):
+        raise AssertionError("sharded_blockmask != one launch's / plain")
+    if not np.array_equal(rb, want_codes[:real, :ctable.n_codes]):
+        raise AssertionError("run_blockmask(mesh=) != plain masks")
+    crows = B // d
+    shards = rules_shard_codes(ctable.codes, r)
+    blocks = [(seg[i * crows:(i + 1) * crows].to(dd),
+               keywords.code_words(shards[j], dd))
+              for (i, j), dd in zip(
+                  [divmod(k, r) for k in range(n_flat)], mesh.flat)]
+    cfull = keywords.code_words(ctable.codes, device)
+
+    def code_mesh():
+        return joined(per_shard(mesh, lambda k, dd: code_blockmask(
+            *blocks[k])))
+
+    code_runs = {
+        "one_ms": lambda: code_blockmask(seg, cfull),
+        "mesh_ms": code_mesh,
+        "shard_ms": lambda: code_blockmask(*blocks[0]),
+    }
+    code_times, code_segments = in_turns(code_runs)
+
+    def median(times: dict) -> dict:
+        return {k: float(np.median(v)) for k, v in times.items()}
+
+    def first(times: dict) -> dict:
+        return {"first_" + k: v[0] for k, v in times.items()}
+
+    return {"devices": [str(x) for x in mesh.flat], "data": d, "rules": r,
+            "rows": B, "rows_per_shard": rows,
+            "dfa_blockmask": {"launches": sieve_launches,
+                              "max_abs_err": err,
+                              "sieve_wall_s": sieve_s, **median(dfa_times),
+                              **first(dfa_times), "turns_ms": dfa_times,
+                              "turn_segments": dfa_segments,
+                              "shard_bound_ms": shard_bound,
+                              "shard_bound_by": shard_by},
+            "code_blockmask": {"launches": code_launches,
+                               "run_blockmask_launches": rb_launches,
+                               "max_abs_err": code_err,
+                               "block_rows": crows,
+                               "block_codes": int(shards[0][0].shape[0]),
+                               "sharded_blockmask_wall_s": code_s,
+                               **median(code_times), **first(code_times),
+                               "turns_ms": code_times,
+                               "turn_segments": code_segments},
+            "phase_s": time.perf_counter() - t_phase}
+
+
+def mesh_dispatch_phase(device, cdb, vuln: dict, mesh) -> dict:
+    """The vuln phase's jobs through ``dispatch_jobs(mesh=...)`` twice,
+    the DB's device copies dropped first: the payload list, order
+    included, must equal the unsharded card dispatch's and
+    ``cpu-ref``'s, and the 1M-row tables go up once per distinct device
+    of the mesh."""
+    from trivy_tpu_torch.detect.batch import dispatch_jobs
+    t_phase = time.perf_counter()
+    jobs = vuln["jobs"]
+    cdb.invalidate_device()             # every copy goes up in this phase
+    up0 = cdb.device_stats()["uploads"]
+    walls, stats = [], {}
+    for _ in range(2):
+        t0 = time.perf_counter()
+        out = dispatch_jobs(jobs, backend=device.type, mesh=mesh,
+                            stats=stats)
+        walls.append(time.perf_counter() - t0)
+        if out != vuln["ref"] or out != vuln["card"]:
+            raise AssertionError("dispatch_jobs(mesh=) != the unsharded "
+                                 "dispatch / cpu-ref")
+    uploads = cdb.device_stats()["uploads"] - up0
+    if uploads != len(mesh.distinct):
+        raise AssertionError(f"{uploads} uploads of the tables for "
+                             f"{len(mesh.distinct)} distinct devices")
+    return {"jobs": len(jobs), "jobs_unique": stats["jobs_unique"],
+            "hits": len(out), "wall_s": walls,
+            "device_s": stats["device_s"], "uploads": uploads,
+            "distinct_devices": len(mesh.distinct),
+            "phase_s": time.perf_counter() - t_phase}
+
+
+def mesh_fleet_phase(device, cdb, fleet: dict, mesh, work_dir: str) -> dict:
+    """The fleet phase's 16 targets through ``BatchScanRunner(mesh=...)``
+    (the runner's own sharded secret scanner), once direct at depth 2
+    right after the same fleet on one device, and once scheduled
+    (``SchedConfig(dispatch_depth=2)``): the reports must equal the
+    fleet phase's single-device ones, the broken tar
+    failing alone; each sieve launches ``dfa_blockmask`` once per device
+    of the mesh; nothing is quarantined or finished on the host, and
+    no run uploads the tables again. Then ``MESH_SIM_HOSTS`` simulated
+    hosts (``python -m trivy_tpu_torch.parallel.simhost``, each on the
+    card) split the reduced fleet (reduced: each host compiles its own
+    DB of ``MESH_SIM_ROWS`` rows): they must agree on the layout, and
+    the union of their reports must equal one single-host run."""
+    from trivy_tpu_torch.artifact import MemoryCache
+    from trivy_tpu_torch.parallel.multihost import (HostTopology,
+                                                    host_shard_layout)
+    from trivy_tpu_torch.parallel.simhost import run_simhost
+    backend = device.type
+    t_phase = time.perf_counter()
+    n_flat = int(mesh.devices.size)
+    plan, want = fleet["plan"], fleet["texts"]
+    paths = plan["paths"]
+    # on the mesh's devices since the mesh dispatch, unless the sbom
+    # phase's cold scan dropped them since
+    cdb.device_tables(mesh)
+    up0 = cdb.device_stats()["uploads"]
+    single = run_fleet(paths, cdb, backend, fleet["scanner"],
+                       MemoryCache(), 2)
+    direct = run_fleet(paths, cdb, backend, None, MemoryCache(), 2,
+                       mesh=mesh)
+    sched = run_sched(paths, cdb, backend, None, MemoryCache(), mesh=mesh)
+    for name, run in (("single device", single), ("direct", direct),
+                      ("scheduled", sched)):
+        if run["texts"] != want:
+            raise AssertionError(f"mesh fleet ({name}): reports != the "
+                                 f"single-device fleet's")
+        if [(i, st) for i, st, _ in run["failed"]] != \
+                [(plan["broken"], "failed")]:
+            raise AssertionError(f"mesh fleet ({name}): the broken tar "
+                                 f"did not fail alone: {run['failed']}")
+    if direct["launches"] != n_flat:
+        raise AssertionError(f"mesh fleet (direct): {direct['launches']} "
+                             f"sieve launches, not {n_flat}")
+    c = sched["stats"]["counters"]
+    with_candidates = sum(1 for n in sched["batches"] if n)
+    if c.get("quarantined", 0) or c.get("host_fallbacks", 0):
+        raise AssertionError(f"mesh fleet (scheduled): quarantined or "
+                             f"host fallback on a healthy run: {c}")
+    if sched["launches"] != n_flat * with_candidates:
+        raise AssertionError(
+            f"mesh fleet (scheduled): {sched['launches']} sieve launches "
+            f"for {with_candidates} batches with candidates × {n_flat}")
+    if cdb.device_stats()["uploads"] != up0:
+        raise AssertionError("a mesh fleet uploaded the tables again")
+
+    # simulated hosts, each a process of its own on the card
+    rpaths = fleet["rplan"]["paths"]
+    store, _ = make_advisory_store(MESH_SIM_ROWS, SEED + 60)
+    spec = {"paths": rpaths, "devices": torch.cuda.device_count(),
+            "dispatch_depth": 2, "backend": backend,
+            "db_fixture": store.buckets, "vulns": store.vulnerabilities}
+    del store
+    spec_path = os.path.join(work_dir, "simhost-spec.json")
+    with open(spec_path, "w", encoding="utf-8") as f:
+        json.dump(spec, f)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, TRIVY_TPU_NUM_PROCESSES=str(MESH_SIM_HOSTS),
+               TRIVY_TPU_COORDINATOR="sim:0",
+               PYTHONPATH=os.pathsep.join(
+                   [root] + [p for p in [os.environ.get("PYTHONPATH")]
+                             if p]))
+    t0 = time.perf_counter()
+    procs = []
+    for pid in range(MESH_SIM_HOSTS):
+        out_path = os.path.join(work_dir, f"simhost{pid}.json")
+        procs.append((out_path, subprocess.Popen(
+            [sys.executable, "-m", "trivy_tpu_torch.parallel.simhost",
+             spec_path, out_path], cwd=root,
+            env={**env, "TRIVY_TPU_PROCESS_ID": str(pid)},
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    try:
+        t1 = time.perf_counter()
+        one_host = run_simhost(spec, HostTopology())
+        single_s = time.perf_counter() - t1
+        outs = []
+        for out_path, proc in procs:
+            _, err = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(f"simhost exited {proc.returncode}: "
+                                     f"{err[-2000:]}")
+            with open(out_path, encoding="utf-8") as f:
+                outs.append(json.load(f))
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    sim_s = time.perf_counter() - t0
+    layout = host_shard_layout([os.path.getsize(p) for p in rpaths],
+                               MESH_SIM_HOSTS)
+    if any(o["assign"] != layout for o in outs) or \
+            sorted(i for o in outs for i in o["indices"]) != \
+            list(range(len(rpaths))):
+        raise AssertionError(f"simhost layouts differ: "
+                             f"{[o['assign'] for o in outs]}")
+    merged = {i: rep for o in outs
+              for i, rep in zip(o["indices"], o["reports"])}
+    if [merged[i] for i in range(len(rpaths))] != one_host["reports"]:
+        raise AssertionError("the simulated hosts' reports != one "
+                             "single-host run's")
+    if not any("Vulnerabilities" in rep[1] for rep in one_host["reports"]
+               if rep[1] != "error"):
+        raise AssertionError("the simulated hosts found no vulnerability")
+
+    def summary(run: dict) -> dict:
+        return {"wall_s": run["wall_s"],
+                "images_per_s": len(paths) / run["wall_s"],
+                "launches": run["launches"]}
+
+    def direct_summary(run: dict) -> dict:
+        st = run["stats"]
+        return {**summary(run), "split_s": run["split_s"],
+                **{k: st[k] for k in ("analyze_s", "secret_batch_s",
+                                      "squash_join_s",
+                                      "interval_dispatch_s",
+                                      "interval_device_s",
+                                      "interval_waves")},
+                "secret": {k: st["secret"].get(k) for k in (
+                    "segments", "shard_occupancy", "mode", "sieve_s",
+                    "pack_s", "device_s", "decode_s", "verify_s")}}
+
+    return {"targets": len(paths),
+            "single": direct_summary(single),
+            "direct": direct_summary(direct),
+            "scheduled": {**summary(sched), "batches": c["batches"],
+                          "batches_with_candidates": with_candidates,
+                          "quarantined": c.get("quarantined", 0),
+                          "host_fallbacks": c.get("host_fallbacks", 0),
+                          "last_batch_shard_occupancy": sched["occupancy"]},
+            "launches": {"single": single["launches"],
+                         "direct": direct["launches"],
+                         "scheduled": sched["launches"]},
+            "uploads": cdb.device_stats()["uploads"] - up0,
+            "simhosts": {"hosts": MESH_SIM_HOSTS,
+                         "targets": len(rpaths),
+                         "reduced": f"the 4-target reduced fleet and a "
+                                    f"{MESH_SIM_ROWS}-row fixture DB: each "
+                                    f"host compiles its own DB",
+                         "assign": layout,
+                         "indices": [o["indices"] for o in outs],
+                         "wall_s": sim_s, "single_host_s": single_s},
+            "phase_s": time.perf_counter() - t_phase}
+
+
+def mesh_line(mesh_kern: dict, name: str) -> dict:
+    """A kernel's per-shard numbers for the kernels line: medians of
+    the turns, the joined shards' first turn beside them."""
+    k = mesh_kern[name]
+    return {"shards": len(mesh_kern["devices"]), "launches": k["launches"],
+            "one_ms": k["one_ms"], "mesh_ms": k["mesh_ms"],
+            "first_mesh_ms": k["first_mesh_ms"], "shard_ms": k["shard_ms"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2646,10 +3066,18 @@ def main() -> int:
     print("dfa_blockmask bound split (ms at the INT32 rate): "
           + json.dumps(kern["bound_split_ms"]), flush=True)
     lit = literal_phase(batches, device)
-    del batches
     print("literal-sieve phase: " + json.dumps(lit), flush=True)
-    vuln, cdb, n_pkgs = vuln_phase(device)
+    mesh = smoke_mesh()
+    print(f"mesh: {mesh}", flush=True)
+    mesh_kern = mesh_kernel_phase(batches, device, mesh)
+    del batches
+    print("mesh phase, kernels: " + json.dumps(mesh_kern), flush=True)
+    vkeep: dict = {}
+    vuln, cdb, n_pkgs = vuln_phase(device, held=vkeep)
     print("vuln phase: " + json.dumps(vuln), flush=True)
+    mesh_disp = mesh_dispatch_phase(device, cdb, vkeep, mesh)
+    del vkeep
+    print("mesh phase, dispatch_jobs: " + json.dumps(mesh_disp), flush=True)
     os.makedirs(dfa_cuda.BUILD_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=dfa_cuda.BUILD_DIR) as work:
         sb = sbom_phase(device, cdb, n_pkgs, work)
@@ -2664,31 +3092,48 @@ def main() -> int:
         fleet = fleet_phase(device, cdb, n_pkgs, files, work, kept)
         print("fleet phase: " + json.dumps(fleet), flush=True)
         sched = sched_phase(device, cdb, kept)
+        print("sched phase: " + json.dumps(sched), flush=True)
+        mesh_fleet = mesh_fleet_phase(device, cdb, kept, mesh, work)
         del kept
-    print("sched phase: " + json.dumps(sched), flush=True)
+    print("mesh phase, fleet: " + json.dumps(mesh_fleet), flush=True)
 
     note = "no single PyTorch call computes this function"
+    # every run of the main paths, each counted from 0 (timing loops
+    # and the comparisons with the plain versions left out)
+    dfa_runs = {"fs": sum(fs["launches"].values()),
+                "image": sum(img["launches"].values()),
+                "fleet": sum(fleet["launches"].values()),
+                "sched": sum(sched["launches"].values()),
+                "mesh_sieve": mesh_kern["dfa_blockmask"]["launches"],
+                "mesh_fleet": sum(mesh_fleet["launches"].values())}
+    code_runs = {"run_blockmask": lit["launches"],
+                 "sharded_blockmask":
+                     mesh_kern["code_blockmask"]["launches"],
+                 "run_blockmask_mesh":
+                     mesh_kern["code_blockmask"]["run_blockmask_launches"]}
     kernels = [{
         "name": "dfa_blockmask", "route": "cuda",
         "source": "trivy_tpu_torch/csrc/dfa_blockmask.cu",
         "replaces": "trivy_tpu/ops/dfa_pallas.py:211",
-        "launches": sum(fs["launches"].values())
-        + sum(img["launches"].values())
-        + sum(fleet["launches"].values())
-        + sum(sched["launches"].values()),
-        "max_abs_err": kern["max_abs_err"],
+        "launches": sum(dfa_runs.values()), "launches_by_run": dfa_runs,
+        "max_abs_err": max(kern["max_abs_err"],
+                           mesh_kern["dfa_blockmask"]["max_abs_err"]),
         "ms": kern["ms"], "plain_ms": kern["plain_ms"],
         "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
         "library_ms": None, "tolerance": "exact equality",
+        "mesh": mesh_line(mesh_kern, "dfa_blockmask"),
         "note": note + "; masks and the class-run gate in one launch",
     }, {
         "name": "code_blockmask", "route": "cuda",
         "source": "trivy_tpu_torch/csrc/code_blockmask.cu",
         "replaces": "trivy_tpu/ops/keywords_pallas.py:91",
-        "launches": lit["launches"], "max_abs_err": lit["max_abs_err"],
+        "launches": sum(code_runs.values()), "launches_by_run": code_runs,
+        "max_abs_err": max(lit["max_abs_err"],
+                           mesh_kern["code_blockmask"]["max_abs_err"]),
         "ms": lit["ms"], "plain_ms": lit["plain_ms"],
         "bound_ms": lit["bound_ms"], "bound_by": lit["bound_by"],
-        "library_ms": None, "tolerance": "exact equality", "note": note,
+        "library_ms": None, "tolerance": "exact equality",
+        "mesh": mesh_line(mesh_kern, "code_blockmask"), "note": note,
     }]
     print("fs scan, warm, by step: " + json.dumps(fs["full"]["warm"][-1]),
           flush=True)
@@ -2743,6 +3188,25 @@ def main() -> int:
           f"{sched['profiled']['warm_median_ms']:.1f} ms median cold "
           f"fleet; sieve/wave overlap "
           f"{sched['profiled']['sieve_wave_overlap_us']:.1f} us",
+          flush=True)
+    mf = mesh_fleet
+    print(f"mesh fleet of {mf['targets']} targets over {mesh}: direct "
+          f"{mf['direct']['wall_s']:.3f} s ({mf['direct']['images_per_s']:.3f}"
+          f" images/s, {mf['launches']['direct']} sieve launches, shard "
+          f"occupancy {mf['direct']['secret']['shard_occupancy']}) after "
+          f"the same fleet on one device: {mf['single']['wall_s']:.3f} s; "
+          f"scheduled "
+          f"{mf['scheduled']['wall_s']:.3f} s "
+          f"({mf['scheduled']['images_per_s']:.3f} images/s, "
+          f"{mf['launches']['scheduled']} sieve launches for "
+          f"{mf['scheduled']['batches_with_candidates']} batches with "
+          f"candidates, {mf['scheduled']['quarantined']} quarantined, "
+          f"{mf['scheduled']['host_fallbacks']} host fallbacks); "
+          f"dispatch_jobs over the mesh "
+          f"{json.dumps(mesh_disp['wall_s'])} s, {mesh_disp['uploads']} "
+          f"upload(s) for {mesh_disp['distinct_devices']} distinct "
+          f"device(s); simulated hosts (reduced: "
+          f"{mf['simhosts']['reduced']}): {mf['simhosts']['wall_s']:.1f} s",
           flush=True)
     print(f"script: {time.perf_counter() - t_script:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

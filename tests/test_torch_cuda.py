@@ -748,3 +748,208 @@ def test_a_card_dispatch_error_fails_its_slots_not_to_the_host(
     for r in failed:
         assert r.causes[0].kind == "dispatch_failed"
         assert "sieve launch failed" in r.error
+
+
+# --- the mesh: [cuda:0] × 4 on one card, every card where there are more
+
+@pytest.fixture(scope="module")
+def mesh(cuda):
+    from trivy_tpu_torch.parallel import make_mesh
+    n = torch.cuda.device_count()
+    cards = [torch.device("cuda", i) for i in range(n)]
+    return make_mesh(devices=cards if n > 1 else cards * 4)
+
+
+def test_mesh_sieve_equals_one_launch(cuda, scanner, mesh):
+    """The sharded sieve on the card: findings equal the unsharded
+    scanner's and the CPU's, one ``dfa_blockmask`` launch per device of
+    the mesh, and the occupancy of an LPT layout."""
+    from chip_smoke import make_corpus
+    files, planted = make_corpus(512, 19)
+    want = [(i, s.to_dict()) for i, s in scanner.scan_files(files)]
+    sharded = BatchSecretScanner(backend="cuda", mesh=mesh)
+    before = dfa_blockmask.launches
+    got = [(i, s.to_dict()) for i, s in sharded.scan_files(files)]
+    assert dfa_blockmask.launches - before == mesh.devices.size
+    assert got == want and len(planted) > 0
+    assert sharded.stats["mode"] == "sharded"
+    assert len(sharded.stats["shard_occupancy"]) > 1
+    cpu = BatchSecretScanner(backend="cpu")
+    assert got == [(i, s.to_dict()) for i, s in cpu.scan_files(files)]
+
+
+def test_sharded_blockmask_on_the_card_equals_plain(cuda, scanner, mesh):
+    """One ``code_blockmask`` launch per (data, rules) block; the joined
+    masks equal the plain version's and one unsharded launch's."""
+    from trivy_tpu_torch.parallel import mesh_axis_sizes, sharded_blockmask
+    lits = tuple(scanner.table.literals)
+    table = keywords.build_code_table(lits)
+    buf = _batch(5, 300, 2048)
+    seg = torch.from_numpy(buf).to(cuda)
+    want = keywords.code_blockmask_torch(seg, *table.codes).cpu().numpy()
+    one = code_blockmask(seg, keywords.code_words(table.codes, cuda))
+    before = code_blockmask.launches
+    got = sharded_blockmask(mesh, buf, table.codes)
+    d, r = mesh_axis_sizes(mesh)
+    assert code_blockmask.launches - before == d * r
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, one.cpu().numpy())
+    np.testing.assert_array_equal(
+        keywords.run_blockmask(buf, table, backend="cuda", mesh=mesh),
+        want[:, :table.n_codes])
+
+
+def test_side_streams_are_kept_per_shard(cuda, mesh):
+    """Shard k runs on the same side stream of its device in every
+    ``per_shard`` call, whichever mesh launches it, so a second call of
+    the same shapes takes its buffers from that stream's cache and
+    allocates no new segment."""
+    from trivy_tpu_torch.parallel.mesh import local_mesh, per_shard, wait_all
+
+    def fill(k, dev):
+        return {"stream": torch.cuda.current_stream(dev),
+                "out": torch.full((1 << 20,), k, device=dev)}
+
+    first = per_shard(mesh, fill)
+    wait_all(first)
+    streams = [part["stream"] for part, _ in first]
+    assert len(set(streams)) == len(streams)
+    del first
+    segments = torch.cuda.memory_stats()["segment.all.allocated"]
+    again = per_shard(mesh, fill)
+    wait_all(again)
+    assert [part["stream"] for part, _ in again] == streams
+    assert [int(part["out"][0]) for part, _ in again] == \
+        list(range(len(streams)))
+    assert torch.cuda.memory_stats()["segment.all.allocated"] == segments
+    one = per_shard(local_mesh(mesh.flat[0]), fill)
+    wait_all(one)
+    assert one[0][0]["stream"] == streams[0]
+
+
+def test_waves_of_two_threads_on_one_side_stream(cuda):
+    """Two threads dispatch waves at once on the card's one unsharded
+    side stream: each equals numpy's payload list."""
+    import threading
+    from trivy_tpu_torch.detect.batch import (collect_dispatch,
+                                              dispatch_jobs_async)
+    from trivy_tpu_torch.runtime.ring import DispatchRing
+    cdb, jobs = _seeded_jobs(20000, 53)
+    halves = [jobs[::2], jobs[1::2]]
+    want = [dispatch_jobs(h, backend="cpu-ref", stats={}) for h in halves]
+    got: dict = {}
+
+    def run(i):
+        ring = DispatchRing(depth=2, name=f"t-side{i}")
+        try:
+            h = dispatch_jobs_async(halves[i], backend="cuda", stats={},
+                                    ring=ring, max_wave_rows=128)
+            got[i] = collect_dispatch(h)
+        finally:
+            ring.close()
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    assert not any(t.is_alive() for t in threads)
+    assert [got[0], got[1]] == want and all(want)
+
+
+def test_mesh_dispatch_on_the_card_equals_cpu_ref(cuda, mesh):
+    """``dispatch_jobs`` and its waves over the mesh equal numpy, order
+    included; the tables go up once per distinct device."""
+    from trivy_tpu_torch.detect.batch import (collect_dispatch,
+                                              dispatch_jobs_async)
+    from trivy_tpu_torch.runtime.ring import DispatchRing
+    cdb, jobs = _seeded_jobs(20000, 47)
+    want = dispatch_jobs(jobs, backend="cpu-ref", stats={})
+    assert dispatch_jobs(jobs, backend="cuda", mesh=mesh, stats={}) == want
+    assert cdb.device_stats()["uploads"] == len(mesh.distinct)
+    ring = DispatchRing(depth=2, name="t-mesh")
+    try:
+        h = dispatch_jobs_async(jobs, backend="cuda", mesh=mesh, stats={},
+                                ring=ring, max_wave_rows=256)
+        assert collect_dispatch(h) == want and h.waves > 2
+    finally:
+        ring.close()
+    assert cdb.device_stats()["uploads"] == len(mesh.distinct)
+    assert 0 < len(want) < len(jobs)
+
+
+def test_mesh_sieve_collected_on_a_foreign_stream(cuda, scanner, mesh):
+    """A sharded sieve launched on one thread and collected on another
+    that reads on a side stream of its own: every shard's event orders
+    the read."""
+    import threading
+    from chip_smoke import make_corpus
+    files, planted = make_corpus(512, 23)
+    want = [(i, s.to_dict()) for i, s in scanner.scan_files(files)]
+    sharded = BatchSecretScanner(backend="cuda", mesh=mesh)
+    handles, got = [], {}
+    launcher = threading.Thread(
+        target=lambda: handles.append(sharded.dispatch_files(files)))
+    launcher.start()
+    launcher.join(120)
+    assert handles and handles[0]["mode"] == "sharded"
+
+    def collect():
+        with torch.cuda.stream(torch.cuda.Stream()):
+            got["secrets"] = [(i, s.to_dict())
+                              for i, s in sharded.collect(handles[0])]
+
+    collector = threading.Thread(target=collect)
+    collector.start()
+    collector.join(120)
+    assert not launcher.is_alive() and not collector.is_alive()
+    assert got["secrets"] == want and len(planted) > 0
+
+
+def test_mesh_fleet_on_the_card_equals_one_device(cuda, mesh, tmp_path,
+                                                  monkeypatch):
+    """``BatchScanRunner(mesh=...)`` direct and scheduled: the single
+    device's reports; no quarantine or host fallback; a shard error on
+    the scheduled path fails its slots, never the host."""
+    from chip_smoke import (FS_ROOTS, fleet_targets, make_advisory_store,
+                            make_corpus)
+    from trivy_tpu_torch.ops.dfa import DfaTable
+    from trivy_tpu_torch.runtime import BatchScanRunner
+    from trivy_tpu_torch.sched import SchedConfig
+    store, n_pkgs = make_advisory_store(3000, 53)
+    cdb = CompiledDB.compile(store)
+    files, _ = make_corpus(64, 59)
+    plan = fleet_targets(str(tmp_path), FS_ROOTS["fs"], n_pkgs, 5, files,
+                         n_images=6, scale=0.04)
+
+    def run(**kw):
+        runner = BatchScanRunner(store=cdb, backend="cuda", **kw)
+        try:
+            res = runner.scan_paths(plan["paths"])
+        finally:
+            runner.close()
+        return runner, [(r.name, r.error or json.dumps(
+            r.report.to_dict(), sort_keys=True)) for r in res], res
+
+    _, want, _ = run(sched="off")
+    for sched in ("off", SchedConfig(max_batch_items=2,
+                                     flush_timeout_s=0.01)):
+        runner, got, _ = run(sched=sched, mesh=mesh)
+        assert got == want
+        if sched != "off":
+            c = runner.last_stats["sched"]["counters"]
+            assert not c.get("quarantined") and not c.get("host_fallbacks")
+
+    def broken(self, *args, **kwargs):
+        raise RuntimeError("shard launch failed")
+
+    monkeypatch.setattr(DfaTable, "mesh_sieve", broken)
+    runner, _, res = run(sched=SchedConfig(max_batch_items=2,
+                                           flush_timeout_s=0.01),
+                         mesh=mesh)
+    c = runner.last_stats["sched"]["counters"]
+    assert not c.get("quarantined") and not c.get("host_fallbacks")
+    failed = [r for i, r in enumerate(res)
+              if i != plan["broken"] and r.status == "failed"]
+    assert failed and all(r.causes[0].kind == "dispatch_failed"
+                          for r in failed)

@@ -384,7 +384,7 @@ def test_dispatch_defaults_to_cuda_and_refuses_the_cpu(monkeypatch):
         tbatch.dispatch_jobs([])
     with pytest.raises(ValueError, match="unknown backend"):
         tbatch.dispatch_jobs(jobs, backend="tpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tbatch.dispatch_jobs(jobs, backend="cpu", mesh=object())
     assert tbatch.dispatch_jobs(jobs, backend="cpu") == [1]
 

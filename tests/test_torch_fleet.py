@@ -256,11 +256,15 @@ def test_cli_sched_stats_dumps_the_batch(fleet, tmp_path, monkeypatch):
 # --- refusals --------------------------------------------------------
 
 REFUSALS = {
-    "coordinator": (["--sched", "off", "--coordinator", "h:1"], "A.6"),
-    "num_processes": (["--sched", "off", "--num-processes", "2"], "A.6"),
-    "process_id": (["--sched", "off", "--process-id", "0"], "A.6"),
     "fault_spec": (["--sched", "off", "--fault-spec", "poison-image"],
                    "A.9"),
+}
+# refused until the multi-host pod was ported (ROADMAP A.6): a
+# single-host topology scans, a malformed one exits 2 as the reference
+POD = {
+    "coordinator": ["--sched", "off", "--coordinator", "h:1"],
+    "num_processes": ["--sched", "off", "--num-processes", "2"],
+    "process_id": ["--sched", "off", "--process-id", "0"],
 }
 # refused until the scheduler was ported (ROADMAP A.5): they run now
 LIFTED = {
@@ -271,18 +275,35 @@ LIFTED = {
 }
 
 
-@pytest.mark.parametrize("case", sorted(REFUSALS) + sorted(LIFTED))
+@pytest.mark.parametrize("case", sorted(REFUSALS) + sorted(LIFTED)
+                         + sorted(POD))
 def test_fleet_refuses_before_any_host_work(fleet, case, monkeypatch,
                                             tmp_path):
     """Each option still to be ported is refused by name before any
     host work; the scheduler's options (``--sched on``, its default,
     and ``--tenant-*``) run the scheduled scan, whose reports equal
     the reference's with the same options and the port's direct
-    path's."""
+    path's; the pod flags give the reference's exit code, output and
+    ``error:`` line."""
     import trivy_tpu_torch.cli as tcli
 
     monkeypatch.chdir(tmp_path)
     argv = ["image", *fleet["plan"]["paths"][:2], "--backend", "cpu"]
+    if case in POD:
+        for key in ("TRIVY_TPU_COORDINATOR", "TRIVY_TPU_NUM_PROCESSES",
+                    "TRIVY_TPU_PROCESS_ID"):
+            monkeypatch.delenv(key, raising=False)
+        db = ["--compiled-db", fleet["compiled"], "--format", "json"]
+        code, out, said, _ = _run(tcli.main, argv + POD[case] + db)
+        want = _run(rmain, argv + POD[case] + db
+                    + ["--no-cache", "--no-memo"])
+        assert (code, said) == (want[0], want[2])
+        if code:
+            assert code == 2 and out == want[1] == ""
+            assert said[0].startswith("error: multi-host topology: ")
+        else:
+            assert _out(out, "json") == _out(want[1], "json")
+        return
     if case in LIFTED:
         db = ["--compiled-db", fleet["compiled"], "--format", "json"]
         code, out, said, _ = _run(tcli.main, argv + LIFTED[case] + db)
@@ -324,8 +345,10 @@ def test_fleet_usage_errors_as_reference(fleet, flags, monkeypatch,
 def test_runner_takes_the_direct_path_only(fleet):
     """``sched="off"`` is the direct path; ``"on"``, a ``SchedConfig``
     or a shared ``ScanScheduler`` take the scheduled route (ROADMAP
-    A.5, ported), whose reports equal the direct path's. ``mesh`` and
-    ``memo`` stay refused (A.6, A.7), in the runner and in the
+    A.5, ported), whose reports equal the direct path's. ``memo``
+    stays refused (A.7); ``mesh`` is taken (A.6, ported:
+    ``tests/test_torch_parallel.py``), and what is not a
+    ``DeviceMesh`` is refused as one, in the runner and in the
     scheduler."""
     from trivy_tpu_torch.sched import ScanScheduler, SchedConfig
     from trivy_tpu_torch.secret.batch import BatchSecretScanner
@@ -348,10 +371,12 @@ def test_runner_takes_the_direct_path_only(fleet):
         assert not shared.queue.closed      # the caller's to close
     finally:
         shared.close()
-    for arg in ("mesh", "memo"):
-        with pytest.raises(TypeError):
-            TRunner(backend="cpu", **{arg: None})
-    with pytest.raises(NotImplementedError, match="A.6"):
-        ScanScheduler(backend="cpu", mesh=object())
+    with pytest.raises(TypeError):
+        TRunner(backend="cpu", memo=None)
+    assert TRunner(backend="cpu", mesh=None).mesh is None
+    for make in (lambda: TRunner(backend="cpu", mesh=object()),
+                 lambda: ScanScheduler(backend="cpu", mesh=object())):
+        with pytest.raises(TypeError, match="DeviceMesh"):
+            make()
     assert not hasattr(TRunner, "scan_registry_refs")
     assert not hasattr(TRunner, "blob_keyer")

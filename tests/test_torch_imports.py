@@ -105,6 +105,15 @@ SCHED_SLICE = ("sched/__init__.py", "sched/queue.py",
                "secret/batch.py", "cli.py")
 
 
+# the mesh's modules (parallel/ with the routes that take a mesh)
+PARALLEL_SLICE = ("parallel/__init__.py", "parallel/mesh.py",
+                  "parallel/balance.py", "parallel/secret_shard.py",
+                  "parallel/interval_shard.py", "parallel/multihost.py",
+                  "parallel/simhost.py", "ops/resident.py", "ops/dfa.py",
+                  "ops/keywords.py", "secret/batch.py", "detect/batch.py",
+                  "runtime/batch.py", "sched/scheduler.py", "cli.py")
+
+
 def _covered(modules) -> None:
     import importlib
     import pkgutil
@@ -137,6 +146,31 @@ def test_the_scans_cover_the_runtime_slice():
 
 def test_the_scans_cover_the_sched_slice():
     _covered(SCHED_SLICE)
+
+
+def test_the_scans_cover_the_parallel_slice():
+    _covered(PARALLEL_SLICE)
+
+
+def test_simhost_entry_runs_without_jax():
+    """``python -m trivy_tpu_torch.parallel.simhost`` starts and prints
+    its usage (exit 2) without loading JAX or the JAX package."""
+    code = ("import runpy, sys\n"
+            "sys.argv = ['simhost']\n"
+            "try:\n"
+            "    runpy.run_module('trivy_tpu_torch.parallel.simhost',\n"
+            "                     run_name='__main__')\n"
+            "except SystemExit as e:\n"
+            "    rc = e.code\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('jax', 'jaxlib', 'trivy_tpu'))\n"
+            "print(rc, bad)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.split() == ["2", "[]"]
+    assert "usage: python -m trivy_tpu_torch.parallel.simhost" in \
+        proc.stderr
 
 
 def test_no_import_statement_names_jax_or_the_jax_package():

@@ -227,7 +227,7 @@ class TestEntryPoints:
                                                         monkeypatch):
         t = tk.build_code_table(LITERALS)
         buf = _batch(10, 4, 128)
-        with pytest.raises(NotImplementedError, match="A.6"):
+        with pytest.raises(TypeError, match="DeviceMesh"):
             tk.run_blockmask(buf, t, backend="cpu", mesh=object())
         with pytest.raises(ValueError):
             tk.run_blockmask(buf, t, backend="tpu")

@@ -347,8 +347,11 @@ def test_a_failed_wave_reaches_collect_dispatch(stores, monkeypatch):
 
 
 def test_async_dispatch_refuses_a_mesh_and_a_missing_card(monkeypatch):
+    """What is not a ``DeviceMesh`` is refused as a mesh (the mesh
+    routes: ``tests/test_torch_parallel.py``); without a card ``cuda``
+    raises."""
     import torch
-    with pytest.raises(NotImplementedError, match="A.6"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tbatch.dispatch_jobs_async([], backend="cpu", mesh=object())
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):

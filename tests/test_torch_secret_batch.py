@@ -188,11 +188,12 @@ def test_segment_layout_matches_reference(jbatch, tbatch):
     assert (tbatch.overlap, tbatch.seg_len) == \
         (jbatch.overlap, jbatch.seg_len)
     contents = [b"a" * 5, b"", b"b" * 2048, b"c" * 2049, b"d" * 9000]
-    jbuf, jfile, jpos, _ = jbatch._segment(
+    jbuf, jfile, jpos, jocc = jbatch._segment(
         [JEntry("p", c, i) for i, c in enumerate(contents)])
-    tbuf, tfile, tpos = tbatch._segment(
+    tbuf, tfile, tpos, tocc = tbatch._segment(
         [TEntry("p", c, i) for i, c in enumerate(contents)])
     assert (tbuf == jbuf).all() and tfile == jfile and tpos == jpos
+    assert tocc == jocc == []
     for n in (1, 2048, 2049, 4000, 4001, 100_000):
         assert tbatch._n_segs(n) == jbatch._n_segs(n)
 

@@ -517,11 +517,7 @@ def _ingest_limits(args):
 def _refuse_image(args) -> str:
     """The image options still to be ported, by ROADMAP item: each is
     refused before any host work."""
-    if len(args.target) > 1:
-        refused = _refuse_batch(args)
-        if refused:
-            return refused
-    elif args.target and not args.input and \
+    if len(args.target) == 1 and not args.input and \
             not os.path.exists(args.target[0]):
         return (f"{args.target[0]!r} is not an existing path: daemon, "
                 "containerd and registry resolution are not ported yet "
@@ -533,17 +529,6 @@ def _refuse_image(args) -> str:
     if args.cache_backend != "fs":
         return (f"--cache-backend {args.cache_backend!r} is not ported "
                 "yet (ROADMAP A.9); only 'fs' is")
-    return ""
-
-
-def _refuse_batch(args) -> str:
-    """The fleet options still to be ported: the multi-host pod."""
-    for flag, value in (("--coordinator", args.coordinator),
-                        ("--num-processes", args.num_processes),
-                        ("--process-id", args.process_id >= 0)):
-        if value:
-            return (f"{flag}: the multi-host pod is not ported yet "
-                    "(ROADMAP A.6)")
     return ""
 
 
@@ -628,6 +613,29 @@ def _sched_config(args):
         budgets=budgets)
 
 
+def _init_multihost(args) -> int:
+    """Join the pod when ``--coordinator``/``--num-processes``/
+    ``--process-id`` or the ``TRIVY_TPU_*`` env describe one
+    (``parallel/multihost.py``). Returns 0, or 2 on a malformed
+    topology (ref cli.py ``_init_multihost``)."""
+    from .parallel.multihost import initialize, topology_from_env
+    try:
+        topo = topology_from_env(coordinator=args.coordinator,
+                                 num_processes=args.num_processes or 0,
+                                 process_id=args.process_id)
+        if topo.multi_host:
+            # nccl only for a process that drives a card
+            initialize(topo, device_type="cuda"
+                       if args.backend == "cuda" else "cpu")
+            print(f"multi-host: process {topo.process_id}/"
+                  f"{topo.num_processes} joined via "
+                  f"{topo.coordinator}", file=sys.stderr)
+    except (ValueError, RuntimeError) as e:
+        print(f"error: multi-host topology: {e}", file=sys.stderr)
+        return 2
+    return 0
+
+
 def _run_image_batch(args) -> int:
     """``image a.tar b.tar ...`` (ref cli.py ``_run_image_batch``):
     one ``BatchScanRunner.scan_paths`` over every target, through the
@@ -663,6 +671,9 @@ def _run_image_batch(args) -> int:
         print(f"error: --tenant-config/--tenant-budget: {e}",
               file=sys.stderr)
         return 2
+    rc = _init_multihost(args)
+    if rc:
+        return rc
     runner = BatchScanRunner(
         store=store, cache=make_cache(args.cache_dir, args.no_cache),
         backend=args.backend, secret_scanner=opt.secret_scanner,
@@ -859,12 +870,16 @@ def _image_flags(sp) -> None:
                     "bob:device_s=1' — a tenant over its windowed "
                     "spend is throttled (429 + Retry-After) or "
                     "deprioritized to the budget's priority floor")
-    # refused by name (ROADMAP A.6)
-    sp.add_argument("--coordinator", default="", help=argparse.SUPPRESS)
+    sp.add_argument("--coordinator", default="",
+                    help="multi-host pod: host:port of process 0 "
+                    "(TRIVY_TPU_COORDINATOR); requires "
+                    "--num-processes/--process-id")
     sp.add_argument("--num-processes", type=int, default=0,
-                    help=argparse.SUPPRESS)
+                    help="multi-host pod: total scanner processes "
+                    "(TRIVY_TPU_NUM_PROCESSES)")
     sp.add_argument("--process-id", type=int, default=-1,
-                    help=argparse.SUPPRESS)
+                    help="multi-host pod: this process's id "
+                    "(TRIVY_TPU_PROCESS_ID)")
     # refused by name (ROADMAP A.9)
     sp.add_argument("--server", default="", help=argparse.SUPPRESS)
     sp.add_argument("--fault-spec", default="", help=argparse.SUPPRESS)

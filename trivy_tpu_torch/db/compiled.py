@@ -373,7 +373,8 @@ class CompiledDB(ResidentTables):
     # ---- device residency (ResidentTables hooks) ----
     #
     # device_tables(device) uploads (v_lo, v_hi, s_lo, s_hi, flags)
-    # ONCE per device; invalidate_device drops the copies.
+    # ONCE per device (a mesh: once per distinct device of it, one
+    # tuple per flat shard); invalidate_device drops the copies.
 
     def _resident_arrays(self) -> tuple:
         return (self.v_lo, self.v_hi, self.s_lo, self.s_hi,

@@ -19,14 +19,19 @@ a small bucket ladder.
 ``ops/intervals.py`` on the card, through ``resolve_device``, so it
 raises without one), ``"cpu"`` (the same torch functions on the CPU)
 or ``"cpu-ref"`` (numpy). The result is a list of payloads: device
-hits in job order, then host-path hits in job order. ``mesh=`` waits
-for the multi-GPU port and raises.
+hits in job order, then host-path hits in job order. The pair rows go
+through ``parallel/interval_shard.py``: with ``mesh=`` (a
+``parallel.mesh.DeviceMesh`` of the backend's devices) they shard over
+every device of the mesh against tables replicated once per distinct
+device; without one they run on the backend's device alone, as its
+1 × 1 mesh. ``cpu-ref`` ignores the mesh.
 
 ``dispatch_jobs`` is the synchronous ladder (upload, match, copy back,
 then the next store); ``dispatch_jobs_async`` + ``collect_dispatch``
-split the same work into bounded waves on a CUDA side stream that a
-``runtime.ring.DispatchRing`` keeps in flight while the host packs the
-next one (the fleet runtime's path, ``runtime/batch.py``).
+split the same work into bounded waves, each on the side streams of
+its shards, that a ``runtime.ring.DispatchRing`` keeps in flight while
+the host packs the next one (the fleet runtime's path,
+``runtime/batch.py``).
 """
 
 from __future__ import annotations
@@ -42,8 +47,11 @@ import torch
 
 from .. import resolve_device
 from ..ops.intervals import (MAX_INTERVALS, NEG_INF, POS_INF,
-                             interval_hits, interval_hits_host,
-                             interval_hits_resident)
+                             interval_hits_host)
+from ..parallel.interval_shard import (
+    sharded_interval_hits, sharded_interval_hits_async,
+    sharded_interval_hits_resident, sharded_interval_hits_resident_async)
+from ..parallel.mesh import check_mesh, local_mesh
 from ..vercmp import get_comparer
 from ..vercmp.base import Interval
 from .ccache import INTERVAL_CACHE
@@ -133,13 +141,6 @@ def _device(backend: str) -> Optional[torch.device]:
     if backend == "cuda":
         return resolve_device("cuda")
     raise ValueError(f"unknown backend {backend!r}")
-
-
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "interval dispatch over a mesh waits for the multi-GPU "
-            "port (ROADMAP Queue A.6)")
 
 
 def _dedup(jobs: list, key_fn) -> tuple:
@@ -236,11 +237,13 @@ def _pack_classic(rows: list, spaces: dict, Pp: int) -> tuple:
 def detect_pairs(jobs: list, backend: str = "cuda", mesh=None,
                  stats: Optional[dict] = None) -> list:
     """Payloads of the vulnerable pairs among classic ``PairJob``s:
-    device hits in job order, then host-path hits in job order."""
-    _no_mesh(mesh)
+    device hits in job order, then host-path hits in job order. With
+    ``mesh``, pair rows shard over every device of it; without, they
+    run on the backend's device."""
     if not jobs:
         return []
     dev = _device(backend)
+    check_mesh(mesh, backend)
     sink = stats if stats is not None else last_dispatch_stats
     reps, members, spaces, rows, host_groups = \
         _prep_classic(jobs, sink)
@@ -256,10 +259,7 @@ def detect_pairs(jobs: list, backend: str = "cuda", mesh=None,
         if dev is None:
             hits = np.asarray(interval_hits_host(*arrs))
         else:
-            # fresh per-dispatch payload tensors; the copy back waits
-            # for the device
-            hits = interval_hits(*(torch.from_numpy(a).to(dev)
-                                   for a in arrs)).cpu().numpy()
+            hits = sharded_interval_hits(mesh or local_mesh(dev), *arrs)
         sink["device_s"] = sink.get("device_s", 0.0) + \
             time.perf_counter() - t0
         for i in np.nonzero(hits[:P])[0]:
@@ -412,10 +412,10 @@ def detect_pairs_resident(jobs: list, backend: str = "cuda",
     resident tables. Host work is O(distinct jobs): duplicates are
     folded before rank lookup, rank lookups are cached per
     (grammar, version), and the advisory universe is never touched."""
-    _no_mesh(mesh)
     if not jobs:
         return []
     dev = _device(backend)
+    check_mesh(mesh, backend)
     sink = stats if stats is not None else last_dispatch_stats
 
     cdb = jobs[0].cdb
@@ -428,7 +428,7 @@ def detect_pairs_resident(jobs: list, backend: str = "cuda",
         out = []
         for js in by_db.values():
             out.extend(detect_pairs_resident(
-                js, backend=backend, stats=stats))
+                js, backend=backend, mesh=mesh, stats=stats))
         return out
     reps, members, kept, ranks, rows, host = \
         _prep_resident(jobs, cdb, sink)
@@ -448,13 +448,11 @@ def detect_pairs_resident(jobs: list, backend: str = "cuda",
                 cdb.s_lo[row_idx], cdb.s_hi[row_idx],
                 cdb.flags[row_idx])
         else:
-            tables = cdb.device_tables(dev)
             # the ranks and row indices are fresh per dispatch; the
             # resident tables serve every dispatch and are only read
-            hits = interval_hits_resident(
-                torch.from_numpy(pkg_rank).to(dev),
-                torch.from_numpy(row_idx).to(dev),
-                *tables).cpu().numpy()
+            mesh = mesh or local_mesh(dev)
+            hits = sharded_interval_hits_resident(
+                mesh, pkg_rank, row_idx, cdb.device_tables(mesh))
         sink["device_s"] = sink.get("device_s", 0.0) + \
             time.perf_counter() - t0
         for i in np.nonzero(hits[:P])[0]:
@@ -477,22 +475,22 @@ def dispatch_jobs(jobs: list, backend: str = "cuda", mesh=None,
     ``stats`` (optional) receives this call's device_s and the dedup
     counters (``jobs_in`` / ``jobs_unique``) instead of the shared
     module global — pass one per thread."""
-    _no_mesh(mesh)
     _device(backend)
+    check_mesh(mesh, backend)
     sink = stats if stats is not None else last_dispatch_stats
     sink["device_s"] = 0.0
     sink["jobs_in"] = 0
     sink["jobs_unique"] = 0
     plain = [j for j in jobs if isinstance(j, PairJob)]
     resident = [j for j in jobs if isinstance(j, ResidentPairJob)]
-    out = detect_pairs(plain, backend=backend, stats=sink) \
+    out = detect_pairs(plain, backend=backend, mesh=mesh, stats=sink) \
         if plain else []
     by_db: dict = {}
     for j in resident:
         by_db.setdefault(id(j.cdb), []).append(j)
     for js in by_db.values():
         out.extend(detect_pairs_resident(js, backend=backend,
-                                         stats=sink))
+                                         mesh=mesh, stats=sink))
     return out
 
 
@@ -503,22 +501,24 @@ def dispatch_jobs(jobs: list, backend: str = "cuda", mesh=None,
 # when a DispatchRing is passed, the ring's drain thread — waits for
 # wave N while the submitting thread packs and launches wave N+1.
 #
-# On the card each segment owns a side stream. A wave's launch runs on
-# the submitting thread: the side stream first waits for that thread's
-# current stream (so it sees whatever was enqueued before it, the
-# resident tables' upload included), then the wave's operands are
-# staged in pinned host buffers, copied up without blocking, matched,
-# and the hit vector is copied back into a pinned buffer, all on the
-# side stream; an event recorded there closes the wave. Its collect
-# waits on that event alone and reads the pinned hits: a plain
-# ``.cpu()`` on the drain thread would run on that thread's current
-# stream, which does not wait for the side stream. Every buffer of a
-# wave (pinned and on the card) stays referenced by the wave until its
-# event has completed, so neither the caching allocator nor the pinned
-# host allocator hands it to the next wave early; the resident tables
-# are only read, and the wave keeps them referenced too. On the CPU
-# the same segments run with the same ring and waves, in plain torch:
-# a wave's work is done when its launch returns.
+# A wave launches one slice of its rows per shard of the mesh (one
+# slice on the backend's own 1 × 1 mesh), on the submitting thread
+# (``parallel/interval_shard.py``). On the card each shard's side
+# stream first waits for that thread's current stream (so it sees
+# whatever was enqueued before it, the resident tables' upload
+# included), then the shard's operands are staged in pinned host
+# buffers, copied up without blocking, matched, and its hits are
+# copied back into a pinned buffer, all on the side stream; an event
+# recorded there closes the shard. The wave's collect waits on every
+# shard's event before it reads any pinned hits: a plain ``.cpu()`` on
+# the drain thread would run on that thread's current stream, which
+# does not wait for the side streams. Every buffer of a shard (pinned
+# and on the card) stays referenced until its event has completed, so
+# neither the caching allocator nor the pinned host allocator hands it
+# to the next wave early; the resident tables are only read, and the
+# wave keeps them referenced too. On the CPU the same segments run with
+# the same ring and waves, in plain torch: a wave's work is done when
+# its launch returns.
 
 _WAVE_ROWS = 4096      # max kernel rows launched per wave
 
@@ -539,13 +539,12 @@ class _WaveSegment:
     paths: launch waves, collect them FIFO, fan hits back out
     through the dedup members exactly like the synchronous path."""
 
-    def __init__(self, jobs: list, dev: torch.device, sink: dict, ring):
+    def __init__(self, jobs: list, dev: torch.device, sink: dict, ring,
+                 mesh=None):
         self.jobs = jobs
-        self.dev = dev
+        self.mesh = mesh or local_mesh(dev)
         self.sink = sink
         self.ring = ring
-        self.stream = torch.cuda.Stream(device=dev) \
-            if dev.type == "cuda" else None
         self.waves: list = []
         self.members: list = []
         self.reps: list = []
@@ -571,41 +570,13 @@ class _WaveSegment:
             wave = build()
         self.waves.append(wave)
 
-    def _enqueue(self, arrays: list, compute, rows: int, groups: list,
-                 keep=()) -> dict:
-        """One wave: ``compute(*tensors)`` → [Pp] bool hits over the
-        numpy ``arrays``. ``keep`` holds what the wave reads and must
-        outlive it (the resident tables)."""
-        if self.stream is None:
-            t0 = time.perf_counter()
-            out = compute(*(torch.from_numpy(a) for a in arrays))
-            return {"out": out, "rows": rows, "groups": groups,
-                    "compute_s": time.perf_counter() - t0}
-        stream = self.stream
-        stream.wait_stream(torch.cuda.current_stream(self.dev))
-        with torch.cuda.stream(stream):
-            pinned = [torch.from_numpy(a).pin_memory() for a in arrays]
-            dev_in = [t.to(self.dev, non_blocking=True) for t in pinned]
-            hits = compute(*dev_in)
-            out = torch.empty(hits.shape, dtype=hits.dtype,
-                              pin_memory=True)
-            out.copy_(hits, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record(stream)
-        return {"out": out, "event": event, "rows": rows,
-                "groups": groups, "buffers": (pinned, dev_in, hits, keep)}
-
     def _collect_wave(self, wave: dict) -> None:
         t0 = time.perf_counter()
-        event = wave.get("event")
-        if event is not None:
-            # the wave's own event: its copy back has landed
-            event.synchronize()
-        wave["hits"] = wave["out"].numpy()
-        # the wave's buffers may go back to their allocators only now
-        wave["buffers"] = wave["event"] = None
+        # every shard's own event, then every shard's hits
+        sharded = wave.pop("sharded")
+        wave["hits"] = sharded.collect()
         self.sink["device_s"] = self.sink.get("device_s", 0.0) + \
-            wave.get("compute_s", 0.0) + time.perf_counter() - t0
+            sharded.compute_s + time.perf_counter() - t0
 
     def _kernel_hits(self) -> list:
         hit_jobs: list = []
@@ -629,8 +600,8 @@ class _WaveSegment:
 
 class _ClassicSegment(_WaveSegment):
     def __init__(self, jobs: list, dev: torch.device, sink: dict, ring,
-                 max_wave_rows: int):
-        super().__init__(jobs, dev, sink, ring)
+                 max_wave_rows: int, mesh=None):
+        super().__init__(jobs, dev, sink, ring, mesh)
         (self.reps, self.members, spaces, rows,
          self.host_groups) = _prep_classic(jobs, sink)
         for sp in spaces.values():
@@ -658,8 +629,9 @@ class _ClassicSegment(_WaveSegment):
             def build(k=k, sl=sl):
                 arrays = futs[k].result() if futs is not None \
                     else _pack(sl)
-                return self._enqueue(list(arrays), interval_hits,
-                                     len(sl), [r[0] for r in sl])
+                return {"sharded": sharded_interval_hits_async(
+                    self.mesh, *arrays), "rows": len(sl),
+                    "groups": [r[0] for r in sl]}
 
             self._launch_wave(k, build)
 
@@ -673,19 +645,16 @@ class _ClassicSegment(_WaveSegment):
 
 class _ResidentSegment(_WaveSegment):
     def __init__(self, jobs: list, cdb, dev: torch.device, sink: dict,
-                 ring, max_wave_rows: int):
-        super().__init__(jobs, dev, sink, ring)
+                 ring, max_wave_rows: int, mesh=None):
+        super().__init__(jobs, dev, sink, ring, mesh)
         (self.reps, self.members, kept, ranks, rows,
          self.host_groups) = _prep_resident(jobs, cdb, sink)
         if not kept:
             return
         w = max(1, int(max_wave_rows))
         # uploaded (once per device) on this thread's current stream,
-        # which every wave's side stream waits for
-        tables = cdb.device_tables(dev)
-
-        def match(pkg_rank, row_idx):
-            return interval_hits_resident(pkg_rank, row_idx, *tables)
+        # which every shard's side stream waits for
+        tables = cdb.device_tables(self.mesh)
 
         for k, a in enumerate(range(0, len(kept), w)):
 
@@ -699,8 +668,9 @@ class _ResidentSegment(_WaveSegment):
                 row_idx[:P] = rows[a:a + w]
                 # the gather operands are this wave's alone; the
                 # resident tables are shared and only read
-                return self._enqueue([pkg_rank, row_idx], match, P,
-                                     sl_kept, keep=tables)
+                return {"sharded": sharded_interval_hits_resident_async(
+                    self.mesh, pkg_rank, row_idx, tables), "rows": P,
+                    "groups": sl_kept}
 
             self._launch_wave(k, build)
 
@@ -741,9 +711,10 @@ def dispatch_jobs_async(jobs: list, backend: str = "cuda", mesh=None,
     :func:`collect_dispatch` on the calling thread. Output (via
     collect_dispatch) is identical to dispatch_jobs for any wave size
     and ring depth. ``max_wave_rows`` defaults to ``_WAVE_ROWS``, read
-    at the call. ``cpu-ref`` runs the synchronous numpy ladder now."""
-    _no_mesh(mesh)
+    at the call. ``cpu-ref`` runs the synchronous numpy ladder now.
+    With ``mesh`` every wave launches one row slice per device of it."""
     dev = _device(backend)
+    check_mesh(mesh, backend)
     if max_wave_rows is None:
         max_wave_rows = _WAVE_ROWS
     sink = stats if stats is not None else last_dispatch_stats
@@ -755,19 +726,19 @@ def dispatch_jobs_async(jobs: list, backend: str = "cuda", mesh=None,
         # the exact host reference engine has no device work to
         # overlap (the differential baseline stays the baseline)
         handle.segments.append(_EagerSegment(dispatch_jobs(
-            jobs, backend=backend, stats=sink)))
+            jobs, backend=backend, mesh=mesh, stats=sink)))
         return handle
     plain = [j for j in jobs if isinstance(j, PairJob)]
     resident = [j for j in jobs if isinstance(j, ResidentPairJob)]
     if plain:
         handle.segments.append(_ClassicSegment(
-            plain, dev, sink, ring, max_wave_rows))
+            plain, dev, sink, ring, max_wave_rows, mesh))
     by_db: dict = {}
     for j in resident:
         by_db.setdefault(id(j.cdb), []).append(j)
     for js in by_db.values():
         handle.segments.append(_ResidentSegment(
-            js, js[0].cdb, dev, sink, ring, max_wave_rows))
+            js, js[0].cdb, dev, sink, ring, max_wave_rows, mesh))
     return handle
 
 

@@ -397,6 +397,33 @@ class DfaTable(ResidentTables):
         return self.device_array(device, ("desc", run_specs),
                                  lambda: self.kernel_desc(run_specs))
 
+    def mesh_sieve(self, mesh, segments: np.ndarray,
+                   run_specs: tuple = ()) -> list:
+        """The sieve over a mesh (reference ``DfaTable.mesh_sieve``):
+        the [B, L] rows split into one equal contiguous chunk per flat
+        shard (B is a multiple of the shard count), and each chunk's
+        ``dfa_blockmask`` launch (masks and run hits) runs on its
+        device's side stream (``parallel.mesh.per_shard``), against
+        that device's replica of the table. No compaction: the caller
+        fetches every shard's full masks. Returns [({"seg", "masks",
+        "hits"}, event or None)] per shard; the dict keeps the shard's
+        segments alive until its event has passed."""
+        from ..parallel.mesh import per_shard
+        from .dfa_cuda import dfa_blockmask
+        run_specs = tuple(run_specs)
+        tbl = self.device_tables(mesh)
+        for d in mesh.distinct:
+            if d.type == "cuda":
+                self.device_desc(d, run_specs)   # placed before any shard
+        rows = segments.shape[0] // int(mesh.devices.size)
+
+        def one(k: int, dev: torch.device) -> dict:
+            seg = torch.from_numpy(segments[k * rows:(k + 1) * rows]).to(dev)
+            masks, hits = dfa_blockmask(seg, self, tbl[k], run_specs)
+            return {"seg": seg, "masks": masks, "hits": hits}
+
+        return per_shard(mesh, one)
+
     def _literal_chunks(self):
         """(column, [(lo, hi, lo_mask, hi_mask) per chunk]) for every
         literal column, read from the band arrays."""

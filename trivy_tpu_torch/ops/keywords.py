@@ -249,15 +249,22 @@ def run_blockmask(segments: np.ndarray, table: CodeTable,
     Pads the codes to the chunk size and the batch to a shape bucket,
     and slices the padding back off. ``backend`` is ``cuda`` (the
     kernel, on ``device`` or the current card), ``cpu`` (its plain
-    PyTorch version) or ``cpu-ref`` (numpy)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "run_blockmask over a mesh waits for the multi-GPU port "
-            "(ROADMAP Queue A.6)")
+    PyTorch version) or ``cpu-ref`` (numpy). ``mesh`` (a
+    ``DeviceMesh`` of ``backend``'s devices) runs one launch per (data,
+    rules) block (``parallel.secret_shard.sharded_blockmask``);
+    ``cpu-ref`` ignores it."""
     K = table.n_codes
     codes = table.codes
     if backend == "cpu-ref":
         return code_blockmask_host(segments, *codes)[:, :K]
+    if mesh is not None:
+        from ..parallel.mesh import check_mesh
+        from ..parallel.secret_shard import sharded_blockmask
+        if backend not in ("cuda", "cpu"):
+            raise ValueError(f"unknown backend {backend!r}")
+        check_mesh(mesh, backend)
+        B = segments.shape[0]
+        return sharded_blockmask(mesh, pad_batch(segments), codes)[:B, :K]
     if backend == "cpu":
         dev = torch.device("cpu")
     elif backend == "cuda":

@@ -1,7 +1,10 @@
 """Device residency for tables that serve many dispatches.
 
 ``device_tables(device)`` uploads ``_resident_arrays()`` once per
-device and hands back the same tensors on every later call;
+device and hands back the same tensors on every later call; given a
+``parallel.mesh.DeviceMesh`` it places them once per DISTINCT device of
+the mesh and hands back one tuple per flat shard (a mesh that names
+``cuda:0`` four times uploads once);
 ``device_array(device, name, make)`` does the same for one more array
 a launch picks by ``name``; ``invalidate_device()`` drops them all. A
 table's content is fixed once it is built or loaded, so one upload per
@@ -73,21 +76,34 @@ class ResidentTables:
     def _note_invalidation(self) -> None:
         pass
 
-    def device_tables(self, device) -> tuple:
-        key = str(torch.device(device))
+    def device_tables(self, device):
+        """The resident tensors on ``device`` (a tuple), or on every
+        shard of a ``DeviceMesh`` (a list of tuples, one per flat
+        shard). One call counts one dispatch."""
+        mesh = device if hasattr(device, "distinct") else None
         with self._device_lock:
-            placed = self._device.get(key)
-            if placed is None:
-                arrs = self._resident_arrays()
-                placed = tuple(_tensor(a, key) for a in arrs)
-                _settled(key)
-                nbytes = int(sum(a.nbytes for a in arrs))
-                self._device[key] = placed
-                self._device_stats["uploads"] += 1
-                self._device_stats["upload_bytes"] += nbytes
-                self._note_upload(nbytes)
+            if mesh is None:
+                placed = self._placed(str(torch.device(device)))
+            else:
+                by_dev = {d: self._placed(str(d)) for d in mesh.distinct}
+                placed = [by_dev[d] for d in mesh.flat]
             self._device_stats["dispatches"] += 1
         self._note_dispatch()
+        return placed
+
+    def _placed(self, key: str) -> tuple:
+        """The tensors on device ``key``, uploaded on first use (the
+        caller holds the lock)."""
+        placed = self._device.get(key)
+        if placed is None:
+            arrs = self._resident_arrays()
+            placed = tuple(_tensor(a, key) for a in arrs)
+            _settled(key)
+            nbytes = int(sum(a.nbytes for a in arrs))
+            self._device[key] = placed
+            self._device_stats["uploads"] += 1
+            self._device_stats["upload_bytes"] += nbytes
+            self._note_upload(nbytes)
         return placed
 
     def device_array(self, device, name, make) -> torch.Tensor:

@@ -25,8 +25,11 @@ With ``sched`` other than ``"off"`` every image (or BOM) becomes one
 request of the continuous-batching scheduler (``sched/``): it is
 loaded, analyzed and joined on the scheduler's host workers, joins
 whichever device batch is forming, and is finished back on the pool
-(``_scan_scheduled``, ``submit_path``). The reference's ``mesh`` (A.6)
-and ``memo`` (A.7) arguments are not taken until their items are
+(``_scan_scheduled``, ``submit_path``). ``mesh`` (a
+``parallel.mesh.DeviceMesh``) shards both device stages over its
+devices on either path: the runner's ``BatchSecretScanner`` sieves per
+shard and every interval dispatch splits its rows per shard. The
+reference's ``memo`` argument (A.7) is not taken until its item is
 ported, nor are ``blob_keyer`` and ``scan_registry_refs`` (A.9); the
 direct path's trace spans are A.8.
 """
@@ -99,7 +102,7 @@ class BatchScanResult:
 
 class BatchScanRunner:
     def __init__(self, store: Optional[AdvisoryStore] = None,
-                 cache=None, backend: str = "cuda",
+                 cache=None, backend: str = "cuda", mesh=None,
                  secret_scanner=None, sched="off", sched_config=None,
                  artifact_option=None, fault_injector=None,
                  tracer=None, dispatch_depth: int = 0):
@@ -110,8 +113,10 @@ class BatchScanRunner:
         # the default 2; 1 restores the synchronous ladder
         self.dispatch_depth = resolve_dispatch_depth(dispatch_depth)
         self.backend = backend
+        self.mesh = mesh
         if secret_scanner is None:
-            secret_scanner = BatchSecretScanner(backend=backend)
+            secret_scanner = BatchSecretScanner(backend=backend,
+                                                mesh=mesh)
         self.secret_scanner = secret_scanner
         self.artifact_option = artifact_option
         # tracer: obs.trace.Tracer — per-request span trees on the
@@ -151,7 +156,7 @@ class BatchScanRunner:
                 # and off honor the same --dispatch-depth knob
                 cfg = SchedConfig(dispatch_depth=self.dispatch_depth)
             self._scheduler = ScanScheduler(
-                config=cfg, backend=self.backend,
+                config=cfg, backend=self.backend, mesh=self.mesh,
                 secret_scanner=self.secret_scanner,
                 tracer=self.tracer)
             self._scheduler.fault_injector = self.fault_injector
@@ -508,7 +513,8 @@ class BatchScanRunner:
                                     scan_rm, RING_METRICS))
         try:
             ih = dispatch_jobs_async(all_jobs, backend=options.backend,
-                                     stats=kstats, ring=ring)
+                                     mesh=self.mesh, stats=kstats,
+                                     ring=ring)
             interval_s = time.perf_counter() - t0
 
             # ---- phase 2b: sieve collect + late secret merge ----
@@ -717,7 +723,7 @@ class BatchScanRunner:
         kstats: dict = {}
         for idx, payload in dispatch_jobs(all_jobs,
                                           backend=options.backend,
-                                          stats=kstats):
+                                          mesh=self.mesh, stats=kstats):
             detected.setdefault(idx, []).append(payload)
         interval_s = time.perf_counter() - t0
 

@@ -15,9 +15,10 @@ buckets as the metrics' yardstick): the unused remainder of the
 bucket is the padding waste the metrics report (occupancy = volume /
 bucket).
 
-Requests carry a ``group`` key (backend + mesh identity); only
-same-group requests coalesce — a cpu-ref differential request never
-rides a CUDA batch.
+Requests carry a ``group`` key (backend + mesh identity: the group
+names the backend, and the mesh is its scheduler's own, one per
+instance); only same-group requests coalesce — a cpu-ref differential
+request never rides a CUDA batch.
 """
 
 from __future__ import annotations

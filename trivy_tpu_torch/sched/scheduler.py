@@ -94,12 +94,15 @@ class ScanScheduler:
     def __init__(self, config: Optional[SchedConfig] = None,
                  backend: str = "cuda", mesh=None,
                  secret_scanner=None, tracer=None, slo=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the scheduler's mesh (one program across several "
-                "cards) is not ported yet (ROADMAP A.6)")
         self.config = config or SchedConfig()
         self.backend = backend
+        # mesh: parallel.mesh.DeviceMesh (or None) — every batch's
+        # interval waves split their rows over its devices (the sieve
+        # shards through the secret scanner's own mesh); the host rung
+        # of the isolation ladder runs without it
+        from ..parallel.mesh import check_mesh
+        check_mesh(mesh, backend)
+        self.mesh = mesh
         self.secret_scanner = secret_scanner
         # fault_injector: optional injector (duck-typed:
         # on_device_dispatch(names)) consulted at the top of every
@@ -697,7 +700,7 @@ class ScanScheduler:
                 all_jobs = [job for job, _ in slot["wrapped"]]
                 if all_jobs:
                     slot["ih"] = dispatch_jobs_async(
-                        all_jobs, backend=group,
+                        all_jobs, backend=group, mesh=self.mesh,
                         stats=slot["kstats"])
             return slot
         except Exception as e:       # noqa: BLE001

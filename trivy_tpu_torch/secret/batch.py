@@ -20,6 +20,12 @@ pkg/fanal/secret/scanner.go:341):
   4. files with surviving rules get a CPU-exact scan restricted to
      those rules — byte-identical findings, because every rule that
      could contribute findings (or censoring) survives the sieve.
+
+With a mesh (``parallel.mesh.make_mesh``), files are LPT-balanced into
+per-shard row blocks and the sieve is submitted SHARDED AND ASYNC
+(``parallel/secret_shard.py``): per-shard packing fans over the host
+pool, one ``dfa_blockmask`` launch per device chunk, each behind its
+own event, and per-block decode fans back over the pool.
 """
 
 from __future__ import annotations
@@ -34,8 +40,10 @@ import torch
 
 from .. import resolve_device
 from ..ops.dfa import compact, dfa_masks_host, full_sieve
-from ..ops.keywords import MAX_CODE_LEN, N_BLOCKS, pad_batch
+from ..ops.keywords import MAX_CODE_LEN, N_BLOCKS, _bucket, pad_batch
 from ..ops.runs import run_hits_host
+from ..parallel.balance import balance_by_volume, shard_occupancy
+from ..parallel.mesh import check_mesh
 from .plan import ScanPlan, build_scan_plan
 from .scanner import Scanner, new_scanner
 
@@ -99,16 +107,22 @@ class BatchSecretScanner:
 
     ``backend`` (the reference's ``tpu``/``cpu``/``cpu-ref``): ``cuda``
     (the default) runs the fused kernel launch on the card, ``cpu``
-    the plain PyTorch sieve on the CPU, ``cpu-ref`` the numpy sieve."""
+    the plain PyTorch sieve on the CPU, ``cpu-ref`` the numpy sieve.
+    ``mesh`` (a ``DeviceMesh`` of ``backend``'s devices) shards the
+    sieve over its devices; ``cpu-ref`` lays the rows out for it and
+    runs numpy, as the reference does."""
 
     def __init__(self, scanner: Optional[Scanner] = None,
-                 seg_len: int = SEG_LEN, backend: str = "cuda"):
+                 seg_len: int = SEG_LEN, backend: str = "cuda",
+                 mesh=None):
         if backend not in BACKENDS:
             raise ValueError(f"unknown secret backend {backend!r} "
                              f"(one of {', '.join(BACKENDS)})")
         self.device = resolve_device(backend) if backend == "cuda" \
             else torch.device("cpu")
+        check_mesh(mesh, backend)
         self.backend = backend
+        self.mesh = mesh
         self.scanner = scanner if scanner is not None else new_scanner()
         self.plan: ScanPlan = build_scan_plan(self.scanner.rules)
         self.table = self.plan.table
@@ -153,17 +167,73 @@ class BatchSecretScanner:
             tmp, (n_segs, L), (step, 1))
         buf[row0:row0 + n_segs] = view
 
+    def _shard_count(self) -> int:
+        """Data shards for the sieve: every device of the mesh, flat —
+        the DFA table is KBs, so rules-axis sharding buys nothing; each
+        device holds the full table and takes a slice of files."""
+        if self.mesh is None:
+            return 1
+        return int(self.mesh.devices.size)
+
     def _layout(self, metas: list) -> dict:
-        """Row layout for a batch: files back to back. Returns
-        {B, layout: [(row0, meta idx)], seg_file, seg_pos}; rows of
-        ``seg_file == -1`` are inert (all-zero segments) and the
-        decoder skips them."""
+        """Row layout for a batch — the device assignment. With a mesh,
+        files are placed into per-shard row blocks balanced by byte
+        volume (``parallel.balance``, LPT) so one fat image cannot
+        serialize the data axis; each block pads to the widest shard.
+        Rows of ``seg_file == -1`` are inert (all-zero segments match no
+        pattern) and the decoders skip them. Returns {B, layout: [(row0,
+        meta idx)], seg_file, seg_pos, occupancy, n_shards,
+        rows_per_shard}."""
         step = self.seg_len - self.overlap
-        B = sum(m[2] for m in metas)
-        layout, row = [], 0
-        for mi, m in enumerate(metas):
-            layout.append((row, mi))
-            row += m[2]
+        n_shards = self._shard_count()
+        occupancy: list = []
+        total = sum(m[2] for m in metas)
+        # the shard count derives from the batch's PADDED size (the
+        # reference's jit pad ladder, ``_bucket``), carved into blocks
+        # of ≥ MIN_SHARD_ROWS, so a small batch on many devices uses
+        # fewer shards; the same ladder here keeps the layout and the
+        # occupancy equal to the reference's
+        MIN_SHARD_ROWS = 64          # = the reference's pallas tile
+        if n_shards > 1 and len(metas) > 1:
+            Bp = _bucket(total, base=4 * MIN_SHARD_ROWS)
+            pow2 = 1
+            while pow2 * 2 <= n_shards:
+                pow2 *= 2
+            n_shards = max(1, min(pow2, Bp // MIN_SHARD_ROWS))
+        else:
+            n_shards = 1         # a single file cannot shard
+        if n_shards > 1:
+            volumes = [n for _, n, _ in metas]
+            assign = balance_by_volume(volumes, n_shards)
+            occupancy = shard_occupancy(volumes, assign, n_shards)
+            by_shard: list = [[] for _ in range(n_shards)]
+            for mi, s in enumerate(assign):
+                by_shard[s].append(mi)
+            # every ladder value divides evenly by a pow2 shard count
+            # ≤ Bp/MIN_SHARD_ROWS, so the total padded rows are the
+            # same at every device count; only a fat file overflowing
+            # its LPT block (occupancy shows it) forces a wider shard
+            rows_per_shard = Bp // n_shards
+            nat = max(sum(metas[mi][2] for mi in block) or 1
+                      for block in by_shard)
+            if nat > rows_per_shard:
+                rows_per_shard = -(-nat // MIN_SHARD_ROWS) * \
+                    MIN_SHARD_ROWS
+            B = n_shards * rows_per_shard
+            layout = []          # (row0, meta index)
+            for s, block in enumerate(by_shard):
+                row = s * rows_per_shard
+                for mi in block:
+                    layout.append((row, mi))
+                    row += metas[mi][2]
+        else:
+            B = total
+            layout, row = [], 0
+            for mi, m in enumerate(metas):
+                layout.append((row, mi))
+                row += m[2]
+            n_shards, rows_per_shard = 1, B
+
         seg_file = [-1] * B
         seg_pos = [0] * B
         for row0, mi in layout:
@@ -172,7 +242,9 @@ class BatchSecretScanner:
                 seg_file[row0 + k] = fe.index
                 seg_pos[row0 + k] = k * step
         return {"B": B, "layout": layout, "seg_file": seg_file,
-                "seg_pos": seg_pos}
+                "seg_pos": seg_pos, "occupancy": occupancy,
+                "n_shards": n_shards,
+                "rows_per_shard": rows_per_shard}
 
     def _metas(self, files: list) -> list:
         return [(fe, len(fe.content), self._n_segs(len(fe.content)))
@@ -180,17 +252,23 @@ class BatchSecretScanner:
 
     def _segment(self, files: list) -> tuple:
         """Flatten files into [B, L] uint8 with per-file overlap
-        chaining. Returns (buffer, seg_file, seg_pos). Row filling is
-        bulk strided copies into disjoint rows, fanned over the host
-        pool when the batch is large enough to amortize it
-        (reference ``secret/batch.py:253-277``)."""
-        # imported here: the runtime package imports this module
-        from ..runtime.hostpool import map_in_pool
+        chaining. Returns (buffer, seg_file, seg_pos, shard_occupancy).
+        Row filling is bulk strided copies into disjoint rows, fanned
+        over the host pool when the batch is large enough to amortize
+        it (reference ``secret/batch.py:253-277``)."""
         metas = self._metas(files)
         if not metas:
-            return np.zeros((0, self.seg_len), np.uint8), [], []
+            return np.zeros((0, self.seg_len), np.uint8), [], [], []
         lay = self._layout(metas)
-        buf = np.zeros((lay["B"], self.seg_len), np.uint8)
+        buf = self._fill(metas, lay, lay["B"])
+        return buf, lay["seg_file"], lay["seg_pos"], lay["occupancy"]
+
+    def _fill(self, metas: list, lay: dict, rows: int) -> np.ndarray:
+        """A zeroed [rows ≥ B, L] buffer with every file of ``lay``'s
+        layout filled in, the fills fanned over the host pool."""
+        # imported here: the runtime package imports this module
+        from ..runtime.hostpool import map_in_pool
+        buf = np.zeros((rows, self.seg_len), np.uint8)
 
         def fill(task) -> None:
             row0, mi = task
@@ -198,7 +276,7 @@ class BatchSecretScanner:
             self._fill_rows(buf, row0, fe.content, n_segs)
 
         map_in_pool(fill, lay["layout"])
-        return buf, lay["seg_file"], lay["seg_pos"]
+        return buf
 
     # --- the public API ---
 
@@ -278,6 +356,7 @@ class BatchSecretScanner:
             "device_s": round(handle["device_s"], 4),
             "decode_s": round(handle.get("decode_s", 0.0), 4),
             "verify_s": round(verify_s, 4),
+            "shard_occupancy": handle.get("shard_occupancy", []),
             "mode": handle.get("mode", ""),
         }
         return results
@@ -288,11 +367,26 @@ class BatchSecretScanner:
         """Segment, upload and enqueue the sieve. Returns the handle
         ``_decode`` consumes; its tensors may still be computing."""
         handle = {"entries": entries, "device_s": 0.0}
+        if self.mesh is not None and self.backend != "cpu-ref":
+            # sharded async submission: the pool-parallel fill of the
+            # LPT layout, one launch per device chunk, decode fanned
+            # back over the pool at collect time
+            from ..parallel.secret_shard import ShardedSieve
+            metas = self._metas(entries)
+            if not metas:
+                handle["mode"] = "empty"
+                return handle
+            sharded = ShardedSieve(self, metas).start()
+            handle.update(mode="sharded", sharded=sharded,
+                          shard_occupancy=sharded.occupancy,
+                          segments=sharded.n_valid)
+            return handle
         t0 = time.perf_counter()
-        buf, seg_file, seg_pos = self._segment(entries)
+        buf, seg_file, seg_pos, occupancy = self._segment(entries)
         handle.update(buf=buf, seg_file=seg_file, seg_pos=seg_pos,
                       pack_s=time.perf_counter() - t0,
-                      segments=int(buf.shape[0]))
+                      segments=int(buf.shape[0]),
+                      shard_occupancy=occupancy)
         if buf.shape[0] == 0:
             handle["mode"] = "empty"
             return handle
@@ -337,6 +431,16 @@ class BatchSecretScanner:
         if handle["mode"] == "empty":
             return {}
         entries = handle["entries"]
+        if handle["mode"] == "sharded":
+            t0 = time.perf_counter()
+            sharded = handle.pop("sharded")
+            file_codes, runs_map = sharded.decode()
+            handle["device_s"] += sharded.device_s
+            handle["pack_s"] = sharded.pack_s
+            out = self._choose(handle, entries, file_codes,
+                               lambda fidx: runs_map.get(fidx, set()))
+            handle["decode_s"] = time.perf_counter() - t0
+            return out
         buf = handle["buf"]
         seg_file = handle["seg_file"]
         seg_pos = handle["seg_pos"]
