@@ -102,10 +102,11 @@ Builds the port's hand-written kernels (``trivy_tpu_torch/csrc``, one
    and joined, ONE ``dfa_blockmask`` sieve over every image's missing
    non-base layers, the interval match in waves of 4,096 rows kept in
    flight by a ``DispatchRing`` on a CUDA side stream): cold into a
-   fresh ``MemoryCache`` at dispatch depth 1 and 2, warm at depth 2
-   (no layer missing, no launch: a re-sweep after a DB update), and
-   once profiled (no depth-4 run here, to leave room for the mesh
-   phase; the card tests run waves of 64 rows at depth 4). Every run's
+   fresh ``MemoryCache`` at dispatch depth 2, warm at depth 2 (no
+   layer missing, no launch: a re-sweep after a DB update), and once
+   profiled (no depth-1 or depth-4 run here, to leave room for the
+   mesh and memo phases; the card tests run waves of 64 rows at depth
+   4, the CPU tests depth 1). Every run's
    reports must be equal and equal to each target scanned alone through
    the image entry; the twin's must be its image's but for its name and
    tag, the truncated tar must fail alone, each cold fleet must launch
@@ -160,6 +161,21 @@ Builds the port's hand-written kernels (``trivy_tpu_torch/csrc``, one
    split the reduced fleet, each with its own 20,000-row fixture DB
    (reduced: each host compiles its own DB), and their union must
    equal one single-host run.
+10. memo phase (``memo_phase``): the 16 targets behind a
+   ``SwappableStore`` of the vuln phase's DB, with a findings memo:
+   cold, then warm (a new runner and blob cache) with no interval job
+   dispatched, on a memory store and on an ``FSMemoStore`` read by a
+   second memo instance; then a second generation of the DB (the same
+   seeded store with advisories changed, added and removed on pairs
+   that four memo entries alone ask about) compiled and swapped in:
+   staged once on the card, re-matched on ``cuda``, the other entries
+   migrated, and a memo fleet after it dispatches nothing and equals
+   a fleet without the memo on the new generation. Then the DB
+   lifecycle through the CLI on a reduced 20,000-row trivy-db
+   (``lifecycle_phase``: BoltDB, ``db update --compile``, ``sbom
+   --cache-dir`` in subprocesses). The sbom phase's CLI subprocess
+   reports its wall split (imports, ``CompiledDB.load``, the DB's
+   content fingerprint, the first upload).
 
 It prints the card's name and power limit, one ``{"kernels": [...]}``
 line (times from CUDA events, the bound this run's inputs give, each
@@ -2078,16 +2094,17 @@ def fleet_targets(work_dir: str, tree: tuple, n_pkgs: dict, seed: int,
     return {"paths": paths, "twin": (twin - 1, twin), "broken": broken}
 
 
-FLEET_DEPTHS = (1, 2)
+FLEET_DEPTHS = (2,)
 FLEET_REDUCED = 4               # targets of the cross-backend fleet
 FLEET_REDUCED_SCALE = 0.25      # its package counts, of the full fleet's
 
 
 def run_fleet(paths: list, db, backend: str, scanner, cache,
-              depth: int, mesh=None) -> dict:
+              depth: int, mesh=None, memo=None) -> dict:
     """One ``BatchScanRunner(sched="off").scan_paths`` over ``paths``
     (over ``mesh`` when given: then ``scanner`` None lets the runner
-    build its sharded one), its sieve launches counted from 0:
+    build its sharded one; with the findings memo ``memo`` when
+    given), its sieve launches counted from 0:
     {"texts": one sorted JSON report text per target, None for a
     failed one, "failed": [(index, status, causes)] of the
     failed ones, "wall_s" (the runner's),
@@ -2098,7 +2115,7 @@ def run_fleet(paths: list, db, backend: str, scanner, cache,
     from trivy_tpu_torch.runtime import BatchScanRunner
     runner = BatchScanRunner(store=db, cache=cache, backend=backend,
                              secret_scanner=scanner, mesh=mesh,
-                             dispatch_depth=depth)
+                             dispatch_depth=depth, memo=memo)
     spans: dict = {}
 
     def clocked(name: str, fn):
@@ -2193,15 +2210,15 @@ def fleet_phase(device, cdb, n_pkgs: dict, files: list,
            for k, n in launches.items()):
         raise AssertionError(f"sieve launches per fleet: {launches} "
                              f"(1 per cold fleet, 0 warm)")
-    want = runs["cold_d1"]["texts"]
+    want = runs["cold_d2"]["texts"]
     for k, r in runs.items():
         if r["texts"] != want:
             raise AssertionError(f"fleet run {k}'s reports differ from "
-                                 f"the depth-1 run's")
+                                 f"the cold run's")
     if cdb.device_stats()["uploads"] != up0:
         raise AssertionError("a fleet run uploaded the resident tables "
                              "again")
-    failed = runs["cold_d1"]["failed"]
+    failed = runs["cold_d2"]["failed"]
     if [(i, status) for i, status, _ in failed] != \
             [(plan["broken"], "failed")]:
         raise AssertionError(f"the broken tar did not fail alone: "
@@ -2538,6 +2555,54 @@ def sched_phase(device, cdb, fleet: dict) -> dict:
     return out
 
 
+# ``python -m trivy_tpu_torch ARGS`` with its wall split: the imports,
+# ``CompiledDB.load``, the first upload of the resident tables, the
+# DB's content fingerprint (the findings memo's key) and the rest of
+# ``main``; printed on stderr as ``cli-split: {...}``
+CLI_SPLIT = """
+import json, sys, time
+t0 = time.perf_counter()
+from trivy_tpu_torch import cli
+from trivy_tpu_torch.db import CompiledDB
+from trivy_tpu_torch.ops.resident import ResidentTables
+split = {"imports_s": time.perf_counter() - t0, "load_s": 0.0,
+         "first_upload_s": None, "fingerprint_s": 0.0}
+load, placed = CompiledDB.load.__func__, ResidentTables._placed
+fingerprint = CompiledDB.content_fingerprint
+
+def timed_fingerprint(self):
+    t = time.perf_counter()
+    try:
+        return fingerprint(self)
+    finally:
+        split["fingerprint_s"] += time.perf_counter() - t
+
+def timed_load(cls, path):
+    t = time.perf_counter()
+    try:
+        return load(cls, path)
+    finally:
+        split["load_s"] += time.perf_counter() - t
+
+def timed_placed(self, key):
+    t = time.perf_counter()
+    try:
+        return placed(self, key)
+    finally:
+        if split["first_upload_s"] is None:
+            split["first_upload_s"] = time.perf_counter() - t
+
+CompiledDB.load = classmethod(timed_load)
+CompiledDB.content_fingerprint = timed_fingerprint
+ResidentTables._placed = timed_placed
+t = time.perf_counter()
+rc = cli.main(sys.argv[1:])
+split["main_s"] = time.perf_counter() - t
+print("cli-split: " + json.dumps(split), file=sys.stderr)
+sys.exit(rc)
+"""
+
+
 def sbom_phase(device, cdb, n_pkgs: dict, work_dir: str) -> dict:
     """The ``sbom`` entry on the vuln phase's DB: each image BOM once
     cold (tables dropped first, so the upload is in it) and
@@ -2618,7 +2683,7 @@ def sbom_phase(device, cdb, n_pkgs: dict, work_dir: str) -> dict:
     report_path = os.path.join(work_dir, "A.report.json")
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [sys.executable, "-m", "trivy_tpu_torch", "sbom", paths["A"],
+        [sys.executable, "-c", CLI_SPLIT, "sbom", paths["A"],
          "--compiled-db", db_path, "--backend", backend,
          "--format", "json", "--output", report_path],
         cwd=os.path.dirname(os.path.abspath(__file__)),
@@ -2627,6 +2692,13 @@ def sbom_phase(device, cdb, n_pkgs: dict, work_dir: str) -> dict:
     if proc.returncode != 0:
         raise AssertionError(f"sbom CLI exited {proc.returncode}: "
                              f"{proc.stderr[-2000:]}")
+    split = json.loads(proc.stderr.split("cli-split: ")[-1].splitlines()[0])
+    main_s = split.pop("main_s")
+    split["rest_of_main_s"] = main_s - split["load_s"] - \
+        (split["first_upload_s"] or 0.0) - split["fingerprint_s"]
+    split["start_and_exit_s"] = out["cli_wall_s"] - main_s - \
+        split["imports_s"]
+    out["cli_split"] = split
     with open(report_path) as f:
         if _sorted_json(f.read()) != reports["A"]:
             raise AssertionError("the sbom CLI's report != the in-process "
@@ -3023,6 +3095,318 @@ def mesh_fleet_phase(device, cdb, fleet: dict, mesh, work_dir: str) -> dict:
             "phase_s": time.perf_counter() - t_phase}
 
 
+# --- the findings memo and the DB lifecycle ---------------------------
+
+MEMO_TOUCH_ENTRIES = 4          # memo entries the hot swap's delta hits
+MEMO_TOUCH_PAIRS = 24           # (bucket, package) pairs per such entry
+LIFECYCLE_ROWS = 20_000         # the CLI lifecycle's trivy-db (reduced)
+
+
+def memo_entries(memo) -> dict:
+    """{key: entry} of every entry in ``memo``'s store."""
+    keys = memo.store.keys()
+    return {k: memo._load(k) for k in keys}
+
+
+def queried_pairs(entry: dict, cdb) -> set:
+    """The (bucket, package) pairs of ``cdb`` that an entry's queries
+    join: an OS query names its bucket, a library query an ecosystem
+    prefix that spans every bucket under it."""
+    out = set()
+    for sub in entry["subs"].values():
+        name = sub["name"]
+        if sub["kind"] == "os":
+            out.add((sub["bucket"], name))
+            continue
+        out.update((b, name) for b, pkgs in cdb.index.items()
+                   if b.startswith(sub["bucket"]) and name in pkgs)
+    return out
+
+
+def delta_pairs(entries: dict, cdb, n_entries: int = MEMO_TOUCH_ENTRIES,
+                per_entry: int = MEMO_TOUCH_PAIRS) -> list:
+    """Pairs for the hot swap's delta: up to ``per_entry`` pairs that
+    only one entry asks about, from each of ``n_entries`` entries (in
+    key order), so that those entries re-match and the others migrate
+    untouched."""
+    by_entry = {k: queried_pairs(e, cdb) for k, e in sorted(
+        entries.items())}
+    seen: dict = {}
+    for pairs in by_entry.values():
+        for p in pairs:
+            seen[p] = seen.get(p, 0) + 1
+    out = []
+    picked = 0
+    for pairs in by_entry.values():
+        own = sorted(p for p in pairs if seen[p] == 1)
+        if not own:
+            continue
+        out += own[:per_entry]
+        picked += 1
+        if picked == n_entries:
+            break
+    return out
+
+
+def mutate_store(store, pairs: list, seed: int) -> dict:
+    """Edit ``store`` (a fresh one: no read has cached its advisories)
+    in place at ``pairs``, in turn: one advisory's content changed
+    (another advisory's value of the same bucket), an advisory added,
+    every advisory of the package removed. Returns the counts of
+    each."""
+    rng = np.random.default_rng(seed)
+    counts = {"changed": 0, "added": 0, "removed": 0}
+    for i, (bucket, pkg) in enumerate(pairs):
+        pkgs = store.buckets[bucket]
+        names = list(pkgs)
+        donor = pkgs[names[int(rng.integers(0, len(names)))]]
+        value = dict(next(iter(donor.values())))
+        advs = pkgs[pkg]
+        kind = ("changed", "added", "removed")[i % 3]
+        if kind == "changed":
+            vid = next(iter(advs))
+            if value == advs[vid]:
+                value["Severity"] = 3
+            store.put_advisory(bucket, pkg, vid, value)
+        elif kind == "added":
+            vid = f"CVE-2099-{i:07d}"
+            store.put_advisory(bucket, pkg, vid, value)
+            store.put_vulnerability(vid, {"Title": f"{pkg}: added {i}",
+                                          "Severity": "CRITICAL"})
+        else:
+            del pkgs[pkg]
+        counts[kind] += 1
+    return counts
+
+
+def memo_phase(device, cdb, fleet: dict, work_dir: str,
+               no_memo_wall_s: float) -> dict:
+    """The findings memo (``memo/``) and the hot swap on the card, over
+    the fleet phase's targets and the vuln phase's DB behind a
+    ``SwappableStore`` with the memo attached (``attach_memo``):
+
+    1. a cold memo fleet (memory store) records the verdicts; a warm
+       one (a new runner and blob cache, the same memo) must give its
+       reports with no interval job dispatched. The wall to compare,
+       ``no_memo_wall_s``, is the mesh phase's single-device fleet
+       (no memo, a new blob cache, the same DB, this run);
+    2. the same with an ``FSMemoStore`` in a directory: one memo
+       instance writes, a second one, on a new runner, serves;
+    3. a second generation of the DB, the same seeded store with a
+       delta on pairs that a few entries alone ask about (changed,
+       added and removed advisories), compiled and swapped in: the
+       swap must stage it on the card, re-match on ``cuda``
+       (``rematch_jobs`` > 0, device operations in the swap) and
+       migrate the other entries (``migrated`` > 0); a memo fleet
+       after it must dispatch nothing and give the reports of a fleet
+       without a memo on the new generation.
+
+    Every memo fleet must give the fleet phase's reports on the first
+    generation. Prints the walls, the swap's split and the re-match's
+    device ms."""
+    from trivy_tpu_torch.artifact import MemoryCache
+    from trivy_tpu_torch.db import CompiledDB
+    from trivy_tpu_torch.db.compiled import SwappableStore
+    from trivy_tpu_torch.db.lifecycle import attach_memo
+    from trivy_tpu_torch.memo import MEMO_METRICS, make_findings_memo
+    backend = device.type
+    t_phase = time.perf_counter()
+    paths, want, card = fleet["plan"]["paths"], fleet["texts"], \
+        fleet["scanner"]
+    holder = SwappableStore(cdb)
+    cdb.device_tables(device)           # resident since the vuln phase
+    up0 = cdb.device_stats()["uploads"]
+
+    def fleet_run(memo, name: str) -> dict:
+        m0 = MEMO_METRICS.snapshot()
+        r = run_fleet(paths, holder, backend, card, MemoryCache(), 2,
+                      memo=memo)
+        m1 = MEMO_METRICS.snapshot()
+        r["memo"] = {k: m1[k] - m0[k] for k in ("hits", "misses",
+                                                 "stores", "corrupt")}
+        r["jobs"] = r["stats"]["interval_jobs"]
+        if holder._readers:
+            raise AssertionError(f"memo {name}: the holder was not "
+                                 f"released ({holder._readers} readers)")
+        return r
+
+    def check(r, name: str, texts, warm: bool) -> None:
+        if r["texts"] != texts:
+            raise AssertionError(f"memo {name}: reports differ")
+        if warm and (r["jobs"] or r["memo"]["misses"]
+                     or not r["memo"]["hits"]):
+            raise AssertionError(f"memo {name}: {r['jobs']} interval jobs, "
+                                 f"memo {r['memo']} (want 0 jobs, hits "
+                                 f"only)")
+
+    runs = {}
+    memo = make_findings_memo(uri="memory", secret_scanner=card,
+                              backend=backend)
+    if memo.backend != backend:
+        raise AssertionError(f"memo re-matches on {memo.backend}")
+    runs["memory_cold"] = fleet_run(memo, "memory_cold")
+    runs["memory_warm"] = fleet_run(memo, "memory_warm")
+    check(runs["memory_cold"], "memory_cold", want, False)
+    check(runs["memory_warm"], "memory_warm", want, True)
+    if not runs["memory_cold"]["memo"]["stores"]:
+        raise AssertionError("the cold memo fleet stored no entry")
+
+    memo_dir = os.path.join(work_dir, "memo-fs")
+    writer = make_findings_memo(uri=memo_dir, secret_scanner=card,
+                                backend=backend)
+    runs["fs_cold"] = fleet_run(writer, "fs_cold")
+    reader = make_findings_memo(uri=memo_dir, secret_scanner=card,
+                                backend=backend)
+    runs["fs_warm"] = fleet_run(reader, "fs_warm")
+    check(runs["fs_cold"], "fs_cold", want, False)
+    check(runs["fs_warm"], "fs_warm", want, True)
+    n_fs = len(os.listdir(os.path.join(memo_dir, "memo")))
+
+    # the second generation: the vuln phase's seeded store again, a
+    # delta on pairs only a few entries ask about
+    entries = memo_entries(memo)
+    pairs = delta_pairs(entries, cdb)
+    t0 = time.perf_counter()
+    store, _ = make_advisory_store(VULN_ROWS, SEED + 3)
+    store_s = time.perf_counter() - t0
+    changes = mutate_store(store, pairs, SEED + 70)
+    t0 = time.perf_counter()
+    new = CompiledDB.compile(store)
+    compile_s = time.perf_counter() - t0
+    del store
+    staged = []              # the new tables' uploads when it went in
+    holder.add_swap_hook(lambda old, cur: staged.append(
+        cur.device_stats()["uploads"]))
+    attach_memo(holder, memo)
+    swap_out = {}
+    memo.hot_swap = _recording(memo.hot_swap, swap_out)
+    new_up0 = new.device_stats()["uploads"]
+    _, ops, swap_ms = device_profile(lambda: holder.swap(new))
+    del memo.hot_swap
+    out = swap_out["out"]
+    n_ops, busy_ms = op_totals(ops)
+    if holder.current() is not new or cdb._device:
+        raise AssertionError("the swap did not install the new generation "
+                             "and drop the old one's device copies")
+    if staged != [new_up0 + (backend == "cuda")]:
+        raise AssertionError("the swap did not stage the new generation "
+                             "on the card once")
+    if not (out["rematch_jobs"] > 0 and out["migrated"] > 0):
+        raise AssertionError(f"hot swap: {out}")
+    kernels = {k: v for k, v in ops.items()
+               if "emcpy" not in k and "emset" not in k}
+    if not kernels or out["dispatch"].get("jobs_in") != out["rematch_jobs"]:
+        raise AssertionError(f"the re-match did not run on the card: "
+                             f"{sorted(ops)}")
+    n_kern, kernel_ms = op_totals(kernels)
+    runs["after_swap_no_memo"] = fleet_run(None, "after_swap_no_memo")
+    runs["after_swap_memo"] = fleet_run(memo, "after_swap_memo")
+    new_texts = runs["after_swap_no_memo"]["texts"]
+    check(runs["after_swap_memo"], "after_swap_memo", new_texts, True)
+    if cdb.device_stats()["uploads"] != up0:
+        raise AssertionError("a memo fleet uploaded the old tables again")
+    new.invalidate_device()
+    del new
+
+    return {
+        "targets": len(paths), "entries": len(entries), "fs_entries": n_fs,
+        "no_memo_wall_s": no_memo_wall_s,
+        "reports_changed_by_the_delta": sum(
+            a != b for a, b in zip(want, new_texts)),
+        "runs": {k: {"wall_s": r["wall_s"], "split_s": r["split_s"],
+                     "interval_jobs": r["jobs"], "memo": r["memo"],
+                     "launches": r["launches"]} for k, r in runs.items()},
+        "delta": {**out["delta"], **changes, "pairs": len(pairs)},
+        "second_generation": {"store_s": store_s, "compile_s": compile_s},
+        "swap": {"wall_ms": swap_ms, "split_s": out["split_s"],
+                 "migrated": out["migrated"],
+                 "rematch_entries": out["rematch_entries"],
+                 "rematch_jobs": out["rematch_jobs"],
+                 "invalidated_subs": out["invalidated_subs"],
+                 "dropped_subs": out["dropped_subs"],
+                 "dispatch": out["dispatch"],
+                 "device_ops": n_ops, "device_ms": busy_ms,
+                 "kernels": n_kern, "kernel_ms": kernel_ms,
+                 "ops_us": ops},
+        "launches": {k: r["launches"] for k, r in runs.items()},
+        "phase_s": time.perf_counter() - t_phase}
+
+
+def _recording(fn, box: dict):
+    """``fn`` that also keeps its return value in ``box["out"]``."""
+    def run(*args, **kwargs):
+        box["out"] = fn(*args, **kwargs)
+        return box["out"]
+    return run
+
+
+def lifecycle_phase(backend: str, work_dir: str) -> dict:
+    """The DB lifecycle through the CLI, on a reduced trivy-db of
+    ``LIFECYCLE_ROWS`` rows (host work: writing and reading a BoltDB in
+    Python takes minutes at the vuln phase's size): the store written
+    by ``db/boltwriter.py``, packed (``pack_db_archive``) into an OCI
+    layout (``write_oci_layout``); ``python -m trivy_tpu_torch db update
+    --from-oci-layout L --cache-dir D --compile`` in a subprocess, then
+    ``sbom BOM --cache-dir D`` in another. Its report must equal the
+    same scan in process on the same BoltDB loaded as a plain store —
+    what ``--db-fixtures`` gives, without the PyYAML a fixture file
+    needs (a card's host may lack it)."""
+    import datetime
+
+    from trivy_tpu_torch.db.boltdb import load_trivy_db
+    from trivy_tpu_torch.db.boltwriter import write_trivy_db
+    from trivy_tpu_torch.db.lifecycle import (SCHEMA_VERSION, Metadata,
+                                              pack_db_archive,
+                                              write_oci_layout)
+    t_phase = time.perf_counter()
+    d = os.path.join(work_dir, "lifecycle")
+    os.makedirs(d)
+    store, n_pkgs = make_advisory_store(LIFECYCLE_ROWS, SEED + 60)
+    bolt = os.path.join(d, "trivy.db")
+    t0 = time.perf_counter()
+    write_trivy_db(bolt, store.buckets, store.vulnerabilities)
+    write_s = time.perf_counter() - t0
+    now = datetime.datetime.now(datetime.timezone.utc)
+    with open(bolt, "rb") as f:
+        archive = pack_db_archive(f.read(), Metadata(
+            version=SCHEMA_VERSION, updated_at=now,
+            next_update=now + datetime.timedelta(days=1)))
+    layout = os.path.join(d, "layout")
+    write_oci_layout(layout, archive)
+    bom = os.path.join(d, "bom.cdx.json")
+    with open(bom, "w") as f:
+        json.dump(make_bom(SBOM_IMAGES["A"], n_pkgs, SEED + 61), f)
+    cache = os.path.join(d, "cache")
+    report = os.path.join(d, "report.json")
+    walls = {}
+    for name, argv in (
+            ("db_update", ["db", "update", "--from-oci-layout", layout,
+                           "--cache-dir", cache, "--compile"]),
+            ("sbom", ["sbom", bom, "--cache-dir", cache, "--backend",
+                      backend, "--format", "json", "--output", report])):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "trivy_tpu_torch"] + argv,
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=300)
+        walls[name] = time.perf_counter() - t0
+        if proc.returncode != 0 or "warning:" in proc.stderr:
+            raise AssertionError(f"{name} CLI exited {proc.returncode}: "
+                                 f"{proc.stderr[-2000:]}")
+    plain, n_adv, _ = load_trivy_db(bolt)
+    text, _, _ = scan_bom(bom, plain, backend)
+    with open(report) as f:
+        got = _sorted_json(f.read())
+    if got != _sorted_json(text):
+        raise AssertionError("sbom --cache-dir != the same scan on the "
+                             "plain store")
+    if "Vulnerabilities" not in got:
+        raise AssertionError("the lifecycle scan found nothing")
+    return {"rows": n_adv, "bolt_bytes": os.path.getsize(bolt),
+            "write_s": write_s, "cli_wall_s": walls,
+            "phase_s": time.perf_counter() - t_phase}
+
+
 def mesh_line(mesh_kern: dict, name: str) -> dict:
     """A kernel's per-shard numbers for the kernels line: medians of
     the turns, the joined shards' first turn beside them."""
@@ -3094,8 +3478,13 @@ def main() -> int:
         sched = sched_phase(device, cdb, kept)
         print("sched phase: " + json.dumps(sched), flush=True)
         mesh_fleet = mesh_fleet_phase(device, cdb, kept, mesh, work)
+        print("mesh phase, fleet: " + json.dumps(mesh_fleet), flush=True)
+        memo = memo_phase(device, cdb, kept, work,
+                          mesh_fleet["single"]["wall_s"])
         del kept
-    print("mesh phase, fleet: " + json.dumps(mesh_fleet), flush=True)
+        print("memo phase: " + json.dumps(memo), flush=True)
+        life = lifecycle_phase(device.type, work)
+        print("lifecycle phase: " + json.dumps(life), flush=True)
 
     note = "no single PyTorch call computes this function"
     # every run of the main paths, each counted from 0 (timing loops
@@ -3105,7 +3494,8 @@ def main() -> int:
                 "fleet": sum(fleet["launches"].values()),
                 "sched": sum(sched["launches"].values()),
                 "mesh_sieve": mesh_kern["dfa_blockmask"]["launches"],
-                "mesh_fleet": sum(mesh_fleet["launches"].values())}
+                "mesh_fleet": sum(mesh_fleet["launches"].values()),
+                "memo": sum(memo["launches"].values())}
     code_runs = {"run_blockmask": lit["launches"],
                  "sharded_blockmask":
                      mesh_kern["code_blockmask"]["launches"],
@@ -3208,6 +3598,24 @@ def main() -> int:
           f"device(s); simulated hosts (reduced: "
           f"{mf['simhosts']['reduced']}): {mf['simhosts']['wall_s']:.1f} s",
           flush=True)
+    mr, sw = memo["runs"], memo["swap"]
+    print(f"findings memo over the fleet of {memo['targets']} targets "
+          f"({memo['entries']} entries): " + json.dumps(
+              {k: {"wall_s": r["wall_s"], "interval_jobs": r["interval_jobs"],
+                   "memo": r["memo"]} for k, r in mr.items()}) +
+          f"; no memo (the mesh phase's single-device fleet): "
+          f"{memo['no_memo_wall_s']:.3f} s" +
+          f"; hot swap of a {memo['second_generation']['compile_s']:.1f} s "
+          f"compile: delta {json.dumps(memo['delta'])}, wall "
+          f"{sw['wall_ms']:.1f} ms (split s {json.dumps(sw['split_s'])}), "
+          f"{sw['migrated']} entries migrated, {sw['rematch_entries']} "
+          f"re-matched with {sw['rematch_jobs']} jobs on the card in "
+          f"{sw['kernels']} kernels, {sw['kernel_ms']:.3f} ms "
+          f"({sw['device_ms']:.3f} ms busy with the staging copy); "
+          f"{memo['reports_changed_by_the_delta']} reports changed; "
+          f"lifecycle CLI (reduced, {life['rows']} rows): "
+          f"{json.dumps(life['cli_wall_s'])} s; sbom CLI process split: "
+          f"{json.dumps(sb['cli_split'])}", flush=True)
     print(f"script: {time.perf_counter() - t_script:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

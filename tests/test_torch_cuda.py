@@ -3,7 +3,9 @@ the class-run gate fused into its launch) and ``code_blockmask``
 kernels against their plain PyTorch versions, the fused sieves, the
 literal-code entry points, a batch scan and an fs scan; the interval
 match and the pair dispatcher against their numpy versions; the
-``sbom``, ``fs`` and ``rootfs`` entries' reports against the CPU's.
+``sbom``, ``fs`` and ``rootfs`` entries' reports against the CPU's;
+the findings memo's warm fleet and the hot swap's re-match on the
+card.
 Every output is an integer mask or an exact finding, so every
 comparison is exact equality.
 
@@ -953,3 +955,112 @@ def test_mesh_fleet_on_the_card_equals_one_device(cuda, mesh, tmp_path,
               if i != plan["broken"] and r.status == "failed"]
     assert failed and all(r.causes[0].kind == "dispatch_failed"
                           for r in failed)
+
+
+# --- the findings memo and the hot swap -------------------------------
+
+def _memo_fleet(tmp_path, seed: int):
+    """A seeded 3000-row store, its compiled DB and a small fleet."""
+    from chip_smoke import (FS_ROOTS, fleet_targets, make_advisory_store,
+                            make_corpus)
+    store, n_pkgs = make_advisory_store(3000, seed)
+    files, _ = make_corpus(64, seed + 1)
+    plan = fleet_targets(str(tmp_path), FS_ROOTS["fs"], n_pkgs, 5, files,
+                         n_images=6, scale=0.04)
+    return store, CompiledDB.compile(store), plan
+
+
+def test_swap_stages_a_card_generation_and_a_failed_stage_raises(cuda):
+    """``SwappableStore.swap`` uploads the new generation to the card
+    the old one is on before it goes in, and drops the old one's copies;
+    when that upload fails, the swap raises and the old generation
+    stays installed."""
+    from chip_smoke import make_advisory_store
+    from trivy_tpu_torch.db.compiled import SwappableStore
+    old = CompiledDB.compile(make_advisory_store(2000, 61)[0])
+    new = CompiledDB.compile(make_advisory_store(2000, 62)[0])
+    old.device_tables(cuda)
+    sw = SwappableStore(old)
+    seen = []
+    sw.add_swap_hook(lambda o, n: seen.append(n.device_stats()["uploads"]))
+    sw.swap(new)
+    assert sw.current() is new and seen == [1]
+    assert not old._device and list(new._device) == ["cuda:0"]
+
+    def broken():
+        raise RuntimeError("upload failed")
+
+    bad = CompiledDB.compile(make_advisory_store(2000, 63)[0])
+    bad._resident_arrays = broken
+    with pytest.raises(RuntimeError, match="upload failed"):
+        sw.swap(bad)
+    assert sw.current() is new and seen == [1]
+    assert "cuda:0" in new._device
+
+
+def test_warm_memo_fleet_on_the_card_dispatches_nothing(cuda, tmp_path):
+    """A memo fleet on the card, then a warm one (a new runner and blob
+    cache, the same memo): no interval job, no miss, the cold fleet's
+    reports, which are a no-memo fleet's."""
+    from trivy_tpu_torch.memo import FindingsMemo
+    from trivy_tpu_torch.runtime import BatchScanRunner
+    _, cdb, plan = _memo_fleet(tmp_path, 71)
+    memo = FindingsMemo(backend="cuda")
+    out = []
+    for m in (None, memo, memo):
+        runner = BatchScanRunner(store=cdb, backend="cuda", memo=m)
+        res = runner.scan_paths(plan["paths"])
+        out.append(([(r.name, r.error or json.dumps(
+            r.report.to_dict(), sort_keys=True)) for r in res],
+            runner.last_stats["interval_jobs"]))
+    assert out[0][0] == out[1][0] == out[2][0]
+    assert out[1][1] == out[0][1] > 0 and out[2][1] == 0
+
+
+def test_hot_swap_rematches_on_the_card(cuda, tmp_path):
+    """The memo's hot swap re-matches the delta-touched queries on the
+    card (the new generation's tables there, device time spent), and a
+    memo fleet after it dispatches nothing and gives a no-memo fleet's
+    reports on the new generation — as the same swap on ``cpu-ref``."""
+    from chip_smoke import (delta_pairs, make_advisory_store, memo_entries,
+                            mutate_store)
+    from trivy_tpu_torch.db.compiled import SwappableStore
+    from trivy_tpu_torch.db.lifecycle import attach_memo
+    from trivy_tpu_torch.memo import FindingsMemo
+    from trivy_tpu_torch.runtime import BatchScanRunner
+    store, cdb, plan = _memo_fleet(tmp_path, 81)
+
+    def scan(db, backend, memo=None):
+        runner = BatchScanRunner(store=db, backend=backend, memo=memo)
+        res = runner.scan_paths(plan["paths"])
+        return [(r.name, r.error or json.dumps(r.report.to_dict(),
+                                               sort_keys=True))
+                for r in res], runner.last_stats["interval_jobs"]
+
+    outs = {}
+    for backend in ("cuda", "cpu-ref"):
+        old = CompiledDB.compile(store)
+        memo = FindingsMemo(backend=backend)
+        scan(old, backend, memo)
+        pairs = delta_pairs(memo_entries(memo), old, n_entries=2)
+        store2, _ = make_advisory_store(3000, 81)
+        mutate_store(store2, pairs, 83)
+        new = CompiledDB.compile(store2)
+        sw = SwappableStore(old)
+        box = []
+        real = memo.hot_swap
+        memo.hot_swap = lambda o, n: box.append(real(o, n)) or box[-1]
+        attach_memo(sw, memo)
+        sw.swap(new)
+        out = box[0]
+        assert out["rematch_jobs"] > 0 and out["migrated"] > 0
+        if backend == "cuda":
+            assert "cuda:0" in new._device
+            assert out["dispatch"]["device_s"] > 0
+        warm, jobs = scan(sw, backend, memo)
+        cold, _ = scan(new, backend)
+        assert jobs == 0 and warm == cold
+        outs[backend] = (warm, {k: out[k] for k in (
+            "migrated", "rematch_entries", "rematch_jobs",
+            "invalidated_subs", "dropped_subs")})
+    assert outs["cuda"] == outs["cpu-ref"]

@@ -345,8 +345,9 @@ def test_fleet_usage_errors_as_reference(fleet, flags, monkeypatch,
 def test_runner_takes_the_direct_path_only(fleet):
     """``sched="off"`` is the direct path; ``"on"``, a ``SchedConfig``
     or a shared ``ScanScheduler`` take the scheduled route (ROADMAP
-    A.5, ported), whose reports equal the direct path's. ``memo``
-    stays refused (A.7); ``mesh`` is taken (A.6, ported:
+    A.5, ported), whose reports equal the direct path's. ``memo`` is
+    taken (A.7, ported: ``tests/test_torch_memo.py``); ``mesh`` is
+    taken (A.6, ported:
     ``tests/test_torch_parallel.py``), and what is not a
     ``DeviceMesh`` is refused as one, in the runner and in the
     scheduler."""
@@ -371,8 +372,7 @@ def test_runner_takes_the_direct_path_only(fleet):
         assert not shared.queue.closed      # the caller's to close
     finally:
         shared.close()
-    with pytest.raises(TypeError):
-        TRunner(backend="cpu", memo=None)
+    assert TRunner(backend="cpu", memo=None).memo is None
     assert TRunner(backend="cpu", mesh=None).mesh is None
     for make in (lambda: TRunner(backend="cpu", mesh=object()),
                  lambda: ScanScheduler(backend="cpu", mesh=object())):

@@ -114,6 +114,16 @@ PARALLEL_SLICE = ("parallel/__init__.py", "parallel/mesh.py",
                   "runtime/batch.py", "sched/scheduler.py", "cli.py")
 
 
+# the findings memo and the DB lifecycle, with the flag layer
+MEMO_SLICE = ("memo/__init__.py", "memo/keys.py", "memo/store.py",
+              "memo/findings.py", "memo/metrics.py", "db/delta.py",
+              "detect/rematch.py", "db/compiled.py", "db/boltdb.py",
+              "db/boltwriter.py", "db/lifecycle.py", "guard/safetar.py",
+              "artifact/resilient.py", "flag.py", "utils/log.py",
+              "scan/local.py", "runtime/batch.py", "sched/metrics.py",
+              "cli.py")
+
+
 def _covered(modules) -> None:
     import importlib
     import pkgutil
@@ -150,6 +160,10 @@ def test_the_scans_cover_the_sched_slice():
 
 def test_the_scans_cover_the_parallel_slice():
     _covered(PARALLEL_SLICE)
+
+
+def test_the_scans_cover_the_memo_slice():
+    _covered(MEMO_SLICE)
 
 
 def test_simhost_entry_runs_without_jax():

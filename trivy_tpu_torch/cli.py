@@ -41,8 +41,21 @@ All write ``table`` (the default), ``json`` or ``cyclonedx``, and run
 on ``--backend cuda`` unless asked for ``cpu`` (the same torch code on
 the CPU) or ``cpu-ref`` (numpy). Blobs go to an in-memory cache unless
 ``--cache-dir`` names a directory for the on-disk one (``--no-cache``
-keeps them in memory all the same); the findings memo is ROADMAP A.7,
-so every scan behaves as the reference's ``--no-memo``.
+keeps them in memory all the same). A scan with the ``vuln`` check
+keeps its detection verdicts in the findings memo (``memo/``): in
+memory, under ``--cache-dir`` beside the blobs, or where
+``--memo-cache`` says; ``--no-memo`` turns it off. Without
+``--db-fixtures`` or ``--compiled-db``, ``--cache-dir`` names the
+advisory DB that ``db update`` installed there.
+
+``db build --from-fixtures|--from-boltdb -o PREFIX`` compiles an
+advisory DB into the npz that ``--compiled-db`` loads; ``db update
+--from-oci-layout L --cache-dir D [--compile]`` installs the trivy-db
+archive of a local OCI layout under ``D/db`` (``db/lifecycle.py``).
+
+Every flag's default comes from ``TRIVY_<FLAG>`` in the environment,
+else from ``trivy.yaml`` in the working directory or the file
+``--config`` names (``flag.py``); ``--timeout`` bounds the run.
 """
 
 from __future__ import annotations
@@ -62,6 +75,7 @@ from .artifact import (ArtifactOption, FSCache, ImageArtifact,
                        LocalFSArtifact, MemoryCache, SBOMArtifact,
                        load_image)
 from .db import AdvisoryStore, CompiledDB, load_fixtures
+from .db.lifecycle import db_dir, needs_update
 from .detect.batch import dispatch_jobs
 from .guard import DEFAULT_LIMITS, make_budget
 from .handler.unpackaged import check_rekor
@@ -82,6 +96,11 @@ BACKENDS = ("cuda", "cpu", "cpu-ref")
 # interchange formats carry the full package inventory (ref
 # pkg/commands/artifact/run.go ListAllPkgs override)
 _SBOM_FORMATS = ("cyclonedx", "spdx", "spdx-json", "github")
+# every --format, ported or not, in the reference's order: a value
+# that is none of them gets the reference's error line
+_FORMAT_CHOICES = sorted(FORMATS + UNPORTED_FORMATS, key=(
+    "table", "json", "sarif", "cyclonedx", "spdx", "spdx-json", "github",
+    "cosign-vuln", "template").index)
 
 
 def _split(s: str) -> list:
@@ -89,15 +108,38 @@ def _split(s: str) -> list:
 
 
 def load_store(db_fixtures: str = "", compiled_db: str = "",
-               compile_db: bool = False):
+               compile_db: bool = False, cache_dir: str = "",
+               skip_db_update: bool = False):
     """The advisory source of a scan (ref cli.py ``_store``): a
     ``CompiledDB`` npz (``--compiled-db`` path prefix), else an
-    ``AdvisoryStore`` from fixture YAMLs, compiled when asked."""
+    ``AdvisoryStore`` from fixture YAMLs, else the DB that ``db
+    update`` installed under ``cache_dir`` (its compiled tables when
+    ``db update --compile`` made them, else its ``trivy.db``; a stale
+    one warns on stderr unless ``skip_db_update``), compiled when
+    asked. Raises ``ValueError`` where the installed DB's metadata
+    forbids its use (a newer schema; ``skip_db_update`` on a first
+    run or an old schema)."""
     if compiled_db:
         return CompiledDB.load(compiled_db)
     store = AdvisoryStore()
     if db_fixtures:
         load_fixtures(_split(db_fixtures), store)
+    elif cache_dir:
+        bolt = os.path.join(db_dir(cache_dir), "trivy.db")
+        if os.path.exists(bolt):
+            try:
+                stale = needs_update(cache_dir, skip=skip_db_update)
+            except ValueError as e:
+                raise ValueError(f"advisory DB: {e}") from e
+            if stale:
+                print("warning: advisory DB is stale (past "
+                      "NextUpdate); run 'db update' or pass "
+                      "--skip-db-update to silence", file=sys.stderr)
+            compiled = os.path.join(db_dir(cache_dir), "compiled")
+            if os.path.exists(compiled + ".npz"):
+                return CompiledDB.load(compiled)
+            from .db.boltdb import load_trivy_db
+            load_trivy_db(bolt, store)
     if compile_db:
         return CompiledDB.compile(store)
     return store
@@ -125,12 +167,14 @@ def _scan(scanner: LocalScanner, ref, options: ScanOptions,
 
 def scan_sbom(path: str, store, backend: str = "cuda", *,
               vuln_type=("os", "library"),
-              list_all_packages: bool = False,
+              list_all_packages: bool = False, cache=None, memo=None,
               timings: dict = None, stats: dict = None) -> Report:
     """Vulnerability-scan the SBOM at ``path`` against ``store`` and
     return the unfiltered report (ref cli.py ``run_sbom``).
 
-    ``timings`` (optional) receives the seconds of each step:
+    ``cache`` is the blob cache (``make_cache``; a new
+    ``MemoryCache`` when None); ``memo`` a ``memo.FindingsMemo`` (or
+    None). ``timings`` (optional) receives the seconds of each step:
     ``decode_s``, ``prepare_s`` (apply + name-join), ``dispatch_s``
     and ``finish_s`` (results, enrichment, post-scan hooks);
     ``stats`` receives ``dispatch_jobs``' ``device_s``, ``jobs_in``
@@ -140,15 +184,15 @@ def scan_sbom(path: str, store, backend: str = "cuda", *,
         resolve_device(backend)          # fail before the host work
     t = {} if timings is None else timings
     t0 = time.perf_counter()
-    cache = MemoryCache()
+    cache = MemoryCache() if cache is None else cache
     ref = SBOMArtifact(path, cache).inspect()
     t["decode_s"] = time.perf_counter() - t0
     options = ScanOptions(vuln_type=list(vuln_type),
                           security_checks=["vuln"],
                           list_all_packages=list_all_packages,
                           backend=backend)
-    results, os_found = _scan(LocalScanner(cache, store), ref, options,
-                              t, stats)
+    results, os_found = _scan(LocalScanner(cache, store, memo=memo), ref,
+                              options, t, stats)
     return Report(artifact_name=path, artifact_type=ref.type,
                   metadata=Metadata(os=os_found), results=results,
                   cyclonedx=ref.cyclonedx)
@@ -226,7 +270,7 @@ def scan_fs(root: str, store=None, backend: str = "cuda", *,
             list_all_packages: bool = False,
             secret_config: str = "trivy-secret.yaml",
             skip_dirs=(), skip_files=(), file_patterns=None,
-            scanner=None, cache=None, timings: dict = None,
+            scanner=None, cache=None, memo=None, timings: dict = None,
             stats: dict = None) -> Report:
     """Scan the directory tree under ``root`` and return the
     unfiltered report (ref cli.py ``run_fs``): ``LocalFSArtifact``
@@ -238,7 +282,8 @@ def scan_fs(root: str, store=None, backend: str = "cuda", *,
     ``BatchSecretScanner`` (``secret_scanner``) on the same
     ``backend``, whose rules then win over ``secret_config``.
     ``cache`` is the blob cache (``make_cache``; a new ``MemoryCache``
-    when None). ``timings`` receives the seconds of ``inspect_s`` and,
+    when None); ``memo`` a ``memo.FindingsMemo`` (or None).
+    ``timings`` receives the seconds of ``inspect_s`` and,
     inside it, ``secret_s`` (the batched secret scan) and
     ``walk_analyze_s`` (the rest), then ``prepare_s``, ``dispatch_s``
     and ``finish_s``; ``stats`` receives ``dispatch_jobs``' counters,
@@ -263,8 +308,8 @@ def scan_fs(root: str, store=None, backend: str = "cuda", *,
                           security_checks=list(security_checks),
                           list_all_packages=list_all_packages,
                           backend=backend)
-    results, os_found = _scan(LocalScanner(cache, store), ref, options,
-                              t, stats)
+    results, os_found = _scan(LocalScanner(cache, store, memo=memo), ref,
+                              options, t, stats)
     return Report(artifact_name=root, artifact_type="filesystem",
                   metadata=Metadata(os=os_found), results=results)
 
@@ -282,7 +327,7 @@ def scan_image(path: str, store=None, backend: str = "cuda", *,
                secret_config: str = "trivy-secret.yaml",
                skip_dirs=(), skip_files=(), file_patterns=None,
                scanner=None, ingest_guards: bool = True,
-               ingest_limits=None, cache=None, name: str = "",
+               ingest_limits=None, cache=None, memo=None, name: str = "",
                timings: dict = None, stats: dict = None) -> Report:
     """Scan the container image at ``path`` (a docker-save tar, an OCI
     layout tar or an OCI layout directory) and return the unfiltered
@@ -294,8 +339,8 @@ def scan_image(path: str, store=None, backend: str = "cuda", *,
     finish. A report whose budget noted soft faults is marked
     ``degraded`` with ``ingest`` causes.
 
-    ``store``, ``scanner`` and ``cache`` are as ``scan_fs`` takes
-    them; ``name`` is the report's artifact name (``path`` when
+    ``store``, ``scanner``, ``cache`` and ``memo`` are as ``scan_fs``
+    takes them; ``name`` is the report's artifact name (``path`` when
     empty). ``timings`` receives ``load_s``, ``inspect_s`` with
     ``secret_s`` and ``walk_analyze_s`` inside it, ``prepare_s``,
     ``dispatch_s`` and ``finish_s``; ``stats`` receives
@@ -337,8 +382,8 @@ def scan_image(path: str, store=None, backend: str = "cuda", *,
                           list_all_packages=list_all_packages,
                           scan_removed_packages=scan_removed_packages,
                           backend=backend)
-    results, os_found = _scan(LocalScanner(cache, store), ref, options,
-                              t, stats)
+    results, os_found = _scan(LocalScanner(cache, store, memo=memo), ref,
+                              options, t, stats)
     meta = ref.image_metadata
     report = Report(
         artifact_name=ref.name, artifact_type="container_image",
@@ -450,18 +495,66 @@ def _refuse_early(args) -> bool:
     return False
 
 
+def _memo(args, cache, option=None):
+    """The findings memo of a scan (ref cli.py ``_memo``): None under
+    ``--no-memo`` or without the ``vuln`` check, else one on the blob
+    cache's tier (``--memo-cache`` overrides it) whose hot-swap
+    re-match runs on the scan's backend. Raises ``ValueError`` for a
+    memo URI still to be ported."""
+    if args.no_memo:
+        return None
+    if "vuln" not in _split(getattr(args, "security_checks", "vuln")):
+        return None
+    from .memo import make_findings_memo
+    return make_findings_memo(cache=cache, cache_dir=args.cache_dir,
+                              uri=args.memo_cache,
+                              artifact_option=option,
+                              backend=args.backend)
+
+
+def _sources(args, checks, option=None):
+    """``(cache, memo, store)`` of a scan from the flags — the store
+    only with the ``vuln`` check (ref cli.py:1895-1898) — or None after
+    an ``error:`` line (a memo URI still to be ported, an installed DB
+    that cannot be used)."""
+    cache = make_cache(args.cache_dir, args.no_cache)
+    try:
+        memo = _memo(args, cache, option)
+        store = load_store(args.db_fixtures, args.compiled_db,
+                           args.compile_db, args.cache_dir,
+                           args.skip_db_update) \
+            if "vuln" in checks else None
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return None
+    return cache, memo, store
+
+
+def _refuse(args) -> bool:
+    """Print the ``error:`` line of an option still to be ported."""
+    refused = _refused(args)
+    if refused:
+        print(f"error: {refused}", file=sys.stderr)
+    return bool(refused)
+
+
 def _run_sbom(args) -> int:
+    if _refuse(args):
+        return 1
     if not os.path.isfile(args.target):
         print(f"error: no such file: {args.target}", file=sys.stderr)
         return 1
     if _refuse_early(args):
         return 1
-    store = load_store(args.db_fixtures, args.compiled_db,
-                       args.compile_db)
+    sources = _sources(args, ["vuln"])
+    if sources is None:
+        return 1
+    cache, memo, store = sources
     try:
         report = scan_sbom(args.target, store, args.backend,
                            vuln_type=_split(args.vuln_type),
-                           list_all_packages=_list_all(args))
+                           list_all_packages=_list_all(args),
+                           cache=cache, memo=memo)
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
@@ -469,6 +562,8 @@ def _run_sbom(args) -> int:
 
 
 def _run_fs(args) -> int:
+    if _refuse(args):
+        return 1
     if not os.path.isdir(args.target):
         print(f"error: no such directory: {args.target}",
               file=sys.stderr)
@@ -482,18 +577,21 @@ def _run_fs(args) -> int:
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
-    # a scan without the vuln check loads no DB (ref cli.py:1895-1898)
-    store = load_store(args.db_fixtures, args.compiled_db,
-                       args.compile_db) if "vuln" in checks else None
+    opt = _artifact_option(args.backend, checks, args.secret_config,
+                           None, _split(args.skip_dirs),
+                           _split(args.skip_files), patterns)
+    sources = _sources(args, checks, opt)
+    if sources is None:
+        return 1
+    cache, memo, store = sources
     report = scan_fs(args.target, store, args.backend,
                      security_checks=checks,
                      vuln_type=_split(args.vuln_type),
                      list_all_packages=_list_all(args),
                      secret_config=args.secret_config,
-                     skip_dirs=_split(args.skip_dirs),
-                     skip_files=_split(args.skip_files),
+                     skip_dirs=opt.skip_dirs, skip_files=opt.skip_files,
                      file_patterns=patterns,
-                     cache=make_cache(args.cache_dir, args.no_cache))
+                     scanner=opt.secret_scanner, cache=cache, memo=memo)
     return _finish(args, report)
 
 
@@ -514,11 +612,12 @@ def _ingest_limits(args):
     return dataclasses.replace(DEFAULT_LIMITS, **overrides)
 
 
-def _refuse_image(args) -> str:
-    """The image options still to be ported, by ROADMAP item: each is
-    refused before any host work."""
-    if len(args.target) == 1 and not args.input and \
-            not os.path.exists(args.target[0]):
+def _refused(args) -> str:
+    """The options still to be ported, by ROADMAP item: each is
+    refused before any host work, whether it came from the command
+    line, ``TRIVY_<FLAG>`` or the config file."""
+    if args.command == "image" and len(args.target) == 1 and \
+            not args.input and not os.path.exists(args.target[0]):
         return (f"{args.target[0]!r} is not an existing path: daemon, "
                 "containerd and registry resolution are not ported yet "
                 "(ROADMAP A.9)")
@@ -540,9 +639,7 @@ def _run_image(args) -> int:
               "image targets; list the archive as a target "
               "instead", file=sys.stderr)
         return 2
-    refused = _refuse_image(args)
-    if refused:
-        print(f"error: {refused}", file=sys.stderr)
+    if _refuse(args):
         return 1
     if len(args.target) > 1:
         return _run_image_batch(args)
@@ -561,8 +658,15 @@ def _run_image(args) -> int:
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
-    store = load_store(args.db_fixtures, args.compiled_db,
-                       args.compile_db) if "vuln" in checks else None
+    opt = _artifact_option(args.backend, checks, args.secret_config,
+                           None, _split(args.skip_dirs),
+                           _split(args.skip_files), patterns,
+                           not args.no_ingest_guards,
+                           _ingest_limits(args))
+    sources = _sources(args, checks, opt)
+    if sources is None:
+        return 1
+    cache, memo, store = sources
     try:
         report = scan_image(
             path, store, args.backend, security_checks=checks,
@@ -570,11 +674,10 @@ def _run_image(args) -> int:
             list_all_packages=_list_all(args),
             scan_removed_packages=args.removed_pkgs,
             secret_config=args.secret_config,
-            skip_dirs=_split(args.skip_dirs),
-            skip_files=_split(args.skip_files), file_patterns=patterns,
-            ingest_guards=not args.no_ingest_guards,
-            ingest_limits=_ingest_limits(args),
-            cache=make_cache(args.cache_dir, args.no_cache),
+            skip_dirs=opt.skip_dirs, skip_files=opt.skip_files,
+            file_patterns=patterns, scanner=opt.secret_scanner,
+            ingest_guards=opt.ingest_guards,
+            ingest_limits=opt.ingest_limits, cache=cache, memo=memo,
             name=target or path)
     except ValueError as e:
         # a load failure, or a guard trip while walking the layers
@@ -658,13 +761,15 @@ def _run_image_batch(args) -> int:
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
-    store = load_store(args.db_fixtures, args.compiled_db,
-                       args.compile_db) if "vuln" in checks else None
     opt = _artifact_option(args.backend, checks, args.secret_config,
                            None, _split(args.skip_dirs),
                            _split(args.skip_files), patterns,
                            not args.no_ingest_guards,
                            _ingest_limits(args))
+    sources = _sources(args, checks, opt)
+    if sources is None:
+        return 1
+    cache, memo, store = sources
     try:
         sched_config = _sched_config(args)
     except ValueError as e:
@@ -675,10 +780,10 @@ def _run_image_batch(args) -> int:
     if rc:
         return rc
     runner = BatchScanRunner(
-        store=store, cache=make_cache(args.cache_dir, args.no_cache),
-        backend=args.backend, secret_scanner=opt.secret_scanner,
-        sched=args.sched, sched_config=sched_config,
-        artifact_option=opt, dispatch_depth=args.dispatch_depth)
+        store=store, cache=cache, backend=args.backend,
+        secret_scanner=opt.secret_scanner, sched=args.sched,
+        sched_config=sched_config, artifact_option=opt,
+        dispatch_depth=args.dispatch_depth, memo=memo)
     options = ScanOptions(vuln_type=_split(args.vuln_type),
                           security_checks=checks,
                           list_all_packages=_list_all(args),
@@ -758,10 +863,27 @@ def _finish_many(args, results) -> int:
     return code
 
 
+def _global_flags(sp) -> None:
+    """The reference's global flags, on every scan subcommand."""
+    sp.add_argument("--config", "-c", default="",
+                    help="config file (default: trivy.yaml)")
+    sp.add_argument("--quiet", "-q", action="store_true")
+    sp.add_argument("--debug", "-d", action="store_true")
+    sp.add_argument("--timeout", default="5m0s",
+                    help="scan timeout (e.g. 5m0s)")
+    sp.add_argument("--log-format", default="text",
+                    choices=["text", "json"],
+                    help="log line format; json lines carry "
+                    "trace_id/request_id so logs correlate with traces")
+    sp.add_argument("--generate-default-config", action="store_true",
+                    help="write the resolved flag values to "
+                    "trivy-default.yaml and exit (ref run.go:354)")
+
+
 def _scan_flags(sp) -> None:
     """The reference's ``scan_flags`` that the port reads."""
     sp.add_argument("--format", "-f", default="table",
-                    choices=FORMATS + UNPORTED_FORMATS)
+                    choices=_FORMAT_CHOICES)
     sp.add_argument("--output", "-o", default="")
     sp.add_argument("--severity", "-s", default=DEFAULT_SEVERITIES)
     sp.add_argument("--vuln-type", default="os,library")
@@ -788,9 +910,31 @@ def _scan_flags(sp) -> None:
     sp.add_argument("--compiled-db", default="",
                     help="load a compiled advisory DB (npz path "
                     "prefix)")
+    sp.add_argument("--skip-db-update", action="store_true",
+                    help="use the installed advisory DB even if its "
+                    "metadata says it is stale (ref --skip-db-update)")
+    sp.add_argument("--cache-dir", default="",
+                    help="keep analyzed blobs and the findings memo on "
+                    "disk under DIR (default: in memory, for this run "
+                    "only) and, without --db-fixtures/--compiled-db, "
+                    "scan against the advisory DB 'db update' "
+                    "installed there")
     sp.add_argument("--no-cache", action="store_true",
-                    help="keep blobs in memory, even with --cache-dir "
-                    "(sbom always does)")
+                    help="keep blobs in memory, even with --cache-dir")
+    sp.add_argument("--no-memo", action="store_true",
+                    help="disable the findings memo: every layer's "
+                    "detection re-dispatches even when the same "
+                    "question was answered before")
+    sp.add_argument("--memo-cache", default="",
+                    help="findings-memo backend override: 'memory' or "
+                    "a directory (redis:// and s3:// are not ported "
+                    "yet) — default rides the blob cache's tier")
+    # refused by name (ROADMAP A.9)
+    sp.add_argument("--server", default="", help=argparse.SUPPRESS)
+    sp.add_argument("--fault-spec", default="", help=argparse.SUPPRESS)
+    sp.add_argument("--cache-backend", default="fs",
+                    help=argparse.SUPPRESS)
+    _global_flags(sp)
 
 
 def _tree_flags(sp) -> None:
@@ -803,10 +947,6 @@ def _tree_flags(sp) -> None:
                     help="force files matching REGEX through the "
                     "TYPE analyzer, e.g. pip:deps.txt; repeatable")
     sp.add_argument("--secret-config", default="trivy-secret.yaml")
-    sp.add_argument("--cache-dir", default="",
-                    help="keep analyzed blobs on disk under "
-                    "DIR/fanal (default: in memory, for this run "
-                    "only); not shared with the JAX package")
 
 
 def _image_flags(sp) -> None:
@@ -819,9 +959,6 @@ def _image_flags(sp) -> None:
                     "removed in the Dockerfile (reconstructed from RUN "
                     "history; alpine only, needs "
                     "TRIVY_APK_INDEX_ARCHIVE_URL)")
-    sp.add_argument("--no-memo", action="store_true",
-                    help="accepted: the findings memo is not ported "
-                    "yet, every scan runs without it")
     sp.add_argument("--no-ingest-guards", action="store_true",
                     help="disable the ingest resource budgets and "
                     "safe-tar checks (unsafe on untrusted images)")
@@ -880,15 +1017,17 @@ def _image_flags(sp) -> None:
     sp.add_argument("--process-id", type=int, default=-1,
                     help="multi-host pod: this process's id "
                     "(TRIVY_TPU_PROCESS_ID)")
-    # refused by name (ROADMAP A.9)
-    sp.add_argument("--server", default="", help=argparse.SUPPRESS)
-    sp.add_argument("--fault-spec", default="", help=argparse.SUPPRESS)
-    sp.add_argument("--cache-backend", default="fs",
-                    help=argparse.SUPPRESS)
 
 
-def main(argv=None) -> int:
+def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m trivy_tpu_torch")
+    ap.add_argument("--version", action="version",
+                    version=f"trivy-tpu {__version__}")
+    # read by the config pre-pass (flag.py) wherever it stands; the
+    # subcommands' own flags override the rest of a top-level flag
+    ap.add_argument("--config", "-c", default="",
+                    help="config file (default: trivy.yaml when "
+                    "present); flags also bind TRIVY_* env vars")
     sub = ap.add_subparsers(dest="command", required=True)
     img = sub.add_parser("image", help="scan a container image "
                          "(docker-save or OCI tarball, OCI layout "
@@ -910,9 +1049,165 @@ def main(argv=None) -> int:
                         "(CycloneDX/SPDX) for vulnerabilities")
     sb.add_argument("target")
     _scan_flags(sb)
-    args = ap.parse_args(argv)
+
+    db = sub.add_parser("db", help="advisory DB operations")
+    dbsub = db.add_subparsers(dest="db_command")
+    build = dbsub.add_parser(
+        "build", help="compile fixtures or a trivy-db into persistent "
+        "resident advisory tables")
+    build.add_argument("--from-fixtures", default="",
+                       help="comma-separated advisory fixture YAMLs")
+    build.add_argument("--from-boltdb", default="",
+                       help="trivy-db BoltDB file (the reference's "
+                       "native advisory store format)")
+    build.add_argument("--output", "-o", required=True,
+                       help="output path prefix (.npz)")
+    upd = dbsub.add_parser(
+        "update", help="install an advisory DB distribution into "
+        "the cache dir (ref pkg/db/db.go Download)")
+    upd.add_argument("--from-oci-layout", default="", required=True,
+                     help="local OCI image layout dir holding the "
+                     "trivy-db layer (what a registry pull yields; "
+                     "there is no network transport)")
+    upd.add_argument("--cache-dir", required=True,
+                     help="the cache dir to install into (DIR/db)")
+    upd.add_argument("--compile", action="store_true",
+                     help="also compile the installed DB into "
+                     "resident tables at <cache>/db/compiled")
+    return ap
+
+
+def main(argv=None) -> int:
+    """The command line (ref cli.py ``main``): the parser's defaults
+    from ``TRIVY_<FLAG>`` and the config file, then the scan under
+    ``--timeout``. A scan that runs past it ends with ``error: scan
+    timeout of ... exceeded`` and exit 1; a malformed duration exits
+    2."""
+    from .flag import (ScanTimeout, apply_external_defaults,
+                       parse_duration, scan_deadline)
+    from .utils.log import set_format, set_level
+    raw_argv = list(sys.argv[1:] if argv is None else argv)
+    parser = build_parser()
+    apply_external_defaults(parser, raw_argv)
+    args = parser.parse_args(raw_argv)
+    set_level(debug=getattr(args, "debug", False),
+              quiet=getattr(args, "quiet", False))
+    set_format(getattr(args, "log_format", "") or "text")
+    timeout_s = 0.0
+    if getattr(args, "timeout", ""):
+        try:
+            timeout_s = parse_duration(args.timeout)
+        except ValueError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+    try:
+        with scan_deadline(timeout_s):
+            return _dispatch(args)
+    except ScanTimeout:
+        print(f"error: scan timeout of {args.timeout} exceeded "
+              "(raise with --timeout)", file=sys.stderr)
+        return 1
+
+
+def _dispatch(args) -> int:
+    if args.command == "db":
+        return _run_db(args)
+    if args.generate_default_config:
+        return _generate_default_config(args)
     if args.command == "image":
         return _run_image(args)
     if args.command == "sbom":
         return _run_sbom(args)
     return _run_fs(args)
+
+
+def _generate_default_config(args) -> int:
+    """--generate-default-config: dump the resolved flag values (CLI >
+    env > config-file layering already applied) to trivy-default.yaml,
+    refusing to overwrite — viper's SafeWriteConfigAs (ref
+    run.go:354). Keys are the FLAG names, exactly what
+    ``apply_external_defaults`` reads back, so the file round-trips
+    through --config."""
+    from .flag import import_yaml, walk_parsers
+    out = "trivy-default.yaml"
+    yaml = import_yaml(out)
+    dest_to_flag = {}
+    for p in walk_parsers(build_parser()):
+        for action in p._actions:
+            longs = [o for o in action.option_strings
+                     if o.startswith("--")]
+            if longs:
+                dest_to_flag.setdefault(action.dest, longs[0][2:])
+    skip = {"command", "target", "input", "generate_default_config",
+            "help", "version", "config"}
+    doc = {dest_to_flag[k]: v for k, v in vars(args).items()
+           if k in dest_to_flag and k not in skip}
+    try:
+        with open(out, "x", encoding="utf-8") as f:
+            yaml.safe_dump(doc, f, sort_keys=True,
+                           default_flow_style=False)
+    except FileExistsError:
+        print(f"error: {out} already exists", file=sys.stderr)
+        return 1
+    print(f"wrote {out}")
+    return 0
+
+
+def _run_db(args) -> int:
+    """``db build`` and ``db update`` (ref cli.py ``run_db``)."""
+    if args.db_command == "update":
+        return _run_db_update(args)
+    if args.db_command != "build":
+        print("error: unknown db subcommand", file=sys.stderr)
+        return 2
+    if not args.from_fixtures and not args.from_boltdb:
+        print("error: --from-fixtures or --from-boltdb required",
+              file=sys.stderr)
+        return 2
+    store = AdvisoryStore()
+    if args.from_fixtures:
+        load_fixtures(_split(args.from_fixtures), store)
+    if args.from_boltdb:
+        from .db.boltdb import CorruptDB, load_trivy_db
+        t0 = time.perf_counter()
+        try:
+            _, n_adv, n_detail = load_trivy_db(args.from_boltdb, store)
+        except (OSError, CorruptDB) as e:
+            print(f"error: failed to read boltdb: {e}", file=sys.stderr)
+            return 1
+        print(f"ingested {n_adv} advisories + {n_detail} detail "
+              f"records from {args.from_boltdb} "
+              f"in {time.perf_counter() - t0:.2f}s")
+    t0 = time.perf_counter()
+    cdb = CompiledDB.compile(store)
+    compile_s = time.perf_counter() - t0
+    cdb.save(args.output)
+    print(f"compiled {cdb.stats['rows']} advisories "
+          f"({cdb.stats['host_fallback_rows']} host-fallback, "
+          f"{compile_s:.2f}s) -> {args.output}.npz")
+    return 0
+
+
+def _run_db_update(args) -> int:
+    """``db update --from-oci-layout`` (ref pkg/db/db.go:146-184)."""
+    from .db.boltdb import load_trivy_db
+    from .db.lifecycle import update_from_oci_layout
+    t0 = time.perf_counter()
+    try:
+        meta = update_from_oci_layout(args.from_oci_layout,
+                                      args.cache_dir)
+    except (OSError, ValueError) as e:
+        print(f"error: db update: {e}", file=sys.stderr)
+        return 1
+    print(f"installed advisory DB schema v{meta.version} -> "
+          f"{db_dir(args.cache_dir)} "
+          f"in {time.perf_counter() - t0:.2f}s")
+    if args.compile:
+        store = AdvisoryStore()
+        _, n_adv, _ = load_trivy_db(
+            os.path.join(db_dir(args.cache_dir), "trivy.db"), store)
+        cdb = CompiledDB.compile(store)
+        out = os.path.join(db_dir(args.cache_dir), "compiled")
+        cdb.save(out)
+        print(f"compiled {n_adv} advisories -> {out}.npz")
+    return 0

@@ -34,6 +34,7 @@ import datetime as _dt
 import json
 import logging
 import os
+import threading
 from bisect import bisect_left
 from dataclasses import dataclass, field
 from typing import Optional
@@ -559,3 +560,84 @@ def _adv_dec(v: list) -> Advisory:
         patched_versions=v[4], unaffected_versions=v[5],
         arches=v[6], severity=v[7], vendor_ids=v[8], data_source=ds,
         content_sets=v[10] if len(v) > 10 else [])
+
+
+class SwappableStore:
+    """Double-buffered advisory DB holder (ref
+    ``trivy_tpu/db/compiled.py:769``; the reference's Go analog is the
+    RW-waitgroup pair gating the server's DB update, listen.go:54-83).
+
+    Readers take ``acquire()`` / ``release()`` around a scan (the
+    runner's ``_store_view``); ``swap`` installs a freshly compiled DB
+    after in-flight scans drain. Before it waits, ``swap`` stages the
+    new generation's tables on every card the outgoing one is resident
+    on, so the first scan after the swap does not wait on the upload;
+    a generation that lives on the CPU has nothing to stage, and on a
+    card a failed upload raises (the old generation stays installed).
+    The outgoing generation's device copies are then dropped
+    (``invalidate_device``): a dispatch already holding its tensors
+    finishes on them, and the memory frees when the last one lets go.
+    Swap hooks (``db/lifecycle.py::attach_memo``) run after the new
+    generation is in, with ``(old, new)``."""
+
+    def __init__(self, db: Optional[CompiledDB] = None):
+        self._db = db
+        self._lock = threading.Lock()
+        self._readers = 0
+        self._no_readers = threading.Condition(self._lock)
+        self._swap_hooks: list = []
+
+    def add_swap_hook(self, fn) -> "SwappableStore":
+        """Register ``fn(old_db, new_db)`` to run after every swap.
+        Hook failures are logged, never raised — a broken observer
+        must not wedge the DB update."""
+        self._swap_hooks.append(fn)
+        return self
+
+    def remove_swap_hook(self, fn) -> None:
+        try:
+            self._swap_hooks.remove(fn)
+        except ValueError:
+            pass
+
+    def acquire(self) -> CompiledDB:
+        with self._lock:
+            self._readers += 1
+            return self._db
+
+    def release(self) -> None:
+        with self._lock:
+            self._readers -= 1
+            if self._readers == 0:
+                self._no_readers.notify_all()
+
+    def current(self) -> CompiledDB:
+        with self._lock:
+            return self._db
+
+    def _staging_devices(self) -> list:
+        """The cards the current generation's tables are on."""
+        placed = getattr(self._db, "_device", None) or {}
+        return sorted(k for k in list(placed)
+                      if isinstance(k, str) and k.startswith("cuda"))
+
+    def swap(self, new_db: CompiledDB, stage: bool = True) -> None:
+        if stage and getattr(new_db, "v_lo", None) is not None and \
+                len(new_db.v_lo):
+            for device in self._staging_devices():
+                new_db.device_tables(device)    # raises on a failure
+        with self._lock:
+            while self._readers:
+                self._no_readers.wait()
+            old, self._db = self._db, new_db
+        # getattr: the holder also fronts plain AdvisoryStores (no
+        # device residency)
+        drop = getattr(old, "invalidate_device", None)
+        if drop is not None and old is not new_db:
+            drop()
+        if old is not new_db:
+            for fn in list(self._swap_hooks):
+                try:
+                    fn(old, new_db)
+                except Exception as e:      # noqa: BLE001
+                    log.warning("swap hook %r failed: %r", fn, e)

@@ -18,7 +18,8 @@ half of that contract:
 
 A hard trip ends the target's scan with an ``error:`` line; a soft
 fault marks its report ``degraded`` with an ``ingest``-stage cause.
-The advisory-DB archive extractor comes with ROADMAP A.7.
+``safetar.safe_extract_db_archive`` is the advisory-DB archive
+extractor of ``db update`` (``db/lifecycle.py``).
 """
 
 from .budget import (DEFAULT_LIMITS, GUARD_METRICS, GuardError,
@@ -26,12 +27,13 @@ from .budget import (DEFAULT_LIMITS, GUARD_METRICS, GuardError,
                      MalformedArchiveError, ResourceBudget,
                      ResourceBudgetExceeded, ResourceLimits,
                      current_budget, make_budget)
-from .safetar import decompress_bounded, open_layer_bytes, validate_digest
+from .safetar import (decompress_bounded, open_layer_bytes,
+                      safe_extract_db_archive, validate_digest)
 
 __all__ = [
     "DEFAULT_LIMITS", "GUARD_METRICS", "GuardError", "GuardMetrics",
     "IngestDeadlineExceeded", "MalformedArchiveError",
     "ResourceBudget", "ResourceBudgetExceeded", "ResourceLimits",
     "current_budget", "decompress_bounded", "make_budget",
-    "open_layer_bytes", "validate_digest",
+    "open_layer_bytes", "safe_extract_db_archive", "validate_digest",
 ]

@@ -19,14 +19,15 @@ a little ceremony for three invariants:
 With ``budget=None`` (``--no-ingest-guards``) the helpers fall back
 to the historical unbounded behavior — the differential baseline.
 
-The advisory-DB archive extractor (``safe_extract_db_archive``) comes
-with the DB lifecycle (ROADMAP A.7).
+``safe_extract_db_archive`` unpacks the advisory-DB archive of ``db
+update`` (``db/lifecycle.py``) through the same bounded readers.
 """
 
 from __future__ import annotations
 
 import gzip
 import io
+import os
 import posixpath
 import re
 import tarfile
@@ -157,3 +158,37 @@ def read_member(tf: tarfile.TarFile, member: tarfile.TarInfo,
             f"truncated member {member.name!r}: "
             f"{len(data)} of {member.size} bytes")
     return data
+
+
+def safe_extract_db_archive(blob: bytes, dest_dir: str,
+                            budget: Optional[ResourceBudget] = None,
+                            wanted: tuple = ("trivy.db",
+                                             "metadata.json")) -> list:
+    """Extract the advisory-DB tgz into ``dest_dir``: only regular
+    files whose *basename* is in ``wanted`` (flattened — traversal
+    is impossible by construction), link members rejected, reads
+    bounded. Returns the basenames written."""
+    raw = decompress_bounded(blob, budget)
+    try:
+        tf = tarfile.open(fileobj=io.BytesIO(raw))
+    except _ARCHIVE_ERRORS as e:
+        raise MalformedArchiveError(
+            f"unreadable DB archive: {e}") from e
+    written = []
+    with tf:
+        for member in tf:
+            if budget is not None:
+                budget.charge_entry()
+            name = os.path.basename(member.name)
+            if name not in wanted:
+                continue
+            if member.issym() or member.islnk():
+                raise MalformedArchiveError(
+                    f"DB archive member {member.name!r} is a link")
+            if not member.isfile():
+                continue
+            data = read_member(tf, member, budget, checked=False)
+            with open(os.path.join(dest_dir, name), "wb") as out:
+                out.write(data)
+            written.append(name)
+    return written

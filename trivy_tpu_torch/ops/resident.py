@@ -1,10 +1,11 @@
 """Device residency for tables that serve many dispatches.
 
 ``device_tables(device)`` uploads ``_resident_arrays()`` once per
-device and hands back the same tensors on every later call; given a
-``parallel.mesh.DeviceMesh`` it places them once per DISTINCT device of
-the mesh and hands back one tuple per flat shard (a mesh that names
-``cuda:0`` four times uploads once);
+device (a card by its index: ``cuda`` is ``cuda:0`` when that is the
+current card) and hands back the same tensors on every later call;
+given a ``parallel.mesh.DeviceMesh`` it places them once per DISTINCT
+device of the mesh and hands back one tuple per flat shard (a mesh
+that names ``cuda:0`` four times uploads once);
 ``device_array(device, name, make)`` does the same for one more array
 a launch picks by ``name``; ``invalidate_device()`` drops them all. A
 table's content is fixed once it is built or loaded, so one upload per
@@ -49,6 +50,15 @@ def _settled(device: str) -> None:
         torch.cuda.current_stream(dev).synchronize()
 
 
+def _key(device) -> str:
+    """The name a device's copy is kept under: a card by its index, so
+    ``cuda`` and ``cuda:0`` share one copy."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return str(dev)
+
+
 def _tensor(a: np.ndarray, device: str) -> torch.Tensor:
     a = np.ascontiguousarray(a)
     if not a.flags.writeable:
@@ -83,9 +93,9 @@ class ResidentTables:
         mesh = device if hasattr(device, "distinct") else None
         with self._device_lock:
             if mesh is None:
-                placed = self._placed(str(torch.device(device)))
+                placed = self._placed(_key(device))
             else:
-                by_dev = {d: self._placed(str(d)) for d in mesh.distinct}
+                by_dev = {d: self._placed(_key(d)) for d in mesh.distinct}
                 placed = [by_dev[d] for d in mesh.flat]
             self._device_stats["dispatches"] += 1
         self._note_dispatch()
@@ -109,7 +119,7 @@ class ResidentTables:
     def device_array(self, device, name, make) -> torch.Tensor:
         """``make()`` (a numpy array) on ``device``, uploaded once per
         (device, ``name``) and counted with the other uploads."""
-        key = (str(torch.device(device)), name)
+        key = (_key(device), name)
         with self._device_lock:
             placed = self._device.get(key)
             if placed is None:

@@ -28,9 +28,13 @@ whichever device batch is forming, and is finished back on the pool
 (``_scan_scheduled``, ``submit_path``). ``mesh`` (a
 ``parallel.mesh.DeviceMesh``) shards both device stages over its
 devices on either path: the runner's ``BatchSecretScanner`` sieves per
-shard and every interval dispatch splits its rows per shard. The
-reference's ``memo`` argument (A.7) is not taken until its item is
-ported, nor are ``blob_keyer`` and ``scan_registry_refs`` (A.9); the
+shard and every interval dispatch splits its rows per shard. ``memo``
+(a ``memo.FindingsMemo``) goes into every ``LocalScanner`` the runner
+builds, on both paths: a layer whose detection questions were
+answered before dispatches nothing. A ``store`` that is a
+``db.compiled.SwappableStore`` is acquired per scan and released
+exactly once, so a hot swap waits for in-flight scans. The
+reference's ``blob_keyer`` and ``scan_registry_refs`` are A.9; the
 direct path's trace spans are A.8.
 """
 
@@ -105,13 +109,16 @@ class BatchScanRunner:
                  cache=None, backend: str = "cuda", mesh=None,
                  secret_scanner=None, sched="off", sched_config=None,
                  artifact_option=None, fault_injector=None,
-                 tracer=None, dispatch_depth: int = 0):
+                 tracer=None, memo=None, dispatch_depth: int = 0):
         self.store = store if store is not None else AdvisoryStore()
         self.cache = cache if cache is not None else MemoryCache()
         # dispatch_depth: bound on in-flight interval waves — the
         # double-buffered slot runtime. 0 = TRIVY_TPU_DISPATCH_DEPTH or
         # the default 2; 1 restores the synchronous ladder
         self.dispatch_depth = resolve_dispatch_depth(dispatch_depth)
+        # memo: memo.FindingsMemo (or None) — per-layer detection
+        # verdicts, threaded into every LocalScanner this runner builds
+        self.memo = memo
         self.backend = backend
         self.mesh = mesh
         if secret_scanner is None:
@@ -171,8 +178,9 @@ class BatchScanRunner:
             self._scheduler = None
 
     def _store_view(self) -> tuple:
-        """``(db, release|None)``: plain stores pass through untouched
-        (the hot-swappable ``SwappableStore`` holder is ROADMAP A.7)."""
+        """``(db, release|None)``: a ``SwappableStore`` holder is
+        acquired per scan so a ``db update`` swap waits for in-flight
+        work; plain stores pass through untouched."""
         s = self.store
         if hasattr(s, "acquire") and hasattr(s, "release"):
             return s.acquire(), s.release
@@ -361,7 +369,7 @@ class BatchScanRunner:
                 # with ingest-stage causes
                 for kind, msg in a.budget.soft_faults:
                     req.record_fault("ingest", kind, msg)
-            scanner = LocalScanner(self.cache, db)
+            scanner = LocalScanner(self.cache, db, memo=self.memo)
             prepared = scanner.prepare(
                 ScanTarget(name=ref.name, artifact_id=ref.id,
                            blob_ids=ref.blob_ids), options)
@@ -435,7 +443,7 @@ class BatchScanRunner:
         # squash + join PER IMAGE ----
         slots, failures = [], {}     # [(input idx, artifact)]
         opt = self._image_opt(scan_secrets)
-        scanner = LocalScanner(self.cache, db)
+        scanner = LocalScanner(self.cache, db, memo=self.memo)
         prepared = []                # aligned with slots
         analyze_s = join_s = 0.0
         for idx, img in enumerate(images):
@@ -648,7 +656,7 @@ class BatchScanRunner:
             # fleet (ValueError resolves this request only)
             atype, decoded, blob, blob_id = decode_to_blob(data)
             self.cache.put_blob(blob_id, blob)
-            scanner = LocalScanner(self.cache, db)
+            scanner = LocalScanner(self.cache, db, memo=self.memo)
             prepared = scanner.prepare(
                 ScanTarget(name=name, artifact_id=blob_id,
                            blob_ids=[blob_id]), options)
@@ -689,7 +697,7 @@ class BatchScanRunner:
         # in ≥64-doc slabs; a malformed document fails only its own
         # slot
         t0 = time.perf_counter()
-        scanner = LocalScanner(self.cache, db)
+        scanner = LocalScanner(self.cache, db, memo=self.memo)
 
         def decode_one(item):
             _name, data = item

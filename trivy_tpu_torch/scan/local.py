@@ -1,8 +1,10 @@
 """Local scan driver (reference: pkg/scanner/local/scan.go:78-175).
 
-``prepare``: ApplyLayers → OS + language pair jobs; the caller runs
-them through one ``dispatch_jobs`` of the interval match;
-``finish``: vulnerability and secret results → FillInfo enrichment.
+``prepare``: ApplyLayers → OS + language pair jobs; with a findings
+memo (``memo/``) the verdicts answered before are served and their
+jobs dropped; the caller runs the rest through one ``dispatch_jobs``
+of the interval match; ``finish``: the memo records the new verdicts,
+then vulnerability and secret results → FillInfo enrichment.
 Misconfiguration and license results are still to be ported: a scan
 that asks for the ``config`` or ``license`` check raises.
 """
@@ -59,6 +61,11 @@ class PreparedScan:
     jobs: list
     eosl: bool
     pkg_results: list
+    # findings-memo state (memo/): the per-package queries _vuln_jobs
+    # recorded, and the hit/miss partition plan finish() resolves —
+    # both None when no memo is attached
+    queries: Optional[list] = None
+    memo_plan: object = None
 
 
 def check_security_checks(checks) -> None:
@@ -73,13 +80,18 @@ def check_security_checks(checks) -> None:
 
 class LocalScanner:
     """``store`` is an ``AdvisoryStore`` (classic ``PairJob``s) or a
-    ``CompiledDB`` (``ResidentPairJob``s on its resident tables)."""
+    ``CompiledDB`` (``ResidentPairJob``s on its resident tables).
+    ``memo`` (a ``memo.FindingsMemo``, or None) serves per-layer
+    detection verdicts without a dispatch when the exact question was
+    answered before."""
 
-    def __init__(self, cache, store: Optional[AdvisoryStore] = None):
+    def __init__(self, cache, store: Optional[AdvisoryStore] = None,
+                 memo=None):
         self.cache = cache
         self.store = store or AdvisoryStore()
         self.compiled: Optional[CompiledDB] = \
             store if isinstance(store, CompiledDB) else None
+        self.memo = memo
 
     def prepare(self, target: ScanTarget,
                 options: ScanOptions) -> PreparedScan:
@@ -120,11 +132,27 @@ class LocalScanner:
             pkg_results.extend(self._lang_pkgs_results(detail))
 
         jobs, eosl = ([], False)
+        queries = [] if self.memo is not None else None
         if "vuln" in options.security_checks:
-            jobs, eosl = self._vuln_jobs(detail, options)
-        return PreparedScan(target=target, options=options,
-                            detail=detail, jobs=jobs, eosl=eosl,
-                            pkg_results=pkg_results)
+            jobs, eosl = self._vuln_jobs(detail, options,
+                                         queries=queries)
+        prepared = PreparedScan(target=target, options=options,
+                                detail=detail, jobs=jobs, eosl=eosl,
+                                pkg_results=pkg_results,
+                                queries=queries)
+        if self.memo is not None and jobs:
+            # hit/miss partition: verdicts answered before are served
+            # at finish; only novel queries keep their jobs for the
+            # device dispatch
+            plan = prepared.memo_plan = self.memo.partition(
+                prepared, blobs, detail, options, db=self.store)
+            if plan is not None:
+                # cost attribution (obs/cost.py): memo hits are
+                # device work the (anonymous) tenant did NOT pay for
+                from ..obs.cost import COST_LEDGER
+                COST_LEDGER.charge("", memo_hits=plan.queries_hit,
+                                   memo_misses=plan.queries_miss)
+        return prepared
 
     def finish(self, prepared: PreparedScan,
                detected: list) -> tuple:
@@ -132,6 +160,13 @@ class LocalScanner:
         options = prepared.options
         detail = prepared.detail
         results: list = []
+
+        if prepared.memo_plan is not None:
+            # record the novel queries' verdicts, append the served
+            # hits — the hit payloads are THIS scan's own job
+            # payloads, so results are byte-identical to a cold run
+            detected = self.memo.resolve(prepared.memo_plan, detected)
+            prepared.memo_plan = None
 
         if "vuln" in options.security_checks:
             if detail.os is not None:
@@ -165,9 +200,15 @@ class LocalScanner:
 
     # --- vulnerabilities ---
 
-    def _vuln_jobs(self, detail, options) -> tuple:
+    def _vuln_jobs(self, detail, options,
+                   queries: Optional[list] = None) -> tuple:
+        """The pair jobs of ``detail``'s packages; with ``queries`` (a
+        list) each package's contiguous job slice is recorded there
+        as a ``memo.MemoQuery``."""
         jobs: list = []
         eosl = False
+        if queries is not None:
+            from ..memo.findings import MemoQuery
         cdb = self.compiled
         if "os" in options.vuln_type and detail.os is not None \
                 and detail.packages:
@@ -178,6 +219,7 @@ class LocalScanner:
                                        detail.repository)
                 for pkg in detail.packages:
                     installed = driver.installed(pkg)
+                    qstart = len(jobs)
                     if cdb is not None:
                         for row in cdb.candidate_rows(
                                 bucket, driver.src_name(pkg)):
@@ -200,6 +242,16 @@ class LocalScanner:
                                 continue
                             jobs.append(self._ospkg_job(
                                 driver, pkg, installed, adv))
+                    if queries is not None and len(jobs) > qstart:
+                        queries.append(MemoQuery(
+                            kind="os", bucket=bucket,
+                            name=driver.src_name(pkg),
+                            grammar=driver.grammar,
+                            installed=installed,
+                            report_unfixed=driver.report_unfixed,
+                            pkg=pkg, start=qstart, end=len(jobs),
+                            os_name=detail.os.name,
+                            family=detail.os.family))
             elif detail.os.family not in ("none", ""):
                 log.warning("unsupported os: %s", detail.os.family)
 
@@ -210,6 +262,7 @@ class LocalScanner:
                 eco, grammar = LIB_TYPES[app.type]
                 for lib in app.libraries:
                     name = normalize_pkg_name(eco, lib.name)
+                    qstart = len(jobs)
                     if cdb is not None:
                         for row in cdb.candidate_rows_prefix(
                                 f"{eco}::", name):
@@ -225,6 +278,13 @@ class LocalScanner:
                                 f"{eco}::", name):
                             jobs.append(self._lib_job(
                                 app, grammar, lib, adv))
+                    if queries is not None and len(jobs) > qstart:
+                        queries.append(MemoQuery(
+                            kind="lib", bucket=f"{eco}::",
+                            name=name, grammar=grammar,
+                            installed=lib.version,
+                            report_unfixed=True, pkg=lib,
+                            start=qstart, end=len(jobs)))
         return jobs, eosl
 
     def _vuln_results(self, target: str, detail,

@@ -329,10 +329,15 @@ class SchedMetrics:
         # amortization — process-wide, like the guard totals
         from ..detect.metrics import DETECT_METRICS
         out["detect"] = DETECT_METRICS.snapshot()
+        # findings-memo counters (memo/metrics.py): hit/miss/store/
+        # invalidation totals plus the delta re-match accounting —
+        # process-wide like the rest
+        from ..memo.metrics import MEMO_METRICS
+        out["memo"] = MEMO_METRICS.snapshot()
         # The reference's remaining sections are not ported yet and
         # are absent here, not zero: "secret" (the sieve's
         # SECRET_METRICS, secret/metrics.py) and "resident" (the live
         # device tables, db/compiled.py::resident_snapshot) wait for
-        # ROADMAP A.8; "memo" (the findings memo's MEMO_METRICS) for
-        # A.7; "watch" (the admission watch's WATCH_METRICS) for A.9.
+        # ROADMAP A.8; "watch" (the admission watch's WATCH_METRICS)
+        # for A.9g.
         return out
