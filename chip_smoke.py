@@ -105,8 +105,8 @@ Builds the port's hand-written kernels (``trivy_tpu_torch/csrc``, one
    fresh ``MemoryCache`` at dispatch depth 2, warm at depth 2 (no
    layer missing, no launch: a re-sweep after a DB update), and once
    profiled (no depth-1 or depth-4 run here, to leave room for the
-   mesh and memo phases; the card tests run waves of 64 rows at depth
-   4, the CPU tests depth 1). Every run's
+   mesh and memo phases; the memo phase runs a fleet at depth 1, the
+   card tests waves of 64 rows at depth 4). Every run's
    reports must be equal and equal to each target scanned alone through
    the image entry; the twin's must be its image's but for its name and
    tag, the truncated tar must fail alone, each cold fleet must launch
@@ -165,17 +165,20 @@ Builds the port's hand-written kernels (``trivy_tpu_torch/csrc``, one
    ``SwappableStore`` of the vuln phase's DB, with a findings memo:
    cold, then warm (a new runner and blob cache) with no interval job
    dispatched, on a memory store and on an ``FSMemoStore`` read by a
-   second memo instance; then a second generation of the DB (the same
+   second memo instance through the scheduler; then a second
+   generation of the DB (the same
    seeded store with advisories changed, added and removed on pairs
    that four memo entries alone ask about) compiled and swapped in:
    staged once on the card, re-matched on ``cuda``, the other entries
    migrated, and a memo fleet after it dispatches nothing and equals
-   a fleet without the memo on the new generation. Then the DB
+   a fleet without the memo on the new generation (that one at
+   dispatch depth 1: no ``DispatchRing``). Then the DB
    lifecycle through the CLI on a reduced 20,000-row trivy-db
    (``lifecycle_phase``: BoltDB, ``db update --compile``, ``sbom
    --cache-dir`` in subprocesses). The sbom phase's CLI subprocess
    reports its wall split (imports, ``CompiledDB.load``, the DB's
-   content fingerprint, the first upload).
+   content fingerprint, the first upload); a single-target scan
+   keeps no memo in memory, so it must not fingerprint the DB.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}``
 line (times from CUDA events, the bound this run's inputs give, each
@@ -2326,10 +2329,10 @@ class PoisonInjector:
 
 
 def run_sched(paths: list, db, backend: str, scanner, cache,
-              injector=None, mesh=None) -> dict:
+              injector=None, mesh=None, memo=None) -> dict:
     """One ``BatchScanRunner(sched=SchedConfig(dispatch_depth=2))
-    .scan_paths`` over ``paths`` (over ``mesh`` when given, as
-    ``run_fleet``), its sieve launches counted from 0 and
+    .scan_paths`` over ``paths`` (over ``mesh`` and with ``memo`` when
+    given, as ``run_fleet``), its sieve launches counted from 0 and
     the candidates of every batch the executor launched recorded:
     {"texts", "failed" (as ``run_fleet``), "status" of every slot,
     "wall_s", "launches", "batches" (candidate files per launched
@@ -2340,7 +2343,7 @@ def run_sched(paths: list, db, backend: str, scanner, cache,
     runner = BatchScanRunner(store=db, cache=cache, backend=backend,
                              secret_scanner=scanner, mesh=mesh,
                              sched=SchedConfig(dispatch_depth=2),
-                             fault_injector=injector)
+                             fault_injector=injector, memo=memo)
     sched = runner.scheduler
     batches = []
     launch = sched._launch
@@ -2693,6 +2696,9 @@ def sbom_phase(device, cdb, n_pkgs: dict, work_dir: str) -> dict:
         raise AssertionError(f"sbom CLI exited {proc.returncode}: "
                              f"{proc.stderr[-2000:]}")
     split = json.loads(proc.stderr.split("cli-split: ")[-1].splitlines()[0])
+    if split["fingerprint_s"]:
+        raise AssertionError("a single-target sbom CLI run fingerprinted "
+                             "the DB for a memo nothing could read")
     main_s = split.pop("main_s")
     split["rest_of_main_s"] = main_s - split["load_s"] - \
         (split["first_upload_s"] or 0.0) - split["fingerprint_s"]
@@ -3191,19 +3197,25 @@ def memo_phase(device, cdb, fleet: dict, work_dir: str,
        ``no_memo_wall_s``, is the mesh phase's single-device fleet
        (no memo, a new blob cache, the same DB, this run);
     2. the same with an ``FSMemoStore`` in a directory: one memo
-       instance writes, a second one, on a new runner, serves;
+       instance writes, a second one, on a new runner through the
+       scheduler (``SchedConfig(dispatch_depth=2)``, the CLI's default
+       path for several images), serves;
     3. a second generation of the DB, the same seeded store with a
        delta on pairs that a few entries alone ask about (changed,
        added and removed advisories), compiled and swapped in: the
        swap must stage it on the card, re-match on ``cuda``
-       (``rematch_jobs`` > 0, device operations in the swap) and
-       migrate the other entries (``migrated`` > 0); a memo fleet
-       after it must dispatch nothing and give the reports of a fleet
-       without a memo on the new generation.
+       (``rematch_jobs`` > 0, device operations in the swap, no
+       ``swap_failures``) and migrate the other entries
+       (``migrated`` > 0); a memo fleet after it must dispatch nothing
+       and give the reports of a fleet without a memo on the new
+       generation. That no-memo fleet runs at dispatch depth 1, the
+       runner's branch without a ``DispatchRing`` (its interval waves
+       collected on the calling thread), which no other phase drives.
 
     Every memo fleet must give the fleet phase's reports on the first
-    generation. Prints the walls, the swap's split and the re-match's
-    device ms."""
+    generation, and launch ``dfa_blockmask`` once (a new blob cache;
+    the scheduled one at least once). Prints the walls, the swap's
+    split and the re-match's device ms."""
     from trivy_tpu_torch.artifact import MemoryCache
     from trivy_tpu_torch.db import CompiledDB
     from trivy_tpu_torch.db.compiled import SwappableStore
@@ -3217,14 +3229,31 @@ def memo_phase(device, cdb, fleet: dict, work_dir: str,
     cdb.device_tables(device)           # resident since the vuln phase
     up0 = cdb.device_stats()["uploads"]
 
-    def fleet_run(memo, name: str) -> dict:
+    def fleet_run(memo, name: str, depth: int = 2,
+                  sched: bool = False) -> dict:
         m0 = MEMO_METRICS.snapshot()
-        r = run_fleet(paths, holder, backend, card, MemoryCache(), 2,
-                      memo=memo)
+        if sched:
+            r = run_sched(paths, holder, backend, card, MemoryCache(),
+                          memo=memo)
+            r["jobs"] = r["stats"]["batch"]["interval_jobs"]
+            bad = {k: v for k, v in r["stats"]["counters"].items()
+                   if k in ("quarantined", "host_fallbacks") and v}
+            if bad or r["launches"] < 1:
+                raise AssertionError(f"memo {name}: {bad}, "
+                                     f"{r['launches']} sieve launches")
+        else:
+            r = run_fleet(paths, holder, backend, card, MemoryCache(),
+                          depth, memo=memo)
+            r["jobs"] = r["stats"]["interval_jobs"]
+            if r["launches"] != 1 or \
+                    r["stats"]["dispatch_depth"] != depth:
+                raise AssertionError(
+                    f"memo {name}: {r['launches']} sieve launches at "
+                    f"depth {r['stats']['dispatch_depth']} (want 1 at "
+                    f"{depth})")
         m1 = MEMO_METRICS.snapshot()
         r["memo"] = {k: m1[k] - m0[k] for k in ("hits", "misses",
                                                  "stores", "corrupt")}
-        r["jobs"] = r["stats"]["interval_jobs"]
         if holder._readers:
             raise AssertionError(f"memo {name}: the holder was not "
                                  f"released ({holder._readers} readers)")
@@ -3257,9 +3286,10 @@ def memo_phase(device, cdb, fleet: dict, work_dir: str,
     runs["fs_cold"] = fleet_run(writer, "fs_cold")
     reader = make_findings_memo(uri=memo_dir, secret_scanner=card,
                                 backend=backend)
-    runs["fs_warm"] = fleet_run(reader, "fs_warm")
+    runs["fs_warm_sched"] = fleet_run(reader, "fs_warm_sched",
+                                      sched=True)
     check(runs["fs_cold"], "fs_cold", want, False)
-    check(runs["fs_warm"], "fs_warm", want, True)
+    check(runs["fs_warm_sched"], "fs_warm_sched", want, True)
     n_fs = len(os.listdir(os.path.join(memo_dir, "memo")))
 
     # the second generation: the vuln phase's seeded store again, a
@@ -3281,6 +3311,7 @@ def memo_phase(device, cdb, fleet: dict, work_dir: str,
     swap_out = {}
     memo.hot_swap = _recording(memo.hot_swap, swap_out)
     new_up0 = new.device_stats()["uploads"]
+    failures0 = MEMO_METRICS.snapshot()["swap_failures"]
     _, ops, swap_ms = device_profile(lambda: holder.swap(new))
     del memo.hot_swap
     out = swap_out["out"]
@@ -3291,7 +3322,9 @@ def memo_phase(device, cdb, fleet: dict, work_dir: str,
     if staged != [new_up0 + (backend == "cuda")]:
         raise AssertionError("the swap did not stage the new generation "
                              "on the card once")
-    if not (out["rematch_jobs"] > 0 and out["migrated"] > 0):
+    if not (out["rematch_jobs"] > 0 and out["migrated"] > 0) or \
+            out["swap_failures"] or \
+            MEMO_METRICS.snapshot()["swap_failures"] != failures0:
         raise AssertionError(f"hot swap: {out}")
     kernels = {k: v for k, v in ops.items()
                if "emcpy" not in k and "emset" not in k}
@@ -3299,7 +3332,10 @@ def memo_phase(device, cdb, fleet: dict, work_dir: str,
         raise AssertionError(f"the re-match did not run on the card: "
                              f"{sorted(ops)}")
     n_kern, kernel_ms = op_totals(kernels)
-    runs["after_swap_no_memo"] = fleet_run(None, "after_swap_no_memo")
+    runs["after_swap_no_memo"] = fleet_run(None, "after_swap_no_memo",
+                                           depth=1)
+    if not runs["after_swap_no_memo"]["jobs"]:
+        raise AssertionError("the depth-1 fleet dispatched no job")
     runs["after_swap_memo"] = fleet_run(memo, "after_swap_memo")
     new_texts = runs["after_swap_no_memo"]["texts"]
     check(runs["after_swap_memo"], "after_swap_memo", new_texts, True)
@@ -3313,7 +3349,7 @@ def memo_phase(device, cdb, fleet: dict, work_dir: str,
         "no_memo_wall_s": no_memo_wall_s,
         "reports_changed_by_the_delta": sum(
             a != b for a, b in zip(want, new_texts)),
-        "runs": {k: {"wall_s": r["wall_s"], "split_s": r["split_s"],
+        "runs": {k: {"wall_s": r["wall_s"], "split_s": r.get("split_s"),
                      "interval_jobs": r["jobs"], "memo": r["memo"],
                      "launches": r["launches"]} for k, r in runs.items()},
         "delta": {**out["delta"], **changes, "pairs": len(pairs)},

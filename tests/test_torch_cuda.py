@@ -998,23 +998,36 @@ def test_swap_stages_a_card_generation_and_a_failed_stage_raises(cuda):
     assert "cuda:0" in new._device
 
 
-def test_warm_memo_fleet_on_the_card_dispatches_nothing(cuda, tmp_path):
+@pytest.mark.parametrize("sched", ["off", "on"])
+def test_warm_memo_fleet_on_the_card_dispatches_nothing(cuda, tmp_path,
+                                                        sched):
     """A memo fleet on the card, then a warm one (a new runner and blob
     cache, the same memo): no interval job, no miss, the cold fleet's
-    reports, which are a no-memo fleet's."""
+    reports, which are a no-memo fleet's — on the direct path and
+    through the scheduler."""
     from trivy_tpu_torch.memo import FindingsMemo
+    from trivy_tpu_torch.memo.metrics import MEMO_METRICS
     from trivy_tpu_torch.runtime import BatchScanRunner
     _, cdb, plan = _memo_fleet(tmp_path, 71)
     memo = FindingsMemo(backend="cuda")
     out = []
     for m in (None, memo, memo):
-        runner = BatchScanRunner(store=cdb, backend="cuda", memo=m)
-        res = runner.scan_paths(plan["paths"])
+        misses = MEMO_METRICS.snapshot()["misses"]
+        runner = BatchScanRunner(store=cdb, backend="cuda", memo=m,
+                                 sched=sched)
+        try:
+            res = runner.scan_paths(plan["paths"])
+        finally:
+            runner.close()
+        st = runner.last_stats
+        jobs = st["interval_jobs"] if sched == "off" else \
+            st["sched"]["batch"]["interval_jobs"]
         out.append(([(r.name, r.error or json.dumps(
             r.report.to_dict(), sort_keys=True)) for r in res],
-            runner.last_stats["interval_jobs"]))
+            jobs, MEMO_METRICS.snapshot()["misses"] - misses))
     assert out[0][0] == out[1][0] == out[2][0]
     assert out[1][1] == out[0][1] > 0 and out[2][1] == 0
+    assert out[1][2] > 0 and out[2][2] == 0
 
 
 def test_hot_swap_rematches_on_the_card(cuda, tmp_path):
@@ -1054,6 +1067,7 @@ def test_hot_swap_rematches_on_the_card(cuda, tmp_path):
         sw.swap(new)
         out = box[0]
         assert out["rematch_jobs"] > 0 and out["migrated"] > 0
+        assert out["swap_failures"] == 0
         if backend == "cuda":
             assert "cuda:0" in new._device
             assert out["dispatch"]["device_s"] > 0

@@ -614,7 +614,9 @@ def test_sched_snapshot_has_the_memo_section(fleet):
     try:
         snap = sched.stats()
         assert snap["memo"].keys() == MEMO_METRICS.snapshot().keys()
-        assert set(snap["memo"]) == set(R_METRICS.snapshot())
+        # the port counts failed hot-swap migrations besides
+        assert set(snap["memo"]) == \
+            set(R_METRICS.snapshot()) | {"swap_failures"}
     finally:
         sched.close()
 

@@ -87,7 +87,7 @@ def _swap_run(Runner, Memo, Swap, attach, metrics, gen1, gen2, paths,
     sw = Swap(gen1)
     attach(sw, memo)
     before = metrics.snapshot()
-    sw.swap(gen2, stage=False)
+    sw.swap(gen2)
     after = metrics.snapshot()
     r2 = Runner(store=sw, backend=backend, mesh=mesh, memo=memo,
                 sched=sched)
@@ -177,7 +177,7 @@ def test_swap_to_identical_generation_migrates_everything(tmp_path):
     before = MEMO_METRICS.snapshot()
     sw = SwappableStore(cdb1)
     attach_memo(sw, memo)
-    sw.swap(cdb1b, stage=False)
+    sw.swap(cdb1b)
     after = MEMO_METRICS.snapshot()
     assert after["rematch_jobs"] == before["rematch_jobs"]
     assert after["migrated_entries"] - before["migrated_entries"] == \
@@ -206,6 +206,37 @@ def test_hot_swap_journal_fallback(tmp_path):
     cold = BatchScanRunner(store=tg2,
                            backend="cpu-ref").scan_paths(paths)
     assert _norm(cold) == _norm(warm)
+
+
+def test_failed_migration_is_counted_and_recomputed(tmp_path,
+                                                    monkeypatch):
+    """A re-match dispatch that raises does not break the swap: the
+    failure is counted (``swap_failures``, in the stats and in
+    ``MEMO_METRICS``), and the next scan recomputes the verdicts the
+    migration could not carry over, to a fresh no-memo scan's reports."""
+    import trivy_tpu_torch.detect.batch as detect_batch
+    _, _, tg1, tg2, _, _, _ = _generations(5)
+    paths = _fleet(tmp_path, None)
+    memo = FindingsMemo(MemoryMemoStore(), backend="cpu")
+    BatchScanRunner(store=tg1, backend="cpu", memo=memo).scan_paths(paths)
+
+    def down(*args, **kwargs):
+        raise RuntimeError("device lost")
+    monkeypatch.setattr(detect_batch, "dispatch_jobs", down)
+    before = MEMO_METRICS.snapshot()
+    out = memo.hot_swap(tg1, tg2)
+    monkeypatch.undo()
+    assert out["swap_failures"] == 1 and "device lost" in out["error"]
+    assert MEMO_METRICS.snapshot()["swap_failures"] == \
+        before["swap_failures"] + 1
+    warm = BatchScanRunner(store=tg2, backend="cpu",
+                           memo=memo).scan_paths(paths)
+    assert MEMO_METRICS.snapshot()["misses"] > before["misses"]
+    cold = BatchScanRunner(store=tg2, backend="cpu").scan_paths(paths)
+    assert _norm(cold) == _norm(warm)
+    ok = FindingsMemo(MemoryMemoStore(), backend="cpu")
+    BatchScanRunner(store=tg1, backend="cpu", memo=ok).scan_paths(paths)
+    assert ok.hot_swap(tg1, tg2)["swap_failures"] == 0
 
 
 def test_plain_store_swap_degrades_as_in_reference(tmp_path):
@@ -361,6 +392,36 @@ def test_factory_passes_the_scan_backend(tmp_path):
     assert FindingsMemo().backend == "cuda"
     for backend in ("cuda", "cpu", "cpu-ref"):
         args = argparse.Namespace(no_memo=False, security_checks="vuln",
-                                  cache_dir="", memo_cache="",
+                                  cache_dir="", memo_cache="memory",
                                   backend=backend)
         assert _memo(args, None).backend == backend
+
+
+@pytest.mark.parametrize("memo_cache,cache_dir,scheduled,want", [
+    ("", "", False, None),
+    ("", "", True, "MemoryMemoStore"),
+    ("memory", "", False, "MemoryMemoStore"),
+    ("dir", "", False, "FSMemoStore"),
+    ("", "blobs", False, "FSMemoStore"),
+])
+def test_cli_memo_only_where_an_entry_can_be_read_again(
+        tmp_path, memo_cache, cache_dir, scheduled, want):
+    """The CLI keeps a memo where one of its entries can be read again:
+    on disk (``--cache-dir``, a ``--memo-cache`` directory), in memory
+    when asked by name, or for a scheduled scan of several targets. A
+    single target's memo in memory would die unread: none is built."""
+    import argparse
+
+    from trivy_tpu_torch.cli import _memo, make_cache
+    if memo_cache == "dir":
+        memo_cache = str(tmp_path / "memo")
+    if cache_dir:
+        cache_dir = str(tmp_path / cache_dir)
+    args = argparse.Namespace(no_memo=False, security_checks="vuln",
+                              cache_dir=cache_dir, memo_cache=memo_cache,
+                              backend="cpu")
+    memo = _memo(args, make_cache(cache_dir), None, scheduled)
+    got = memo and type(memo.store.primary).__name__
+    assert got == want
+    args.no_memo = True
+    assert _memo(args, make_cache(cache_dir), None, scheduled) is None

@@ -42,9 +42,10 @@ on ``--backend cuda`` unless asked for ``cpu`` (the same torch code on
 the CPU) or ``cpu-ref`` (numpy). Blobs go to an in-memory cache unless
 ``--cache-dir`` names a directory for the on-disk one (``--no-cache``
 keeps them in memory all the same). A scan with the ``vuln`` check
-keeps its detection verdicts in the findings memo (``memo/``): in
-memory, under ``--cache-dir`` beside the blobs, or where
-``--memo-cache`` says; ``--no-memo`` turns it off. Without
+keeps its detection verdicts in the findings memo (``memo/``) where
+an entry can be read again: under ``--cache-dir`` beside the blobs,
+where ``--memo-cache`` says, or in memory for a scheduled scan of
+several images; ``--no-memo`` turns it off. Without
 ``--db-fixtures`` or ``--compiled-db``, ``--cache-dir`` names the
 advisory DB that ``db update`` installed there.
 
@@ -495,15 +496,24 @@ def _refuse_early(args) -> bool:
     return False
 
 
-def _memo(args, cache, option=None):
+def _memo(args, cache, option=None, scheduled: bool = False):
     """The findings memo of a scan (ref cli.py ``_memo``): None under
     ``--no-memo`` or without the ``vuln`` check, else one on the blob
     cache's tier (``--memo-cache`` overrides it) whose hot-swap
     re-match runs on the scan's backend. Raises ``ValueError`` for a
-    memo URI still to be ported."""
+    memo URI still to be ported.
+
+    Unlike the reference, a memo in memory is built only for a
+    ``scheduled`` run of several targets, where a request can read
+    what an earlier one recorded: a single target, or the direct
+    fleet, partitions every query before any verdict is recorded, so
+    its memory memo would die with the process unread. The reports
+    are the same either way."""
     if args.no_memo:
         return None
     if "vuln" not in _split(getattr(args, "security_checks", "vuln")):
+        return None
+    if not (args.memo_cache or isinstance(cache, FSCache) or scheduled):
         return None
     from .memo import make_findings_memo
     return make_findings_memo(cache=cache, cache_dir=args.cache_dir,
@@ -512,14 +522,15 @@ def _memo(args, cache, option=None):
                               backend=args.backend)
 
 
-def _sources(args, checks, option=None):
+def _sources(args, checks, option=None, scheduled: bool = False):
     """``(cache, memo, store)`` of a scan from the flags — the store
     only with the ``vuln`` check (ref cli.py:1895-1898) — or None after
     an ``error:`` line (a memo URI still to be ported, an installed DB
-    that cannot be used)."""
+    that cannot be used). ``scheduled``: a run of several targets
+    through the scheduler (``_memo``)."""
     cache = make_cache(args.cache_dir, args.no_cache)
     try:
-        memo = _memo(args, cache, option)
+        memo = _memo(args, cache, option, scheduled)
         store = load_store(args.db_fixtures, args.compiled_db,
                            args.compile_db, args.cache_dir,
                            args.skip_db_update) \
@@ -766,7 +777,7 @@ def _run_image_batch(args) -> int:
                            _split(args.skip_files), patterns,
                            not args.no_ingest_guards,
                            _ingest_limits(args))
-    sources = _sources(args, checks, opt)
+    sources = _sources(args, checks, opt, scheduled=args.sched == "on")
     if sources is None:
         return 1
     cache, memo, store = sources
@@ -928,7 +939,9 @@ def _scan_flags(sp) -> None:
     sp.add_argument("--memo-cache", default="",
                     help="findings-memo backend override: 'memory' or "
                     "a directory (redis:// and s3:// are not ported "
-                    "yet) — default rides the blob cache's tier")
+                    "yet) — default rides the blob cache's tier; in "
+                    "memory, only a scheduled scan of several images "
+                    "keeps one")
     # refused by name (ROADMAP A.9)
     sp.add_argument("--server", default="", help=argparse.SUPPRESS)
     sp.add_argument("--fault-spec", default="", help=argparse.SUPPRESS)

@@ -621,9 +621,8 @@ class SwappableStore:
         return sorted(k for k in list(placed)
                       if isinstance(k, str) and k.startswith("cuda"))
 
-    def swap(self, new_db: CompiledDB, stage: bool = True) -> None:
-        if stage and getattr(new_db, "v_lo", None) is not None and \
-                len(new_db.v_lo):
+    def swap(self, new_db: CompiledDB) -> None:
+        if getattr(new_db, "v_lo", None) is not None and len(new_db.v_lo):
             for device in self._staging_devices():
                 new_db.device_tables(device)    # raises on a failure
         with self._lock:

@@ -316,9 +316,11 @@ class FindingsMemo:
 
         The returned stats carry, beside the reference's counters,
         ``split_s`` (the seconds of the delta, the re-match — job
-        build and dispatch — and the store writes) and the re-match
+        build and dispatch — and the store writes), the re-match
         dispatch's own ``dispatch`` counters (``device_s``,
-        ``jobs_in``, ``jobs_unique``)."""
+        ``jobs_in``, ``jobs_unique``) and ``swap_failures``: 1, with
+        the ``error``, when the migration failed (also counted in
+        ``MEMO_METRICS``), else 0."""
         from ..db.compiled import CompiledDB
         MEMO_METRICS.inc("swaps")
         out = {"migrated": 0, "rematch_entries": 0,
@@ -334,8 +336,12 @@ class FindingsMemo:
         except Exception as e:      # noqa: BLE001 — a failed
             # migration must never break the swap; the store is
             # still correct (old-ctx entries are unreachable under
-            # the new context)
-            log.warning("memo hot-swap migration failed: %r", e)
+            # the new context). Counted, so a failed re-match on the
+            # card is never silent.
+            MEMO_METRICS.inc("swap_failures")
+            out.update(swap_failures=1, error=repr(e))
+            log.error("memo hot-swap migration failed on %s: %r",
+                      self.backend, e)
         return out
 
     def _hot_swap(self, old_db, new_db) -> dict:
@@ -350,7 +356,8 @@ class FindingsMemo:
         new_ctx = self.ctx_for(new_db)
         out = {"migrated": 0, "rematch_entries": 0,
                "rematch_jobs": 0, "dropped_subs": 0,
-               "invalidated_subs": 0, "delta": delta.stats()}
+               "invalidated_subs": 0, "swap_failures": 0,
+               "delta": delta.stats()}
         t_delta = time.perf_counter() - t0
         t_store = 0.0
 

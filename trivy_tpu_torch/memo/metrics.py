@@ -32,6 +32,10 @@ class MemoMetrics:
         # packages, swaps processed
         "migrated_entries", "rematch_jobs", "rematch_entries",
         "swaps",
+        # hot swaps whose migration failed (the re-match dispatch or a
+        # store write raised): the touched entries are recomputed at
+        # the next scan, and this counter says so (the port's own)
+        "swap_failures",
         # advisory-delta observability: advisory keys the delta
         # touched, sub-records re-matched against the new generation,
         # sub-records invalidated outright (no longer evaluable —
