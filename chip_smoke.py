@@ -180,6 +180,22 @@ Builds the port's hand-written kernels (``trivy_tpu_torch/csrc``, one
    content fingerprint, the first upload); a single-target scan
    keeps no memo in memory, so it must not fingerprint the DB.
 
+The obs checks ride on those runs: the fleet phase's cold and warm
+fleets run on the process tracer, as a user's do, and once more each
+untraced (the tracing cost is their walls' ratio); its profiled fleet
+is traced into a tracer of its own, which must record one
+``dfa_scan`` busy span per ``dfa_blockmask`` launch and one
+``device_compute`` span per interval wave, each stamped by CUDA events,
+with the untraced run's launches; its timeline (``obs/timeline.py``)
+must partition its window exactly, and ``SECRET_METRICS`` must count
+its launches. After the vuln phase ``resident_snapshot()`` must list
+the DB and a DFA table with their ``device_stats()`` bytes, after the
+memo phase's swap only the new generation; the sched phase's first
+cold fleet must export one trace file per request; the image phase's
+CLI subprocess runs with ``--profile-out``, whose trace must name the
+sieve kernel; every DFA upload must be one per (generation, device).
+Two ``obs`` lines print what they read.
+
 It prints the card's name and power limit, one ``{"kernels": [...]}``
 line (times from CUDA events, the bound this run's inputs give, each
 kernel's per-shard times under ``mesh``; the hand-written kernels
@@ -1853,6 +1869,27 @@ def report_text(report) -> str:
     return buf.getvalue()
 
 
+def check_profile(prof_dir: str) -> dict:
+    """``--profile-out``'s directory: a ``torch.profiler`` Chrome trace
+    whose CUDA kernels include ``dfa_blockmask``'s (``SIEVE_KERNEL``)
+    and a non-empty ``host_profile.folded``."""
+    with open(os.path.join(prof_dir, "torch_trace.json")) as f:
+        doc = json.load(f)
+    kernels = [e for e in doc["traceEvents"]
+               if e.get("cat") == "kernel"]
+    sieve = [e for e in kernels if SIEVE_KERNEL in e.get("name", "")]
+    folded = os.path.getsize(os.path.join(prof_dir,
+                                          "host_profile.folded"))
+    if not sieve or not folded:
+        raise AssertionError(f"obs: the --profile-out trace has "
+                             f"{len(sieve)} dfa_blockmask kernels of "
+                             f"{len(kernels)}, host_profile.folded "
+                             f"{folded} bytes")
+    return {"kernels": len(kernels), "dfa_blockmask": len(sieve),
+            "dfa_blockmask_us": sum(e.get("dur", 0) for e in sieve),
+            "host_profile_bytes": folded}
+
+
 def _image_steps(steps: dict, stats: dict) -> dict:
     return {"load_s": steps["load_s"], **_fs_steps(steps, stats)}
 
@@ -2026,12 +2063,15 @@ def image_phase(device, cdb, n_pkgs: dict, files: list, planted: dict,
     out["reduced"] = {b: r[1]["total_s"] for b, r in red.items()}
 
     # the real entry point in a new process, on the sbom phase's npz
+    # (with --profile-out: a torch.profiler trace of the CLI's scan)
     report_path = os.path.join(work_dir, "image.report.json")
+    prof_dir = os.path.join(work_dir, "image.profile")
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "trivy_tpu_torch", "image", "--input",
          reduced, "--compiled-db", db_path, "--backend", backend,
-         "--format", "json", "--output", report_path],
+         "--format", "json", "--output", report_path,
+         "--profile-out", prof_dir],
         cwd=os.path.dirname(os.path.abspath(__file__)),
         capture_output=True, text=True, timeout=600)
     out["cli_wall_s"] = time.perf_counter() - t0
@@ -2042,6 +2082,7 @@ def image_phase(device, cdb, n_pkgs: dict, files: list, planted: dict,
         if _sorted_json(f.read()) != texts[backend]:
             raise AssertionError("the image CLI's report != the "
                                  "in-process report")
+    out["cli_profile"] = check_profile(prof_dir)
     out["launches"] = launches
     out["phase_s"] = time.perf_counter() - t_phase
     return out
@@ -2103,11 +2144,12 @@ FLEET_REDUCED_SCALE = 0.25      # its package counts, of the full fleet's
 
 
 def run_fleet(paths: list, db, backend: str, scanner, cache,
-              depth: int, mesh=None, memo=None) -> dict:
+              depth: int, mesh=None, memo=None, tracer=None) -> dict:
     """One ``BatchScanRunner(sched="off").scan_paths`` over ``paths``
     (over ``mesh`` when given: then ``scanner`` None lets the runner
     build its sharded one; with the findings memo ``memo`` when
-    given), its sieve launches counted from 0:
+    given; into ``tracer`` when given, else the process tracer), its
+    sieve launches counted from 0:
     {"texts": one sorted JSON report text per target, None for a
     failed one, "failed": [(index, status, causes)] of the
     failed ones, "wall_s" (the runner's),
@@ -2118,7 +2160,8 @@ def run_fleet(paths: list, db, backend: str, scanner, cache,
     from trivy_tpu_torch.runtime import BatchScanRunner
     runner = BatchScanRunner(store=db, cache=cache, backend=backend,
                              secret_scanner=scanner, mesh=mesh,
-                             dispatch_depth=depth, memo=memo)
+                             dispatch_depth=depth, memo=memo,
+                             tracer=tracer)
     spans: dict = {}
 
     def clocked(name: str, fn):
@@ -2155,6 +2198,85 @@ def run_fleet(paths: list, db, backend: str, scanner, cache,
             "stats": runner.last_stats}
 
 
+def obs_fleet(tracer, traced: dict, runs: dict,
+              profiler_busy_ms: float, sm0: dict, sm1: dict) -> dict:
+    """The obs checks on the fleet phase's traced (and profiled) run
+    against its untraced cold run (``runs["cold_d2_off"]``): one
+    ``dfa_scan`` busy span per ``dfa_blockmask`` launch and one
+    ``device_compute(kind=interval)`` span per interval wave, each
+    longer than 0 and stamped by CUDA events; the same launches traced
+    and untraced; the timeline's busy time plus its attributed causes
+    equal to its window within 1 us; ``SECRET_METRICS``' dispatches
+    equal to the launches. Returns what the obs line prints, with the
+    tracing cost: the walls of the cold and the warm fleet on the
+    process tracer beside the same fleet untraced."""
+    from trivy_tpu_torch.obs.timeline import from_tracer
+    untraced = runs["cold_d2_off"]
+    spans = [s for _, t in tracer.recorder.traces() for s in t]
+    dfa = [s for s in spans if s.name == "dfa_scan"]
+    waves = [s for s in spans if s.name == "device_compute"
+             and s.attrs.get("kind") == "interval"]
+    n_waves = traced["stats"]["interval_waves"]
+    if len(dfa) != traced["launches"] or len(waves) != n_waves:
+        raise AssertionError(
+            f"obs: {len(dfa)} dfa_scan spans for {traced['launches']} "
+            f"launches, {len(waves)} device_compute spans for {n_waves} "
+            f"waves")
+    bad = [(s.name, s.duration_s, s.attrs) for s in dfa + waves
+           if not s.duration_s > 0
+           or s.attrs.get("clock") != "cuda_event"]
+    if bad:
+        raise AssertionError(f"obs: busy spans not stamped by CUDA "
+                             f"events: {bad[:4]}")
+    if traced["launches"] != untraced["launches"]:
+        raise AssertionError(f"obs: {traced['launches']} launches traced, "
+                             f"{untraced['launches']} untraced")
+    tl = from_tracer(tracer)
+    attr = tl.attribute()
+    gap = abs(tl.busy_s + sum(attr.values()) - tl.window_s)
+    if gap > 1e-6:
+        raise AssertionError(f"obs: the timeline's partition is off by "
+                             f"{gap} s")
+    dispatches = sm1["dfa_dispatches"] - sm0["dfa_dispatches"]
+    if dispatches != traced["launches"]:
+        raise AssertionError(f"obs: SECRET_METRICS counted {dispatches} "
+                             f"DFA dispatches for {traced['launches']} "
+                             f"launches")
+    rep = tl.report()
+    top = sorted(((c, v * 1e3) for c, v in attr.items() if v > 0),
+                 key=lambda kv: -kv[1])[:4]
+    return {
+        "dfa_scan_spans": len(dfa), "device_compute_spans": len(waves),
+        "busy_span_ms": {"dfa_scan": sum(s.duration_s for s in dfa) * 1e3,
+                         "device_compute":
+                             sum(s.duration_s for s in waves) * 1e3},
+        "traced": {"launches": traced["launches"],
+                   "dispatch_overlap_ratio":
+                       traced["stats"]["dispatch_overlap_ratio"],
+                   "wall_s": traced["wall_s"]},
+        "untraced": {"launches": untraced["launches"],
+                     "dispatch_overlap_ratio":
+                         untraced["stats"]["dispatch_overlap_ratio"],
+                     "wall_s": untraced["wall_s"]},
+        "timeline": {"window_ms": tl.window_s * 1e3,
+                     "busy_ms": tl.busy_s * 1e3,
+                     "idle_share": tl.idle_s / tl.window_s,
+                     "coverage": rep["coverage"], "gaps": rep["gaps"],
+                     "partition_gap_s": gap,
+                     "top_causes_ms": dict(top)},
+        "profiler_busy_ms": profiler_busy_ms,
+        # traced / untraced wall of one fleet: cold (traced first) and
+        # warm (untraced first)
+        "tracing_cost": {
+            kind: {"traced_s": runs[k]["wall_s"],
+                   "untraced_s": runs[f"{k}_off"]["wall_s"],
+                   "ratio": runs[k]["wall_s"] / runs[f"{k}_off"]["wall_s"]}
+            for kind, k in (("cold", "cold_d2"), ("warm", "warm_d2"))},
+        "secret": {"dfa_dispatches": dispatches,
+                   "sieve_selectivity": sm1["sieve_selectivity"]},
+    }
+
+
 def fleet_phase(device, cdb, n_pkgs: dict, files: list,
                 work_dir: str, keep: dict = None) -> dict:
     """The fleet runtime's direct path (``BatchScanRunner`` with
@@ -2165,9 +2287,10 @@ def fleet_phase(device, cdb, n_pkgs: dict, files: list,
     (``fleet_targets``: a shared base, a shared secret layer, lockfiles
     of their own, the corpus in quarters, a twin under a second tag, a
     truncated tar). Cold into a fresh ``MemoryCache`` at each depth of
-    ``FLEET_DEPTHS``, again at depth 2 on the warm cache (no sieve: a
-    re-sweep after a DB update), and one profiled cold fleet at depth
-    2.
+    ``FLEET_DEPTHS``, twice at depth 2 on the warm cache (no sieve: a
+    re-sweep after a DB update; untraced, then on the process tracer),
+    once more cold at depth 2 untraced, and one profiled cold fleet at
+    depth 2.
     Every run's reports must be equal, equal to a ``scan_image_report``
     of each target alone on the card; the twin's must be its image's
     but for the name and tag, the broken tar must fail alone; each
@@ -2179,6 +2302,8 @@ def fleet_phase(device, cdb, n_pkgs: dict, files: list,
     phase."""
     from trivy_tpu_torch.artifact import MemoryCache
     from trivy_tpu_torch.cli import secret_scanner
+    from trivy_tpu_torch.obs import Tracer
+    from trivy_tpu_torch.secret.metrics import SECRET_METRICS
     backend = device.type
     t_phase = time.perf_counter()
     out: dict = {}
@@ -2195,21 +2320,37 @@ def fleet_phase(device, cdb, n_pkgs: dict, files: list,
     up0 = cdb.device_stats()["uploads"]
 
     # each run's cache lives as long as the run (depth 2's until its
-    # warm rerun), as one fleet's cache would in a process
+    # warm reruns), as one fleet's cache would in a process. The cold
+    # fleets and the warm rerun run on the process tracer, as a user's
+    # scan does; the untraced arm (a disabled tracer) is a second warm
+    # rerun, before the traced one, and a second cold fleet at depth 2,
+    # after the traced one; the profiled fleet is traced into a tracer
+    # of its own, for the obs checks
     runs = {}
     for depth in FLEET_DEPTHS:
         cache = MemoryCache()
         runs[f"cold_d{depth}"] = run_fleet(paths, cdb, backend, card,
                                            cache, depth)
         if depth == 2:
+            runs["warm_d2_off"] = run_fleet(paths, cdb, backend, card,
+                                            cache, 2,
+                                            tracer=Tracer(enabled=False))
             runs["warm_d2"] = run_fleet(paths, cdb, backend, card,
                                         cache, 2)
         del cache
+    runs["cold_d2_off"] = run_fleet(paths, cdb, backend, card,
+                                    MemoryCache(), 2,
+                                    tracer=Tracer(enabled=False))
+    tracer = Tracer()
+    sm0 = SECRET_METRICS.snapshot()
     prof, ops, wall_ms = device_profile(lambda: run_fleet(
-        paths, cdb, backend, card, MemoryCache(), 2))
+        paths, cdb, backend, card, MemoryCache(), 2, tracer=tracer))
+    sm1 = SECRET_METRICS.snapshot()
     runs["profiled_d2"] = prof
+    out["obs"] = obs_fleet(tracer, prof, runs, op_totals(ops)[1],
+                           sm0, sm1)
     launches = {k: r["launches"] for k, r in runs.items()}
-    if any(n != (0 if k == "warm_d2" else 1)
+    if any(n != (0 if k.startswith("warm") else 1)
            for k, n in launches.items()):
         raise AssertionError(f"sieve launches per fleet: {launches} "
                              f"(1 per cold fleet, 0 warm)")
@@ -2329,7 +2470,7 @@ class PoisonInjector:
 
 
 def run_sched(paths: list, db, backend: str, scanner, cache,
-              injector=None, mesh=None, memo=None) -> dict:
+              injector=None, mesh=None, memo=None, tracer=None) -> dict:
     """One ``BatchScanRunner(sched=SchedConfig(dispatch_depth=2))
     .scan_paths`` over ``paths`` (over ``mesh`` and with ``memo`` when
     given, as ``run_fleet``), its sieve launches counted from 0 and
@@ -2343,7 +2484,8 @@ def run_sched(paths: list, db, backend: str, scanner, cache,
     runner = BatchScanRunner(store=db, cache=cache, backend=backend,
                              secret_scanner=scanner, mesh=mesh,
                              sched=SchedConfig(dispatch_depth=2),
-                             fault_injector=injector, memo=memo)
+                             fault_injector=injector, memo=memo,
+                             tracer=tracer)
     sched = runner.scheduler
     batches = []
     launch = sched._launch
@@ -2382,14 +2524,21 @@ def _strip_status(text: str) -> str:
     return json.dumps(doc, sort_keys=True)
 
 
+# the __global__ function of csrc/dfa_blockmask.cu, as a profiler
+# names it (``dfa_blockmask`` is its wrapper's name, which a span may
+# carry too)
+SIEVE_KERNEL = "dfa_sieve_kernel"
+SIEVE_NAMES = ("dfa_blockmask", SIEVE_KERNEL)
+
+
 def sieve_wave_overlap_us(spans: list) -> float:
     """Device microseconds during which a ``dfa_blockmask`` launch and
     another kernel ran at once, from a profiled run's kernel spans
     [(name, start us, end us)]: 0 when every interval wave waited for
     the sieve enqueued before it."""
-    sieves = [(a, b) for n, a, b in spans if n.startswith("dfa_blockmask")]
+    sieves = [(a, b) for n, a, b in spans if n.startswith(SIEVE_NAMES)]
     others = [(a, b) for n, a, b in spans
-              if not n.startswith("dfa_blockmask")
+              if not n.startswith(SIEVE_NAMES)
               and not n.startswith("Memcpy") and not n.startswith("Memset")]
     return float(sum(max(0.0, min(b, d) - max(a, c))
                      for a, b in sieves for c, d in others))
@@ -2416,6 +2565,7 @@ def sched_phase(device, cdb, fleet: dict) -> dict:
     ``submit_path`` at once must each get its target's report."""
     import threading
     from trivy_tpu_torch.artifact import MemoryCache
+    from trivy_tpu_torch.obs import Tracer
     from trivy_tpu_torch.runtime import BatchScanRunner
     from trivy_tpu_torch.sched import SchedConfig
     backend = device.type
@@ -2448,10 +2598,19 @@ def sched_phase(device, cdb, fleet: dict) -> dict:
                 f"{with_candidates} batches with candidates "
                 f"({c['batches']} batches)")
 
+    # the first cold fleet exports every request's trace (Perfetto
+    # JSON, one file per request)
+    trace_dir = os.path.join(os.path.dirname(paths[0]), "traces")
+    os.makedirs(trace_dir)
     runs = {}
     for k in range(SCHED_COLD):
-        runs[f"cold{k}"] = run_sched(paths, cdb, backend, card,
-                                     MemoryCache())
+        runs[f"cold{k}"] = run_sched(
+            paths, cdb, backend, card, MemoryCache(),
+            tracer=Tracer(export_dir=trace_dir) if k == 0 else None)
+    trace_files = len(os.listdir(trace_dir))
+    if trace_files != len(paths):
+        raise AssertionError(f"obs: {trace_files} trace files for "
+                             f"{len(paths)} requests")
     prof, spans, wall_ms = profile_spans(lambda: run_sched(
         paths, cdb, backend, card, MemoryCache()))
     runs["profiled"] = prof
@@ -2553,7 +2712,8 @@ def sched_phase(device, cdb, fleet: dict) -> dict:
            "serving": {"clients": SCHED_CLIENTS, "wall_s": serve_s,
                        "batches": serve_stats["counters"]["batches"]},
            "launches": {k: r["launches"] for k, r in runs.items()},
-           "uploads": cdb.device_stats()["uploads"] - up0}
+           "uploads": cdb.device_stats()["uploads"] - up0,
+           "trace_files": trace_files}
     out["phase_s"] = time.perf_counter() - t_phase
     return out
 
@@ -3218,7 +3378,8 @@ def memo_phase(device, cdb, fleet: dict, work_dir: str,
     split and the re-match's device ms."""
     from trivy_tpu_torch.artifact import MemoryCache
     from trivy_tpu_torch.db import CompiledDB
-    from trivy_tpu_torch.db.compiled import SwappableStore
+    from trivy_tpu_torch.db.compiled import (SwappableStore,
+                                             resident_snapshot)
     from trivy_tpu_torch.db.lifecycle import attach_memo
     from trivy_tpu_torch.memo import MEMO_METRICS, make_findings_memo
     backend = device.type
@@ -3319,6 +3480,12 @@ def memo_phase(device, cdb, fleet: dict, work_dir: str,
     if holder.current() is not new or cdb._device:
         raise AssertionError("the swap did not install the new generation "
                              "and drop the old one's device copies")
+    resident = [r for r in resident_snapshot()
+                if r["table"] == "advisory_db"]
+    if {r["generation"] for r in resident} != {new.generation}:
+        raise AssertionError(f"obs: resident advisory tables after the "
+                             f"swap: {resident} (new generation "
+                             f"{new.generation})")
     if staged != [new_up0 + (backend == "cuda")]:
         raise AssertionError("the swap did not stage the new generation "
                              "on the card once")
@@ -3354,6 +3521,7 @@ def memo_phase(device, cdb, fleet: dict, work_dir: str,
                      "launches": r["launches"]} for k, r in runs.items()},
         "delta": {**out["delta"], **changes, "pairs": len(pairs)},
         "second_generation": {"store_s": store_s, "compile_s": compile_s},
+        "resident_after_swap": resident,
         "swap": {"wall_ms": swap_ms, "split_s": out["split_s"],
                  "migrated": out["migrated"],
                  "rematch_entries": out["rematch_entries"],
@@ -3452,6 +3620,49 @@ def mesh_line(mesh_kern: dict, name: str) -> dict:
             "first_mesh_ms": k["first_mesh_ms"], "shard_ms": k["shard_ms"]}
 
 
+def track_dfa_uploads() -> list:
+    """Record (generation, device) of every upload of a DFA table from
+    now on, beside ``SECRET_METRICS``' own count of them."""
+    from trivy_tpu_torch.ops.dfa import DfaTable
+    seen: list = []
+    placed = DfaTable._placed
+
+    def recording(self, key):
+        fresh = key not in self._device
+        out = placed(self, key)
+        if fresh:
+            seen.append((self.generation, key))
+        return out
+
+    DfaTable._placed = recording
+    return seen
+
+
+def resident_rows(cdb) -> list:
+    """``resident_snapshot()`` after the vuln phase: the DB on its
+    device (placement ``default``) and a DFA table, each row's bytes
+    the bytes its table uploaded (``device_stats()``)."""
+    from trivy_tpu_torch.ops.resident import (_RESIDENT_REGISTRY,
+                                              resident_snapshot)
+    rows = resident_snapshot()
+    tables = {t.generation: t for t in list(_RESIDENT_REGISTRY)}
+    db_rows = [r["placement"] for r in rows
+               if r["table"] == "advisory_db"
+               and r["generation"] == cdb.generation]
+    if db_rows != ["default"] or not any(r["table"] == "dfa"
+                                         for r in rows):
+        raise AssertionError(f"obs: resident tables after the vuln "
+                             f"phase: {rows}")
+    for r in rows:
+        st = tables[r["generation"]].device_stats()
+        if r["bytes"] != st["staged_bytes"] or (
+                not st["invalidations"]
+                and r["bytes"] != st["upload_bytes"]):
+            raise AssertionError(f"obs: resident row {r} != its "
+                                 f"table's device_stats() {st}")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3460,7 +3671,9 @@ def main() -> int:
 
     t_script = time.perf_counter()
     device = torch.device("cuda")
-    print(gpu_line(), flush=True)
+    gpu = gpu_line()
+    print(gpu, flush=True)
+    dfa_uploads = track_dfa_uploads()
     t0 = time.perf_counter()
     mods = (dfa_cuda, keywords_cuda)
     with ThreadPoolExecutor(len(mods)) as ex:
@@ -3495,6 +3708,7 @@ def main() -> int:
     vkeep: dict = {}
     vuln, cdb, n_pkgs = vuln_phase(device, held=vkeep)
     print("vuln phase: " + json.dumps(vuln), flush=True)
+    resident = resident_rows(cdb)
     mesh_disp = mesh_dispatch_phase(device, cdb, vkeep, mesh)
     del vkeep
     print("mesh phase, dispatch_jobs: " + json.dumps(mesh_disp), flush=True)
@@ -3652,6 +3866,42 @@ def main() -> int:
           f"lifecycle CLI (reduced, {life['rows']} rows): "
           f"{json.dumps(life['cli_wall_s'])} s; sbom CLI process split: "
           f"{json.dumps(sb['cli_split'])}", flush=True)
+    from trivy_tpu_torch.secret.metrics import SECRET_METRICS
+    sm = SECRET_METRICS.snapshot()
+    if len(set(dfa_uploads)) != len(dfa_uploads) or \
+            sm["dfa_uploads"] != len(dfa_uploads):
+        raise AssertionError(f"obs: SECRET_METRICS counted "
+                             f"{sm['dfa_uploads']} DFA uploads; the "
+                             f"tables made {dfa_uploads}")
+    fo = fleet["obs"]
+    print(f"obs ({gpu}): " + json.dumps({
+        "fleet": fo, "sched_trace_files": sched["trace_files"],
+        "image_cli_profile": img["cli_profile"],
+        "resident_after_vuln": resident,
+        "resident_after_swap": memo["resident_after_swap"],
+        "secret_metrics": {k: sm[k] for k in (
+            "dfa_uploads", "dfa_dispatches", "dfa_invalidations",
+            "files_total", "files_gated", "sieve_selectivity",
+            "shards_dispatched", "decode_tasks")},
+        "dfa_uploads": sorted({str(k) for _, k in dfa_uploads})}),
+        flush=True)
+    tl = fo["timeline"]
+    print(f"obs, traced fleet ({gpu}): {fo['dfa_scan_spans']} dfa_scan "
+          f"spans for {fo['traced']['launches']} launches, "
+          f"{fo['device_compute_spans']} device_compute spans for as many "
+          f"waves; launches traced/untraced {fo['traced']['launches']}/"
+          f"{fo['untraced']['launches']}, dispatch_overlap_ratio "
+          f"{fo['traced']['dispatch_overlap_ratio']}/"
+          f"{fo['untraced']['dispatch_overlap_ratio']}; timeline window "
+          f"{tl['window_ms']:.1f} ms, busy {tl['busy_ms']:.3f} ms (the "
+          f"profiler's CUDA busy: {fo['profiler_busy_ms']:.3f} ms), idle "
+          f"share {tl['idle_share']:.5f}, coverage {tl['coverage']}, top "
+          f"causes ms {json.dumps(tl['top_causes_ms'])}; sieve "
+          f"selectivity {sm['sieve_selectivity']}; tracing cost, wall "
+          f"traced/untraced: " + "; ".join(
+              f"{kind} {c['traced_s']:.3f}/{c['untraced_s']:.3f} s "
+              f"({c['ratio']:.4f})"
+              for kind, c in fo["tracing_cost"].items()), flush=True)
     print(f"script: {time.perf_counter() - t_script:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -124,6 +124,19 @@ MEMO_SLICE = ("memo/__init__.py", "memo/keys.py", "memo/store.py",
               "cli.py")
 
 
+# the observability device seams: obs/ with the modules that record
+# its spans, events and metrics
+OBS_SLICE = ("obs/__init__.py", "obs/trace.py", "obs/busy.py",
+             "obs/timeline.py", "obs/profiler.py", "secret/metrics.py",
+             "secret/batch.py", "parallel/secret_shard.py",
+             "parallel/interval_shard.py", "parallel/simhost.py",
+             "detect/batch.py", "ops/resident.py", "ops/dfa.py",
+             "db/compiled.py", "runtime/ring.py", "runtime/batch.py",
+             "scan/local.py", "artifact/artifact.py", "guard/budget.py",
+             "memo/findings.py", "memo/store.py", "sched/metrics.py",
+             "cli.py")
+
+
 def _covered(modules) -> None:
     import importlib
     import pkgutil
@@ -164,6 +177,10 @@ def test_the_scans_cover_the_parallel_slice():
 
 def test_the_scans_cover_the_memo_slice():
     _covered(MEMO_SLICE)
+
+
+def test_the_scans_cover_the_obs_slice():
+    _covered(OBS_SLICE)
 
 
 def test_simhost_entry_runs_without_jax():

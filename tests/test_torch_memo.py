@@ -10,8 +10,8 @@ port with no miss and no dispatched job, and the reverse. For
 ``image`` the blob ids still differ by the reference's ``misconf``
 handler version (ROADMAP A.9a), and that is the only difference
 between the two packages' entries. Then the cases of
-``tests/test_memo.py`` that need no trace span (A.8) and no server
-(A.9e), on the port's runner: the warm rescan is byte-identical and
+``tests/test_memo.py`` that need no server (A.9e), on the port's
+runner (its trace spans are ``tests/test_torch_obs.py``'s): the warm rescan is byte-identical and
 dispatch-free on both paths, shared base layers hit across images,
 SBOMs memoize as one blob, guard config and rule set never share an
 entry, poisoned and corrupt entries are dropped and recomputed, the

@@ -390,8 +390,9 @@ def test_two_simulated_hosts_equal_reference_single_host(tmp_path):
     """Two ``python -m trivy_tpu_torch.parallel.simhost`` processes,
     each scanning its LPT slice on a CPU mesh of two, agree on the
     global layout, and the union of their reports equals the
-    reference's single-host run; the unported trace keys are refused
-    by name."""
+    reference's single-host run; each output carries its host's span
+    export (``timeline``), and the keys that need ``obs/propagate.py``
+    (ROADMAP A.9i) are refused by name."""
     from trivy_tpu.parallel.simhost import run_simhost as rrun
     from trivy_tpu_torch.parallel.simhost import run_simhost as trun
     paths = make_fleet(tmp_path, 6)
@@ -424,13 +425,21 @@ def test_two_simulated_hosts_equal_reference_single_host(tmp_path):
     assert sorted(outs[0]["indices"] + outs[1]["indices"]) == \
         list(range(len(paths)))
     merged = {}
-    for o in outs:
-        assert "timeline" not in o and o["num_processes"] == 2
+    for pid, o in enumerate(outs):
+        assert o["num_processes"] == 2
+        # the span export, as the reference's: this host's process
+        # name, and the simhost root among its spans
+        tl = o["timeline"]
+        assert tl["process"] == f"host{pid}"
+        assert "simhost" in {sp["name"] for sp in tl["spans"]}
         for i, rep in zip(o["indices"], o["reports"]):
             merged[i] = rep
     assert [merged[i] for i in range(len(paths))] == single["reports"]
     for key in ("traceparent", "clock_port_file"):
-        with pytest.raises(NotImplementedError, match=key):
+        # both need obs/propagate.py (the ClockServer, the trace
+        # context), ROADMAP A.9i
+        with pytest.raises(NotImplementedError,
+                           match=f"{key}.*ROADMAP A.9i"):
             trun({**spec, "backend": "cpu", key: "x"},
                  tmulti.HostTopology())
 

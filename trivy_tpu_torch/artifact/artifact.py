@@ -9,10 +9,11 @@ the host (parsers are irregular), while ALL layers' secret candidates
 go to the card in one batched sieve dispatch — the batch dimension
 replaces the goroutine pool.
 
-The reference also records trace events and phase spans here
-(``inspect``, ``layer_analyze``, ``layer_analyzed``); the tracer comes
-with ROADMAP A.8. The ``config`` and ``license`` checks are refused
-by ``scan/local.py::check_security_checks`` until A.9.
+Tracing: ``inspect`` records how much of the image was a cache hit
+(an ``inspect`` event) and each missing layer's walk + analyzers (a
+``layer_analyze`` span, then a ``layer_analyzed`` event) on the span
+active on its thread. The ``config`` and ``license`` checks are
+refused by ``scan/local.py::check_security_checks`` until A.9.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from typing import Optional
 from ..analyzer import AnalyzerGroup
 from ..analyzer.analyzer import AnalysisResult
 from ..handler import handler_versions, post_handle
+from ..obs.trace import add_event, phase_span
 from ..types import ArtifactInfo, ArtifactReference, ImageMetadata
 from .cache import calc_key
 from .image import ImageSource, guess_base_layers
@@ -165,6 +167,10 @@ class ImageArtifact:
             todo = [i for i, b in enumerate(blob_ids)
                     if b in missing]
             self.missing_layers = len(todo)
+            # the analyze span (active on this thread when the runner
+            # or the scheduler traces the request) records how much of
+            # the image was a cache hit
+            add_event("inspect", layers=len(blob_ids), missing=len(todo))
             if todo:
                 self._inspect_layers(todo, blob_ids, base)
             if missing_artifact and \
@@ -245,12 +251,15 @@ class ImageArtifact:
             layer = self.image.layers[i]
             result = AnalysisResult()
             with layer.open() as tf:
-                files, opq_dirs, wh_files = collect_layer_tar(
-                    tf, budget=self.budget)
-                for path, size, read in files:
-                    if self._skipped(path):
-                        continue
-                    self.group.analyze_file(result, path, read, size)
+                with phase_span("layer_analyze", layer=i):
+                    files, opq_dirs, wh_files = collect_layer_tar(
+                        tf, budget=self.budget)
+                    for path, size, read in files:
+                        if self._skipped(path):
+                            continue
+                        self.group.analyze_file(result, path, read,
+                                                size)
+            add_event("layer_analyzed", layer=i, files=len(files))
             layer_results.append((i, result, opq_dirs, wh_files))
             if result.os is not None:
                 # feeds the image-config history analyzer, like the

@@ -62,6 +62,7 @@ else from ``trivy.yaml`` in the working directory or the file
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import io
 import json
@@ -83,6 +84,7 @@ from .handler.unpackaged import check_rekor
 from .report.writer import (FORMATS, UNPORTED_FORMATS, check_format,
                             write_report)
 from .obs.cost import parse_budget_config
+from .obs.trace import get_tracer
 from .runtime import BatchScanRunner
 from .runtime.ring import resolve_dispatch_depth
 from .scan import LocalScanner, ScanTarget, filter_results
@@ -790,6 +792,7 @@ def _run_image_batch(args) -> int:
     rc = _init_multihost(args)
     if rc:
         return rc
+    trace_out = _trace_out(args)
     runner = BatchScanRunner(
         store=store, cache=cache, backend=args.backend,
         secret_scanner=opt.secret_scanner, sched=args.sched,
@@ -808,7 +811,45 @@ def _run_image_batch(args) -> int:
     if args.sched_stats:
         print(json.dumps(stats.get("sched", stats), indent=2),
               file=sys.stderr)
+    if trace_out:
+        print(f"traces written to {trace_out} "
+              f"({get_tracer().n_exported} total this process)",
+              file=sys.stderr)
     return _finish_many(args, results)
+
+
+def _trace_out(args) -> str:
+    """--trace-out: point the process tracer's exporter at the
+    directory (created if missing); every completed request trace
+    lands there as Perfetto-loadable trace-event JSON (ref cli.py
+    ``_trace_out``: a scan of several images, where every target is a
+    traced request; a single scan is not one and writes nothing)."""
+    trace_out = getattr(args, "trace_out", "")
+    if trace_out:
+        os.makedirs(trace_out, exist_ok=True)
+        get_tracer().export_dir = trace_out
+    return trace_out
+
+
+@contextlib.contextmanager
+def _profiled(profile_dir: str, backend: str):
+    """--profile-out / --profile-dir: a ``torch.profiler`` trace of
+    the scan plus the host profiler's collapsed stacks
+    (``obs/profiler.py::device_trace``). On ``cuda`` a profiler that
+    cannot record CUDA activity raises ``DeviceTraceError`` before the
+    scan starts; it never drops to a host-only profile."""
+    if not profile_dir:
+        yield
+        return
+    from .obs.profiler import device_trace
+    with device_trace(profile_dir, backend=backend):
+        try:
+            yield
+        finally:
+            # the trace flushes even when the scan errors or times
+            # out — exactly when it is most wanted
+            print(f"profile trace written to {profile_dir}",
+                  file=sys.stderr)
 
 
 def _finish_many(args, results) -> int:
@@ -942,6 +983,19 @@ def _scan_flags(sp) -> None:
                     "yet) — default rides the blob cache's tier; in "
                     "memory, only a scheduled scan of several images "
                     "keeps one")
+    sp.add_argument("--trace-out", default="",
+                    help="write one Perfetto-loadable trace-event JSON "
+                    "per request into this directory (multi-target "
+                    "image scans)")
+    sp.add_argument("--profile-dir", default="",
+                    help="older spelling of --profile-out "
+                    "(--profile-out wins when both are set)")
+    sp.add_argument("--profile-out", default="",
+                    help="write a torch.profiler trace of the scan "
+                    "(torch_trace.json: CPU and CUDA activity on "
+                    "--backend cuda, CPU activity otherwise) and the "
+                    "host profiler's collapsed stacks "
+                    "(host_profile.folded) for flamegraphs")
     # refused by name (ROADMAP A.9)
     sp.add_argument("--server", default="", help=argparse.SUPPRESS)
     sp.add_argument("--fault-spec", default="", help=argparse.SUPPRESS)
@@ -1113,9 +1167,17 @@ def main(argv=None) -> int:
         except ValueError as e:
             print(f"error: {e}", file=sys.stderr)
             return 2
+    from .obs.profiler import DeviceTraceError
+    # --profile-out supersedes --profile-dir; one trace, never two
+    profile_dir = getattr(args, "profile_out", "") or \
+        getattr(args, "profile_dir", "")
     try:
-        with scan_deadline(timeout_s):
+        with scan_deadline(timeout_s), \
+                _profiled(profile_dir, getattr(args, "backend", "cpu")):
             return _dispatch(args)
+    except DeviceTraceError as e:
+        print(f"error: --profile-out: {e}", file=sys.stderr)
+        return 1
     except ScanTimeout:
         print(f"error: scan timeout of {args.timeout} exceeded "
               "(raise with --timeout)", file=sys.stderr)

@@ -42,7 +42,10 @@ from typing import Optional
 import numpy as np
 
 from ..ops.intervals import MAX_INTERVALS, NEG_INF, POS_INF
-from ..ops.resident import ResidentTables
+# resident_snapshot, prewarm_resident and _placement_label live with
+# ResidentTables; the reference's callers import them from here
+from ..ops.resident import (ResidentTables, _placement_label,  # noqa: F401
+                            prewarm_resident, resident_snapshot)
 from ..vercmp import get_comparer
 from ..vercmp.maven import _PaddedKey
 from ..vercmp.rubygems import _GemKey
@@ -380,6 +383,9 @@ class CompiledDB(ResidentTables):
     def _resident_arrays(self) -> tuple:
         return (self.v_lo, self.v_hi, self.s_lo, self.s_hi,
                 self.flags)
+
+    def _span_attrs(self) -> dict:
+        return {"rows": int(len(self.flags))}
 
     def _note_upload(self, nbytes: int) -> None:
         from ..detect.metrics import DETECT_METRICS

@@ -46,6 +46,8 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..obs.busy import open_busy
+from ..obs.trace import activate_or_null, current_span, phase_span
 from ..ops.intervals import (MAX_INTERVALS, NEG_INF, POS_INF,
                              interval_hits_host)
 from ..parallel.interval_shard import (
@@ -250,16 +252,23 @@ def detect_pairs(jobs: list, backend: str = "cuda", mesh=None,
 
     hit_jobs: list = []          # original job indices that hit
     if rows:
-        for sp in spaces.values():
-            sp.finalize()
-        P = len(rows)
-        Pp = P if dev is None else _job_bucket(P)
-        arrs = _pack_classic(rows, spaces, Pp)
+        with phase_span("pack", jobs=len(jobs), unique=len(reps)):
+            for sp in spaces.values():
+                sp.finalize()
+            P = len(rows)
+            Pp = P if dev is None else _job_bucket(P)
+            arrs = _pack_classic(rows, spaces, Pp)
         t0 = time.perf_counter()
+        # device_compute brackets the match alone (the timeline's busy
+        # set); the unsharded staging keeps its own h2d_upload span
         if dev is None:
-            hits = np.asarray(interval_hits_host(*arrs))
+            with phase_span("device_compute", kind="interval", rows=P):
+                hits = np.asarray(interval_hits_host(*arrs))
         else:
-            hits = sharded_interval_hits(mesh or local_mesh(dev), *arrs)
+            busy = open_busy("device_compute", kind="interval",
+                             rows=P if mesh is not None else Pp)
+            hits = sharded_interval_hits(mesh or local_mesh(dev), *arrs,
+                                         busy=busy)
         sink["device_s"] = sink.get("device_s", 0.0) + \
             time.perf_counter() - t0
         for i in np.nonzero(hits[:P])[0]:
@@ -430,8 +439,10 @@ def detect_pairs_resident(jobs: list, backend: str = "cuda",
             out.extend(detect_pairs_resident(
                 js, backend=backend, mesh=mesh, stats=stats))
         return out
-    reps, members, kept, ranks, rows, host = \
-        _prep_resident(jobs, cdb, sink)
+    with phase_span("pack", jobs=len(jobs)) as psp:
+        reps, members, kept, ranks, rows, host = \
+            _prep_resident(jobs, cdb, sink)
+        psp.set("unique", len(reps))
 
     hit_jobs: list = []
     if kept:
@@ -443,16 +454,19 @@ def detect_pairs_resident(jobs: list, backend: str = "cuda",
         row_idx[:P] = rows
         t0 = time.perf_counter()
         if dev is None:
-            hits = interval_hits_host(
-                pkg_rank, cdb.v_lo[row_idx], cdb.v_hi[row_idx],
-                cdb.s_lo[row_idx], cdb.s_hi[row_idx],
-                cdb.flags[row_idx])
+            with phase_span("device_compute", kind="interval", rows=P):
+                hits = interval_hits_host(
+                    pkg_rank, cdb.v_lo[row_idx], cdb.v_hi[row_idx],
+                    cdb.s_lo[row_idx], cdb.s_hi[row_idx],
+                    cdb.flags[row_idx])
         else:
             # the ranks and row indices are fresh per dispatch; the
             # resident tables serve every dispatch and are only read
             mesh = mesh or local_mesh(dev)
+            tables = cdb.device_tables(mesh)
+            busy = open_busy("device_compute", kind="interval", rows=P)
             hits = sharded_interval_hits_resident(
-                mesh, pkg_rank, row_idx, cdb.device_tables(mesh))
+                mesh, pkg_rank, row_idx, tables, busy=busy)
         sink["device_s"] = sink.get("device_s", 0.0) + \
             time.perf_counter() - t0
         for i in np.nonzero(hits[:P])[0]:
@@ -545,6 +559,9 @@ class _WaveSegment:
         self.mesh = mesh or local_mesh(dev)
         self.sink = sink
         self.ring = ring
+        # phase spans from ring/pool threads parent under whatever span
+        # was active at launch (the batch's device span)
+        self.ctx_span = current_span()
         self.waves: list = []
         self.members: list = []
         self.reps: list = []
@@ -570,9 +587,17 @@ class _WaveSegment:
             wave = build()
         self.waves.append(wave)
 
+    def _busy(self, rows: int):
+        """The wave's device_compute span: opened at its launch under
+        the segment's span, stamped where its shards run, closed when
+        its collect has waited for them."""
+        return open_busy("device_compute", parent=self.ctx_span,
+                         kind="interval", rows=rows)
+
     def _collect_wave(self, wave: dict) -> None:
         t0 = time.perf_counter()
-        # every shard's own event, then every shard's hits
+        # every shard's own event, then every shard's hits (the wave's
+        # device_compute span closes there)
         sharded = wave.pop("sharded")
         wave["hits"] = sharded.collect()
         self.sink["device_s"] = self.sink.get("device_s", 0.0) + \
@@ -602,17 +627,21 @@ class _ClassicSegment(_WaveSegment):
     def __init__(self, jobs: list, dev: torch.device, sink: dict, ring,
                  max_wave_rows: int, mesh=None):
         super().__init__(jobs, dev, sink, ring, mesh)
-        (self.reps, self.members, spaces, rows,
-         self.host_groups) = _prep_classic(jobs, sink)
-        for sp in spaces.values():
-            sp.finalize()
+        with phase_span("pack", jobs=len(jobs)) as psp:
+            (self.reps, self.members, spaces, rows,
+             self.host_groups) = _prep_classic(jobs, sink)
+            for sp in spaces.values():
+                sp.finalize()
+            psp.set("unique", len(self.reps))
         if not rows:
             return
         w = max(1, int(max_wave_rows))
         slices = [rows[a:a + w] for a in range(0, len(rows), w)]
 
         def _pack(sl):
-            return _pack_classic(sl, spaces, _job_bucket(len(sl)))
+            with activate_or_null(self.ctx_span):
+                with phase_span("pack", rows=len(sl)):
+                    return _pack_classic(sl, spaces, _job_bucket(len(sl)))
 
         # pool-parallel wave packing: the fancy-index fills of every
         # wave run on the host pool while this thread uploads and
@@ -630,7 +659,8 @@ class _ClassicSegment(_WaveSegment):
                 arrays = futs[k].result() if futs is not None \
                     else _pack(sl)
                 return {"sharded": sharded_interval_hits_async(
-                    self.mesh, *arrays), "rows": len(sl),
+                    self.mesh, *arrays, busy=self._busy(len(sl))),
+                    "rows": len(sl),
                     "groups": [r[0] for r in sl]}
 
             self._launch_wave(k, build)
@@ -647,8 +677,10 @@ class _ResidentSegment(_WaveSegment):
     def __init__(self, jobs: list, cdb, dev: torch.device, sink: dict,
                  ring, max_wave_rows: int, mesh=None):
         super().__init__(jobs, dev, sink, ring, mesh)
-        (self.reps, self.members, kept, ranks, rows,
-         self.host_groups) = _prep_resident(jobs, cdb, sink)
+        with phase_span("pack", jobs=len(jobs)) as psp:
+            (self.reps, self.members, kept, ranks, rows,
+             self.host_groups) = _prep_resident(jobs, cdb, sink)
+            psp.set("unique", len(self.reps))
         if not kept:
             return
         w = max(1, int(max_wave_rows))
@@ -669,7 +701,8 @@ class _ResidentSegment(_WaveSegment):
                 # the gather operands are this wave's alone; the
                 # resident tables are shared and only read
                 return {"sharded": sharded_interval_hits_resident_async(
-                    self.mesh, pkg_rank, row_idx, tables), "rows": P,
+                    self.mesh, pkg_rank, row_idx, tables,
+                    busy=self._busy(P)), "rows": P,
                     "groups": sl_kept}
 
             self._launch_wave(k, build)

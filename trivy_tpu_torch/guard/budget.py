@@ -39,6 +39,8 @@ import time
 from dataclasses import dataclass, replace
 from typing import Optional
 
+from ..obs.trace import add_event
+
 
 @dataclass(frozen=True)
 class ResourceLimits:
@@ -213,8 +215,9 @@ class ResourceBudget:
             self.metrics.inc("deadline_trips")
         self.metrics.inc("budget_trips")
         prefix = f"{self.name}: " if self.name else ""
-        # the reference also records the trip as a trace event on
-        # the active span; the tracer comes with ROADMAP A.8
+        # trips land on the active span (the request's analyze phase)
+        # so the trace shows WHY the slot degraded/failed
+        add_event("guard_trip", kind=exc_cls.kind, message=prefix + msg)
         raise exc_cls(prefix + msg)
 
     def malformed(self, msg: str) -> None:
@@ -228,7 +231,8 @@ class ResourceBudget:
         status=degraded with an ingest-stage cause."""
         with self._lock:
             self.soft_faults.append((kind, message))
-        self.metrics.inc("soft_faults")     # trace event: A.8
+        self.metrics.inc("soft_faults")
+        add_event("ingest_soft_fault", kind=kind, message=message)
 
     # --- checks (called from the safetar/walker hot loops) ---
 

@@ -29,10 +29,10 @@ generation's resident tables in one dispatch (``detect/rematch.py``)
 on the memo's ``backend``: ``cuda`` unless the caller asked for
 ``cpu`` or ``cpu-ref``.
 
-Not here yet: the reference's ``memo_lookup``, ``memo_store`` and
-``delta_rematch`` phase spans (``obs/trace.py::phase_span``, ROADMAP
-A.8) and its inverted impact index (``attach_impact``, ``impact/``,
-ROADMAP A.9g).
+The lookup, the store and the hot swap's re-match record the
+reference's ``memo_lookup``, ``memo_store`` and ``delta_rematch``
+phase spans on the active span. Not here yet: the reference's
+inverted impact index (``attach_impact``, ``impact/``, ROADMAP A.9g).
 """
 
 from __future__ import annotations
@@ -44,6 +44,7 @@ import time
 from dataclasses import dataclass, field
 from typing import Optional
 
+from ..obs.trace import phase_span
 from . import keys as K
 from .metrics import MEMO_METRICS
 from .store import MemoryMemoStore, ResilientMemoStore
@@ -227,40 +228,42 @@ class FindingsMemo:
         plan = MemoPlan()
         plan.db = db
         drop: set = set()
-        for bid, qs in groups.items():
-            key = K.make_key(ctx, bid, opts)
-            entry = self._load(key)
-            subs = entry.get("subs", {}) if entry else {}
-            served_all = bool(qs)
-            pend = None
-            for q in qs:
-                q_jobs = jobs[q.start:q.end]
-                qsig = K.query_sig(q)
-                advs = K.advs_sig(q_jobs)
-                sub = subs.get(qsig)
-                if sub is not None \
-                        and sub.get("advs") == advs \
-                        and all(isinstance(i, int)
-                                and 0 <= i < len(q_jobs)
-                                for i in sub.get("hits", ())):
-                    plan.hits.extend(q_jobs[i].payload
-                                     for i in sub["hits"])
-                    drop.update(range(q.start, q.end))
-                    plan.queries_hit += 1
-                    continue
-                served_all = False
-                plan.queries_miss += 1
-                if pend is None:
-                    pend = plan.pending.setdefault(key, {
-                        "ctx": ctx, "blob": bid, "opts": opts,
-                        "base": entry, "subs": []})
-                pend["subs"].append((qsig, self._sub_record(q),
-                                     advs, len(q_jobs)))
-                for li, j in enumerate(q_jobs):
-                    plan.owner[id(j.payload)] = (key, qsig, li)
-                    plan.refs.append(j)
-            if served_all:
-                MEMO_METRICS.inc("layer_hits")
+        with phase_span("memo_lookup", layers=len(groups),
+                        queries=len(queries)):
+            for bid, qs in groups.items():
+                key = K.make_key(ctx, bid, opts)
+                entry = self._load(key)
+                subs = entry.get("subs", {}) if entry else {}
+                served_all = bool(qs)
+                pend = None
+                for q in qs:
+                    q_jobs = jobs[q.start:q.end]
+                    qsig = K.query_sig(q)
+                    advs = K.advs_sig(q_jobs)
+                    sub = subs.get(qsig)
+                    if sub is not None \
+                            and sub.get("advs") == advs \
+                            and all(isinstance(i, int)
+                                    and 0 <= i < len(q_jobs)
+                                    for i in sub.get("hits", ())):
+                        plan.hits.extend(q_jobs[i].payload
+                                         for i in sub["hits"])
+                        drop.update(range(q.start, q.end))
+                        plan.queries_hit += 1
+                        continue
+                    served_all = False
+                    plan.queries_miss += 1
+                    if pend is None:
+                        pend = plan.pending.setdefault(key, {
+                            "ctx": ctx, "blob": bid, "opts": opts,
+                            "base": entry, "subs": []})
+                    pend["subs"].append((qsig, self._sub_record(q),
+                                         advs, len(q_jobs)))
+                    for li, j in enumerate(q_jobs):
+                        plan.owner[id(j.payload)] = (key, qsig, li)
+                        plan.refs.append(j)
+                if served_all:
+                    MEMO_METRICS.inc("layer_hits")
         MEMO_METRICS.inc("hits", plan.queries_hit)
         MEMO_METRICS.inc("misses", plan.queries_miss)
         if drop:
@@ -290,19 +293,22 @@ class FindingsMemo:
                 loc = plan.owner.get(id(p))
                 if loc is not None:
                     hit_idx.setdefault(loc[:2], set()).add(loc[2])
-            for key, pend in plan.pending.items():
-                entry = pend["base"]
-                if entry is None:
-                    entry = {"v": K.MEMO_SCHEMA, "ctx": pend["ctx"],
-                             "blob": pend["blob"],
-                             "opts": pend["opts"], "subs": {}}
-                for qsig, sub, advs, n_jobs in pend["subs"]:
-                    sub = dict(sub)
-                    sub["advs"] = advs
-                    sub["hits"] = sorted(hit_idx.get((key, qsig), ()))
-                    sub["n"] = n_jobs
-                    entry["subs"][qsig] = sub
-                self._store(key, entry)
+            with phase_span("memo_store", entries=len(plan.pending)):
+                for key, pend in plan.pending.items():
+                    entry = pend["base"]
+                    if entry is None:
+                        entry = {"v": K.MEMO_SCHEMA,
+                                 "ctx": pend["ctx"],
+                                 "blob": pend["blob"],
+                                 "opts": pend["opts"], "subs": {}}
+                    for qsig, sub, advs, n_jobs in pend["subs"]:
+                        sub = dict(sub)
+                        sub["advs"] = advs
+                        sub["hits"] = sorted(
+                            hit_idx.get((key, qsig), ()))
+                        sub["n"] = n_jobs
+                        entry["subs"][qsig] = sub
+                    self._store(key, entry)
         return detected + plan.hits
 
     # ---- db hot swap ----
@@ -332,7 +338,13 @@ class FindingsMemo:
             # stop matching the new context and age out
             return out
         try:
-            out = self._hot_swap(old_db, new_db)
+            with phase_span("delta_rematch") as sp:
+                out = self._hot_swap(old_db, new_db)
+                delta_stats = out.get("delta") or {}
+                sp.set("touched_keys",
+                       delta_stats.get("touched_keys", 0))
+                sp.set("rematch_entries", out["rematch_entries"])
+                sp.set("rematch_jobs", out["rematch_jobs"])
         except Exception as e:      # noqa: BLE001 — a failed
             # migration must never break the swap; the store is
             # still correct (old-ctx entries are unreachable under

@@ -27,6 +27,7 @@ import threading
 from typing import Optional
 
 from ..artifact.resilient import CircuitBreaker
+from ..obs.trace import add_event
 from .metrics import MEMO_METRICS
 
 log = logging.getLogger("trivy_tpu_torch.memo.store")
@@ -138,8 +139,8 @@ class ResilientMemoStore:
         except self.FAILURES as e:
             self._inc("primary_errors")
             self.breaker.record_failure()
-            # the reference also adds a ``memo_degraded`` event to the
-            # active span here (``obs/trace.py::add_event``, A.8)
+            add_event("memo_degraded", op=op, error=repr(e),
+                      breaker=self.breaker.state)
             log.warning("memo %s %s failed (%r); degrading to "
                         "recompute", self.name, op, e)
             return False, None

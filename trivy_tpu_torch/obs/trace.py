@@ -22,11 +22,18 @@ unless a caller injects its own; disabling a tracer
 (``Tracer(enabled=False)``) turns every ``start_span`` into a shared
 no-op span, the arm that tracing overhead is measured against.
 
+Deep seams (segment packing, uploads, the sieve, the interval waves,
+the ring's slot waits, the memo, guard trips) record through
+:func:`phase_span` and :func:`add_event` on whatever span is active on
+their thread, and the thread hops of the async runtime carry a span
+along with :func:`activate_or_null`. A span of work that ran on the
+card is stamped where the work ran (``obs/busy.py``: CUDA events) and
+closed later with :meth:`Span.end_at`.
+
 Everything here is import-light on purpose: no trivy_tpu_torch
-imports at module scope, so the flight recorder's log handler can read
-:func:`current_span` without cycles. The reference's phase spans and
-events for deep seams (``phase_span``, ``add_event``,
-``activate_or_null``) and ``summarize`` are ROADMAP A.8.
+imports at module scope, so the flight recorder's log handler and the
+guard and memo seams can reach :func:`current_span` and
+:func:`add_event` without cycles.
 """
 
 from __future__ import annotations
@@ -77,6 +84,61 @@ _ACTIVE: contextvars.ContextVar = contextvars.ContextVar(
 def current_span():
     """The span active on this thread/context, or None."""
     return _ACTIVE.get()
+
+
+def add_event(name: str, **attrs) -> None:
+    """Record an event on the active span; no-op without one. The
+    guard budgets and the memo store call this — they never need a
+    tracer handle."""
+    span = _ACTIVE.get()
+    if span is not None:
+        span.event(name, **attrs)
+
+
+class _PhaseSpanCtx:
+    """Context manager behind :func:`phase_span`: opens a child of
+    the active span (activated, so nested phases chain), ends it on
+    exit — with status "error" when the body raised."""
+
+    __slots__ = ("name", "attrs", "span", "_token")
+
+    def __init__(self, name: str, attrs: dict):
+        self.name = name
+        self.attrs = attrs
+        self.span = NOOP_SPAN
+        self._token = None
+
+    def __enter__(self):
+        parent = _ACTIVE.get()
+        if parent is not None and not parent.noop:
+            self.span = parent.tracer.child(parent, self.name,
+                                            **self.attrs)
+            self._token = _ACTIVE.set(self.span)
+        return self.span
+
+    def __exit__(self, exc_type, *exc):
+        if self._token is not None:
+            _ACTIVE.reset(self._token)
+        self.span.end("error" if exc_type is not None else None)
+
+
+def phase_span(name: str, **attrs) -> _PhaseSpanCtx:
+    """``with phase_span("pack"):`` — bracket a pipeline phase as a
+    child of whatever span is active on this thread, or do nothing
+    when none is. This is how deep seams (segment packing, H2D
+    uploads, resident-table staging) show up in Perfetto without
+    threading a tracer handle through every call chain."""
+    return _PhaseSpanCtx(name, attrs)
+
+
+def activate_or_null(span):
+    """``with activate_or_null(sp):`` — activate ``span`` on this
+    thread, or do nothing when there is none. The async slot
+    runtime hops threads (host-pool packers, the ring's drain) and
+    carries the launching batch's span along this way."""
+    import contextlib
+    return span.activate() if span is not None \
+        else contextlib.nullcontext()
 
 
 class _SpanContext:
@@ -148,6 +210,21 @@ class Span:
             self.status = status
         self.tracer._finish(self)
 
+    def end_at(self, start_mono: float, end_mono: float,
+               status=None) -> None:
+        """End the span with explicit monotonic stamps instead of
+        "now": a span of work that ran on the card is opened at its
+        launch, stamped where the work ran (CUDA events, converted to
+        this clock) and closed after the host waited for it."""
+        if self.end_mono is not None:
+            return
+        self.start_wall += start_mono - self.start_mono
+        self.start_mono = start_mono
+        self.end_mono = max(start_mono, end_mono)
+        if status and status != "ok":
+            self.status = status
+        self.tracer._finish(self)
+
 
 class _NoopSpan:
     """Shared do-nothing span returned by a disabled tracer."""
@@ -172,6 +249,9 @@ class _NoopSpan:
         pass
 
     def end(self, status=None):
+        pass
+
+    def end_at(self, start_mono, end_mono, status=None):
         pass
 
     def activate(self):
@@ -415,6 +495,22 @@ def to_chrome(spans: list, epoch_mono: float = 0.0,
     if epoch_wall is not None:
         out["otherData"] = {"epoch_unix_s": round(epoch_wall, 6)}
     return out
+
+
+def summarize(spans: list) -> str:
+    """One-line phase breakdown: 'scan 42.1ms: queue_wait 0.2ms,
+    analyze 30.0ms, device 8.1ms, report 2.3ms'."""
+    root = next((s for s in spans
+                 if getattr(s, "is_root", s.parent_id is None)),
+                None)
+    parts = [f"{s.name} {s.duration_s * 1e3:.1f}ms"
+             for s in spans
+             if not getattr(s, "is_root", s.parent_id is None)]
+    head = (f"{root.name} {root.duration_s * 1e3:.1f}ms"
+            if root is not None else "")
+    if parts:
+        return (head + ": " if head else "") + ", ".join(parts)
+    return head
 
 
 def trace_cause(tracer: Tracer, trace_id: str) -> dict:

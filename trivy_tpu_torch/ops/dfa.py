@@ -288,6 +288,9 @@ class DfaTable(ResidentTables):
     plan stores; ``masks[:, col]`` is a 16-block position bitmask —
     START positions for literals, END positions for chains."""
 
+    _UPLOAD_SPAN = "dfa_upload"
+    _TABLE = "dfa"              # resident_snapshot's table label
+
     def __init__(self, literals: list, chains: list):
         # literals: lowercased bytes, 1..MAX_LIT_BYTES, deduped by
         # caller; chains: unit tuples from chain_units, deduped
@@ -390,6 +393,22 @@ class DfaTable(ResidentTables):
         # CPU uint32 has no shifts or compares)
         return tuple(a.astype(np.int64) for a in self._arrays)
 
+    def _span_attrs(self) -> dict:
+        return {"patterns": self.n_patterns,
+                "rules_hash": self.rules_hash}
+
+    def _note_upload(self, nbytes: int) -> None:
+        from ..secret.metrics import SECRET_METRICS
+        SECRET_METRICS.note_dfa_upload(nbytes)
+
+    def _note_dispatch(self) -> None:
+        from ..secret.metrics import SECRET_METRICS
+        SECRET_METRICS.inc("dfa_dispatches")
+
+    def _note_invalidation(self) -> None:
+        from ..secret.metrics import SECRET_METRICS
+        SECRET_METRICS.inc("dfa_invalidations")
+
     def device_desc(self, device, run_specs: tuple = ()) -> torch.Tensor:
         """``kernel_desc(run_specs)`` on ``device``, uploaded once per
         (device, run specs)."""
@@ -398,7 +417,7 @@ class DfaTable(ResidentTables):
                                  lambda: self.kernel_desc(run_specs))
 
     def mesh_sieve(self, mesh, segments: np.ndarray,
-                   run_specs: tuple = ()) -> list:
+                   run_specs: tuple = (), busy=None) -> list:
         """The sieve over a mesh (reference ``DfaTable.mesh_sieve``):
         the [B, L] rows split into one equal contiguous chunk per flat
         shard (B is a multiple of the shard count), and each chunk's
@@ -407,7 +426,8 @@ class DfaTable(ResidentTables):
         that device's replica of the table. No compaction: the caller
         fetches every shard's full masks. Returns [({"seg", "masks",
         "hits"}, event or None)] per shard; the dict keeps the shard's
-        segments alive until its event has passed."""
+        segments alive until its event has passed. ``busy`` (an
+        ``obs.busy.BusySpan``) is stamped around each shard's launch."""
         from ..parallel.mesh import per_shard
         from .dfa_cuda import dfa_blockmask
         run_specs = tuple(run_specs)
@@ -419,7 +439,11 @@ class DfaTable(ResidentTables):
 
         def one(k: int, dev: torch.device) -> dict:
             seg = torch.from_numpy(segments[k * rows:(k + 1) * rows]).to(dev)
+            if busy is not None:
+                busy.mark(dev)
             masks, hits = dfa_blockmask(seg, self, tbl[k], run_specs)
+            if busy is not None:
+                busy.mark(dev)
             return {"seg": seg, "masks": masks, "hits": hits}
 
         return per_shard(mesh, one)

@@ -13,6 +13,17 @@ device is one upload per (table, device). ``device_stats()`` counts
 uploads and dispatches; a subclass mirrors them into its own metrics
 through the ``_note_*`` hooks. Every table gets a process-monotonic
 ``generation`` that tells "the same tables again" from a newer build.
+An upload of the tables records its ``_UPLOAD_SPAN`` phase span
+(``db_upload``, ``dfa_upload``) under the active span.
+
+Every live table is in a weak registry that ``resident_snapshot``
+walks: one row per (table, placement) with the bytes staged for it. A
+placement is the reference's bounded label: ``default`` for a table
+asked for on one device (the unsharded paths, whose 1 × 1
+``local_mesh`` counts as one device), ``mesh`` for a table asked for on
+a ``DeviceMesh``. The reference's third label, ``device`` (a single
+``jax.Device`` placement), has no caller in either package. A card's
+copy serves both labels when both ask for it; it is uploaded once.
 
 Resident tensors are never written: per-dispatch payloads are fresh
 tensors, and an array that numpy hands back read-only (``np.load``) is
@@ -28,10 +39,14 @@ on a host-pool thread) never sees a half-copied table.
 from __future__ import annotations
 
 import itertools
+import logging
 import threading
+import weakref
 
 import numpy as np
 import torch
+
+log = logging.getLogger("trivy_tpu_torch.ops.resident")
 
 _GENERATIONS = itertools.count(1)
 _GENERATION_LOCK = threading.Lock()
@@ -66,16 +81,91 @@ def _tensor(a: np.ndarray, device: str) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
+# every live ResidentTables instance, for resident_snapshot — weak refs
+# so a dropped table (hot swap, test teardown) leaves no ghost row
+_RESIDENT_REGISTRY: "weakref.WeakSet" = weakref.WeakSet()
+_RESIDENT_REG_LOCK = threading.Lock()
+
+
+def _placement_label(placement) -> str:
+    """The bounded label of a ``device_tables`` argument: "mesh" for a
+    ``DeviceMesh`` other than a 1 × 1 ``local_mesh``, else "default" —
+    never the repr of a device (ref ``db/compiled.py``)."""
+    if hasattr(placement, "distinct") and \
+            not getattr(placement, "local", False):
+        return "mesh"
+    return "default"
+
+
+def _key_device(key) -> str:
+    return key if isinstance(key, str) else key[0]
+
+
+def resident_snapshot() -> list:
+    """[{table, placement, bytes, generation}] across every live
+    resident table (ref ``db/compiled.py::resident_snapshot``): the
+    bytes currently staged on the devices each placement reached.
+    ``invalidate_device`` drops a table's rows."""
+    with _RESIDENT_REG_LOCK:
+        tables = list(_RESIDENT_REGISTRY)
+    out = []
+    for t in tables:
+        with t._device_lock:
+            rows = [(label, sum(nbytes for key, nbytes
+                                in t._device_bytes.items()
+                                if _key_device(key) in devices))
+                    for label, devices in t._placements.items()]
+            gen = t.generation
+        for label, nbytes in rows:
+            out.append({"table": t._TABLE, "placement": label,
+                        "bytes": int(nbytes), "generation": gen})
+    out.sort(key=lambda r: (r["table"], r["placement"],
+                            r["generation"]))
+    return out
+
+
+def prewarm_resident(device="cuda") -> list:
+    """Stage every live resident table on ``device`` now (ref
+    ``db/compiled.py::prewarm_resident``); a table whose upload fails
+    is skipped — the first dispatch stages it as before. Returns
+    ``[{table, generation, staged}]``."""
+    with _RESIDENT_REG_LOCK:
+        tables = list(_RESIDENT_REGISTRY)
+    out = []
+    for t in sorted(tables, key=lambda x: x._TABLE):
+        row = {"table": t._TABLE, "generation": t.generation,
+               "staged": True}
+        try:
+            t.device_tables(device)
+        except (RuntimeError, OSError, ValueError) as e:
+            log.warning("prewarm staging skipped %s: %r", t._TABLE, e)
+            row["staged"] = False
+        out.append(row)
+    return out
+
+
 class ResidentTables:
+    _UPLOAD_SPAN = "db_upload"
+    _TABLE = "advisory_db"      # resident_snapshot's table label
+
     def _init_resident(self) -> None:
         self.generation = _next_generation()
         self._device: dict = {}
+        # device key (or (device key, name)) -> bytes staged there
+        self._device_bytes: dict = {}
+        # placement label -> device keys that placement reached
+        self._placements: dict = {}
         self._device_lock = threading.Lock()
         self._device_stats = {"uploads": 0, "upload_bytes": 0,
                               "dispatches": 0, "invalidations": 0}
+        with _RESIDENT_REG_LOCK:
+            _RESIDENT_REGISTRY.add(self)
 
     def _resident_arrays(self) -> tuple:
         raise NotImplementedError
+
+    def _span_attrs(self) -> dict:
+        return {}
 
     def _note_upload(self, nbytes: int) -> None:
         pass
@@ -93,10 +183,14 @@ class ResidentTables:
         mesh = device if hasattr(device, "distinct") else None
         with self._device_lock:
             if mesh is None:
-                placed = self._placed(_key(device))
+                keys = [_key(device)]
+                placed = self._placed(keys[0])
             else:
                 by_dev = {d: self._placed(_key(d)) for d in mesh.distinct}
                 placed = [by_dev[d] for d in mesh.flat]
+                keys = [_key(d) for d in mesh.distinct]
+            self._placements.setdefault(_placement_label(device),
+                                        set()).update(keys)
             self._device_stats["dispatches"] += 1
         self._note_dispatch()
         return placed
@@ -106,11 +200,16 @@ class ResidentTables:
         caller holds the lock)."""
         placed = self._device.get(key)
         if placed is None:
+            from ..obs.trace import phase_span
             arrs = self._resident_arrays()
-            placed = tuple(_tensor(a, key) for a in arrs)
-            _settled(key)
             nbytes = int(sum(a.nbytes for a in arrs))
+            with phase_span(self._UPLOAD_SPAN, bytes=nbytes,
+                            generation=self.generation,
+                            **self._span_attrs()):
+                placed = tuple(_tensor(a, key) for a in arrs)
+                _settled(key)
             self._device[key] = placed
+            self._device_bytes[key] = nbytes
             self._device_stats["uploads"] += 1
             self._device_stats["upload_bytes"] += nbytes
             self._note_upload(nbytes)
@@ -118,7 +217,9 @@ class ResidentTables:
 
     def device_array(self, device, name, make) -> torch.Tensor:
         """``make()`` (a numpy array) on ``device``, uploaded once per
-        (device, ``name``) and counted with the other uploads."""
+        (device, ``name``) and counted with the other uploads in
+        ``device_stats()`` (not in the ``_note_upload`` hook, which
+        counts uploads of the tables themselves)."""
         key = (_key(device), name)
         with self._device_lock:
             placed = self._device.get(key)
@@ -127,9 +228,9 @@ class ResidentTables:
                 placed = _tensor(arr, key[0])
                 _settled(key[0])
                 self._device[key] = placed
+                self._device_bytes[key] = int(arr.nbytes)
                 self._device_stats["uploads"] += 1
                 self._device_stats["upload_bytes"] += int(arr.nbytes)
-                self._note_upload(int(arr.nbytes))
         return placed
 
     def invalidate_device(self) -> None:
@@ -138,11 +239,16 @@ class ResidentTables:
             if not self._device:
                 return
             self._device.clear()
+            self._device_bytes.clear()
+            self._placements.clear()
             self._device_stats["invalidations"] += 1
         self._note_invalidation()
 
     def device_stats(self) -> dict:
+        """Upload and dispatch counts, the bytes staged now
+        (``staged_bytes``, on every device) and the generation."""
         with self._device_lock:
             out = dict(self._device_stats)
+            out["staged_bytes"] = int(sum(self._device_bytes.values()))
         out["generation"] = self.generation
         return out

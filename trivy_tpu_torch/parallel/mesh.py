@@ -40,7 +40,11 @@ RULES_AXIS = "rules"
 
 class DeviceMesh:
     """``devices``: a [data, rules] numpy object array of
-    ``torch.device``; ``shape``: {axis name: size}, as a JAX mesh's."""
+    ``torch.device``; ``shape``: {axis name: size}, as a JAX mesh's.
+    ``local`` marks ``local_mesh``'s 1 × 1 mesh, the unsharded form,
+    which resident tables place as one device."""
+
+    local = False
 
     def __init__(self, grid: np.ndarray):
         self.devices = grid
@@ -72,7 +76,9 @@ def local_mesh(device) -> DeviceMesh:
     sharded function."""
     grid = np.empty((1, 1), dtype=object)
     grid[0, 0] = torch.device(device)
-    return DeviceMesh(grid)
+    mesh = DeviceMesh(grid)
+    mesh.local = True
+    return mesh
 
 
 def make_mesh(n_devices: Optional[int] = None,

@@ -37,7 +37,9 @@ import time
 import numpy as np
 import torch
 
+from ..obs.busy import child_span, pending_busy
 from ..ops.keywords import CODE_CHUNK, code_words
+from ..secret.metrics import SECRET_METRICS
 from .mesh import mesh_axis_sizes, pad_to_multiple, per_shard, wait_all
 
 
@@ -77,10 +79,16 @@ class ShardedSieve:
         self.pack_s += time.perf_counter() - t0
 
         t0 = time.perf_counter()
-        # async: returns before the devices finish
+        # async: returns before the devices finish; each shard's launch
+        # is stamped where it runs, for the dfa_scan span of decode()
+        self.busy = pending_busy()
         self._out = sc.table.mesh_sieve(sc.mesh, buf,
-                                        tuple(sc.plan.run_specs))
+                                        tuple(sc.plan.run_specs),
+                                        busy=self.busy)
         self.device_s += time.perf_counter() - t0
+        # the LPT blocks that hold files (the reference's count)
+        SECRET_METRICS.inc("shards_dispatched", len(
+            {row0 // rps for row0, _ in lay["layout"]}))
         return self
 
     def decode(self) -> tuple:
@@ -92,7 +100,17 @@ class ShardedSieve:
         from ..runtime.hostpool import map_in_pool
         K = self.scanner.table.n_patterns
         t0 = time.perf_counter()
-        wait_all(self._out)
+        # the join: the dfa_scan busy span the timeline counts, from the
+        # earliest shard's start to the latest shard's end (the
+        # reference's dfa_scan(fetch=True) around its mesh join)
+        span = child_span("dfa_scan", fetch=True,
+                          segments=int(self.n_valid))
+        try:
+            wait_all(self._out)
+        except BaseException:
+            self.busy.abort(span)
+            raise
+        self.busy.close(span)
         masks = np.concatenate([part["masks"].cpu().numpy()
                                 for part, _ in self._out])[:self.n_valid, :K]
         runs = np.concatenate([part["hits"].cpu().numpy()
@@ -125,6 +143,7 @@ class ShardedSieve:
                 rmap.setdefault(fidx, set()).add(int(sp))
             return codes, rmap
 
+        SECRET_METRICS.inc("decode_tasks", len(blocks))
         file_codes: dict = {}
         runs_map: dict = {}
         for codes, rmap in map_in_pool(decode_block, blocks):

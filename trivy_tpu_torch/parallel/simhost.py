@@ -25,10 +25,12 @@ mesh: the first min(N, visible) cards, or the CPU named N times.
 Resident advisory tables are compiled per process: each host places
 its own copy, which is the per-host replication of the real pod.
 
-The reference's spec keys ``traceparent`` and ``clock_port_file``
-(the cross-process trace and clock offsets, ``obs/propagate.py`` and
-``obs/timeline.py``) are not ported yet and are refused by name; the
-output has no ``timeline``.
+The output's ``timeline`` is this process's span export
+(``obs/timeline.py::export_tracer``), the unit the reference's
+``MergedTimeline`` aligns. The reference's spec keys ``traceparent``
+and ``clock_port_file`` (the cross-process trace context and the
+``ClockServer`` that the parent estimates clock offsets against, both
+in ``obs/propagate.py``) are ROADMAP A.9i and are refused by name.
 """
 
 from __future__ import annotations
@@ -37,8 +39,9 @@ import json
 import os
 import sys
 
-UNPORTED_KEYS = {"traceparent": "obs/propagate.py (ROADMAP A.9)",
-                 "clock_port_file": "obs/timeline.py (ROADMAP A.8)"}
+UNPORTED_KEYS = {
+    "traceparent": "obs/propagate.py's trace context (ROADMAP A.9i)",
+    "clock_port_file": "obs/propagate.py's ClockServer (ROADMAP A.9i)"}
 
 
 def _normalized(results) -> list:
@@ -67,9 +70,10 @@ def _mesh(backend: str, n: int):
 
 def run_simhost(spec: dict, topo=None) -> dict:
     """One simulated host's scan: returns {process_id, num_processes,
-    assign, indices, reports, trace}. Importable (a test calls it
-    in-process for the single-host arm)."""
+    assign, indices, reports, trace, timeline}. Importable (a test
+    calls it in-process for the single-host arm)."""
     from ..db import AdvisoryStore, CompiledDB
+    from ..obs.timeline import export_tracer
     from ..obs.trace import get_tracer
     from ..runtime import BatchScanRunner
     from .multihost import (host_shard_layout, local_indices,
@@ -102,8 +106,8 @@ def run_simhost(spec: dict, topo=None) -> dict:
         dispatch_depth=int(spec.get("dispatch_depth") or 2))
 
     tracer = get_tracer()
-    root = tracer.start_span(
-        "simhost", attrs={"process": f"host{topo.process_id}"})
+    process = f"host{topo.process_id}"
+    root = tracer.start_span("simhost", attrs={"process": process})
     try:
         with root.activate():
             results = runner.scan_paths([paths[i] for i in mine])
@@ -119,6 +123,7 @@ def run_simhost(spec: dict, topo=None) -> dict:
         "reports": _normalized(results),
         "trace": {"trace_id": root.trace_id,
                   "root_span_id": root.span_id},
+        "timeline": export_tracer(tracer, process=process),
     }
 
 

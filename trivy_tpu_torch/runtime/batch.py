@@ -34,8 +34,15 @@ builds, on both paths: a layer whose detection questions were
 answered before dispatches nothing. A ``store`` that is a
 ``db.compiled.SwappableStore`` is acquired per scan and released
 exactly once, so a hot swap waits for in-flight scans. The
-reference's ``blob_keyer`` and ``scan_registry_refs`` are A.9; the
-direct path's trace spans are A.8.
+reference's ``blob_keyer`` and ``scan_registry_refs`` are A.9, and so
+is the reference's ambient trace context (``obs/propagate.py``, A.9i).
+
+Both paths trace every image as a request (``obs/trace.py``): on the
+direct path its root has ``analyze`` (with the ``join`` of prepare),
+one ``device`` span shared by the fleet's dispatch window, under whose
+first member the batch's phase spans record from every thread that
+does the work (pack on the host pool, the ring's slot waits, the
+interval waves' busy spans, the sieve's collect), and ``report``.
 """
 
 from __future__ import annotations
@@ -56,7 +63,8 @@ from ..db import AdvisoryStore
 from ..detect.batch import (collect_dispatch, dispatch_jobs,
                             dispatch_jobs_async)
 from ..guard.budget import GuardError, make_budget
-from ..obs.trace import get_tracer, trace_cause
+from ..obs.trace import activate_or_null, get_tracer, phase_span, \
+    trace_cause
 from ..scan.local import LocalScanner, ScanTarget
 from ..sched import (AnalyzedWork, DeadlineExceeded, QueueFullError,
                      RateLimitedError, ScanRequest, ScanScheduler,
@@ -126,8 +134,8 @@ class BatchScanRunner:
                                                 mesh=mesh)
         self.secret_scanner = secret_scanner
         self.artifact_option = artifact_option
-        # tracer: obs.trace.Tracer — per-request span trees on the
-        # scheduled path (the direct path's spans are ROADMAP A.8)
+        # tracer: obs.trace.Tracer — per-request span trees on both
+        # paths
         self.tracer = tracer if tracer is not None else get_tracer()
         # fault_injector: duck-typed (on_device_dispatch(names),
         # on_host_analyze(name), on_image_load(name)) — threads into
@@ -441,118 +449,167 @@ class BatchScanRunner:
 
         # ---- phase 1: analyze missing layers, collect candidates,
         # squash + join PER IMAGE ----
+        # tracing: the direct path has no queue, so each image's span
+        # tree is analyze → device (the fleet-shared dispatch window)
+        # → report
+        tracer = self.tracer
         slots, failures = [], {}     # [(input idx, artifact)]
+        roots: dict = {}             # input idx -> root span
         opt = self._image_opt(scan_secrets)
         scanner = LocalScanner(self.cache, db, memo=self.memo)
         prepared = []                # aligned with slots
         analyze_s = join_s = 0.0
         for idx, img in enumerate(images):
             name = getattr(img, "name", "")
+            root = roots[idx] = tracer.start_request(name)
             a = _CollectingImageArtifact(img, self.cache, opt)
+            sp = tracer.child(root, "analyze")
             t1 = time.perf_counter()
             try:
-                a.reference = a.inspect()
+                with sp.activate():
+                    a.reference = a.inspect()
             except Exception as e:   # noqa: BLE001 — a hostile or
                 # broken artifact fails ITS slot with a typed cause;
                 # the fleet keeps scanning
-                failures[idx] = _failed_slot(name, e)
+                sp.end("error")
+                root.set("error", repr(e))
+                root.end("failed")
+                failures[idx] = _failed_slot(
+                    name, e, trace_id=root.trace_id, tracer=tracer)
                 continue
             analyze_s += time.perf_counter() - t1
             # squash + advisory join for THIS image immediately,
-            # instead of a fleet-wide barrier after every analyze
+            # instead of a fleet-wide barrier after every analyze;
+            # prepare emits its own "join" phase span (scan/local.py)
             t1 = time.perf_counter()
             ref = a.reference
-            prepared.append(scanner.prepare(
-                ScanTarget(name=ref.name, artifact_id=ref.id,
-                           blob_ids=ref.blob_ids), options))
+            with sp.activate():
+                prepared.append(scanner.prepare(
+                    ScanTarget(name=ref.name, artifact_id=ref.id,
+                               blob_ids=ref.blob_ids), options))
             join_s += time.perf_counter() - t1
+            sp.end()
             slots.append((idx, a))
         artifacts = [a for _, a in slots]
+        # one shared device window per surviving image: the sieve and
+        # interval dispatches below serve the whole fleet, so every
+        # slot's "device" span brackets the same wall interval
+        dev_spans = {idx: tracer.child(roots[idx], "device", shared=True)
+                     for idx, _ in slots}
+        # pack/h2d_upload/db_upload phase spans attach under the
+        # fleet's first shared device span (they bracket work done
+        # once for the whole batch), on every thread that does it
+        sp0 = next(iter(dev_spans.values()), None)
 
-        # ---- phase 2a: ENQUEUE the sieve dispatch ----
-        # the packing + enqueue runs on the host pool so the interval
-        # enqueue below overlaps the SEGMENT PACKING too, not just the
-        # device execution behind it; results are collected in 2b —
-        # the secret part of the squash is re-derived afterwards via
-        # applier.merge_layer_secrets
-        t0 = time.perf_counter()
-        collected = [c for a in artifacts for c in a.collected]
-        sec_stats: dict = {}       # only this batch's, never stale
-        sieve_handle = sieve_future = None
-        if scan_secrets and collected:
-            pool = get_host_pool()
-            files = [(p, c) for _, p, c in collected]
-            if pool is not None:
-                sieve_future = pool.submit(
-                    self.secret_scanner.dispatch_files, files)
-            else:
-                sieve_handle = self.secret_scanner.dispatch_files(files)
-        secret_s = time.perf_counter() - t0
-
-        # ---- phase 4a: ENQUEUE the interval waves ----
-        # dedup + wave packing + uploads run here, every wave is
-        # launched into a bounded dispatch ring, and the ring's drain
-        # thread waits for wave N while wave N+1 packs — so the device
-        # computes THROUGH the sieve collect below instead of
-        # serializing after it. Joined AFTER the sieve enqueue so the
-        # device work stays in enqueue order.
-        t0 = time.perf_counter()
-        if sieve_future is not None:
-            sieve_handle = sieve_future.result()
-            secret_s += time.perf_counter() - t0
-            t0 = time.perf_counter()
-        all_jobs = []
-        for idx, p in enumerate(prepared):
-            for job in p.jobs:
-                job.payload = (idx, job.payload)
-                all_jobs.append(job)
-        detected_by_image: dict = {}
-        kstats: dict = {}          # this batch's dispatch counters
         ring = None
-        # per-scan books: the ring reports into its own RingMetrics
-        # (exact for THIS scan even when concurrent scans run their
-        # own rings in-process) AND the process-wide RING_METRICS
-        scan_rm = RingMetrics()
-        if all_jobs and options.backend != "cpu-ref" \
-                and self.dispatch_depth > 1:
-            ring = DispatchRing(depth=self.dispatch_depth,
-                                name="interval",
-                                metrics=TeeRingMetrics(
-                                    scan_rm, RING_METRICS))
         try:
-            ih = dispatch_jobs_async(all_jobs, backend=options.backend,
-                                     mesh=self.mesh, stats=kstats,
-                                     ring=ring)
+            # ---- phase 2a: ENQUEUE the sieve dispatch ----
+            # the packing + enqueue runs on the host pool so the interval
+            # enqueue below overlaps the SEGMENT PACKING too, not just the
+            # device execution behind it; results are collected in 2b —
+            # the secret part of the squash is re-derived afterwards via
+            # applier.merge_layer_secrets
+            t0 = time.perf_counter()
+            collected = [c for a in artifacts for c in a.collected]
+            sec_stats: dict = {}       # only this batch's, never stale
+            sieve_handle = sieve_future = None
+
+            def _enqueue_sieve(files):
+                with activate_or_null(sp0):
+                    return self.secret_scanner.dispatch_files(files)
+
+            if scan_secrets and collected:
+                pool = get_host_pool()
+                files = [(p, c) for _, p, c in collected]
+                if pool is not None:
+                    sieve_future = pool.submit(_enqueue_sieve, files)
+                else:
+                    sieve_handle = _enqueue_sieve(files)
+            secret_s = time.perf_counter() - t0
+
+            # ---- phase 4a: ENQUEUE the interval waves ----
+            # dedup + wave packing + uploads run here, every wave is
+            # launched into a bounded dispatch ring, and the ring's drain
+            # thread waits for wave N while wave N+1 packs — so the device
+            # computes THROUGH the sieve collect below instead of
+            # serializing after it. Joined AFTER the sieve enqueue so the
+            # device work stays in enqueue order.
+            t0 = time.perf_counter()
+            if sieve_future is not None:
+                sieve_handle = sieve_future.result()
+                secret_s += time.perf_counter() - t0
+                t0 = time.perf_counter()
+            all_jobs = []
+            for idx, p in enumerate(prepared):
+                for job in p.jobs:
+                    job.payload = (idx, job.payload)
+                    all_jobs.append(job)
+            detected_by_image: dict = {}
+            kstats: dict = {}          # this batch's dispatch counters
+            # per-scan books: the ring reports into its own RingMetrics
+            # (exact for THIS scan even when concurrent scans run their
+            # own rings in-process) AND the process-wide RING_METRICS
+            scan_rm = RingMetrics()
+            if all_jobs and options.backend != "cpu-ref" \
+                    and self.dispatch_depth > 1:
+                ring = DispatchRing(depth=self.dispatch_depth,
+                                    name="interval",
+                                    metrics=TeeRingMetrics(
+                                        scan_rm, RING_METRICS))
+            with activate_or_null(sp0):
+                ih = dispatch_jobs_async(all_jobs,
+                                         backend=options.backend,
+                                         mesh=self.mesh, stats=kstats,
+                                         ring=ring)
             interval_s = time.perf_counter() - t0
 
             # ---- phase 2b: sieve collect + late secret merge ----
             # overlaps the interval waves still computing/draining
             t0 = time.perf_counter()
             if sieve_handle is not None:
-                found = self.secret_scanner.collect(sieve_handle)
-                _patch_blobs(self.cache, artifacts, found)
-                sec_stats = dict(getattr(self.secret_scanner,
-                                         "stats", {}))
-                # re-merge EVERY artifact: a patched blob may be
-                # shared with artifacts whose own `collected` is empty
-                # (fleets share layers — the cached-layer case), and
-                # their prepare() ran before the patch landed. Nothing
-                # found → nothing patched → prepare()'s merge stands.
-                if found:
-                    for a, p in zip(artifacts, prepared):
-                        blobs = [self.cache.get_blob(b)
-                                 for b in a.reference.blob_ids]
-                        p.detail.secrets = merge_layer_secrets(blobs)
+                with activate_or_null(sp0):
+                    # collect emits its own dfa_scan/decode/verify
+                    # phase spans; the blob patch + re-merge is
+                    # collect-side host work too
+                    found = self.secret_scanner.collect(sieve_handle)
+                    with phase_span("decode", stage="patch"):
+                        _patch_blobs(self.cache, artifacts, found)
+                        sec_stats = dict(getattr(self.secret_scanner,
+                                                 "stats", {}))
+                        # re-merge EVERY artifact: a patched blob may
+                        # be shared with artifacts whose own
+                        # `collected` is empty (fleets share layers —
+                        # the cached-layer case), and their prepare()
+                        # ran before the patch landed. Nothing found →
+                        # nothing patched → prepare()'s merge stands.
+                        if found:
+                            for a, p in zip(artifacts, prepared):
+                                blobs = [self.cache.get_blob(b)
+                                         for b in a.reference.blob_ids]
+                                p.detail.secrets = \
+                                    merge_layer_secrets(blobs)
             secret_s += time.perf_counter() - t0
 
             # ---- phase 4b: collect the interval waves ----
             t0 = time.perf_counter()
-            for idx, payload in collect_dispatch(ih):
+            with activate_or_null(sp0):
+                detected_pairs = collect_dispatch(ih)
+            for idx, payload in detected_pairs:
                 detected_by_image.setdefault(idx, []).append(payload)
             interval_s += time.perf_counter() - t0
+        except BaseException:
+            # a failed launch or collect fails the whole batch: its
+            # shared device spans and its roots end as errors, so the
+            # traces finish (and export) instead of staying open
+            for idx, _ in slots:
+                dev_spans[idx].end("error")
+                roots[idx].end("error")
+            raise
         finally:
             if ring is not None:
                 ring.close()
+        for sp in dev_spans.values():
+            sp.end()
 
         ring1 = scan_rm.snapshot()
         ring_busy = ring1["slot_busy_s"]
@@ -584,28 +641,36 @@ class BatchScanRunner:
         # ---- phase 5: assemble per image ----
         out = dict(failures)
         for local, ((idx, a), p) in enumerate(zip(slots, prepared)):
-            results, os_found = scanner.finish(
-                p, detected_by_image.get(local, []))
-            ref = a.reference
-            res = BatchScanResult(
-                name=ref.name,
-                report=Report(
-                    artifact_name=ref.name,
-                    artifact_type="container_image",
-                    metadata=Metadata(
-                        os=os_found,
-                        image_id=ref.image_metadata.id,
-                        diff_ids=ref.image_metadata.diff_ids,
-                        repo_tags=ref.image_metadata.repo_tags,
-                        image_config=ref.image_metadata.image_config,
-                    ),
-                    results=results,
-                ))
+            sp = tracer.child(roots[idx], "report")
+            with sp.activate():
+                results, os_found = scanner.finish(
+                    p, detected_by_image.get(local, []))
+                ref = a.reference
+                res = BatchScanResult(
+                    name=ref.name,
+                    report=Report(
+                        artifact_name=ref.name,
+                        artifact_type="container_image",
+                        metadata=Metadata(
+                            os=os_found,
+                            image_id=ref.image_metadata.id,
+                            diff_ids=ref.image_metadata.diff_ids,
+                            repo_tags=ref.image_metadata.repo_tags,
+                            image_config=ref.image_metadata.image_config,
+                        ),
+                        results=results,
+                    ))
+            sp.end()
+            root = roots[idx]
             b = getattr(a, "budget", None)
-            if b is not None and b.soft_faults:
-                res.apply_degraded([{"stage": "ingest", "kind": k,
-                                     "message": m}
-                                    for k, m in b.soft_faults])
+            degraded = b is not None and b.soft_faults
+            if degraded:
+                causes = [{"stage": "ingest", "kind": k, "message": m}
+                          for k, m in b.soft_faults]
+                if not root.noop:
+                    causes.append(trace_cause(tracer, root.trace_id))
+                res.apply_degraded(causes)
+            root.end("degraded" if degraded else "ok")
             out[idx] = res
         return [out[i] for i in range(len(images))]
 

@@ -18,8 +18,8 @@ ring's own drain thread), bounded at ``depth`` slots in flight:
   device wall actually passes.
 
 A submit that finds the ring full parks, and its wait is booked in
-``RingMetrics.note_wait`` (the reference's ``slot_wait`` phase span
-comes with the tracer, ROADMAP A.8). Slots ALWAYS collect in FIFO
+``RingMetrics.note_wait`` and bracketed in a ``slot_wait`` phase span
+under the submitting thread's active span. Slots ALWAYS collect in FIFO
 submission order — collection order is a correctness surface (secret
 patches must land before dependents' merges), not a scheduling
 choice. The ring itself is host-only: what a slot's launch and
@@ -39,6 +39,8 @@ import threading
 import time
 from collections import deque
 from typing import Callable, Optional
+
+from ..obs.trace import phase_span
 
 log = logging.getLogger("trivy_tpu_torch.runtime.ring")
 
@@ -298,12 +300,16 @@ class DispatchRing:
                 if self._in_flight_locked() + self._reserved \
                         >= bound:
                     t0 = time.monotonic()
-                    # a full ring is a stall: the pipeline is gated on
-                    # the drain thread
-                    while self._in_flight_locked() + \
-                            self._reserved >= bound and \
-                            not self._closed:
-                        self._cv.wait(0.1)
+                    # a full ring is a typed stall: the pipeline is
+                    # gated on the drain thread, and the timeline
+                    # attributes device idle under this span to
+                    # slot_wait (obs/timeline.py)
+                    with phase_span("slot_wait", ring=self.name,
+                                    depth=bound):
+                        while self._in_flight_locked() + \
+                                self._reserved >= bound and \
+                                not self._closed:
+                            self._cv.wait(0.1)
                     waited_s = time.monotonic() - t0
                     if self._closed:
                         raise RingClosed("ring closed")

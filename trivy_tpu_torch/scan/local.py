@@ -23,6 +23,7 @@ from ..detect.enrich import fill_info
 from ..detect.library import _TYPES as LIB_TYPES
 from ..detect.library import _fixed_versions, normalize_pkg_name
 from ..detect.ospkg.drivers import DRIVERS
+from ..obs.trace import phase_span
 from ..types import (OS, DetectedVulnerability, Result, ResultClass,
                      ScanOptions, Vulnerability)
 from ..types.common import SEVERITIES
@@ -97,7 +98,14 @@ class LocalScanner:
                 options: ScanOptions) -> PreparedScan:
         """ApplyLayers + advisory name-join → pair jobs. No device
         work happens here, so a caller can merge many targets' jobs
-        into one dispatch."""
+        into one dispatch. The ``join`` phase span lives here, not in
+        the callers, so the timeline's host_pack_bound sees the
+        squash + name-join alike on every path."""
+        with phase_span("join", blobs=len(target.blob_ids)):
+            return self._prepare(target, options)
+
+    def _prepare(self, target: ScanTarget,
+                 options: ScanOptions) -> PreparedScan:
         check_security_checks(options.security_checks)
         blobs = [self.cache.get_blob(b) for b in target.blob_ids]
         detail = apply_layers(blobs)

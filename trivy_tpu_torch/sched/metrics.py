@@ -329,15 +329,21 @@ class SchedMetrics:
         # amortization — process-wide, like the guard totals
         from ..detect.metrics import DETECT_METRICS
         out["detect"] = DETECT_METRICS.snapshot()
+        # secret-sieve counters (secret/metrics.py): selectivity,
+        # verify tail, on-device vs host-verified file counts, DFA
+        # table upload amortization
+        from ..secret.metrics import SECRET_METRICS
+        out["secret"] = SECRET_METRICS.snapshot()
+        # device-residency accounting: live bytes + generation per
+        # (table, placement) — advisory DB and DFA table alike
+        from ..db.compiled import resident_snapshot
+        out["resident"] = resident_snapshot()
         # findings-memo counters (memo/metrics.py): hit/miss/store/
         # invalidation totals plus the delta re-match accounting —
         # process-wide like the rest
         from ..memo.metrics import MEMO_METRICS
         out["memo"] = MEMO_METRICS.snapshot()
-        # The reference's remaining sections are not ported yet and
-        # are absent here, not zero: "secret" (the sieve's
-        # SECRET_METRICS, secret/metrics.py) and "resident" (the live
-        # device tables, db/compiled.py::resident_snapshot) wait for
-        # ROADMAP A.8; "watch" (the admission watch's WATCH_METRICS)
-        # for A.9g.
+        # The reference's "watch" section (the admission watch's
+        # WATCH_METRICS) is not ported yet and is absent here, not
+        # zero: ROADMAP A.9g.
         return out

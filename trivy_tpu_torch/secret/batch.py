@@ -39,11 +39,14 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..obs.busy import open_busy
+from ..obs.trace import phase_span
 from ..ops.dfa import compact, dfa_masks_host, full_sieve
 from ..ops.keywords import MAX_CODE_LEN, N_BLOCKS, _bucket, pad_batch
 from ..ops.runs import run_hits_host
 from ..parallel.balance import balance_by_volume, shard_occupancy
 from ..parallel.mesh import check_mesh
+from .metrics import SECRET_METRICS
 from .plan import ScanPlan, build_scan_plan
 from .scanner import Scanner, new_scanner
 
@@ -317,26 +320,29 @@ class BatchSecretScanner:
         t0 = time.perf_counter()
         results = []
         rules_verified = windowed = wholefile = 0
-        for fe in entries:
-            chosen = candidates.get(fe.index)
-            if not chosen:
-                continue
-            rules_verified += len(chosen)
-            idxs = sorted(chosen)
-            rules = [self.scanner.rules[i] for i in idxs]
-            regions = [chosen[i] for i in idxs]
-            sub = Scanner(rules, self.scanner.allow_rules,
-                          self.scanner.exclude_block)
-            secret = sub.scan(fe.path, fe.content, regions=regions)
-            # count AFTER the scan: multibyte files silently fall
-            # back whole-file inside Scanner.scan
-            if sub.used_regions:
-                windowed += sum(1 for r in regions if r is not None)
-                wholefile += sum(1 for r in regions if r is None)
-            else:
-                wholefile += len(regions)
-            if secret.findings:
-                results.append((fe.index, secret))
+        # the verify tail is a collect-side host phase: the timeline
+        # attributes device idle under it to collect_bound
+        with phase_span("verify", files=len(entries)):
+            for fe in entries:
+                chosen = candidates.get(fe.index)
+                if not chosen:
+                    continue
+                rules_verified += len(chosen)
+                idxs = sorted(chosen)
+                rules = [self.scanner.rules[i] for i in idxs]
+                regions = [chosen[i] for i in idxs]
+                sub = Scanner(rules, self.scanner.allow_rules,
+                              self.scanner.exclude_block)
+                secret = sub.scan(fe.path, fe.content, regions=regions)
+                # count AFTER the scan: multibyte files silently fall
+                # back whole-file inside Scanner.scan
+                if sub.used_regions:
+                    windowed += sum(1 for r in regions if r is not None)
+                    wholefile += sum(1 for r in regions if r is None)
+                else:
+                    wholefile += len(regions)
+                if secret.findings:
+                    results.append((fe.index, secret))
         verify_s = time.perf_counter() - t0
 
         self.stats = {
@@ -359,6 +365,7 @@ class BatchSecretScanner:
             "shard_occupancy": handle.get("shard_occupancy", []),
             "mode": handle.get("mode", ""),
         }
+        SECRET_METRICS.note_batch(self.stats)
         return results
 
     # --- sieve stages ---
@@ -376,13 +383,21 @@ class BatchSecretScanner:
             if not metas:
                 handle["mode"] = "empty"
                 return handle
-            sharded = ShardedSieve(self, metas).start()
+            # start() is host work: shard layout + pool-parallel fills,
+            # then launches that return before the devices finish — so
+            # it brackets as pack; the dfa_scan busy span is closed at
+            # ShardedSieve.decode()'s join, stamped where the shards ran
+            with phase_span("pack", files=len(entries),
+                            shards=self._shard_count()):
+                sharded = ShardedSieve(self, metas).start()
             handle.update(mode="sharded", sharded=sharded,
                           shard_occupancy=sharded.occupancy,
                           segments=sharded.n_valid)
             return handle
         t0 = time.perf_counter()
-        buf, seg_file, seg_pos, occupancy = self._segment(entries)
+        with phase_span("pack", files=len(entries)) as sp:
+            buf, seg_file, seg_pos, occupancy = self._segment(entries)
+            sp.set("segments", int(buf.shape[0]))
         handle.update(buf=buf, seg_file=seg_file, seg_pos=seg_pos,
                       pack_s=time.perf_counter() - t0,
                       segments=int(buf.shape[0]),
@@ -392,7 +407,10 @@ class BatchSecretScanner:
             return handle
         if self.backend == "cpu-ref":
             t0 = time.perf_counter()
-            handle["masks"] = dfa_masks_host(buf, self.table)
+            # the numpy sieve IS the sieve's compute on this path
+            with phase_span("dfa_scan", segments=int(buf.shape[0]),
+                            patterns=self.table.n_patterns, host=True):
+                handle["masks"] = dfa_masks_host(buf, self.table)
             handle["mode"] = "host"
             handle["device_s"] += time.perf_counter() - t0
             return handle
@@ -403,10 +421,18 @@ class BatchSecretScanner:
         t0 = time.perf_counter()
         specs = tuple(self.plan.run_specs)
         tbl = self.table.device_tables(self.device)
-        dev = torch.from_numpy(pad_batch(buf)).to(self.device)
+        with phase_span("h2d_upload", bytes=int(buf.nbytes)):
+            dev = torch.from_numpy(pad_batch(buf)).to(self.device)
         handle["h2d_s"] = time.perf_counter() - t0
+        # on the card the launch returns before the sieve ran: its
+        # busy span is stamped by CUDA events around it (the host clock
+        # on the CPU) and closed in _decode, after the wait
+        busy = open_busy("dfa_scan", segments=int(buf.shape[0]),
+                         patterns=self.table.n_patterns)
+        busy.mark(dev.device)
         masks, h = full_sieve(dev, self.table, tbl, specs)
         nhit, idx, cm = compact(masks)
+        busy.mark(dev.device)
         event = None
         if dev.is_cuda:
             # the upload, the sieve and its compaction are enqueued on
@@ -418,7 +444,7 @@ class BatchSecretScanner:
             event = torch.cuda.Event()
             event.record(torch.cuda.current_stream(dev.device))
         handle.update(mode="fused", masks=masks, nhit=nhit, idx=idx,
-                      cm=cm, h=h, event=event, seg=dev)
+                      cm=cm, h=h, event=event, seg=dev, busy=busy)
         handle["device_s"] += time.perf_counter() - t0
         return handle
 
@@ -434,7 +460,8 @@ class BatchSecretScanner:
         if handle["mode"] == "sharded":
             t0 = time.perf_counter()
             sharded = handle.pop("sharded")
-            file_codes, runs_map = sharded.decode()
+            with phase_span("decode", mode="sharded"):
+                file_codes, runs_map = sharded.decode()
             handle["device_s"] += sharded.device_s
             handle["pack_s"] = sharded.pack_s
             out = self._choose(handle, entries, file_codes,
@@ -453,27 +480,40 @@ class BatchSecretScanner:
             seg_nz, code_nz = np.nonzero(masks)
             hit_vals = masks[seg_nz, code_nz]
         else:
-            B = buf.shape[0]
-            K = self.table.n_patterns
-            if handle.get("event") is not None:
-                handle["event"].synchronize()   # waits for the sieve
-            nhit = int(handle["nhit"])
-            cm = handle["cm"]
-            if nhit > cm.shape[0]:
-                # more hit rows than the compacted fetch holds: fetch
-                # the full mask array the same launch produced
-                handle["overflow"] = True
-                masks = handle["masks"][:B, :K].cpu().numpy()
-                seg_nz, code_nz = np.nonzero(masks)
-                hit_vals = masks[seg_nz, code_nz]
-            else:
-                rows = cm[:nhit, :K].cpu().numpy()
-                ridx = handle["idx"][:nhit].cpu().numpy()
-                rnz, code_nz = np.nonzero(rows)
-                # padded rows (index ≥ B) never hit: zero segments
-                seg_nz = ridx[rnz]
-                hit_vals = rows[rnz, code_nz]
-            run_fetch = handle["h"][:B].cpu().numpy()
+            event = handle["event"]
+            # on the CPU the sieve ran at dispatch and this bracket is
+            # the fetch, as the reference's; on the card the fetch is
+            # collect-side host work beside the sieve's own busy span
+            fetch = phase_span("dfa_scan", fetch=True) if event is None \
+                else phase_span("decode", mode="fetch")
+            with fetch:
+                B = buf.shape[0]
+                K = self.table.n_patterns
+                busy = handle.pop("busy")
+                try:
+                    if event is not None:
+                        event.synchronize()        # waits for the sieve
+                except BaseException:
+                    busy.abort()
+                    raise
+                busy.close()
+                nhit = int(handle["nhit"])
+                cm = handle["cm"]
+                if nhit > cm.shape[0]:
+                    # more hit rows than the compacted fetch holds:
+                    # fetch the full mask array the same launch produced
+                    handle["overflow"] = True
+                    masks = handle["masks"][:B, :K].cpu().numpy()
+                    seg_nz, code_nz = np.nonzero(masks)
+                    hit_vals = masks[seg_nz, code_nz]
+                else:
+                    rows = cm[:nhit, :K].cpu().numpy()
+                    ridx = handle["idx"][:nhit].cpu().numpy()
+                    rnz, code_nz = np.nonzero(rows)
+                    # padded rows (index ≥ B) never hit: zero segments
+                    seg_nz = ridx[rnz]
+                    hit_vals = rows[rnz, code_nz]
+                run_fetch = handle["h"][:B].cpu().numpy()
             # the segments may go back to the allocator only now
             handle["seg"] = handle["event"] = None
             handle["device_s"] += time.perf_counter() - t0
@@ -498,15 +538,16 @@ class BatchSecretScanner:
 
         # per file: pattern column → merged list of
         # (segment file-offset, bitmask)
-        file_codes: dict = {}
-        for si, ci, mv in zip(seg_nz.tolist(), code_nz.tolist(),
-                              hit_vals.tolist()):
-            if seg_file[si] < 0:
-                continue
-            fc = file_codes.setdefault(seg_file[si], {})
-            fc.setdefault(ci, []).append((seg_pos[si], int(mv)))
+        with phase_span("decode", mode=handle["mode"]):
+            file_codes: dict = {}
+            for si, ci, mv in zip(seg_nz.tolist(), code_nz.tolist(),
+                                  hit_vals.tolist()):
+                if seg_file[si] < 0:
+                    continue
+                fc = file_codes.setdefault(seg_file[si], {})
+                fc.setdefault(ci, []).append((seg_pos[si], int(mv)))
 
-        out = self._choose(handle, entries, file_codes, file_runs)
+            out = self._choose(handle, entries, file_codes, file_runs)
         handle["decode_s"] = time.perf_counter() - t0
         return out
 

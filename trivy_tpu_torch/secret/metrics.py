@@ -1,0 +1,94 @@
+"""Secret-sieve metrics: selectivity, verify tail, DFA table upload
+amortization (reference: ``trivy_tpu/secret/metrics.py``).
+
+Process-wide by design, mirroring ``detect.metrics.DETECT_METRICS``:
+the DFA table is a process singleton per rule-set hash, uploads
+happen once per (generation, placement), and the numbers an operator
+watches on ``/metrics`` are cumulative totals. Counter updates take
+one short lock per BATCH (the batch scanner flushes a whole sieve's
+numbers in one call) — nothing here sits on a per-byte hot path.
+"""
+
+from __future__ import annotations
+
+import threading
+
+
+class SecretMetrics:
+    """Cumulative counters for the secret-sieve hot path."""
+
+    _KEYS = (
+        # sieve funnel: files in, files that needed ANY host verify,
+        # files fully cleared on device, files with findings
+        "files_total", "files_gated", "files_device_cleared",
+        "files_with_findings",
+        # per-rule verify split (windowed-exact vs whole-file) and
+        # rules the on-device DFA chain gate dropped before any host
+        # regex ran
+        "rules_verified", "rules_windowed", "rules_wholefile",
+        "rules_chain_gated",
+        # wall-time accumulators (seconds, float)
+        "sieve_s", "verify_s",
+        # DFA table residency (ops/dfa.py DfaTable hooks)
+        "dfa_uploads", "dfa_upload_bytes", "dfa_dispatches",
+        "dfa_invalidations",
+        # async sharded submission (parallel/secret_shard.py)
+        "shards_dispatched", "decode_tasks",
+    )
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._c = {k: 0 for k in self._KEYS}
+
+    def inc(self, name: str, n=1) -> None:
+        with self._lock:
+            # counter names are code-literal call sites, never
+            # request-derived strings
+            self._c[name] = self._c.get(name, 0) + n
+
+    def note_batch(self, stats: dict) -> None:
+        """Flush one sieve batch's stats dict (BatchSecretScanner
+        ``collect``) into the cumulative counters."""
+        with self._lock:
+            c = self._c
+            c["files_total"] += stats.get("files_total", 0)
+            c["files_gated"] += stats.get("files_gated", 0)
+            c["files_device_cleared"] += (
+                stats.get("files_total", 0)
+                - stats.get("files_gated", 0))
+            c["files_with_findings"] += stats.get(
+                "files_with_findings", 0)
+            c["rules_verified"] += stats.get("rules_verified", 0)
+            c["rules_windowed"] += stats.get("rules_windowed", 0)
+            c["rules_wholefile"] += stats.get("rules_wholefile", 0)
+            c["rules_chain_gated"] += stats.get(
+                "rules_chain_gated", 0)
+            c["sieve_s"] += stats.get("sieve_s", 0.0)
+            c["verify_s"] += stats.get("verify_s", 0.0)
+
+    def note_dfa_upload(self, nbytes: int) -> None:
+        with self._lock:
+            self._c["dfa_uploads"] += 1
+            self._c["dfa_upload_bytes"] += nbytes
+
+    def reset(self) -> None:
+        """Test hook — production code never calls this."""
+        with self._lock:
+            for k in self._c:
+                self._c[k] = 0
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            out = dict(self._c)
+        out["sieve_s"] = round(out["sieve_s"], 4)
+        out["verify_s"] = round(out["verify_s"], 4)
+        ft = out["files_total"]
+        out["sieve_selectivity"] = round(
+            out["files_gated"] / ft, 4) if ft else 0.0
+        out["dfa_upload_amortization"] = round(
+            out["dfa_dispatches"] / out["dfa_uploads"], 2) \
+            if out["dfa_uploads"] else 0.0
+        return out
+
+
+SECRET_METRICS = SecretMetrics()
