@@ -59,7 +59,8 @@ Builds the port's hand-written kernels (``trivy_tpu_torch/csrc``, one
    analyzers, one ``dfa_blockmask`` sieve, prepare, one
    ``dispatch_jobs``, finish; the default filters, the JSON writer)
    scans it for vulnerabilities and secrets on the card, once cold and
-   twice warm, plus one profiled warm scan. Its vulnerabilities
+   once warm (twice before the config and license checks came), plus
+   one profiled warm scan. Its vulnerabilities
    must equal a numpy (``cpu-ref``) vuln-only scan's. The secret check
    alone must report every planted file's rule and, on a seeded sample
    of files, exactly the CPU-exact scanner's findings. An ``alpine
@@ -67,8 +68,21 @@ Builds the port's hand-written kernels (``trivy_tpu_torch/csrc``, one
    tree (the OS root, the lockfiles and 512 corpus files) must give one
    report on the card, ``cpu`` and ``cpu-ref``; and ``python -m
    trivy_tpu_torch fs`` in a subprocess, on the sbom phase's npz, must
-   give the in-process report. It prints each step's seconds and the
-   ``dfa_blockmask`` launches of each path.
+   give the in-process report. The full tree holds a seeded IaC subtree
+   (``iac_files``, a few hundred of each: Dockerfiles, Kubernetes manifests in JSON and YAML,
+   Terraform modules, CloudFormation templates in JSON and YAML, a
+   Helm chart, license files, and a ``copyright`` file for each dpkg
+   package): the full tree with every check (``vuln,secret,config,
+   license``) launches the sieve once, reports the default scan's
+   vulnerabilities and secrets, failures for each of the Dockerfile,
+   Kubernetes JSON, Terraform and CloudFormation JSON inputs, every
+   seeded license file and every package's licenses; the reduced tree,
+   with a reduced subtree (``IAC_REDUCED``), gives one report with
+   every check on the card and ``cpu-ref``; and
+   ``python -m trivy_tpu_torch config`` on the IaC subtree, in a
+   subprocess on the default backend, gives the in-process report. It
+   prints each step's seconds and the ``dfa_blockmask`` launches of
+   each path.
 6. image phase: the fs phase's tree becomes a ``docker save`` image of
    five layers (``image_layers``): L0 the ``debian 12`` base with one
    planted secret (a history ``CMD`` ends the base, so its secrets are
@@ -88,7 +102,10 @@ Builds the port's hand-written kernels (``trivy_tpu_torch/csrc``, one
    scanner finds it. A reduced image (512 corpus files, an OCI layout
    tar with gzipped layers) must give one report on the card, ``cpu``
    and ``cpu-ref``, and ``python -m trivy_tpu_torch image`` in a
-   subprocess the in-process one. It prints each step's seconds, the
+   subprocess the in-process one; its lockfile layer holds a reduced
+   IaC subtree, and with every check it launches the sieve once and gives
+   one report on the card and ``cpu-ref`` with the fs phase's
+   config and license checks. It prints each step's seconds, the
    launches of each path and the profiled scan's device ops, busy ms
    and idle share, the last over the profiled run's wall time and over
    the median unprofiled warm scan's (the profiler stretches the
@@ -107,12 +124,16 @@ Builds the port's hand-written kernels (``trivy_tpu_torch/csrc``, one
    profiled (no depth-1 or depth-4 run here, to leave room for the
    mesh and memo phases; the memo phase runs a fleet at depth 1, the
    card tests waves of 64 rows at depth 4). Every run's
-   reports must be equal and equal to each target scanned alone through
-   the image entry; the twin's must be its image's but for its name and
+   reports must be equal and equal to one target of each group of four
+   and the twin scanned alone through the image entry (every target
+   before the config and license checks came); the twin's must be its image's but for its name and
    tag, the truncated tar must fail alone, each cold fleet must launch
    the sieve once, and no run may upload the resident tables again. A
-   4-target fleet must give the same reports on the card and on
-   ``cpu-ref``. It prints each run's wall time, images/s, its split
+   4-target fleet (a reduced IaC subtree in its lockfile layers) must give
+   the same reports on the card and on ``cpu-ref``, with the default
+   checks and with every check (one launch, the fs phase's config and
+   license checks per target). It prints each run's wall time,
+   images/s, its split
    (loads, the batch, the garbage collection at its end) and the
    runner's ``last_stats``, the same targets' time alone, and the
    profiled fleet's busy ms and idle share.
@@ -132,7 +153,9 @@ Builds the port's hand-written kernels (``trivy_tpu_torch/csrc``, one
    launched batch with candidates and no upload of the resident
    tables. A poisoned target of the reduced fleet (``PoisonInjector``)
    must be the only slot ``degraded``, with a ``quarantined`` cause,
-   every other slot as in the healthy run; four threads calling
+   every other slot as in the healthy run; the reduced fleet with every
+   check must give the direct path's reports with one launch per
+   batch with candidates; four threads calling
    ``submit_path`` at once must each get their target's report. It
    prints each run's wall time, images/s and the scheduler's counters
    (batches, occupancy, overlap, device busy, sieve launches) beside
@@ -194,7 +217,13 @@ memo phase's swap only the new generation; the sched phase's first
 cold fleet must export one trace file per request; the image phase's
 CLI subprocess runs with ``--profile-out``, whose trace must name the
 sieve kernel; every DFA upload must be one per (generation, device).
-Two ``obs`` lines print what they read.
+Two ``obs`` lines print what they read. One ``config and license
+checks`` line prints, for the fs, image, fleet and sched scans with
+every check, what the config and license checks found and added: the
+host seconds of the config collectors, the misconf post-handler and
+the license classifier, and the YAML inputs (Kubernetes and
+CloudFormation YAML, Helm charts) the misconf engine left unevaluated
+for want of PyYAML (the reference skips them too).
 
 It prints the card's name and power limit, one ``{"kernels": [...]}``
 line (times from CUDA events, the bound this run's inputs give, each
@@ -206,6 +235,7 @@ then non-zero and no result line is printed. Without CUDA it exits 2.
 
 from __future__ import annotations
 
+import contextlib
 import gzip
 import hashlib
 import io
@@ -215,6 +245,7 @@ import subprocess
 import sys
 import tarfile
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -1456,6 +1487,380 @@ def make_fs_tree(root: str, tree: tuple, n_pkgs: dict, seed: int,
             f.write(data)
 
 
+# --- the config and license checks: a seeded IaC subtree --------------
+
+IAC_EACH = 200                  # Dockerfiles, k8s JSON and YAML, CFN JSON
+IAC_TF_MODULES = 100            # .tf modules of two files each
+IAC_CFN_YAML = 100              # CloudFormation templates in YAML
+IAC_LICENSES = 120              # LICENSE / COPYING files
+# the cross-backend trees, image and fleet hold a reduced subtree: on
+# cpu-ref every file of it costs the numpy sieve
+IAC_REDUCED = {"n_each": 40, "n_tf": 20, "n_cfn_yaml": 20,
+               "n_licenses": 42}
+CHECKS = ("vuln", "secret", "config", "license")
+# the copyright files' License: fields, drawn per package
+_DPKG_LICENSES = ("GPL-2+", "MIT", "Apache-2.0", "LGPL-2.1+",
+                  "BSD-3-clause", "Zlib", "Artistic", "GPL-3+")
+
+_K8S_YAML = """apiVersion: {api}
+kind: {kind}
+metadata:
+  name: {name}
+  labels:
+    app: {name}
+spec:
+{spec}"""
+
+_TF_MAIN = """resource "aws_s3_bucket" "b{i}" {{
+  bucket = "bucket-{i}"
+  acl    = var.acl
+}}
+
+resource "aws_security_group" "sg{i}" {{
+  description = "service {i}"
+  ingress {{
+    from_port   = 443
+    to_port     = 443
+    cidr_blocks = ["{cidr}"]
+  }}
+}}
+
+resource "aws_db_instance" "db{i}" {{
+  storage_encrypted = {encrypted}
+}}
+
+resource "aws_ebs_volume" "v{i}" {{
+  encrypted = {ebs}
+}}
+"""
+
+_TF_VARS = """variable "acl" {{
+  default = "{acl}"
+}}
+"""
+
+_CFN_YAML = """AWSTemplateFormatVersion: "2010-09-09"
+Parameters:
+  Encrypt:
+    Type: String
+Resources:
+  Vol{i}:
+    Type: AWS::EC2::Volume
+    Properties:
+      Encrypted: !Ref Encrypt
+      Size: {size}
+  Bucket{i}:
+    Type: AWS::S3::Bucket
+    Properties:
+      AccessControl: {acl}
+      BucketName: !Sub "${{AWS::StackName}}-{i}"
+"""
+
+_HELM_CHART = (
+    ("Chart.yaml", "apiVersion: v2\nname: web\nversion: 1.0.0\n"),
+    ("values.yaml", "runAsRoot: true\nimage:\n  tag: latest\n"),
+    ("templates/deploy.yaml",
+     "apiVersion: apps/v1\nkind: Deployment\nmetadata:\n"
+     "  name: {{ .Release.Name }}-web\nspec:\n  template:\n    spec:\n"
+     "      containers:\n      - name: web\n"
+     "        image: \"nginx:{{ .Values.image.tag | default \"1.25\" }}\"\n"
+     "        securityContext:\n"
+     "          runAsNonRoot: {{ if .Values.runAsRoot }}false"
+     "{{ else }}true{{ end }}\n"))
+
+
+def _dockerfile(rng, i: int) -> str:
+    base = ("alpine:latest", "alpine:3.16", "node", "debian:12")[
+        int(rng.integers(0, 4))]
+    lines = [f"FROM {base}"]
+    if rng.integers(0, 2):
+        lines.append(f"ADD app{i}.py /srv/app/")
+    else:
+        lines.append(f"COPY app{i}.py /srv/app/")
+    if rng.integers(0, 2):
+        lines.append("RUN apk add curl")
+    else:
+        lines.append("RUN apk add --no-cache curl")
+    if rng.integers(0, 3) == 0:
+        lines.append("EXPOSE 22 8080")
+    user = ("root", "app", "")[int(rng.integers(0, 3))]
+    if user:
+        lines.append(f"USER {user}")
+    if rng.integers(0, 2):
+        lines.append("HEALTHCHECK CMD curl -f http://localhost/ || exit 1")
+    lines.append(f'CMD ["python3", "/srv/app/app{i}.py"]')
+    return "\n".join(lines) + "\n"
+
+
+def _pod_spec(rng, i: int) -> dict:
+    ctx = {"privileged": bool(rng.integers(0, 2)),
+           "runAsNonRoot": bool(rng.integers(0, 2))}
+    if rng.integers(0, 2):
+        ctx["allowPrivilegeEscalation"] = False
+        ctx["readOnlyRootFilesystem"] = True
+        ctx["capabilities"] = {"drop": ["ALL"]}
+    container = {"name": f"c{i}",
+                 "image": ("nginx:latest", "nginx:1.25", "nginx")[
+                     int(rng.integers(0, 3))],
+                 "securityContext": ctx}
+    if rng.integers(0, 2):
+        container["resources"] = {"limits": {"cpu": "500m",
+                                             "memory": "256Mi"}}
+    spec = {"containers": [container]}
+    if rng.integers(0, 3) == 0:
+        spec["hostNetwork"] = True
+    if rng.integers(0, 3) == 0:
+        spec["volumes"] = [{"name": "sock", "hostPath": {
+            "path": "/var/run/docker.sock"}}]
+    return spec
+
+
+def _k8s_doc(rng, i: int) -> dict:
+    spec = _pod_spec(rng, i)
+    if rng.integers(0, 2):
+        return {"apiVersion": "v1", "kind": "Pod",
+                "metadata": {"name": f"pod{i}"}, "spec": spec}
+    return {"apiVersion": "apps/v1", "kind": "Deployment",
+            "metadata": {"name": f"deploy{i}"},
+            "spec": {"replicas": 2, "template": {
+                "metadata": {"labels": {"app": f"deploy{i}"}},
+                "spec": spec}}}
+
+
+def _yaml_text(value, indent: int = 0) -> str:
+    """``value`` (dicts, lists, strings, numbers, booleans) as block
+    YAML, without PyYAML."""
+    pad = " " * indent
+    if isinstance(value, dict):
+        out = []
+        for k, v in value.items():
+            if isinstance(v, (dict, list)) and v:
+                out.append(f"{pad}{k}:\n{_yaml_text(v, indent + 2)}")
+            else:
+                out.append(f"{pad}{k}: {_yaml_scalar(v)}\n")
+        return "".join(out)
+    out = []
+    for v in value:
+        body = _yaml_text(v, indent + 2) if isinstance(v, (dict, list)) \
+            else f"{pad}  {_yaml_scalar(v)}\n"
+        out.append(f"{pad}- {body[indent + 2:]}")
+    return "".join(out)
+
+
+def _yaml_scalar(v) -> str:
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, (dict, list)):
+        return "{}" if isinstance(v, dict) else "[]"
+    return json.dumps(v) if isinstance(v, str) else str(v)
+
+
+def dpkg_names(os_files: list) -> list:
+    """The package names of a ``var/lib/dpkg/status`` among
+    ``os_files`` ([(rel_path, bytes)])."""
+    for rel, data in os_files:
+        if rel == "var/lib/dpkg/status":
+            return [ln[len("Package: "):] for ln in
+                    data.decode().splitlines()
+                    if ln.startswith("Package: ")]
+    return []
+
+
+def iac_files(seed: int, packages=(), n_each: int = IAC_EACH,
+              n_tf: int = IAC_TF_MODULES, n_cfn_yaml: int = IAC_CFN_YAML,
+              n_licenses: int = IAC_LICENSES) -> tuple:
+    """A seeded IaC subtree under ``iac/`` and the license files of a
+    tree, as ([(rel_path, bytes)], expected): ``n_each`` Dockerfiles,
+    Kubernetes manifests in JSON and in YAML and CloudFormation
+    templates in JSON, ``n_cfn_yaml`` CloudFormation templates in YAML
+    (``!Ref`` / ``!Sub`` tags), ``n_tf`` Terraform modules (a
+    ``main.tf`` and a ``variables.tf`` each), one Helm chart, every
+    license text of the port's corpus as ``LICENSE`` / ``COPYING``
+    files (``n_licenses`` in all) and a ``usr/share/doc/<pkg>/
+    copyright`` for each of ``packages`` (the dpkg names). Settings are
+    drawn so that every file type has failing and passing checks.
+    ``expected``: {"licenses": {rel_path: license name},
+    "dpkg": {package: [License: fields]}, "yaml": YAML inputs,
+    "helm_charts": 1}."""
+    from trivy_tpu_torch.licensing.corpus import _CORPUS_TEXTS
+    rng = np.random.default_rng(seed)
+    files, lic_expect, dpkg = [], {}, {}
+
+    def put(rel: str, text) -> None:
+        files.append((rel, text.encode() if isinstance(text, str)
+                      else text))
+
+    for i in range(n_each):
+        put(f"iac/docker/svc{i}/Dockerfile", _dockerfile(rng, i))
+        put(f"iac/k8s/json/m{i}.json",
+            json.dumps(_k8s_doc(rng, i), indent=2))
+        doc = _k8s_doc(rng, n_each + i)
+        put(f"iac/k8s/yaml/m{i}.yaml", _K8S_YAML.format(
+            api=doc["apiVersion"], kind=doc["kind"],
+            name=doc["metadata"]["name"],
+            spec=_yaml_text(doc["spec"], 2)))
+        acl = ("PublicRead", "Private")[int(rng.integers(0, 2))]
+        put(f"iac/cfn/json/t{i}.json", json.dumps({
+            "AWSTemplateFormatVersion": "2010-09-09",
+            "Resources": {
+                f"Bucket{i}": {"Type": "AWS::S3::Bucket",
+                               "Properties": {"AccessControl": acl}},
+                f"SG{i}": {"Type": "AWS::EC2::SecurityGroup",
+                           "Properties": {
+                               "GroupDescription": f"sg {i}",
+                               "SecurityGroupIngress": [{
+                                   "IpProtocol": "tcp",
+                                   "CidrIp": ("0.0.0.0/0", "10.0.0.0/8")[
+                                       int(rng.integers(0, 2))]}]}}}},
+            indent=2))
+    for i in range(n_cfn_yaml):
+        put(f"iac/cfn/yaml/t{i}.yaml", _CFN_YAML.format(
+            i=i, size=int(rng.integers(8, 64)),
+            acl=("PublicRead", "Private")[int(rng.integers(0, 2))]))
+    for i in range(n_tf):
+        put(f"iac/tf/mod{i}/main.tf", _TF_MAIN.format(
+            i=i, cidr=("0.0.0.0/0", "10.0.0.0/8")[int(rng.integers(0, 2))],
+            encrypted=("true", "false")[int(rng.integers(0, 2))],
+            ebs=("true", "false", "var.ebs")[int(rng.integers(0, 3))]))
+        put(f"iac/tf/mod{i}/variables.tf", _TF_VARS.format(
+            acl=("public-read", "private")[int(rng.integers(0, 2))]))
+    for rel, text in _HELM_CHART:
+        put(f"iac/chart/{rel}", text)
+    names = list(_CORPUS_TEXTS)
+    for i in range(n_licenses):
+        name = names[i % len(names)]
+        rel = f"iac/docker/svc{i}/" + ("COPYING" if i % 3 == 2
+                                        else "LICENSE")
+        put(rel, f"Copyright (c) 2026 Service {i}\n\n"
+            + "\n\n".join(_CORPUS_TEXTS[name]) + "\n")
+        lic_expect[rel] = name
+    for pkg in packages:
+        k = int(rng.integers(1, 3))
+        lics = [str(x) for x in rng.choice(_DPKG_LICENSES, k,
+                                           replace=False)]
+        text = (f"Format: https://www.debian.org/doc/packaging-manuals/"
+                f"copyright-format/1.0/\nUpstream-Name: {pkg}\n\n"
+                f"Files: *\nLicense: {lics[0]}\n")
+        if len(lics) > 1:
+            text += (f"\nFiles: debian/*\nLicense: {lics[1]}\n On Debian "
+                     f"systems the full text can be found in\n "
+                     f"/usr/share/common-licenses/{lics[1]}\n")
+        put(f"usr/share/doc/{pkg}/copyright", text)
+        dpkg[pkg] = lics
+    return files, {"licenses": lic_expect, "dpkg": dpkg,
+                   "yaml": sum(1 for rel, _ in files
+                               if rel.endswith((".yaml", ".yml"))),
+                   "helm_charts": 1}
+
+
+@contextlib.contextmanager
+def host_split():
+    """Time what the config and license checks add to a scan, summed
+    over calls on every thread (host seconds; the fleet's threads
+    overlap): ``collect_s`` (the config collectors), ``misconf_s`` (the
+    misconf post-handler's ``scan_config_files``), ``classify_s`` (the
+    license classifier), and the config inputs the handler was given
+    by type (``inputs``). Yields the dict it fills; restores the
+    functions on exit."""
+    import trivy_tpu_torch.analyzer.config as aconfig
+    import trivy_tpu_torch.analyzer.licensing as alicensing
+    import trivy_tpu_torch.handler.misconf as hmisconf
+    split = {"collect_s": 0.0, "misconf_s": 0.0, "classify_s": 0.0,
+             "inputs": {}}
+    lock = threading.Lock()
+
+    def timed(key: str, fn, count=None):
+        def run(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                dt = time.perf_counter() - t
+                with lock:
+                    split[key] += dt
+                    if count is not None:
+                        count(args)
+        return run
+
+    def inputs(args) -> None:
+        for cf in args[0]:
+            split["inputs"][cf.type] = split["inputs"].get(cf.type, 0) + 1
+
+    saved = ((aconfig._Collector, "analyze", aconfig._Collector.analyze),
+             (hmisconf, "scan_config_files", hmisconf.scan_config_files),
+             (alicensing, "classify", alicensing.classify))
+    aconfig._Collector.analyze = timed("collect_s",
+                                       aconfig._Collector.analyze)
+    hmisconf.scan_config_files = timed(
+        "misconf_s", hmisconf.scan_config_files, inputs)
+    alicensing.classify = timed("classify_s", alicensing.classify)
+    try:
+        yield split
+    finally:
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+
+
+def unevaluated(split: dict) -> dict:
+    """The YAML inputs (Kubernetes and CloudFormation YAML, Helm charts)
+    that went unevaluated for want of PyYAML: every ``yaml`` input the
+    misconf handler was given when the port's misconf engine has no
+    PyYAML, none when it has."""
+    from trivy_tpu_torch import misconf
+    n = split["inputs"].get("yaml", 0) if misconf.yaml_mod is None else 0
+    return {"pyyaml": misconf.yaml_mod is not None, "yaml_inputs": n}
+
+
+def check_checks(text: str, expected: dict) -> dict:
+    """The config and license results of a report with every check
+    (``CHECKS``) on the ``iac_files`` subtree: failures for each of
+    the ``dockerfile``, ``kubernetes`` (JSON manifests),
+    ``terraform`` and ``cloudformation`` (JSON templates) inputs,
+    every seeded license file classified as its license, and every
+    dpkg package with its copyright file's licenses. Returns counts."""
+    from trivy_tpu_torch.licensing import normalize
+    doc = json.loads(text)
+    failing: dict = {}
+    configs = 0
+    for r in doc.get("Results", []):
+        if r["Class"] != "config":
+            continue
+        configs += 1
+        target = r["Target"].lstrip("/")
+        if r.get("MisconfSummary", {}).get("Failures"):
+            kind = r["Type"]
+            if target.startswith(("iac/k8s/json/", "iac/cfn/json/")):
+                kind += "-json"
+            failing[kind] = failing.get(kind, 0) + 1
+    want = ("dockerfile", "kubernetes-json", "terraform",
+            "cloudformation-json")
+    if not all(failing.get(k) for k in want):
+        raise AssertionError(f"config: failures by type {failing}")
+    found: dict = {}
+    pkgs: dict = {}
+    for r in doc.get("Results", []):
+        for lic in r.get("Licenses", []):
+            if r["Class"] == "license-file":
+                found.setdefault(lic["FilePath"].lstrip("/"), set()).add(
+                    lic["Name"])
+            elif lic.get("PkgName"):
+                pkgs.setdefault(lic["PkgName"], set()).add(lic["Name"])
+    missed = [rel for rel, name in expected["licenses"].items()
+              if name not in found.get(rel, ())]
+    if missed:
+        raise AssertionError(f"license files not classified: "
+                             f"{missed[:5]} ({len(missed)})")
+    wrong = [p for p, lics in expected["dpkg"].items()
+             if {normalize(x) for x in lics} - pkgs.get(p, set())]
+    if wrong:
+        raise AssertionError(f"dpkg licenses missing for {wrong[:5]} "
+                             f"({len(wrong)})")
+    return {"config_results": configs, "failing_by_type": failing,
+            "license_files": len(expected["licenses"]),
+            "loose_license_files": len(found),
+            "dpkg_packages": len(expected["dpkg"])}
+
+
 def scan_bom(path: str, db, backend: str) -> tuple:
     """One ``sbom`` scan as ``python -m trivy_tpu_torch sbom PATH
     --format json`` makes it: ``scan_sbom``, the default filters, the
@@ -1479,7 +1884,7 @@ def _sorted_json(text: str) -> str:
     return json.dumps(json.loads(text), sort_keys=True)
 
 
-FS_WARM = 2
+FS_WARM = 1                     # 2 before the config and license checks
 FS_REDUCED = 512                # corpus files of the cross-backend tree
 
 
@@ -1549,7 +1954,10 @@ def fs_phase(device, cdb, n_pkgs: dict, files: list, planted: dict,
     out: dict = {}
     full = os.path.join(work_dir, "fs-full")
     t0 = time.perf_counter()
-    make_fs_tree(full, FS_ROOTS["fs"], n_pkgs, SEED + 20, files=files)
+    iac, iac_expect = iac_files(SEED + 60, dpkg_names(fs_tree_files(
+        FS_ROOTS["fs"], n_pkgs, SEED + 20)[0]))
+    make_fs_tree(full, FS_ROOTS["fs"], n_pkgs, SEED + 20,
+                 files=files + iac)
     out["make_s"] = time.perf_counter() - t0
     scanners = {b: secret_scanner(backend=b)
                 for b in (backend, "cpu", "cpu-ref")}
@@ -1655,8 +2063,10 @@ def fs_phase(device, cdb, n_pkgs: dict, files: list, planted: dict,
 
     # the reduced tree on every backend, whole reports
     reduced = os.path.join(work_dir, "fs-reduced")
+    riac, riac_expect = iac_files(SEED + 61, dpkg_names(fs_tree_files(
+        FS_ROOTS["fs"], n_pkgs, SEED + 20)[0])[::4], **IAC_REDUCED)
     make_fs_tree(reduced, FS_ROOTS["fs"], n_pkgs, SEED + 20,
-                 files=files[:FS_REDUCED])
+                 files=files[:FS_REDUCED] + riac)
     dfa_blockmask.launches = 0
     red = {b: scan_tree(reduced, cdb, b, scanners[b])
            for b in (backend, "cpu", "cpu-ref")}
@@ -1665,6 +2075,57 @@ def fs_phase(device, cdb, n_pkgs: dict, files: list, planted: dict,
     if len(set(texts.values())) != 1:
         raise AssertionError("reduced tree: cuda, cpu and cpu-ref differ")
     out["reduced"] = {b: r[1]["total_s"] for b, r in red.items()}
+
+    # the config and license checks with the others: the full tree on
+    # the card (one launch, the default scan's vulnerabilities and
+    # secrets, the IaC subtree's failures, every seeded license file
+    # classified), its host split, then the reduced tree on the card
+    # and on cpu-ref
+    dfa_blockmask.launches = 0
+    with host_split() as split:
+        ctext, csteps, cstats = scan_tree(full, cdb, backend, card,
+                                          checks=CHECKS)
+    launches["fs_checks"] = dfa_blockmask.launches
+    if launches["fs_checks"] != 1:
+        raise AssertionError(f"the fs scan with every check launched "
+                             f"{launches['fs_checks']} dfa_blockmask")
+    kinds = ("os-pkgs", "lang-pkgs", "secret")
+    if _results(ctext, *kinds) != _results(text, *kinds):
+        raise AssertionError("fs: the scan with every check reports other "
+                             "vulnerabilities or secrets")
+    chk = {b: scan_tree(reduced, cdb, b, scanners[b], checks=CHECKS)[0]
+           for b in (backend, "cpu-ref")}
+    if _sorted_json(chk[backend]) != _sorted_json(chk["cpu-ref"]):
+        raise AssertionError("reduced tree with every check: the card's "
+                             "report != cpu-ref's")
+    check_checks(chk[backend], riac_expect)
+    out["checks"] = {**check_checks(ctext, iac_expect),
+                     "iac_files": len(iac), "host_split_s": split,
+                     "unevaluated": unevaluated(split),
+                     "steps": _fs_steps(csteps, cstats),
+                     "added_s": csteps["total_s"]
+                     - min(w["total_s"] for w in warm_steps)}
+
+    # the config entry in a new process, on the default backend: the
+    # IaC subtree's misconfigurations alone
+    iac_dir = os.path.join(full, "iac")
+    report_path = os.path.join(work_dir, "config.report.json")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "trivy_tpu_torch", "config", iac_dir,
+         "--format", "json", "--output", report_path],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        capture_output=True, text=True, timeout=600)
+    out["config_cli_wall_s"] = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"config CLI exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    with open(report_path) as f:
+        got = _sorted_json(f.read())
+    if got != _sorted_json(scan_tree(iac_dir, None, backend, None,
+                                     checks=("config",))[0]):
+        raise AssertionError("the config CLI's report != the in-process "
+                             "report")
 
     # the real entry point in a new process, on the sbom phase's npz
     report_path = os.path.join(work_dir, "fs.report.json")
@@ -1806,10 +2267,10 @@ def write_oci_layout(path: str, layers: list, history=IMAGE_HISTORY,
 
 def image_layers(tree: tuple, n_pkgs: dict, seed: int, files: list,
                  planted: dict, scale: float = 1.0,
-                 n_corpus: int = None) -> tuple:
+                 n_corpus: int = None, extra=()) -> tuple:
     """The layers of the smoke image and what they plant:
     L0 (the base: the OS and one secret that must not be reported), L1
-    (the lockfiles), L2 and L3 (the two halves of ``files``, or its
+    (the lockfiles and ``extra``, e.g. ``iac_files``), L2 and L3 (the two halves of ``files``, or its
     first ``n_corpus`` in L2 alone), L4 (whiteouts of
     ``IMAGE_WHITEOUTS`` planted-secret files of L2, fewer where L2
     plants fewer, an opaque ``OPAQUE_DIR``, and one planted file of L2
@@ -1830,7 +2291,7 @@ def image_layers(tree: tuple, n_pkgs: dict, seed: int, files: list,
           for rel in wh]
     l4 += [(f"{OPAQUE_DIR}/.wh..wh..opq", b""),
            (rew, b"# rotated\n" + new_sec)]
-    layers = [os_files + [BASE_SECRET], app_files, l2] + \
+    layers = [os_files + [BASE_SECRET], app_files + list(extra), l2] + \
         ([l3] if l3 else []) + [l4]
     history = IMAGE_HISTORY if l3 else tuple(
         h for h in IMAGE_HISTORY if "corpus/b" not in h[0])
@@ -2049,8 +2510,11 @@ def image_phase(device, cdb, n_pkgs: dict, files: list, planted: dict,
                           "ops_us": ops}}
 
     # the reduced image, as an OCI layout tar with gzipped layers
+    iac, iac_expect = iac_files(SEED + 61, dpkg_names(fs_tree_files(
+        FS_ROOTS["fs"], n_pkgs, SEED + 20)[0])[::4], **IAC_REDUCED)
     rlayers, rplan = image_layers(FS_ROOTS["fs"], n_pkgs, SEED + 20,
-                                  files, planted, n_corpus=IMAGE_REDUCED)
+                                  files, planted, n_corpus=IMAGE_REDUCED,
+                                  extra=iac)
     reduced = write_oci_layout(os.path.join(work_dir, "image-oci.tar"),
                                rlayers, rplan["history"])
     red = {}
@@ -2061,6 +2525,27 @@ def image_phase(device, cdb, n_pkgs: dict, files: list, planted: dict,
     if len(set(texts.values())) != 1:
         raise AssertionError("reduced image: cuda, cpu and cpu-ref differ")
     out["reduced"] = {b: r[1]["total_s"] for b, r in red.items()}
+
+    # the config and license checks with the others on the reduced
+    # image (the IaC subtree in its lockfile layer): one launch on the
+    # card, its host split, the same report on cpu-ref
+    with host_split() as split:
+        ctext, csteps, cstats = counted("checks", lambda: scan_image_report(
+            reduced, cdb, backend, card, checks=CHECKS))
+    if launches["checks"] != 1:
+        raise AssertionError(f"the image scan with every check launched "
+                             f"{launches['checks']} dfa_blockmask")
+    if _sorted_json(ctext) != _sorted_json(scan_image_report(
+            reduced, cdb, "cpu-ref", scanners["cpu-ref"],
+            checks=CHECKS)[0]):
+        raise AssertionError("reduced image with every check: the card's "
+                             "report != cpu-ref's")
+    out["checks"] = {**check_checks(ctext, iac_expect),
+                     "host_split_s": split,
+                     "unevaluated": unevaluated(split),
+                     "steps": _image_steps(csteps, cstats),
+                     "added_s": csteps["total_s"]
+                     - red[backend][1]["total_s"]}
 
     # the real entry point in a new process, on the sbom phase's npz
     # (with --profile-out: a torch.profiler trace of the CLI's scan)
@@ -2105,7 +2590,7 @@ SHARED_SECRET = ("srv/shared/deploy.env", SECRETS[0][0])
 
 def fleet_targets(work_dir: str, tree: tuple, n_pkgs: dict, seed: int,
                   files: list, n_images: int = FLEET_IMAGES,
-                  scale: float = 1.0) -> dict:
+                  scale: float = 1.0, extra=()) -> dict:
     """Write a fleet of ``n_images`` docker-save targets under
     ``work_dir``. Every image has the same base (``tree``'s OS files
     and a planted secret; the history's ``CMD`` ends the base, so the
@@ -2113,7 +2598,8 @@ def fleet_targets(work_dir: str, tree: tuple, n_pkgs: dict, seed: int,
     (``SHARED_SECRET``), its own lockfiles (``tree``'s, drawn under the
     seed ``seed + 1 + i``: versions that differ across images) and one
     part of ``files``, one part per group of ``FLEET_GROUP`` images,
-    so that a fleet holds ``files`` once. The last two targets are
+    so that a fleet holds ``files`` once; ``extra`` (e.g.
+    ``iac_files``) goes into every lockfile layer. The last two targets are
     the one before them under a second tag (its twin) and an image of
     its own cut off in the middle (it fails to load). Returns
     {"paths": [...], "twin": (i, its twin's index), "broken": index}."""
@@ -2126,7 +2612,7 @@ def fleet_targets(work_dir: str, tree: tuple, n_pkgs: dict, seed: int,
         k = i - 1 if i == twin else i
         _, lockfiles = fs_tree_files(tree, n_pkgs, seed + 1 + k, scale)
         g = k // FLEET_GROUP
-        layers = [base, [SHARED_SECRET], lockfiles,
+        layers = [base, [SHARED_SECRET], lockfiles + list(extra),
                   files[g * part:(g + 1) * part]]
         path = os.path.join(work_dir, f"fleet{i}.tar")
         tag = f"smoke/fleet:{k}" + ("-alias" if i == twin else "")
@@ -2143,13 +2629,27 @@ FLEET_REDUCED = 4               # targets of the cross-backend fleet
 FLEET_REDUCED_SCALE = 0.25      # its package counts, of the full fleet's
 
 
+def _checks_options(checks, backend: str) -> tuple:
+    """(the runner's artifact option template, the ``ScanOptions``) of a
+    fleet with ``checks``, or (None, None) for the defaults."""
+    if checks is None:
+        return None, None
+    from trivy_tpu_torch.artifact import ArtifactOption
+    from trivy_tpu_torch.types import ScanOptions
+    return (ArtifactOption(scan_misconfig="config" in checks,
+                           scan_licenses="license" in checks),
+            ScanOptions(security_checks=list(checks), backend=backend))
+
+
 def run_fleet(paths: list, db, backend: str, scanner, cache,
-              depth: int, mesh=None, memo=None, tracer=None) -> dict:
+              depth: int, mesh=None, memo=None, tracer=None,
+              checks=None) -> dict:
     """One ``BatchScanRunner(sched="off").scan_paths`` over ``paths``
     (over ``mesh`` when given: then ``scanner`` None lets the runner
     build its sharded one; with the findings memo ``memo`` when
-    given; into ``tracer`` when given, else the process tracer), its
-    sieve launches counted from 0:
+    given; into ``tracer`` when given, else the process tracer; with
+    ``checks`` when given, else the default ones), its sieve launches
+    counted from 0:
     {"texts": one sorted JSON report text per target, None for a
     failed one, "failed": [(index, status, causes)] of the
     failed ones, "wall_s" (the runner's),
@@ -2158,10 +2658,11 @@ def run_fleet(paths: list, db, backend: str, scanner, cache,
     "write_s" (filters + JSON writer), "launches", "stats"}."""
     from trivy_tpu_torch.ops.dfa_cuda import dfa_blockmask
     from trivy_tpu_torch.runtime import BatchScanRunner
+    option, options = _checks_options(checks, backend)
     runner = BatchScanRunner(store=db, cache=cache, backend=backend,
                              secret_scanner=scanner, mesh=mesh,
                              dispatch_depth=depth, memo=memo,
-                             tracer=tracer)
+                             tracer=tracer, artifact_option=option)
     spans: dict = {}
 
     def clocked(name: str, fn):
@@ -2179,7 +2680,7 @@ def run_fleet(paths: list, db, backend: str, scanner, cache,
     runner._scan_images = clocked("batch", runner._scan_images)
     dfa_blockmask.launches = 0
     t0 = time.perf_counter()
-    results = runner.scan_paths(paths)
+    results = runner.scan_paths(paths, options)
     wall = time.perf_counter() - t0
     launches = dfa_blockmask.launches
     t0 = time.perf_counter()
@@ -2292,7 +2793,7 @@ def fleet_phase(device, cdb, n_pkgs: dict, files: list,
     once more cold at depth 2 untraced, and one profiled cold fleet at
     depth 2.
     Every run's reports must be equal, equal to a ``scan_image_report``
-    of each target alone on the card; the twin's must be its image's
+    on the card of one target of each group and the twin alone; the twin's must be its image's
     but for the name and tag, the broken tar must fail alone; each
     cold fleet launches ``dfa_blockmask`` once, the warm rerun none,
     and no run uploads the resident tables again. A reduced fleet of
@@ -2381,10 +2882,13 @@ def fleet_phase(device, cdb, n_pkgs: dict, files: list,
     if classes != {"os-pkgs", "lang-pkgs", "secret"}:
         raise AssertionError(f"fleet findings only in {sorted(classes)}")
 
-    # each target alone through the image entry, on the card
+    # one target of each group and the twin alone through the image
+    # entry, on the card (every target before the config and license
+    # checks)
     singles = []
     for i, path in enumerate(paths):
-        if i == plan["broken"]:
+        if i == plan["broken"] or (i % FLEET_GROUP and
+                                   i != plan["twin"][1]):
             continue
         text, steps, _ = scan_image_report(path, cdb, backend, card,
                                            MemoryCache())
@@ -2396,9 +2900,12 @@ def fleet_phase(device, cdb, n_pkgs: dict, files: list,
     # the reduced fleet: the card against numpy
     rdir = os.path.join(work_dir, "fleet-reduced")
     os.makedirs(rdir)
+    iac, iac_expect = iac_files(SEED + 61, dpkg_names(fs_tree_files(
+        FS_ROOTS["fs"], n_pkgs, SEED + 50, FLEET_REDUCED_SCALE)[0]),
+        **IAC_REDUCED)
     rplan = fleet_targets(rdir, FS_ROOTS["fs"], n_pkgs, SEED + 50,
                           files[:IMAGE_REDUCED], n_images=FLEET_REDUCED,
-                          scale=FLEET_REDUCED_SCALE)
+                          scale=FLEET_REDUCED_SCALE, extra=iac)
     red = {b: run_fleet(rplan["paths"], cdb, b,
                         card if b == backend else secret_scanner(backend=b),
                         MemoryCache(), 2) for b in (backend, "cpu-ref")}
@@ -2406,10 +2913,33 @@ def fleet_phase(device, cdb, n_pkgs: dict, files: list,
     if red[backend]["texts"] != red["cpu-ref"]["texts"]:
         raise AssertionError("reduced fleet: the card's reports != "
                              "cpu-ref's")
+
+    # the config and license checks with the others on the reduced
+    # fleet (the IaC subtree in every target's lockfile layer): one
+    # launch on the card, its host split, the same reports on cpu-ref
+    with host_split() as split:
+        chk = run_fleet(rplan["paths"], cdb, backend, card, MemoryCache(),
+                        2, checks=CHECKS)
+    launches["checks"] = chk["launches"]
+    if chk["launches"] != 1:
+        raise AssertionError(f"the fleet with every check launched "
+                             f"{chk['launches']} dfa_blockmask")
+    if chk["texts"] != run_fleet(rplan["paths"], cdb, "cpu-ref",
+                                 secret_scanner(backend="cpu-ref"),
+                                 MemoryCache(), 2, checks=CHECKS)["texts"]:
+        raise AssertionError("reduced fleet with every check: the card's "
+                             "reports != cpu-ref's")
+    checked = [check_checks(t, iac_expect) for t in chk["texts"] if t]
+    out["checks"] = {**checked[0], "targets": len(checked),
+                     "host_split_s": split,
+                     "unevaluated": unevaluated(split),
+                     "wall_s": chk["wall_s"],
+                     "added_s": chk["wall_s"] - red[backend]["wall_s"]}
     if keep is not None:
         keep.update(plan=plan, texts=want, failed=failed, rplan=rplan,
                     red_texts=red[backend]["texts"], scanner=card,
-                    off_wall_s=runs["cold_d2"]["wall_s"])
+                    off_wall_s=runs["cold_d2"]["wall_s"],
+                    checks_texts=chk["texts"])
 
     n_ops, busy_ms = op_totals(ops)
     cold_walls = [runs[f"cold_d{d}"]["wall_s"] for d in FLEET_DEPTHS]
@@ -2470,10 +3000,12 @@ class PoisonInjector:
 
 
 def run_sched(paths: list, db, backend: str, scanner, cache,
-              injector=None, mesh=None, memo=None, tracer=None) -> dict:
+              injector=None, mesh=None, memo=None, tracer=None,
+              checks=None) -> dict:
     """One ``BatchScanRunner(sched=SchedConfig(dispatch_depth=2))
-    .scan_paths`` over ``paths`` (over ``mesh`` and with ``memo`` when
-    given, as ``run_fleet``), its sieve launches counted from 0 and
+    .scan_paths`` over ``paths`` (over ``mesh``, with ``memo`` and
+    ``checks`` when given, as ``run_fleet``), its sieve launches
+    counted from 0 and
     the candidates of every batch the executor launched recorded:
     {"texts", "failed" (as ``run_fleet``), "status" of every slot,
     "wall_s", "launches", "batches" (candidate files per launched
@@ -2481,11 +3013,12 @@ def run_sched(paths: list, db, backend: str, scanner, cache,
     from trivy_tpu_torch.ops.dfa_cuda import dfa_blockmask
     from trivy_tpu_torch.runtime import BatchScanRunner
     from trivy_tpu_torch.sched import SchedConfig
+    option, options = _checks_options(checks, backend)
     runner = BatchScanRunner(store=db, cache=cache, backend=backend,
                              secret_scanner=scanner, mesh=mesh,
                              sched=SchedConfig(dispatch_depth=2),
                              fault_injector=injector, memo=memo,
-                             tracer=tracer)
+                             tracer=tracer, artifact_option=option)
     sched = runner.scheduler
     batches = []
     launch = sched._launch
@@ -2498,7 +3031,7 @@ def run_sched(paths: list, db, backend: str, scanner, cache,
     dfa_blockmask.launches = 0
     try:
         t0 = time.perf_counter()
-        results = runner.scan_paths(paths)
+        results = runner.scan_paths(paths, options)
         wall = time.perf_counter() - t0
     finally:
         runner.close()
@@ -2563,7 +3096,6 @@ def sched_phase(device, cdb, fleet: dict) -> dict:
     ``degraded`` with a ``quarantined`` cause, every other slot as in
     the healthy run; and ``SCHED_CLIENTS`` threads calling
     ``submit_path`` at once must each get its target's report."""
-    import threading
     from trivy_tpu_torch.artifact import MemoryCache
     from trivy_tpu_torch.obs import Tracer
     from trivy_tpu_torch.runtime import BatchScanRunner
@@ -2641,6 +3173,21 @@ def sched_phase(device, cdb, fleet: dict) -> dict:
             raise AssertionError(f"poisoned fleet: slot {i} differs "
                                  f"from the healthy run")
 
+    # the config and license checks with the others on the reduced
+    # fleet: the direct path's reports, one launch per batch with
+    # candidates
+    with host_split() as split:
+        chk = run_sched(rpaths, cdb, backend, card, MemoryCache(),
+                        checks=CHECKS)
+    runs_checks = {"wall_s": chk["wall_s"], "launches": chk["launches"],
+                   "batches": chk["batches"], "host_split_s": split}
+    if chk["texts"] != fleet["checks_texts"]:
+        raise AssertionError("sched with every check: reports != --sched "
+                             "off")
+    if chk["launches"] != sum(1 for n in chk["batches"] if n):
+        raise AssertionError(f"sched with every check: {chk['launches']} "
+                             f"sieve launches for {chk['batches']}")
+
     # concurrent serving: SCHED_CLIENTS callers of submit_path at once
     runner = BatchScanRunner(store=cdb, cache=MemoryCache(),
                              backend=backend, secret_scanner=card,
@@ -2711,7 +3258,9 @@ def sched_phase(device, cdb, fleet: dict) -> dict:
                           "host_fallbacks", "completed", "failed")}},
            "serving": {"clients": SCHED_CLIENTS, "wall_s": serve_s,
                        "batches": serve_stats["counters"]["batches"]},
-           "launches": {k: r["launches"] for k, r in runs.items()},
+           "checks": runs_checks,
+           "launches": {**{k: r["launches"] for k, r in runs.items()},
+                        "checks": chk["launches"]},
            "uploads": cdb.device_stats()["uploads"] - up0,
            "trace_files": trace_files}
     out["phase_s"] = time.perf_counter() - t_phase
@@ -3803,7 +4352,8 @@ def main() -> int:
                 "interval_dedup_ratio", "interval_waves",
                 "dispatch_overlap_ratio")}}
         for k, r in runs.items()}) +
-          f"; the same targets alone: {fleet['singles_total_s']:.3f} s; "
+          f"; {len(fleet['singles_s'])} of the targets alone: "
+          f"{fleet['singles_total_s']:.3f} s; "
           f"profiled cold fleet: {fleet['profiled']['device_ops']} device "
           f"ops, {fleet['profiled']['device_ms']:.3f} ms busy; idle share "
           f"{fleet['profiled']['device_idle_share']:.5f} of its "
@@ -3829,6 +4379,12 @@ def main() -> int:
           f"fleet; sieve/wave overlap "
           f"{sched['profiled']['sieve_wave_overlap_us']:.1f} us",
           flush=True)
+    print(f"config and license checks ({gpu}; host seconds summed over "
+          f"calls; YAML inputs the misconf engine left unevaluated "
+          f"without PyYAML under 'unevaluated'): " + json.dumps({
+              "fs": fs["checks"], "image": img["checks"],
+              "fleet": fleet["checks"], "sched": sched["checks"],
+              "config_cli_wall_s": fs["config_cli_wall_s"]}), flush=True)
     mf = mesh_fleet
     print(f"mesh fleet of {mf['targets']} targets over {mesh}: direct "
           f"{mf['direct']['wall_s']:.3f} s ({mf['direct']['images_per_s']:.3f}"

@@ -45,9 +45,9 @@ def _analyze(pkg, disabled: list, files: list, patterns=None) -> dict:
 
 def _both(files: list, patterns=None) -> dict:
     # the reference's defaults (no misconfig, no license check) turn
-    # off the analyzers that the port leaves out
+    # off the config collectors and the license analyzers in both
     disabled = _effective_disabled(ArtifactOption())
-    tdisabled = tartifact._effective_disabled()
+    tdisabled = tartifact._effective_disabled(tartifact.ArtifactOption())
     assert disabled == tdisabled
     want = _analyze(ranalyzer, disabled, files, patterns)
     got = _analyze(tanalyzer, tdisabled, files, patterns)
@@ -497,16 +497,15 @@ def test_registry_order_equals_reference():
         LICENSE_ANALYZER_TYPES as T_LICENSE
     assert T_CONFIG == CONFIG_ANALYZER_TYPES
     assert T_LICENSE == LICENSE_ANALYZER_TYPES
-    left_out = set(CONFIG_ANALYZER_TYPES + LICENSE_ANALYZER_TYPES)
-    want = [(a.type, a.version) for a in ranalyzer.registered_analyzers()
-            if a.type not in left_out]
+    want = [(a.type, a.version) for a in ranalyzer.registered_analyzers()]
     got = [(a.type, a.version) for a in tanalyzer.registered_analyzers()]
     assert got == want
+    assert {t for t, _ in got} >= set(T_CONFIG + T_LICENSE)
     want = [(h.type, h.version, h.priority)
-            for h in rhandler.handler.registered_handlers()
-            if h.type != "misconf"]
+            for h in rhandler.handler.registered_handlers()]
     assert [(h.type, h.version, h.priority)
             for h in thandler.handler.registered_handlers()] == want
+    assert ("misconf", 1, 100) in want
 
 
 # --- the walk and the post handlers -----------------------------------

@@ -3,7 +3,8 @@ the class-run gate fused into its launch) and ``code_blockmask``
 kernels against their plain PyTorch versions, the fused sieves, the
 literal-code entry points, a batch scan and an fs scan; the interval
 match and the pair dispatcher against their numpy versions; the
-``sbom``, ``fs`` and ``rootfs`` entries' reports against the CPU's;
+``sbom``, ``fs`` and ``rootfs`` entries' reports against the CPU's,
+with the ``config`` and ``license`` checks too;
 the findings memo's warm fleet and the hot swap's re-match on the
 card; busy spans stamped by CUDA events, a traced fleet's launches,
 and the ``torch.profiler`` device trace.
@@ -547,6 +548,54 @@ def test_image_on_the_card_equals_cpu_ref(cuda, tmp_path, monkeypatch):
         assert got == want
     assert runs == [(1, len(layers)), (0, 0)]
     assert '"Class": "secret"' in want and '"VulnerabilityID"' in want
+
+
+def test_every_check_on_the_card_equals_cpu_ref(cuda, tmp_path,
+                                                monkeypatch):
+    """The ``config`` and ``license`` checks beside ``vuln`` and
+    ``secret``: a seeded tree with the smoke's IaC subtree (``fs``)
+    and the same files in an image's lockfile layer (``image``), on a
+    20,000-row DB: the card's filtered report equals numpy's, each
+    scan launches ``dfa_blockmask`` once, and the config and license
+    results hold every failure kind and seeded license file."""
+    from chip_smoke import (CHECKS, FS_ROOTS, check_checks, dpkg_names,
+                            fs_tree_files, iac_files, image_layers,
+                            make_advisory_store, make_corpus,
+                            make_fs_tree, write_docker_save)
+    from trivy_tpu_torch.cli import (filter_report, scan_fs, scan_image,
+                                     secret_scanner)
+    from trivy_tpu_torch.report.writer import write_report
+    monkeypatch.chdir(tmp_path)
+    store, n_pkgs = make_advisory_store(20000, 5)
+    cdb = CompiledDB.compile(store)
+    corpus, planted = make_corpus(256, 9)
+    iac, expected = iac_files(11, dpkg_names(fs_tree_files(
+        FS_ROOTS["fs"], n_pkgs, 70, 0.1)[0]), n_each=12, n_tf=6,
+        n_cfn_yaml=6, n_licenses=21)
+    root = str(tmp_path / "fs")
+    make_fs_tree(root, FS_ROOTS["fs"], n_pkgs, 70, 0.1,
+                 files=corpus[:64] + iac)
+    layers, plan = image_layers(FS_ROOTS["fs"], n_pkgs, 70, corpus,
+                                planted, scale=0.1, extra=iac)
+    path = write_docker_save(str(tmp_path / "image.tar"), layers,
+                             plan["history"])
+
+    def text(report) -> str:
+        import io
+        buf = io.StringIO()
+        write_report(filter_report(report), fmt="json", output=buf)
+        return buf.getvalue()
+
+    for scan, target in ((scan_fs, root), (scan_image, path)):
+        got = {}
+        for b in ("cuda", "cpu-ref"):
+            before = dfa_blockmask.launches
+            got[b] = text(scan(target, cdb, b, security_checks=CHECKS,
+                               scanner=secret_scanner(backend=b)))
+            if b == "cuda":
+                assert dfa_blockmask.launches == before + 1
+        assert json.loads(got["cuda"]) == json.loads(got["cpu-ref"])
+        check_checks(got["cuda"], expected)
 
 
 # --- the fleet runtime: async waves on CUDA streams ------------------

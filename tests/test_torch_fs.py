@@ -387,14 +387,17 @@ def test_skip_lists_and_gate(inputs):
 
 def test_fs_entry_refuses_before_the_walk(inputs, monkeypatch, tmp_path):
     """The card by default: without one the entry raises before the
-    walk. An unported check, format or Rekor lookup, and a secret
-    scanner on another backend, are refused before it too."""
+    walk. An unported format or Rekor lookup, and a secret scanner on
+    another backend, are refused before it too; the ``config`` and
+    ``license`` checks are not refused and give the reference's
+    report."""
     import trivy_tpu_torch.artifact.artifact as tart
     import trivy_tpu_torch.cli as tcli
 
     def no_walk(*args, **kwargs):
         raise AssertionError("the tree was walked")
 
+    real_walk = tart.walk_fs
     monkeypatch.setattr(tart, "walk_fs", no_walk)
     monkeypatch.chdir(tmp_path)
     tree = inputs["e2e"]
@@ -405,9 +408,17 @@ def test_fs_entry_refuses_before_the_walk(inputs, monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tcli.scan_fs(tree)
     for check in ("config", "license"):
-        with pytest.raises(NotImplementedError, match="A.9"):
-            tcli.main(["fs", tree, "--backend", "cpu",
-                       "--security-checks", f"vuln,{check}"])
+        # both checks are ported: the same entry gives the reference's
+        # report (the walk restored for it)
+        argv = ["fs", tree, "--format", "json", "--security-checks",
+                f"vuln,secret,{check}"] + _db(inputs, "e2e")
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(tart, "walk_fs", real_walk)
+            rcode, rout = _run(rmain, argv + [
+                "--backend", "cpu", "--no-cache", "--cache-dir",
+                str(tmp_path / "c")])
+            tcode, out = _run(tmain, argv + ["--backend", "cpu"])
+        assert (tcode, _norm(out, "json")) == (rcode, _norm(rout, "json"))
     err = io.StringIO()
     with contextlib.redirect_stderr(err):
         assert _run(tcli.main, ["fs", tree, "--backend", "cpu",

@@ -401,6 +401,7 @@ def test_image_entry_refuses_without_a_card(inputs, monkeypatch,
     def no_load(*args, **kwargs):
         raise AssertionError("the image was loaded")
 
+    real_load = tcli.load_image
     monkeypatch.setattr(tcli, "load_image", no_load)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.chdir(tmp_path)
@@ -409,9 +410,17 @@ def test_image_entry_refuses_without_a_card(inputs, monkeypatch,
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tcli.scan_image(inputs["alpine"])
     for check in ("config", "license"):
-        with pytest.raises(NotImplementedError, match="A.9"):
-            tcli.scan_image(inputs["alpine"], backend="cpu",
-                            security_checks=("vuln", check))
+        # both checks are ported: the same entry gives the reference's
+        # report (the image loader restored for it)
+        argv = ["image", "--input", inputs["alpine"], "--format", "json",
+                "--security-checks", f"vuln,secret,{check}", "--backend",
+                "cpu", "--no-cache", "--no-memo", "--cache-dir",
+                str(tmp_path / "c")]
+        rcode, rout, _ = _run(rmain, argv)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(tcli, "load_image", real_load)
+            tcode, out, _ = _run(tcli.main, argv)
+        assert (tcode, _norm(out, "json")) == (rcode, _norm(rout, "json"))
     code, _, said = _run(tcli.main, ["image", "--backend", "cpu"])
     assert code == 2 and said == ["error: image target or --input "
                                   "required"]
@@ -578,12 +587,11 @@ def test_layer_walk_of_each_image_equals_reference(inputs, image):
 
 @pytest.mark.parametrize("image", ["alpine", "base-history", "debian",
                                    "oci-dir"])
-def test_cache_keys_equal_reference_but_misconf(inputs, image):
-    """``ImageArtifact.cache_keys()``: the options dict and analyzer
-    versions are the reference's. The handler versions are too, except
-    that the port has no ``misconf`` handler until ROADMAP A.9: the
-    reference's versions hold ``{"misconf": 1}`` besides, so the blob
-    and artifact keys differ and an on-disk cache is not shared."""
+def test_cache_keys_equal_reference(inputs, image):
+    """``ImageArtifact.cache_keys()``: the options dict, the analyzer
+    versions and the handler versions (the ``misconf`` handler
+    included) are the reference's, so the artifact and blob keys are
+    too and an on-disk cache is shared."""
     ropt, topt = RArtifactOption(), TArtifactOption()
     ref = RImageArtifact(r_load_image(inputs[image]), RMemoryCache(), ropt)
     port = TImageArtifact(t_load_image(inputs[image]), TMemoryCache(), topt)
@@ -605,16 +613,9 @@ def test_cache_keys_equal_reference_but_misconf(inputs, image):
         art.image.close()
     (rkeys, rcalls), (tkeys, tcalls) = captured["ref"], captured["port"]
     assert [o for _, o in tcalls] == [o for _, o in rcalls]
-    assert tkeys[2] == rkeys[2]                       # base layers
-    rver, tver = rcalls[0][0], tcalls[0][0]
-    analyzers = {k: v for k, v in rver.items()
-                 if not k.startswith("handler/")}
-    assert {k: v for k, v in tver.items()
-            if not k.startswith("handler/")} == analyzers
-    assert {k: v for k, v in rver.items() if k not in tver} == \
-        {"handler/misconf": 1}
-    assert all(rver[k] == v for k, v in tver.items())
-    assert tkeys[0] != rkeys[0]
+    assert [v for v, _ in tcalls] == [v for v, _ in rcalls]
+    assert rcalls[0][0]["handler/misconf"] == 1
+    assert tkeys == rkeys
 
 
 IMGCONF_CASES = {

@@ -137,6 +137,20 @@ OBS_SLICE = ("obs/__init__.py", "obs/trace.py", "obs/busy.py",
              "cli.py")
 
 
+# the config and license checks: misconf/, licensing/, their analyzers,
+# the misconf post-handler, and the modules that wire them in
+CHECKS_SLICE = ("misconf/__init__.py", "misconf/policies.py",
+                "misconf/hcl.py", "misconf/terraform.py",
+                "misconf/cloudformation.py", "misconf/helm.py",
+                "misconf/dockerfile.py", "licensing/__init__.py",
+                "licensing/normalize.py", "licensing/corpus.py",
+                "licensing/classifier.py", "analyzer/config.py",
+                "analyzer/licensing.py", "handler/__init__.py",
+                "handler/misconf.py", "scan/local.py",
+                "artifact/artifact.py", "artifact/cache.py",
+                "runtime/batch.py", "cli.py")
+
+
 def _covered(modules) -> None:
     import importlib
     import pkgutil
@@ -181,6 +195,10 @@ def test_the_scans_cover_the_memo_slice():
 
 def test_the_scans_cover_the_obs_slice():
     _covered(OBS_SLICE)
+
+
+def test_the_scans_cover_the_checks_slice():
+    _covered(CHECKS_SLICE)
 
 
 def test_simhost_entry_runs_without_jax():

@@ -5,11 +5,9 @@ Key parity: on the same advisory content, rule set and guard config
 both packages compute the same ``db_fingerprint``, ``adv_sig``,
 ``context_sig``, ``opts_sig``, ``query_sig`` and ``make_key``, so a
 memo store written by either validates in the other: a ``--memo-cache``
-directory the reference's ``sbom`` or ``fs`` filled is served by the
-port with no miss and no dispatched job, and the reverse. For
-``image`` the blob ids still differ by the reference's ``misconf``
-handler version (ROADMAP A.9a), and that is the only difference
-between the two packages' entries. Then the cases of
+directory the reference's ``sbom``, ``fs`` or ``image`` filled is
+served by the port with no miss and no dispatched job, and the
+reverse. Then the cases of
 ``tests/test_memo.py`` that need no server (A.9e), on the port's
 runner (its trace spans are ``tests/test_torch_obs.py``'s): the warm rescan is byte-identical and
 dispatch-free on both paths, shared base layers hit across images,
@@ -296,31 +294,36 @@ def test_memo_store_written_by_either_is_served_by_the_other(
                for r in json.loads(out2)["Results"])
 
 
-def test_image_memo_entries_differ_by_the_blob_id_alone(seeded, tmp_path):
-    """``image``: the reference's blob ids fold its ``misconf`` handler
-    version (ROADMAP A.9a), so neither package hits the other's entry;
-    the two entries of the one package layer are the same entry under
-    two blob ids: the same context, options and per-query answers."""
+@pytest.mark.parametrize("writer", ["ref", "port"])
+def test_image_memo_entry_written_by_either_serves_the_other(
+        seeded, tmp_path, writer):
+    """``image``: both packages key a layer's blob on the same analyzer
+    and handler versions (the ``misconf`` handler included), so one
+    ``--memo-cache`` directory holds one entry for the image's one
+    package layer, and the reader's scan is served from the writer's
+    entry with no miss and no new entry."""
     memo_dir = str(tmp_path / "memo")
     argv = ["image", "--input", seeded["image"], "--db-fixtures",
             seeded["alpine-db"], "--format", "json", "--backend", "cpu",
             "--memo-cache", memo_dir]
-    code, rout, _ = _cli(rcli.main, argv + [
-        "--no-cache", "--cache-dir", str(tmp_path / "rc")])
+    rargv = argv + ["--no-cache", "--cache-dir", str(tmp_path / "rc")]
+    first, second = (rargv, argv) if writer == "ref" else (argv, rargv)
+    mains = (rcli.main, tcli.main) if writer == "ref" \
+        else (tcli.main, rcli.main)
+    reader_metrics = MEMO_METRICS if writer == "ref" else R_METRICS
+    code, out1, _ = _cli(mains[0], first)
     assert code == 0
-    before = _snap()
-    code, tout, _ = _cli(tcli.main, argv)
-    after = _snap()
-    assert code == 0 and json.loads(tout) == json.loads(rout)
-    assert _delta(before, after, "hits") == 0
-    assert _delta(before, after, "misses") == 12      # 12 apk packages
     files = sorted(os.listdir(os.path.join(memo_dir, "memo")))
-    assert len(files) == 2
-    docs = [json.load(open(os.path.join(memo_dir, "memo", f)))["entry"]
-            for f in files]
-    blobs = {d.pop("blob") for d in docs}
-    assert docs[0] == docs[1]
-    # exactly the layer's blob id in each package
+    assert len(files) == 1
+    before = _snap(reader_metrics)
+    code, out2, _ = _cli(mains[1], second)
+    after = _snap(reader_metrics)
+    assert code == 0 and json.loads(out2) == json.loads(out1)
+    assert _delta(before, after, "hits") == 12        # 12 apk packages
+    assert _delta(before, after, "misses") == 0
+    assert _delta(before, after, "stores") == 0
+    assert sorted(os.listdir(os.path.join(memo_dir, "memo"))) == files
+    # the entry's blob is the layer's id in both packages
     from trivy_tpu.artifact import ImageArtifact as RImage
     from trivy_tpu.artifact import MemoryCache as RCache
     from trivy_tpu.artifact import load_image as r_load
@@ -329,11 +332,11 @@ def test_image_memo_entries_differ_by_the_blob_id_alone(seeded, tmp_path):
     from trivy_tpu_torch.artifact import load_image as t_load
     ref_ids = RImage(r_load(seeded["image"]), RCache()).cache_keys()[1]
     port_ids = TImage(t_load(seeded["image"]), TCache()).cache_keys()[1]
-    assert blobs == {ref_ids[0], port_ids[0]}
-    assert ref_ids[0] != port_ids[0]
-    ctx, opts = docs[0]["ctx"], docs[0]["opts"]
-    assert sorted(f[:-5] for f in files) == sorted(
-        TK.make_key(ctx, b, opts) for b in blobs)
+    assert ref_ids == port_ids
+    doc = json.load(open(os.path.join(memo_dir, "memo", files[0])))["entry"]
+    assert doc["blob"] == port_ids[0]
+    assert files[0][:-5] == TK.make_key(doc["ctx"], doc["blob"],
+                                        doc["opts"])
 
 
 # --------------------------------------------- tests/test_memo.py cases

@@ -523,19 +523,6 @@ def test_sbom_entry_defaults_and_errors(inputs, tmp_path, monkeypatch):
         scan_sbom(inputs["cdx"], load_store())
 
 
-@pytest.mark.parametrize("check", ["config", "license"])
-def test_unported_checks_raise(inputs, check):
-    from trivy_tpu_torch.artifact import MemoryCache, SBOMArtifact
-    from trivy_tpu_torch.scan import LocalScanner, ScanTarget
-    cache = MemoryCache()
-    ref = SBOMArtifact(inputs["cdx"], cache).inspect()
-    options = ttypes.ScanOptions(security_checks=["vuln", check],
-                                 backend="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LocalScanner(cache, tdb.AdvisoryStore()).prepare(
-            ScanTarget(ref.name, ref.id, ref.blob_ids), options)
-
-
 @pytest.mark.parametrize("argv,error", [
     (["--format", "spdx", "--backend", "cpu"], None),
     (["--format", "sarif"], None),

@@ -11,10 +11,7 @@ scans the whole collection in one batched sieve dispatch
 (``secret/batch.py``).
 
 The registration order below is the reference's: ``_merge_os`` and
-``AnalysisResult.merge`` depend on it. The config and license
-analyzers are still to be ported (ROADMAP A.9); ``config.py`` and
-``licensing.py`` hold only the analyzer type names that
-``artifact._effective_disabled`` turns off.
+``AnalysisResult.merge`` depend on it.
 """
 
 from .analyzer import (AnalysisResult, Analyzer, AnalyzerGroup,
@@ -25,6 +22,8 @@ from . import dpkg  # noqa: F401
 from . import secret  # noqa: F401
 from . import language  # noqa: F401
 from . import rpm  # noqa: F401
+from . import config  # noqa: F401
+from . import licensing  # noqa: F401
 from . import pkgfiles  # noqa: F401
 from . import jar  # noqa: F401
 from . import binary  # noqa: F401

@@ -12,8 +12,7 @@ replaces the goroutine pool.
 Tracing: ``inspect`` records how much of the image was a cache hit
 (an ``inspect`` event) and each missing layer's walk + analyzers (a
 ``layer_analyze`` span, then a ``layer_analyzed`` event) on the span
-active on its thread. The ``config`` and ``license`` checks are
-refused by ``scan/local.py::check_security_checks`` until A.9.
+active on its thread.
 """
 
 from __future__ import annotations
@@ -42,6 +41,8 @@ class ArtifactOption:
     file_patterns: dict = field(default_factory=dict)
     secret_scanner: object = None      # BatchSecretScanner (shared)
     scan_secrets: bool = True
+    scan_misconfig: bool = False       # IaC config collection
+    scan_licenses: bool = False        # license classification
     # ingest guards (guard/): ON by default with DEFAULT_LIMITS;
     # --no-ingest-guards turns them off (the differential baseline).
     # ``ingest_limits`` overrides the limits; the per-target
@@ -64,13 +65,18 @@ def _secret_scanner(opt: ArtifactOption):
     return opt.secret_scanner
 
 
-def _effective_disabled() -> list:
-    """The config and license collectors: off until the ``config`` and
-    ``license`` checks come (ROADMAP A.9), as the reference has them
-    without its misconf and license options."""
-    from ..analyzer.config import CONFIG_ANALYZER_TYPES
-    from ..analyzer.licensing import LICENSE_ANALYZER_TYPES
-    return [*CONFIG_ANALYZER_TYPES, *LICENSE_ANALYZER_TYPES]
+def _effective_disabled(opt: ArtifactOption) -> list:
+    """Config collectors only run when misconfig scanning is on
+    (the reference registers them behind the misconf option), license
+    analyzers only when license scanning is."""
+    disabled = []
+    if not opt.scan_misconfig:
+        from ..analyzer.config import CONFIG_ANALYZER_TYPES
+        disabled.extend(CONFIG_ANALYZER_TYPES)
+    if not opt.scan_licenses:
+        from ..analyzer.licensing import LICENSE_ANALYZER_TYPES
+        disabled.extend(LICENSE_ANALYZER_TYPES)
+    return disabled
 
 
 class ImageArtifact:
@@ -101,7 +107,7 @@ class ImageArtifact:
             # gzip decompression charge it too
             arch.budget = budget
         self.group = AnalyzerGroup(
-            disabled=_effective_disabled(),
+            disabled=_effective_disabled(self.opt),
             file_patterns=self.opt.file_patterns)
 
     def cache_keys(self) -> tuple:
@@ -124,9 +130,8 @@ class ImageArtifact:
                     # corpus
                     "secret_rules": self._rules_fp()
                     if self.opt.scan_secrets else "",
-                    # the config and license checks: A.9
-                    "misconfig": False,
-                    "licenses": False,
+                    "misconfig": self.opt.scan_misconfig,
+                    "licenses": self.opt.scan_licenses,
                     # the rekor URL changes analyzer/handler output
                     # (different servers hold different
                     # attestations), so it keys cached blobs
@@ -321,7 +326,7 @@ class LocalFSArtifact:
         self.cache = cache
         self.opt = option or ArtifactOption()
         self.group = AnalyzerGroup(
-            disabled=_effective_disabled(),
+            disabled=_effective_disabled(self.opt),
             file_patterns=self.opt.file_patterns)
 
     def inspect(self) -> ArtifactReference:

@@ -6,10 +6,9 @@ Keys: SHA-256 over id + sorted version map + scan options
 (cache/key.go:14). Backends: in-memory and JSON-files-on-disk (the
 BoltDB analog; one file per blob keeps writes atomic and debuggable).
 
-The port's keys are not the JAX package's: its handler registry has
-no ``misconf`` handler yet (ROADMAP A.9), so ``handler_versions()``
-and with it every image blob key differ. A cache directory is not
-shared between the two packages.
+The keys equal the JAX package's (the same analyzer and handler
+versions, the same options), so a cache directory written by either
+package serves the other.
 """
 
 from __future__ import annotations

@@ -30,7 +30,14 @@ exits 1.
 ``fs`` (alias ``filesystem``) and ``rootfs`` scan a directory tree
 (the reference's ``trivy fs DIR``): ``LocalFSArtifact`` walks it
 through the same analyzers into one blob and one batched sieve, then
-the same prepare, dispatch and finish.
+the same prepare, dispatch and finish. ``config`` (alias ``conf``) is
+``fs`` with the checks pinned to ``config``.
+
+``--security-checks`` takes ``vuln``, ``secret``, ``config`` (the
+misconfiguration policies over Dockerfiles, Kubernetes manifests,
+Terraform, CloudFormation and Helm charts; ``--config-policy``,
+``--helm-values``, ``--helm-set``, ``--trace``,
+``--include-non-failures``) and ``license`` (license classification).
 
 ``sbom`` scans a CycloneDX (JSON, XML, in-toto attestation) or SPDX
 (JSON, tag-value) document for vulnerabilities (the reference's
@@ -81,6 +88,7 @@ from .db.lifecycle import db_dir, needs_update
 from .detect.batch import dispatch_jobs
 from .guard import DEFAULT_LIMITS, make_budget
 from .handler.unpackaged import check_rekor
+from .misconf import configure
 from .report.writer import (FORMATS, UNPORTED_FORMATS, check_format,
                             write_report)
 from .obs.cost import parse_budget_config
@@ -90,7 +98,6 @@ from .runtime.ring import resolve_dispatch_depth
 from .scan import LocalScanner, ScanTarget, filter_results
 from .scan.filter import (IgnorePolicyError, load_ignore_file,
                           load_ignore_policy)
-from .scan.local import check_security_checks
 from .sched import SchedConfig, parse_tenant_config
 from .types import Metadata, Report, ScanOptions, Severity
 
@@ -231,7 +238,9 @@ def _artifact_option(backend: str, security_checks, secret_config: str,
     with the ``secret`` check, ``scanner`` (built from
     ``secret_config`` when None, on ``backend``) and the registered
     secret analyzer told the rule config's path, which it never
-    scans (process-global, as in the reference)."""
+    scans (process-global, as in the reference); the config
+    collectors with the ``config`` check, the license analyzers with
+    the ``license`` check."""
     checks = list(security_checks)
     if "secret" not in checks:
         scanner = None
@@ -251,6 +260,8 @@ def _artifact_option(backend: str, security_checks, secret_config: str,
         file_patterns=dict(file_patterns or {}),
         secret_scanner=scanner,
         scan_secrets="secret" in checks,
+        scan_misconfig="config" in checks,
+        scan_licenses="license" in checks,
         ingest_guards=ingest_guards, ingest_limits=ingest_limits)
 
 
@@ -290,13 +301,13 @@ def scan_fs(root: str, store=None, backend: str = "cuda", *,
     inside it, ``secret_s`` (the batched secret scan) and
     ``walk_analyze_s`` (the rest), then ``prepare_s``, ``dispatch_s``
     and ``finish_s``; ``stats`` receives ``dispatch_jobs``' counters,
-    ``hits`` and the secret scanner's ``secret`` stats. Raises before
-    any host work when ``cuda`` has no card, ``scanner`` runs on
-    another backend, or a check or the Rekor lookup is still to be
-    ported."""
+    ``hits`` and the secret scanner's ``secret`` stats. The ``config``
+    check evaluates the misconfiguration policies that
+    ``misconf.configure`` installed. Raises before any host work when
+    ``cuda`` has no card, ``scanner`` runs on another backend, or the
+    Rekor lookup (still to be ported) is asked for."""
     if backend == "cuda":
         resolve_device(backend)          # fail before the host work
-    check_security_checks(security_checks)
     check_rekor()
     t = {} if timings is None else timings
     option = _artifact_option(backend, security_checks, secret_config,
@@ -352,11 +363,10 @@ def scan_image(path: str, store=None, backend: str = "cuda", *,
     ``ImageLoadError`` when the image cannot be loaded, and a
     ``GuardError`` (a ``ValueError``) when a layer trips a guard.
     Raises before any host work when ``cuda`` has no card,
-    ``scanner`` runs on another backend, or a check or the Rekor
-    lookup is still to be ported."""
+    ``scanner`` runs on another backend, or the Rekor lookup (still to
+    be ported) is asked for."""
     if backend == "cuda":
         resolve_device(backend)          # fail before the host work
-    check_security_checks(security_checks)
     check_rekor()
     t = {} if timings is None else timings
     option = _artifact_option(backend, security_checks, secret_config,
@@ -408,15 +418,18 @@ def scan_image(path: str, store=None, backend: str = "cuda", *,
 def filter_report(report: Report, severity: str = DEFAULT_SEVERITIES,
                   ignore_unfixed: bool = False,
                   ignorefile: str = ".trivyignore",
-                  ignore_policy: str = "") -> Report:
+                  ignore_policy: str = "",
+                  include_non_failures: bool = False) -> Report:
     """Severity, unfixed, ``.trivyignore`` (read from the current
     directory unless a path is given) and ignore-policy filters, in
-    place (ref cli.py ``_finish``). Emptied results stay."""
+    place (ref cli.py ``_finish``); misconfiguration checks that passed
+    stay only with ``include_non_failures``. Emptied results stay."""
     report.results = filter_results(
         report.results, _severities(severity),
         ignore_unfixed=ignore_unfixed,
         ignored_ids=load_ignore_file(ignorefile),
-        policy=load_ignore_policy(ignore_policy))
+        policy=load_ignore_policy(ignore_policy),
+        include_non_failures=include_non_failures)
     return report
 
 
@@ -463,7 +476,8 @@ def _finish(args, report: Report) -> int:
     """Filter, write and pick the exit code (ref cli.py ``_finish``)."""
     try:
         filter_report(report, args.severity, args.ignore_unfixed,
-                      args.ignorefile, args.ignore_policy)
+                      args.ignorefile, args.ignore_policy,
+                      args.include_non_failures)
     except (OSError, IgnorePolicyError) as e:
         print(f"error: ignore policy failed: {e}", file=sys.stderr)
         return 1
@@ -543,6 +557,25 @@ def _sources(args, checks, option=None, scheduled: bool = False):
     return cache, memo, store
 
 
+def _configure_misconf(args, checks) -> bool:
+    """With the ``config`` check, install the misconfiguration engine's
+    options from the flags (ref cli.py ``_artifact_option``:
+    ``--config-policy``, ``--helm-values``, ``--helm-set``,
+    ``--trace``); False after an ``error:`` line for a policy module
+    that cannot be loaded."""
+    if "config" not in checks:
+        return True
+    try:
+        configure(policy_dirs=_split(args.config_policy),
+                  helm_value_files=_split(args.helm_values),
+                  helm_set_values=_split(args.helm_set),
+                  trace=args.trace)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return False
+    return True
+
+
 def _refuse(args) -> bool:
     """Print the ``error:`` line of an option still to be ported."""
     refused = _refused(args)
@@ -584,7 +617,8 @@ def _run_fs(args) -> int:
     if _refuse_early(args):
         return 1
     checks = _split(args.security_checks)
-    check_security_checks(checks)
+    if not _configure_misconf(args, checks):
+        return 1
     try:
         patterns = _file_patterns(args.file_patterns)
     except ValueError as e:
@@ -665,7 +699,8 @@ def _run_image(args) -> int:
     if _refuse_early(args):
         return 1
     checks = _split(args.security_checks)
-    check_security_checks(checks)
+    if not _configure_misconf(args, checks):
+        return 1
     try:
         patterns = _file_patterns(args.file_patterns)
     except ValueError as e:
@@ -767,7 +802,8 @@ def _run_image_batch(args) -> int:
     if _refuse_early(args):
         return 1
     checks = _split(args.security_checks)
-    check_security_checks(checks)
+    if not _configure_misconf(args, checks):
+        return 1
     check_rekor()
     try:
         patterns = _file_patterns(args.file_patterns)
@@ -884,7 +920,8 @@ def _finish_many(args, results) -> int:
                 report.results = filter_results(
                     report.results, severities,
                     ignore_unfixed=args.ignore_unfixed,
-                    ignored_ids=ignored, policy=policy)
+                    ignored_ids=ignored, policy=policy,
+                    include_non_failures=args.include_non_failures)
             except IgnorePolicyError as e:
                 print(f"error: ignore policy failed: {e}",
                       file=sys.stderr)
@@ -944,6 +981,9 @@ def _scan_flags(sp) -> None:
     sp.add_argument("--ignore-policy", default="",
                     help="Python file defining ignore(finding); "
                     "executed with full interpreter rights")
+    sp.add_argument("--include-non-failures", action="store_true",
+                    help="include passed/excepted misconfig checks in "
+                    "the results")
     sp.add_argument("--exit-code", type=int, default=0)
     sp.add_argument("--list-all-pkgs", action="store_true")
     sp.add_argument("--dependency-tree", action="store_true",
@@ -983,6 +1023,23 @@ def _scan_flags(sp) -> None:
                     "yet) — default rides the blob cache's tier; in "
                     "memory, only a scheduled scan of several images "
                     "keeps one")
+    sp.add_argument("--config-policy", default="",
+                    help="comma-separated directories of custom "
+                    "misconfig policy modules (Python files defining "
+                    "POLICIES, importing Policy and Cause from "
+                    "trivy_tpu_torch.misconf.policies); executed with "
+                    "full interpreter rights")
+    sp.add_argument("--helm-values", default="",
+                    help="comma-separated helm values files overriding "
+                    "chart values.yaml")
+    sp.add_argument("--helm-set", default="",
+                    help="comma-separated helm key=value overrides "
+                    "(--set analog)")
+    sp.add_argument("--trace", action="store_true",
+                    help="record misconfig evaluation traces in the "
+                    "results: which attributes the HCL subset could "
+                    "not evaluate, so 'no findings' is "
+                    "distinguishable from 'couldn't evaluate'")
     sp.add_argument("--trace-out", default="",
                     help="write one Perfetto-loadable trace-event JSON "
                     "per request into this directory (multi-target "
@@ -1111,6 +1168,12 @@ def build_parser() -> argparse.ArgumentParser:
         fs.add_argument("target")
         _scan_flags(fs)
         _tree_flags(fs)
+    conf = sub.add_parser("config", aliases=["conf"],
+                          help="scan the config files of a directory "
+                          "tree for misconfigurations only")
+    conf.add_argument("target")
+    _scan_flags(conf)
+    _tree_flags(conf)
 
     sb = sub.add_parser("sbom", help="scan an SBOM document "
                         "(CycloneDX/SPDX) for vulnerabilities")
@@ -1193,6 +1256,11 @@ def _dispatch(args) -> int:
         return _run_image(args)
     if args.command == "sbom":
         return _run_sbom(args)
+    if args.command in ("config", "conf"):
+        # the fs pipeline with the checks pinned to config (ref cli.py
+        # ``_dispatch``, app.go:533)
+        args.security_checks = "config"
+        args.vuln_type = ""
     return _run_fs(args)
 
 

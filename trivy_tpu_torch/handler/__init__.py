@@ -2,13 +2,13 @@
 
 PostHandlers run per blob after analysis, in descending priority
 order; their versions feed cache keys alongside analyzer versions so
-a handler change invalidates cached blobs. The misconfiguration
-handler is still to be ported (ROADMAP A.9, with ``misconf/``).
+a handler change invalidates cached blobs.
 """
 
 from .handler import (PostHandler, handler_versions, post_handle,
                       register_post_handler)
 from . import gomod as _gomod  # noqa: F401  (registers on import)
+from . import misconf as _misconf  # noqa: F401
 from . import sysfile as _sysfile  # noqa: F401
 from . import unpackaged as _unpackaged  # noqa: F401
 

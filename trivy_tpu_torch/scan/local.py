@@ -4,9 +4,8 @@
 memo (``memo/``) the verdicts answered before are served and their
 jobs dropped; the caller runs the rest through one ``dispatch_jobs``
 of the interval match; ``finish``: the memo records the new verdicts,
-then vulnerability and secret results → FillInfo enrichment.
-Misconfiguration and license results are still to be ported: a scan
-that asks for the ``config`` or ``license`` check raises.
+then vulnerability, misconfiguration, secret and license results →
+FillInfo enrichment.
 """
 
 from __future__ import annotations
@@ -23,17 +22,15 @@ from ..detect.enrich import fill_info
 from ..detect.library import _TYPES as LIB_TYPES
 from ..detect.library import _fixed_versions, normalize_pkg_name
 from ..detect.ospkg.drivers import DRIVERS
+from ..licensing import LicenseScanner
 from ..obs.trace import phase_span
-from ..types import (OS, DetectedVulnerability, Result, ResultClass,
+from ..types import (OS, DetectedLicense, DetectedMisconfiguration,
+                     DetectedVulnerability, Result, ResultClass,
                      ScanOptions, Vulnerability)
 from ..types.common import SEVERITIES
 from .post import post_scan
 
 log = logging.getLogger("trivy_tpu_torch.scan.local")
-
-# checks whose results are still to be ported: check -> ROADMAP item
-_UNPORTED_CHECKS = {"config": "A.9 (misconfiguration results)",
-                    "license": "A.9 (license results)"}
 
 # pre-defined targets for aggregated package types (scan.go pkgTargets)
 _PKG_TARGETS = {
@@ -69,16 +66,6 @@ class PreparedScan:
     memo_plan: object = None
 
 
-def check_security_checks(checks) -> None:
-    """Raise ``NotImplementedError`` for a check whose results are
-    still to be ported."""
-    for check, item in _UNPORTED_CHECKS.items():
-        if check in checks:
-            raise NotImplementedError(
-                f"the {check!r} check is not ported yet "
-                f"(ROADMAP {item})")
-
-
 class LocalScanner:
     """``store`` is an ``AdvisoryStore`` (classic ``PairJob``s) or a
     ``CompiledDB`` (``ResidentPairJob``s on its resident tables).
@@ -106,7 +93,6 @@ class LocalScanner:
 
     def _prepare(self, target: ScanTarget,
                  options: ScanOptions) -> PreparedScan:
-        check_security_checks(options.security_checks)
         blobs = [self.cache.get_blob(b) for b in target.blob_ids]
         detail = apply_layers(blobs)
 
@@ -187,8 +173,15 @@ class LocalScanner:
         else:
             results.extend(prepared.pkg_results)
 
+        if "config" in options.security_checks:
+            results.extend(self._misconf_results(detail))
+
         if "secret" in options.security_checks:
             results.extend(self._secret_results(detail))
+
+        if "license" in options.security_checks:
+            results.extend(self._license_results(
+                detail, options.license_categories))
 
         # module-collected custom resources ride a Result of class
         # "custom" so post-scanners can read them (ref
@@ -456,3 +449,115 @@ class LocalScanner:
                 secrets=secret.findings,
             ))
         return out
+
+    def _misconf_results(self, detail) -> list:
+        """misconfsToResults (ref local/scan.go:337-371): flatten each
+        file's failures/warnings/successes into status-tagged
+        DetectedMisconfigurations."""
+        out = []
+        for mc in detail.misconfigurations:
+            detected = []
+            for f in mc.failures:
+                detected.append(_to_detected_misconf(
+                    f, "CRITICAL", "FAIL", mc.layer,
+                    traces=mc.traces))
+            for w in mc.warnings:
+                detected.append(_to_detected_misconf(
+                    w, "MEDIUM", "FAIL", mc.layer,
+                    traces=mc.traces))
+            # the per-file trace rides every failure; an all-pass
+            # file carries it once on its first success — exactly
+            # the case where "clean" must be distinguishable from
+            # "couldn't evaluate" — instead of duplicating the
+            # whole list onto every PASS row
+            file_traces = mc.traces if not (
+                mc.failures or mc.warnings) else []
+            for s in mc.successes:
+                detected.append(_to_detected_misconf(
+                    s, "UNKNOWN", "PASS", mc.layer,
+                    traces=file_traces))
+                file_traces = []
+            for e in mc.exceptions:
+                detected.append(_to_detected_misconf(
+                    e, "UNKNOWN", "EXCEPTION", mc.layer,
+                    traces=mc.traces))
+            out.append(Result(
+                target=mc.file_path,
+                class_=ResultClass.CONFIG,
+                type=mc.file_type,
+                misconfigurations=detected,
+            ))
+        out.sort(key=lambda r: r.target)
+        return out
+
+    def _license_results(self, detail, categories) -> list:
+        """scanLicenses (ref local/scan.go:372-396 + 145-149): OS
+        package licenses, per-application licenses, and loose-file
+        classifier findings, each category-mapped to a severity."""
+        scanner = LicenseScanner(categories or None)
+        results = []
+
+        os_licenses = []
+        for pkg in detail.packages:
+            for lic in pkg.licenses:
+                category, severity = scanner.scan(lic)
+                os_licenses.append(DetectedLicense(
+                    severity=severity, category=category,
+                    pkg_name=pkg.name, name=lic, confidence=1.0))
+        results.append(Result(
+            target="OS Packages", class_=ResultClass.LICENSE,
+            licenses=os_licenses))
+
+        for app in detail.applications:
+            app_licenses = []
+            for lib in app.libraries:
+                for lic in lib.licenses:
+                    category, severity = scanner.scan(lic)
+                    app_licenses.append(DetectedLicense(
+                        severity=severity, category=category,
+                        pkg_name=lib.name, name=lic,
+                        confidence=1.0))
+            target = app.file_path or _PKG_TARGETS.get(app.type, "")
+            results.append(Result(
+                target=target, class_=ResultClass.LICENSE,
+                licenses=app_licenses))
+
+        file_licenses = []
+        for lf in detail.licenses:
+            for finding in lf.findings:
+                category, severity = scanner.scan(finding.name)
+                file_licenses.append(DetectedLicense(
+                    severity=severity, category=category,
+                    file_path=lf.file_path, name=finding.name,
+                    confidence=finding.confidence,
+                    link=finding.link))
+        results.append(Result(
+            target="Loose File License(s)",
+            class_=ResultClass.LICENSE_FILE,
+            licenses=file_licenses))
+        return results
+
+
+def _to_detected_misconf(res, default_severity: str, status: str,
+                         layer, traces=None):
+    """toDetectedMisconfiguration (ref local/scan.go:398-452)."""
+    severity = res.severity or default_severity
+    msg = (res.message or "").strip() or "No issues found"
+    references = list(res.references)
+    primary_url = ""
+    if not res.namespace or res.namespace.startswith("builtin."):
+        primary_url = ("https://avd.aquasec.com/misconfig/"
+                       f"{res.id.lower()}")
+        if primary_url not in references:
+            references.append(primary_url)
+    if not primary_url and references:
+        primary_url = references[0]
+    return DetectedMisconfiguration(
+        type=res.type, id=res.id, avd_id=res.avd_id,
+        title=res.title, description=res.description,
+        message=msg, namespace=res.namespace, query=res.query,
+        resolution=res.recommended_actions,
+        severity=severity, primary_url=primary_url,
+        references=references, status=status, layer=layer,
+        cause_metadata=res.cause_metadata,
+        traces=list(traces or []))

@@ -322,5 +322,8 @@ class ScanOptions:
     security_checks: list = field(default_factory=lambda: ["vuln", "secret"])
     list_all_packages: bool = False
     scan_removed_packages: bool = False
+    # license category -> names, overriding the defaults
+    # (``licensing.LicenseScanner``; empty = the default categories)
+    license_categories: dict = field(default_factory=dict)
     # dispatch_jobs backend: "cuda" (default), "cpu" or "cpu-ref"
     backend: str = "cuda"
