@@ -45,12 +45,13 @@ Builds the port's hand-written kernels (``trivy_tpu_torch/csrc``, one
    libraries; a ``rocky 9.2`` image with maven and rubygems ones) go
    through the ``sbom`` entry (``scan_sbom``, the default filters, the
    JSON writer) on the vuln phase's DB: once cold (tables dropped
-   first) and five times warm on the card, then on ``cpu`` and
+   first) and twice warm on the card, then on ``cpu`` and
    ``cpu-ref``. Every report must be equal, carry OS and library
    findings, cost one upload, and leave the resident tables unchanged.
    Then the DB is saved and ``python -m trivy_tpu_torch sbom`` runs in
-   a subprocess on the first BOM; its report must equal the
-   in-process one. It prints each step's seconds, jobs and hits, and
+   a subprocess on the first BOM, beside the phases that follow
+   (``BackgroundCLI``); its report must equal the in-process one. It
+   prints each step's seconds, jobs and hits, and
    the device ops, busy ms and idle share of one profiled warm scan.
 5. fs phase: the corpus goes into a ``debian 12`` root (400 dpkg
    packages, a ``package-lock.json`` of 1,500 npm packages, a
@@ -67,8 +68,9 @@ Builds the port's hand-written kernels (``trivy_tpu_torch/csrc``, one
    3.16`` rootfs (300 apk packages) must equal ``cpu-ref``; a reduced
    tree (the OS root, the lockfiles and 512 corpus files) must give one
    report on the card, ``cpu`` and ``cpu-ref``; and ``python -m
-   trivy_tpu_torch fs`` in a subprocess, on the sbom phase's npz, must
-   give the in-process report. The full tree holds a seeded IaC subtree
+   trivy_tpu_torch fs`` on the reduced tree, in a subprocess on the sbom
+   phase's npz beside the phases that follow, must give the in-process
+   report. The full tree holds a seeded IaC subtree
    (``iac_files``, a few hundred of each: Dockerfiles, Kubernetes manifests in JSON and YAML,
    Terraform modules, CloudFormation templates in JSON and YAML, a
    Helm chart, license files, and a ``copyright`` file for each dpkg
@@ -80,7 +82,8 @@ Builds the port's hand-written kernels (``trivy_tpu_torch/csrc``, one
    with a reduced subtree (``IAC_REDUCED``), gives one report with
    every check on the card and ``cpu-ref``; and
    ``python -m trivy_tpu_torch config`` on the IaC subtree, in a
-   subprocess on the default backend, gives the in-process report. It
+   subprocess on the default backend beside the phases that follow,
+   gives the in-process report. It
    prints each step's seconds and the ``dfa_blockmask`` launches of
    each path.
 6. image phase: the fs phase's tree becomes a ``docker save`` image of
@@ -92,7 +95,7 @@ Builds the port's hand-written kernels (``trivy_tpu_torch/csrc``, one
    entry (``scan_image``: load, the layer walk, analyzers, one
    ``dfa_blockmask`` sieve over the non-base layers, prepare, one
    ``dispatch_jobs``, finish) scans it on the card once cold into an
-   empty on-disk ``FSCache`` and three times warm with a
+   empty on-disk ``FSCache`` and once warm with a
    ``MemoryCache`` (one launch each), then once more on the warm
    ``FSCache`` (no layer missing, no launch, the same report), plus
    one profiled warm scan. Its vulnerabilities must equal a
@@ -101,8 +104,10 @@ Builds the port's hand-written kernels (``trivy_tpu_torch/csrc``, one
    file once per layer, and a seeded sample exactly as the CPU-exact
    scanner finds it. A reduced image (512 corpus files, an OCI layout
    tar with gzipped layers) must give one report on the card, ``cpu``
-   and ``cpu-ref``, and ``python -m trivy_tpu_torch image`` in a
-   subprocess the in-process one; its lockfile layer holds a reduced
+   and ``cpu-ref``, and ``python -m trivy_tpu_torch image`` on it, in a
+   subprocess on the sbom phase's npz beside the phases that follow,
+   the in-process one; its card report goes through every ported
+   writer (the writers line); its lockfile layer holds a reduced
    IaC subtree, and with every check it launches the sieve once and gives
    one report on the card and ``cpu-ref`` with the fs phase's
    config and license checks. It prints each step's seconds, the
@@ -119,14 +124,14 @@ Builds the port's hand-written kernels (``trivy_tpu_torch/csrc``, one
    and joined, ONE ``dfa_blockmask`` sieve over every image's missing
    non-base layers, the interval match in waves of 4,096 rows kept in
    flight by a ``DispatchRing`` on a CUDA side stream): cold into a
-   fresh ``MemoryCache`` at dispatch depth 2, warm at depth 2 (no
-   layer missing, no launch: a re-sweep after a DB update), and once
+   fresh ``MemoryCache`` at dispatch depth 2, twice warm at depth 2 (no
+   layer missing, no launch: a re-sweep after a DB update; untraced,
+   then traced), once more cold untraced, and once
    profiled (no depth-1 or depth-4 run here, to leave room for the
    mesh and memo phases; the memo phase runs a fleet at depth 1, the
    card tests waves of 64 rows at depth 4). Every run's
-   reports must be equal and equal to one target of each group of four
-   and the twin scanned alone through the image entry (every target
-   before the config and license checks came); the twin's must be its image's but for its name and
+   reports must be equal and equal to the first target and the twin
+   scanned alone through the image entry; the twin's must be its image's but for its name and
    tag, the truncated tar must fail alone, each cold fleet must launch
    the sieve once, and no run may upload the resident tables again. A
    4-target fleet (a reduced IaC subtree in its lockfile layers) must give
@@ -145,7 +150,8 @@ Builds the port's hand-written kernels (``trivy_tpu_torch/csrc``, one
    device batches, each batch one ``dfa_blockmask`` sieve and its
    interval waves launched from the executor thread and collected on
    the dispatch ring's drain thread, each behind its own CUDA event):
-   cold once into a fresh ``MemoryCache`` and once profiled. Each run
+   cold once into a fresh ``MemoryCache`` (the idle share is taken
+   over its wall) and once profiled. Each run
    must give the fleet phase's ``--sched off`` reports, the truncated
    tar failing alone with the direct path's cause and then the
    scheduler's ``obs/trace`` one, every other slot ``ok``, nothing
@@ -185,23 +191,46 @@ Builds the port's hand-written kernels (``trivy_tpu_torch/csrc``, one
    (reduced: each host compiles its own DB), and their union must
    equal one single-host run.
 10. memo phase (``memo_phase``): the 16 targets behind a
-   ``SwappableStore`` of the vuln phase's DB, with a findings memo:
-   cold, then warm (a new runner and blob cache) with no interval job
-   dispatched, on a memory store and on an ``FSMemoStore`` read by a
-   second memo instance through the scheduler; then a second
+   ``SwappableStore`` of the vuln phase's DB, with a findings memo on
+   an ``FSMemoStore`` directory: cold, then warm (a second memo
+   instance on it, a new runner and blob cache, through the scheduler)
+   with no interval job dispatched; then a second
    generation of the DB (the same
    seeded store with advisories changed, added and removed on pairs
    that four memo entries alone ask about) compiled and swapped in:
    staged once on the card, re-matched on ``cuda``, the other entries
-   migrated, and a memo fleet after it dispatches nothing and equals
-   a fleet without the memo on the new generation (that one at
-   dispatch depth 1: no ``DispatchRing``). Then the DB
+   migrated, and a memo fleet after it (direct) dispatches nothing and
+   equals a fleet without the memo on the new generation (that one at
+   dispatch depth 1: no ``DispatchRing``). The scan server (step 11)
+   boots beside this phase. Then the DB
    lifecycle through the CLI on a reduced 20,000-row trivy-db
    (``lifecycle_phase``: BoltDB, ``db update --compile``, ``sbom
    --cache-dir`` in subprocesses). The sbom phase's CLI subprocess
    reports its wall split (imports, ``CompiledDB.load``, the DB's
    content fingerprint, the first upload); a single-target scan
    keeps no memo in memory, so it must not fingerprint the DB.
+11. server phase (``server_boot``, ``server_phase``): ``python -m
+   trivy_tpu_torch server`` in a subprocess on a copy of the sbom
+   phase's npz at a watched prefix, ``--compile-cache DIR --sched on
+   --token``: its boot builds both kernels into DIR and warm-launches
+   them on zero inputs (the split printed). ``image --server`` in a
+   CLI subprocess on the first target, then the 16 targets through
+   ``scan_image(remote=)`` from four client threads, must give the
+   fleet phase's in-process card reports; a second round finds 0
+   missing blobs, launches no sieve and is served from the server's
+   memo. The memo phase's second generation renamed onto the prefix
+   is swapped in (the mesh fleet phase runs meanwhile), and the
+   reports after it equal the in-process fleet on that generation. A
+   SIGTERM with Scans in flight answers them, 503s the next, exits 0.
+   The same server restarted on the same prefix and DIR (the
+   lifecycle phase and the Rekor line run meanwhile) has manifest
+   hits only, builds nothing, and gives the second generation's
+   report. The client-side ``dfa_blockmask`` launches are counted per
+   round. A writers line (the image phase's reduced card report in
+   every ported format and a template, each equal to ``cpu-ref``'s)
+   and a Rekor line (an ``fs`` scan whose unpackaged executable is
+   found through a stub Rekor log on 127.0.0.1, equal to ``cpu-ref``'s)
+   ride on the image and lifecycle steps.
 
 The obs checks ride on those runs: the fleet phase's cold and warm
 fleets run on the process tracer, as a user's do, and once more each
@@ -225,6 +254,10 @@ the license classifier, and the YAML inputs (Kubernetes and
 CloudFormation YAML, Helm charts) the misconf engine left unevaluated
 for want of PyYAML (the reference skips them too).
 
+A daemon thread samples the host's memory each second
+(``MemoryWatch``): below ``MEM_FLOOR_GIB`` available it stops the
+subprocesses and exits 1; the peak is printed at the end.
+
 It prints the card's name and power limit, one ``{"kernels": [...]}``
 line (times from CUDA events, the bound this run's inputs give, each
 kernel's per-shard times under ``mesh``; the hand-written kernels
@@ -235,6 +268,7 @@ then non-zero and no result line is printed. Without CUDA it exits 2.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import gzip
 import hashlib
@@ -1281,7 +1315,7 @@ SBOM_IMAGES = {
          "rubygems::GitHub Security Advisory RubyGems", "rubygems",
          "gem", 200))),
 }
-SBOM_WARM = 5
+SBOM_WARM = 2
 
 
 def _zipf_unique(rng, n: int, count: int) -> list:
@@ -1933,7 +1967,7 @@ def _fs_steps(steps: dict, stats: dict) -> dict:
 
 
 def fs_phase(device, cdb, n_pkgs: dict, files: list, planted: dict,
-             work_dir: str, db_path: str) -> dict:
+             work_dir: str, db_path: str, pending: list) -> dict:
     """The ``fs`` entry (``scan_fs``: walk, analyzers, one secret sieve,
     prepare, one ``dispatch_jobs``, finish) on the vuln phase's DB. The
     full tree (a ``debian 12`` root with its lockfiles and the whole
@@ -1943,9 +1977,11 @@ def fs_phase(device, cdb, n_pkgs: dict, files: list, planted: dict,
     (every planted secret found, a sample equal to the exact scanner),
     the ``alpine 3.16`` rootfs (equal to ``cpu-ref``), the reduced tree
     (the OS root, the lockfiles and ``FS_REDUCED`` corpus files) equal
-    on the card, ``cpu`` and ``cpu-ref``, and the CLI in a subprocess
-    on the reduced tree with the sbom phase's npz. ``dfa_blockmask``
-    launches are counted per path."""
+    on the card, ``cpu`` and ``cpu-ref``. Two CLI processes run beside
+    the phase (``BackgroundCLI``, appended to ``pending``): ``config
+    DIR`` on the IaC subtree and the ``fs`` entry on the reduced tree
+    with the sbom phase's npz, each equal to its in-process report.
+    ``dfa_blockmask`` launches are counted per path."""
     from trivy_tpu_torch.cli import secret_scanner
     from trivy_tpu_torch.ops.dfa_cuda import dfa_blockmask
     from trivy_tpu_torch.secret.scanner import new_scanner
@@ -2076,6 +2112,21 @@ def fs_phase(device, cdb, n_pkgs: dict, files: list, planted: dict,
         raise AssertionError("reduced tree: cuda, cpu and cpu-ref differ")
     out["reduced"] = {b: r[1]["total_s"] for b, r in red.items()}
 
+    # the real entry point in a new process, on the sbom phase's npz
+    report_path = os.path.join(work_dir, "fs.report.json")
+
+    def fs_check(_err: str) -> dict:
+        with open(report_path) as f:
+            if _sorted_json(f.read()) != texts[backend]:
+                raise AssertionError("the fs CLI's report != the "
+                                     "in-process report")
+        return {}
+
+    pending.append(BackgroundCLI(
+        "fs", ["-m", "trivy_tpu_torch", "fs", reduced, "--compiled-db",
+               db_path, "--backend", backend, "--format", "json",
+               "--output", report_path], work_dir, fs_check))
+
     # the config and license checks with the others: the full tree on
     # the card (one launch, the default scan's vulnerabilities and
     # secrets, the IaC subtree's failures, every seeded license file
@@ -2109,41 +2160,21 @@ def fs_phase(device, cdb, n_pkgs: dict, files: list, planted: dict,
     # the config entry in a new process, on the default backend: the
     # IaC subtree's misconfigurations alone
     iac_dir = os.path.join(full, "iac")
-    report_path = os.path.join(work_dir, "config.report.json")
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "trivy_tpu_torch", "config", iac_dir,
-         "--format", "json", "--output", report_path],
-        cwd=os.path.dirname(os.path.abspath(__file__)),
-        capture_output=True, text=True, timeout=600)
-    out["config_cli_wall_s"] = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise AssertionError(f"config CLI exited {proc.returncode}: "
-                             f"{proc.stderr[-2000:]}")
-    with open(report_path) as f:
-        got = _sorted_json(f.read())
-    if got != _sorted_json(scan_tree(iac_dir, None, backend, None,
-                                     checks=("config",))[0]):
-        raise AssertionError("the config CLI's report != the in-process "
-                             "report")
+    config_path = os.path.join(work_dir, "config.report.json")
 
-    # the real entry point in a new process, on the sbom phase's npz
-    report_path = os.path.join(work_dir, "fs.report.json")
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "trivy_tpu_torch", "fs", reduced,
-         "--compiled-db", db_path, "--backend", backend,
-         "--format", "json", "--output", report_path],
-        cwd=os.path.dirname(os.path.abspath(__file__)),
-        capture_output=True, text=True, timeout=600)
-    out["cli_wall_s"] = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise AssertionError(f"fs CLI exited {proc.returncode}: "
-                             f"{proc.stderr[-2000:]}")
-    with open(report_path) as f:
-        if _sorted_json(f.read()) != texts[backend]:
-            raise AssertionError("the fs CLI's report != the in-process "
-                                 "report")
+    def config_check(_err: str) -> dict:
+        with open(config_path) as f:
+            got = _sorted_json(f.read())
+        if got != _sorted_json(scan_tree(iac_dir, None, backend, None,
+                                         checks=("config",))[0]):
+            raise AssertionError("the config CLI's report != the "
+                                 "in-process report")
+        return {}
+
+    pending.append(BackgroundCLI(
+        "config", ["-m", "trivy_tpu_torch", "config", iac_dir,
+                   "--format", "json", "--output", config_path],
+        work_dir, config_check))
     out["launches"] = launches
     out["phase_s"] = time.perf_counter() - t_phase
     return out
@@ -2163,7 +2194,7 @@ IMAGE_HISTORY = (
     ("RUN /bin/sh -c rm -rf /svc7 && ./rotate-keys # buildkit", False),
     ('CMD ["/srv/app/run"]', True),
 )
-IMAGE_WARM = 3
+IMAGE_WARM = 1
 IMAGE_REDUCED = 512             # corpus files of the cross-backend image
 IMAGE_WHITEOUTS = 3             # planted-secret files of L2 whited out
 BASE_SECRET = ("opt/base/release.env", SECRETS[1][0])
@@ -2356,7 +2387,7 @@ def _image_steps(steps: dict, stats: dict) -> dict:
 
 
 def image_phase(device, cdb, n_pkgs: dict, files: list, planted: dict,
-                work_dir: str, db_path: str) -> dict:
+                work_dir: str, db_path: str, pending: list) -> dict:
     """The ``image`` entry (``scan_image``: load, the layer walk with
     whiteouts and the guards, analyzers, one secret sieve over the
     missing non-base layers, prepare, one ``dispatch_jobs``, finish) on
@@ -2373,9 +2404,10 @@ def image_phase(device, cdb, n_pkgs: dict, files: list, planted: dict,
     and a seeded sample of files exactly as the CPU-exact scanner finds
     them. The reduced image (``IMAGE_REDUCED`` corpus files, an OCI
     layout tar with gzipped layers) must give one report on the card,
-    ``cpu`` and ``cpu-ref``, and ``python -m trivy_tpu_torch image``
-    in a subprocess on it, with the sbom phase's npz, the in-process
-    one."""
+    ``cpu`` and ``cpu-ref``; its card report goes through every ported
+    writer (``writers_line``), and ``python -m trivy_tpu_torch image``
+    on it, with the sbom phase's npz, must give the in-process one (a
+    ``BackgroundCLI`` appended to ``pending``)."""
     from trivy_tpu_torch.artifact import FSCache, MemoryCache
     from trivy_tpu_torch.cli import secret_scanner
     from trivy_tpu_torch.ops.dfa_cuda import dfa_blockmask
@@ -2546,28 +2578,27 @@ def image_phase(device, cdb, n_pkgs: dict, files: list, planted: dict,
                      "steps": _image_steps(csteps, cstats),
                      "added_s": csteps["total_s"]
                      - red[backend][1]["total_s"]}
+    # the report writers on the reduced image's card scan
+    out["writers"] = counted("writers", lambda: writers_line(
+        reduced, cdb, backend, scanners))
 
     # the real entry point in a new process, on the sbom phase's npz
     # (with --profile-out: a torch.profiler trace of the CLI's scan)
     report_path = os.path.join(work_dir, "image.report.json")
     prof_dir = os.path.join(work_dir, "image.profile")
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "trivy_tpu_torch", "image", "--input",
-         reduced, "--compiled-db", db_path, "--backend", backend,
-         "--format", "json", "--output", report_path,
-         "--profile-out", prof_dir],
-        cwd=os.path.dirname(os.path.abspath(__file__)),
-        capture_output=True, text=True, timeout=600)
-    out["cli_wall_s"] = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise AssertionError(f"image CLI exited {proc.returncode}: "
-                             f"{proc.stderr[-2000:]}")
-    with open(report_path) as f:
-        if _sorted_json(f.read()) != texts[backend]:
-            raise AssertionError("the image CLI's report != the "
-                                 "in-process report")
-    out["cli_profile"] = check_profile(prof_dir)
+
+    def check(_err: str) -> dict:
+        with open(report_path) as f:
+            if _sorted_json(f.read()) != texts[backend]:
+                raise AssertionError("the image CLI's report != the "
+                                     "in-process report")
+        return {"profile": check_profile(prof_dir)}
+
+    pending.append(BackgroundCLI(
+        "image", ["-m", "trivy_tpu_torch", "image", "--input", reduced,
+                  "--compiled-db", db_path, "--backend", backend,
+                  "--format", "json", "--output", report_path,
+                  "--profile-out", prof_dir], work_dir, check))
     out["launches"] = launches
     out["phase_s"] = time.perf_counter() - t_phase
     return out
@@ -2778,7 +2809,7 @@ def obs_fleet(tracer, traced: dict, runs: dict,
     }
 
 
-def fleet_phase(device, cdb, n_pkgs: dict, files: list,
+def fleet_phase(device, cdb, n_pkgs: dict, files: list, pending: list,
                 work_dir: str, keep: dict = None) -> dict:
     """The fleet runtime's direct path (``BatchScanRunner`` with
     ``sched="off"``: every image analyzed and joined, ONE sieve over
@@ -2791,14 +2822,14 @@ def fleet_phase(device, cdb, n_pkgs: dict, files: list,
     ``FLEET_DEPTHS``, twice at depth 2 on the warm cache (no sieve: a
     re-sweep after a DB update; untraced, then on the process tracer),
     once more cold at depth 2 untraced, and one profiled cold fleet at
-    depth 2.
+    depth 2 (after every CLI in ``pending`` that profiles has exited).
     Every run's reports must be equal, equal to a ``scan_image_report``
-    on the card of one target of each group and the twin alone; the twin's must be its image's
+    on the card of the first target and the twin alone; the twin's must be its image's
     but for the name and tag, the broken tar must fail alone; each
     cold fleet launches ``dfa_blockmask`` once, the warm rerun none,
     and no run uploads the resident tables again. A reduced fleet of
-    ``FLEET_REDUCED`` targets must give the same reports on the card
-    and on ``cpu-ref``. ``keep`` (optional) receives both fleets'
+    ``FLEET_REDUCED`` targets with every check must give the same
+    reports on the card and on ``cpu-ref``. ``keep`` (optional) receives both fleets'
     targets, their reports and the secret scanner, for the sched
     phase."""
     from trivy_tpu_torch.artifact import MemoryCache
@@ -2842,6 +2873,11 @@ def fleet_phase(device, cdb, n_pkgs: dict, files: list,
     runs["cold_d2_off"] = run_fleet(paths, cdb, backend, card,
                                     MemoryCache(), 2,
                                     tracer=Tracer(enabled=False))
+    # no two processes profile the card at once: a CLI beside this
+    # phase with --profile-out exits first
+    for cli in pending:
+        if cli.profiles:
+            cli.wait()
     tracer = Tracer()
     sm0 = SECRET_METRICS.snapshot()
     prof, ops, wall_ms = device_profile(lambda: run_fleet(
@@ -2882,13 +2918,11 @@ def fleet_phase(device, cdb, n_pkgs: dict, files: list,
     if classes != {"os-pkgs", "lang-pkgs", "secret"}:
         raise AssertionError(f"fleet findings only in {sorted(classes)}")
 
-    # one target of each group and the twin alone through the image
-    # entry, on the card (every target before the config and license
-    # checks)
+    # the first target and the twin alone through the image entry, on
+    # the card
     singles = []
     for i, path in enumerate(paths):
-        if i == plan["broken"] or (i % FLEET_GROUP and
-                                   i != plan["twin"][1]):
+        if i not in (0, plan["twin"][1]):
             continue
         text, steps, _ = scan_image_report(path, cdb, backend, card,
                                            MemoryCache())
@@ -3314,15 +3348,155 @@ print("cli-split: " + json.dumps(split), file=sys.stderr)
 sys.exit(rc)
 """
 
+# the subprocesses this script started, killed at its exit if still
+# running (a failed phase's)
+_CHILDREN: list = []
 
-def sbom_phase(device, cdb, n_pkgs: dict, work_dir: str) -> dict:
+
+def _kill_children() -> None:
+    for proc in _CHILDREN:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+# below this much available host memory the script stops its
+# subprocesses and exits 1, before the host runs out
+MEM_FLOOR_GIB = 8.0
+
+
+def _available_gib() -> tuple:
+    """(available, total) host memory in GiB: ``MemAvailable`` and
+    ``MemTotal``, each held under the cgroup's ``memory.max`` if set
+    (its use less the inactive page cache, which the kernel reclaims)."""
+    info = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, value = line.split(":", 1)
+            info[key] = int(value.split()[0]) / 2**20
+    avail, total = info["MemAvailable"], info["MemTotal"]
+    try:
+        with open("/sys/fs/cgroup/memory.max") as f:
+            limit = f.read().strip()
+        with open("/sys/fs/cgroup/memory.current") as f:
+            used = int(f.read())
+        with open("/sys/fs/cgroup/memory.stat") as f:
+            stat = dict(line.split() for line in f)
+        used -= int(stat.get("inactive_file", 0))
+        if limit != "max":
+            total = min(total, int(limit) / 2**30)
+            avail = min(avail, total - used / 2**30)
+    except (OSError, ValueError):
+        pass
+    return avail, total
+
+
+def _rss_gib(pid: int) -> float:
+    try:
+        with open(f"/proc/{pid}/statm") as f:
+            pages = int(f.read().split()[1])
+    except (OSError, ValueError, IndexError):
+        return 0.0
+    return pages * os.sysconf("SC_PAGE_SIZE") / 2**30
+
+
+class MemoryWatch:
+    """The host's memory, sampled every ``period_s`` on a daemon
+    thread: the peak resident size of this process and its live
+    subprocesses together, and the least available memory. Below
+    ``MEM_FLOOR_GIB`` available it kills the subprocesses and exits the
+    script with code 1."""
+
+    def __init__(self, period_s: float = 1.0):
+        self.period_s = period_s
+        self.peak_rss_gib, self.least_available_gib = 0.0, float("inf")
+        self.total_gib = _available_gib()[1]
+        threading.Thread(target=self._run, daemon=True).start()
+
+    def _run(self) -> None:
+        while True:
+            avail = _available_gib()[0]
+            rss = _rss_gib(os.getpid()) + sum(
+                _rss_gib(p.pid) for p in list(_CHILDREN) if p.poll() is None)
+            self.peak_rss_gib = max(self.peak_rss_gib, rss)
+            self.least_available_gib = min(self.least_available_gib, avail)
+            if avail < MEM_FLOOR_GIB:
+                print(f"chip_smoke: {avail:.1f} GiB of host memory "
+                      f"available (floor {MEM_FLOOR_GIB}); stopping",
+                      file=sys.stderr, flush=True)
+                _kill_children()
+                os._exit(1)
+            time.sleep(self.period_s)
+
+    def summary(self) -> dict:
+        return {"peak_rss_gib": round(self.peak_rss_gib, 2),
+                "least_available_gib": round(self.least_available_gib, 2),
+                "total_gib": round(self.total_gib, 2)}
+
+
+class BackgroundCLI:
+    """``python ARGV`` (from the repo's root) started now and checked
+    later, while the phases that follow run in this process: the CLI
+    processes on the 1M-row npz spend most of their wall in its load,
+    on a core of their own. ``finish`` waits for the exit, fails on a
+    non-zero code and returns ``{"wall_s", **check(stderr)}``; the
+    wall is from the start to the exit, on a host shared with the
+    phases beside it. Output goes to files in ``work_dir``."""
+
+    def __init__(self, name: str, argv: list, work_dir: str, check):
+        self.name, self.check = name, check
+        self.profiles = "--profile-out" in argv
+        self._err_path = os.path.join(work_dir, f"{name}.cli.stderr")
+        self._err = open(self._err_path, "w")
+        self.t0, self.t_exit = time.perf_counter(), None
+        self.proc = subprocess.Popen(
+            [sys.executable] + argv,
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=subprocess.DEVNULL, stderr=self._err, text=True)
+        _CHILDREN.append(self.proc)
+        self._waiter = threading.Thread(target=self._wait, daemon=True)
+        self._waiter.start()
+
+    def _wait(self) -> None:
+        self.proc.wait()
+        self.t_exit = time.perf_counter()
+
+    def wait(self, timeout_s: float = 600.0) -> None:
+        self._waiter.join(timeout_s)
+
+    def finish(self, timeout_s: float = 600.0) -> dict:
+        self.wait(timeout_s)
+        if self.t_exit is None:
+            raise AssertionError(f"the {self.name} CLI still ran after "
+                                 f"{timeout_s} s")
+        self._err.close()
+        with open(self._err_path) as f:
+            err = f.read()
+        if self.proc.returncode != 0:
+            raise AssertionError(f"{self.name} CLI exited "
+                                 f"{self.proc.returncode}: {err[-2000:]}")
+        return {"wall_s": self.t_exit - self.t0, **self.check(err)}
+
+
+def finish_clis(pending: list) -> dict:
+    """Every ``BackgroundCLI`` in ``pending`` finished, by name."""
+    out = {cli.name: cli.finish() for cli in pending}
+    pending.clear()
+    return out
+
+
+def sbom_phase(device, cdb, n_pkgs: dict, work_dir: str,
+               pending: list) -> dict:
     """The ``sbom`` entry on the vuln phase's DB: each image BOM once
     cold (tables dropped first, so the upload is in it) and
     ``SBOM_WARM`` times warm on the card, then on ``cpu`` and
     ``cpu-ref``; every report must be equal, carry OS and library
     vulnerabilities, and cost one upload per drop, the resident tables
-    unchanged. Then image A once more through the real entry point, in
-    a subprocess, on the DB saved to ``work_dir``."""
+    unchanged. Then the DB is saved to ``work_dir`` (``cdb.npz``) and
+    image A goes once more through the real entry point on it, in a
+    ``BackgroundCLI`` appended to ``pending``: its report must be the
+    in-process one, and a single-target run must not fingerprint the
+    DB (no memo could read it)."""
     backend = device.type
     t_phase = time.perf_counter()
     out: dict = {}
@@ -3393,31 +3567,26 @@ def sbom_phase(device, cdb, n_pkgs: dict, work_dir: str) -> dict:
     out["save_s"] = time.perf_counter() - t0
     out["db_bytes"] = os.path.getsize(db_path + ".npz")
     report_path = os.path.join(work_dir, "A.report.json")
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-c", CLI_SPLIT, "sbom", paths["A"],
-         "--compiled-db", db_path, "--backend", backend,
-         "--format", "json", "--output", report_path],
-        cwd=os.path.dirname(os.path.abspath(__file__)),
-        capture_output=True, text=True, timeout=600)
-    out["cli_wall_s"] = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise AssertionError(f"sbom CLI exited {proc.returncode}: "
-                             f"{proc.stderr[-2000:]}")
-    split = json.loads(proc.stderr.split("cli-split: ")[-1].splitlines()[0])
-    if split["fingerprint_s"]:
-        raise AssertionError("a single-target sbom CLI run fingerprinted "
-                             "the DB for a memo nothing could read")
-    main_s = split.pop("main_s")
-    split["rest_of_main_s"] = main_s - split["load_s"] - \
-        (split["first_upload_s"] or 0.0) - split["fingerprint_s"]
-    split["start_and_exit_s"] = out["cli_wall_s"] - main_s - \
-        split["imports_s"]
-    out["cli_split"] = split
-    with open(report_path) as f:
-        if _sorted_json(f.read()) != reports["A"]:
-            raise AssertionError("the sbom CLI's report != the in-process "
-                                 "report")
+
+    def check(err: str) -> dict:
+        split = json.loads(err.split("cli-split: ")[-1].splitlines()[0])
+        if split["fingerprint_s"]:
+            raise AssertionError("a single-target sbom CLI run "
+                                 "fingerprinted the DB for a memo nothing "
+                                 "could read")
+        with open(report_path) as f:
+            if _sorted_json(f.read()) != reports["A"]:
+                raise AssertionError("the sbom CLI's report != the "
+                                     "in-process report")
+        main_s = split.pop("main_s")
+        split["rest_of_main_s"] = main_s - split["load_s"] - \
+            (split["first_upload_s"] or 0.0) - split["fingerprint_s"]
+        return {"split": split}
+
+    pending.append(BackgroundCLI(
+        "sbom", ["-c", CLI_SPLIT, "sbom", paths["A"], "--compiled-db",
+                 db_path, "--backend", backend, "--format", "json",
+                 "--output", report_path], work_dir, check))
     out["phase_s"] = time.perf_counter() - t_phase
     return out
 
@@ -3659,7 +3828,8 @@ def mesh_dispatch_phase(device, cdb, vuln: dict, mesh) -> dict:
 def mesh_fleet_phase(device, cdb, fleet: dict, mesh, work_dir: str) -> dict:
     """The fleet phase's 16 targets through ``BatchScanRunner(mesh=...)``
     (the runner's own sharded secret scanner), once direct at depth 2
-    right after the same fleet on one device, and once scheduled
+    (the same fleet on one device: the fleet phase's cold fleet), and
+    once scheduled
     (``SchedConfig(dispatch_depth=2)``): the reports must equal the
     fleet phase's single-device ones, the broken tar
     failing alone; each sieve launches ``dfa_blockmask`` once per device
@@ -3682,13 +3852,10 @@ def mesh_fleet_phase(device, cdb, fleet: dict, mesh, work_dir: str) -> dict:
     # phase's cold scan dropped them since
     cdb.device_tables(mesh)
     up0 = cdb.device_stats()["uploads"]
-    single = run_fleet(paths, cdb, backend, fleet["scanner"],
-                       MemoryCache(), 2)
     direct = run_fleet(paths, cdb, backend, None, MemoryCache(), 2,
                        mesh=mesh)
     sched = run_sched(paths, cdb, backend, None, MemoryCache(), mesh=mesh)
-    for name, run in (("single device", single), ("direct", direct),
-                      ("scheduled", sched)):
+    for name, run in (("direct", direct), ("scheduled", sched)):
         if run["texts"] != want:
             raise AssertionError(f"mesh fleet ({name}): reports != the "
                                  f"single-device fleet's")
@@ -3788,15 +3955,13 @@ def mesh_fleet_phase(device, cdb, fleet: dict, mesh, work_dir: str) -> dict:
                     "pack_s", "device_s", "decode_s", "verify_s")}}
 
     return {"targets": len(paths),
-            "single": direct_summary(single),
             "direct": direct_summary(direct),
             "scheduled": {**summary(sched), "batches": c["batches"],
                           "batches_with_candidates": with_candidates,
                           "quarantined": c.get("quarantined", 0),
                           "host_fallbacks": c.get("host_fallbacks", 0),
                           "last_batch_shard_occupancy": sched["occupancy"]},
-            "launches": {"single": single["launches"],
-                         "direct": direct["launches"],
+            "launches": {"direct": direct["launches"],
                          "scheduled": sched["launches"]},
             "uploads": cdb.device_stats()["uploads"] - up0,
             "simhosts": {"hosts": MESH_SIM_HOSTS,
@@ -3895,36 +4060,38 @@ def mutate_store(store, pairs: list, seed: int) -> dict:
 
 
 def memo_phase(device, cdb, fleet: dict, work_dir: str,
-               no_memo_wall_s: float) -> dict:
+               no_memo_wall_s: float, keep: dict = None) -> dict:
     """The findings memo (``memo/``) and the hot swap on the card, over
     the fleet phase's targets and the vuln phase's DB behind a
     ``SwappableStore`` with the memo attached (``attach_memo``):
 
-    1. a cold memo fleet (memory store) records the verdicts; a warm
-       one (a new runner and blob cache, the same memo) must give its
-       reports with no interval job dispatched. The wall to compare,
-       ``no_memo_wall_s``, is the mesh phase's single-device fleet
-       (no memo, a new blob cache, the same DB, this run);
-    2. the same with an ``FSMemoStore`` in a directory: one memo
-       instance writes, a second one, on a new runner through the
+    1. an ``FSMemoStore`` in a directory: one memo instance writes in
+       a cold fleet, a second one, on a new runner through the
        scheduler (``SchedConfig(dispatch_depth=2)``, the CLI's default
-       path for several images), serves;
-    3. a second generation of the DB, the same seeded store with a
+       path for several images), serves it with no interval job. The
+       wall to compare, ``no_memo_wall_s``, is the fleet phase's cold
+       fleet (no memo, a new blob cache, the same DB, this run);
+    2. a second generation of the DB, the same seeded store with a
        delta on pairs that a few entries alone ask about (changed,
-       added and removed advisories), compiled and swapped in: the
-       swap must stage it on the card, re-match on ``cuda``
-       (``rematch_jobs`` > 0, device operations in the swap, no
-       ``swap_failures``) and migrate the other entries
-       (``migrated`` > 0); a memo fleet after it must dispatch nothing
-       and give the reports of a fleet without a memo on the new
-       generation. That no-memo fleet runs at dispatch depth 1, the
-       runner's branch without a ``DispatchRing`` (its interval waves
-       collected on the calling thread), which no other phase drives.
+       added and removed advisories), compiled and swapped in with the
+       writer attached: the swap must stage it on the card, re-match
+       on ``cuda`` (``rematch_jobs`` > 0, device operations in the
+       swap, no ``swap_failures``) and migrate the other entries
+       (``migrated`` > 0); a fleet on the writer after it must
+       dispatch nothing and give the reports of a fleet without a memo
+       on the new generation. That no-memo fleet runs at dispatch
+       depth 1, the runner's branch without a ``DispatchRing`` (its
+       interval waves collected on the calling thread), which no other
+       phase drives.
 
-    Every memo fleet must give the fleet phase's reports on the first
-    generation, and launch ``dfa_blockmask`` once (a new blob cache;
-    the scheduled one at least once). Prints the walls, the swap's
-    split and the re-match's device ms."""
+    (The memory store's cold and warm fleets are the scan server
+    phase's rounds, through its scheduler.) Every memo fleet must give
+    the fleet phase's reports on the first generation, and launch
+    ``dfa_blockmask`` once (a new blob cache; the scheduled one at
+    least once). Prints the walls, the swap's split and the
+    re-match's device ms. ``keep`` (optional) receives the second
+    generation (``db``, its device copies dropped) and the no-memo
+    fleet's reports on it (``texts``), for the server phase."""
     from trivy_tpu_torch.artifact import MemoryCache
     from trivy_tpu_torch.db import CompiledDB
     from trivy_tpu_torch.db.compiled import (SwappableStore,
@@ -3979,27 +4146,21 @@ def memo_phase(device, cdb, fleet: dict, work_dir: str,
                                  f"only)")
 
     runs = {}
-    memo = make_findings_memo(uri="memory", secret_scanner=card,
+    memo_dir = os.path.join(work_dir, "memo-fs")
+    memo = make_findings_memo(uri=memo_dir, secret_scanner=card,
                               backend=backend)
     if memo.backend != backend:
         raise AssertionError(f"memo re-matches on {memo.backend}")
-    runs["memory_cold"] = fleet_run(memo, "memory_cold")
-    runs["memory_warm"] = fleet_run(memo, "memory_warm")
-    check(runs["memory_cold"], "memory_cold", want, False)
-    check(runs["memory_warm"], "memory_warm", want, True)
-    if not runs["memory_cold"]["memo"]["stores"]:
-        raise AssertionError("the cold memo fleet stored no entry")
-
-    memo_dir = os.path.join(work_dir, "memo-fs")
-    writer = make_findings_memo(uri=memo_dir, secret_scanner=card,
-                                backend=backend)
-    runs["fs_cold"] = fleet_run(writer, "fs_cold")
+    runs["fs_cold"] = fleet_run(memo, "fs_cold")
     reader = make_findings_memo(uri=memo_dir, secret_scanner=card,
                                 backend=backend)
     runs["fs_warm_sched"] = fleet_run(reader, "fs_warm_sched",
                                       sched=True)
+    del reader
     check(runs["fs_cold"], "fs_cold", want, False)
     check(runs["fs_warm_sched"], "fs_warm_sched", want, True)
+    if not runs["fs_cold"]["memo"]["stores"]:
+        raise AssertionError("the cold memo fleet stored no entry")
     n_fs = len(os.listdir(os.path.join(memo_dir, "memo")))
 
     # the second generation: the vuln phase's seeded store again, a
@@ -4058,6 +4219,8 @@ def memo_phase(device, cdb, fleet: dict, work_dir: str,
     if cdb.device_stats()["uploads"] != up0:
         raise AssertionError("a memo fleet uploaded the old tables again")
     new.invalidate_device()
+    if keep is not None:
+        keep.update(db=new, texts=new_texts)
     del new
 
     return {
@@ -4160,6 +4323,609 @@ def lifecycle_phase(backend: str, work_dir: str) -> dict:
             "phase_s": time.perf_counter() - t_phase}
 
 
+# --- the scan server and its clients ---------------------------------
+
+SERVER_TOKEN = "smoke-token"
+SERVER_CLIENTS = 4              # concurrent RemoteScanner clients
+SERVER_READY_S = 600            # a boot's bound (npz load, builds, warm-up)
+SERVER_SWAP_S = 600             # the watched prefix's swap's bound
+
+
+class ServerProc:
+    """``python -m trivy_tpu_torch server`` in a subprocess on a free
+    127.0.0.1 port, its output in ``log`` (never a pipe that could
+    fill). A daemon thread polls ``/healthz`` from the start, so the
+    time to ready is the server's whatever this process does
+    meanwhile. ``stop`` sends SIGTERM and waits; ``kill`` ends it
+    whatever it is doing (the phase's ``finally``)."""
+
+    def __init__(self, argv: list, log: str):
+        import socket
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            self.port = s.getsockname()[1]
+        self.url = f"http://127.0.0.1:{self.port}"
+        self.log = log
+        self._out = open(log, "w")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "trivy_tpu_torch", "server", "--listen",
+             f"127.0.0.1:{self.port}", "--token", SERVER_TOKEN] + argv,
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=self._out, stderr=subprocess.STDOUT, text=True)
+        _CHILDREN.append(self.proc)
+        self.t_ready = None
+        self._poller = threading.Thread(target=self._poll_ready,
+                                        daemon=True)
+        self._poller.start()
+
+    def _poll_ready(self) -> None:
+        deadline = self.t0 + SERVER_READY_S
+        while self.proc.poll() is None and time.perf_counter() < deadline:
+            try:
+                self.get("/healthz", timeout=5)
+                self.t_ready = time.perf_counter() - self.t0
+                return
+            except OSError:
+                time.sleep(0.2)
+
+    def text(self) -> str:
+        with open(self.log) as f:
+            return f.read()
+
+    def get(self, path: str, timeout: float = 60.0) -> dict:
+        import urllib.request
+        req = urllib.request.Request(self.url + path,
+                                     headers={"Trivy-Token": SERVER_TOKEN})
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return json.loads(resp.read())
+
+    def wait_ready(self) -> float:
+        """Seconds from the start until ``/healthz`` first answered."""
+        self._poller.join()
+        if self.t_ready is not None:
+            return self.t_ready
+        if self.proc.poll() is not None:
+            raise AssertionError(f"the server exited {self.proc.returncode}"
+                                 f" at boot: {self.text()[-3000:]}")
+        raise AssertionError("the server did not come up: "
+                             + self.text()[-3000:])
+
+    def boot_split(self) -> dict:
+        line = self.text().split("boot split: ", 1)[1].splitlines()[0]
+        return json.loads(line)
+
+    def wait_log(self, needle: str, timeout_s: float) -> float:
+        t0 = time.perf_counter()
+        while needle not in self.text():
+            if self.proc.poll() is not None or \
+                    time.perf_counter() - t0 > timeout_s:
+                raise AssertionError(f"no {needle!r} from the server: "
+                                     f"{self.text()[-3000:]}")
+            time.sleep(0.1)
+        return time.perf_counter() - t0
+
+    def stop(self, timeout_s: float = 120.0) -> int:
+        import signal
+        self.proc.send_signal(signal.SIGTERM)
+        rc = self.proc.wait(timeout=timeout_s)
+        self._out.close()
+        return rc
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self._out.close()
+
+
+def _scan_doc(results, os_found) -> str:
+    """A Scan reply as sorted JSON."""
+    return json.dumps({"os": os_found.to_dict() if os_found else None,
+                       "results": [r.to_dict() for r in results]},
+                      sort_keys=True)
+
+
+def _remote_clients(url: str, retries: int = 10, record=None):
+    """A ``RemoteCache`` that counts the blobs the server said were
+    missing, and a ``RemoteScanner`` that keeps each Scan's target and
+    reply in ``record`` (by target name) when given."""
+    from trivy_tpu_torch.rpc.client import RemoteCache, RemoteScanner
+
+    class CountingCache(RemoteCache):
+        missing = 0
+
+        def missing_blobs(self, artifact_id, blob_ids):
+            out = super().missing_blobs(artifact_id, blob_ids)
+            self.missing += len(out[1])
+            return out
+
+    class RecordingScanner(RemoteScanner):
+        def scan(self, target, options):
+            out = super().scan(target, options)
+            if record is not None:
+                record[target.name] = (target, options, _scan_doc(*out))
+            return out
+
+    kw = dict(token=SERVER_TOKEN, timeout_s=120.0, max_retries=retries)
+    return CountingCache(url, **kw), RecordingScanner(url, **kw)
+
+
+def server_fleet(paths: list, url: str, backend: str, broken: int,
+                 clients: int = SERVER_CLIENTS, record=None) -> dict:
+    """The targets through ``scan_image(remote=...)`` — what ``image
+    --server`` runs — from ``clients`` threads, each with its own
+    secret scanner and clients, target i on thread i % clients. Returns
+    the reports (None for the broken tar, which must fail to load in
+    the client), the Scan RPC latencies, the blobs the server said were
+    missing and the wall; ``record`` receives each Scan's target and
+    reply (``_remote_clients``)."""
+    from trivy_tpu_torch.cli import ImageLoadError, scan_image, \
+        secret_scanner
+    texts = [None] * len(paths)
+    rpc_s, missing, errors = [], [0] * clients, []
+    scanners = [secret_scanner(backend=backend) for _ in range(clients)]
+
+    def work(c: int) -> None:
+        cache, remote = _remote_clients(url, record=record)
+        for i in range(c, len(paths), clients):
+            steps = {}
+            try:
+                report = scan_image(paths[i], None, backend,
+                                    scanner=scanners[c], cache=cache,
+                                    remote=remote, timings=steps)
+            except ImageLoadError:
+                if i != broken:
+                    raise
+                continue
+            texts[i] = _sorted_json(report_text(report))
+            rpc_s.append(steps["remote_s"])
+        missing[c] = cache.missing
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(clients) as ex:
+        for f in [ex.submit(work, c) for c in range(clients)]:
+            try:
+                f.result()
+            except Exception as e:        # noqa: BLE001 — reported below
+                errors.append(repr(e))
+    wall = time.perf_counter() - t0
+    if errors:
+        raise AssertionError(f"server fleet: {errors}")
+    rpc_s.sort()
+    return {"texts": texts, "wall_s": wall, "missing": sum(missing),
+            "rpc_s": {"n": len(rpc_s), "median": rpc_s[len(rpc_s) // 2],
+                      "max": rpc_s[-1]}}
+
+
+SERVER_DRAIN_SCANS = 4          # Scan RPCs in flight at the SIGTERM
+
+
+def drain_under_load(srv: ServerProc, record: dict) -> dict:
+    """SIGTERM with scans in flight: ``SERVER_DRAIN_SCANS`` targets'
+    Scan RPCs (the targets and replies ``record`` kept from the last
+    round) sent at once from a thread each, SIGTERM once ``/healthz``
+    counts half of them in flight, then a probe that sends an empty
+    Scan (no blobs:
+    milliseconds when admitted) in a loop. A scan sent before the
+    signal must finish with its reply or, when it reached the server
+    after the drain began, be answered 503; at least one must have
+    finished after the signal; the probe must be answered 503 while
+    the drain runs, and the server must exit 0."""
+    import signal
+
+    from trivy_tpu_torch.rpc.client import RPCError
+    from trivy_tpu_torch.scan.local import ScanTarget
+    items = list(record.values())[:SERVER_DRAIN_SCANS]
+    outcomes: dict = {}
+    go = threading.Event()
+
+    def send(k: int) -> None:
+        target, options, want = items[k]
+        _, scanner = _remote_clients(srv.url, retries=1)
+        go.wait()
+        t0 = time.perf_counter()
+        try:
+            got = _scan_doc(*scanner.scan(target, options))
+            kind = "ok" if got == want else "differs"
+        except RPCError as e:
+            kind = str(e.code)
+        outcomes[k] = (kind, t0, time.perf_counter())
+
+    threads = [threading.Thread(target=send, args=(k,))
+               for k in range(len(items))]
+    for t in threads:
+        t.start()
+    probe: list = []
+    try:
+        go.set()
+        deadline = time.perf_counter() + 120
+        while srv.get("/healthz", timeout=10)["inflight"] < \
+                len(items) // 2:
+            if time.perf_counter() > deadline or \
+                    len(outcomes) == len(items):
+                raise AssertionError("no scans in flight to drain")
+        t_sig = time.perf_counter()
+        srv.proc.send_signal(signal.SIGTERM)
+        _, scanner = _remote_clients(srv.url, retries=1)
+        empty = ScanTarget(name="drain-probe", artifact_id="",
+                           blob_ids=[])
+        while srv.proc.poll() is None and len(probe) < 10000:
+            try:
+                scanner.scan(empty, items[0][1])
+                probe.append("ok")
+            except RPCError as e:
+                probe.append(str(e.code))
+                if e.code != 503:
+                    break
+        closed_s = time.perf_counter() - t_sig
+        rc = srv.proc.wait(timeout=300)
+        exit_s = time.perf_counter() - t_sig
+    finally:
+        go.set()
+        for t in threads:
+            t.join(timeout=300)
+    if rc != 0:
+        raise AssertionError(f"the drained server exited {rc}: "
+                             f"{srv.text()[-2000:]}")
+    sent_before = [o for o in outcomes.values() if o[1] < t_sig]
+    if len(outcomes) != len(items) or \
+            any(o[0] not in ("ok", "503") for o in sent_before) or \
+            not any(o[0] == "ok" and o[2] > t_sig for o in sent_before):
+        raise AssertionError(f"scans sent before SIGTERM: {outcomes}")
+    if "503" not in probe:
+        raise AssertionError(f"no 503 while draining: {probe[:20]}")
+    return {"exit_rc": rc, "exit_s": exit_s, "listener_closed_s": closed_s,
+            "scans": len(items),
+            "finished_after_signal": sum(1 for o in sent_before
+                                         if o[0] == "ok" and o[2] > t_sig),
+            "refused": sum(1 for o in sent_before if o[0] == "503"),
+            "probe": {k: probe.count(k) for k in sorted(set(probe))}}
+
+
+def server_boot(device, work_dir: str) -> dict:
+    """Step 1 of the server phase, started before the memo phase so
+    that the boot's npz load and builds run beside it: the sbom phase's
+    npz copied to a watched prefix, and ``python -m trivy_tpu_torch
+    server`` started on it with ``--compile-cache DIR --sched on
+    --token`` (``ServerProc``). Returns what ``server_phase`` needs."""
+    import shutil
+    d = os.path.join(work_dir, "server")
+    os.makedirs(d)
+    prefix, cc = os.path.join(d, "db"), os.path.join(d, "compile-cache")
+    t0 = time.perf_counter()
+    shutil.copyfile(os.path.join(work_dir, "cdb.npz"), prefix + ".npz")
+    copy_s = time.perf_counter() - t0
+    argv = ["--compiled-db", prefix, "--compile-cache", cc, "--backend",
+            device.type, "--sched", "on", "--db-watch-interval", "1"]
+    return {"dir": d, "prefix": prefix, "argv": argv, "copy_s": copy_s,
+            "srv": ServerProc(argv, os.path.join(d, "server1.log"))}
+
+
+def server_phase(device, svc: dict, fleet: dict, gen2: dict,
+                 work_dir: str, during_swap, during_restart) -> dict:
+    """The scan server and its clients on the card:
+
+    1. the server ``server_boot`` started: its boot builds both
+       kernels into DIR and warm-launches them (the split printed),
+       then listens;
+    2. ``image --server`` in a CLI subprocess on the first target
+       (while this process writes the memo phase's second generation
+       beside the watched prefix), then the fleet phase's 16 targets
+       through ``scan_image(remote=)`` from four concurrent clients:
+       every report equal to the fleet phase's in-process card report
+       of the same tar (each equal to its image scanned alone), the
+       broken tar failing in its client; a second client round must
+       find 0 missing blobs, launch no sieve and be served from the
+       server's memo (0 misses, 0 interval jobs);
+    3. the second generation renamed onto the watched prefix: the
+       server swaps it in (its memo re-matched; ``during_swap()`` runs
+       in this process meanwhile), and the reports after it equal the
+       memo phase's in-process fleet on that generation, from the memo
+       (0 misses, 0 interval jobs);
+    4. SIGTERM with the targets' Scan RPCs in flight
+       (``drain_under_load``);
+    5. the same server restarted, with the same flags, on the same
+       prefix and DIR (``during_restart()`` runs in this process while
+       it boots): its boot loads the second generation and has
+       manifest hits only, no build; the first target through it gives
+       the second generation's report; then SIGTERM, exit 0.
+
+    Client-side ``dfa_blockmask`` launches are counted per round."""
+    from trivy_tpu_torch.ops.dfa_cuda import dfa_blockmask
+    backend = device.type
+    t_phase = time.perf_counter()
+    paths, want, broken = fleet["plan"]["paths"], fleet["texts"], \
+        fleet["plan"]["broken"]
+    d, prefix, srv = svc["dir"], svc["prefix"], svc["srv"]
+    out: dict = {"copy_s": svc["copy_s"]}
+    servers = [srv]
+    try:
+        out["boot_ready_s"] = srv.wait_ready()
+        boot = srv.boot_split()
+        built = {k: v["built"] for k, v in boot["build"].items()}
+        if set(built) != {"dfa_blockmask", "code_blockmask"} or \
+                not all(built.values()) or boot["hits"]:
+            raise AssertionError(f"the first boot: {boot}")
+        out["boot"] = boot
+
+        # the CLI, in its own process, on the first target, while the
+        # second generation is written beside the watched prefix
+        report = os.path.join(d, "cli.report.json")
+
+        def cli_check(_err: str) -> dict:
+            with open(report) as f:
+                if _sorted_json(f.read()) != want[0]:
+                    raise AssertionError("image --server's report != the "
+                                         "in-process card scan")
+            return {}
+
+        cli = BackgroundCLI(
+            "image_server",
+            ["-m", "trivy_tpu_torch", "image", "--input", paths[0],
+             "--server", srv.url, "--token", SERVER_TOKEN, "--backend",
+             backend, "--format", "json", "--output", report], d,
+            cli_check)
+        t0 = time.perf_counter()
+        gen2.pop("db").save(prefix + "-next")
+        out["gen2_save_s"] = time.perf_counter() - t0
+        out["cli_wall_s"] = cli.finish()["wall_s"]
+
+        rounds, launches = {}, {}
+
+        def one_round(name: str, texts: list, profiled: bool = False,
+                      warm: bool = False, record=None):
+            """A round of the fleet through the server; ``warm``: no
+            blob pushed, no sieve, every query a memo hit, no interval
+            job (the server's memo read through its scheduler)."""
+            m0 = srv.get("/metrics")
+            dfa_blockmask.launches = 0
+            if profiled:
+                r, ops, wall_ms = device_profile(lambda: server_fleet(
+                    paths, srv.url, backend, broken))
+                r["client_device_ms"] = op_totals(ops)[1]
+            else:
+                r = server_fleet(paths, srv.url, backend, broken,
+                                 record=record)
+            launches[name] = dfa_blockmask.launches
+            m1 = srv.get("/metrics")
+            r["memo"] = {k: m1["memo"][k] - m0["memo"][k]
+                         for k in ("hits", "misses")}
+            r["interval_jobs"] = m1["batch"]["interval_jobs"] - \
+                m0["batch"]["interval_jobs"]
+            bad = [i for i, (a, b) in enumerate(zip(r.pop("texts"), texts))
+                   if a != b]
+            if bad:
+                raise AssertionError(f"server round {name}: the reports "
+                                     f"of targets {bad} differ")
+            if warm and (r["missing"] or launches[name] or r["interval_jobs"]
+                         or r["memo"]["misses"] or not r["memo"]["hits"]):
+                raise AssertionError(f"server round {name}: {r['missing']} "
+                                     f"missing blobs, {launches[name]} "
+                                     f"sieves, {r['interval_jobs']} jobs, "
+                                     f"memo {r['memo']}")
+            rounds[name] = r
+            return r
+
+        first = one_round("cold", want, profiled=True)
+        if first["missing"] < 1 or launches["cold"] < 1:
+            raise AssertionError(f"the cold round pushed "
+                                 f"{first['missing']} blobs, launched "
+                                 f"{launches['cold']} sieves")
+        one_round("second_client", want, warm=True)
+
+        # the second generation at the watched prefix; the swap is
+        # timed from the rename to the server's log line, on a thread,
+        # while this process runs ``during_swap``
+        seen: dict = {}
+
+        def watch_swap() -> None:
+            try:
+                seen["s"] = srv.wait_log("hot-swapped", SERVER_SWAP_S)
+            except AssertionError as e:
+                seen["error"] = str(e)
+
+        os.replace(prefix + "-next.npz", prefix + ".npz")
+        os.utime(prefix + ".npz")
+        watcher = threading.Thread(target=watch_swap, daemon=True)
+        watcher.start()
+        during_swap()
+        watcher.join(SERVER_SWAP_S)
+        if "s" not in seen:
+            raise AssertionError(seen.get("error", "no swap seen"))
+        out["swap_wait_s"] = seen["s"]
+        record: dict = {}
+        one_round("after_swap", gen2["texts"], warm=True, record=record)
+        metrics = srv.get("/metrics")
+        out["drain"] = drain_under_load(srv, record)
+
+        # the same server restarted on the same prefix and DIR
+        srv2 = ServerProc(svc["argv"], os.path.join(d, "server2.log"))
+        servers.append(srv2)
+        during_restart()
+        out["restart_ready_s"] = srv2.wait_ready()
+        boot2 = srv2.boot_split()
+        if boot2["misses"] or not boot2["hits"] or \
+                any(v["built"] for v in boot2["build"].values()) or \
+                not boot2["db_load_s"]:
+            raise AssertionError(f"the restart: {boot2}")
+        out["restart"] = boot2
+        dfa_blockmask.launches = 0
+        one = server_fleet(paths[:1], srv2.url, backend, broken=-1,
+                           clients=1)
+        launches["restart"] = dfa_blockmask.launches
+        if one["texts"][0] != gen2["texts"][0]:
+            raise AssertionError("the restarted server's report != the "
+                                 "second generation's")
+        out["restart_scan_s"] = one["wall_s"]
+        out["restart_rc"] = srv2.stop()
+        if out["restart_rc"] != 0:
+            raise AssertionError(f"the restarted server exited "
+                                 f"{out['restart_rc']}")
+    finally:
+        for s in servers:
+            s.kill()
+    sched = {k: metrics[k] for k in (
+        "counters", "batch", "queue_depth_max", "device_busy_s",
+        "device_time_s", "host_busy_s", "overlap_ratio", "backend")
+        if k in metrics}
+    out.update(rounds=rounds, launches=launches,
+               metrics={"scheduler": sched,
+                        "compile_cache": metrics["compile_cache"],
+                        "detect": {k: metrics["detect"][k] for k in (
+                            "jobs_in", "jobs_unique", "db_uploads")},
+                        "memo": {k: metrics["memo"].get(k) for k in (
+                            "hits", "misses", "stores")}},
+               phase_s=time.perf_counter() - t_phase)
+    return out
+
+
+# --- the report writers and the Rekor lookup --------------------------
+
+WRITER_TEMPLATE = ('{{- range . -}}<testsuite name="{{ .Target }}" '
+                   'tests="{{ len .Vulnerabilities }}">'
+                   '{{- range .Vulnerabilities }}<testcase name='
+                   '"{{ .VulnerabilityID }}[{{ .Severity }}]"/>'
+                   '{{- end }}</testsuite>\n{{ end }}')
+WRITER_FORMATS = ("sarif", "github", "spdx", "spdx-json", "cosign-vuln",
+                  "template")
+_UUID_RX = r"[0-9a-f]{8}-[0-9a-f]{4}-[0-9a-f]{4}-[0-9a-f]{4}-[0-9a-f]{12}"
+_TIME_RX = r"\d{4}-\d\d-\d\dT\d\d:\d\d:\d\d(\.\d+)?(Z|[+-]\d\d:\d\d)"
+
+
+def numbered(text: str) -> str:
+    """Random UUIDs and wall-clock stamps → their order of appearance."""
+    import re
+    for rx, tag in ((_UUID_RX, "UUID"), (_TIME_RX, "TIME")):
+        seen: dict = {}
+        text = re.sub(rx, lambda m: seen.setdefault(
+            m.group(0), f"<{tag}{len(seen)}>"), text)
+    return text
+
+
+def writers_line(image: str, cdb, backend: str, scanners: dict) -> dict:
+    """The image's card report (a warm scan: the image phase scanned it
+    before) in every ported writer beyond ``json``, ``table`` and
+    ``cyclonedx``, each equal to ``cpu-ref``'s output for the same scan
+    once the random UUIDs and the timestamps are numbered."""
+    from trivy_tpu_torch import __version__
+    from trivy_tpu_torch.cli import filter_report, scan_image
+    from trivy_tpu_torch.report.writer import write_report
+    reports = {}
+    for b in (backend, "cpu-ref"):
+        reports[b] = filter_report(scan_image(
+            image, cdb, b, scanner=scanners[b], list_all_packages=True))
+    out = {}
+    for fmt in WRITER_FORMATS:
+        texts, ms = {}, 0.0
+        for b, report in reports.items():
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            write_report(report, fmt=fmt, output=buf,
+                         app_version=__version__,
+                         output_template=WRITER_TEMPLATE)
+            if b == backend:
+                ms = (time.perf_counter() - t0) * 1e3
+            texts[b] = numbered(buf.getvalue())
+        if texts[backend] != texts["cpu-ref"] or len(texts[backend]) < 200:
+            raise AssertionError(f"{fmt}: the card's output != cpu-ref's")
+        out[fmt] = {"bytes": len(texts[backend]), "write_ms": ms}
+    return out
+
+
+REKOR_LIBS = 24                 # npm libraries of the attested BOM
+
+
+def rekor_line(cdb, backend: str, n_pkgs: dict, work_dir: str) -> dict:
+    """An ``fs`` scan with ``TRIVY_REKOR_URL``: a tree whose one
+    executable no package manager owns, a stub Rekor log on 127.0.0.1
+    attesting a CycloneDX BOM of ``REKOR_LIBS`` npm libraries of the
+    vuln phase's store for the executable's sha256. The card's report
+    must equal ``cpu-ref``'s and hold the attested libraries'
+    vulnerabilities."""
+    import base64
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    from trivy_tpu_torch.cli import scan_fs, secret_scanner
+    rng = np.random.default_rng(SEED + 80)
+    tree = os.path.join(work_dir, "rekor-tree")
+    exe = b"\x7fELF" + rng.integers(0, 256, 1 << 16, np.uint8).tobytes()
+    for rel, data in (("usr/local/bin/tool", exe),
+                      ("etc/alpine-release", b"3.16.2\n")):
+        os.makedirs(os.path.join(tree, os.path.dirname(rel)), exist_ok=True)
+        with open(os.path.join(tree, rel), "wb") as f:
+            f.write(data)
+    bucket = "npm::GitHub Security Advisory npm"
+    comps = []
+    for p in _zipf_unique(rng, n_pkgs[bucket], REKOR_LIBS):
+        ver = installed_version("npm", bucket, p, int(rng.integers(0, 4)))
+        comps.append({"type": "library", "name": f"lib-npm-{p}",
+                      "version": ver, "bom-ref": f"lib-npm-{p}",
+                      "purl": f"pkg:npm/lib-npm-{p}@{ver}"})
+    bom = {"bomFormat": "CycloneDX", "specVersion": "1.4", "version": 1,
+           "metadata": {"component": {"type": "application",
+                                      "name": "tool", "bom-ref": "root"}},
+           "components": comps}
+    statement = json.dumps({"predicateType": "https://cyclonedx.org/bom",
+                            "predicate": {"Data": json.dumps(bom)}})
+    digest = "sha256:" + hashlib.sha256(exe).hexdigest()
+    asked = []
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *a):
+            pass
+
+        def do_POST(self):
+            n = int(self.headers.get("Content-Length") or 0)
+            body = json.loads(self.rfile.read(n) or b"{}")
+            if self.path == "/api/v1/index/retrieve":
+                asked.append(body.get("hash"))
+                res = ["a" * 64] if body.get("hash") == digest else []
+            else:
+                res = [{u: {"attestation": {"data": base64.b64encode(
+                    statement.encode()).decode()}}}
+                    for u in body.get("entryUUIDs", [])]
+            data = json.dumps(res).encode()
+            self.send_response(200)
+            self.send_header("Content-Length", str(len(data)))
+            self.end_headers()
+            self.wfile.write(data)
+
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    saved = os.environ.get("TRIVY_REKOR_URL")
+    os.environ["TRIVY_REKOR_URL"] = \
+        f"http://127.0.0.1:{httpd.server_address[1]}"
+    texts, walls = {}, {}
+    try:
+        for b in (backend, "cpu-ref"):
+            t0 = time.perf_counter()
+            report = scan_fs(tree, cdb, b, scanner=secret_scanner(backend=b))
+            walls[b] = time.perf_counter() - t0
+            texts[b] = report_text(report)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        if saved is None:
+            os.environ.pop("TRIVY_REKOR_URL", None)
+        else:
+            os.environ["TRIVY_REKOR_URL"] = saved
+    if _sorted_json(texts[backend]) != _sorted_json(texts["cpu-ref"]):
+        raise AssertionError("rekor: the card's report != cpu-ref's")
+    doc = json.loads(texts[backend])
+    vulns = [v for r in doc.get("Results", [])
+             for v in r.get("Vulnerabilities") or []]
+    found = {p["Name"] for r in doc.get("Results", [])
+             for p in r.get("Packages") or []} | \
+        {v["PkgName"] for v in vulns}
+    if asked != [digest, digest] or not vulns or \
+            not found <= {c["name"] for c in comps}:
+        raise AssertionError(f"rekor: asked {asked}, {len(vulns)} "
+                             f"vulnerabilities of {sorted(found)}")
+    return {"lookups": len(asked), "libraries": len(comps),
+            "vulnerabilities": len(vulns), "wall_s": walls}
+
+
 def mesh_line(mesh_kern: dict, name: str) -> dict:
     """A kernel's per-shard numbers for the kernels line: medians of
     the turns, the joined shards' first turn beside them."""
@@ -4219,6 +4985,8 @@ def main() -> int:
     from trivy_tpu_torch.ops import dfa_cuda, keywords_cuda
 
     t_script = time.perf_counter()
+    atexit.register(_kill_children)
+    memory = MemoryWatch()
     device = torch.device("cuda")
     gpu = gpu_line()
     print(gpu, flush=True)
@@ -4263,27 +5031,54 @@ def main() -> int:
     print("mesh phase, dispatch_jobs: " + json.dumps(mesh_disp), flush=True)
     os.makedirs(dfa_cuda.BUILD_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=dfa_cuda.BUILD_DIR) as work:
-        sb = sbom_phase(device, cdb, n_pkgs, work)
+        db_path, pending = os.path.join(work, "cdb"), []
+        sb = sbom_phase(device, cdb, n_pkgs, work, pending)
         print("sbom phase: " + json.dumps(sb), flush=True)
-        fs = fs_phase(device, cdb, n_pkgs, files, planted, work,
-                      os.path.join(work, "cdb"))
+        fs = fs_phase(device, cdb, n_pkgs, files, planted, work, db_path,
+                      pending)
         print("fs phase: " + json.dumps(fs), flush=True)
         img = image_phase(device, cdb, n_pkgs, files, planted, work,
-                          os.path.join(work, "cdb"))
+                          db_path, pending)
         print("image phase: " + json.dumps(img), flush=True)
         kept: dict = {}
-        fleet = fleet_phase(device, cdb, n_pkgs, files, work, kept)
+        fleet = fleet_phase(device, cdb, n_pkgs, files, pending, work,
+                            kept)
         print("fleet phase: " + json.dumps(fleet), flush=True)
+        clis = finish_clis(pending)
+        print(f"CLI processes on the npz, beside the phases ({gpu}): "
+              + json.dumps(clis), flush=True)
         sched = sched_phase(device, cdb, kept)
         print("sched phase: " + json.dumps(sched), flush=True)
-        mesh_fleet = mesh_fleet_phase(device, cdb, kept, mesh, work)
-        print("mesh phase, fleet: " + json.dumps(mesh_fleet), flush=True)
-        memo = memo_phase(device, cdb, kept, work,
-                          mesh_fleet["single"]["wall_s"])
-        del kept
+        # the scan server boots beside the memo phase
+        svc = server_boot(device, work)
+        gen2: dict = {}
+        memo = memo_phase(device, cdb, kept, work, kept["off_wall_s"],
+                          keep=gen2)
         print("memo phase: " + json.dumps(memo), flush=True)
-        life = lifecycle_phase(device.type, work)
-        print("lifecycle phase: " + json.dumps(life), flush=True)
+        beside: dict = {}
+
+        def during_swap() -> None:
+            beside["mesh_fleet"] = mesh_fleet_phase(device, cdb, kept,
+                                                    mesh, work)
+            print("mesh phase, fleet (beside the server's swap): "
+                  + json.dumps(beside["mesh_fleet"]), flush=True)
+
+        def during_restart() -> None:
+            beside["life"] = lifecycle_phase(device.type, work)
+            print("lifecycle phase (beside the server's restart): "
+                  + json.dumps(beside["life"]), flush=True)
+            dfa_cuda.dfa_blockmask.launches = 0
+            rekor = rekor_line(cdb, device.type, n_pkgs, work)
+            rekor["launches"] = dfa_cuda.dfa_blockmask.launches
+            print(f"rekor ({gpu}): " + json.dumps(rekor), flush=True)
+            beside["rekor"] = rekor
+
+        server = server_phase(device, svc, kept, gen2, work, during_swap,
+                              during_restart)
+        del kept, gen2, svc
+        print("server phase: " + json.dumps(server), flush=True)
+        mesh_fleet, life, rekor = beside["mesh_fleet"], beside["life"], \
+            beside["rekor"]
 
     note = "no single PyTorch call computes this function"
     # every run of the main paths, each counted from 0 (timing loops
@@ -4294,7 +5089,9 @@ def main() -> int:
                 "sched": sum(sched["launches"].values()),
                 "mesh_sieve": mesh_kern["dfa_blockmask"]["launches"],
                 "mesh_fleet": sum(mesh_fleet["launches"].values()),
-                "memo": sum(memo["launches"].values())}
+                "memo": sum(memo["launches"].values()),
+                "rekor": rekor["launches"],
+                "server_clients": sum(server["launches"].values())}
     code_runs = {"run_blockmask": lit["launches"],
                  "sharded_blockmask":
                      mesh_kern["code_blockmask"]["launches"],
@@ -4384,13 +5181,14 @@ def main() -> int:
           f"without PyYAML under 'unevaluated'): " + json.dumps({
               "fs": fs["checks"], "image": img["checks"],
               "fleet": fleet["checks"], "sched": sched["checks"],
-              "config_cli_wall_s": fs["config_cli_wall_s"]}), flush=True)
+              "config_cli_wall_s": clis["config"]["wall_s"]}), flush=True)
     mf = mesh_fleet
     print(f"mesh fleet of {mf['targets']} targets over {mesh}: direct "
           f"{mf['direct']['wall_s']:.3f} s ({mf['direct']['images_per_s']:.3f}"
           f" images/s, {mf['launches']['direct']} sieve launches, shard "
           f"occupancy {mf['direct']['secret']['shard_occupancy']}) after "
-          f"the same fleet on one device: {mf['single']['wall_s']:.3f} s; "
+          f"the same fleet on one device (the fleet phase's cold): "
+          f"{fleet['runs']['cold_d2']['wall_s']:.3f} s; "
           f"scheduled "
           f"{mf['scheduled']['wall_s']:.3f} s "
           f"({mf['scheduled']['images_per_s']:.3f} images/s, "
@@ -4409,7 +5207,7 @@ def main() -> int:
           f"({memo['entries']} entries): " + json.dumps(
               {k: {"wall_s": r["wall_s"], "interval_jobs": r["interval_jobs"],
                    "memo": r["memo"]} for k, r in mr.items()}) +
-          f"; no memo (the mesh phase's single-device fleet): "
+          f"; no memo (the fleet phase's cold fleet): "
           f"{memo['no_memo_wall_s']:.3f} s" +
           f"; hot swap of a {memo['second_generation']['compile_s']:.1f} s "
           f"compile: delta {json.dumps(memo['delta'])}, wall "
@@ -4421,7 +5219,7 @@ def main() -> int:
           f"{memo['reports_changed_by_the_delta']} reports changed; "
           f"lifecycle CLI (reduced, {life['rows']} rows): "
           f"{json.dumps(life['cli_wall_s'])} s; sbom CLI process split: "
-          f"{json.dumps(sb['cli_split'])}", flush=True)
+          f"{json.dumps(clis['sbom']['split'])}", flush=True)
     from trivy_tpu_torch.secret.metrics import SECRET_METRICS
     sm = SECRET_METRICS.snapshot()
     if len(set(dfa_uploads)) != len(dfa_uploads) or \
@@ -4432,7 +5230,7 @@ def main() -> int:
     fo = fleet["obs"]
     print(f"obs ({gpu}): " + json.dumps({
         "fleet": fo, "sched_trace_files": sched["trace_files"],
-        "image_cli_profile": img["cli_profile"],
+        "image_cli_profile": clis["image"]["profile"],
         "resident_after_vuln": resident,
         "resident_after_swap": memo["resident_after_swap"],
         "secret_metrics": {k: sm[k] for k in (
@@ -4458,6 +5256,34 @@ def main() -> int:
               f"{kind} {c['traced_s']:.3f}/{c['untraced_s']:.3f} s "
               f"({c['ratio']:.4f})"
               for kind, c in fo["tracing_cost"].items()), flush=True)
+    print(f"writers ({gpu}; the reduced image's card report == cpu-ref's "
+          f"in each format, UUIDs and timestamps numbered): "
+          + json.dumps(img["writers"]), flush=True)
+    rounds = server["rounds"]
+    print(f"scan server ({gpu}; {server['rounds']['cold']['rpc_s']['n']} "
+          f"targets, {SERVER_CLIENTS} clients): boot "
+          f"{server['boot_ready_s']:.1f} s to ready (split "
+          f"{json.dumps({k: server['boot'][k] for k in ('db_load_s', 'build_s', 'hits', 'misses', 'seconds', 'boot_s')})}"
+          f", builds {json.dumps(server['boot']['build'])}; beside the "
+          f"memo phase); the same server restarted on the same prefix "
+          f"and cache: {server['restart_ready_s']:.1f} s to ready (split "
+          f"{json.dumps({k: server['restart'][k] for k in ('db_load_s', 'build_s', 'hits', 'misses', 'seconds', 'boot_s')})}"
+          f"; beside the lifecycle phase), its first scan "
+          f"{server['restart_scan_s']:.1f} s; image --server CLI "
+          f"{server['cli_wall_s']:.1f} s; rounds " + json.dumps(
+              {k: {s: r[s] for s in ("wall_s", "missing", "rpc_s", "memo",
+                                     "interval_jobs")}
+               for k, r in rounds.items()}) +
+          f"; client dfa_blockmask launches per round "
+          f"{json.dumps(server['launches'])}; client card busy (cold "
+          f"round) {rounds['cold']['client_device_ms']:.3f} ms; swap seen "
+          f"after {server['swap_wait_s']:.1f} s (beside the mesh fleet "
+          f"phase; the second generation's save "
+          f"{server['gen2_save_s']:.1f} s); drain "
+          f"{json.dumps(server['drain'])}; /metrics "
+          + json.dumps(server["metrics"]), flush=True)
+    print("host memory (this process and its subprocesses, sampled each "
+          "second): " + json.dumps(memory.summary()), flush=True)
     print(f"script: {time.perf_counter() - t_script:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,10 @@ match and the pair dispatcher against their numpy versions; the
 with the ``config`` and ``license`` checks too;
 the findings memo's warm fleet and the hot swap's re-match on the
 card; busy spans stamped by CUDA events, a traced fleet's launches,
-and the ``torch.profiler`` device trace.
+and the ``torch.profiler`` device trace; the scan server's boot
+(both kernels built into its compile cache once, a second boot only
+loading them, the zero-input warm launches inert) and a Scan RPC run
+on the card equal to the same scan on the CPU.
 Every output is an integer mask or an exact finding, so every
 comparison is exact equality.
 
@@ -1232,3 +1235,85 @@ def test_device_trace_on_cuda_raises_without_cuda_activity(
         with device_trace(str(tmp_path / "none"), backend="cuda"):
             ran.append(1)
     assert not ran and not (tmp_path / "none" / "torch_trace.json").exists()
+
+
+# --- the scan server's boot and Scan RPC on the card ------------------
+
+def test_boot_precompile_on_the_card_builds_once(cuda, tmp_path, scanner):
+    """``runtime/aot.py`` on ``cuda``: the first boot builds both
+    kernels into the cache directory and misses every shape; a second
+    boot on it builds nothing and only hits; the zero inputs it
+    launches on are inert in the kernel as in the plain version."""
+    from trivy_tpu_torch.ops import dfa_cuda, keywords_cuda
+    from trivy_tpu_torch.runtime import aot
+    d = str(tmp_path / "cc")
+    saved = {m: (m.BUILD_DIR, m._lib) for m in (dfa_cuda, keywords_cuda)}
+    try:
+        for m in saved:
+            m._lib = None
+        cold = aot.boot_precompile(d, scanner.table,
+                                   tuple(scanner.plan.run_specs))
+        assert all(row["built"] for row in cold["build"].values())
+        assert cold["hits"] == 0 and cold["misses"] == 5
+        for m in saved:
+            m._lib = None
+        warm = aot.boot_precompile(d, scanner.table,
+                                   tuple(scanner.plan.run_specs))
+        assert not any(row["built"] for row in warm["build"].values())
+        assert (warm["hits"], warm["misses"]) == (5, 0)
+    finally:
+        for m, (build_dir, lib) in saved.items():
+            m.BUILD_DIR, m._lib = build_dir, lib
+    seg = torch.zeros((256, 2048), dtype=torch.uint8, device=cuda)
+    dev = scanner.table.device_tables(cuda)
+    masks, hits = dfa_blockmask(seg, scanner.table, dev,
+                                tuple(scanner.plan.run_specs))
+    plain = dfa_masks_torch(seg.cpu(), scanner.table,
+                            scanner.table.device_tables("cpu"))
+    assert torch.equal(masks.cpu().to(torch.int32), plain.to(torch.int32))
+    assert not bool((masks.to(torch.int32) != 0).any())
+    assert not bool(hits.any())
+
+
+@pytest.mark.parametrize("sched", ["off", "on"])
+def test_scan_rpc_on_the_card_equals_cpu(cuda, sched):
+    """A Scan RPC whose body asks for ``cuda`` (or the reference's
+    ``tpu``) runs on the card and equals the same scan on ``cpu``."""
+    from trivy_tpu_torch.rpc.client import RemoteCache, RemoteScanner
+    from trivy_tpu_torch.rpc.server import ScanServer, serve
+    from trivy_tpu_torch.scan.local import ScanTarget
+    from trivy_tpu_torch.types import ScanOptions
+    from trivy_tpu_torch.types.artifact import (OS, BlobInfo, Package,
+                                                PackageInfo)
+    store = AdvisoryStore()
+    rng = np.random.default_rng(14)
+    pkgs = []
+    for i in range(64):
+        store.put_advisory("alpine 3.9", f"p{i}", f"CVE-2021-{i}",
+                           {"FixedVersion": f"{int(rng.integers(1, 5))}.0-r0"})
+        store.put_vulnerability(f"CVE-2021-{i}", {"Severity": "HIGH"})
+        v = f"{int(rng.integers(1, 5))}.0"
+        pkgs.append(Package(name=f"p{i}", version=v, release="r1",
+                            src_name=f"p{i}", src_version=v,
+                            src_release="r1"))
+    srv = ScanServer(store=CompiledDB.compile(store), sched=sched)
+    httpd, _ = serve(port=0, server=srv)
+    try:
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+        RemoteCache(url, timeout_s=60).put_blob("sha256:b", BlobInfo(
+            os=OS(family="alpine", name="3.9.4"),
+            package_infos=[PackageInfo(packages=pkgs)]))
+        docs = {}
+        for backend in ("cuda", "tpu", "cpu"):
+            results, os_found = RemoteScanner(url, timeout_s=60).scan(
+                ScanTarget(name="img", artifact_id="sha256:a",
+                           blob_ids=["sha256:b"]),
+                ScanOptions(security_checks=["vuln"], backend=backend))
+            docs[backend] = json.dumps([r.to_dict() for r in results],
+                                       sort_keys=True)
+        assert docs["cuda"] == docs["tpu"] == docs["cpu"]
+        assert "CVE-2021-" in docs["cuda"]
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        srv.close()

@@ -316,14 +316,37 @@ def test_generate_default_config_round_trips(inputs, tmp_path):
     ("--server", {}, "server: http://127.0.0.1:9\n"),
 ])
 def test_refused_flag_from_env_or_config_reaches_its_refusal(
-        inputs, tmp_path, entry, flag, env, config):
+        inputs, tmp_path, entry, flag, env, config, request):
     """A default from the environment or the config file for a flag
     that the port refuses by name ends in that refusal, before any
-    scan; it is never dropped."""
+    scan; it is never dropped. ``--server`` is ported: from the
+    environment or the config file it sends the scan to that server
+    (one started here, holding the entry's DB), whose report is the
+    local scan's."""
     argv = list(inputs[entry]) + ["--backend", "cpu"]
+    if flag == "--server":
+        from trivy_tpu_torch.db import load_fixtures
+        from trivy_tpu_torch.rpc.server import ScanServer, serve
+        db = inputs[entry][inputs[entry].index("--db-fixtures") + 1]
+        srv = ScanServer(store=load_fixtures([db]), backend="cpu")
+        httpd, _ = serve(port=0, server=srv)
+        request.addfinalizer(lambda: (httpd.shutdown(),
+                                      httpd.server_close(), srv.close()))
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+        env = {k: url for k in env}
+        config = config.replace("http://127.0.0.1:9", url) \
+            if config is not None else None
     if config is not None:
         (tmp_path / "trivy.yaml").write_text(config)
     code, out, said = _run(tcli.main, argv, env, str(tmp_path))
+    if flag == "--server":
+        want = _run(tcli.main, argv + ["--format", "json"], None,
+                    str(tmp_path / ".."))
+        got = _run(tcli.main, argv + ["--format", "json"], env,
+                   str(tmp_path))
+        assert (got[0], _norm(got[1])) == (want[0], _norm(want[1]))
+        assert json.loads(got[1])["Results"] and code == want[0]
+        return
     assert code == 1 and out == ""
     assert len(said) == 1 and said[0].startswith(f"error: {flag}")
     assert "ROADMAP A.9" in said[0]

@@ -358,7 +358,8 @@ REFUSALS = {
     # run now, each missing target failing its own slot
     "several_targets": (["a.tar", "b.tar"], None),
     "target_not_a_path": (["registry.example/app:1"], "A.9"),
-    "server": (["@alpine", "--server", "http://localhost:1"], "A.9"),
+    # ported (tests/test_torch_rpc.py): the run goes on to the scan
+    "server": (["@alpine", "--server", "http://localhost:1"], "scan"),
     "fault_spec": (["@alpine", "--fault-spec", "poison-image"], "A.9"),
     "cache_backend": (["@alpine", "--cache-backend", "redis://x:1"],
                       "A.9"),
@@ -389,6 +390,10 @@ def test_image_refuses_before_any_host_work(inputs, case, monkeypatch,
 
     for name in ("load_image", "load_store", "scan_image"):
         monkeypatch.setattr(tcli, name, no_work)
+    if item == "scan":
+        with pytest.raises(AssertionError, match="host work"):
+            tcli.main(argv + ["--backend", "cpu"])
+        return
     code, out, said = _run(tcli.main, argv + ["--backend", "cpu"])
     assert code == 1 and out == ""
     assert len(said) == 1 and f"ROADMAP {item}" in said[0]

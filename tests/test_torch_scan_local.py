@@ -509,12 +509,16 @@ def test_sbom_entry_defaults_and_errors(inputs, tmp_path, monkeypatch):
         assert _run(rmain, argv + ["--no-cache", "--cache-dir",
                                    str(tmp_path / "c")])[0] == 1
         assert _run(tmain, argv + ["--backend", "cpu"])[0] == 1
-    # formats still to be ported fail cleanly, naming the ROADMAP item
-    err = io.StringIO()
-    with contextlib.redirect_stderr(err):
-        code, _ = _run(tmain, ["sbom", inputs["cdx"], "--format", "spdx",
-                               "--backend", "cpu"])
-    assert code == 1 and "ROADMAP" in err.getvalue()
+    # every format is ported: a template format without a template is
+    # the reference's error in both
+    for main, extra in ((rmain, ["--no-cache", "--cache-dir",
+                                 str(tmp_path / "c")]),
+                        (tmain, [])):
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            code, _ = _run(main, ["sbom", inputs["cdx"], "--format",
+                                  "template", "--backend", "cpu"] + extra)
+        assert code == 1 and "requires '--template'" in err.getvalue()
     # the card by default: without one it raises before any work
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -524,12 +528,12 @@ def test_sbom_entry_defaults_and_errors(inputs, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,error", [
-    (["--format", "spdx", "--backend", "cpu"], None),
-    (["--format", "sarif"], None),
+    (["--fault-spec", "poison-image", "--backend", "cpu"], None),
+    (["--cache-backend", "redis://127.0.0.1:9"], None),
     ([], RuntimeError)])
 def test_sbom_entry_refuses_before_loading_the_db(inputs, argv, error,
                                                  monkeypatch):
-    """A format still to be ported, or the card where there is none, is
+    """An option still to be ported, or the card where there is none, is
     refused before the DB is loaded."""
     import trivy_tpu_torch.cli as tcli
 

@@ -87,10 +87,8 @@ from .db import AdvisoryStore, CompiledDB, load_fixtures
 from .db.lifecycle import db_dir, needs_update
 from .detect.batch import dispatch_jobs
 from .guard import DEFAULT_LIMITS, make_budget
-from .handler.unpackaged import check_rekor
 from .misconf import configure
-from .report.writer import (FORMATS, UNPORTED_FORMATS, check_format,
-                            write_report)
+from .report.writer import FORMATS, check_format, write_report
 from .obs.cost import parse_budget_config
 from .obs.trace import get_tracer
 from .runtime import BatchScanRunner
@@ -106,11 +104,6 @@ BACKENDS = ("cuda", "cpu", "cpu-ref")
 # interchange formats carry the full package inventory (ref
 # pkg/commands/artifact/run.go ListAllPkgs override)
 _SBOM_FORMATS = ("cyclonedx", "spdx", "spdx-json", "github")
-# every --format, ported or not, in the reference's order: a value
-# that is none of them gets the reference's error line
-_FORMAT_CHOICES = sorted(FORMATS + UNPORTED_FORMATS, key=(
-    "table", "json", "sarif", "cyclonedx", "spdx", "spdx-json", "github",
-    "cosign-vuln", "template").index)
 
 
 def _split(s: str) -> list:
@@ -155,14 +148,19 @@ def load_store(db_fixtures: str = "", compiled_db: str = "",
     return store
 
 
-def _scan(scanner: LocalScanner, ref, options: ScanOptions,
-          t: dict, stats: dict) -> tuple:
+def _scan(scanner, ref, options: ScanOptions, t: dict,
+          stats: dict) -> tuple:
     """prepare → one ``dispatch_jobs`` → finish (ref LocalScanner
-    ``scan``), timing each step into ``t``."""
+    ``scan``), timing each step into ``t``; or, for a
+    ``rpc.RemoteScanner``, one Scan RPC (``remote_s``)."""
+    target = ScanTarget(name=ref.name, artifact_id=ref.id,
+                        blob_ids=ref.blob_ids)
     t0 = time.perf_counter()
-    prepared = scanner.prepare(
-        ScanTarget(name=ref.name, artifact_id=ref.id,
-                   blob_ids=ref.blob_ids), options)
+    if not isinstance(scanner, LocalScanner):
+        out = scanner.scan(target, options)
+        t["remote_s"] = time.perf_counter() - t0
+        return out
+    prepared = scanner.prepare(target, options)
     t1 = time.perf_counter()
     detected = dispatch_jobs(prepared.jobs, backend=options.backend,
                              stats=stats)
@@ -178,7 +176,8 @@ def _scan(scanner: LocalScanner, ref, options: ScanOptions,
 def scan_sbom(path: str, store, backend: str = "cuda", *,
               vuln_type=("os", "library"),
               list_all_packages: bool = False, cache=None, memo=None,
-              timings: dict = None, stats: dict = None) -> Report:
+              remote=None, timings: dict = None,
+              stats: dict = None) -> Report:
     """Vulnerability-scan the SBOM at ``path`` against ``store`` and
     return the unfiltered report (ref cli.py ``run_sbom``).
 
@@ -189,8 +188,14 @@ def scan_sbom(path: str, store, backend: str = "cuda", *,
     and ``finish_s`` (results, enrichment, post-scan hooks);
     ``stats`` receives ``dispatch_jobs``' ``device_s``, ``jobs_in``
     and ``jobs_unique``, and the number of ``hits``. Raises
-    ``ValueError`` for a document that is not an SBOM."""
-    if backend == "cuda":
+    ``ValueError`` for a document that is not an SBOM.
+
+    ``remote`` (an ``rpc.RemoteScanner``, with ``cache`` its
+    ``RemoteCache``) scans on a server instead (``--server``): the
+    blob goes to the server's cache and the server runs the prepare,
+    the dispatch (on ``backend``) and the finish; ``store`` and
+    ``memo`` are unused and ``timings`` gets ``remote_s``."""
+    if backend == "cuda" and remote is None:
         resolve_device(backend)          # fail before the host work
     t = {} if timings is None else timings
     t0 = time.perf_counter()
@@ -201,11 +206,19 @@ def scan_sbom(path: str, store, backend: str = "cuda", *,
                           security_checks=["vuln"],
                           list_all_packages=list_all_packages,
                           backend=backend)
-    results, os_found = _scan(LocalScanner(cache, store, memo=memo), ref,
-                              options, t, stats)
+    results, os_found = _scan(remote or LocalScanner(cache, store,
+                                                     memo=memo),
+                              ref, options, t, stats)
     return Report(artifact_name=path, artifact_type=ref.type,
                   metadata=Metadata(os=os_found), results=results,
                   cyclonedx=ref.cyclonedx)
+
+
+def _local_card(backend: str, security_checks, remote) -> bool:
+    """Does this scan run device work here on ``cuda``: the dispatch,
+    unless a server runs it, and the secret sieve?"""
+    return backend == "cuda" and (remote is None or
+                                  "secret" in security_checks)
 
 
 def secret_scanner(secret_config: str = "trivy-secret.yaml",
@@ -284,8 +297,8 @@ def scan_fs(root: str, store=None, backend: str = "cuda", *,
             list_all_packages: bool = False,
             secret_config: str = "trivy-secret.yaml",
             skip_dirs=(), skip_files=(), file_patterns=None,
-            scanner=None, cache=None, memo=None, timings: dict = None,
-            stats: dict = None) -> Report:
+            scanner=None, cache=None, memo=None, remote=None,
+            timings: dict = None, stats: dict = None) -> Report:
     """Scan the directory tree under ``root`` and return the
     unfiltered report (ref cli.py ``run_fs``): ``LocalFSArtifact``
     inspect (walk, analyzers, one batched secret sieve) →
@@ -303,12 +316,14 @@ def scan_fs(root: str, store=None, backend: str = "cuda", *,
     and ``finish_s``; ``stats`` receives ``dispatch_jobs``' counters,
     ``hits`` and the secret scanner's ``secret`` stats. The ``config``
     check evaluates the misconfiguration policies that
-    ``misconf.configure`` installed. Raises before any host work when
-    ``cuda`` has no card, ``scanner`` runs on another backend, or the
-    Rekor lookup (still to be ported) is asked for."""
-    if backend == "cuda":
+    ``misconf.configure`` installed. ``remote`` (an
+    ``rpc.RemoteScanner``, with ``cache`` its ``RemoteCache``) runs
+    the detection on a server, as ``scan_sbom`` takes it; the walk
+    and the secret sieve stay here. Raises before any host work when
+    the sieve or the dispatch would run on ``cuda`` and there is no
+    card, or ``scanner`` runs on another backend."""
+    if _local_card(backend, security_checks, remote):
         resolve_device(backend)          # fail before the host work
-    check_rekor()
     t = {} if timings is None else timings
     option = _artifact_option(backend, security_checks, secret_config,
                               scanner, skip_dirs, skip_files,
@@ -322,8 +337,9 @@ def scan_fs(root: str, store=None, backend: str = "cuda", *,
                           security_checks=list(security_checks),
                           list_all_packages=list_all_packages,
                           backend=backend)
-    results, os_found = _scan(LocalScanner(cache, store, memo=memo), ref,
-                              options, t, stats)
+    results, os_found = _scan(remote or LocalScanner(cache, store,
+                                                     memo=memo),
+                              ref, options, t, stats)
     return Report(artifact_name=root, artifact_type="filesystem",
                   metadata=Metadata(os=os_found), results=results)
 
@@ -341,8 +357,9 @@ def scan_image(path: str, store=None, backend: str = "cuda", *,
                secret_config: str = "trivy-secret.yaml",
                skip_dirs=(), skip_files=(), file_patterns=None,
                scanner=None, ingest_guards: bool = True,
-               ingest_limits=None, cache=None, memo=None, name: str = "",
-               timings: dict = None, stats: dict = None) -> Report:
+               ingest_limits=None, cache=None, memo=None, remote=None,
+               name: str = "", timings: dict = None,
+               stats: dict = None) -> Report:
     """Scan the container image at ``path`` (a docker-save tar, an OCI
     layout tar or an OCI layout directory) and return the unfiltered
     report (ref cli.py ``run_image``): ``load_image`` under a
@@ -362,12 +379,12 @@ def scan_image(path: str, store=None, backend: str = "cuda", *,
     ``secret`` stats and the ``missing`` layer count. Raises
     ``ImageLoadError`` when the image cannot be loaded, and a
     ``GuardError`` (a ``ValueError``) when a layer trips a guard.
-    Raises before any host work when ``cuda`` has no card,
-    ``scanner`` runs on another backend, or the Rekor lookup (still to
-    be ported) is asked for."""
-    if backend == "cuda":
+    ``remote`` runs the detection on a server, as ``scan_fs`` takes
+    it. Raises before any host work when the sieve or the dispatch
+    would run on ``cuda`` and there is no card, or ``scanner`` runs on
+    another backend."""
+    if _local_card(backend, security_checks, remote):
         resolve_device(backend)          # fail before the host work
-    check_rekor()
     t = {} if timings is None else timings
     option = _artifact_option(backend, security_checks, secret_config,
                               scanner, skip_dirs, skip_files,
@@ -395,8 +412,9 @@ def scan_image(path: str, store=None, backend: str = "cuda", *,
                           list_all_packages=list_all_packages,
                           scan_removed_packages=scan_removed_packages,
                           backend=backend)
-    results, os_found = _scan(LocalScanner(cache, store, memo=memo), ref,
-                              options, t, stats)
+    results, os_found = _scan(remote or LocalScanner(cache, store,
+                                                     memo=memo),
+                              ref, options, t, stats)
     meta = ref.image_metadata
     report = Report(
         artifact_name=ref.name, artifact_type="container_image",
@@ -487,6 +505,7 @@ def _finish(args, report: Report) -> int:
                      severities=[str(s) for s in
                                  _severities(args.severity)],
                      app_version=__version__,
+                     output_template=args.template,
                      dependency_tree=args.dependency_tree)
     except (ValueError, OSError) as e:
         print(f"error: {e}", file=sys.stderr)
@@ -499,15 +518,16 @@ def _finish(args, report: Report) -> int:
     return 0
 
 
-def _refuse_early(args) -> bool:
+def _refuse_early(args, checks=("vuln",)) -> bool:
     """Refuse what cannot run before the DB load and the scan: an
-    unported format, and ``cuda`` without a card (which raises)."""
+    unknown format, and ``cuda`` without a card (which raises) where
+    this process would use the card (``_local_card``)."""
     try:
         check_format(args.format)
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return True
-    if args.backend == "cuda":
+    if _local_card(args.backend, checks, args.server or None):
         resolve_device(args.backend)
     return False
 
@@ -538,12 +558,43 @@ def _memo(args, cache, option=None, scheduled: bool = False):
                               backend=args.backend)
 
 
+def _rpc_error():
+    from .rpc.client import RPCError
+    return RPCError
+
+
+def _rpc_options(args) -> dict:
+    """The client options of ``--token``, ``--token-header`` and
+    ``--custom-headers k=v,k=v``."""
+    headers = {}
+    for pair in (args.custom_headers or "").split(","):
+        if "=" in pair:
+            k, _, v = pair.partition("=")
+            headers[k.strip()] = v.strip()
+    return dict(token=args.auth_token, token_header=args.token_header,
+                custom_headers=headers)
+
+
+def _remote_scanner(args):
+    """The ``RemoteScanner`` of ``--server`` (the reference's
+    ``_scanner``), or None for a local scan."""
+    if not args.server:
+        return None
+    from .rpc.client import RemoteScanner
+    return RemoteScanner(args.server, **_rpc_options(args))
+
+
 def _sources(args, checks, option=None, scheduled: bool = False):
     """``(cache, memo, store)`` of a scan from the flags — the store
     only with the ``vuln`` check (ref cli.py:1895-1898) — or None after
     an ``error:`` line (a memo URI still to be ported, an installed DB
     that cannot be used). ``scheduled``: a run of several targets
-    through the scheduler (``_memo``)."""
+    through the scheduler (``_memo``). With ``--server`` it is
+    ``(RemoteCache, None, None)``: blobs go to the server's cache and
+    the server owns the DB and the memo (ref cli.py ``_cache``)."""
+    if args.server:
+        from .rpc.client import RemoteCache
+        return RemoteCache(args.server, **_rpc_options(args)), None, None
     cache = make_cache(args.cache_dir, args.no_cache)
     try:
         memo = _memo(args, cache, option, scheduled)
@@ -600,8 +651,9 @@ def _run_sbom(args) -> int:
         report = scan_sbom(args.target, store, args.backend,
                            vuln_type=_split(args.vuln_type),
                            list_all_packages=_list_all(args),
-                           cache=cache, memo=memo)
-    except ValueError as e:
+                           cache=cache, memo=memo,
+                           remote=_remote_scanner(args))
+    except (ValueError, _rpc_error()) as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
     return _finish(args, report)
@@ -614,9 +666,9 @@ def _run_fs(args) -> int:
         print(f"error: no such directory: {args.target}",
               file=sys.stderr)
         return 1
-    if _refuse_early(args):
-        return 1
     checks = _split(args.security_checks)
+    if _refuse_early(args, checks):
+        return 1
     if not _configure_misconf(args, checks):
         return 1
     try:
@@ -631,14 +683,20 @@ def _run_fs(args) -> int:
     if sources is None:
         return 1
     cache, memo, store = sources
-    report = scan_fs(args.target, store, args.backend,
-                     security_checks=checks,
-                     vuln_type=_split(args.vuln_type),
-                     list_all_packages=_list_all(args),
-                     secret_config=args.secret_config,
-                     skip_dirs=opt.skip_dirs, skip_files=opt.skip_files,
-                     file_patterns=patterns,
-                     scanner=opt.secret_scanner, cache=cache, memo=memo)
+    try:
+        report = scan_fs(args.target, store, args.backend,
+                         security_checks=checks,
+                         vuln_type=_split(args.vuln_type),
+                         list_all_packages=_list_all(args),
+                         secret_config=args.secret_config,
+                         skip_dirs=opt.skip_dirs,
+                         skip_files=opt.skip_files,
+                         file_patterns=patterns,
+                         scanner=opt.secret_scanner, cache=cache,
+                         memo=memo, remote=_remote_scanner(args))
+    except _rpc_error() as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
     return _finish(args, report)
 
 
@@ -668,10 +726,8 @@ def _refused(args) -> str:
         return (f"{args.target[0]!r} is not an existing path: daemon, "
                 "containerd and registry resolution are not ported yet "
                 "(ROADMAP A.9)")
-    for flag, value in (("--server", args.server),
-                        ("--fault-spec", args.fault_spec)):
-        if value:
-            return f"{flag} is not ported yet (ROADMAP A.9)"
+    if args.fault_spec:
+        return "--fault-spec is not ported yet (ROADMAP A.9)"
     if args.cache_backend != "fs":
         return (f"--cache-backend {args.cache_backend!r} is not ported "
                 "yet (ROADMAP A.9); only 'fs' is")
@@ -696,9 +752,9 @@ def _run_image(args) -> int:
         print("error: image target or --input required",
               file=sys.stderr)
         return 2
-    if _refuse_early(args):
-        return 1
     checks = _split(args.security_checks)
+    if _refuse_early(args, checks):
+        return 1
     if not _configure_misconf(args, checks):
         return 1
     try:
@@ -726,10 +782,11 @@ def _run_image(args) -> int:
             file_patterns=patterns, scanner=opt.secret_scanner,
             ingest_guards=opt.ingest_guards,
             ingest_limits=opt.ingest_limits, cache=cache, memo=memo,
-            name=target or path)
-    except ValueError as e:
+            remote=_remote_scanner(args), name=target or path)
+    except (ValueError, _rpc_error()) as e:
         # a load failure, or a guard trip while walking the layers
-        # (ref cli.py ``main``: the typed trips are ValueErrors)
+        # (ref cli.py ``main``: the typed trips are ValueErrors), or
+        # the server's answer
         print(f"error: {e}", file=sys.stderr)
         return 1
     for c in report.failure_causes:
@@ -792,19 +849,22 @@ def _run_image_batch(args) -> int:
     one ``BatchScanRunner.scan_paths`` over every target, through the
     scheduler (``--sched on``, the default) or the direct path, then
     ``_finish_many``."""
+    if args.server:
+        print("error: multi-image batch scan is local-only; scan "
+              "one target at a time against --server",
+              file=sys.stderr)
+        return 2
     if args.format not in ("table", "json", "template"):
         # per-slot writers would concatenate complete documents into
-        # one stream — invalid SBOM output; refuse up front (the
-        # template writer is refused below, ROADMAP A.9)
+        # one stream — invalid SARIF or SBOM output; refuse up front
         print(f"error: multi-image scans support table/json/"
               f"template output, not {args.format}", file=sys.stderr)
         return 2
-    if _refuse_early(args):
-        return 1
     checks = _split(args.security_checks)
+    if _refuse_early(args, checks):
+        return 1
     if not _configure_misconf(args, checks):
         return 1
-    check_rekor()
     try:
         patterns = _file_patterns(args.file_patterns)
     except ValueError as e:
@@ -936,6 +996,7 @@ def _finish_many(args, results) -> int:
                 write_report(report, fmt=args.format, output=out,
                              severities=[str(s) for s in severities],
                              app_version=__version__,
+                             output_template=args.template,
                              dependency_tree=args.dependency_tree)
             if args.exit_code and \
                     any(r.failed() for r in report.results):
@@ -972,7 +1033,10 @@ def _global_flags(sp) -> None:
 def _scan_flags(sp) -> None:
     """The reference's ``scan_flags`` that the port reads."""
     sp.add_argument("--format", "-f", default="table",
-                    choices=_FORMAT_CHOICES)
+                    choices=FORMATS)
+    sp.add_argument("--template", "-t", default="",
+                    help="output template ('@path' or inline), used "
+                    "with --format template")
     sp.add_argument("--output", "-o", default="")
     sp.add_argument("--severity", "-s", default=DEFAULT_SEVERITIES)
     sp.add_argument("--vuln-type", default="os,library")
@@ -1053,8 +1117,16 @@ def _scan_flags(sp) -> None:
                     "--backend cuda, CPU activity otherwise) and the "
                     "host profiler's collapsed stacks "
                     "(host_profile.folded) for flamegraphs")
+    sp.add_argument("--server", default="",
+                    help="server URL for client/server mode (detection "
+                    "runs on the server; no local DB)")
+    sp.add_argument("--token", dest="auth_token", default="",
+                    help="server auth token")
+    sp.add_argument("--token-header", default="Trivy-Token")
+    sp.add_argument("--custom-headers", default="",
+                    help="comma-separated k=v headers sent to the "
+                    "server")
     # refused by name (ROADMAP A.9)
-    sp.add_argument("--server", default="", help=argparse.SUPPRESS)
     sp.add_argument("--fault-spec", default="", help=argparse.SUPPRESS)
     sp.add_argument("--cache-backend", default="fs",
                     help=argparse.SUPPRESS)
@@ -1073,9 +1145,10 @@ def _tree_flags(sp) -> None:
     sp.add_argument("--secret-config", default="trivy-secret.yaml")
 
 
-def _image_flags(sp) -> None:
+def _image_flags(sp, target_nargs: str = "*") -> None:
     """``image``'s own flags (ref cli.py ``build_parser``)."""
-    sp.add_argument("target", nargs="*", default=[])
+    sp.add_argument("target", nargs=target_nargs,
+                    default=[] if target_nargs == "*" else "")
     sp.add_argument("--input", default="",
                     help="image tarball path (docker save / OCI)")
     sp.add_argument("--removed-pkgs", action="store_true",
@@ -1143,6 +1216,112 @@ def _image_flags(sp) -> None:
                     "(TRIVY_TPU_PROCESS_ID)")
 
 
+def _server_flags(srv) -> None:
+    """``server``'s flags (ref cli.py ``build_parser``), with the
+    port's ``--backend``. The flags of later ROADMAP items are parsed
+    and refused by name (``_server_refused``)."""
+    srv.add_argument("--listen", default="127.0.0.1:4954")
+    srv.add_argument("--token", dest="auth_token", default="")
+    srv.add_argument("--token-header", default="Trivy-Token")
+    srv.add_argument("--cache-dir", default="",
+                     help="keep pushed blobs and the findings memo on "
+                     "disk under DIR (default: in memory)")
+    srv.add_argument("--db-fixtures", default="")
+    srv.add_argument("--compiled-db", default="",
+                     help="compiled advisory DB path prefix; the "
+                     "server hot-swaps when the file changes")
+    srv.add_argument("--db-watch-interval", type=float, default=60.0)
+    srv.add_argument("--no-memo", action="store_true",
+                     help="disable the findings memo")
+    srv.add_argument("--memo-cache", default="",
+                     help="findings-memo backend override: 'memory' or "
+                     "a directory (default: under --cache-dir, else "
+                     "in memory)")
+    srv.add_argument("--backend", default="cuda", choices=BACKENDS,
+                     help="where the scheduler's dispatch and the boot "
+                     "warm-up run: cuda (default), cpu or cpu-ref; a "
+                     "request runs on its body's backend")
+    srv.add_argument("--sched", default="on", choices=["on", "off"],
+                     help="coalesce concurrent Scan RPCs through the "
+                     "continuous-batching scheduler; metrics at GET "
+                     "/metrics")
+    srv.add_argument("--sched-flush-ms", type=float, default=50.0)
+    srv.add_argument("--sched-queue", type=int, default=256)
+    srv.add_argument("--sched-workers", type=int, default=4)
+    srv.add_argument("--dispatch-depth", type=int, default=0,
+                     help="device slots in flight; 0 = "
+                     "TRIVY_TPU_DISPATCH_DEPTH or 2")
+    srv.add_argument("--coordinator", default="")
+    srv.add_argument("--num-processes", type=int, default=0)
+    srv.add_argument("--process-id", type=int, default=-1)
+    srv.add_argument("--tenant-config", default="",
+                     help="multi-tenant QoS table (as image's)")
+    srv.add_argument("--tenant-budget", default="",
+                     help="per-tenant device-second budgets (as "
+                     "image's)")
+    srv.add_argument("--sched-deadline", default="",
+                     help="default per-request deadline (Go duration, "
+                     "e.g. 30s; a request's body deadline_s overrides "
+                     "it)")
+    srv.add_argument("--drain-timeout", type=float, default=30.0,
+                     help="SIGTERM graceful-drain bound in seconds "
+                     "(in-flight scans finish, new work gets 503)")
+    srv.add_argument("--trace-out", default="",
+                     help="export every completed request trace as "
+                     "Perfetto-loadable JSON into this directory "
+                     "(traces are also served at GET /trace/<id>)")
+    srv.add_argument("--slo-config", default="",
+                     help="service-level objectives (burn-rate "
+                     "verdicts at GET /slo)")
+    srv.add_argument("--replica-name", default="",
+                     help="this replica's name (default: the --listen "
+                     "address)")
+    srv.add_argument("--compile-cache", default="",
+                     help="build (or load) both kernels into DIR/kernels "
+                     "and warm-launch them at boot, before the server "
+                     "listens; a later boot on DIR builds nothing")
+    srv.add_argument("--profile-out", default="",
+                     help="torch.profiler trace of the server's first "
+                     "TRIVY_TPU_PROFILE_SECONDS (default 60) plus the "
+                     "host profiler's collapsed stacks; the host "
+                     "profiler is also served at GET "
+                     "/debug/profile?seconds=N")
+    # refused by name (ROADMAP A.9g, h, i): None unless given
+    srv.add_argument("--impact-index", action="store_true", default=None,
+                     help=argparse.SUPPRESS)
+    for flag in ("--prewarm-members", "--federate-peers", "--fault-spec",
+                 "--images-dir", "--admission-policy",
+                 "--admission-fail"):
+        srv.add_argument(flag, default=None, help=argparse.SUPPRESS)
+    for flag in ("--admission-deadline", "--federate-timeout",
+                 "--federate-stale-after", "--prewarm-deadline"):
+        srv.add_argument(flag, type=float, default=None,
+                         help=argparse.SUPPRESS)
+    # the global flags but --timeout (a server runs until stopped)
+    srv.add_argument("--config", "-c", default="",
+                     help="config file (default: trivy.yaml)")
+    srv.add_argument("--quiet", "-q", action="store_true")
+    srv.add_argument("--debug", "-d", action="store_true")
+    srv.add_argument("--log-format", default="text",
+                     choices=["text", "json"])
+
+
+# server flags of later ROADMAP items, each refused by name
+_SERVER_REFUSED = (
+    ("--impact-index", "impact_index", "A.9g"),
+    ("--prewarm-members", "prewarm_members", "A.9g/h"),
+    ("--federate-peers", "federate_peers", "A.9i"),
+    ("--fault-spec", "fault_spec", "A.9h"),
+    ("--admission-policy", "admission_policy", "A.9g"),
+    ("--admission-fail", "admission_fail", "A.9g"),
+    ("--admission-deadline", "admission_deadline", "A.9g"),
+    ("--images-dir", "images_dir", "A.9g"),
+    ("--prewarm-deadline", "prewarm_deadline", "A.9g/h"),
+    ("--federate-timeout", "federate_timeout", "A.9i"),
+    ("--federate-stale-after", "federate_stale_after", "A.9i"),
+)
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m trivy_tpu_torch")
     ap.add_argument("--version", action="version",
@@ -1159,6 +1338,15 @@ def build_parser() -> argparse.ArgumentParser:
     _image_flags(img)
     _scan_flags(img)
     _tree_flags(img)
+    cl = sub.add_parser("client", aliases=["c"],
+                        help="DEPRECATED: image scan in client/server "
+                        "mode (use 'image --server' instead)")
+    cl.add_argument("--remote", default="http://localhost:4954",
+                    help="server address (the deprecated spelling of "
+                    "--server)")
+    _image_flags(cl, target_nargs="?")
+    _scan_flags(cl)
+    _tree_flags(cl)
     for name, aliases, what in (
             ("fs", ["filesystem"], "a directory tree"),
             ("rootfs", [], "an unpacked root filesystem")):
@@ -1204,6 +1392,9 @@ def build_parser() -> argparse.ArgumentParser:
     upd.add_argument("--compile", action="store_true",
                      help="also compile the installed DB into "
                      "resident tables at <cache>/db/compiled")
+    _server_flags(sub.add_parser(
+        "server", help="run in server mode (owns the blob cache, the "
+        "advisory DB and the card's dispatch)"))
     return ap
 
 
@@ -1231,9 +1422,10 @@ def main(argv=None) -> int:
             print(f"error: {e}", file=sys.stderr)
             return 2
     from .obs.profiler import DeviceTraceError
-    # --profile-out supersedes --profile-dir; one trace, never two
-    profile_dir = getattr(args, "profile_out", "") or \
-        getattr(args, "profile_dir", "")
+    # --profile-out supersedes --profile-dir; one trace, never two.
+    # The server steps its own bounded window (run_server).
+    profile_dir = "" if args.command == "server" else \
+        getattr(args, "profile_out", "") or getattr(args, "profile_dir", "")
     try:
         with scan_deadline(timeout_s), \
                 _profiled(profile_dir, getattr(args, "backend", "cpu")):
@@ -1250,8 +1442,18 @@ def main(argv=None) -> int:
 def _dispatch(args) -> int:
     if args.command == "db":
         return _run_db(args)
+    if args.command == "server":
+        return run_server(args)
     if args.generate_default_config:
         return _generate_default_config(args)
+    if args.command in ("client", "c"):
+        # deprecated alias for `image --server` (ref app.go:441-447:
+        # --remote replaces --server; an explicit --server wins)
+        print("WARN: 'client' is deprecated; use 'image --server' "
+              "instead", file=sys.stderr)
+        args.server = args.server or args.remote
+        args.target = [args.target] if args.target else []
+        return _run_image(args)
     if args.command == "image":
         return _run_image(args)
     if args.command == "sbom":
@@ -1262,6 +1464,140 @@ def _dispatch(args) -> int:
         args.security_checks = "config"
         args.vuln_type = ""
     return _run_fs(args)
+
+
+def _server_refused(args) -> str:
+    """The server flags still to be ported, by ROADMAP item."""
+    for flag, dest, item in _SERVER_REFUSED:
+        value = getattr(args, dest, None)
+        if value not in (None, "") and value is not False:
+            return f"{flag} is not ported yet (ROADMAP {item})"
+    return ""
+
+
+def run_server(args) -> int:
+    """``server`` (ref cli.py ``run_server``): the blob cache, the
+    advisory store behind a ``SwappableStore`` (hot-swapped when the
+    ``--compiled-db`` file changes), the findings memo and the
+    scheduler on ``--backend``, served over HTTP until SIGTERM, which
+    drains (``rpc/server.py::serve_forever``). A flag of a later item
+    is refused before any work; ``cuda`` without a card, and a kernel
+    that does not build at ``--compile-cache``, fail the boot."""
+    from .rpc.server import ScanServer, serve_forever
+    refused = _server_refused(args)
+    if refused:
+        print(f"error: {refused}", file=sys.stderr)
+        return 1
+    host, _, port = args.listen.rpartition(":")
+    if not port.isdigit():
+        print(f"error: --listen needs host:port, got {args.listen!r}",
+              file=sys.stderr)
+        return 2
+    if args.backend == "cuda":
+        resolve_device(args.backend)     # no card: fail the boot
+    t0 = time.perf_counter()
+    try:
+        store = load_store(args.db_fixtures, args.compiled_db)
+    except (OSError, ValueError) as e:
+        # a missing compiled DB is fine — the watch worker swaps it
+        # in when `db build` produces it
+        if not args.compiled_db:
+            print(f"error: {e}", file=sys.stderr)
+            return 1
+        print(f"advisory db not loadable yet ({e}); waiting for "
+              f"{args.compiled_db}.npz", file=sys.stderr)
+        store = AdvisoryStore()
+    db_load_s = time.perf_counter() - t0
+    _trace_out(args)
+    slos = None
+    if args.slo_config:
+        from .obs.slo import parse_slo_config
+        try:
+            slos = parse_slo_config(args.slo_config)
+        except ValueError as e:
+            print(f"error: --slo-config: {e}", file=sys.stderr)
+            return 2
+    rc = _init_multihost(args)
+    if rc:
+        return rc
+    scheduler = None
+    if args.sched == "on":
+        try:
+            cfg = _sched_config(args)
+        except ValueError as e:
+            print(f"error: --tenant-config/--tenant-budget: {e}",
+                  file=sys.stderr)
+            return 2
+        if args.sched_deadline:
+            from .flag import parse_duration
+            try:
+                cfg.default_deadline_s = parse_duration(
+                    args.sched_deadline)
+            except ValueError as e:
+                print(f"error: --sched-deadline: {e}", file=sys.stderr)
+                return 2
+        if slos is not None:
+            cfg.slos = slos
+        from .sched import ScanScheduler
+        scheduler = ScanScheduler(config=cfg, backend=args.backend)
+    cache = make_cache(args.cache_dir)
+    try:
+        memo = None if args.no_memo else _server_memo(args, cache)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        if scheduler is not None:
+            scheduler.close()
+        return 1
+    from .obs.profiler import DeviceTraceError, device_trace
+    window = float(os.environ.get("TRIVY_TPU_PROFILE_SECONDS", "60"))
+    try:
+        with device_trace(args.profile_out, backend=args.backend,
+                          max_seconds=window) as trace:
+            t0 = time.perf_counter()
+            server = ScanServer(
+                store=store, cache=cache, token=args.auth_token,
+                token_header=args.token_header,
+                sched=scheduler if scheduler is not None else "off",
+                slos=None if scheduler is not None else slos,
+                memo=memo, replica_name=args.replica_name or args.listen,
+                compile_cache_dir=args.compile_cache,
+                backend=args.backend)
+            if server.compile_cache:
+                # the boot's split, one JSON line (the DB load, the
+                # kernels' build and load, the warm launches, manifest
+                # hits and misses)
+                print("boot split: " + json.dumps(
+                    dict(server.compile_cache,
+                         db_load_s=round(db_load_s, 4),
+                         boot_s=round(time.perf_counter() - t0, 4))),
+                      file=sys.stderr, flush=True)
+            print(f"trivy-tpu server listening on {args.listen}",
+                  flush=True)
+            try:
+                serve_forever(host or "127.0.0.1", int(port), server,
+                              db_watch_prefix=args.compiled_db,
+                              db_watch_interval_s=args.db_watch_interval,
+                              drain_timeout_s=args.drain_timeout,
+                              on_tick=trace.step)
+            finally:
+                if scheduler is not None:
+                    scheduler.close()
+    except DeviceTraceError as e:
+        print(f"error: --profile-out: {e}", file=sys.stderr)
+        return 1
+    return 0
+
+
+def _server_memo(args, cache):
+    """The server's findings memo: on the blob cache's tier
+    (``--cache-dir``), where ``--memo-cache`` says, else in memory —
+    every request of a server can read what an earlier one recorded
+    (ref cli.py ``_memo``)."""
+    from .memo import make_findings_memo
+    return make_findings_memo(cache=cache, cache_dir=args.cache_dir,
+                              uri=args.memo_cache or (
+                                  "" if args.cache_dir else "memory"),
+                              backend=args.backend)
 
 
 def _generate_default_config(args) -> int:

@@ -65,6 +65,9 @@ class DetectMetrics:
         ic = out["interval_cache_hits"] + out["interval_cache_misses"]
         out["interval_cache_hit_rate"] = round(
             out["interval_cache_hits"] / ic, 4) if ic else 0.0
+        pc = out["purl_cache_hits"] + out["purl_cache_misses"]
+        out["purl_cache_hit_rate"] = round(
+            out["purl_cache_hits"] / pc, 4) if pc else 0.0
         out["upload_amortization"] = round(
             out["resident_dispatches"] / out["db_uploads"], 2) \
             if out["db_uploads"] else 0.0

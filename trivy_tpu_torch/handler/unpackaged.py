@@ -3,31 +3,23 @@
 
 Executables that no package manager owns get their sha256 looked up
 in the Rekor transparency log; a CycloneDX SBOM attestation found
-there merges into the blob. The binary analyzers record digests as
-``executable-digest`` custom resources; this handler consumes them.
-
-The Rekor lookup itself is still to be ported (ROADMAP A.9, with
-``rekor.py``): the handler strips the digest resources as the
-reference does, and raises when ``TRIVY_REKOR_URL`` asks for a
-lookup instead of silently skipping it (``check_rekor``, which
-``scan_fs`` also calls before the walk).
+there merges into the blob, so a bare Go/Rust binary dropped into an
+image still reports its dependency packages. The binary analyzers
+record digests as ``executable-digest`` custom resources; this
+handler consumes them, queries Rekor (when ``TRIVY_REKOR_URL`` or the
+artifact option configures it — zero-egress default is off), and
+folds discovered applications in.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 
 from ..types.artifact import DIGEST_RESOURCE_TYPE as DIGEST_RESOURCE
 from .handler import PostHandler, register_post_handler
 
-
-def check_rekor() -> None:
-    """Raise when ``TRIVY_REKOR_URL`` asks for the unported lookup."""
-    if os.environ.get("TRIVY_REKOR_URL", ""):
-        raise NotImplementedError(
-            "the Rekor lookup of unpackaged executables "
-            "(TRIVY_REKOR_URL) is not ported yet (ROADMAP A.9: "
-            "rekor.py)")
+log = logging.getLogger("trivy_tpu_torch.handler.unpackaged")
 
 
 @register_post_handler
@@ -36,9 +28,48 @@ class UnpackagedHandler(PostHandler):
     version = 1
     priority = 50        # after the system-file filter
 
+    def __init__(self):
+        self._client = None
+        self._client_url = ""
+
+    def _rekor(self):
+        url = os.environ.get("TRIVY_REKOR_URL", "")
+        if not url:
+            return None
+        if self._client is None or self._client_url != url:
+            from ..rekor import Client
+            self._client = Client(url)
+            self._client_url = url
+        return self._client
+
     def handle(self, blob) -> None:
+        digests = [(cr.file_path, cr.data.get("digest", ""))
+                   for cr in blob.custom_resources
+                   if cr.type == DIGEST_RESOURCE
+                   and isinstance(cr.data, dict)]
         # digests are handler plumbing, never report output
         blob.custom_resources = [
             cr for cr in blob.custom_resources
             if cr.type != DIGEST_RESOURCE]
-        check_rekor()
+        if not digests:
+            return
+        client = self._rekor()
+        if client is None:
+            return
+        from ..rekor import RekorError, discover_sbom
+        system = {f.lstrip("/") for f in blob.system_files}
+        for path, digest in digests:
+            if not digest or path.lstrip("/") in system:
+                continue
+            try:
+                decoded = discover_sbom(client, digest)
+            except RekorError as e:
+                log.debug("rekor lookup failed for %s: %s", path, e)
+                continue
+            if decoded is None:
+                continue
+            log.info("rekor SBOM attestation found for %s", path)
+            for app in decoded.applications:
+                app.file_path = app.file_path or path
+                blob.applications.append(app)
+            blob.package_infos.extend(decoded.packages)

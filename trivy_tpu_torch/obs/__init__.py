@@ -7,9 +7,11 @@ SLO burn-rate engine and the per-tenant cost ledger.
 Zero-dependency by design: spans, the ring, the timeline math, the
 profiler, the SLO windows and the ledger are stdlib-only; the busy
 spans' CUDA event stamps (``busy.py``) and the device trace import
-torch when they run. The Prometheus exposition (``prom.py``), fleet
-federation (``federate.py``) and trace propagation (``propagate.py``)
-are ROADMAP A.9e and A.9i.
+torch when they run. ``prom.py`` renders the scan server's
+``/metrics`` as Prometheus text, ``procstats.py`` reads the process's
+own RSS, fds and threads, and ``propagate.py`` carries a trace context
+across the RPC seam; fleet federation (``federate.py``) and the
+clock-offset half of ``propagate.py`` are ROADMAP A.9i.
 """
 
 from .cost import (COST_LEDGER, CostLedger, TenantBudget, balance,

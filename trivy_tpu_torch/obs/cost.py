@@ -30,10 +30,11 @@ deprioritized (its requests drop to the budget's priority floor
 inside its own WFQ lane) — the grammar mirrors ``--tenant-config``
 (:func:`parse_budget_config`).
 
-The federation half of the reference (``export_state``,
-``merge_cost_exports``, ``fetch_costs``, ``federated_costs``: the
-``/costs`` rollup across replicas) comes with the serving plane,
-ROADMAP A.9.
+``export_state`` is the age-keyed export that the scan server's
+``GET /costs`` carries; the rest of the federation half of the
+reference (``merge_cost_exports``, ``fetch_costs``,
+``federated_costs``: the ``/costs`` rollup across replicas) comes
+with ROADMAP A.9i.
 """
 
 from __future__ import annotations
@@ -291,8 +292,8 @@ class CostLedger:
         per-tenant cumulative vectors plus the amortized compile bill
         — ``aot_compile_s`` (the process's total compile wall) split
         across tenants by device-second share, so warming costs land
-        on whoever used the warmth. The scheduler passes 0: the port
-        has no XLA compile (``ScanScheduler.cost_snapshot``)."""
+        on whoever used the warmth (in the port: the boot's kernel
+        build and warm launches, ``runtime/aot.py``)."""
         with self._lock:
             tenants = {t: dict(vec)
                        for t, vec in sorted(self._cum.items())}
@@ -315,6 +316,25 @@ class CostLedger:
                 "charges": charges,
                 "device_s": round(total_dev, 6),
                 "enabled": self.enabled}
+
+
+    def export_state(self) -> dict:
+        """Federation export: cumulative vectors plus AGE-keyed
+        windowed buckets (age 0 = the current 10 s bucket) — the
+        same monotonic-only coordinate as
+        :meth:`obs.slo.SloEngine.export_state`, so a federating
+        front can merge replicas without any shared epoch."""
+        now_bucket = int(self._clock() / _BUCKET_S)
+        with self._lock:
+            cum = {t: dict(vec) for t, vec in self._cum.items()}
+            buckets = {}
+            for b, table in self._ring.items():
+                age = now_bucket - b
+                if 0 <= age < _RING_CAP:
+                    buckets[str(age)] = {
+                        t: dict(vec) for t, vec in table.items()}
+        return {"schema": 1, "bucket_s": _BUCKET_S,
+                "cum": cum, "buckets": buckets}
 
 
 def balance(attributed_s: float, measured_s: float,

@@ -9,7 +9,7 @@ directly. Samples land in per-second ring buckets, so
 ``GET /debug/profile?seconds=N`` (token-protected, mirroring
 ``/trace/<id>``) answers "what was the host doing for the last N
 seconds" from a process that never had profiling "switched on" (the
-route that serves it is the reference's server, ROADMAP A.9e).
+scan server serves it, ``rpc/server.py``).
 
 Overhead is bounded three ways and *measured*: the sampler skips its
 own thread, distinct-stack cardinality folds into ``<overflow>``
@@ -226,12 +226,16 @@ class DeviceTraceError(RuntimeError):
 class _DeviceTraceCtx:
     """Context manager behind :func:`device_trace`: ``torch.profiler``
     around the body, its Chrome trace and the host folded stacks
-    written at the end."""
+    written at the end — or at the first :meth:`step` past
+    ``max_seconds``."""
 
-    def __init__(self, out_dir: str, backend: str = "cuda"):
+    def __init__(self, out_dir: str, backend: str = "cuda",
+                 max_seconds: float = 0.0):
         self.out_dir = out_dir
         self.backend = backend
+        self.max_seconds = max_seconds
         self._prof = None
+        self._t0 = 0.0
 
     def _activities(self) -> list:
         from torch.profiler import ProfilerActivity, supported_activities
@@ -255,15 +259,31 @@ class _DeviceTraceCtx:
         prof = profile(activities=self._activities())
         prof.__enter__()
         self._prof = prof
+        self._t0 = time.monotonic()
         get_profiler()
         return self
+
+    def step(self) -> bool:
+        """Close the capture and write its files once ``max_seconds``
+        have passed (a long-lived server's bounded window). Call it on
+        the thread that entered the context: a ``torch.profiler``
+        capture stopped off that thread crashes the process. True
+        while the capture is open."""
+        if self._prof is None:
+            return False
+        if self.max_seconds > 0 and \
+                time.monotonic() - self._t0 >= self.max_seconds:
+            self.__exit__(None, None, None)
+            return False
+        return True
 
     def __exit__(self, *exc):
         if self._prof is None:
             return
+        prof, self._prof = self._prof, None
         try:
-            self._prof.__exit__(*exc)
-            self._prof.export_chrome_trace(
+            prof.__exit__(*exc)
+            prof.export_chrome_trace(
                 os.path.join(self.out_dir, TRACE_FILE))
         finally:
             try:
@@ -273,12 +293,18 @@ class _DeviceTraceCtx:
                 pass
 
 
-def device_trace(out_dir: str, backend: str = "cuda") -> _DeviceTraceCtx:
+def device_trace(out_dir: str, backend: str = "cuda",
+                 max_seconds: float = 0.0) -> _DeviceTraceCtx:
     """``--profile-out DIR``: a ``torch.profiler`` trace of the body
     (``DIR/torch_trace.json``, Chrome trace-event JSON: Perfetto or
     chrome://tracing) + the host profiler's collapsed stacks
     (``DIR/host_profile.folded``). ``backend`` "cuda" records CPU and
     CUDA activity and raises :class:`DeviceTraceError` when CUDA
     activity cannot be recorded; the CPU backends record CPU activity.
-    A falsy ``out_dir`` is a no-op."""
-    return _DeviceTraceCtx(out_dir, backend=backend)
+    ``max_seconds`` bounds the capture window (0 = until the context
+    exits): the body calls the context's ``step()`` on the entering
+    thread, where the window closes — the reference's timer thread
+    would stop a ``torch.profiler`` capture off its thread, which
+    crashes the process. A falsy ``out_dir`` is a no-op."""
+    return _DeviceTraceCtx(out_dir, backend=backend,
+                           max_seconds=max_seconds)

@@ -1,0 +1,823 @@
+"""Prometheus text exposition for ``GET /metrics``
+(reference: ``trivy_tpu/obs/prom.py``; docs/observability.md).
+
+The JSON snapshot stays the default; a scrape that sends
+``Accept: text/plain`` gets the 0.0.4 text rendering instead, and
+one that negotiates ``application/openmetrics-text; version=1.0.0``
+gets the OpenMetrics variant — same sample lines, plus per-bucket
+**trace-id exemplars** on the latency histograms and the mandatory
+``# EOF`` terminator. Exemplars ride ONLY the openmetrics content
+type: the plain 0.0.4 output stays byte-stable (Prometheus < 2.26
+and every text-format consumer in the wild chokes on the ``#``
+exemplar suffix). The input is the same nested dict
+``ScanServer.metrics()`` serves as JSON — rendering is tolerant of
+missing sections (a scheduler-off server still exposes
+guard/admission/idempotency metrics).
+
+Histograms use the raw bucket counts (``LatencyHistogram.raw``:
+``{"bounds", "counts", "sum", "count", "exemplars"}``), exposed
+cumulatively with the mandatory ``+Inf`` bucket, ``_sum`` and
+``_count`` series; ``exemplars`` maps bucket index to the most
+recent ``(trace_id, value, unix seconds)`` observed into it, so a
+slow-bucket scrape links straight to a representative trace at
+``/trace/<id>``.
+
+The families, names and bytes are the reference's, with one
+departure: ``trivy_tpu_build_info`` labels the torch and CUDA
+versions (``torch_version``, ``cuda_version``, as
+``sched/metrics.py::build_info`` reports them) where the reference
+labels ``jax_version``. The scan router's exposition
+(``render_router``) comes with the router (ROADMAP A.9h).
+"""
+
+from __future__ import annotations
+
+_PREFIX = "trivy_tpu"
+
+_BREAKER_STATES = ("closed", "open", "half-open")
+OPENMETRICS_CTYPE = ("application/openmetrics-text; "
+                     "version=1.0.0; charset=utf-8")
+
+
+def _fmt(v) -> str:
+    if isinstance(v, bool):
+        return "1" if v else "0"
+    if isinstance(v, float):
+        if v != v:
+            return "NaN"
+        if v == float("inf"):
+            return "+Inf"
+        if v == float("-inf"):
+            return "-Inf"
+        return repr(v)
+    return str(v)
+
+
+def _esc(v) -> str:
+    return (str(v).replace("\\", "\\\\").replace("\n", "\\n")
+            .replace('"', '\\"'))
+
+
+class _Writer:
+    def __init__(self):
+        self.lines: list = []
+
+    def header(self, name: str, mtype: str, help_: str) -> None:
+        self.lines.append(f"# HELP {name} {help_}")
+        self.lines.append(f"# TYPE {name} {mtype}")
+
+    def sample(self, name: str, labels, value,
+               suffix: str = "") -> None:
+        if value is None:
+            return
+        if labels:
+            lab = ",".join(f'{k}="{_esc(v)}"' for k, v in labels)
+            self.lines.append(
+                f"{name}{{{lab}}} {_fmt(value)}{suffix}")
+        else:
+            self.lines.append(f"{name} {_fmt(value)}{suffix}")
+
+    def scalar(self, name: str, mtype: str, help_: str,
+               value) -> None:
+        if value is None:
+            return
+        self.header(name, mtype, help_)
+        self.sample(name, None, value)
+
+
+def _exemplar_suffix(h: dict, idx: int) -> str:
+    """OpenMetrics exemplar for one bucket: `` # {trace_id="…"}
+    value timestamp`` — empty when the bucket never saw a traced
+    observation."""
+    ex = (h.get("exemplars") or {}).get(idx)
+    if not ex:
+        return ""
+    trace_id, value, ts = ex
+    return (f' # {{trace_id="{_esc(trace_id)}"}} '
+            f"{_fmt(float(value))} {_fmt(round(float(ts), 3))}")
+
+
+def _histograms(w: _Writer, name: str, label: str, hists: dict,
+                help_: str, openmetrics: bool = False) -> None:
+    if not hists:
+        return
+    full = f"{_PREFIX}_{name}_seconds"
+    w.header(full, "histogram", help_)
+    for key in sorted(hists):
+        h = hists[key]
+        bounds, counts = h["bounds"], h["counts"]
+        cum = 0
+        for i, (b, c) in enumerate(zip(bounds, counts)):
+            cum += c
+            w.sample(full + "_bucket",
+                     [(label, key), ("le", _fmt(float(b)))], cum,
+                     suffix=_exemplar_suffix(h, i)
+                     if openmetrics else "")
+        cum += counts[len(bounds)] if len(counts) > len(bounds) else 0
+        w.sample(full + "_bucket", [(label, key), ("le", "+Inf")],
+                 cum,
+                 suffix=_exemplar_suffix(h, len(bounds))
+                 if openmetrics else "")
+        w.sample(full + "_sum", [(label, key)], float(h["sum"]))
+        w.sample(full + "_count", [(label, key)], h["count"])
+
+
+def _process_gauges(w: _Writer, proc: dict) -> None:
+    """Process self-stat gauges (obs/procstats.py) — shared by the
+    replica and router renderers so the soak leak audit reads the
+    same family names off every process in the fleet. ``-1`` samples
+    (gauge unavailable on this platform) are skipped, not rendered:
+    absence is the documented "no data" signal."""
+    if not proc:
+        return
+    for key, name, help_ in (
+            ("rss_bytes", "rss_bytes",
+             "Resident set size of this process (VmRSS)."),
+            ("peak_rss_bytes", "peak_rss_bytes",
+             "High-water RSS across every self-stat sample this "
+             "process has taken (the soak leak gate's series)."),
+            ("open_fds", "open_fds",
+             "Open file descriptors of this process."),
+            ("threads", "threads",
+             "Live interpreter threads in this process.")):
+        v = proc.get(key)
+        if v is None or (isinstance(v, int) and v < 0):
+            continue
+        w.scalar(f"{_PREFIX}_process_{name}", "gauge", help_, v)
+
+
+def render_prometheus(stats: dict, phase_hists=None,
+                      trace_hists=None, tenant_hists=None,
+                      tracer_stats=None,
+                      recorder_stats=None,
+                      watch_hists=None,
+                      openmetrics: bool = False) -> str:
+    """Render the ``/metrics`` snapshot dict as Prometheus text.
+
+    ``openmetrics=True`` adds histogram-bucket exemplars and the
+    ``# EOF`` terminator (served under the openmetrics content
+    type); False keeps the 0.0.4 output byte-stable."""
+    w = _Writer()
+
+    binfo = stats.get("build_info") or {}
+    if binfo:
+        # info-style identity gauge (value always 1; the labels are
+        # the payload) — lets a fleet scrape tell replica versions
+        # apart during a rolling deploy
+        name = f"{_PREFIX}_build_info"
+        w.header(name, "gauge",
+                 "Build/version identity; value is always 1, the "
+                 "labels carry the information.")
+        w.sample(name, [("version", binfo.get("version", "")),
+                        ("torch_version",
+                         binfo.get("torch_version", "")),
+                        ("cuda_version",
+                         binfo.get("cuda_version", "")),
+                        ("backend", binfo.get("backend", "")),
+                        ("sched", binfo.get("sched", ""))], 1)
+
+    counters = stats.get("counters") or {}
+    if counters:
+        name = f"{_PREFIX}_sched_events_total"
+        w.header(name, "counter",
+                 "Scheduler request lifecycle events by kind.")
+        for k in sorted(counters):
+            w.sample(name, [("event", k)], counters[k])
+
+    w.scalar(f"{_PREFIX}_sched_queue_depth", "gauge",
+             "Admission queue depth.", stats.get("queue_depth"))
+    w.scalar(f"{_PREFIX}_sched_queue_depth_max", "gauge",
+             "High-water admission queue depth.",
+             stats.get("queue_depth_max"))
+    if "draining" in stats:
+        w.scalar(f"{_PREFIX}_draining", "gauge",
+                 "1 while the server refuses new work.",
+                 1 if stats.get("draining") else 0)
+
+    batch = stats.get("batch") or {}
+    if batch:
+        w.scalar(f"{_PREFIX}_sched_batches_total", "counter",
+                 "Coalesced device batches dispatched.",
+                 batch.get("count"))
+        w.scalar(f"{_PREFIX}_sched_batch_items_total", "counter",
+                 "Requests carried by dispatched batches.",
+                 batch.get("items_total"))
+        w.scalar(f"{_PREFIX}_sched_batch_candidate_bytes_total",
+                 "counter", "Candidate bytes across batches.",
+                 batch.get("candidate_bytes"))
+        w.scalar(f"{_PREFIX}_sched_batch_occupancy", "gauge",
+                 "Mean bucket occupancy (1 - padding waste).",
+                 batch.get("occupancy"))
+        w.scalar(f"{_PREFIX}_sched_batch_padding_waste", "gauge",
+                 "Mean padding waste across batches.",
+                 batch.get("padding_waste"))
+
+    for key, help_ in (("host_busy_s",
+                        "Cumulative host worker busy seconds."),
+                       ("device_busy_s",
+                        "Cumulative device busy seconds."),
+                       ("overlap_s",
+                        "Seconds host and device were busy "
+                        "simultaneously.")):
+        w.scalar(f"{_PREFIX}_sched_{key[:-2]}_seconds_total",
+                 "counter", help_, stats.get(key))
+    w.scalar(f"{_PREFIX}_sched_overlap_ratio", "gauge",
+             "overlap_s / device_busy_s.",
+             stats.get("overlap_ratio"))
+    w.scalar(f"{_PREFIX}_uptime_seconds", "gauge",
+             "Scheduler uptime.", stats.get("uptime_s"))
+
+    dispatch = stats.get("dispatch") or {}
+    if dispatch:
+        # async slot runtime (docs/performance.md §8): the overlap
+        # the double-buffered ring buys, observable in prod
+        ring_counters = dispatch.get("counters") or {}
+        name = f"{_PREFIX}_dispatch_slots_total"
+        w.header(name, "counter",
+                 "Dispatch-ring slot lifecycle events by kind.")
+        for k in sorted(ring_counters):
+            w.sample(name, [("event", k)], ring_counters[k])
+        w.scalar(f"{_PREFIX}_dispatch_depth", "gauge",
+                 "Device slots currently in flight "
+                 "(launched, not yet collected).",
+                 dispatch.get("depth"))
+        w.scalar(f"{_PREFIX}_dispatch_depth_max", "gauge",
+                 "High-water in-flight slot count.",
+                 dispatch.get("depth_max"))
+        w.scalar(f"{_PREFIX}_slot_occupancy", "gauge",
+                 "Time-weighted mean in-flight slots over the "
+                 "configured ring depth.",
+                 dispatch.get("slot_occupancy"))
+        w.scalar(f"{_PREFIX}_dispatch_overlap_ratio", "gauge",
+                 "Share of slot-active wall with >= 2 slots in "
+                 "flight (0 = serial ladder).",
+                 dispatch.get("dispatch_overlap_ratio"))
+        w.scalar(f"{_PREFIX}_dispatch_slot_wait_seconds_total",
+                 "counter",
+                 "Wall spent parked on a full dispatch ring.",
+                 dispatch.get("slot_wait_s"))
+
+    guard = stats.get("guard") or {}
+    if guard:
+        name = f"{_PREFIX}_guard_events_total"
+        w.header(name, "counter",
+                 "Ingest-guard counters (budget trips, malformed "
+                 "archives, walked entries, ...).")
+        for k in sorted(guard):
+            w.sample(name, [("event", k)], guard[k])
+
+    detect = stats.get("detect") or {}
+    if detect:
+        name = f"{_PREFIX}_detect_events_total"
+        w.header(name, "counter",
+                 "Dispatch-path counters (job dedup, cache "
+                 "hits/misses, resident-DB uploads).")
+        for k in sorted(detect):
+            if k.endswith(("_rate", "_ratio", "amortization")) \
+                    or k == "db_upload_bytes":
+                continue     # derived gauges / byte totals below —
+                # a byte count inside an event-count family would
+                # poison any sum() over it
+            w.sample(name, [("event", k)], detect[k])
+        w.scalar(f"{_PREFIX}_detect_db_upload_bytes_total",
+                 "counter",
+                 "Bytes of advisory tables staged to HBM.",
+                 detect.get("db_upload_bytes"))
+        w.scalar(f"{_PREFIX}_detect_dedup_ratio", "gauge",
+                 "Share of interval jobs folded away by dedup.",
+                 detect.get("dedup_ratio"))
+        w.scalar(f"{_PREFIX}_detect_interval_cache_hit_rate",
+                 "gauge",
+                 "Constraint-interval compile cache hit rate.",
+                 detect.get("interval_cache_hit_rate"))
+        w.scalar(f"{_PREFIX}_detect_purl_cache_hit_rate", "gauge",
+                 "Purl parse cache hit rate.",
+                 detect.get("purl_cache_hit_rate"))
+        w.scalar(f"{_PREFIX}_detect_db_upload_amortization",
+                 "gauge",
+                 "Resident-table dispatches served per HBM upload.",
+                 detect.get("upload_amortization"))
+
+    secret = stats.get("secret") or {}
+    if secret:
+        name = f"{_PREFIX}_secret_events_total"
+        w.header(name, "counter",
+                 "Secret-sieve counters (files gated on-device vs "
+                 "host verify, chain-gated rules, DFA uploads, "
+                 "shard/decode tasks).")
+        for k in sorted(secret):
+            if k.endswith(("_s", "_selectivity", "amortization")) \
+                    or k == "dfa_upload_bytes":
+                continue     # derived gauges / seconds / bytes below
+            w.sample(name, [("event", k)], secret[k])
+        w.scalar(f"{_PREFIX}_secret_sieve_selectivity", "gauge",
+                 "Share of scanned files that needed ANY host "
+                 "verification (files_gated / files_total).",
+                 secret.get("sieve_selectivity"))
+        w.scalar(f"{_PREFIX}_secret_sieve_seconds_total", "counter",
+                 "Cumulative wall seconds in the sieve "
+                 "(pack + dispatch + decode).",
+                 secret.get("sieve_s"))
+        w.scalar(f"{_PREFIX}_secret_verify_tail_seconds_total",
+                 "counter",
+                 "Cumulative wall seconds in the CPU-exact verify "
+                 "tail.", secret.get("verify_s"))
+        w.scalar(f"{_PREFIX}_secret_dfa_upload_bytes_total",
+                 "counter",
+                 "Bytes of DFA band tables staged to HBM.",
+                 secret.get("dfa_upload_bytes"))
+        w.scalar(f"{_PREFIX}_secret_dfa_upload_amortization",
+                 "gauge",
+                 "DFA-table dispatches served per HBM upload.",
+                 secret.get("dfa_upload_amortization"))
+
+    ingest = stats.get("ingest") or {}
+    if ingest:
+        # streaming-ingest counters (docs/performance.md §9):
+        # per-key scalars so the warm-skip and resume behavior are
+        # first-class metric names, not labels
+        for k, help_ in (
+                ("streams", "Images opened as streaming sources."),
+                ("layers_fetched",
+                 "Layer blobs fetched over the streaming path."),
+                ("bytes_fetched",
+                 "Compressed layer bytes pulled from registries."),
+                ("layers_skipped",
+                 "Warm layers skipped before their blob GET."),
+                ("bytes_skipped",
+                 "Compressed layer bytes NOT pulled thanks to the "
+                 "warm-layer skip."),
+                ("range_resumes",
+                 "Mid-body drops resumed with an HTTP Range GET."),
+                ("full_restarts",
+                 "Blob fetches rewritten from offset 0 after a "
+                 "rejected Range resume."),
+                ("warm_probe_outages",
+                 "Warm-layer cache probes that failed and degraded "
+                 "to a full pull."),
+                ("cancelled_fetches",
+                 "Layer fetches cancelled mid-stream by a guard "
+                 "budget trip."),
+                ("config_memo_hits",
+                 "Image config blobs served from the digest memo "
+                 "without a GET.")):
+            w.scalar(f"{_PREFIX}_ingest_{k}_total", "counter",
+                     help_, ingest.get(k))
+
+    memo = stats.get("memo") or {}
+    if memo:
+        # findings-memo counters (docs/performance.md "Findings
+        # memoization & incremental re-scan")
+        for k, help_ in (
+                ("hits", "Memo queries served without dispatch."),
+                ("misses", "Memo queries that dispatched."),
+                ("stores", "Memo entries written."),
+                ("invalidations",
+                 "Memo sub-entries invalidated (delta-touched at "
+                 "hot swap, corrupt entries dropped)."),
+                ("bytes", "Memo entry bytes written.")):
+            w.scalar(f"{_PREFIX}_memo_{k}_total", "counter",
+                     help_, memo.get(k))
+        w.scalar(f"{_PREFIX}_memo_hit_rate", "gauge",
+                 "Memo query hit rate (hits / lookups).",
+                 memo.get("hit_rate"))
+        name = f"{_PREFIX}_memo_events_total"
+        w.header(name, "counter",
+                 "Findings-memo bookkeeping (layer hits, corrupt "
+                 "drops, degraded backend ops, delta re-match).")
+        for k in ("layer_hits", "corrupt", "lookup_errors",
+                  "store_errors", "migrated_entries",
+                  "rematch_jobs", "rematch_entries", "swaps"):
+            if k in memo:
+                w.sample(name, [("event", k)], memo[k])
+        # advisory-delta observability (docs/serving.md "CVE impact
+        # queries & push re-scans"): how much of the memo tier a DB
+        # hot swap actually touched
+        for k, help_ in (
+                ("delta_touched",
+                 "Advisory keys touched by hot-swap deltas."),
+                ("delta_rematched",
+                 "Memo sub-records re-matched against the new "
+                 "generation."),
+                ("delta_invalidated",
+                 "Memo sub-records invalidated outright (recompute "
+                 "on next scan).")):
+            w.scalar(f"{_PREFIX}_{k}_total", "counter", help_,
+                     memo.get(k))
+
+    lifecycle = stats.get("lifecycle") or {}
+    if lifecycle:
+        # elastic-lifecycle counters (docs/serving.md "Elastic
+        # lifecycle"): prewarm walk progress, drain-handoff flow,
+        # and the warming admission gate
+        for k, help_ in (
+                ("prewarm_keys",
+                 "Memo keys staged by pre-join prewarm walks."),
+                ("prewarm_bytes",
+                 "Memo payload bytes staged by prewarm walks."),
+                ("prewarm_seconds",
+                 "Wall seconds spent in prewarm walks."),
+                ("prewarm_deadline_exceeded",
+                 "Prewarm walks cut short by the deadline."),
+                ("prewarm_runs", "Prewarm walks started."),
+                ("prewarm_cold_joins",
+                 "Joins that went cold (partial or failed "
+                 "prewarm)."),
+                ("handoff_published",
+                 "Hot digests published by draining replicas."),
+                ("handoff_prefetched",
+                 "Handoff digests adopted by ring successors."),
+                ("handoff_abandoned",
+                 "Handoff digests no successor adopted.")):
+            w.scalar(f"{_PREFIX}_{k}_total", "counter", help_,
+                     lifecycle.get(k))
+        w.scalar(f"{_PREFIX}_warming", "gauge",
+                 "1 while this replica prewarms before admission.",
+                 1 if lifecycle.get("warming") else 0)
+        hot = lifecycle.get("hot") or {}
+        if hot:
+            w.scalar(f"{_PREFIX}_hot_digests", "gauge",
+                     "Digests in the bounded hot working-set book.",
+                     hot.get("entries"))
+
+    ccache = stats.get("compile_cache") or {}
+    if ccache:
+        # AOT compile-cache counters (docs/serving.md "Elastic
+        # lifecycle"): manifest hit/miss split + on-disk footprint
+        for k, help_ in (
+                ("hits",
+                 "Precompiles whose keyed shape an earlier boot "
+                 "already compiled."),
+                ("misses",
+                 "Precompiles that paid a fresh compile."),
+                ("bytes",
+                 "On-disk bytes in the persistent compilation "
+                 "cache.")):
+            w.scalar(f"{_PREFIX}_compile_cache_{k}", "counter"
+                     if k != "bytes" else "gauge", help_,
+                     ccache.get(k))
+        w.scalar(f"{_PREFIX}_compile_cache_seconds_total",
+                 "counter", "Wall seconds spent in boot "
+                 "precompiles.", ccache.get("seconds"))
+
+    watch = stats.get("watch") or {}
+    if watch:
+        # watch-loop event dispositions + admission verdicts
+        # (docs/serving.md "Continuous scanning & admission
+        # control"): every valid event ends in exactly one of
+        # scans/deduped/shed — the three totals plus events must
+        # balance, which makes them alertable
+        for k, help_ in (
+                ("events", "Push events admitted by the watch "
+                 "loop."),
+                ("deduped", "Events folded into a pending or "
+                 "in-flight scan of the same digest."),
+                ("scans", "Debounced scan submissions."),
+                ("shed", "Events shed by admission backpressure "
+                 "or unresolvable references."),
+                ("malformed", "Malformed registry notifications "
+                 "counted and dropped at the parse boundary."),
+                ("impact_rescans", "High-priority re-scans pushed "
+                 "by the impact index after a DB hot swap.")):
+            w.scalar(f"{_PREFIX}_watch_{k}_total", "counter",
+                     help_, watch.get(k))
+        name = f"{_PREFIX}_watch_events_detail_total"
+        w.header(name, "counter",
+                 "Watch-loop bookkeeping (scan outcomes, source "
+                 "errors, unresolvable references).")
+        for k in ("completed", "failed", "source_errors",
+                  "unresolvable"):
+            if k in watch:
+                w.sample(name, [("event", k)], watch[k])
+        for k, help_ in (
+                ("allow", "Admission reviews answered allowed."),
+                ("deny", "Admission reviews answered denied."),
+                ("fail_open", "Images admitted fail-open after a "
+                 "deadline or scan failure."),
+                ("timeout", "Admission scans that missed their "
+                 "deadline.")):
+            w.scalar(f"{_PREFIX}_admission_{k}_total", "counter",
+                     help_, watch.get(f"admission_{k}"))
+        name = f"{_PREFIX}_admission_events_total"
+        w.header(name, "counter",
+                 "Admission bookkeeping (reviews, verdict-cache "
+                 "traffic, background warm scans).")
+        for k in ("admission_reviews", "admission_cache_hits",
+                  "admission_cache_misses",
+                  "admission_background_scans"):
+            if k in watch:
+                w.sample(name,
+                         [("event", k[len("admission_"):])],
+                         watch[k])
+        w.scalar(f"{_PREFIX}_admission_cache_hit_rate", "gauge",
+                 "Admission verdict-cache hit rate.",
+                 watch.get("admission_cache_hit_rate"))
+
+    impact = stats.get("impact") or {}
+    if impact:
+        # inverted findings index (docs/serving.md "CVE impact
+        # queries & push re-scans"): slice size gauges, query/
+        # maintenance totals, bookkeeping events
+        for k, help_ in (
+                ("entries",
+                 "Memo entries currently contributing postings."),
+                ("pairs",
+                 "Distinct (package, CVE) postings resident."),
+                ("cves", "Distinct CVE ids resident."),
+                ("images", "Images with a recorded layer set.")):
+            w.scalar(f"{_PREFIX}_impact_{k}", "gauge", help_,
+                     impact.get(k))
+        w.scalar(f"{_PREFIX}_impact_complete", "gauge",
+                 "1 while the index covers the full memo tier "
+                 "(the last rebuild's key scan finished).",
+                 1 if impact.get("complete", True) else 0)
+        w.scalar(f"{_PREFIX}_impact_queries_total", "counter",
+                 "Local impact-slice queries served.",
+                 impact.get("queries"))
+        w.scalar(f"{_PREFIX}_impact_maintenance_seconds_total",
+                 "counter",
+                 "Wall seconds of write-through index maintenance "
+                 "(the <2% overhead budget's numerator).",
+                 impact.get("maintenance_s"))
+        name = f"{_PREFIX}_impact_events_total"
+        w.header(name, "counter",
+                 "Impact-index bookkeeping (entry updates/drops/"
+                 "renames, image-record persistence, rebuilds, "
+                 "push stream).")
+        for k in ("updates", "drops", "renames", "image_updates",
+                  "persist_puts", "persist_skips", "rebuilds",
+                  "rebuild_entries", "rebuild_degraded",
+                  "push_batches", "push_images"):
+            if k in impact:
+                w.sample(name, [("event", k)], impact[k])
+
+    tenants = stats.get("tenants") or {}
+    if tenants:
+        # per-tenant fairness/QoS books (docs/serving.md
+        # "Multi-tenant QoS"): the compliant-p99-holds gate and the
+        # autoscaler both read these
+        name = f"{_PREFIX}_tenant_events_total"
+        w.header(name, "counter",
+                 "Per-tenant admission outcomes (admitted, ok, "
+                 "degraded, failed, timed_out, cancelled, "
+                 "rejected_rate, rejected_quota, rejected_503).")
+        for t in sorted(tenants):
+            for k in sorted(tenants[t].get("counters") or {}):
+                w.sample(name, [("tenant", t), ("event", k)],
+                         tenants[t]["counters"][k])
+        for key, help_ in (
+                ("shed", "Load the tenant itself absorbed as "
+                 "429s (rate + quota rejections)."),):
+            full = f"{_PREFIX}_tenant_{key}_total"
+            w.header(full, "counter", help_)
+            for t in sorted(tenants):
+                w.sample(full, [("tenant", t)],
+                         tenants[t].get(key))
+        for key, help_ in (
+                ("queue_depth", "Per-tenant queued requests."),
+                ("inflight",
+                 "Per-tenant admitted-but-unresolved requests."),
+                ("weight", "Configured WFQ service share.")):
+            full = f"{_PREFIX}_tenant_{key}"
+            w.header(full, "gauge", help_)
+            for t in sorted(tenants):
+                if key in tenants[t]:
+                    w.sample(full, [("tenant", t)],
+                             tenants[t].get(key))
+
+    slo = stats.get("slo") or {}
+    if slo.get("slos"):
+        # burn-rate verdicts (docs/observability.md "SLOs & burn
+        # rates"): the alerting/autoscaling signal GET /slo serves
+        name = f"{_PREFIX}_slo_ok"
+        w.header(name, "gauge",
+                 "1 while the SLO's error budget is not burning "
+                 "past any alert window.")
+        for v in slo["slos"]:
+            w.sample(name, [("slo", v["name"])],
+                     1 if v.get("ok") else 0)
+        name = f"{_PREFIX}_slo_burn_rate"
+        w.header(name, "gauge",
+                 "Error-budget burn rate per lookback window "
+                 "(1.0 = budget consumed exactly at period end).")
+        for v in slo["slos"]:
+            for win, rate in (v.get("burn") or {}).items():
+                w.sample(name, [("slo", v["name"]),
+                                ("window", win)], rate)
+        name = f"{_PREFIX}_slo_events_total"
+        w.header(name, "counter",
+                 "SLO-classified request outcomes.")
+        for v in slo["slos"]:
+            w.sample(name, [("slo", v["name"]),
+                            ("class", "good")], v.get("good"))
+            w.sample(name, [("slo", v["name"]),
+                            ("class", "bad")], v.get("bad"))
+        name = f"{_PREFIX}_slo_trips_total"
+        w.header(name, "counter",
+                 "Burn-rate alert trips (fast or slow window).")
+        for v in slo["slos"]:
+            w.sample(name, [("slo", v["name"])], v.get("trips"))
+        w.scalar(f"{_PREFIX}_slo_dumps_total", "counter",
+                 "Flight-recorder trace dumps triggered by burn-"
+                 "rate trips.", slo.get("dumps"))
+        eff = [v for v in slo["slos"] if "efficiency" in v]
+        if eff:
+            name = f"{_PREFIX}_slo_efficiency"
+            w.header(name, "gauge",
+                     "Useful-device-time share over the recent "
+                     "window for kind=efficiency SLOs (MFU-style "
+                     "goodput).")
+            for v in eff:
+                w.sample(name, [("slo", v["name"])],
+                         v["efficiency"])
+
+    cost = stats.get("cost") or {}
+    if cost.get("tenants") or cost.get("charges"):
+        # per-tenant cost attribution (obs/cost.py,
+        # docs/observability.md "Cost attribution & goodput") —
+        # tenant rows are pre-folded to top-K + "other" by the
+        # ledger, so the label space is bounded by construction
+        ctenants = cost.get("tenants") or {}
+        name = f"{_PREFIX}_cost_device_seconds_total"
+        w.header(name, "counter",
+                 "Attributed device-seconds by tenant and kernel "
+                 "family (interval bucket-ladder vs DFA sieve).")
+        for t in sorted(ctenants):
+            vec = ctenants[t]
+            w.sample(name, [("tenant", t),
+                            ("kernel", "interval")],
+                     vec.get("device_interval_s"))
+            w.sample(name, [("tenant", t), ("kernel", "dfa")],
+                     vec.get("device_dfa_s"))
+        name = f"{_PREFIX}_cost_host_seconds_total"
+        w.header(name, "counter",
+                 "Attributed host-seconds by tenant and phase.")
+        for t in sorted(ctenants):
+            vec = ctenants[t]
+            w.sample(name, [("tenant", t),
+                            ("phase", "analyze")],
+                     vec.get("host_analyze_s"))
+            w.sample(name, [("tenant", t), ("phase", "finish")],
+                     vec.get("host_finish_s"))
+        name = f"{_PREFIX}_cost_bytes_in_total"
+        w.header(name, "counter",
+                 "Candidate bytes ingested, per tenant.")
+        for t in sorted(ctenants):
+            w.sample(name, [("tenant", t)],
+                     ctenants[t].get("bytes_in"))
+        name = f"{_PREFIX}_cost_events_total"
+        w.header(name, "counter",
+                 "Per-tenant memo hit/miss and completed-request "
+                 "counts.")
+        for t in sorted(ctenants):
+            vec = ctenants[t]
+            for ev in ("memo_hits", "memo_misses", "requests"):
+                w.sample(name, [("tenant", t), ("event", ev)],
+                         vec.get(ev))
+        name = f"{_PREFIX}_cost_aot_amortized_seconds"
+        w.header(name, "gauge",
+                 "AOT compile wall amortized across tenants by "
+                 "device-second share.")
+        for t in sorted(ctenants):
+            w.sample(name, [("tenant", t)],
+                     ctenants[t].get("aot_amortized_s"))
+        w.scalar(f"{_PREFIX}_cost_attributed_device_seconds",
+                 "gauge",
+                 "Sum of per-tenant attributed device-seconds.",
+                 cost.get("device_s"))
+        w.scalar(f"{_PREFIX}_cost_measured_device_seconds",
+                 "gauge",
+                 "Measured per-dispatch device-time integral the "
+                 "attribution must reconcile against.",
+                 cost.get("measured_device_s"))
+        bal = cost.get("balance") or {}
+        if bal:
+            w.scalar(f"{_PREFIX}_cost_balanced", "gauge",
+                     "1 while attributed and measured device time "
+                     "agree within the tolerance (the accounting "
+                     "identity).",
+                     1 if bal.get("balanced") else 0)
+            w.scalar(f"{_PREFIX}_cost_balance_skew", "gauge",
+                     "Relative attributed-vs-measured skew.",
+                     bal.get("skew"))
+
+    resident = stats.get("resident") or ()
+    if resident:
+        # device-residency accounting (db/compiled.ResidentTables):
+        # live HBM bytes + generation per staged table placement.
+        # Rows aggregate per (table, placement): several live
+        # instances of one table kind (tests, a swap in flight) must
+        # not emit duplicate label sets — bytes sum, generation
+        # reports the newest
+        agg: dict = {}
+        for r in resident:
+            key = (r["table"], r["placement"])
+            cur = agg.setdefault(key, [0, 0])
+            cur[0] += r["bytes"]
+            cur[1] = max(cur[1], r["generation"])
+        name = f"{_PREFIX}_resident_bytes"
+        w.header(name, "gauge",
+                 "Bytes of device-resident tables currently staged, "
+                 "per table and placement.")
+        for (table, placement), (nbytes, _) in sorted(agg.items()):
+            w.sample(name, [("table", table),
+                            ("placement", placement)], nbytes)
+        name = f"{_PREFIX}_resident_generation"
+        w.header(name, "gauge",
+                 "Newest staged generation (hot swaps bump it; a "
+                 "stale generation on one placement means a swap "
+                 "has not reached that device set).")
+        for (table, placement), (_, gen) in sorted(agg.items()):
+            w.sample(name, [("table", table),
+                            ("placement", placement)], gen)
+
+    idem = stats.get("idempotency") or {}
+    if idem:
+        w.scalar(f"{_PREFIX}_idempotency_entries", "gauge",
+                 "Live idempotency-window entries.",
+                 idem.get("entries"))
+        w.scalar(f"{_PREFIX}_idempotency_hits_total", "counter",
+                 "Duplicate Scan RPCs served from the window.",
+                 idem.get("hits"))
+        w.scalar(f"{_PREFIX}_idempotency_evictions_total",
+                 "counter",
+                 "Entries dropped by the per-tenant caps.",
+                 idem.get("evictions"))
+
+    adm = stats.get("admission") or {}
+    if adm:
+        w.scalar(f"{_PREFIX}_admission_max_body_bytes", "gauge",
+                 "413 admission cap on request body size.",
+                 adm.get("max_body_bytes"))
+        w.scalar(f"{_PREFIX}_admission_max_scan_blobs", "gauge",
+                 "413 admission cap on blobs per Scan.",
+                 adm.get("max_scan_blobs"))
+
+    breaker = (stats.get("cache_breaker") or {}).get("breaker") or {}
+    if breaker:
+        name = f"{_PREFIX}_cache_breaker_state"
+        w.header(name, "gauge",
+                 "Cache circuit-breaker state (1 = current).")
+        state = breaker.get("state", "closed")
+        for s in _BREAKER_STATES:
+            w.sample(name, [("state", s)], 1 if s == state else 0)
+        w.scalar(f"{_PREFIX}_cache_breaker_trips_total", "counter",
+                 "Circuit-breaker trips.", breaker.get("trips"))
+        w.scalar(f"{_PREFIX}_cache_fallback_ops_total", "counter",
+                 "Cache ops answered by the local fallback.",
+                 (stats.get("cache_breaker") or {})
+                 .get("fallback_ops"))
+
+    if tracer_stats:
+        w.scalar(f"{_PREFIX}_trace_spans_total", "counter",
+                 "Spans recorded by the tracer.",
+                 tracer_stats.get("spans"))
+        w.scalar(f"{_PREFIX}_trace_traces_total", "counter",
+                 "Completed traces.", tracer_stats.get("traces"))
+    if recorder_stats:
+        w.scalar(f"{_PREFIX}_flight_recorder_traces", "gauge",
+                 "Traces held in the flight-recorder ring.",
+                 recorder_stats.get("traces"))
+        w.scalar(f"{_PREFIX}_flight_recorder_evicted_total",
+                 "counter", "Traces evicted from the ring.",
+                 recorder_stats.get("evicted"))
+        w.scalar(f"{_PREFIX}_flight_recorder_dumps_total",
+                 "counter", "Crash-dump traces written to disk.",
+                 recorder_stats.get("dumps"))
+        w.scalar(f"{_PREFIX}_recorder_dump_bytes", "gauge",
+                 "Bytes of flight-recorder dump files currently "
+                 "on disk.", recorder_stats.get("dump_bytes"))
+        w.scalar(f"{_PREFIX}_recorder_dumps_pruned_total",
+                 "counter",
+                 "Dump files pruned (DUMP_CAP count-FIFO or "
+                 "TRIVY_TPU_DUMP_MAX_AGE_S age cap).",
+                 recorder_stats.get("dumps_pruned"))
+
+    _histograms(w, "sched_phase_latency", "phase", phase_hists or {},
+                "Scheduler per-phase latency (queue_wait, analyze, "
+                "device, finish, request).", openmetrics)
+    _histograms(w, "trace_span", "span", trace_hists or {},
+                "Per-phase latency derived from trace spans.",
+                openmetrics)
+    _histograms(w, "tenant_request", "tenant", tenant_hists or {},
+                "Per-tenant request latency (admission to "
+                "resolution) — the fairness/QoS signal.",
+                openmetrics)
+    wh = watch_hists or {}
+    _histograms(w, "watch_lag", "stage",
+                {"complete": wh["watch_lag"]}
+                if "watch_lag" in wh else {},
+                "Push-event lag: registry event arrival to scan "
+                "resolution.", openmetrics)
+    _histograms(w, "admission_latency", "stage",
+                {"review": wh["admission_latency"]}
+                if "admission_latency" in wh else {},
+                "K8s admission review latency (wall time of "
+                "POST /k8s/admission).", openmetrics)
+
+    _process_gauges(w, stats.get("process") or {})
+
+    if openmetrics:
+        w.lines.append("# EOF")
+    return "\n".join(w.lines) + "\n"
+

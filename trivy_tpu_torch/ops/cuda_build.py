@@ -33,15 +33,22 @@ def _nvcc(lib_name: str) -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def build(source: str, lib_name: str, build_dir: str = BUILD_DIR) -> str:
-    """Compile ``source`` into ``lib<lib_name>.so`` unless this source,
-    name and flags were built already; returns the library's path."""
+def library_path(source: str, lib_name: str,
+                 build_dir: str = BUILD_DIR) -> str:
+    """Where ``build`` puts (or finds) the library of this source,
+    name and flags."""
     with open(source, "rb") as f:
         src = f.read()
     key = hashlib.sha256(src + repr((lib_name, NVCC_FLAGS)).encode()) \
         .hexdigest()[:16]
-    out_dir = os.path.join(build_dir, key)
-    lib = os.path.join(out_dir, f"lib{lib_name}.so")
+    return os.path.join(build_dir, key, f"lib{lib_name}.so")
+
+
+def build(source: str, lib_name: str, build_dir: str = BUILD_DIR) -> str:
+    """Compile ``source`` into ``lib<lib_name>.so`` unless this source,
+    name and flags were built already; returns the library's path."""
+    lib = library_path(source, lib_name, build_dir)
+    out_dir = os.path.dirname(lib)
     if os.path.exists(lib):
         return lib
     nvcc = _nvcc(lib_name)

@@ -1,41 +1,37 @@
-"""Report format dispatch (reference: pkg/report/writer.go:58-98).
+"""Report format dispatch (reference: pkg/report/writer.go:58-98;
+the JAX package's ``report/writer.py``).
 
-``table`` (the default), ``json`` and ``cyclonedx`` (the full BOM, or
-for an SBOM rescan the vulnerabilities-only BOM that refers back to
-the scanned document). The sarif, spdx, spdx-json, github,
-cosign-vuln and template writers are still to be ported: asking for
-one raises ``ValueError``.
+Formats: table, json, sarif, cyclonedx, spdx, spdx-json, github,
+cosign-vuln, template (``output_template``: the template inline, or
+``@path``).
 """
 
 from __future__ import annotations
 
 import json
 import sys
+from datetime import datetime, timezone
 from typing import Optional
 
 from ..types import Report, Severity
 
 _SEV_ORDER = ["CRITICAL", "HIGH", "MEDIUM", "LOW", "UNKNOWN"]
 
-FORMATS = ["table", "json", "cyclonedx"]
-UNPORTED_FORMATS = ["sarif", "spdx", "spdx-json", "github",
-                    "cosign-vuln", "template"]
+FORMATS = ["table", "json", "sarif", "cyclonedx", "spdx", "spdx-json",
+           "github", "cosign-vuln", "template"]
 
 
 def check_format(fmt: str) -> None:
     """Raise ``ValueError`` unless ``write_report`` can write ``fmt``."""
-    if fmt in UNPORTED_FORMATS:
-        raise ValueError(f"format {fmt!r} is not ported yet "
-                         "(ROADMAP A.9: report writers)")
     if fmt not in FORMATS:
         raise ValueError(f"unknown format: {fmt}")
 
 
-def write_report(report: Report, fmt: str = "table", output=None,
-                 severities: Optional[list] = None,
+def write_report(report: Report, fmt: str = "table",
+                 output=None, severities: Optional[list] = None,
                  app_version: str = "dev",
+                 output_template: str = "",
                  dependency_tree: bool = False) -> None:
-    check_format(fmt)
     out = output or sys.stdout
     if fmt == "json":
         json.dump(report.to_dict(), out, indent=2)
@@ -43,7 +39,10 @@ def write_report(report: Report, fmt: str = "table", output=None,
     elif fmt == "table":
         out.write(render_table(report, severities,
                                dependency_tree=dependency_tree))
-    else:
+    elif fmt == "sarif":
+        from .sarif import SarifWriter
+        SarifWriter(out, version=app_version).write(report)
+    elif fmt == "cyclonedx":
         from ..sbom.cyclonedx import Marshaler
         m = Marshaler(app_version=app_version)
         # an SBOM rescan exports only vulnerabilities referencing the
@@ -54,6 +53,37 @@ def write_report(report: Report, fmt: str = "table", output=None,
             bom = m.marshal(report)
         json.dump(bom, out, indent=2)
         out.write("\n")
+    elif fmt in ("spdx", "spdx-json"):
+        from ..sbom.spdx import Marshaler
+        m = Marshaler()
+        if fmt == "spdx":
+            out.write(m.marshal_tv(report))
+        else:
+            json.dump(m.marshal(report), out, indent=2)
+            out.write("\n")
+    elif fmt == "github":
+        from .github import GithubWriter
+        GithubWriter(out, version=app_version).write(report)
+    elif fmt == "cosign-vuln":
+        now = datetime.now(timezone.utc).strftime("%Y-%m-%dT%H:%M:%SZ")
+        predicate = {
+            "invocation": {"parameters": None, "uri": "",
+                           "event_id": "", "builder.id": ""},
+            "scanner": {
+                "uri": f"pkg:github/aquasecurity/trivy@{app_version}",
+                "version": app_version,
+                "db": {"uri": "", "version": ""},
+                "result": report.to_dict(),
+            },
+            "metadata": {"scanStartedOn": now, "scanFinishedOn": now},
+        }
+        json.dump(predicate, out, indent=2)
+        out.write("\n")
+    elif fmt == "template":
+        from .template import TemplateWriter
+        TemplateWriter(out, output_template).write(report)
+    else:
+        raise ValueError(f"unknown format: {fmt}")
 
 
 def render_table(report: Report,

@@ -17,7 +17,7 @@ from typing import Optional
 from ..applier import apply_layers
 from ..db import AdvisoryStore
 from ..db.compiled import CompiledDB
-from ..detect.batch import PairJob, ResidentPairJob
+from ..detect.batch import PairJob, ResidentPairJob, dispatch_jobs
 from ..detect.enrich import fill_info
 from ..detect.library import _TYPES as LIB_TYPES
 from ..detect.library import _fixed_versions, normalize_pkg_name
@@ -64,6 +64,8 @@ class PreparedScan:
     # both None when no memo is attached
     queries: Optional[list] = None
     memo_plan: object = None
+    # requester identity (a scan server's tenant): its cost books
+    tenant: str = ""
 
 
 class LocalScanner:
@@ -71,15 +73,25 @@ class LocalScanner:
     ``CompiledDB`` (``ResidentPairJob``s on its resident tables).
     ``memo`` (a ``memo.FindingsMemo``, or None) serves per-layer
     detection verdicts without a dispatch when the exact question was
-    answered before."""
+    answered before. ``tenant`` is the requester a scan server scans
+    for: memo hits and misses are charged to it."""
 
     def __init__(self, cache, store: Optional[AdvisoryStore] = None,
-                 memo=None):
+                 memo=None, tenant: str = ""):
         self.cache = cache
         self.store = store or AdvisoryStore()
         self.compiled: Optional[CompiledDB] = \
             store if isinstance(store, CompiledDB) else None
         self.memo = memo
+        self.tenant = tenant
+
+    def scan(self, target: ScanTarget, options: ScanOptions) -> tuple:
+        """Returns (results, os): prepare + one ``dispatch_jobs`` on
+        ``options.backend`` + finish, for one target (the scan
+        server's unscheduled path)."""
+        prepared = self.prepare(target, options)
+        detected = dispatch_jobs(prepared.jobs, backend=options.backend)
+        return self.finish(prepared, detected)
 
     def prepare(self, target: ScanTarget,
                 options: ScanOptions) -> PreparedScan:
@@ -133,7 +145,7 @@ class LocalScanner:
         prepared = PreparedScan(target=target, options=options,
                                 detail=detail, jobs=jobs, eosl=eosl,
                                 pkg_results=pkg_results,
-                                queries=queries)
+                                queries=queries, tenant=self.tenant)
         if self.memo is not None and jobs:
             # hit/miss partition: verdicts answered before are served
             # at finish; only novel queries keep their jobs for the
@@ -142,9 +154,10 @@ class LocalScanner:
                 prepared, blobs, detail, options, db=self.store)
             if plan is not None:
                 # cost attribution (obs/cost.py): memo hits are
-                # device work the (anonymous) tenant did NOT pay for
+                # device work this tenant did NOT pay for
                 from ..obs.cost import COST_LEDGER
-                COST_LEDGER.charge("", memo_hits=plan.queries_hit,
+                COST_LEDGER.charge(self.tenant,
+                                   memo_hits=plan.queries_hit,
                                    memo_misses=plan.queries_miss)
         return prepared
 

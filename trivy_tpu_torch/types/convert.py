@@ -1,26 +1,29 @@
 """JSON dict → domain type deserialization.
 
 The analog of the reference's pkg/rpc/convert.go (domain ⇄ proto):
-the blob cache on disk (``artifact/cache.py FSCache``) reads its
-records back here, inverse of each type's ``to_dict``/
-``asdict_omitempty`` Go-style JSON. The readers of the client/server
-wire's ``Result`` (detected vulnerabilities, misconfigurations and
-licenses) come with ``rpc/`` (ROADMAP A.9).
+every type that crosses a process boundary — the blob cache on disk
+(``artifact/cache.py FSCache``), the client/server wire (``rpc/``:
+blobs and artifacts on the Cache service, the ``Result`` list of a
+Scan reply) — reads back here, inverse of each type's ``to_dict``/
+``asdict_omitempty`` Go-style JSON.
 
 A blob's ``BuildInfo`` (Red Hat content sets) and ``CustomResources``
 are read back too, so a scan from the disk cache reports what the
-in-memory cache does; the JAX package's reader drops both.
+in-memory cache does, and a detected vulnerability's ``Custom`` field
+crosses the wire; the JAX package's readers drop all three.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
-from . import (OS, Application, ConfigFile, Package, PackageInfo,
-               Repository, Secret, SecretFinding)
+from . import (OS, Application, ConfigFile, DataSource,
+               DetectedVulnerability, Package, PackageInfo, Repository,
+               Result, Secret, SecretFinding, Vulnerability)
 from .artifact import ArtifactInfo, BlobInfo
 from .common import Code, Layer, Line
-from .report import CauseMetadata
+from .report import (CauseMetadata, DetectedLicense,
+                     DetectedMisconfiguration, MisconfSummary, ResultClass)
 
 SCHEMA_VERSION = 2
 
@@ -156,6 +159,114 @@ def license_file_from_dict(x: dict):
             link=f.get("Link", ""))
             for f in x.get("Findings") or []],
         layer=layer_from_dict(x.get("Layer")),
+    )
+
+
+def data_source_from_dict(x: Optional[dict]) -> Optional[DataSource]:
+    if not x:
+        return None
+    return DataSource(id=x.get("ID", ""), name=x.get("Name", ""),
+                      url=x.get("URL", ""))
+
+
+def detected_vulnerability_from_dict(x: dict) \
+        -> DetectedVulnerability:
+    """Inverse of DetectedVulnerability.to_dict, which embeds the
+    Vulnerability detail inline the way Go embeds the struct."""
+    detail = Vulnerability(
+        title=x.get("Title", ""),
+        description=x.get("Description", ""),
+        severity=x.get("Severity", ""),
+        cwe_ids=x.get("CweIDs") or [],
+        vendor_severity=x.get("VendorSeverity") or {},
+        cvss=x.get("CVSS") or {},
+        references=x.get("References") or [],
+        published_date=x.get("PublishedDate"),
+        last_modified_date=x.get("LastModifiedDate"),
+    )
+    return DetectedVulnerability(
+        vulnerability_id=x.get("VulnerabilityID", ""),
+        vendor_ids=x.get("VendorIDs") or [],
+        pkg_id=x.get("PkgID", ""),
+        pkg_name=x.get("PkgName", ""),
+        pkg_path=x.get("PkgPath", ""),
+        installed_version=x.get("InstalledVersion", ""),
+        fixed_version=x.get("FixedVersion", ""),
+        layer=layer_from_dict(x.get("Layer")),
+        severity_source=x.get("SeveritySource", ""),
+        primary_url=x.get("PrimaryURL", ""),
+        ref=x.get("Ref", ""),
+        data_source=data_source_from_dict(x.get("DataSource")),
+        custom=x.get("Custom"),
+        vulnerability=detail,
+    )
+
+
+def detected_misconfiguration_from_dict(x: dict) \
+        -> DetectedMisconfiguration:
+    return DetectedMisconfiguration(
+        type=x.get("Type", ""),
+        id=x.get("ID", ""),
+        avd_id=x.get("AVDID", ""),
+        title=x.get("Title", ""),
+        description=x.get("Description", ""),
+        message=x.get("Message", ""),
+        namespace=x.get("Namespace", ""),
+        query=x.get("Query", ""),
+        resolution=x.get("Resolution", ""),
+        severity=x.get("Severity", ""),
+        primary_url=x.get("PrimaryURL", ""),
+        references=x.get("References") or [],
+        status=x.get("Status", ""),
+        layer=layer_from_dict(x.get("Layer")),
+        cause_metadata=cause_metadata_from_dict(
+            x.get("CauseMetadata")),
+        traces=x.get("Traces") or [],
+    )
+
+
+def detected_license_from_dict(x: dict) -> DetectedLicense:
+    return DetectedLicense(
+        severity=x.get("Severity", ""),
+        category=x.get("Category", ""),
+        pkg_name=x.get("PkgName", ""),
+        file_path=x.get("FilePath", ""),
+        name=x.get("Name", ""),
+        confidence=x.get("Confidence", 0.0),
+        link=x.get("Link", ""),
+    )
+
+
+def result_from_dict(x: dict) -> Result:
+    """One ``Result`` of a Scan reply (ref ``types/convert.py``)."""
+    summary = None
+    if x.get("MisconfSummary"):
+        ms = x["MisconfSummary"]
+        summary = MisconfSummary(
+            successes=ms.get("Successes", 0),
+            failures=ms.get("Failures", 0),
+            exceptions=ms.get("Exceptions", 0))
+    try:
+        class_ = ResultClass(x.get("Class", "os-pkgs"))
+    except ValueError:
+        class_ = x.get("Class", "")
+    return Result(
+        target=x.get("Target", ""),
+        class_=class_,
+        type=x.get("Type", ""),
+        packages=[package_from_dict(p)
+                  for p in x.get("Packages") or []],
+        vulnerabilities=[detected_vulnerability_from_dict(v)
+                         for v in x.get("Vulnerabilities") or []],
+        misconf_summary=summary,
+        misconfigurations=[detected_misconfiguration_from_dict(m)
+                           for m in
+                           x.get("Misconfigurations") or []],
+        secrets=[secret_finding_from_dict(s)
+                 for s in x.get("Secrets") or []],
+        licenses=[detected_license_from_dict(lic)
+                  for lic in x.get("Licenses") or []],
+        custom_resources=x.get("CustomResources") or [],
     )
 
 
