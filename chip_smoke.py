@@ -168,6 +168,32 @@ Builds the port's hand-written kernels (``trivy_tpu_torch/csrc``, one
    the fleet phase's ``--sched off`` wall, and the profiled run's busy
    ms, idle share and how long a sieve and another kernel ran at once.
 
+8b. registry phase (``registry_phase``): the same targets but the
+   truncated tar (it cannot be pushed) served from the port's
+   ``LocalRegistry`` on 127.0.0.1, one of them with gzipped layers, go
+   through ``BatchScanRunner.scan_registry_refs``: streamed cold on the
+   direct path into an ``FSCache`` (one ``dfa_blockmask`` launch; its
+   reports equal the fleet phase's tar reports once names and image IDs
+   are normalized), streamed warm on
+   that cache (no blob GET, no launch), streamed cold on ``cpu-ref``
+   (the same reports), streamed cold through the
+   scheduler, traced (one launch per batch with candidates, no
+   quarantine, no host fallback; its timeline's causes and the split
+   of pull, inflate, walk, sieve and dispatch from its spans and the
+   inflater's clock), a
+   throttled pair (pulled whole, the materialized baseline, then
+   streamed, on a registry that serves the whole pull in about
+   ``REGISTRY_THROTTLE_S``), and the
+   fleet on ``ResilientCache`` over Redis and over S3 (the script's
+   own stubs, ``RedisStub``, ``S3Stub``) with the memo there too, cold
+   then warm from a new client (no launch, no interval job), and cold
+   on a Redis that stops half way through the run (the same reports,
+   the breaker open). ``python -m trivy_tpu_torch image <ref>
+   --cache-backend redis://...`` on the sbom phase's npz, beside the
+   phase, equals the same ref scanned in this process. The phase runs
+   in a process of its own, started after the sched phase, beside the
+   memo and server phases.
+
 9. mesh phase, on a mesh of every visible card or, on one card, that
    card named four times (``smoke_mesh``: 2 × 2, data 2, rules 2),
    in three parts run where their inputs are at hand. After the
@@ -3443,16 +3469,18 @@ class BackgroundCLI:
     wall is from the start to the exit, on a host shared with the
     phases beside it. Output goes to files in ``work_dir``."""
 
-    def __init__(self, name: str, argv: list, work_dir: str, check):
+    def __init__(self, name: str, argv: list, work_dir: str, check,
+                 stdout: str = ""):
         self.name, self.check = name, check
         self.profiles = "--profile-out" in argv
         self._err_path = os.path.join(work_dir, f"{name}.cli.stderr")
         self._err = open(self._err_path, "w")
+        self._out = open(stdout, "w") if stdout else subprocess.DEVNULL
         self.t0, self.t_exit = time.perf_counter(), None
         self.proc = subprocess.Popen(
             [sys.executable] + argv,
             cwd=os.path.dirname(os.path.abspath(__file__)),
-            stdout=subprocess.DEVNULL, stderr=self._err, text=True)
+            stdout=self._out, stderr=self._err, text=True)
         _CHILDREN.append(self.proc)
         self._waiter = threading.Thread(target=self._wait, daemon=True)
         self._waiter.start()
@@ -3470,6 +3498,8 @@ class BackgroundCLI:
             raise AssertionError(f"the {self.name} CLI still ran after "
                                  f"{timeout_s} s")
         self._err.close()
+        if self._out is not subprocess.DEVNULL:
+            self._out.close()
         with open(self._err_path) as f:
             err = f.read()
         if self.proc.returncode != 0:
@@ -4780,6 +4810,743 @@ def server_phase(device, svc: dict, fleet: dict, gen2: dict,
     return out
 
 
+# --- registry ingest and the remote caches ----------------------------
+
+
+def gzip_docker_save(src: str, dst: str) -> str:
+    """``src``, a ``docker save`` tarball, written again at ``dst`` with
+    every layer member gzipped (the same member names; the config's
+    DiffIDs stay those of the uncompressed tars)."""
+    with tarfile.open(src) as tin:
+        entry = json.loads(tin.extractfile("manifest.json").read())[0]
+        layers = set(entry.get("Layers") or [])
+        with tarfile.open(dst, "w") as tout:
+            for m in tin.getmembers():
+                data = tin.extractfile(m).read()
+                if m.name in layers:
+                    data = gzip.compress(data, compresslevel=1, mtime=0)
+                _add(tout, m.name, data)
+    return dst
+
+
+class _StubServer:
+    """A threaded loopback TCP server whose ``stop`` also drops every
+    connection it accepted, so a client's kept-alive socket fails as it
+    would when the service dies; ``stop_after(n)`` stops it from a
+    request handler once ``n`` more requests have been answered."""
+
+    def __init__(self, handler):
+        import socketserver
+        stub = self
+
+        class Server(socketserver.ThreadingTCPServer):
+            daemon_threads = True
+            allow_reuse_address = True
+
+            def process_request(self, request, client_address):
+                with stub._lock:
+                    stub._conns.add(request)
+                super().process_request(request, client_address)
+
+        self._lock = threading.Lock()
+        self._conns: set = set()
+        self._left = None
+        self.requests = 0
+        self.server = Server(("127.0.0.1", 0), handler)
+        self.server.stub = self
+        self.port = self.server.server_address[1]
+        self._thread = threading.Thread(target=self.server.serve_forever,
+                                        daemon=True)
+        self._thread.start()
+        self.stopped = False
+
+    def stop_after(self, n: int) -> None:
+        with self._lock:
+            self._left = n
+
+    def served(self) -> None:
+        """Count one answered request; stop when the count runs out."""
+        with self._lock:
+            self.requests += 1
+            if self._left is None:
+                return
+            self._left -= 1
+            due = self._left <= 0
+        if due:
+            self.stop()         # a handler thread, never serve_forever's
+
+    def stop(self) -> None:
+        import socket
+        if self.stopped:
+            return
+        self.stopped = True
+        self.server.shutdown()
+        self.server.server_close()
+        with self._lock:
+            conns, self._conns = list(self._conns), set()
+        for c in conns:
+            try:
+                c.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+            c.close()
+
+
+class RedisStub(_StubServer):
+    """A loopback RESP2 server with the commands the Redis blob cache
+    and memo store send (SET [EX], GET, EXISTS, DEL, KEYS prefix*,
+    SCAN cursor MATCH prefix* COUNT n, PING); ``store`` holds the raw
+    values by key."""
+
+    def __init__(self):
+        import socketserver
+        self.store: dict = {}
+        stub_store = self.store
+
+        class Handler(socketserver.StreamRequestHandler):
+            disable_nagle_algorithm = True
+
+            def _command(self):
+                line = self.rfile.readline()
+                if not line:
+                    return None
+                args = []
+                for _ in range(int(line[1:].strip())):
+                    n = int(self.rfile.readline()[1:].strip())
+                    args.append(self.rfile.read(n + 2)[:n])
+                return args
+
+            def handle(self):
+                while True:
+                    try:
+                        cmd = self._command()
+                    except (ValueError, OSError):
+                        return
+                    if not cmd:
+                        return
+                    try:
+                        self.wfile.write(self._reply(cmd))
+                    except OSError:
+                        return
+                    self.server.stub.served()
+
+            @staticmethod
+            def _bulk(v) -> bytes:
+                return b"$-1\r\n" if v is None else \
+                    b"$%d\r\n%s\r\n" % (len(v), v)
+
+            @staticmethod
+            def _array(replies) -> bytes:
+                return b"*%d\r\n" % len(replies) + b"".join(replies)
+
+            def _reply(self, cmd) -> bytes:
+                op = cmd[0].decode().upper()
+                def keys(pat: bytes) -> bytes:
+                    return self._array([
+                        self._bulk(k) for k in sorted(list(stub_store))
+                        if k.startswith(pat.rstrip(b"*"))])
+
+                if op == "SET":
+                    stub_store[cmd[1]] = cmd[2]
+                    return b"+OK\r\n"
+                if op == "GET":
+                    return self._bulk(stub_store.get(cmd[1]))
+                if op == "EXISTS":
+                    return b":%d\r\n" % (cmd[1] in stub_store)
+                if op == "DEL":
+                    return b":%d\r\n" % (
+                        stub_store.pop(cmd[1], None) is not None)
+                if op == "KEYS":
+                    return keys(cmd[1])
+                if op == "SCAN":
+                    # one page: cursor 0 back (every key at once)
+                    pat = cmd[cmd.index(b"MATCH") + 1] \
+                        if b"MATCH" in cmd else b"*"
+                    return self._array([self._bulk(b"0"), keys(pat)])
+                if op == "PING":
+                    return b"+PONG\r\n"
+                return b"-ERR unknown command\r\n"
+
+        super().__init__(Handler)
+
+    @property
+    def url(self) -> str:
+        return f"redis://127.0.0.1:{self.port}"
+
+
+class S3Stub(_StubServer):
+    """A loopback S3 endpoint (path style): PUT, GET, HEAD and DELETE of
+    objects and ``GET /bucket?list-type=2&prefix=`` (one page), over
+    HTTP/1.1 keep-alive; ``store`` holds the bodies by path."""
+
+    def __init__(self):
+        import html
+        import http.server
+        from urllib.parse import parse_qs, unquote, urlparse
+        self.store: dict = {}
+        stub_store = self.store
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+            # a reply's header and body go out as two writes: with
+            # Nagle the body waits out the client's delayed ACK
+            disable_nagle_algorithm = True
+
+            def log_message(self, *a):
+                pass
+
+            def _reply(self, status: int, body: bytes = b"") -> None:
+                self.send_response(status)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                if body and self.command != "HEAD":
+                    self.wfile.write(body)
+                self.server.stub.served()
+
+            def _path(self) -> str:
+                return unquote(urlparse(self.path).path)
+
+            def do_PUT(self):   # noqa: N802 — stdlib name
+                n = int(self.headers.get("Content-Length") or 0)
+                stub_store[self._path()] = self.rfile.read(n)
+                self._reply(200)
+
+            def do_GET(self):   # noqa: N802
+                u = urlparse(self.path)
+                q = parse_qs(u.query)
+                if q.get("list-type") == ["2"]:
+                    base = unquote(u.path).rstrip("/") + "/"
+                    prefix = (q.get("prefix") or [""])[0]
+                    keys = sorted(p[len(base):] for p in list(stub_store)
+                                  if p.startswith(base + prefix))
+                    body = ("<ListBucketResult>" + "".join(
+                        f"<Contents><Key>{html.escape(k)}</Key>"
+                        "</Contents>" for k in keys) +
+                        "<IsTruncated>false</IsTruncated>"
+                        "</ListBucketResult>").encode()
+                    self._reply(200, body)
+                    return
+                data = stub_store.get(self._path())
+                self._reply(404) if data is None else self._reply(200, data)
+
+            def do_HEAD(self):  # noqa: N802
+                self._reply(200 if self._path() in stub_store else 404)
+
+            def do_DELETE(self):    # noqa: N802
+                stub_store.pop(self._path(), None)
+                self._reply(204)
+
+        super().__init__(Handler)
+
+    def url(self, bucket: str = "smoke", prefix: str = "ci") -> str:
+        return (f"s3://{bucket}/{prefix}?endpoint="
+                f"http://127.0.0.1:{self.port}")
+
+
+REGISTRY_REPO = "smoke/fleet"
+REGISTRY_GZIP = 5               # the fleet target pushed with gzipped layers
+REGISTRY_THROTTLE_S = 10.0      # the throttled materialized pull's target wall
+
+
+def run_refs(refs: list, db, backend: str, scanner, cache,
+             streaming: bool = True, sched: bool = False, memo=None,
+             tracer=None) -> dict:
+    """One ``BatchScanRunner.scan_registry_refs`` over ``refs`` (streamed,
+    or with ``streaming=False`` pulled whole; on the direct path, or the
+    scheduled one with ``sched``; with ``memo`` and into ``tracer`` when
+    given), its sieve launches counted from 0: {"texts", "failed",
+    "status", "wall_s", "load_s" (the direct path's stream opens or
+    pulls before the batch), "launches", "batches" (candidate files per
+    launched batch, scheduled), "stats" (the runner's ``last_stats``)}."""
+    from trivy_tpu_torch.artifact.registry import DistributionClient
+    from trivy_tpu_torch.ops.dfa_cuda import dfa_blockmask
+    from trivy_tpu_torch.runtime import BatchScanRunner
+    from trivy_tpu_torch.sched import SchedConfig
+    runner = BatchScanRunner(
+        store=db, cache=cache, backend=backend, secret_scanner=scanner,
+        memo=memo, tracer=tracer, dispatch_depth=2,
+        sched=SchedConfig(dispatch_depth=2) if sched else "off")
+    batches: list = []
+    outer: list = []
+    if sched:
+        launch = runner.scheduler._launch
+
+        def counted(reqs, *args, **kwargs):
+            batches.append(sum(len(r.work.candidates) for r in reqs))
+            return launch(reqs, *args, **kwargs)
+
+        runner.scheduler._launch = counted
+    else:
+        scan_images = runner.scan_images
+
+        def clocked(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return scan_images(*args, **kwargs)
+            finally:
+                outer.append(time.perf_counter() - t)
+
+        runner.scan_images = clocked
+    dfa_blockmask.launches = 0
+    try:
+        t0 = time.perf_counter()
+        results = runner.scan_registry_refs(
+            refs, DistributionClient(), None,
+            streaming=streaming)
+        wall = time.perf_counter() - t0
+    finally:
+        runner.close()
+    launches = dfa_blockmask.launches
+    out = {"texts": [None if r.error else _sorted_json(report_text(
+        r.report)) for r in results],
+           "failed": [(i, r.status, [c.to_dict() for c in r.causes])
+                      for i, r in enumerate(results) if r.error],
+           "status": [r.status for r in results], "wall_s": wall,
+           "load_s": wall - sum(outer) if outer else None,
+           "launches": launches, "batches": batches,
+           "stats": runner.last_stats}
+    del results
+    return out
+
+
+def unnamed(text: str, name: str) -> str:
+    """A JSON report text with its target's name (``ArtifactName``, and
+    in each result's ``Target``) replaced and its ``RepoTags``,
+    ``RepoDigests`` and ``ImageID`` dropped (a docker-save tar's image
+    ID hashes the canonical config JSON, a registry image's is its
+    config blob's digest): a registry ref's report and the same image's
+    tar report then compare equal."""
+    doc = json.loads(text)
+    for k in ("RepoTags", "RepoDigests", "ImageID"):
+        doc["Metadata"].pop(k, None)
+    return json.dumps(doc, sort_keys=True).replace(name, "NAME")
+
+
+def push_fleet(reg, paths: list, broken: int, gz_dir: str,
+               gz: int = -1) -> list:
+    """Push every target of ``paths`` but the truncated tar ``broken``
+    (it cannot be pushed) to ``reg`` as ``REGISTRY_REPO:<index>``, the
+    target ``gz`` with its layers gzipped; returns the pushed indices."""
+    pushed = []
+    for i, p in enumerate(paths):
+        if i == broken:
+            continue
+        if i == gz:
+            p = gzip_docker_save(p, os.path.join(gz_dir, f"fleet{i}-gz.tar"))
+        reg.add_image(REGISTRY_REPO, str(i), p)
+        pushed.append(i)
+    return pushed
+
+
+def pull_bytes(reg, pushed: list) -> int:
+    """The bytes a materialized pull of the ``pushed`` targets GETs:
+    every config and layer blob of every manifest."""
+    n = 0
+    for i in pushed:
+        man = json.loads(reg.manifests[(REGISTRY_REPO, str(i))][1])
+        n += man["config"]["size"] + sum(d["size"] for d in man["layers"])
+    return n
+
+
+class InflateClock:
+    """Seconds spent in ``_StreamingInflater.write`` (gunzip where the
+    layer is gzipped, the layer budget's charge, the spool write),
+    summed over the fetch threads while the clock is entered. Those
+    writes run inside the ``fetch`` spans, from the registry client's
+    write callback; the ``decompress`` span times only the end-of-stream
+    flush."""
+
+    def __enter__(self):
+        from trivy_tpu_torch.artifact import stream
+        self._cls, self._write = stream._StreamingInflater, \
+            stream._StreamingInflater.write
+        self._lock, self.write_s = threading.Lock(), 0.0
+        write = self._write
+
+        def clocked(inflater, data):
+            t = time.perf_counter()
+            try:
+                return write(inflater, data)
+            finally:
+                dt = time.perf_counter() - t
+                with self._lock:
+                    self.write_s += dt
+
+        self._cls.write = clocked
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.write = self._write
+
+
+def span_split(tracer, inflate_write_s: float) -> dict:
+    """Seconds summed by span name over every trace ``tracer`` kept, for
+    the registry split: pull (the ``fetch`` spans less the inflater's
+    writes inside them, ``InflateClock``), inflate (those writes and
+    the ``decompress`` spans' flush), walk (``layer_analyze``), sieve
+    (``dfa_scan``), dispatch (the interval waves' ``device_compute``
+    and the ``join``)."""
+    names = {"fetch": "pull_and_inflate_s", "decompress": "flush_s",
+             "layer_analyze": "walk_s", "dfa_scan": "sieve_s",
+             "device_compute": "dispatch_device_s", "join": "join_s"}
+    out = {v: 0.0 for v in names.values()}
+    for _, spans in tracer.recorder.traces():
+        for s in spans:
+            if s.name in names and s.end_mono is not None:
+                out[names[s.name]] += s.duration_s
+    out["pull_s"] = out["pull_and_inflate_s"] - inflate_write_s
+    out["inflate_s"] = inflate_write_s + out.pop("flush_s")
+    return out
+
+
+def remote_cache(kind: str, url: str, backend: str):
+    """``ResilientCache`` over a new Redis or S3 client on ``url``, and a
+    findings memo on the same connection (its hot-swap re-match on
+    ``backend``), as ``--cache-backend`` builds them."""
+    from trivy_tpu_torch.artifact.redis_cache import RedisCache
+    from trivy_tpu_torch.artifact.resilient import ResilientCache
+    from trivy_tpu_torch.artifact.s3_cache import S3Cache
+    from trivy_tpu_torch.memo import make_findings_memo
+    cache = ResilientCache(RedisCache(url) if kind == "redis"
+                           else S3Cache(url))
+    return cache, make_findings_memo(cache=cache, backend=backend)
+
+
+def registry_phase(device, cdb, fleet: dict, work_dir: str,
+                   db_path: str) -> dict:
+    """Scanning straight from a registry, and the remote blob caches, on
+    the fleet phase's 16 targets: the 15 that can be pushed (not the
+    truncated tar) are served from the port's ``LocalRegistry`` on
+    127.0.0.1, target ``REGISTRY_GZIP`` with gzipped layers. Through
+    ``BatchScanRunner.scan_registry_refs`` on the card:
+
+    - streamed cold, direct, into an ``FSCache``: 1 ``dfa_blockmask``
+      launch; its reports equal, names normalized (``unnamed``), the
+      fleet phase's tar reports;
+    - streamed warm on the same cache: 0 blob GETs (the registry's
+      counters), 0 launches, the same reports;
+    - streamed cold on ``cpu-ref`` (numpy): the same reports;
+    - streamed cold, scheduled, traced: the same reports, 1 launch per
+      batch with candidates, 0 quarantines, 0 host fallbacks; its
+      timeline's causes and the split (pull, inflate, walk, sieve,
+      dispatch) from its spans;
+    - a throttled pair on a registry whose responses each stream at
+      the rate that serves the whole materialized pull in about
+      ``REGISTRY_THROTTLE_S``: pulled whole (the materialized baseline
+      every streamed run's reports are held to), then streamed, both
+      cold and direct, their walls and ratio (no gain claimed);
+    - on ``ResilientCache(RedisCache)`` and ``ResilientCache(S3Cache)``
+      against the script's own stubs, with the memo on the same store:
+      cold, then warm from a new client (0 launches, 0 jobs), each
+      equal to the FS-cache fleet;
+    - cold on a Redis that stops half way through the run (by the cold
+      Redis run's requests): the same reports, 1 launch, the breaker
+      open, its stats and the ``cache_degraded`` / ``memo_degraded``
+      events.
+
+    ``python -m trivy_tpu_torch image <ref> --cache-backend redis://…``
+    on the sbom phase's npz runs beside the phase in a
+    ``BackgroundCLI``; its report must equal the same ref scanned in
+    this process."""
+    from trivy_tpu_torch.artifact import FSCache, MemoryCache
+    from trivy_tpu_torch.artifact.localreg import LocalRegistry
+    from trivy_tpu_torch.cli import secret_scanner
+    from trivy_tpu_torch.memo.metrics import MEMO_METRICS
+    from trivy_tpu_torch.obs import Tracer
+    from trivy_tpu_torch.obs.timeline import from_tracer
+    backend = device.type
+    t_phase = time.perf_counter()
+    plan, want, card = fleet["plan"], fleet["texts"], fleet["scanner"]
+    paths = plan["paths"]
+    d = os.path.join(work_dir, "registry")
+    os.makedirs(d)
+    out: dict = {}
+    stubs: list = []
+    reg = LocalRegistry()
+    pushed = push_fleet(reg, paths, plan["broken"], d, REGISTRY_GZIP)
+    # the throttled pair's registry and the CLI's serve the same
+    # content, each with counters of its own
+    out["throttle_bps"] = rate = int(pull_bytes(reg, pushed) /
+                                     REGISTRY_THROTTLE_S)
+    treg, creg = LocalRegistry(throttle_bps=rate), LocalRegistry()
+    for r in (treg, creg):
+        r.blobs, r.manifests = reg.blobs, reg.manifests
+    regs = (reg, treg, creg)
+    for r in regs:
+        r.start()
+    try:
+        refs = [reg.ref(REGISTRY_REPO, str(i)) for i in pushed]
+        out["targets"] = len(refs)
+        out["pull_bytes"] = pull_bytes(reg, pushed)
+
+        # the CLI on a ref, beside the phase, on a Redis of its own
+        cli_stub = RedisStub()
+        stubs.append(cli_stub)
+        cli_report = os.path.join(d, "cli.json")
+        cli_ref = creg.ref(REGISTRY_REPO, str(pushed[0]))
+        cli = BackgroundCLI(
+            "image_ref", ["-m", "trivy_tpu_torch", "image", cli_ref,
+                          "--compiled-db", db_path, "--cache-backend",
+                          cli_stub.url, "--backend", backend,
+                          "--format", "json", "--output", cli_report],
+            d, lambda err: {})
+
+        def done(k: str) -> None:
+            print(f"registry {k}: {runs[k]['wall_s']:.3f} s, "
+                  f"{runs[k]['launches']} dfa_blockmask launches",
+                  flush=True)
+
+        runs: dict = {}
+        fs_cache = FSCache(os.path.join(d, "fscache"))
+        reg.reset_counters()
+        runs["stream_cold"] = run_refs(refs, cdb, backend, card, fs_cache)
+        runs["stream_cold"]["registry"] = reg.snapshot()
+        done("stream_cold")
+        base = runs["stream_cold"]["texts"]
+        reg.reset_counters()
+        runs["stream_warm"] = run_refs(refs, cdb, backend, card, fs_cache)
+        warm_reg = reg.snapshot()
+        runs["stream_warm"]["registry"] = warm_reg
+        done("stream_warm")
+        del fs_cache
+        # the card against numpy at full width, streamed cold
+        runs["cpu_ref_stream_cold"] = run_refs(
+            refs, cdb, "cpu-ref", secret_scanner(backend="cpu-ref"),
+            MemoryCache())
+        done("cpu_ref_stream_cold")
+        tracer = Tracer()
+        with InflateClock() as inflate:
+            runs["sched_cold"] = run_refs(refs, cdb, backend, card,
+                                          MemoryCache(), sched=True,
+                                          tracer=tracer)
+        done("sched_cold")
+        tl = from_tracer(tracer)
+        attr = tl.attribute()
+        split = span_split(tracer, inflate.write_s)
+        del tracer
+
+        # the remote caches at full width: cold, then warm from a new
+        # client
+        remote: dict = {}
+        for kind in ("redis", "s3"):
+            stub = RedisStub() if kind == "redis" else S3Stub()
+            stubs.append(stub)
+            url = stub.url if kind == "redis" else stub.url()
+            for k in ("cold", "warm"):
+                cache, memo = remote_cache(kind, url, backend)
+                before, m0 = stub.requests, MEMO_METRICS.snapshot()
+                r = run_refs(refs, cdb, backend, card, cache, memo=memo)
+                m1 = MEMO_METRICS.snapshot()
+                r["requests"] = stub.requests - before
+                r["breaker"] = cache.breaker_stats()
+                r["memo"] = {m: m1[m] - m0[m] for m in
+                             ("hits", "misses", "stores")}
+                runs[f"{kind}_{k}"] = r
+                done(f"{kind}_{k}")
+            remote[kind] = {"keys": len(stub.store)}
+        # cold on a Redis that stops half way through the run, by the
+        # requests of the cold Redis run above
+        stub = RedisStub()
+        stubs.append(stub)
+        o = {"requests_before_the_stop": runs["redis_cold"]["requests"] // 2}
+        stub.stop_after(o["requests_before_the_stop"])
+        cache, memo = remote_cache("redis", stub.url, backend)
+        tracer = Tracer()
+        o.update(run_refs(refs, cdb, backend, card, cache, memo=memo,
+                          tracer=tracer))
+        o["breaker"] = cache.breaker_stats()
+        o["memo_breaker"] = memo.store.breaker_stats()
+        o["events"] = {}
+        for _, spans in tracer.recorder.traces():
+            for sp in spans:
+                for _, name, _ in sp.events:
+                    if name.endswith("_degraded"):
+                        o["events"][name] = o["events"].get(name, 0) + 1
+        del tracer
+        o["stub_stopped"] = stub.stopped
+        runs["redis_outage"] = o
+        done("redis_outage")
+        # the throttled pair: materialized (the baseline the streamed
+        # reports are held to), then streamed
+        trefs = [treg.ref(REGISTRY_REPO, str(i)) for i in pushed]
+        for k, streaming in (("throttled_pulled", False),
+                             ("throttled_streamed", True)):
+            treg.reset_counters()
+            runs[k] = run_refs(trefs, cdb, backend, card, MemoryCache(),
+                               streaming=streaming)
+            runs[k]["registry"] = treg.snapshot()
+            done(k)
+
+        # the CLI's report against the same ref scanned in this process
+        single, _, _ = scan_image_report(cli_ref, cdb, backend, card,
+                                         MemoryCache())
+        out["cli_wall_s"] = cli.finish()["wall_s"]
+        with open(cli_report) as f:
+            if _sorted_json(f.read()) != _sorted_json(single):
+                raise AssertionError("image <ref> CLI != the in-process "
+                                     "card scan of the ref")
+        out["cli_redis_keys"] = len(cli_stub.store)
+    finally:
+        for r in regs:
+            r.stop()
+        for s in stubs:
+            s.stop()
+
+    # the gates
+    for k, r in runs.items():
+        if r["failed"] or any(st != "ok" for st in r["status"]):
+            raise AssertionError(f"registry {k}: slots {r['status']} "
+                                 f"{r['failed'][:1]}")
+        texts = r["texts"]
+        if k.startswith("throttled"):
+            texts = [t.replace(treg.host, reg.host) for t in texts]
+        if texts != base:
+            raise AssertionError(f"registry {k}: reports != the streamed "
+                                 f"cold fleet's")
+    for i, k in enumerate(pushed):
+        if unnamed(base[i], refs[i]) != unnamed(want[k], paths[k]):
+            raise AssertionError(f"registry: target {k}'s report != its "
+                                 f"tar's (names normalized)")
+    launches = {k: r["launches"] for k, r in runs.items()}
+    sched = runs["sched_cold"]
+    with_candidates = sum(1 for n in sched["batches"] if n)
+    c = sched["stats"]["sched"]["counters"]
+    if sched["launches"] != with_candidates or c.get("quarantined", 0) \
+            or c.get("host_fallbacks", 0):
+        raise AssertionError(f"registry sched: {sched['launches']} launches "
+                             f"for {with_candidates} batches with "
+                             f"candidates, counters {c}")
+    for k in ("stream_cold", "redis_cold", "s3_cold", "throttled_pulled",
+              "throttled_streamed", "redis_outage"):
+        if launches[k] != 1:
+            raise AssertionError(f"registry {k}: {launches[k]} sieve "
+                                 f"launches (1 per direct fleet)")
+    for k in ("stream_warm", "redis_warm", "s3_warm"):
+        r = runs[k]
+        # a warm memo also answers every detection question
+        jobs = r["stats"]["interval_jobs"] if k != "stream_warm" else 0
+        if r["launches"] or jobs or (k != "stream_warm" and
+                                      r["memo"]["misses"]):
+            raise AssertionError(f"registry {k}: {r['launches']} launches, "
+                                 f"{jobs} jobs, memo {r.get('memo')} on a "
+                                 f"warm cache")
+    if warm_reg["blob_gets"]:
+        raise AssertionError(f"registry warm: {warm_reg['blob_gets']} blob "
+                             f"GETs")
+    o = runs["redis_outage"]
+    if not o["stub_stopped"] or o["breaker"]["breaker"]["state"] != "open" \
+            or not o["breaker"]["fallback_ops"]:
+        raise AssertionError(f"registry outage: the stub stopped "
+                             f"{o['stub_stopped']}, breaker {o['breaker']}")
+
+    tp, ts = runs["throttled_pulled"], runs["throttled_streamed"]
+    out.update({
+        "gzip_target": REGISTRY_GZIP,
+        "runs": {k: {"wall_s": r["wall_s"], "load_s": r["load_s"],
+                     "images_per_s": len(refs) / r["wall_s"],
+                     "launches": r["launches"],
+                     **{s: r["stats"].get(s) for s in (
+                         "analyze_s", "secret_batch_s", "squash_join_s",
+                         "interval_dispatch_s", "interval_jobs")},
+                     **({"registry": r["registry"]} if "registry" in r
+                        else {})}
+                 for k, r in runs.items()},
+        "throttled": {"pulled_wall_s": tp["wall_s"],
+                      "streamed_wall_s": ts["wall_s"],
+                      "ratio": tp["wall_s"] / ts["wall_s"]},
+        "sched": {"batches": c["batches"],
+                  "candidates_per_batch": sched["batches"],
+                  "quarantined": c.get("quarantined", 0),
+                  "host_fallbacks": c.get("host_fallbacks", 0),
+                  "wall_s": sched["wall_s"]},
+        "split_s": split,
+        "timeline": {"window_ms": tl.window_s * 1e3,
+                     "busy_ms": tl.busy_s * 1e3,
+                     "idle_share": tl.idle_s / tl.window_s,
+                     "causes_ms": {k: v * 1e3 for k, v in attr.items()}},
+        "remote": {kind: {**remote[kind],
+                          **{k: {"wall_s": runs[f"{kind}_{k}"]["wall_s"],
+                                 "requests": runs[f"{kind}_{k}"]["requests"],
+                                 "memo": runs[f"{kind}_{k}"]["memo"],
+                                 "breaker": runs[f"{kind}_{k}"]["breaker"]}
+                             for k in ("cold", "warm")}}
+                   for kind in ("redis", "s3")},
+        "outage": {"wall_s": o["wall_s"], "launches": o["launches"],
+                   "requests_before_the_stop":
+                       o["requests_before_the_stop"],
+                   "breaker": o["breaker"], "memo_breaker": o["memo_breaker"],
+                   "events": o["events"]},
+        "launches": launches,
+    })
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+class RegistryWorker:
+    """``registry_phase`` in a process of its own (``python chip_smoke.py
+    --registry-phase SPEC``) on the sbom phase's npz, started after the
+    sched phase on the targets and reports the fleet phase kept, and
+    run beside the memo and server phases: its launches are counted in that process, so
+    nothing beside it touches its counts. ``finish`` waits for it,
+    fails on a non-zero exit, and returns the phase's result with the
+    process's wall and its npz load."""
+
+    def __init__(self, fleet: dict, work_dir: str, db_path: str,
+                 backend: str):
+        d = os.path.join(work_dir, "registry-worker")
+        os.makedirs(d)
+        texts = os.path.join(d, "texts.json")
+        with open(texts, "w") as f:
+            json.dump(fleet["texts"], f)
+        self.out = os.path.join(d, "out.json")
+        spec = os.path.join(d, "spec.json")
+        with open(spec, "w") as f:
+            json.dump({"plan": fleet["plan"],
+                       "texts": texts, "db_path": db_path,
+                       "work_dir": d, "backend": backend,
+                       "out": self.out}, f)
+        self.log = os.path.join(d, "stdout")
+        self.cli = BackgroundCLI(
+            "registry", [os.path.abspath(__file__), "--registry-phase",
+                         spec], d, lambda err: {}, stdout=self.log)
+
+    def finish(self, timeout_s: float = 900.0) -> dict:
+        try:
+            wall = self.cli.finish(timeout_s)["wall_s"]
+        finally:
+            with open(self.log) as f:
+                print(f.read(), end="", flush=True)
+        with open(self.out) as f:
+            out = json.load(f)
+        out["process_wall_s"] = wall
+        return out
+
+
+def registry_worker(spec_path: str) -> int:
+    """The ``--registry-phase SPEC`` process: ``registry_phase`` on the
+    npz, the fleet phase's targets and reports that SPEC names; the
+    result goes to SPEC's ``out``."""
+    from trivy_tpu_torch.cli import secret_scanner
+    from trivy_tpu_torch.db import CompiledDB
+    atexit.register(_kill_children)
+    with open(spec_path) as f:
+        spec = json.load(f)
+    backend = spec["backend"]
+    t0 = time.perf_counter()
+    cdb = CompiledDB.load(spec["db_path"])
+    load_s = time.perf_counter() - t0
+    with open(spec["texts"]) as f:
+        texts = json.load(f)
+    fleet = {"plan": spec["plan"], "texts": texts,
+             "scanner": secret_scanner(backend=backend)}
+    out = registry_phase(torch.device(backend), cdb, fleet,
+                         spec["work_dir"], spec["db_path"])
+    out["npz_load_s"] = load_s
+    with open(spec["out"], "w") as f:
+        json.dump(out, f)
+    return 0
+
+
 # --- the report writers and the Rekor lookup --------------------------
 
 WRITER_TEMPLATE = ('{{- range . -}}<testsuite name="{{ .Target }}" '
@@ -5049,6 +5816,9 @@ def main() -> int:
               + json.dumps(clis), flush=True)
         sched = sched_phase(device, cdb, kept)
         print("sched phase: " + json.dumps(sched), flush=True)
+        # the registry phase in a process of its own, beside the memo
+        # and server phases (the sched phase has the card to itself)
+        registry = RegistryWorker(kept, work, db_path, device.type)
         # the scan server boots beside the memo phase
         svc = server_boot(device, work)
         gen2: dict = {}
@@ -5077,6 +5847,9 @@ def main() -> int:
                               during_restart)
         del kept, gen2, svc
         print("server phase: " + json.dumps(server), flush=True)
+        reg = registry.finish()
+        print("registry phase (a process of its own, beside the memo "
+              "and server phases): " + json.dumps(reg), flush=True)
         mesh_fleet, life, rekor = beside["mesh_fleet"], beside["life"], \
             beside["rekor"]
 
@@ -5087,6 +5860,7 @@ def main() -> int:
                 "image": sum(img["launches"].values()),
                 "fleet": sum(fleet["launches"].values()),
                 "sched": sum(sched["launches"].values()),
+                "registry": sum(reg["launches"].values()),
                 "mesh_sieve": mesh_kern["dfa_blockmask"]["launches"],
                 "mesh_fleet": sum(mesh_fleet["launches"].values()),
                 "memo": sum(memo["launches"].values()),
@@ -5176,6 +5950,28 @@ def main() -> int:
           f"fleet; sieve/wave overlap "
           f"{sched['profiled']['sieve_wave_overlap_us']:.1f} us",
           flush=True)
+    rr, tl = reg["runs"], reg["timeline"]
+    print(f"registry fleet of {reg['targets']} targets ({gpu}; streamed "
+          f"from a LocalRegistry on 127.0.0.1, target "
+          f"{reg['gzip_target']} with gzipped layers; the truncated tar "
+          f"cannot be pushed): " + json.dumps(
+              {k: {s: r[s] for s in ("wall_s", "load_s", "launches")}
+               for k, r in rr.items()}) +
+          f"; dfa_blockmask launches {json.dumps(reg['launches'])}; warm "
+          f"re-pull blob GETs {rr['stream_warm']['registry']['blob_gets']};"
+          f" split s (scheduled, from its spans; pull and inflate apart "
+          f"by the inflater's clock) "
+          f"{json.dumps(reg['split_s'])}; scheduled timeline idle share "
+          f"{tl['idle_share']:.5f} of {tl['window_ms']:.1f} ms, causes ms "
+          f"{json.dumps(tl['causes_ms'])}; throttled pair at "
+          f"{reg['throttle_bps']} B/s per response: pulled "
+          f"{reg['throttled']['pulled_wall_s']:.3f} s, streamed "
+          f"{reg['throttled']['streamed_wall_s']:.3f} s, ratio "
+          f"{reg['throttled']['ratio']:.3f}; outage half way through the "
+          f"cold Redis run: "
+          f"events {json.dumps(reg['outage']['events'])}, breaker "
+          f"{json.dumps(reg['outage']['breaker'])}; image <ref> CLI on "
+          f"Redis {reg['cli_wall_s']:.1f} s (beside the phase)", flush=True)
     print(f"config and license checks ({gpu}; host seconds summed over "
           f"calls; YAML inputs the misconf engine left unevaluated "
           f"without PyYAML under 'unevaluated'): " + json.dumps({
@@ -5293,4 +6089,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--registry-phase"]:
+        sys.exit(registry_worker(sys.argv[2]))
     sys.exit(main())

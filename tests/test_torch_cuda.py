@@ -1317,3 +1317,62 @@ def test_scan_rpc_on_the_card_equals_cpu(cuda, sched):
         httpd.shutdown()
         httpd.server_close()
         srv.close()
+
+
+@pytest.mark.parametrize("sched", ["off", "on"])
+def test_streamed_fleet_on_the_card_equals_cpu_ref(cuda, tmp_path, sched):
+    """Three targets (two images and a twin) streamed from a
+    ``LocalRegistry`` on 127.0.0.1 (one with gzipped layers) through ``scan_registry_refs`` on the card:
+    the same reports as on ``cpu-ref``, one ``dfa_blockmask`` launch
+    per direct fleet (per batch with candidates when scheduled); a
+    warm rerun on the same cache makes no blob GET and no launch."""
+    from chip_smoke import (FS_ROOTS, fleet_targets, gzip_docker_save,
+                            make_advisory_store, make_corpus)
+    from trivy_tpu_torch.artifact import MemoryCache
+    from trivy_tpu_torch.artifact.localreg import LocalRegistry
+    from trivy_tpu_torch.runtime import BatchScanRunner
+    from trivy_tpu_torch.sched import SchedConfig
+    store, n_pkgs = make_advisory_store(3000, 31)
+    cdb = CompiledDB.compile(store)
+    files, _ = make_corpus(48, 37)
+    plan = fleet_targets(str(tmp_path), FS_ROOTS["fs"], n_pkgs, 7, files,
+                         n_images=4, scale=0.04)
+    paths = plan["paths"][:plan["broken"]]      # it cannot be pushed
+    paths[1] = gzip_docker_save(paths[1], str(tmp_path / "gz.tar"))
+    reg = LocalRegistry()
+    for i, p in enumerate(paths):
+        reg.add_image("smoke/fleet", str(i), p)
+    reg.start()
+    refs = [reg.ref("smoke/fleet", str(i)) for i in range(len(paths))]
+    out = {}
+    try:
+        for backend in ("cuda", "cpu-ref"):
+            cache = MemoryCache()
+            mode = SchedConfig(max_batch_items=2, flush_timeout_s=0.01) \
+                if sched == "on" else "off"
+            runner = BatchScanRunner(store=cdb, backend=backend,
+                                     cache=cache, sched=mode)
+            try:
+                before = dfa_blockmask.launches
+                res = runner.scan_registry_refs(refs)
+                cold = dfa_blockmask.launches - before
+                reg.reset_counters()
+                before = dfa_blockmask.launches
+                warm = runner.scan_registry_refs(refs)
+                warm_launches = dfa_blockmask.launches - before
+            finally:
+                runner.close()
+            assert reg.snapshot()["blob_gets"] == 0
+            docs = [(r.name, r.error or json.dumps(r.report.to_dict(),
+                                                   sort_keys=True))
+                    for r in res]
+            assert docs == [(r.name, r.error or json.dumps(
+                r.report.to_dict(), sort_keys=True)) for r in warm]
+            if backend == "cuda":
+                assert warm_launches == 0
+                assert cold == 1 if sched == "off" else cold >= 1
+            out[backend] = docs
+    finally:
+        reg.stop()
+    assert out["cuda"] == out["cpu-ref"]
+    assert all("secret" in d for _, d in out["cuda"])

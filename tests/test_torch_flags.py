@@ -322,7 +322,9 @@ def test_refused_flag_from_env_or_config_reaches_its_refusal(
     scan; it is never dropped. ``--server`` is ported: from the
     environment or the config file it sends the scan to that server
     (one started here, holding the entry's DB), whose report is the
-    local scan's."""
+    local scan's. ``--cache-backend`` is ported: from the config file
+    it reaches the Redis it names, none listening here, and the run
+    ends as the reference's does (exit 1, the same ``error:`` line)."""
     argv = list(inputs[entry]) + ["--backend", "cpu"]
     if flag == "--server":
         from trivy_tpu_torch.db import load_fixtures
@@ -348,6 +350,13 @@ def test_refused_flag_from_env_or_config_reaches_its_refusal(
         assert json.loads(got[1])["Results"] and code == want[0]
         return
     assert code == 1 and out == ""
+    if flag == "--cache-backend":
+        ref = _run(rcli.main, argv + ["--cache-dir", str(tmp_path / "rc")],
+                   env, str(tmp_path))
+        assert (code, said) == (ref[0], ref[2])
+        assert said == ["error: redis connect 127.0.0.1:9: "
+                        "[Errno 111] Connection refused"]
+        return
     assert len(said) == 1 and said[0].startswith(f"error: {flag}")
     assert "ROADMAP A.9" in said[0]
 

@@ -350,7 +350,8 @@ def test_runner_takes_the_direct_path_only(fleet):
     taken (A.6, ported:
     ``tests/test_torch_parallel.py``), and what is not a
     ``DeviceMesh`` is refused as one, in the runner and in the
-    scheduler."""
+    scheduler; ``scan_registry_refs`` and ``blob_keyer`` are there
+    (A.9f, ported: ``tests/test_torch_stream.py``)."""
     from trivy_tpu_torch.sched import ScanScheduler, SchedConfig
     from trivy_tpu_torch.secret.batch import BatchSecretScanner
     paths = fleet["plan"]["paths"][:2]
@@ -378,5 +379,6 @@ def test_runner_takes_the_direct_path_only(fleet):
                  lambda: ScanScheduler(backend="cpu", mesh=object())):
         with pytest.raises(TypeError, match="DeviceMesh"):
             make()
-    assert not hasattr(TRunner, "scan_registry_refs")
-    assert not hasattr(TRunner, "blob_keyer")
+    # the registry routes are ported (A.9f: tests/test_torch_stream.py)
+    assert callable(TRunner.scan_registry_refs)
+    assert callable(TRunner.blob_keyer)

@@ -164,6 +164,15 @@ SERVING_SLICE = ("rekor.py", "handler/unpackaged.py", "sbom/spdx.py",
                  "watch/metrics.py", "artifact/stream.py", "cli.py")
 
 
+# scanning straight from a registry and the remote caches
+REGISTRY_SLICE = ("artifact/registry.py", "artifact/localreg.py",
+                  "artifact/stream.py", "artifact/resolve.py",
+                  "artifact/redis_cache.py", "artifact/s3_cache.py",
+                  "artifact/resilient.py", "artifact/artifact.py",
+                  "memo/store.py", "guard/budget.py", "runtime/batch.py",
+                  "cli.py")
+
+
 def _covered(modules) -> None:
     import importlib
     import pkgutil
@@ -216,6 +225,10 @@ def test_the_scans_cover_the_checks_slice():
 
 def test_the_scans_cover_the_serving_slice():
     _covered(SERVING_SLICE)
+
+
+def test_the_scans_cover_the_registry_slice():
+    _covered(REGISTRY_SLICE)
 
 
 def test_server_entry_runs_without_jax():

@@ -528,13 +528,15 @@ def test_sbom_entry_defaults_and_errors(inputs, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,error", [
-    (["--fault-spec", "poison-image", "--backend", "cpu"], None),
-    (["--cache-backend", "redis://127.0.0.1:9"], None),
+    (["--fault-spec", "poison-image", "--backend", "cpu"], "ROADMAP A.9"),
+    (["--cache-backend", "redis://127.0.0.1:9", "--backend", "cpu"],
+     "redis connect 127.0.0.1:9"),
     ([], RuntimeError)])
 def test_sbom_entry_refuses_before_loading_the_db(inputs, argv, error,
                                                  monkeypatch):
-    """An option still to be ported, or the card where there is none, is
-    refused before the DB is loaded."""
+    """An option still to be ported, a blob cache that cannot be
+    reached, or the card where there is none, ends the run before the
+    DB is loaded."""
     import trivy_tpu_torch.cli as tcli
 
     def no_load(*args, **kwargs):
@@ -544,11 +546,11 @@ def test_sbom_entry_refuses_before_loading_the_db(inputs, argv, error,
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     argv = ["sbom", inputs["cdx"], "--compiled-db",
             inputs["compiled"]] + argv
-    if error is None:
+    if isinstance(error, str):
         err = io.StringIO()
         with contextlib.redirect_stderr(err):
             assert _run(tcli.main, argv)[0] == 1
-        assert "ROADMAP A.9" in err.getvalue()
+        assert error in err.getvalue()
     else:
         with pytest.raises(error, match="CUDA is not available"):
             tcli.main(argv)

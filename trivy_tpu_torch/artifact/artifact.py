@@ -177,6 +177,14 @@ class ImageArtifact:
             # the image was a cache hit
             add_event("inspect", layers=len(blob_ids), missing=len(todo))
             if todo:
+                # a streaming source (stream.py) fetches and inflates
+                # in the background: (re)start exactly the missing
+                # layers and bind this thread's analyze span, so the
+                # fetch/decompress spans land in the request's trace
+                # (idempotent; absent on materialized sources)
+                prefetch = getattr(img, "prefetch", None)
+                if prefetch is not None:
+                    prefetch(todo)
                 self._inspect_layers(todo, blob_ids, base)
             if missing_artifact and \
                     getattr(self, "_os_found", None) is None:
@@ -255,6 +263,9 @@ class ImageArtifact:
         for i in todo:
             layer = self.image.layers[i]
             result = AnalysisResult()
+            # on a streaming source open() waits for the layer's
+            # fetch, which its own fetch/decompress spans cover: the
+            # layer_analyze span starts after the open
             with layer.open() as tf:
                 with phase_span("layer_analyze", layer=i):
                     files, opq_dirs, wh_files = collect_layer_tar(

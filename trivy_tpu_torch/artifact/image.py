@@ -1,10 +1,12 @@
 """Container image loading: docker-save and OCI-layout tarballs/dirs.
 
-Reference: pkg/fanal/image (archive.go). The sources are local: a
-docker-save tar (manifest.json), an OCI image layout tar (index.json),
-or a directory in OCI layout form. Daemon, containerd and registry
-resolution plug in behind the same ImageSource interface with
-``registry.py`` (ROADMAP A.9).
+Reference: pkg/fanal/image (archive.go). ``load_image`` reads the
+local sources: a docker-save tar (manifest.json), an OCI image layout
+tar (index.json), or a directory in OCI layout form. The daemon,
+containerd and registry legs (``resolve.py``, ``registry.py``) end in
+such an archive or layout and load through it too; ``stream.py``'s
+``StreamingImageSource`` duck-types ``ImageSource`` to scan while
+pulling.
 
 One ``tarfile.TarFile`` is opened per archive and shared by the
 format sniff, the manifest/config reads, and every layer open — the

@@ -1,12 +1,33 @@
-"""The circuit breaker of the memo store (copied from
-``trivy_tpu/artifact/resilient.py``: ``CircuitBreaker`` alone).
+"""Circuit-broken cache: a backend outage costs throughput, never
+availability (reference: ``trivy_tpu/artifact/resilient.py``).
 
-Consecutive failures open the circuit; after ``cooldown_s`` it goes
-half-open and lets exactly one probe through to the primary; success
-closes it (and records the outage duration), failure re-opens it. The
-remote blob caches that the reference puts behind it
-(``ResilientCache`` over Redis, S3 and the RPC cache) are ROADMAP
-A.9f.
+``ResilientCache`` wraps a remote cache backend (``redis_cache``,
+``s3_cache``) with a :class:`CircuitBreaker` and a local
+``MemoryCache`` fallback. Semantics:
+
+* every WRITE mirrors into the fallback first, so anything this
+  process has produced stays readable through an outage that starts
+  mid-scan (the scheduled pipeline puts blobs in one phase and reads
+  them in a later one);
+* successful primary READS are mirrored too (read-through, LRU-capped
+  at ``MIRROR_CAP``), so a layer served from the remote cache before
+  the outage remains served after it;
+* when the breaker is open, every op answers from the fallback —
+  ``missing_blobs`` reports anything the fallback lacks as missing,
+  which degrades a cache hit into a re-analysis (throughput cost),
+  never into an error or a silently dropped layer;
+* each failed primary op is a ``cache_degraded`` event on the active
+  span and a count in ``breaker_stats()``;
+* after ``cooldown_s`` the breaker goes half-open and lets exactly
+  one probe op through to the primary; success closes the circuit
+  (and records the outage duration), failure re-opens it.
+
+The one case that cannot be answered correctly — a read the fallback
+has never seen while the primary is down — returns the "miss" answer
+(None / missing), which re-analysis upstream makes correct. A degrade
+moves only where blobs are stored: the walk, the sieve and the
+interval match run where they run without it. The memo store
+(``memo/store.py``) reuses the breaker.
 """
 
 from __future__ import annotations
@@ -14,7 +35,11 @@ from __future__ import annotations
 import logging
 import threading
 import time
+from collections import OrderedDict
 from typing import Optional
+
+from ..obs.trace import add_event
+from .cache import MemoryCache
 
 log = logging.getLogger("trivy_tpu_torch.cache.resilient")
 
@@ -93,3 +118,153 @@ class CircuitBreaker:
                 out["open_for_s"] = round(
                     self._clock() - self._opened_at, 4)
             return out
+
+
+class ResilientCache:
+    """The cache interface, degraded-not-down over a flaky primary."""
+
+    # RedisError and S3Error subclass ConnectionError
+    FAILURES = (ConnectionError, TimeoutError, OSError)
+
+    # read-through mirrors are disposable insurance; cap them so a
+    # warm-cache fleet scan does not duplicate its whole working set
+    # in process RAM. Local WRITES are pinned (read-your-writes).
+    MIRROR_CAP = 4096
+
+    def __init__(self, primary, breaker: Optional[CircuitBreaker] = None):
+        self.primary = primary
+        self.fallback = MemoryCache()
+        self.breaker = breaker or CircuitBreaker()
+        self.name = type(primary).__name__
+        self._lock = threading.Lock()
+        self._pinned: set = set()          # blob ids written locally
+        self._mirrored: OrderedDict = OrderedDict()  # LRU of mirrors
+        self.counters = {"primary_ops": 0, "fallback_ops": 0,
+                         "primary_errors": 0}
+
+    def _inc(self, k: str) -> None:
+        with self._lock:
+            self.counters[k] += 1
+
+    def _try_primary(self, op: str, *args):
+        """(ok, value) — ok False means "use the fallback"."""
+        if not self.breaker.allow():
+            return False, None
+        self._inc("primary_ops")
+        try:
+            v = getattr(self.primary, op)(*args)
+        except self.FAILURES as e:
+            if getattr(e, "integrity", False):
+                # cache INCONSISTENCY (e.g. S3IntegrityError), not
+                # an outage: surfacing it loudly is the point —
+                # tripping the breaker would hide it and take a
+                # healthy backend offline
+                raise
+            self._inc("primary_errors")
+            self.breaker.record_failure()
+            # visible in the request's trace
+            add_event("cache_degraded", op=op, error=repr(e),
+                      breaker=self.breaker.state)
+            log.warning("%s %s failed (%r); degrading to %s",
+                        self.name, op, e,
+                        type(self.fallback).__name__)
+            return False, None
+        self.breaker.record_success()
+        return True, v
+
+    # --- writes: fallback first, then best-effort primary ---
+
+    def put_artifact(self, artifact_id: str, info) -> None:
+        self.fallback.put_artifact(artifact_id, info)
+        ok, _ = self._try_primary("put_artifact", artifact_id, info)
+        if not ok:
+            self._inc("fallback_ops")
+
+    def put_blob(self, blob_id: str, blob) -> None:
+        self.fallback.put_blob(blob_id, blob)
+        with self._lock:
+            self._pinned.add(blob_id)
+            self._mirrored.pop(blob_id, None)
+        ok, _ = self._try_primary("put_blob", blob_id, blob)
+        if not ok:
+            self._inc("fallback_ops")
+
+    def _mirror_blob(self, blob_id: str, blob) -> None:
+        """LRU-capped read-through: keeps outage coverage for hot
+        blobs without duplicating the whole remote working set."""
+        with self._lock:
+            if blob_id in self._pinned:
+                return
+            self._mirrored[blob_id] = None
+            self._mirrored.move_to_end(blob_id)
+            evict = []
+            while len(self._mirrored) > self.MIRROR_CAP:
+                evict.append(self._mirrored.popitem(last=False)[0])
+        self.fallback.put_blob(blob_id, blob)
+        if evict:
+            self.fallback.delete_blobs(evict)
+
+    # --- reads: primary with read-through mirror, else fallback ---
+
+    def get_artifact(self, artifact_id: str):
+        ok, v = self._try_primary("get_artifact", artifact_id)
+        if ok and v is not None:
+            self.fallback.put_artifact(artifact_id, v)
+            return v
+        if not ok:
+            self._inc("fallback_ops")
+        # a healthy-primary MISS still consults the fallback: a
+        # record written during an outage lives only there, and
+        # read-your-writes must hold across the recovery boundary
+        return self.fallback.get_artifact(artifact_id)
+
+    def get_blob(self, blob_id: str):
+        ok, v = self._try_primary("get_blob", blob_id)
+        if ok and v is not None:
+            self._mirror_blob(blob_id, v)
+            return v
+        if not ok:
+            self._inc("fallback_ops")
+        return self.fallback.get_blob(blob_id)
+
+    def missing_blobs(self, artifact_id: str, blob_ids: list) -> tuple:
+        ok, v = self._try_primary("missing_blobs", artifact_id,
+                                  blob_ids)
+        if not ok:
+            # degraded answer: anything the local fallback lacks gets
+            # re-analyzed — correctness preserved, throughput paid
+            self._inc("fallback_ops")
+            return self.fallback.missing_blobs(artifact_id, blob_ids)
+        missing_artifact, missing = v
+        if missing or missing_artifact:
+            # union view: a record written during an outage lives
+            # only in the fallback; it is PRESENT (get falls through
+            # to it), so do not force a pointless re-analysis
+            fb_art, fb_missing = self.fallback.missing_blobs(
+                artifact_id, missing)
+            missing = list(fb_missing)
+            missing_artifact = missing_artifact and fb_art
+        return missing_artifact, missing
+
+    def delete_blobs(self, blob_ids: list) -> None:
+        with self._lock:
+            for b in blob_ids:
+                self._pinned.discard(b)
+                self._mirrored.pop(b, None)
+        self.fallback.delete_blobs(blob_ids)
+        ok, _ = self._try_primary("delete_blobs", blob_ids)
+        if not ok:
+            self._inc("fallback_ops")
+
+    def clear(self) -> None:
+        clear = getattr(self.fallback, "clear", None)
+        if clear is not None:
+            clear()
+        if hasattr(self.primary, "clear"):
+            self._try_primary("clear")
+
+    def breaker_stats(self) -> dict:
+        with self._lock:
+            counters = dict(self.counters)
+        return {"backend": self.name, **counters,
+                "breaker": self.breaker.stats()}

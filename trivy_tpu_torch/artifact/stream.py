@@ -1,13 +1,81 @@
-"""Streaming registry ingest (reference: ``trivy_tpu/artifact/
-stream.py``): the process-wide ingest counters, which the scan server
-reports under ``/metrics``' ``ingest`` section on both sched modes.
-The streaming layer fetch that fills them comes with the registry
-client (ROADMAP A.9f).
+"""Streaming layer ingest: scan while pulling (reference:
+``trivy_tpu/artifact/stream.py``).
+
+The materialize-first pull (:meth:`DistributionClient.pull`) fetches
+every blob into an OCI layout before a single byte is analyzed — on a
+cold registry scan the host sits in that wall for longer than every
+device phase together. This module makes the artifact seam
+incremental instead of whole-image:
+
+* **pipelined fetch+inflate** — each layer blob streams through the
+  resumable fetch engine (``registry.fetch_blob``) straight into a
+  bounded chunk-wise gzip inflater (the 64 KiB chunks and budget
+  charges of ``guard/safetar.decompress_bounded``, on the push side),
+  spooling the decompressed tar to disk. Layers download and inflate
+  on a dedicated fetch pool while earlier layers are already being
+  analyzed and dispatched. The pool is sized for network parallelism
+  (``TRIVY_TPU_FETCH_CONCURRENCY``, default 8), NOT for core count:
+  blob fetches spend their life in socket reads and throttle sleeps.
+  Its threads never touch the card: only the walk and the sieve do,
+  on the threads that run them without streaming.
+* **warm-layer skip** — before any blob GET, a digest-only cache
+  probe (the content-addressed keys ``ImageArtifact.inspect``
+  computes, which need only manifest+config) marks already-cached
+  layers as *skipped*: zero bytes pulled. A probe outage degrades to
+  a normal full pull, never an error; a skipped layer that turns out
+  to be needed after all (cache eviction race) is fetched lazily on
+  ``open()``, under the same budget.
+* **guard parity** — every layer runs under a
+  :class:`~trivy_tpu_torch.guard.budget.LayerBudget` rolling up to the
+  per-target budget, so a bomb trips at the same thresholds as the
+  materialized path (the ratio tripwire holds each layer's inflated
+  bytes against its own compressed size), and a mid-stream trip
+  propagates out of the write callback — closing the HTTP response and
+  *cancelling* the remaining fetch instead of draining it.
+* **close cancels** — ``close()`` cancels the fetches still running
+  (or still queued) and waits for them before it deletes the spools.
+  A layer that inspect never opened (an earlier image of the fleet
+  put its blob) stops at its next chunk, its worker is free again, and
+  the ingest counters are final when the scan returns. The reference
+  lets such a fetch run on after ``close()``; it then fails writing
+  into the deleted spool, or lands after the caller read the
+  counters.
+* **stage spans** — per-layer ``fetch``/``decompress`` spans are
+  created under the request's analyze span (bound at
+  ``prefetch``/``stream_image`` time); ``obs/timeline.py`` treats
+  fetch intervals that overlap device compute as pipelined staging,
+  and the rest as ``fetch_serialized``.
+
+``StreamingImageSource`` duck-types ``artifact.image.ImageSource``
+(name/id/config/layers/diff_ids/repo_tags/repo_digests/close), so
+``ImageArtifact`` and both runner paths consume it unchanged.
 """
 
 from __future__ import annotations
 
+import atexit
+import io
+import json
+import logging
+import os
+import shutil
+import tarfile
+import tempfile
 import threading
+import zlib
+from typing import Callable, Optional
+
+from ..guard.budget import (GuardError, LayerBudget,
+                            MalformedArchiveError, ResourceBudget,
+                            ResourceBudgetExceeded)
+from ..guard.safetar import _ARCHIVE_ERRORS, GZIP_MAGIC
+from ..obs.trace import activate_or_null, current_span
+from .image import LayerRef
+from .registry import DistributionClient, _display_repo
+
+log = logging.getLogger("trivy_tpu_torch.artifact.stream")
+
+_CHUNK = 1 << 16               # safetar's bounded-inflate chunk size
 
 
 class IngestMetrics:
@@ -41,3 +109,576 @@ class IngestMetrics:
 
 
 INGEST_METRICS = IngestMetrics()
+
+# Digest-addressed memo of image CONFIG blobs. Configs are the one
+# blob the warm-layer probe itself needs (cache keys derive from
+# id/config/diff_ids), so without this a fully-warm re-pull would
+# still GET one config per image. Content under a sha256 digest is
+# immutable and was digest-verified when first fetched, so a hit is
+# exact by construction. Bounded: configs are small (the ingest
+# budget caps them at max_config_bytes) and the cap below keeps the
+# memo a few MB at worst.
+_CONFIG_MEMO_CAP = 256
+_config_memo: dict = {}            # digest -> bytes (insertion-LRU)
+_config_memo_lock = threading.Lock()
+
+
+def _config_memo_get(digest: str) -> Optional[bytes]:
+    with _config_memo_lock:
+        data = _config_memo.pop(digest, None)
+        if data is not None:
+            _config_memo[digest] = data      # refresh LRU position
+        return data
+
+
+def _config_memo_put(digest: str, data: bytes) -> None:
+    with _config_memo_lock:
+        _config_memo.pop(digest, None)
+        _config_memo[digest] = data
+        while len(_config_memo) > _CONFIG_MEMO_CAP:
+            _config_memo.pop(next(iter(_config_memo)))
+
+
+_FETCH_POOL = None
+_fetch_pool_lock = threading.Lock()
+
+
+def _fetch_pool():
+    """The shared blob-fetch executor. Deliberately NOT the runtime
+    host pool: fetches are network-bound (socket reads, registry
+    throttling), so their useful concurrency is independent of core
+    count — on a 1-core host the CPU pool is disabled entirely,
+    which must not serialize downloads."""
+    global _FETCH_POOL
+    if _FETCH_POOL is None:
+        with _fetch_pool_lock:
+            if _FETCH_POOL is None:
+                from concurrent.futures import ThreadPoolExecutor
+                n = 8
+                env = os.environ.get("TRIVY_TPU_FETCH_CONCURRENCY")
+                if env:
+                    try:
+                        n = max(0, int(env))
+                    except ValueError:
+                        log.warning(
+                            "bad TRIVY_TPU_FETCH_CONCURRENCY=%r "
+                            "ignored", env)
+                if n == 0:
+                    return None
+                _FETCH_POOL = ThreadPoolExecutor(
+                    max_workers=n,
+                    thread_name_prefix="trivy-fetch")
+    return _FETCH_POOL
+
+
+def clear_config_memo() -> None:
+    with _config_memo_lock:
+        _config_memo.clear()
+
+
+class _StreamingInflater:
+    """Push-side bounded decompressor: registry chunks in,
+    budget-charged 64 KiB decompressed chunks out to a spool file.
+
+    The first two bytes sniff gzip vs plain tar — a gzip stream runs
+    through ``zlib.decompressobj`` with ``max_length`` so one hostile
+    input chunk can never materialize unbounded output (each emitted
+    chunk is charged to a ``LayerBudget``, whose ratio tripwire holds
+    the layer's inflated bytes against the manifest's compressed
+    size); a plain tar is charged at face value as
+    it arrives, like ``open_layer_bytes``.
+
+    ``restart()`` supports the fetch engine's offset-0 rewrite when a
+    registry rejects a Range resume: the spool and decompressor state
+    reset but the budget watermark (``charged``) survives — the
+    rewritten stream is digest-pinned identical content, so re-inflated
+    bytes below the watermark are not double-charged."""
+
+    def __init__(self, out, budget: Optional[ResourceBudget],
+                 compressed_total: int = 0):
+        self.out = out
+        self.budget = budget
+        self.compressed_total = compressed_total
+        self._z = None
+        self._raw = False
+        self._started = False
+        self._head = b""
+        self.produced = 0           # spool watermark (resets on restart)
+        self.charged = 0            # budget watermark (never resets)
+
+    def write(self, data: bytes) -> None:
+        if not data:
+            return
+        if not self._started:
+            self._head += data
+            if len(self._head) < 2:
+                return
+            data, self._head = self._head, b""
+            self._started = True
+            if data[:2] == GZIP_MAGIC:
+                self._z = zlib.decompressobj(16 + zlib.MAX_WBITS)
+            else:
+                self._raw = True
+        if self._raw:
+            self._emit(data)
+        else:
+            self._inflate(data)
+
+    def _inflate(self, data: bytes) -> None:
+        z = self._z
+        try:
+            while True:
+                chunk = z.decompress(data, _CHUNK)
+                if chunk:
+                    self._emit(chunk)
+                if z.eof:
+                    tail = z.unused_data.lstrip(b"\x00")
+                    if not tail:
+                        return
+                    # concatenated gzip members — GzipFile reads
+                    # them back-to-back, so match it
+                    z = self._z = zlib.decompressobj(
+                        16 + zlib.MAX_WBITS)
+                    data = tail
+                    continue
+                data = z.unconsumed_tail
+                if not data:
+                    return
+        except zlib.error as e:
+            self._malformed(f"truncated or corrupt gzip stream: {e}")
+
+    def restart(self) -> None:
+        self.out.seek(0)
+        self.out.truncate()
+        self.produced = 0
+        self._z = None
+        self._raw = False
+        self._started = False
+        self._head = b""
+
+    def finish(self) -> None:
+        """Blob EOF: flush the decompressor tail; a gzip stream that
+        never reached its end marker is truncated — the same typed
+        failure the materialized path raises."""
+        if not self._started and self._head:
+            # a blob shorter than the 2-byte sniff window: plain data
+            self._started = True
+            self._raw = True
+            self._emit(self._head)
+            self._head = b""
+        if self._z is not None:
+            if not self._z.eof:
+                self._malformed("truncated or corrupt gzip stream: "
+                                "unexpected end of stream")
+            tail = self._z.flush()
+            if tail:
+                self._emit(tail)
+        self.out.flush()
+
+    def _emit(self, chunk: bytes) -> None:
+        budget = self.budget
+        self.produced += len(chunk)
+        new = self.produced - self.charged
+        if budget is not None:
+            budget.check_deadline()
+            if new > 0:
+                self.charged = self.produced
+                budget.charge_decompressed(
+                    new, compressed=self.compressed_total)
+        self.out.write(chunk)
+
+    def _malformed(self, msg: str) -> None:
+        if self.budget is not None:
+            self.budget.malformed(msg)      # raises
+        raise MalformedArchiveError(msg)
+
+
+class FetchCancelled(RuntimeError):
+    """A layer fetch stopped by ``StreamingImageSource.close()``."""
+
+
+class _LayerFetch:
+    """Mutable per-layer fetch state (one background worker each).
+
+    ``epoch`` is the source's close count when the fetch was started: a
+    ``close()`` after it cancels the fetch (a queued one never issues
+    its GET, a running one stops at its next chunk) and leaves
+    :class:`FetchCancelled` as its ``error``."""
+
+    __slots__ = ("index", "diff_id", "digest", "size", "spool",
+                 "done", "error", "started", "running", "skipped",
+                 "compressed", "epoch")
+
+    def __init__(self, index: int, diff_id: str, digest: str,
+                 size: int, spool: str):
+        self.index = index
+        self.diff_id = diff_id
+        self.digest = digest
+        self.size = size
+        self.spool = spool
+        self.done = threading.Event()
+        self.error: Optional[BaseException] = None
+        self.started = False
+        self.running = False
+        self.skipped = False
+        self.compressed = 0
+        self.epoch = 0
+
+
+class StreamingImageSource:
+    """An image whose layers arrive as they are fetched.
+
+    Duck-types :class:`~trivy_tpu_torch.artifact.image.ImageSource`:
+    the metadata half (id/config/diff_ids) is complete at construction
+    from manifest+config alone — enough for ``ImageArtifact`` to
+    compute cache keys and for the warm probe — while each
+    ``LayerRef.open()`` blocks only until *that* layer's spool is
+    ready. ``close()`` cancels the fetches in flight, waits for them
+    and deletes the spools; an open after close refetches on demand
+    (the same re-open-after-close contract the shared ``_Archive``
+    handle documents)."""
+
+    def __init__(self, client: DistributionClient, registry: str,
+                 repo: str, name: str, image_id: str, config: dict,
+                 layer_descs: list, diff_ids: list,
+                 budget: Optional[ResourceBudget] = None):
+        self.client = client
+        self.registry = registry
+        self.repo = repo
+        self.name = name
+        self.id = image_id
+        self.config = config
+        self.repo_tags: list = []
+        self.repo_digests: list = []
+        self.archive = None
+        self.ingest_budget = budget
+        self._lock = threading.Lock()
+        self._span = None
+        self._epoch = 0                 # close() count
+        self._spool_dir = tempfile.mkdtemp(prefix="trivy-tpu-stream-")
+        self._fetches = [
+            _LayerFetch(i, d, desc["digest"],
+                        int(desc.get("size") or 0),
+                        os.path.join(self._spool_dir,
+                                     f"layer{i}.tar"))
+            for i, (d, desc) in enumerate(zip(diff_ids, layer_descs))]
+        self.layers = [
+            LayerRef(diff_id=st.diff_id,
+                     open=self._make_opener(st))
+            for st in self._fetches]
+        self.cleanup = lambda: shutil.rmtree(self._spool_dir,
+                                             ignore_errors=True)
+        atexit.register(self.cleanup)
+
+    @property
+    def diff_ids(self) -> list:
+        return [la.diff_id for la in self.layers]
+
+    # --- lifecycle ---
+
+    def mark_skipped(self, indices) -> None:
+        """Warm layers: the cache already holds their analyzed blob,
+        so no GET is issued for them (lazily fetchable on ``open()``
+        if a caller disagrees with the probe)."""
+        for i in indices:
+            st = self._fetches[i]
+            with self._lock:
+                if st.started:
+                    continue
+                st.skipped = True
+            INGEST_METRICS.inc("layers_skipped")
+            INGEST_METRICS.inc("bytes_skipped", st.size)
+
+    def prefetch(self, todo=None) -> None:
+        """Idempotent: start background fetches on the fetch pool for
+        the given layer indices (every non-skipped layer when None),
+        and bind the caller's active span so in-flight stage spans
+        land in the request's trace. ``ImageArtifact.inspect`` calls
+        this with its missing-layer set — an explicit index overrides
+        a warm skip (the probe and the cache can disagree under
+        eviction)."""
+        sp = current_span()
+        if sp is not None and not getattr(sp, "noop", False):
+            self._span = sp
+        explicit = todo is not None
+        states = [self._fetches[i] for i in todo] if explicit \
+            else list(self._fetches)
+        pool = _fetch_pool()
+        for st in states:
+            with self._lock:
+                if st.started or (st.skipped and not explicit):
+                    continue
+                self._start(st)
+                epoch = st.epoch
+            if pool is not None:
+                pool.submit(self._fetch_layer, st, epoch)
+            else:
+                self._fetch_layer(st, epoch)
+
+    def _start(self, st: _LayerFetch) -> None:
+        # under self._lock
+        st.started = True
+        st.skipped = False
+        st.epoch = self._epoch
+
+    def _reset(self, st: _LayerFetch) -> None:
+        """Forget a finished fetch (cancelled, or its spool deleted)
+        so the next open fetches it again."""
+        with self._lock:
+            if st.done.is_set():
+                st.started = False
+                st.error = None
+                st.done.clear()
+
+    def close(self) -> None:
+        """Cancel every fetch still queued or running, wait for the
+        running ones to stop, and delete the spools."""
+        with self._lock:
+            self._epoch += 1
+            running = [st for st in self._fetches if st.running]
+            queued = [st for st in self._fetches
+                      if st.started and not st.running
+                      and not st.done.is_set()]
+            for st in queued:
+                # its pool task finds it done and returns
+                st.error = FetchCancelled(
+                    f"{self.name}[{st.index}]: source closed")
+                st.done.set()
+        if queued:
+            INGEST_METRICS.inc("cancelled_fetches", len(queued))
+        for st in running:
+            st.done.wait()
+        shutil.rmtree(self._spool_dir, ignore_errors=True)
+
+    # --- fetch worker ---
+
+    def _fetch_layer(self, st: _LayerFetch, epoch: int) -> None:
+        with self._lock:
+            if st.epoch != epoch or st.running or st.done.is_set():
+                return          # cancelled or restarted since
+            st.running = True
+        parent = self._span
+        tracer = getattr(parent, "tracer", None) \
+            if parent is not None else None
+
+        def stage(name):
+            if tracer is None:
+                return None
+            return tracer.child(parent, name, layer=st.index)
+
+        budget = None
+        if self.ingest_budget is not None:
+            budget = LayerBudget(self.ingest_budget,
+                                 name=f"{self.name}[{st.index}]")
+        part = st.spool + ".part"
+        try:
+            os.makedirs(self._spool_dir, exist_ok=True)
+            with open(part, "wb") as out:
+                inflater = _StreamingInflater(
+                    out, budget, compressed_total=st.size)
+
+                def write(data: bytes) -> None:
+                    if self._epoch != epoch:
+                        raise FetchCancelled(
+                            f"{self.name}[{st.index}]: source closed")
+                    inflater.write(data)
+
+                fs = stage("fetch")
+                status = "ok"
+                try:
+                    with activate_or_null(fs):
+                        st.compressed = self.client.fetch_blob(
+                            self.registry, self.repo, st.digest,
+                            write, inflater.restart)
+                except (GuardError, FetchCancelled):
+                    # a budget trip or a close inside the write
+                    # callback — fetch_blob let it propagate, closing
+                    # the response: the rest of the blob was
+                    # cancelled, not drained
+                    status = "error"
+                    INGEST_METRICS.inc("cancelled_fetches")
+                    raise
+                except BaseException:
+                    status = "error"
+                    raise
+                finally:
+                    if fs is not None:
+                        fs.end(status)
+                ds = stage("decompress")
+                status = "ok"
+                try:
+                    with activate_or_null(ds):
+                        inflater.finish()
+                except BaseException:
+                    status = "error"
+                    raise
+                finally:
+                    if ds is not None:
+                        ds.end(status)
+            os.replace(part, st.spool)
+            INGEST_METRICS.inc("layers_fetched")
+            INGEST_METRICS.inc("bytes_fetched", st.compressed)
+            if budget is not None:
+                budget.flush_metrics()
+        except BaseException as e:
+            st.error = e
+            if budget is not None:
+                try:
+                    budget.flush_metrics()
+                except Exception:   # noqa: BLE001 — best-effort
+                    log.debug("layer budget flush failed after "
+                              "fetch error", exc_info=True)
+        finally:
+            # one step under the lock: close() must never see a fetch
+            # that stopped running but is not done
+            with self._lock:
+                st.running = False
+                st.done.set()
+
+    # --- open ---
+
+    def _make_opener(self, st: _LayerFetch) -> Callable:
+        def open_layer() -> tarfile.TarFile:
+            return self._open_layer(st)
+        return open_layer
+
+    def _open_layer(self, st: _LayerFetch) -> tarfile.TarFile:
+        for attempt in (0, 1):
+            start = False
+            with self._lock:
+                if not st.started:
+                    self._start(st)
+                    start = True
+                epoch = st.epoch
+            if start:
+                # a warm-skipped (or post-close) layer is actually
+                # needed: fetch inline on the caller's thread, under
+                # the same layer budget
+                self._fetch_layer(st, epoch)
+            st.done.wait()
+            if isinstance(st.error, FetchCancelled) and not attempt:
+                self._reset(st)         # closed meanwhile: refetch
+                continue
+            if st.error is not None:
+                raise st.error
+            try:
+                return tarfile.open(st.spool)
+            except FileNotFoundError:
+                if attempt:
+                    raise
+                self._reset(st)         # close() deleted the spool
+            except _ARCHIVE_ERRORS as e:
+                if self.ingest_budget is not None:
+                    self.ingest_budget.malformed(
+                        f"unreadable layer tar: {e}")
+                raise MalformedArchiveError(
+                    f"unreadable layer tar: {e}") from e
+        raise AssertionError("unreachable")
+
+
+def stream_image(client: DistributionClient, ref: str,
+                 cache=None, keyer: Optional[Callable] = None,
+                 budget: Optional[ResourceBudget] = None)\
+        -> StreamingImageSource:
+    """Open ``ref`` as a streaming image source.
+
+    Fetches manifest + config now (digest-pinned, config size-capped
+    by the budget), then returns immediately with every cold layer's
+    fetch already running on the fetch pool. With ``cache`` and
+    ``keyer`` (``keyer(img) → (artifact_id, blob_ids, base)`` — see
+    ``BatchScanRunner.blob_keyer``), the warm-layer skip probes the
+    blob cache first and never GETs a warm layer's blob; a probe
+    outage degrades to a full pull."""
+    (registry, repo, reference, manifest, served_digest,
+     _ctype, _body) = client.resolve_manifest(ref)
+    try:
+        cfg_desc = manifest["config"]
+        cfg_digest = cfg_desc["digest"]
+        layer_descs = manifest.get("layers") or []
+        sizes_ok = all("digest" in d for d in layer_descs)
+    except (KeyError, IndexError, TypeError) as e:
+        if budget is not None:
+            budget.malformed(f"malformed image metadata: {e!r}")
+        raise ValueError(f"malformed image metadata: {e!r}") from e
+    if not sizes_ok:
+        if budget is not None:
+            budget.malformed("layer descriptor without digest")
+        raise ValueError("layer descriptor without digest")
+
+    lim = budget.limits.max_config_bytes if budget is not None \
+        else None
+    if budget is not None:
+        budget.check_deadline()
+        csize = int(cfg_desc.get("size") or 0)
+        if csize > lim:
+            raise ResourceBudgetExceeded(
+                f"image config {cfg_digest!r} exceeds "
+                f"{lim} bytes ({csize})")
+
+    raw_config = _config_memo_get(cfg_digest)
+    if raw_config is not None:
+        INGEST_METRICS.inc("config_memo_hits")
+        if lim is not None and len(raw_config) > lim:
+            raise ResourceBudgetExceeded(
+                f"image config {cfg_digest!r} exceeds {lim} bytes "
+                f"({len(raw_config)})")
+    else:
+        buf = io.BytesIO()
+
+        def cfg_write(data: bytes) -> None:
+            # the manifest's declared size is untrusted — enforce
+            # the cap on the bytes actually received
+            if lim is not None and buf.tell() + len(data) > lim:
+                raise ResourceBudgetExceeded(
+                    f"image config {cfg_digest!r} exceeds {lim} "
+                    "bytes")
+            buf.write(data)
+
+        def cfg_restart() -> None:
+            buf.seek(0)
+            buf.truncate()
+
+        client.fetch_blob(registry, repo, cfg_digest, cfg_write,
+                          cfg_restart)
+        raw_config = buf.getvalue()
+        _config_memo_put(cfg_digest, raw_config)
+    try:
+        config = json.loads(raw_config)
+        diff_ids = config.get("rootfs", {}).get("diff_ids", [])
+    except (ValueError, TypeError, AttributeError) as e:
+        if budget is not None:
+            budget.malformed(f"invalid image config JSON: {e}")
+        raise ValueError(f"invalid image config JSON: {e}") from e
+
+    src = StreamingImageSource(
+        client, registry, repo, name=ref, image_id=cfg_digest,
+        config=config if isinstance(config, dict) else {},
+        layer_descs=layer_descs, diff_ids=diff_ids, budget=budget)
+    # repo metadata: same rules as DistributionClient.pull
+    display = _display_repo(registry, repo)
+    if "@" not in ref:
+        src.repo_tags = [f"{display}:{reference}"]
+    src.repo_digests = [f"{display}@{served_digest}"]
+
+    INGEST_METRICS.inc("streams")
+    warm: set = set()
+    if cache is not None and keyer is not None and src.layers:
+        try:
+            artifact_id, blob_ids, _base = keyer(src)
+            _missing_artifact, missing = cache.missing_blobs(
+                artifact_id, blob_ids)
+            missing = set(missing)
+            warm = {i for i, b in enumerate(blob_ids)
+                    if b not in missing}
+        except Exception as e:
+            # a cache-tier outage must degrade to a normal pull,
+            # never fail the scan
+            INGEST_METRICS.inc("warm_probe_outages")
+            log.warning("warm-layer probe failed for %s (%r); "
+                        "degrading to a full pull", ref, e)
+            warm = set()
+    src.mark_skipped(warm)
+    src.prefetch()
+    log.info("streaming %s from %s (%d layers, %d warm-skipped)",
+             ref, registry, len(src.layers), len(warm))
+    return src

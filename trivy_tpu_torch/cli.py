@@ -2,10 +2,12 @@
 ``python -m trivy_tpu_torch fs|rootfs DIR`` and
 ``python -m trivy_tpu_torch sbom BOM``.
 
-``image`` scans a container image (the reference's ``trivy image
---input X.tar``, by default for vulnerabilities and secrets): a
-docker-save tar, an OCI layout tar or an OCI layout directory is
-loaded under a per-target ingest budget, ``ImageArtifact`` walks every
+``image`` scans a container image (the reference's ``trivy image``,
+by default for vulnerabilities and secrets): a docker-save tar, an OCI
+layout tar or an OCI layout directory (``--input`` takes only these),
+or a reference that the daemon, containerd or a registry resolves
+(``artifact/resolve.py``; a registry's image is pulled whole first),
+is loaded under a per-target ingest budget, ``ImageArtifact`` walks every
 layer its cache keys miss (whiteouts, opaque dirs, the guards) through
 the analyzers and scans the secret candidates of every missing,
 non-base layer in one batched sieve, then ``LocalScanner`` prepares
@@ -48,11 +50,13 @@ All write ``table`` (the default), ``json`` or ``cyclonedx``, and run
 on ``--backend cuda`` unless asked for ``cpu`` (the same torch code on
 the CPU) or ``cpu-ref`` (numpy). Blobs go to an in-memory cache unless
 ``--cache-dir`` names a directory for the on-disk one (``--no-cache``
-keeps them in memory all the same). A scan with the ``vuln`` check
-keeps its detection verdicts in the findings memo (``memo/``) where
-an entry can be read again: under ``--cache-dir`` beside the blobs,
-where ``--memo-cache`` says, or in memory for a scheduled scan of
-several images; ``--no-memo`` turns it off. Without
+keeps them in memory all the same) or ``--cache-backend`` a Redis or
+S3 one (behind a circuit breaker that degrades to memory). A scan
+with the ``vuln`` check keeps its detection verdicts in the findings
+memo (``memo/``) where an entry can be read again: under
+``--cache-dir`` beside the blobs, on a Redis or S3 blob cache, where
+``--memo-cache`` says, or in memory for a scheduled scan of several
+images; ``--no-memo`` turns it off. Without
 ``--db-fixtures`` or ``--compiled-db``, ``--cache-dir`` names the
 advisory DB that ``db update`` installed there.
 
@@ -83,6 +87,10 @@ from . import __version__, resolve_device
 from .artifact import (ArtifactOption, FSCache, ImageArtifact,
                        LocalFSArtifact, MemoryCache, SBOMArtifact,
                        load_image)
+from .artifact.redis_cache import RedisCache, RedisError
+from .artifact.resilient import ResilientCache
+from .artifact.resolve import resolve_image
+from .artifact.s3_cache import S3Cache, S3Error
 from .db import AdvisoryStore, CompiledDB, load_fixtures
 from .db.lifecycle import db_dir, needs_update
 from .detect.batch import dispatch_jobs
@@ -234,10 +242,25 @@ def secret_scanner(secret_config: str = "trivy-secret.yaml",
         backend=backend)
 
 
-def make_cache(cache_dir: str = "", no_cache: bool = False):
-    """The blob cache of a scan (ref cli.py ``_cache``): the on-disk
-    ``FSCache`` under ``cache_dir``, else (or with ``no_cache``) a
-    ``MemoryCache``."""
+def make_cache(cache_dir: str = "", no_cache: bool = False,
+               backend: str = "fs"):
+    """The blob cache of a scan (ref cli.py ``_cache``): for
+    ``backend`` ``fs``, the on-disk ``FSCache`` under ``cache_dir``,
+    else (or with ``no_cache``) a ``MemoryCache``; for
+    ``redis://host:port`` or ``s3://bucket/prefix?endpoint=...``, that
+    remote cache behind a ``ResilientCache`` (a mid-scan outage
+    degrades to a local fallback, counted in its ``breaker_stats``).
+    Raises ``RedisError`` when Redis cannot be reached now, and
+    ``ValueError`` for another backend."""
+    if backend.startswith("redis://"):
+        return ResilientCache(RedisCache(backend))
+    if backend.startswith("s3://"):
+        return ResilientCache(S3Cache(backend))
+    if backend != "fs":
+        raise ValueError(
+            f"unsupported --cache-backend {backend!r} "
+            "(use 'fs', redis://host:port, or "
+            "s3://bucket/prefix?endpoint=...)")
     if cache_dir and not no_cache:
         return FSCache(cache_dir)
     return MemoryCache()
@@ -358,12 +381,17 @@ def scan_image(path: str, store=None, backend: str = "cuda", *,
                skip_dirs=(), skip_files=(), file_patterns=None,
                scanner=None, ingest_guards: bool = True,
                ingest_limits=None, cache=None, memo=None, remote=None,
-               name: str = "", timings: dict = None,
+               name: str = "", resolve: bool = True, timings: dict = None,
                stats: dict = None) -> Report:
-    """Scan the container image at ``path`` (a docker-save tar, an OCI
-    layout tar or an OCI layout directory) and return the unfiltered
-    report (ref cli.py ``run_image``): ``load_image`` under a
-    per-target ingest budget (none with ``ingest_guards=False``) →
+    """Scan the container image at ``path`` and return the unfiltered
+    report (ref cli.py ``run_image``). ``path`` is a docker-save tar,
+    an OCI layout tar or an OCI layout directory, or with ``resolve``
+    any image reference ``artifact/resolve.py::resolve_image`` takes:
+    the daemon's, containerd's, then a registry's
+    (``host[:port]/repo[:tag][@digest]``, pulled whole).
+    ``resolve=False`` loads ``path`` as a file and nothing else (the
+    CLI's ``--input``). The image is loaded under a per-target ingest
+    budget (none with ``ingest_guards=False``) →
     ``ImageArtifact`` inspect (the layers the cache misses: walk,
     analyzers, one batched secret sieve over every missing, non-base
     layer) → ``LocalScanner`` prepare → one ``dispatch_jobs`` →
@@ -393,8 +421,9 @@ def scan_image(path: str, store=None, backend: str = "cuda", *,
     budget = make_budget(option.ingest_limits,
                          enabled=option.ingest_guards, name=path)
     t0 = time.perf_counter()
+    load = resolve_image if resolve else load_image
     try:
-        image = load_image(path, name=name or path, budget=budget)
+        image = load(path, name=name or path, budget=budget)
     except (OSError, ValueError, TarError) as e:
         raise ImageLoadError(
             f"failed to load image {path!r}: {e}") from e
@@ -402,7 +431,11 @@ def scan_image(path: str, store=None, backend: str = "cuda", *,
     cache = MemoryCache() if cache is None else cache
     artifact = ImageArtifact(image, cache, option=option, budget=budget)
     t0 = time.perf_counter()
-    ref = artifact.inspect()
+    try:
+        ref = artifact.inspect()
+    finally:
+        # a pulled or exported image's layout or archive goes now
+        getattr(image, "cleanup", lambda: None)()
     t["inspect_s"] = time.perf_counter() - t0
     if stats is not None:
         stats["missing"] = artifact.missing_layers
@@ -536,20 +569,22 @@ def _memo(args, cache, option=None, scheduled: bool = False):
     """The findings memo of a scan (ref cli.py ``_memo``): None under
     ``--no-memo`` or without the ``vuln`` check, else one on the blob
     cache's tier (``--memo-cache`` overrides it) whose hot-swap
-    re-match runs on the scan's backend. Raises ``ValueError`` for a
-    memo URI still to be ported.
+    re-match runs on the scan's backend. Raises ``RedisError`` for a
+    Redis memo store that cannot be reached.
 
     Unlike the reference, a memo in memory is built only for a
     ``scheduled`` run of several targets, where a request can read
     what an earlier one recorded: a single target, or the direct
     fleet, partitions every query before any verdict is recorded, so
     its memory memo would die with the process unread. The reports
-    are the same either way."""
+    are the same either way. On a remote blob cache (``ResilientCache``
+    over Redis or S3) the memo rides the same connection."""
     if args.no_memo:
         return None
     if "vuln" not in _split(getattr(args, "security_checks", "vuln")):
         return None
-    if not (args.memo_cache or isinstance(cache, FSCache) or scheduled):
+    if not (args.memo_cache or scheduled or
+            isinstance(cache, (FSCache, ResilientCache))):
         return None
     from .memo import make_findings_memo
     return make_findings_memo(cache=cache, cache_dir=args.cache_dir,
@@ -587,22 +622,26 @@ def _remote_scanner(args):
 def _sources(args, checks, option=None, scheduled: bool = False):
     """``(cache, memo, store)`` of a scan from the flags — the store
     only with the ``vuln`` check (ref cli.py:1895-1898) — or None after
-    an ``error:`` line (a memo URI still to be ported, an installed DB
-    that cannot be used). ``scheduled``: a run of several targets
+    an ``error:`` line (a ``--cache-backend`` or ``--memo-cache`` that
+    is malformed or cannot be reached, an installed DB that cannot be
+    used). ``scheduled``: a run of several targets
     through the scheduler (``_memo``). With ``--server`` it is
     ``(RemoteCache, None, None)``: blobs go to the server's cache and
     the server owns the DB and the memo (ref cli.py ``_cache``)."""
     if args.server:
         from .rpc.client import RemoteCache
         return RemoteCache(args.server, **_rpc_options(args)), None, None
-    cache = make_cache(args.cache_dir, args.no_cache)
     try:
+        cache = make_cache(args.cache_dir, args.no_cache,
+                           getattr(args, "cache_backend", "fs"))
         memo = _memo(args, cache, option, scheduled)
         store = load_store(args.db_fixtures, args.compiled_db,
                            args.compile_db, args.cache_dir,
                            args.skip_db_update) \
             if "vuln" in checks else None
-    except ValueError as e:
+    except (RedisError, S3Error, ValueError) as e:
+        # a bad backend value or one that cannot be reached fails the
+        # run cleanly, never with a traceback (ref cli.py ``main``)
         print(f"error: {e}", file=sys.stderr)
         return None
     return cache, memo, store
@@ -721,16 +760,8 @@ def _refused(args) -> str:
     """The options still to be ported, by ROADMAP item: each is
     refused before any host work, whether it came from the command
     line, ``TRIVY_<FLAG>`` or the config file."""
-    if args.command == "image" and len(args.target) == 1 and \
-            not args.input and not os.path.exists(args.target[0]):
-        return (f"{args.target[0]!r} is not an existing path: daemon, "
-                "containerd and registry resolution are not ported yet "
-                "(ROADMAP A.9)")
     if args.fault_spec:
-        return "--fault-spec is not ported yet (ROADMAP A.9)"
-    if args.cache_backend != "fs":
-        return (f"--cache-backend {args.cache_backend!r} is not ported "
-                "yet (ROADMAP A.9); only 'fs' is")
+        return "--fault-spec is not ported yet (ROADMAP A.9h)"
     return ""
 
 
@@ -782,7 +813,10 @@ def _run_image(args) -> int:
             file_patterns=patterns, scanner=opt.secret_scanner,
             ingest_guards=opt.ingest_guards,
             ingest_limits=opt.ingest_limits, cache=cache, memo=memo,
-            remote=_remote_scanner(args), name=target or path)
+            remote=_remote_scanner(args), name=target or path,
+            # an explicit archive path must fail as a file error,
+            # never fall through to daemon or registry resolution
+            resolve=not args.input)
     except (ValueError, _rpc_error()) as e:
         # a load failure, or a guard trip while walking the layers
         # (ref cli.py ``main``: the typed trips are ValueErrors), or
@@ -1082,9 +1116,10 @@ def _scan_flags(sp) -> None:
                     "detection re-dispatches even when the same "
                     "question was answered before")
     sp.add_argument("--memo-cache", default="",
-                    help="findings-memo backend override: 'memory' or "
-                    "a directory (redis:// and s3:// are not ported "
-                    "yet) — default rides the blob cache's tier; in "
+                    help="findings-memo backend override: 'memory', a "
+                    "directory, redis://host:port or "
+                    "s3://bucket/prefix?endpoint=... — default rides "
+                    "the blob cache's tier (--cache-backend); in "
                     "memory, only a scheduled scan of several images "
                     "keeps one")
     sp.add_argument("--config-policy", default="",
@@ -1126,10 +1161,14 @@ def _scan_flags(sp) -> None:
     sp.add_argument("--custom-headers", default="",
                     help="comma-separated k=v headers sent to the "
                     "server")
-    # refused by name (ROADMAP A.9)
-    sp.add_argument("--fault-spec", default="", help=argparse.SUPPRESS)
     sp.add_argument("--cache-backend", default="fs",
-                    help=argparse.SUPPRESS)
+                    help="layer cache backend: fs (--cache-dir, else "
+                    "memory), redis://host:port or "
+                    "s3://bucket/prefix?endpoint=...&region=... (a "
+                    "remote cache degrades to memory while it is "
+                    "down)")
+    # refused by name (ROADMAP A.9h)
+    sp.add_argument("--fault-spec", default="", help=argparse.SUPPRESS)
     _global_flags(sp)
 
 
@@ -1234,9 +1273,9 @@ def _server_flags(srv) -> None:
     srv.add_argument("--no-memo", action="store_true",
                      help="disable the findings memo")
     srv.add_argument("--memo-cache", default="",
-                     help="findings-memo backend override: 'memory' or "
-                     "a directory (default: under --cache-dir, else "
-                     "in memory)")
+                     help="findings-memo backend override: 'memory', a "
+                     "directory, redis:// or s3:// (default: under "
+                     "--cache-dir, else in memory)")
     srv.add_argument("--backend", default="cuda", choices=BACKENDS,
                      help="where the scheduler's dispatch and the boot "
                      "warm-up run: cuda (default), cpu or cpu-ref; a "
@@ -1543,7 +1582,7 @@ def run_server(args) -> int:
     cache = make_cache(args.cache_dir)
     try:
         memo = None if args.no_memo else _server_memo(args, cache)
-    except ValueError as e:
+    except (RedisError, S3Error, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
         if scheduler is not None:
             scheduler.close()

@@ -362,8 +362,14 @@ class LayerBudget(ResourceBudget):
         super().__init__(parent.limits, name=name or parent.name,
                          metrics=parent.metrics)
 
-    def charge_decompressed(self, n: int) -> None:
+    def charge_decompressed(self, n: int, compressed: int = 0) -> None:
+        """Charge ``n`` bytes to this layer, then roll them up.
+        ``compressed`` (the layer blob's size, when known) arms the
+        ratio tripwire on this layer's own bytes before they roll up,
+        so a bomb trips on the child and the parent never sees them."""
         super().charge_decompressed(n)
+        if compressed:
+            self.check_ratio(self.decompressed, compressed)
         try:
             self.parent.roll_up(bytes_n=n)
         except GuardError:

@@ -13,11 +13,12 @@ instead of flushing the store.
 
 from .findings import FindingsMemo, MemoQuery, make_findings_memo
 from .metrics import MEMO_METRICS
-from .store import (FSMemoStore, MemoryMemoStore, ResilientMemoStore,
-                    make_memo_store)
+from .store import (FSMemoStore, MemoryMemoStore, RedisMemoStore,
+                    ResilientMemoStore, S3MemoStore, make_memo_store)
 
 __all__ = [
     "FindingsMemo", "MemoQuery", "make_findings_memo",
     "MEMO_METRICS", "MemoryMemoStore", "FSMemoStore",
-    "ResilientMemoStore", "make_memo_store",
+    "RedisMemoStore", "S3MemoStore", "ResilientMemoStore",
+    "make_memo_store",
 ]

@@ -477,8 +477,10 @@ def make_findings_memo(cache=None, cache_dir: str = "",
     secret scanner (rule-set hash) and artifact option (guard
     config), and the hot-swap re-match runs on ``backend`` — the
     scan's own: ``cuda`` unless the caller asked for ``cpu`` or
-    ``cpu-ref``. Raises ``ValueError`` for a memo URI still to be
-    ported."""
+    ``cpu-ref``. A ``redis://`` or ``s3://`` URI connects now and
+    raises ``RedisError`` or ``S3Error`` (``ConnectionError``) when
+    the backend cannot be reached, ``ValueError`` when it is
+    malformed."""
     from ..secret.batch import rules_fingerprint
     from .store import make_memo_store
     store = make_memo_store(cache=cache, cache_dir=cache_dir,

@@ -20,8 +20,7 @@ cause               the device was idle because ...
                        from this cause entirely: the idle it covers
                        falls through to the next matching cause
 ``fetch_serialized``   streaming-ingest staging ran (``fetch`` /
-                       ``decompress`` spans, the reference's
-                       artifact/stream.py, ROADMAP A.9f)
+                       ``decompress`` spans, artifact/stream.py)
                        with zero device overlap — the same
                        pipelined-vs-serialized rule as uploads: a
                        fetch concurrent with device compute is
@@ -80,8 +79,7 @@ DEVICE_BUSY = frozenset({"device_compute", "dfa_scan"})
 CAUSE_SPANS = (
     ("upload_serialized", frozenset({"h2d_upload", "db_upload",
                                      "dfa_upload"})),
-    # streaming-ingest staging (the reference's artifact/stream.py,
-    # ROADMAP A.9f): registry blob
+    # streaming-ingest staging (artifact/stream.py): registry blob
     # fetch + bounded inflate. Same overlapped-span rule as uploads —
     # a fetch running while the device computes is pipelined staging,
     # excluded from this cause entirely

@@ -33,9 +33,14 @@ shard and every interval dispatch splits its rows per shard. ``memo``
 builds, on both paths: a layer whose detection questions were
 answered before dispatches nothing. A ``store`` that is a
 ``db.compiled.SwappableStore`` is acquired per scan and released
-exactly once, so a hot swap waits for in-flight scans. The
-reference's ``blob_keyer`` and ``scan_registry_refs`` are A.9, and so
-is the reference's ambient trace context (``obs/propagate.py``, A.9i).
+exactly once, so a hot swap waits for in-flight scans.
+``scan_registry_refs`` scans images straight from a registry on either
+path: each ref streams (``artifact/stream.py``: layer blobs inflate
+into the scan as they arrive, and the warm layers that ``blob_keyer``
+finds in the cache are never fetched) or, with ``streaming=False``,
+is pulled whole first (``artifact/registry.py``); on the scheduled
+path the ref is loaded inside the request's analyze. The reference's
+ambient trace context (``obs/propagate.py``) is A.9i.
 
 Both paths trace every image as a request (``obs/trace.py``): on the
 direct path its root has ``analyze`` (with the ``join`` of prepare),
@@ -58,7 +63,9 @@ from ..applier import merge_layer_secrets
 from ..artifact.artifact import ArtifactOption, ImageArtifact
 from ..artifact.cache import MemoryCache
 from ..artifact.image import load_image
+from ..artifact.registry import DistributionClient
 from ..artifact.sbom import decode_to_blob
+from ..artifact.stream import stream_image
 from ..db import AdvisoryStore
 from ..detect.batch import (collect_dispatch, dispatch_jobs,
                             dispatch_jobs_async)
@@ -138,10 +145,12 @@ class BatchScanRunner:
         # paths
         self.tracer = tracer if tracer is not None else get_tracer()
         # fault_injector: duck-typed (on_device_dispatch(names),
-        # on_host_analyze(name), on_image_load(name)) — threads into
-        # the scheduler's device dispatch and this runner's host
-        # phases; the reference's faults/ package and --fault-spec
-        # are ROADMAP A.9
+        # on_host_analyze(name), on_image_load(name), and
+        # on_blob_chunk(digest, offset) for a registry's streams) —
+        # threads into the scheduler's device dispatch, this runner's
+        # host phases and the registry client's blob fetches; the
+        # reference's faults/ package and --fault-spec are ROADMAP
+        # A.9h
         self.fault_injector = fault_injector
         # sched: "off" = the direct single-batch ladder below;
         # "on"/SchedConfig/ScanScheduler = continuous batching with
@@ -226,6 +235,82 @@ class BatchScanRunner:
         with defer_gc():
             return self._scan_images(images, options)
 
+    def blob_keyer(self, scan_secrets: bool = True):
+        """Warm-layer probe keyer for ``artifact.stream.stream_image``:
+        computes the SAME ``(artifact_id, blob_ids, base)`` this
+        runner's inspect will scan under — same artifact option, same
+        secret-rules fingerprint — from image *metadata* alone, so the
+        streaming path can skip the blob GET for every layer the
+        cache already holds. A mismatched keyer would skip layers
+        inspect then reports missing (a failed scan), which is why
+        this lives on the runner instead of the stream module."""
+        opt = self._image_opt(scan_secrets)
+
+        def keyer(img):
+            a = ImageArtifact(img, self.cache, opt,
+                              budget=getattr(img, "ingest_budget",
+                                             None))
+            return a.cache_keys()
+
+        return keyer
+
+    def scan_registry_refs(self, refs: list, client=None,
+                           options: Optional[ScanOptions] = None,
+                           streaming: bool = True) -> list:
+        """Scan images straight from a registry, on the direct or the
+        scheduled path (``sched``). With ``streaming`` (the default)
+        each ref becomes a ``StreamingImageSource``: layer blobs
+        decompress into the scan as they arrive, warm layers skip
+        their GET entirely, and the per-layer pipeline overlaps the
+        fleet's device work. ``streaming=False`` pulls each image
+        whole first (``DistributionClient.pull``), the baseline.
+        ``client`` is a ``DistributionClient`` (a new one when None);
+        the runner's fault injector reaches its blob fetches. Results
+        come back in ``refs`` order; a ref that cannot be resolved
+        fails its own slot."""
+        if client is None:
+            client = DistributionClient()
+        # the registry stream is a failure domain of its own: thread
+        # the runner's injector into the blob fetch engine
+        client.fault_injector = self.fault_injector
+        options = options or ScanOptions(backend=self.backend)
+        scan_secrets = "secret" in options.security_checks
+        keyer = self.blob_keyer(scan_secrets)
+
+        def load(ref, budget):
+            if not streaming:
+                return client.pull(ref, budget=budget)
+            return stream_image(client, ref, cache=self.cache,
+                                keyer=keyer, budget=budget)
+
+        if self.sched == "on":
+            return self._scan_scheduled([(r, None) for r in refs],
+                                        options, loader=load)
+        sources, failures = [], {}
+        for i, ref in enumerate(refs):
+            try:
+                if self.fault_injector is not None:
+                    self.fault_injector.on_image_load(ref)
+                sources.append((i, load(ref, self._ingest_budget(ref))))
+            except (OSError, ValueError) as e:
+                # RegistryError is a ValueError; GuardError keeps its
+                # typed ingest stage/kind through _failed_slot
+                failures[i] = _failed_slot(ref, e)
+        try:
+            results = self.scan_images([src for _, src in sources],
+                                       options)
+        finally:
+            for _, src in sources:
+                try:
+                    src.close()
+                    getattr(src, "cleanup", lambda: None)()
+                except Exception:   # noqa: BLE001 — cleanup only
+                    log.debug("source close failed", exc_info=True)
+        out = dict(failures)
+        for (i, _), res in zip(sources, results):
+            out[i] = res
+        return [out[i] for i in range(len(refs))]
+
     def _ingest_budget(self, name: str):
         """Fresh per-target ResourceBudget, or None when the runner's
         artifact option disabled the guards (``--no-ingest-guards``)."""
@@ -259,9 +344,11 @@ class BatchScanRunner:
     # --- the scheduled (continuous-batching) route ---
 
     def _scan_scheduled(self, items: list,
-                        options: Optional[ScanOptions] = None) -> list:
+                        options: Optional[ScanOptions] = None,
+                        loader=None) -> list:
         """``items``: [(name, image-or-None)] — None loads the path
-        lazily inside analyze(). Submits one request per image to the
+        (or, with ``loader``, the registry ref) lazily inside
+        analyze(). Submits one request per image to the
         scheduler and gathers results in input order; per-request
         failures (load errors, deadline expiry) fail their own slot,
         never the fleet."""
@@ -269,7 +356,8 @@ class BatchScanRunner:
         sched = self.scheduler
         reqs = []
         for name, img in items:
-            req = self._image_request(sched, name, img, options)
+            req = self._image_request(sched, name, img, options,
+                                      loader=loader)
             while True:
                 try:
                     reqs.append(sched.submit(req, block=True))
@@ -320,7 +408,8 @@ class BatchScanRunner:
 
     def _image_request(self, sched, name: str, image, options,
                        tenant: str = "", priority: int = 0,
-                       trace_id: str = "", parent_span_id: str = ""):
+                       trace_id: str = "", parent_span_id: str = "",
+                       loader=None):
         scan_secrets = "secret" in options.security_checks
 
         def analyze(req):
@@ -346,8 +435,17 @@ class BatchScanRunner:
                         _rel()
                 req.on_done = _done
             budget = self._ingest_budget(name)
-            img = image if image is not None \
-                else load_image(name, budget=budget)
+            # loader: the registry seam (scan_registry_refs) — a
+            # StreamingImageSource (or a pulled image) instead of a
+            # local tar; either way the image is loaded INSIDE analyze
+            # so manifest/config fetches overlap device execution like
+            # tar walking does
+            if image is not None:
+                img = image
+            elif loader is not None:
+                img = loader(name, budget)
+            else:
+                img = load_image(name, budget=budget)
             owns_img = image is None
             opt = self._image_opt(scan_secrets)
             a = _SchedImageArtifact(img, self.cache, opt,
@@ -364,9 +462,12 @@ class BatchScanRunner:
             finally:
                 if owns_img:
                     # after inspect every analyzed byte lives in the
-                    # cache; release the archive now
+                    # cache; release the source now (a streaming
+                    # source's spools are whole decompressed layers
+                    # on disk, a pulled image's layout too)
                     try:
                         img.close()
+                        getattr(img, "cleanup", lambda: None)()
                     except Exception:   # noqa: BLE001 — cleanup
                         log.debug("source close failed for %r",
                                   name, exc_info=True)
