@@ -157,7 +157,8 @@ Builds the port's hand-written kernels (``trivy_tpu_torch/csrc``, one
    scheduler's ``obs/trace`` one, every other slot ``ok``, nothing
    quarantined, no host fallback, one ``dfa_blockmask`` launch per
    launched batch with candidates and no upload of the resident
-   tables. A poisoned target of the reduced fleet (``PoisonInjector``)
+   tables. A poisoned target of the reduced fleet (the port's
+   ``faults.FaultInjector`` with the ``poison-image`` scenario)
    must be the only slot ``degraded``, with a ``quarantined`` cause,
    every other slot as in the healthy run; the reduced fleet with every
    check must give the direct path's reports with one launch per
@@ -192,7 +193,27 @@ Builds the port's hand-written kernels (``trivy_tpu_torch/csrc``, one
    --cache-backend redis://...`` on the sbom phase's npz, beside the
    phase, equals the same ref scanned in this process. The phase runs
    in a process of its own, started after the sched phase, beside the
-   memo and server phases.
+   memo and server phases. The same process then runs the watch loop
+   (``watch_phase``): one Docker Distribution push envelope per
+   pushable target (``smoke/fleet:<i>``, resolved to its tar by the
+   ``--images-dir`` naming), bursts of repushes and malformed entries,
+   through a ``WebhookSource`` into a ``WatchLoop(keep_results=True)``
+   on the card: every result equals the fleet phase's report, each
+   burst scans once, the books balance, one launch per scheduled batch
+   with candidates, no host fallback.
+
+8c. fault drill and watch storm (``drill_cli``, ``storm_cli``), two
+   CLI processes on the sbom phase's npz beside the memo and server
+   phases: ``image <the 16 targets> --fault-spec
+   standard-outage:poison=<target 3>,hostile-ingest`` (a cache outage
+   under the breaker, one transient device fault, the poisoned target,
+   the hostile corpus appended) must exit 1 with every clean slot's
+   report the fleet phase's, the poisoned slot alone quarantined and
+   degraded, every hostile artifact in its ``EXPECTED_STATUS``, the
+   transient fault healed on the card (one host fallback: the poisoned
+   slot's); ``watch <the 15 pushable tars> --fault-spec event-storm``
+   must exit 0 with balanced books. Each prints its ``dfa_blockmask``
+   launches (``CLI_COUNTED``).
 
 9. mesh phase, on a mesh of every visible card or, on one card, that
    card named four times (``smoke_mesh``: 2 × 2, data 2, rules 2),
@@ -238,13 +259,19 @@ Builds the port's hand-written kernels (``trivy_tpu_torch/csrc``, one
 11. server phase (``server_boot``, ``server_phase``): ``python -m
    trivy_tpu_torch server`` in a subprocess on a copy of the sbom
    phase's npz at a watched prefix, ``--compile-cache DIR --sched on
-   --token``: its boot builds both kernels into DIR and warm-launches
+   --token --admission-policy deny:CRITICAL --images-dir``: its boot
+   builds both kernels into DIR and warm-launches
    them on zero inputs (the split printed). ``image --server`` in a
    CLI subprocess on the first target, then the 16 targets through
    ``scan_image(remote=)`` from four client threads, must give the
    fleet phase's in-process card reports; a second round finds 0
    missing blobs, launches no sieve and is served from the server's
-   memo. The memo phase's second generation renamed onto the prefix
+   memo. ``POST /k8s/admission`` with a Pod per target, a
+   Deployment's pod template and an image no directory holds must
+   answer the policy applied to the fleet phase's reports, fail open
+   with the reference's reason, and serve a repeat review from the
+   verdict cache with no launch (``admission_reviews``). The memo
+   phase's second generation renamed onto the prefix
    is swapped in (the mesh fleet phase runs meanwhile), and the
    reports after it equal the in-process fleet on that generation. A
    SIGTERM with Scans in flight answers them, 503s the next, exits 0.
@@ -3036,29 +3063,6 @@ SCHED_COLD = 1                  # unprofiled cold scheduled fleets
 SCHED_CLIENTS = 4               # concurrent submit_path callers
 
 
-class PoisonInjector:
-    """Stands in for the JAX package's ``faults.FaultInjector`` with a
-    ``poison`` list: every device dispatch whose batch names a target
-    containing ``marker`` raises, as an injected device fault does."""
-
-    def __init__(self, marker: str):
-        self.marker = marker
-        self.dispatches = 0
-
-    def on_host_analyze(self, name: str) -> None:
-        pass
-
-    def on_image_load(self, name: str) -> None:
-        pass
-
-    def on_device_dispatch(self, names: list) -> None:
-        self.dispatches += 1
-        poisoned = [n for n in names if self.marker in (n or "")]
-        if poisoned:
-            raise RuntimeError(f"injected poison dispatch: "
-                               f"{poisoned[0]!r}")
-
-
 def run_sched(paths: list, db, backend: str, scanner, cache,
               injector=None, mesh=None, memo=None, tracer=None,
               checks=None) -> dict:
@@ -3152,11 +3156,13 @@ def sched_phase(device, cdb, fleet: dict) -> dict:
     other slot ``ok``, nothing quarantined, no host fallback, one
     ``dfa_blockmask`` launch per launched batch with candidates, and
     no upload of the resident tables. Then, on the reduced fleet, a
-    poisoned target (``PoisonInjector``) must be the one slot
+    poisoned target (``FaultInjector`` with ``poison-image``) must be
+    the one slot
     ``degraded`` with a ``quarantined`` cause, every other slot as in
     the healthy run; and ``SCHED_CLIENTS`` threads calling
     ``submit_path`` at once must each get its target's report."""
     from trivy_tpu_torch.artifact import MemoryCache
+    from trivy_tpu_torch.faults import FaultInjector
     from trivy_tpu_torch.obs import Tracer
     from trivy_tpu_torch.runtime import BatchScanRunner
     from trivy_tpu_torch.sched import SchedConfig
@@ -3218,7 +3224,7 @@ def sched_phase(device, cdb, fleet: dict) -> dict:
     victim = 1
     marker = os.path.basename(rpaths[victim])
     poison = run_sched(rpaths, cdb, backend, card, MemoryCache(),
-                       PoisonInjector(marker))
+                       FaultInjector(f"poison-image:poison={marker}"))
     pc = poison["stats"]["counters"]
     degraded = [i for i, st in enumerate(poison["status"])
                 if st == "degraded"]
@@ -3465,13 +3471,13 @@ class BackgroundCLI:
     later, while the phases that follow run in this process: the CLI
     processes on the 1M-row npz spend most of their wall in its load,
     on a core of their own. ``finish`` waits for the exit, fails on a
-    non-zero code and returns ``{"wall_s", **check(stderr)}``; the
-    wall is from the start to the exit, on a host shared with the
+    code other than ``rc`` and returns ``{"wall_s", **check(stderr)}``;
+    the wall is from the start to the exit, on a host shared with the
     phases beside it. Output goes to files in ``work_dir``."""
 
     def __init__(self, name: str, argv: list, work_dir: str, check,
-                 stdout: str = ""):
-        self.name, self.check = name, check
+                 stdout: str = "", rc: int = 0):
+        self.name, self.check, self.rc = name, check, rc
         self.profiles = "--profile-out" in argv
         self._err_path = os.path.join(work_dir, f"{name}.cli.stderr")
         self._err = open(self._err_path, "w")
@@ -3502,9 +3508,10 @@ class BackgroundCLI:
             self._out.close()
         with open(self._err_path) as f:
             err = f.read()
-        if self.proc.returncode != 0:
+        if self.proc.returncode != self.rc:
             raise AssertionError(f"{self.name} CLI exited "
-                                 f"{self.proc.returncode}: {err[-2000:]}")
+                                 f"{self.proc.returncode}, not {self.rc}: "
+                                 f"{err[-2000:]}")
         return {"wall_s": self.t_exit - self.t0, **self.check(err)}
 
 
@@ -4613,12 +4620,14 @@ def drain_under_load(srv: ServerProc, record: dict) -> dict:
             "probe": {k: probe.count(k) for k in sorted(set(probe))}}
 
 
-def server_boot(device, work_dir: str) -> dict:
+def server_boot(device, work_dir: str, fleet: dict) -> dict:
     """Step 1 of the server phase, started before the memo phase so
     that the boot's npz load and builds run beside it: the sbom phase's
     npz copied to a watched prefix, and ``python -m trivy_tpu_torch
     server`` started on it with ``--compile-cache DIR --sched on
-    --token`` (``ServerProc``). Returns what ``server_phase`` needs."""
+    --token --admission-policy deny:CRITICAL --images-dir`` (the fleet
+    phase's targets as ``smoke/fleet:<i>``, ``link_images``;
+    ``ServerProc``). Returns what ``server_phase`` needs."""
     import shutil
     d = os.path.join(work_dir, "server")
     os.makedirs(d)
@@ -4626,9 +4635,14 @@ def server_boot(device, work_dir: str) -> dict:
     t0 = time.perf_counter()
     shutil.copyfile(os.path.join(work_dir, "cdb.npz"), prefix + ".npz")
     copy_s = time.perf_counter() - t0
+    images = os.path.join(d, "images")
+    paths = fleet["plan"]["paths"]
+    refs = link_images(paths, list(range(len(paths))), images)
     argv = ["--compiled-db", prefix, "--compile-cache", cc, "--backend",
-            device.type, "--sched", "on", "--db-watch-interval", "1"]
+            device.type, "--sched", "on", "--db-watch-interval", "1",
+            "--admission-policy", "deny:CRITICAL", "--images-dir", images]
     return {"dir": d, "prefix": prefix, "argv": argv, "copy_s": copy_s,
+            "refs": refs,
             "srv": ServerProc(argv, os.path.join(d, "server1.log"))}
 
 
@@ -4647,7 +4661,8 @@ def server_phase(device, svc: dict, fleet: dict, gen2: dict,
        of the same tar (each equal to its image scanned alone), the
        broken tar failing in its client; a second client round must
        find 0 missing blobs, launch no sieve and be served from the
-       server's memo (0 misses, 0 interval jobs);
+       server's memo (0 misses, 0 interval jobs); then the admission
+       webhook (``admission_reviews``);
     3. the second generation renamed onto the watched prefix: the
        server swaps it in (its memo re-matched; ``during_swap()`` runs
        in this process meanwhile), and the reports after it equal the
@@ -4659,7 +4674,9 @@ def server_phase(device, svc: dict, fleet: dict, gen2: dict,
        prefix and DIR (``during_restart()`` runs in this process while
        it boots): its boot loads the second generation and has
        manifest hits only, no build; the first target through it gives
-       the second generation's report; then SIGTERM, exit 0.
+       the second generation's report, and an admission review of
+       another target is a scan on its card (``admission_cold``); then
+       SIGTERM, exit 0.
 
     Client-side ``dfa_blockmask`` launches are counted per round."""
     from trivy_tpu_torch.ops.dfa_cuda import dfa_blockmask
@@ -4743,6 +4760,10 @@ def server_phase(device, svc: dict, fleet: dict, gen2: dict,
                                  f"{first['missing']} blobs, launched "
                                  f"{launches['cold']} sieves")
         one_round("second_client", want, warm=True)
+        out["admission"] = admission_reviews(srv, want, svc["refs"],
+                                             broken)
+        print("admission on the server: " + json.dumps(out["admission"]),
+              flush=True)
 
         # the second generation at the watched prefix; the swap is
         # timed from the rename to the server's log line, on a thread,
@@ -4788,6 +4809,10 @@ def server_phase(device, svc: dict, fleet: dict, gen2: dict,
             raise AssertionError("the restarted server's report != the "
                                  "second generation's")
         out["restart_scan_s"] = one["wall_s"]
+        # a review the restarted server has seen nothing of: a scan on
+        # its card
+        out["admission_cold"] = admission_cold(srv2, gen2["texts"][1],
+                                               svc["refs"][1])
         out["restart_rc"] = srv2.stop()
         if out["restart_rc"] != 0:
             raise AssertionError(f"the restarted server exited "
@@ -5524,8 +5549,8 @@ class RegistryWorker:
 
 def registry_worker(spec_path: str) -> int:
     """The ``--registry-phase SPEC`` process: ``registry_phase`` on the
-    npz, the fleet phase's targets and reports that SPEC names; the
-    result goes to SPEC's ``out``."""
+    npz, the fleet phase's targets and reports that SPEC names, then
+    ``watch_phase`` on the same; the result goes to SPEC's ``out``."""
     from trivy_tpu_torch.cli import secret_scanner
     from trivy_tpu_torch.db import CompiledDB
     atexit.register(_kill_children)
@@ -5542,9 +5567,433 @@ def registry_worker(spec_path: str) -> int:
     out = registry_phase(torch.device(backend), cdb, fleet,
                          spec["work_dir"], spec["db_path"])
     out["npz_load_s"] = load_s
+    # the watch loop in the same process, which holds the npz
+    out["watch"] = watch_phase(torch.device(backend), cdb, fleet,
+                               spec["work_dir"])
+    print("watch loop (in the registry worker): " + json.dumps(
+        out["watch"]), flush=True)
     with open(spec["out"], "w") as f:
         json.dump(out, f)
     return 0
+
+
+# --- fault drills and continuous scanning ----------------------------
+
+# the drill CLI's fault spec: a cache outage under the breaker, one
+# transient device fault and one target named poisoned
+# (``standard-outage``), with the hostile ingest corpus appended to the
+# fleet (``hostile-ingest``)
+DRILL_VICTIM = 3                # the fleet target the drill poisons
+WATCH_BURSTS = 3                # targets repushed in a burst
+WATCH_DUPS = 4                  # repushes of each burst's target
+WATCH_DEBOUNCE_S = 0.5
+ADMISSION_CLIENTS = 4           # concurrent AdmissionReview posts
+ADMISSION_GHOST = "smoke/ghost:1"
+
+# ``python -c CLI_COUNTED ARGV``: ``cli.main(ARGV)`` as ``python -m
+# trivy_tpu_torch ARGV`` runs it, then one ``cli-counted: {json}`` line
+# on stderr with this process's ``dfa_blockmask`` launches and the stats
+# of every breaker ``FaultInjector.wrap_cache`` made
+CLI_COUNTED = """
+import json, sys
+from trivy_tpu_torch import cli
+from trivy_tpu_torch.faults import FaultInjector
+from trivy_tpu_torch.ops.dfa_cuda import dfa_blockmask
+wrapped, wrap = [], FaultInjector.wrap_cache
+
+def kept(self, cache, resilient=True):
+    out = wrap(self, cache, resilient)
+    wrapped.append(out)
+    return out
+
+FaultInjector.wrap_cache = kept
+rc = cli.main(sys.argv[1:])
+print("cli-counted: " + json.dumps({
+    "dfa_blockmask_launches": dfa_blockmask.launches,
+    "breakers": [c.breaker_stats() for c in wrapped
+                 if hasattr(c, "breaker_stats")]}), file=sys.stderr)
+sys.exit(rc)
+"""
+
+
+def _counted(err: str) -> dict:
+    line = err.split("cli-counted: ", 1)[1].splitlines()[0]
+    return json.loads(line)
+
+
+def link_images(paths: list, indices: list, d: str) -> dict:
+    """Symlinks ``d/smoke_fleet_<i>.tar`` → ``paths[i]``, the
+    ``--images-dir`` names of the refs ``smoke/fleet:<i>``
+    (``k8s.resolve_image_ref``: ``/``, ``:`` and ``@`` become ``_``).
+    Returns {i: ref}."""
+    os.makedirs(d, exist_ok=True)
+    refs = {}
+    for i in indices:
+        os.symlink(paths[i], os.path.join(d, f"smoke_fleet_{i}.tar"))
+        refs[i] = f"smoke/fleet:{i}"
+    return refs
+
+
+def severity_counts_of(text: str) -> dict:
+    """The admission policy's severity histogram of a JSON report text:
+    vulnerabilities, secrets and failed misconfigurations."""
+    counts: dict = {}
+    for r in json.loads(text).get("Results") or []:
+        found = (r.get("Vulnerabilities") or []) + (r.get("Secrets") or [])
+        found += [m for m in r.get("Misconfigurations") or []
+                  if m.get("Status") == "FAIL"]
+        for f in found:
+            sev = f.get("Severity") or "UNKNOWN"
+            counts[sev] = counts.get(sev, 0) + 1
+    return counts
+
+
+def verdict_text(ref: str, counts: dict, deny: tuple, source: str) -> str:
+    """An image's ``trivy-tpu/image-N`` annotation as the admission
+    controller writes it."""
+    sevs = ",".join(f"{s}:{n}" for s, n in sorted(counts.items()) if n)
+    base = "deny" if any(counts.get(s) for s in deny) else "allow"
+    return f"{ref}: {base}({sevs}) [{source}]" if sevs else \
+        f"{ref}: {base} [{source}]"
+
+
+def drill_cli(fleet: dict, work_dir: str, db_path: str,
+              backend: str) -> "BackgroundCLI":
+    """``image <the fleet's 16 targets> --fault-spec
+    standard-outage:poison=<target DRILL_VICTIM>,hostile-ingest
+    --sched-stats --format json`` on the sbom phase's npz, in a process
+    of its own (``CLI_COUNTED``). The check, at ``finish``: the exit
+    code is 1 (the truncated tar and the hostile artifacts fail their
+    own slots); every clean slot's report equals the fleet phase's card
+    report of its tar; the poisoned slot alone is ``degraded`` with the
+    ``quarantined`` and ``trace`` causes and, its status fields
+    stripped, the fleet phase's report; every hostile artifact ends in
+    its ``EXPECTED_STATUS``; the injector raised device faults, the
+    scheduler quarantined one request and finished one on the host (the
+    poisoned one: the transient fault healed on the card) and failed
+    none on the device; the cache outage opened the breaker."""
+    from trivy_tpu_torch.faults import EXPECTED_STATUS
+    plan, want = fleet["plan"], fleet["texts"]
+    paths, broken = plan["paths"], plan["broken"]
+    victim = paths[DRILL_VICTIM]
+    spec = (f"standard-outage:poison={os.path.basename(victim)},"
+            "hostile-ingest")
+    d = os.path.join(work_dir, "drill")
+    os.makedirs(d)
+    report = os.path.join(d, "report.json")
+
+    def check(err: str) -> dict:
+        counted = _counted(err)
+        stats, _ = json.JSONDecoder().raw_decode(err[err.index("\n{\n")
+                                                     + 1:])
+        with open(report) as f:
+            docs = {doc["ArtifactName"]: doc for doc in json.load(f)}
+        failed = {ln.split(": ", 2)[1] for ln in err.splitlines()
+                  if ln.startswith("error: ")}
+        for i, p in enumerate(paths):
+            if i == broken:
+                if p not in failed or p in docs:
+                    raise AssertionError("drill: the truncated tar did "
+                                         "not fail")
+                continue
+            doc = dict(docs[p])
+            if p == victim:
+                kinds = [c["Kind"] for c in doc.pop("FailureCauses", [])]
+                if doc.pop("Status", "") != "degraded" or \
+                        kinds != ["quarantined", "trace"]:
+                    raise AssertionError(f"drill: the poisoned slot: "
+                                         f"{kinds}")
+            if json.dumps(doc, sort_keys=True) != want[i]:
+                raise AssertionError(f"drill: target {i}'s report != the "
+                                     f"fleet phase's card report")
+        hostile = {}
+        for name, status in EXPECTED_STATUS.items():
+            key = next((k for k in list(docs) + sorted(failed)
+                        if k.endswith(f"/hostile-{name}.tar")), None)
+            got = "failed" if key in failed else \
+                docs[key].get("Status", "ok") if key else "missing"
+            if got != status:
+                raise AssertionError(f"drill: hostile {name} ended {got}, "
+                                     f"not {status}")
+            hostile[name] = got
+        c, faults = stats["counters"], stats["faults"]
+        breaker = counted["breakers"][0]
+        if (c.get("quarantined"), c.get("host_fallbacks")) != (1, 1) or \
+                c.get("device_failures") or faults["device_faults"] < 2 or \
+                not faults["cache_faults"] or \
+                not breaker["breaker"]["trips"]:
+            raise AssertionError(f"drill: counters {c}, faults {faults}, "
+                                 f"breaker {breaker}")
+        if counted["dfa_blockmask_launches"] < 1:
+            raise AssertionError("drill: no dfa_blockmask launch")
+        return {"spec": spec, "faults": faults, "breaker": breaker,
+                "launches": counted["dfa_blockmask_launches"],
+                "counters": {k: c.get(k, 0) for k in (
+                    "submitted", "completed", "failed", "batches",
+                    "batch_bisects", "quarantined", "host_fallbacks",
+                    "device_failures")},
+                "hostile": hostile, "slots": len(docs) + len(failed)}
+
+    return BackgroundCLI(
+        "drill", ["-c", CLI_COUNTED, "image", *paths, "--compiled-db",
+                  db_path, "--backend", backend, "--format", "json",
+                  "--output", report, "--sched-stats", "--fault-spec",
+                  spec], d, check, rc=1)
+
+
+def storm_cli(fleet: dict, work_dir: str, db_path: str,
+              backend: str) -> "BackgroundCLI":
+    """``watch <the 15 pushable tars> --watch-source webhook --listen
+    127.0.0.1:0 --fault-spec event-storm`` on the sbom phase's npz, in a
+    process of its own (``CLI_COUNTED``): the seeded storm (256 pushes
+    over 8 digests, 8 malformed envelopes) pushed, the loop drained.
+    The check: exit 0, the ``{"watch": stats}`` line's books balance
+    (every event scanned, deduped or shed), no scan failed, and the
+    sieve launched."""
+    plan = fleet["plan"]
+    targets = [p for i, p in enumerate(plan["paths"])
+               if i != plan["broken"]]
+    d = os.path.join(work_dir, "storm")
+    os.makedirs(d)
+
+    def check(err: str) -> dict:
+        counted = _counted(err)
+        stats, _ = json.JSONDecoder().raw_decode(
+            err[err.index('{\n  "watch"'):])
+        st = stats["watch"]
+        if st["events"] != st["scans"] + st["deduped"] + st["shed"] or \
+                st["failed"] or not st["scans"] or \
+                st["events"] != 256 or counted["dfa_blockmask_launches"] < 1:
+            raise AssertionError(f"the storm: {st}, {counted}")
+        pushed = [ln for ln in err.splitlines()
+                  if ln.startswith("fault-spec: pushed")]
+        return {"watch": st, "pushed": pushed,
+                "launches": counted["dfa_blockmask_launches"]}
+
+    return BackgroundCLI(
+        "storm", ["-c", CLI_COUNTED, "watch", *targets, "--watch-source",
+                  "webhook", "--listen", "127.0.0.1:0", "--fault-spec",
+                  "event-storm", "--compiled-db", db_path, "--backend",
+                  backend], d, check)
+
+
+def watch_phase(device, cdb, fleet: dict, work_dir: str) -> dict:
+    """The watch loop at full width, in the registry worker (which
+    holds the npz): one Docker Distribution push envelope per pushable
+    target (repository ``smoke/fleet``, tag its index, resolved to its
+    tar through ``--images-dir`` naming, ``link_images``), the first
+    ``WATCH_BURSTS`` targets repushed ``WATCH_DUPS`` times each, and
+    three malformed entries, fed to a ``WebhookSource``; then a
+    ``WatchLoop(keep_results=True)`` on the card over a
+    ``BatchScanRunner`` with the scheduler. Gates: every result equals
+    the fleet phase's card report of its tar; each burst scanned once
+    (15 scans, 12 deduped, nothing shed or failed; the books balance);
+    one ``dfa_blockmask`` launch per scheduled batch with candidates;
+    no quarantine, no host fallback."""
+    from trivy_tpu_torch.ops.dfa_cuda import dfa_blockmask
+    from trivy_tpu_torch.runtime import BatchScanRunner
+    from trivy_tpu_torch.sched import SchedConfig
+    from trivy_tpu_torch.watch import (WatchConfig, WatchLoop,
+                                       WebhookSource, dir_resolver)
+    from trivy_tpu_torch.watch.source import MANIFEST_MEDIA_TYPES
+    backend = device.type
+    plan, want, card = fleet["plan"], fleet["texts"], fleet["scanner"]
+    paths = plan["paths"]
+    pushable = [i for i in range(len(paths)) if i != plan["broken"]]
+    d = os.path.join(work_dir, "watch-images")
+    refs = link_images(paths, pushable, d)
+
+    def push(i: int, n: int) -> dict:
+        digest = "sha256:" + hashlib.sha256(paths[i].encode()).hexdigest()
+        return {"events": [{"id": f"push-{i}-{n}", "action": "push",
+                            "target": {"mediaType": MANIFEST_MEDIA_TYPES[0],
+                                       "repository": "smoke/fleet",
+                                       "tag": str(i), "digest": digest}}]}
+
+    bodies = []
+    for i in pushable:
+        bodies.append(push(i, 0))
+        if i in pushable[:WATCH_BURSTS]:
+            bodies += [push(i, n) for n in range(1, WATCH_DUPS + 1)]
+    bodies[5:5] = [{"events": "not-a-list"}]
+    bodies[9:9] = [{"events": [{"action": "push", "target": {}}]}]
+    bodies.append(["not", "an", "envelope"])
+    src = WebhookSource(resolver=dir_resolver(d), tenant="smoke-watch")
+    accepted = malformed = 0
+    for body in bodies:
+        r = src.push_notification(body)
+        accepted, malformed = accepted + r["accepted"], \
+            malformed + r["malformed"]
+    src.close()
+    runner = BatchScanRunner(store=cdb, backend=backend,
+                             secret_scanner=card,
+                             sched=SchedConfig(dispatch_depth=2))
+    sched = runner.scheduler
+    batches, launch = [], sched._launch
+
+    def counted(reqs, *args, **kwargs):
+        batches.append(sum(len(r.work.candidates) for r in reqs))
+        return launch(reqs, *args, **kwargs)
+
+    sched._launch = counted
+    loop = WatchLoop(runner, src, WatchConfig(debounce_s=WATCH_DEBOUNCE_S,
+                                              keep_results=True))
+    dfa_blockmask.launches = 0
+    try:
+        t0 = time.perf_counter()
+        stats = loop.run()
+        wall = time.perf_counter() - t0
+        counters = sched.stats()["counters"]
+    finally:
+        runner.close()
+    launches = dfa_blockmask.launches
+    n_dups = WATCH_BURSTS * WATCH_DUPS
+    if (stats["events"], stats["scans"], stats["deduped"], stats["shed"],
+            stats["failed"], malformed) != (
+            len(pushable) + n_dups, len(pushable), n_dups, 0, 0, 3) or \
+            accepted != stats["events"]:
+        raise AssertionError(f"watch: books {stats}, accepted {accepted}, "
+                             f"malformed {malformed}")
+    by_ref = {f"smoke_fleet_{i}.tar": i for i in pushable}
+    if len(loop.results) != len(pushable):
+        raise AssertionError(f"watch: {len(loop.results)} results")
+    for r in loop.results.values():
+        i = by_ref[os.path.basename(r.name)]
+        text = _sorted_json(report_text(r.report)).replace(r.name,
+                                                           paths[i])
+        if text != want[i]:
+            raise AssertionError(f"watch: target {i}'s result != the "
+                                 f"fleet phase's card report")
+    with_candidates = sum(1 for n in batches if n)
+    if launches != with_candidates or counters.get("quarantined") or \
+            counters.get("host_fallbacks"):
+        raise AssertionError(f"watch: {launches} launches for "
+                             f"{with_candidates} batches with candidates, "
+                             f"counters {counters}")
+    return {"targets": len(pushable), "envelopes": len(bodies),
+            "refs": len(refs), "malformed": malformed, "wall_s": wall,
+            "stats": stats, "launches": launches,
+            "batches": len(batches), "batches_with_candidates":
+                with_candidates, "host_fallbacks":
+                counters.get("host_fallbacks", 0)}
+
+
+def review_doc(images: list, uid: str, kind: str) -> dict:
+    """An ``admission.k8s.io/v1`` AdmissionReview of a Pod, or of a
+    Deployment's pod template, running ``images``."""
+    pod = {"containers": [{"name": f"c{k}", "image": r}
+                          for k, r in enumerate(images)]}
+    spec = pod if kind == "Pod" else {"template": {"spec": pod}}
+    return {"apiVersion": "admission.k8s.io/v1", "kind": "AdmissionReview",
+            "request": {"uid": uid, "object": {
+                "kind": kind, "spec": spec, "metadata": {"name": uid}}}}
+
+
+def post_review(srv, doc: dict) -> dict:
+    """``POST /k8s/admission?timeout=300s`` on ``srv``: the review's
+    ``response``."""
+    import urllib.request
+    req = urllib.request.Request(
+        srv.url + "/k8s/admission?timeout=300s",
+        data=json.dumps(doc).encode(),
+        headers={"Trivy-Token": SERVER_TOKEN,
+                 "Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        return json.loads(resp.read())["response"]
+
+
+def admission_cold(srv, text: str, ref: str) -> dict:
+    """One review on a server that has seen nothing of the image (the
+    restarted server): its scan walks the image on the server and
+    launches its sieve there; the verdict is the policy over ``text``,
+    that image's card report on the server's DB generation."""
+    m0 = srv.get("/metrics")
+    t0 = time.perf_counter()
+    resp = post_review(srv, review_doc([ref], "cold", "Pod"))
+    wall = time.perf_counter() - t0
+    m1 = srv.get("/metrics")
+    counts = severity_counts_of(text)
+    dispatches = m1["secret"]["dfa_dispatches"] - \
+        m0["secret"]["dfa_dispatches"]
+    if resp["auditAnnotations"]["trivy-tpu/image-0"] != verdict_text(
+            ref, counts, ("CRITICAL",), "scan") or dispatches < 1:
+        raise AssertionError(f"admission on a cold server: {resp}, "
+                             f"{dispatches} sieve dispatches")
+    return {"wall_s": wall, "allowed": resp["allowed"],
+            "server_sieve_dispatches": dispatches}
+
+
+def admission_reviews(srv, want: list, refs: dict, broken: int) -> dict:
+    """``POST /k8s/admission`` on the server phase's server (booted with
+    ``--admission-policy deny:CRITICAL --images-dir`` over ``refs``):
+    one Pod per target from ``ADMISSION_CLIENTS`` threads, then a
+    Deployment's pod template over two targets, an image no directory
+    holds, and the first Pod again. Gates: each Pod's verdict and
+    annotation are the policy applied to the severity counts of the
+    fleet phase's card report of its tar; the truncated tar's scan
+    fails and the review allows it under ``fail open``; the
+    Deployment's verdict is the policy over both images (each a
+    verdict-cache hit); the unresolvable image is allowed with the
+    reference's reason; the second review of the first Pod is a
+    verdict-cache hit that launches nothing on the server (its batches
+    and sieve dispatches unchanged)."""
+    deny = ("CRITICAL",)
+    review = review_doc
+
+    def post(doc: dict) -> dict:
+        return post_review(srv, doc)
+
+    m_start = srv.get("/metrics")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(ADMISSION_CLIENTS) as ex:
+        pods = dict(zip(refs, ex.map(
+            post, [review([refs[i]], f"pod-{i}", "Pod") for i in refs])))
+    pods_s = time.perf_counter() - t0
+    denied = 0
+    for i, resp in pods.items():
+        ann = resp["auditAnnotations"]["trivy-tpu/image-0"]
+        if i == broken:
+            if not resp["allowed"] or not ann.startswith(
+                    f"{refs[i]}: fail-open ("):
+                raise AssertionError(f"admission: the truncated tar: "
+                                     f"{resp}")
+            continue
+        counts = severity_counts_of(want[i])
+        if ann != verdict_text(refs[i], counts, deny, "scan") or \
+                resp["allowed"] != (not counts.get("CRITICAL")):
+            raise AssertionError(f"admission: target {i}: {resp}")
+        denied += not resp["allowed"]
+    a, b = [i for i in refs if i != broken][1:3]
+    deploy = post(review([refs[a], refs[b]], "deploy", "Deployment"))
+    for k, i in enumerate((a, b)):
+        if deploy["auditAnnotations"][f"trivy-tpu/image-{k}"] != \
+                verdict_text(refs[i], severity_counts_of(want[i]), deny,
+                             "cache"):
+            raise AssertionError(f"admission: the Deployment: {deploy}")
+    if deploy["allowed"] != (pods[a]["allowed"] and pods[b]["allowed"]):
+        raise AssertionError(f"admission: the Deployment: {deploy}")
+    ghost = post(review([ADMISSION_GHOST], "ghost", "Pod"))
+    if not ghost["allowed"] or ghost["auditAnnotations"][
+            "trivy-tpu/image-0"] != (
+            f"{ADMISSION_GHOST}: fail-open (image {ADMISSION_GHOST!r} not "
+            f"resolvable to a scan target)"):
+        raise AssertionError(f"admission: the unresolvable image: {ghost}")
+    first = min(i for i in refs if i != broken)
+    m0 = srv.get("/metrics")
+    again = post(review([refs[first]], "again", "Pod"))
+    m1 = srv.get("/metrics")
+    if not again["auditAnnotations"]["trivy-tpu/image-0"].endswith(
+            "[cache]") or m1["counters"]["batches"] != \
+            m0["counters"]["batches"] or \
+            m1["secret"]["dfa_dispatches"] != m0["secret"]["dfa_dispatches"]:
+        raise AssertionError(f"admission: the second review: {again}")
+    return {"pods": len(pods), "denied": denied, "pods_s": pods_s,
+            "server_sieve_dispatches": m1["secret"]["dfa_dispatches"] -
+            m_start["secret"]["dfa_dispatches"],
+            "server_batches": m1["counters"]["batches"] -
+            m_start["counters"]["batches"],
+            "watch": m1["watch"],
+            "controller": m1["admission_controller"]}
 
 
 # --- the report writers and the Rekor lookup --------------------------
@@ -5819,8 +6268,12 @@ def main() -> int:
         # the registry phase in a process of its own, beside the memo
         # and server phases (the sched phase has the card to itself)
         registry = RegistryWorker(kept, work, db_path, device.type)
+        # the fault drill and the watch storm in processes of their own,
+        # beside the memo and server phases
+        drills = [drill_cli(kept, work, db_path, device.type),
+                  storm_cli(kept, work, db_path, device.type)]
         # the scan server boots beside the memo phase
-        svc = server_boot(device, work)
+        svc = server_boot(device, work, kept)
         gen2: dict = {}
         memo = memo_phase(device, cdb, kept, work, kept["off_wall_s"],
                           keep=gen2)
@@ -5847,6 +6300,9 @@ def main() -> int:
                               during_restart)
         del kept, gen2, svc
         print("server phase: " + json.dumps(server), flush=True)
+        drilled = finish_clis(drills)
+        print(f"fault drill and watch storm CLIs, beside the memo and "
+              f"server phases ({gpu}): " + json.dumps(drilled), flush=True)
         reg = registry.finish()
         print("registry phase (a process of its own, beside the memo "
               "and server phases): " + json.dumps(reg), flush=True)
@@ -5861,6 +6317,9 @@ def main() -> int:
                 "fleet": sum(fleet["launches"].values()),
                 "sched": sum(sched["launches"].values()),
                 "registry": sum(reg["launches"].values()),
+                "watch": reg["watch"]["launches"],
+                "drill_cli": drilled["drill"]["launches"],
+                "storm_cli": drilled["storm"]["launches"],
                 "mesh_sieve": mesh_kern["dfa_blockmask"]["launches"],
                 "mesh_fleet": sum(mesh_fleet["launches"].values()),
                 "memo": sum(memo["launches"].values()),

@@ -4,7 +4,9 @@ kernels against their plain PyTorch versions, the fused sieves, the
 literal-code entry points, a batch scan and an fs scan; the interval
 match and the pair dispatcher against their numpy versions; the
 ``sbom``, ``fs`` and ``rootfs`` entries' reports against the CPU's,
-with the ``config`` and ``license`` checks too;
+with the ``config`` and ``license`` checks too; the scheduler's ladder
+under the port's own ``device-transient`` injector, a watch loop and
+admission reviews (one past its deadline) on the card;
 the findings memo's warm fleet and the hot swap's re-match on the
 card; busy spans stamped by CUDA events, a traced fleet's launches,
 and the ``torch.profiler`` device trace; the scan server's boot
@@ -804,6 +806,185 @@ def test_a_card_dispatch_error_fails_its_slots_not_to_the_host(
     for r in failed:
         assert r.causes[0].kind == "dispatch_failed"
         assert "sieve launch failed" in r.error
+
+
+def _small_fleet(tmp_path, n_images=4):
+    from chip_smoke import (FS_ROOTS, fleet_targets, make_advisory_store,
+                            make_corpus)
+    store, n_pkgs = make_advisory_store(3000, 23)
+    files, _ = make_corpus(64, 29)
+    plan = fleet_targets(str(tmp_path), FS_ROOTS["fs"], n_pkgs, 5, files,
+                         n_images=n_images, scale=0.04)
+    return CompiledDB.compile(store), plan
+
+
+def test_a_transient_device_fault_heals_on_the_card(cuda, tmp_path):
+    """The port's own ``device-transient`` injector on the card: the
+    failed batch goes down the bisect ladder and every slot finishes
+    ``ok`` after another launch on the card, with the reports of a run
+    without faults; nothing is quarantined or finished on the host."""
+    from trivy_tpu_torch.faults import FaultInjector
+    from trivy_tpu_torch.runtime import BatchScanRunner
+    from trivy_tpu_torch.sched import SchedConfig
+    cdb, plan = _small_fleet(tmp_path)
+
+    def run(injector):
+        runner = BatchScanRunner(
+            store=cdb, backend="cuda", fault_injector=injector,
+            sched=SchedConfig(max_batch_items=4, flush_timeout_s=0.05))
+        try:
+            res = runner.scan_paths(plan["paths"])
+        finally:
+            runner.close()
+        return ([(r.status, None if r.error else json.dumps(
+            r.report.to_dict(), sort_keys=True)) for r in res],
+            runner.last_stats["sched"]["counters"])
+
+    want, _ = run(None)
+    inj = FaultInjector("device-transient:device_fail_batches=1")
+    before = dfa_blockmask.launches
+    got, c = run(inj)
+    assert got == want
+    assert inj.counters["device_faults"] == 1
+    assert not c.get("quarantined") and not c.get("host_fallbacks")
+    assert not c.get("device_failures")
+    assert dfa_blockmask.launches > before
+    assert [s for i, (s, _) in enumerate(got) if i != plan["broken"]] == \
+        ["ok"] * (len(got) - 1)
+
+
+def _watch_results(store, paths, backend):
+    from trivy_tpu_torch.runtime import BatchScanRunner
+    from trivy_tpu_torch.sched import SchedConfig
+    from trivy_tpu_torch.watch import (PushEvent, TraceSource, WatchConfig,
+                                       WatchLoop)
+    runner = BatchScanRunner(store=store, backend=backend,
+                             sched=SchedConfig(flush_timeout_s=0.02))
+    events = [PushEvent(digest=f"sha256:{i % len(paths):04x}",
+                        ref=f"img{i % len(paths)}",
+                        path=paths[i % len(paths)], seq=i)
+              for i in range(2 * len(paths))]
+    try:
+        loop = WatchLoop(runner, TraceSource(events),
+                         WatchConfig(debounce_s=0.05, keep_results=True))
+        stats = loop.run()
+    finally:
+        runner.close()
+    return stats, {r.name: json.dumps(r.report.to_dict(), sort_keys=True)
+                   for r in loop.results.values()}
+
+
+def test_watch_loop_on_the_card_equals_cpu_ref(cuda, tmp_path):
+    """A three-image watch loop (each digest pushed twice) on the card:
+    the books and every result equal the same loop on ``cpu-ref``, and
+    its scans launched the sieve."""
+    from trivy_tpu_torch.utils.synth import tiny_fleet
+    paths, store = tiny_fleet(str(tmp_path), 3)
+    cdb = CompiledDB.compile(store)
+    before = dfa_blockmask.launches
+    stats, got = _watch_results(cdb, paths, "cuda")
+    assert dfa_blockmask.launches > before
+    want_stats, want = _watch_results(cdb, paths, "cpu-ref")
+    assert got == want and len(got) == 3
+    keys = ("events", "scans", "deduped", "shed", "failed", "cursor")
+    assert {k: stats[k] for k in keys} == {k: want_stats[k] for k in keys}
+    assert stats["events"] == stats["scans"] + stats["deduped"] + \
+        stats["shed"]
+
+
+def test_admission_review_on_the_card_equals_cpu_ref(cuda, tmp_path):
+    """An AdmissionReview for a Pod and a Deployment of the tiny fleet's
+    images on the card: the same verdicts and annotations (trace ids
+    aside) as on ``cpu-ref``; the second review is a verdict-cache hit
+    that launches nothing."""
+    from trivy_tpu_torch.db.compiled import SwappableStore
+    from trivy_tpu_torch.memo import make_findings_memo
+    from trivy_tpu_torch.runtime import BatchScanRunner
+    from trivy_tpu_torch.sched import SchedConfig
+    from trivy_tpu_torch.utils.synth import tiny_fleet
+    from trivy_tpu_torch.watch import AdmissionController, AdmissionPolicy
+    paths, store = tiny_fleet(str(tmp_path), 2)
+    table = {"img0": paths[0], "img1": paths[1]}
+
+    def review(images, kind):
+        pod = {"containers": [{"name": f"c{i}", "image": r}
+                              for i, r in enumerate(images)]}
+        spec = pod if kind == "Pod" else {"template": {"spec": pod}}
+        return {"apiVersion": "admission.k8s.io/v1",
+                "kind": "AdmissionReview",
+                "request": {"uid": "u", "object": {
+                    "kind": kind, "metadata": {"name": "w"},
+                    "spec": spec}}}
+
+    def answers(backend):
+        holder = SwappableStore(CompiledDB.compile(store))
+        memo = make_findings_memo(backend=backend)
+        runner = BatchScanRunner(store=holder, backend=backend, memo=memo,
+                                 sched=SchedConfig(flush_timeout_s=0.02))
+        ctl = AdmissionController(
+            runner, store=holder, memo=memo,
+            policy=AdmissionPolicy.parse("deny:CRITICAL"),
+            resolver=lambda ref, digest="": table.get(ref),
+            default_deadline_s=120.0)
+        out = []
+        try:
+            for images, kind in ((["img0"], "Pod"),
+                                 (["img1", "img0"], "Deployment")):
+                resp = ctl.review(review(images, kind))["response"]
+                out.append({k: v for k, v in resp.items()
+                            if k != "auditAnnotations"})
+                out.append({k: v for k, v in
+                            resp["auditAnnotations"].items()
+                            if "/trace-" not in k})
+            before = dfa_blockmask.launches
+            again = ctl.review(review(["img1"], "Pod"))["response"]
+            assert dfa_blockmask.launches == before
+            assert again["auditAnnotations"][
+                "trivy-tpu/image-0"].endswith("[cache]")
+        finally:
+            runner.close()
+        return out
+
+    before = dfa_blockmask.launches
+    got = answers("cuda")
+    assert dfa_blockmask.launches > before
+    assert got == answers("cpu-ref")
+
+
+def test_admission_deadline_scan_goes_on_on_the_card(cuda, tmp_path):
+    """A review whose deadline is spent before its scan answers under
+    ``fail open`` at once; the scan goes on in the background on the
+    card (a sieve launch), and the next review of the image is a
+    verdict-cache hit."""
+    from trivy_tpu_torch.runtime import BatchScanRunner
+    from trivy_tpu_torch.sched import SchedConfig
+    from trivy_tpu_torch.utils.synth import tiny_fleet
+    from trivy_tpu_torch.watch import AdmissionController, AdmissionPolicy
+    paths, store = tiny_fleet(str(tmp_path), 1)
+    runner = BatchScanRunner(store=CompiledDB.compile(store),
+                             backend="cuda",
+                             sched=SchedConfig(flush_timeout_s=0.02))
+    ctl = AdmissionController(runner,
+                              policy=AdmissionPolicy.parse("deny:CRITICAL"),
+                              resolver=lambda ref, digest="": paths[0])
+    review = {"kind": "AdmissionReview", "request": {"uid": "u", "object": {
+        "kind": "Pod", "spec": {"containers": [{"image": "img0"}]}}}}
+    before = dfa_blockmask.launches
+    try:
+        resp = ctl.review(review, deadline_s=1e-9)["response"]
+        assert resp["allowed"] is True
+        assert "fail-open" in resp["auditAnnotations"]["trivy-tpu/image-0"]
+        deadline = time.monotonic() + 120
+        while ctl.stats()["background_pending"] and \
+                time.monotonic() < deadline:
+            ctl._harvest_background()
+            time.sleep(0.05)
+        assert dfa_blockmask.launches > before
+        again = ctl.review(review)["response"]
+        assert again["auditAnnotations"]["trivy-tpu/image-0"].endswith(
+            "[cache]")
+    finally:
+        runner.close()
 
 
 # --- the mesh: [cuda:0] × 4 on one card, every card where there are more

@@ -319,7 +319,9 @@ def test_refused_flag_from_env_or_config_reaches_its_refusal(
         inputs, tmp_path, entry, flag, env, config, request):
     """A default from the environment or the config file for a flag
     that the port refuses by name ends in that refusal, before any
-    scan; it is never dropped. ``--server`` is ported: from the
+    scan; it is never dropped. ``--fault-spec`` is ported: on these
+    single-target entries it ends as the reference's does (exit 2, the
+    same ``error:`` line). ``--server`` is ported: from the
     environment or the config file it sends the scan to that server
     (one started here, holding the entry's DB), whose report is the
     local scan's. ``--cache-backend`` is ported: from the config file
@@ -348,6 +350,13 @@ def test_refused_flag_from_env_or_config_reaches_its_refusal(
                    str(tmp_path))
         assert (got[0], _norm(got[1])) == (want[0], _norm(want[1]))
         assert json.loads(got[1])["Results"] and code == want[0]
+        return
+    if flag == "--fault-spec":
+        ref = _run(rcli.main, argv, env, str(tmp_path))
+        assert (code, out, said) == (ref[0], ref[1], ref[2]) == (
+            2, "", ["error: --fault-spec is wired into multi-target "
+                    "image scans, the server, and the route command; "
+                    "this command would inject nothing"])
         return
     assert code == 1 and out == ""
     if flag == "--cache-backend":

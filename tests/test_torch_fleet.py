@@ -255,10 +255,10 @@ def test_cli_sched_stats_dumps_the_batch(fleet, tmp_path, monkeypatch):
 
 # --- refusals --------------------------------------------------------
 
-REFUSALS = {
-    "fault_spec": (["--sched", "off", "--fault-spec", "poison-image"],
-                   "A.9"),
-}
+REFUSALS: dict = {}
+# ported (tests/test_torch_faults.py): the fleet takes --fault-spec and
+# its reports equal the reference's under the same spec
+FAULTS = {"fault_spec": ["--sched", "off", "--fault-spec", "poison-image"]}
 # refused until the multi-host pod was ported (ROADMAP A.6): a
 # single-host topology scans, a malformed one exits 2 as the reference
 POD = {
@@ -275,16 +275,17 @@ LIFTED = {
 }
 
 
-@pytest.mark.parametrize("case", sorted(REFUSALS) + sorted(LIFTED)
-                         + sorted(POD))
+@pytest.mark.parametrize("case", sorted(REFUSALS) + sorted(FAULTS) +
+                         sorted(LIFTED) + sorted(POD))
 def test_fleet_refuses_before_any_host_work(fleet, case, monkeypatch,
                                             tmp_path):
     """Each option still to be ported is refused by name before any
     host work; the scheduler's options (``--sched on``, its default,
     and ``--tenant-*``) run the scheduled scan, whose reports equal
     the reference's with the same options and the port's direct
-    path's; the pod flags give the reference's exit code, output and
-    ``error:`` line."""
+    path's; ``--fault-spec`` runs the fleet under its scenario, with
+    the reference's exit code, reports and lines; the pod flags give
+    the reference's exit code, output and ``error:`` line."""
     import trivy_tpu_torch.cli as tcli
 
     monkeypatch.chdir(tmp_path)
@@ -303,6 +304,15 @@ def test_fleet_refuses_before_any_host_work(fleet, case, monkeypatch,
             assert said[0].startswith("error: multi-host topology: ")
         else:
             assert _out(out, "json") == _out(want[1], "json")
+        return
+    if case in FAULTS:
+        db = ["--compiled-db", fleet["compiled"], "--format", "json"]
+        code, out, said, _ = _run(tcli.main, argv + FAULTS[case] + db)
+        want = _run(rmain, argv + FAULTS[case] + db
+                    + ["--no-cache", "--no-memo"])
+        assert (code, said) == (0, []) == (want[0], want[2])
+        assert _out(out, "json") == _out(want[1], "json")
+        assert len(json.loads(out)) == 2
         return
     if case in LIFTED:
         db = ["--compiled-db", fleet["compiled"], "--format", "json"]

@@ -363,8 +363,12 @@ REFUSALS = {
     "target_not_a_path": (["127.0.0.1:9/app:1"], "scan"),
     # ported (tests/test_torch_rpc.py): the run goes on to the scan
     "server": (["@alpine", "--server", "http://localhost:1"], "scan"),
+    # ported: a single target refuses it with the reference's exit 2
+    # and line (tests/test_torch_faults.py)
     "fault_spec": (["@alpine", "--fault-spec", "poison-image"],
-                   "ROADMAP A.9"),
+                   "error: --fault-spec is wired into multi-target image "
+                   "scans, the server, and the route command; this "
+                   "command would inject nothing"),
     # ported (tests/test_torch_remote_cache.py): a Redis that cannot be
     # reached ends the run before any host work
     "cache_backend": (["@alpine", "--cache-backend",
@@ -401,7 +405,7 @@ def test_image_refuses_before_any_host_work(inputs, case, monkeypatch,
             tcli.main(argv + ["--backend", "cpu"])
         return
     code, out, said = _run(tcli.main, argv + ["--backend", "cpu"])
-    assert code == 1 and out == ""
+    assert code == (2 if case == "fault_spec" else 1) and out == ""
     assert len(said) == 1 and item in said[0]
 
 

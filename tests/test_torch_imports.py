@@ -173,6 +173,14 @@ REGISTRY_SLICE = ("artifact/registry.py", "artifact/localreg.py",
                   "cli.py")
 
 
+# fault injection and continuous scanning
+WATCH_SLICE = ("faults/__init__.py", "faults/spec.py", "faults/inject.py",
+               "faults/hostile.py", "watch/__init__.py", "watch/source.py",
+               "watch/loop.py", "watch/admission.py", "watch/metrics.py",
+               "k8s/__init__.py", "utils/synth.py", "rpc/server.py",
+               "artifact/resilient.py", "sched/metrics.py", "cli.py")
+
+
 def _covered(modules) -> None:
     import importlib
     import pkgutil
@@ -231,13 +239,17 @@ def test_the_scans_cover_the_registry_slice():
     _covered(REGISTRY_SLICE)
 
 
+def test_the_scans_cover_the_watch_slice():
+    _covered(WATCH_SLICE)
+
+
 def test_server_entry_runs_without_jax():
     """``python -m trivy_tpu_torch server`` parses, refuses a flag of a
     later item by name and exits, without loading JAX or the JAX
     package."""
     code = ("import sys\n"
             "from trivy_tpu_torch.cli import main\n"
-            "rc = main(['server', '--backend', 'cpu', '--images-dir', "
+            "rc = main(['server', '--backend', 'cpu', '--prewarm-members', "
             "'x'])\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'trivy_tpu'))\n"
@@ -246,7 +258,8 @@ def test_server_entry_runs_without_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert proc.stdout.split() == ["1", "[]"]
-    assert "--images-dir is not ported yet (ROADMAP A.9g)" in proc.stderr
+    assert "--prewarm-members is not ported yet (ROADMAP A.9g/h)" in \
+        proc.stderr
 
 
 def test_simhost_entry_runs_without_jax():

@@ -348,8 +348,8 @@ def test_prewarm_stages_every_live_table(inputs):
 
 
 def test_sched_snapshot_has_reference_sections():
-    """``SchedMetrics.snapshot()`` carries the reference's ``secret``
-    and ``resident`` sections, with its keys."""
+    """``SchedMetrics.snapshot()`` carries the reference's ``secret``,
+    ``resident`` and ``watch`` sections, with its keys."""
     from trivy_tpu.sched.metrics import SchedMetrics as RM
     from trivy_tpu_torch.sched.metrics import SchedMetrics as TM
     want, got = RM().snapshot(), TM().snapshot()
@@ -358,7 +358,8 @@ def test_sched_snapshot_has_reference_sections():
     row_keys = {"table", "placement", "bytes", "generation"}
     assert all(set(r) == row_keys for r in got["resident"])
     assert all(set(r) == row_keys for r in want["resident"])
-    assert set(want) - set(got) == {"watch"}      # ROADMAP A.9g
+    assert set(want) == set(got)
+    assert set(got["watch"]) == set(want["watch"])
 
 
 def test_a_failed_wait_ends_the_busy_span_as_an_error(monkeypatch):

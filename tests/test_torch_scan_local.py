@@ -527,16 +527,22 @@ def test_sbom_entry_defaults_and_errors(inputs, tmp_path, monkeypatch):
         scan_sbom(inputs["cdx"], load_store())
 
 
-@pytest.mark.parametrize("argv,error", [
-    (["--fault-spec", "poison-image", "--backend", "cpu"], "ROADMAP A.9"),
-    (["--cache-backend", "redis://127.0.0.1:9", "--backend", "cpu"],
-     "redis connect 127.0.0.1:9"),
-    ([], RuntimeError)])
+@pytest.mark.parametrize("argv,error,code", [
+    # a single target refuses --fault-spec as the reference does (its
+    # id is the one it had while the option was still to be ported)
+    pytest.param(["--fault-spec", "poison-image", "--backend", "cpu"],
+                 "error: --fault-spec is wired into multi-target image "
+                 "scans, the server, and the route command; this command "
+                 "would inject nothing", 2, id="argv0-ROADMAP A.9"),
+    pytest.param(["--cache-backend", "redis://127.0.0.1:9", "--backend",
+                  "cpu"], "redis connect 127.0.0.1:9", 1,
+                 id="argv1-redis connect 127.0.0.1:9"),
+    pytest.param([], RuntimeError, None, id="argv2-RuntimeError")])
 def test_sbom_entry_refuses_before_loading_the_db(inputs, argv, error,
-                                                 monkeypatch):
-    """An option still to be ported, a blob cache that cannot be
-    reached, or the card where there is none, ends the run before the
-    DB is loaded."""
+                                                 code, monkeypatch):
+    """``--fault-spec`` on this single-target entry, a blob cache that
+    cannot be reached, or the card where there is none, ends the run
+    before the DB is loaded."""
     import trivy_tpu_torch.cli as tcli
 
     def no_load(*args, **kwargs):
@@ -549,7 +555,7 @@ def test_sbom_entry_refuses_before_loading_the_db(inputs, argv, error,
     if isinstance(error, str):
         err = io.StringIO()
         with contextlib.redirect_stderr(err):
-            assert _run(tcli.main, argv)[0] == 1
+            assert _run(tcli.main, argv)[0] == code
         assert error in err.getvalue()
     else:
         with pytest.raises(error, match="CUDA is not available"):

@@ -32,7 +32,7 @@ import trivy_tpu.sched as rsched
 import trivy_tpu_torch.obs.cost as tcost
 import trivy_tpu_torch.obs.slo as tslo
 import trivy_tpu_torch.sched as tsched
-from chip_smoke import PoisonInjector, _strip_status
+from chip_smoke import _strip_status
 from tests.test_torch_fleet import (N_IMAGES, _norm, _out,  # noqa: F401
                                     _reset_secret_config, _run, fleet)
 from tests.test_torch_scan_local import _fast_yaml
@@ -42,6 +42,7 @@ from trivy_tpu.faults import FaultInjector
 from trivy_tpu.runtime import BatchScanRunner as RRunner
 from trivy_tpu.types import ScanOptions as RScanOptions
 from trivy_tpu_torch.cli import main as tmain
+from trivy_tpu_torch.faults import FaultInjector as TFaultInjector
 from trivy_tpu_torch.runtime import BatchScanRunner as TRunner
 from trivy_tpu_torch.types import ScanOptions as TScanOptions
 
@@ -435,7 +436,7 @@ def test_poison_image_is_quarantined_alone(fleet):
     rr = RRunner(store=store[0], backend="tpu", sched=_sched_cfg("ref"),
                  fault_injector=FaultInjector(
                      f"poison-image:poison={marker}"))
-    inj = PoisonInjector(marker)   # the same three hooks, the same error
+    inj = TFaultInjector(f"poison-image:poison={marker}")
     tr = TRunner(store=store[1], backend="cpu", sched=_sched_cfg("port"),
                  fault_injector=inj)
     try:
@@ -453,7 +454,8 @@ def test_poison_image_is_quarantined_alone(fleet):
     assert tstats["counters"]["host_fallbacks"] == 1
     assert tstats["counters"]["quarantined"] == \
         rstats["counters"]["quarantined"]
-    assert inj.dispatches > tstats["counters"]["batches"]
+    assert inj.counters["device_dispatches"] > \
+        tstats["counters"]["batches"]
     healthy = _ref_runs(fleet, "compiled")[1]
     for i, (r, want) in enumerate(zip(_norm(tres), healthy)):
         if i == 2:
@@ -513,7 +515,8 @@ def test_only_injected_faults_finish_on_the_host_on_the_card(backend,
     or finished on the host. The CPU groups keep the reference's
     ladder for every error. Nothing here launches on a card: the
     dispatch fails before any tensor is made."""
-    injector = PoisonInjector("r") if injected else None
+    injector = TFaultInjector("poison-image:poison=r") if injected \
+        else None
     out, c = _broken_sieve_run("port", backend, injector)
     fallbacks = c.get("host_fallbacks", 0)
     if backend == "cuda" and not injected:
@@ -756,7 +759,8 @@ def test_smoke_sched_helpers_on_the_cpu(fleet):
     """``chip_smoke.py``'s sched phase helpers, rehearsed on the CPU:
     ``run_sched`` gives the ``--sched off`` reports with every launched
     batch's candidates recorded (the plain sieve counts no launch), the
-    poison stand-in corners its target, and the overlap arithmetic
+    port's ``poison-image`` injector corners its target, and the overlap
+    arithmetic
     counts only a sieve beside another kernel."""
     from chip_smoke import run_fleet, run_sched, sieve_wave_overlap_us
     from trivy_tpu_torch.artifact import MemoryCache
@@ -771,7 +775,8 @@ def test_smoke_sched_helpers_on_the_cpu(fleet):
         run["stats"]["counters"]["batches"] and any(run["batches"])
     assert [i for i, _, _ in run["failed"]] == [fleet["plan"]["broken"]]
     poisoned = run_sched(paths[:3], store, "cpu", scanner, MemoryCache(),
-                         PoisonInjector(paths[1].rsplit("/", 1)[-1]))
+                         TFaultInjector("poison-image:poison=" +
+                                        paths[1].rsplit("/", 1)[-1]))
     assert poisoned["status"] == ["ok", "degraded", "ok"]
     assert poisoned["stats"]["counters"]["quarantined"] == 1
     assert sieve_wave_overlap_us([

@@ -131,11 +131,14 @@ class ResilientCache:
     # in process RAM. Local WRITES are pinned (read-your-writes).
     MIRROR_CAP = 4096
 
-    def __init__(self, primary, breaker: Optional[CircuitBreaker] = None):
+    def __init__(self, primary, breaker: Optional[CircuitBreaker] = None,
+                 name: str = ""):
         self.primary = primary
         self.fallback = MemoryCache()
         self.breaker = breaker or CircuitBreaker()
-        self.name = type(primary).__name__
+        # the log's name of the primary (the fault injector's wrap
+        # says "fault-injected")
+        self.name = name or type(primary).__name__
         self._lock = threading.Lock()
         self._pinned: set = set()          # blob ids written locally
         self._mirrored: OrderedDict = OrderedDict()  # LRU of mirrors

@@ -27,7 +27,21 @@ over every secret candidate of every image, and the interval match
 over every image's pairs runs in waves kept in flight by a dispatch
 ring. ``json`` writes one array of reports, ``table`` one table after
 another; a target that fails prints ``error: NAME: ...`` and the run
-exits 1.
+exits 1. ``--fault-spec`` (``faults/``) injects a seeded fault scenario
+into the fleet: a cache outage under the circuit breaker, device
+faults that the scheduler bisects and quarantines, corrupt layers,
+stalls, a deadline storm, and the hostile ingest corpus appended to
+the targets. Every single-target entry refuses it (exit 2).
+
+``watch`` keeps a fleet scanned from registry push events
+(``watch/``): Docker Distribution notifications on ``POST
+/registry/notifications`` (``--listen``, refs resolved to tarballs
+under ``--images-dir``) or a seeded synthetic source over the listed
+tarballs, debounced per digest, each scan a request of the scheduler;
+``--fault-spec event-storm`` pushes a seeded storm and drains. Its
+HTTP plane, and the ``server``'s, also answers ``POST /k8s/admission``
+(``--admission-policy``, ``--admission-fail``,
+``--admission-deadline``).
 
 ``fs`` (alias ``filesystem``) and ``rootfs`` scan a directory tree
 (the reference's ``trivy fs DIR``): ``LocalFSArtifact`` walks it
@@ -565,7 +579,8 @@ def _refuse_early(args, checks=("vuln",)) -> bool:
     return False
 
 
-def _memo(args, cache, option=None, scheduled: bool = False):
+def _memo(args, cache, option=None, scheduled: bool = False,
+          injector=None):
     """The findings memo of a scan (ref cli.py ``_memo``): None under
     ``--no-memo`` or without the ``vuln`` check, else one on the blob
     cache's tier (``--memo-cache`` overrides it) whose hot-swap
@@ -590,6 +605,7 @@ def _memo(args, cache, option=None, scheduled: bool = False):
     return make_findings_memo(cache=cache, cache_dir=args.cache_dir,
                               uri=args.memo_cache,
                               artifact_option=option,
+                              fault_injector=injector,
                               backend=args.backend)
 
 
@@ -619,13 +635,16 @@ def _remote_scanner(args):
     return RemoteScanner(args.server, **_rpc_options(args))
 
 
-def _sources(args, checks, option=None, scheduled: bool = False):
+def _sources(args, checks, option=None, scheduled: bool = False,
+             injector=None):
     """``(cache, memo, store)`` of a scan from the flags — the store
     only with the ``vuln`` check (ref cli.py:1895-1898) — or None after
     an ``error:`` line (a ``--cache-backend`` or ``--memo-cache`` that
     is malformed or cannot be reached, an installed DB that cannot be
     used). ``scheduled``: a run of several targets
-    through the scheduler (``_memo``). With ``--server`` it is
+    through the scheduler (``_memo``). An ``injector``
+    (``faults.FaultInjector``) wraps the blob cache
+    (``wrap_cache``) and reaches the memo. With ``--server`` it is
     ``(RemoteCache, None, None)``: blobs go to the server's cache and
     the server owns the DB and the memo (ref cli.py ``_cache``)."""
     if args.server:
@@ -634,7 +653,9 @@ def _sources(args, checks, option=None, scheduled: bool = False):
     try:
         cache = make_cache(args.cache_dir, args.no_cache,
                            getattr(args, "cache_backend", "fs"))
-        memo = _memo(args, cache, option, scheduled)
+        if injector is not None:
+            cache = injector.wrap_cache(cache)
+        memo = _memo(args, cache, option, scheduled, injector)
         store = load_store(args.db_fixtures, args.compiled_db,
                            args.compile_db, args.cache_dir,
                            args.skip_db_update) \
@@ -666,17 +687,33 @@ def _configure_misconf(args, checks) -> bool:
     return True
 
 
-def _refuse(args) -> bool:
-    """Print the ``error:`` line of an option still to be ported."""
-    refused = _refused(args)
-    if refused:
-        print(f"error: {refused}", file=sys.stderr)
-    return bool(refused)
+def _fault_injector(args):
+    """--fault-spec → ``faults.FaultInjector``, or None. A malformed
+    spec, or one with route faults, raises ``ValueError`` (the callers
+    print it and exit 1, as the reference's ``main`` does)."""
+    spec = getattr(args, "fault_spec", "")
+    if not spec:
+        return None
+    from .faults import FaultInjector, parse_fault_spec
+    return FaultInjector(parse_fault_spec(spec))
+
+
+def _reject_unwired_fault_spec(args) -> bool:
+    """True (and the reference's ``error:`` line printed) when
+    --fault-spec was given on an entry that has no injection sites — a
+    clean run there would be false confidence, not a passed drill
+    (docs/robustness.md)."""
+    if getattr(args, "fault_spec", ""):
+        print("error: --fault-spec is wired into multi-target "
+              "image scans, the server, and the route command; "
+              "this command would inject nothing", file=sys.stderr)
+        return True
+    return False
 
 
 def _run_sbom(args) -> int:
-    if _refuse(args):
-        return 1
+    if _reject_unwired_fault_spec(args):
+        return 2
     if not os.path.isfile(args.target):
         print(f"error: no such file: {args.target}", file=sys.stderr)
         return 1
@@ -699,8 +736,8 @@ def _run_sbom(args) -> int:
 
 
 def _run_fs(args) -> int:
-    if _refuse(args):
-        return 1
+    if _reject_unwired_fault_spec(args):
+        return 2
     if not os.path.isdir(args.target):
         print(f"error: no such directory: {args.target}",
               file=sys.stderr)
@@ -756,15 +793,6 @@ def _ingest_limits(args):
     return dataclasses.replace(DEFAULT_LIMITS, **overrides)
 
 
-def _refused(args) -> str:
-    """The options still to be ported, by ROADMAP item: each is
-    refused before any host work, whether it came from the command
-    line, ``TRIVY_<FLAG>`` or the config file."""
-    if args.fault_spec:
-        return "--fault-spec is not ported yet (ROADMAP A.9h)"
-    return ""
-
-
 def _run_image(args) -> int:
     if len(args.target) > 1 and args.input:
         # silently dropping --input next to a target list would scan
@@ -773,10 +801,10 @@ def _run_image(args) -> int:
               "image targets; list the archive as a target "
               "instead", file=sys.stderr)
         return 2
-    if _refuse(args):
-        return 1
     if len(args.target) > 1:
         return _run_image_batch(args)
+    if _reject_unwired_fault_spec(args):
+        return 2
     target = args.target[0] if args.target else ""
     path = args.input or target
     if not path:
@@ -882,7 +910,10 @@ def _run_image_batch(args) -> int:
     """``image a.tar b.tar ...`` (ref cli.py ``_run_image_batch``):
     one ``BatchScanRunner.scan_paths`` over every target, through the
     scheduler (``--sched on``, the default) or the direct path, then
-    ``_finish_many``."""
+    ``_finish_many``. ``--fault-spec`` injects its scenario: the blob
+    cache behind ``wrap_cache``, the runner's and the scheduler's
+    hooks, the seeded hostile corpus appended to the targets, and the
+    ``deadline-storm`` deadline on every request."""
     if args.server:
         print("error: multi-image batch scan is local-only; scan "
               "one target at a time against --server",
@@ -909,10 +940,38 @@ def _run_image_batch(args) -> int:
                            _split(args.skip_files), patterns,
                            not args.no_ingest_guards,
                            _ingest_limits(args))
-    sources = _sources(args, checks, opt, scheduled=args.sched == "on")
+    try:
+        injector = _fault_injector(args)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    sources = _sources(args, checks, opt, scheduled=args.sched == "on",
+                       injector=injector)
     if sources is None:
         return 1
     cache, memo, store = sources
+    targets = list(args.target)
+    hostile_dir = ""
+    if injector is not None and injector.spec.hostile:
+        # hostile-ingest drill (docs/robustness.md): materialize the
+        # seeded adversarial corpus and append it to the fleet — the
+        # guard layer must quarantine each hostile slot per-target
+        # while the listed targets complete untouched
+        import tempfile
+        from .faults.hostile import build_corpus
+        hostile_dir = tempfile.mkdtemp(prefix="trivy-tpu-hostile-")
+        try:
+            extra = build_corpus(hostile_dir, seed=injector.spec.seed,
+                                 only=list(injector.spec.hostile))
+        except ValueError as e:
+            import shutil
+            shutil.rmtree(hostile_dir, ignore_errors=True)
+            print(f"error: {e}", file=sys.stderr)
+            return 1
+        targets += [p for _, p in extra]
+        print(f"fault-spec: added {len(extra)} hostile artifacts "
+              f"to the fleet (seed={injector.spec.seed})",
+              file=sys.stderr)
     try:
         sched_config = _sched_config(args)
     except ValueError as e:
@@ -927,25 +986,42 @@ def _run_image_batch(args) -> int:
         store=store, cache=cache, backend=args.backend,
         secret_scanner=opt.secret_scanner, sched=args.sched,
         sched_config=sched_config, artifact_option=opt,
+        fault_injector=injector,
         dispatch_depth=args.dispatch_depth, memo=memo)
-    options = ScanOptions(vuln_type=_split(args.vuln_type),
-                          security_checks=checks,
-                          list_all_packages=_list_all(args),
-                          scan_removed_packages=args.removed_pkgs,
-                          backend=args.backend)
+    options = _scan_options(args, checks)
+    if injector is not None and injector.spec.deadline_s > 0:
+        # deadline-storm scenario: the spec carries the per-request
+        # deadline, the harness applies it
+        options.deadline_s = injector.spec.deadline_s
     try:
-        results = runner.scan_paths(args.target, options)
+        results = runner.scan_paths(targets, options)
         stats = runner.last_stats
     finally:
         runner.close()
+        if hostile_dir:
+            import shutil
+            shutil.rmtree(hostile_dir, ignore_errors=True)
     if args.sched_stats:
-        print(json.dumps(stats.get("sched", stats), indent=2),
-              file=sys.stderr)
+        dump = stats.get("sched", stats)
+        if injector is not None:
+            dump = dict(dump)
+            dump["faults"] = injector.stats()
+        print(json.dumps(dump, indent=2), file=sys.stderr)
     if trace_out:
         print(f"traces written to {trace_out} "
               f"({get_tracer().n_exported} total this process)",
               file=sys.stderr)
     return _finish_many(args, results)
+
+
+def _scan_options(args, checks) -> ScanOptions:
+    """The ``ScanOptions`` of a runner's requests from the flags."""
+    return ScanOptions(vuln_type=_split(args.vuln_type),
+                       security_checks=checks,
+                       list_all_packages=_list_all(args),
+                       scan_removed_packages=getattr(args, "removed_pkgs",
+                                                     False),
+                       backend=args.backend)
 
 
 def _trace_out(args) -> str:
@@ -1167,8 +1243,17 @@ def _scan_flags(sp) -> None:
                     "s3://bucket/prefix?endpoint=...&region=... (a "
                     "remote cache degrades to memory while it is "
                     "down)")
-    # refused by name (ROADMAP A.9h)
-    sp.add_argument("--fault-spec", default="", help=argparse.SUPPRESS)
+    sp.add_argument("--fault-spec", default="",
+                    help="inject deterministic faults "
+                    "(docs/robustness.md): a scenario name "
+                    "(cache-outage, poison-image, "
+                    "device-transient, rpc-flaky, slow-host, "
+                    "standard-outage, hostile-ingest ...) "
+                    "optionally followed by :key=value "
+                    "overrides, e.g. "
+                    "poison-image:poison=img7.tar; several "
+                    "targets of image, watch and the server "
+                    "take it")
     _global_flags(sp)
 
 
@@ -1218,6 +1303,22 @@ def _image_flags(sp, target_nargs: str = "*") -> None:
                     "histograms) to stderr after the scan; with "
                     "--sched off, the batch's phase timings and "
                     "dispatch counters")
+    _sched_flags(sp)
+    sp.add_argument("--coordinator", default="",
+                    help="multi-host pod: host:port of process 0 "
+                    "(TRIVY_TPU_COORDINATOR); requires "
+                    "--num-processes/--process-id")
+    sp.add_argument("--num-processes", type=int, default=0,
+                    help="multi-host pod: total scanner processes "
+                    "(TRIVY_TPU_NUM_PROCESSES)")
+    sp.add_argument("--process-id", type=int, default=-1,
+                    help="multi-host pod: this process's id "
+                    "(TRIVY_TPU_PROCESS_ID)")
+
+
+def _sched_flags(sp) -> None:
+    """The scheduler's knobs (``_sched_config``), on ``image`` and
+    ``watch``."""
     sp.add_argument("--sched-flush-ms", type=float, default=50.0,
                     help="coalescer flush timeout in ms")
     sp.add_argument("--sched-queue", type=int, default=256,
@@ -1243,16 +1344,69 @@ def _image_flags(sp, target_nargs: str = "*") -> None:
                     "bob:device_s=1' — a tenant over its windowed "
                     "spend is throttled (429 + Retry-After) or "
                     "deprioritized to the budget's priority floor")
-    sp.add_argument("--coordinator", default="",
-                    help="multi-host pod: host:port of process 0 "
-                    "(TRIVY_TPU_COORDINATOR); requires "
-                    "--num-processes/--process-id")
-    sp.add_argument("--num-processes", type=int, default=0,
-                    help="multi-host pod: total scanner processes "
-                    "(TRIVY_TPU_NUM_PROCESSES)")
-    sp.add_argument("--process-id", type=int, default=-1,
-                    help="multi-host pod: this process's id "
-                    "(TRIVY_TPU_PROCESS_ID)")
+
+
+def _admission_flags(sp) -> None:
+    """K8s validating-admission webhook knobs (ref cli.py
+    ``_admission_flags``; docs/serving.md 'Continuous scanning &
+    admission control') — shared by the server and the watch command
+    (both mount POST /k8s/admission)."""
+    sp.add_argument("--admission-policy", default="deny:CRITICAL",
+                    help="severity policy for POST /k8s/admission: "
+                    "'deny:SEV[,SEV...]' denies pods whose images "
+                    "carry findings at those severities; 'audit' "
+                    "never denies (annotations only)")
+    sp.add_argument("--admission-fail", default="open",
+                    choices=["open", "closed", "408"],
+                    help="stance when a verdict cannot resolve "
+                    "inside the deadline: open = allow + annotate, "
+                    "closed = deny, 408 = surface HTTP 408 and let "
+                    "the webhook's K8s failurePolicy decide")
+    sp.add_argument("--admission-deadline", type=float, default=10.0,
+                    help="default verdict deadline in seconds "
+                    "(the apiserver's ?timeout= overrides per "
+                    "request)")
+
+
+def _watch_flags(sp) -> None:
+    """``watch``'s own flags (ref cli.py ``build_parser``)."""
+    sp.add_argument("target", nargs="*", default=[],
+                    help="image tarballs the synthetic source "
+                    "draws push events from (webhook sources "
+                    "resolve refs via --images-dir instead)")
+    sp.add_argument("--watch-source", default="webhook",
+                    help="event source: 'webhook' (serve "
+                    "POST /registry/notifications on --listen) "
+                    "or 'synthetic[:rate=5,n=64,seed=7]' "
+                    "(seeded Poisson replay over the targets)")
+    sp.add_argument("--listen", default="127.0.0.1:4956",
+                    help="host:port for the HTTP plane "
+                    "(notification webhook, /metrics, "
+                    "/k8s/admission); synthetic runs skip it "
+                    "with --listen ''")
+    sp.add_argument("--images-dir", default="",
+                    help="resolve pushed image refs to local "
+                    "tarballs named <ref with /:@ as _>.tar "
+                    "(the k8s --images-dir contract)")
+    sp.add_argument("--debounce-ms", type=float, default=250.0,
+                    help="per-digest debounce window: a tag "
+                    "repushed in a burst scans once")
+    sp.add_argument("--max-inflight", type=int, default=32,
+                    help="in-flight watermark: stop pulling the "
+                    "event source at this many outstanding scans")
+    sp.add_argument("--checkpoint", default="",
+                    help="cursor checkpoint file: a restarted "
+                    "watch resumes after the last resolved event "
+                    "instead of re-scanning the backlog")
+    sp.add_argument("--watch-tenant", default="watch",
+                    help="tenant identity watch submissions "
+                    "carry (QoS/SLO scoping, docs/serving.md)")
+    sp.add_argument("--watch-priority", type=int, default=0)
+    sp.add_argument("--max-events", type=int, default=0,
+                    help="stop after this many events "
+                    "(0 = run until SIGTERM / source exhausted)")
+    _admission_flags(sp)
+    _sched_flags(sp)
 
 
 def _server_flags(srv) -> None:
@@ -1325,15 +1479,23 @@ def _server_flags(srv) -> None:
                      "host profiler's collapsed stacks; the host "
                      "profiler is also served at GET "
                      "/debug/profile?seconds=N")
-    # refused by name (ROADMAP A.9g, h, i): None unless given
+    srv.add_argument("--fault-spec", default="",
+                     help="inject deterministic faults into the "
+                     "server (docs/robustness.md): the RPC drop / 500 "
+                     "/ lost-response decisions and the memo's")
+    _admission_flags(srv)
+    srv.add_argument("--images-dir", default="",
+                     help="resolve admission-webhook image refs to "
+                     "local tarballs named <ref with /:@ as _>.tar; "
+                     "without it admission misses apply the fail "
+                     "stance")
+    # refused by name (ROADMAP A.9g, i): None unless given
     srv.add_argument("--impact-index", action="store_true", default=None,
                      help=argparse.SUPPRESS)
-    for flag in ("--prewarm-members", "--federate-peers", "--fault-spec",
-                 "--images-dir", "--admission-policy",
-                 "--admission-fail"):
+    for flag in ("--prewarm-members", "--federate-peers"):
         srv.add_argument(flag, default=None, help=argparse.SUPPRESS)
-    for flag in ("--admission-deadline", "--federate-timeout",
-                 "--federate-stale-after", "--prewarm-deadline"):
+    for flag in ("--federate-timeout", "--federate-stale-after",
+                 "--prewarm-deadline"):
         srv.add_argument(flag, type=float, default=None,
                          help=argparse.SUPPRESS)
     # the global flags but --timeout (a server runs until stopped)
@@ -1350,11 +1512,6 @@ _SERVER_REFUSED = (
     ("--impact-index", "impact_index", "A.9g"),
     ("--prewarm-members", "prewarm_members", "A.9g/h"),
     ("--federate-peers", "federate_peers", "A.9i"),
-    ("--fault-spec", "fault_spec", "A.9h"),
-    ("--admission-policy", "admission_policy", "A.9g"),
-    ("--admission-fail", "admission_fail", "A.9g"),
-    ("--admission-deadline", "admission_deadline", "A.9g"),
-    ("--images-dir", "images_dir", "A.9g"),
     ("--prewarm-deadline", "prewarm_deadline", "A.9g/h"),
     ("--federate-timeout", "federate_timeout", "A.9i"),
     ("--federate-stale-after", "federate_stale_after", "A.9i"),
@@ -1434,6 +1591,15 @@ def build_parser() -> argparse.ArgumentParser:
     _server_flags(sub.add_parser(
         "server", help="run in server mode (owns the blob cache, the "
         "advisory DB and the card's dispatch)"))
+    watch = sub.add_parser(
+        "watch", help="continuous scanning: subscribe to registry "
+        "push events (Docker Registry v2 notification webhooks, or "
+        "a seeded synthetic source) and keep the fleet scanned "
+        "(docs/serving.md 'Continuous scanning & admission "
+        "control')")
+    _watch_flags(watch)
+    _scan_flags(watch)
+    _tree_flags(watch)
     return ap
 
 
@@ -1495,6 +1661,8 @@ def _dispatch(args) -> int:
         return _run_image(args)
     if args.command == "image":
         return _run_image(args)
+    if args.command == "watch":
+        return run_watch(args)
     if args.command == "sbom":
         return _run_sbom(args)
     if args.command in ("config", "conf"):
@@ -1518,10 +1686,14 @@ def run_server(args) -> int:
     """``server`` (ref cli.py ``run_server``): the blob cache, the
     advisory store behind a ``SwappableStore`` (hot-swapped when the
     ``--compiled-db`` file changes), the findings memo and the
-    scheduler on ``--backend``, served over HTTP until SIGTERM, which
-    drains (``rpc/server.py::serve_forever``). A flag of a later item
-    is refused before any work; ``cuda`` without a card, and a kernel
-    that does not build at ``--compile-cache``, fail the boot."""
+    scheduler on ``--backend`` (with a secret sieve, for the admission
+    webhook's image scans), served over HTTP until SIGTERM, which
+    drains (``rpc/server.py::serve_forever``). ``--fault-spec`` reaches
+    the RPC handler and the memo; ``POST /k8s/admission`` answers
+    from ``--admission-policy`` with images resolved under
+    ``--images-dir``. A flag of a later item is refused before any
+    work; ``cuda`` without a card, and a kernel that does not build at
+    ``--compile-cache``, fail the boot."""
     from .rpc.server import ScanServer, serve_forever
     refused = _server_refused(args)
     if refused:
@@ -1531,6 +1703,16 @@ def run_server(args) -> int:
     if not port.isdigit():
         print(f"error: --listen needs host:port, got {args.listen!r}",
               file=sys.stderr)
+        return 2
+    try:
+        injector = _fault_injector(args)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    try:
+        _admission_policy(args)
+    except ValueError as e:
+        print(f"error: --admission-policy: {e}", file=sys.stderr)
         return 2
     if args.backend == "cuda":
         resolve_device(args.backend)     # no card: fail the boot
@@ -1577,11 +1759,17 @@ def run_server(args) -> int:
                 return 2
         if slos is not None:
             cfg.slos = slos
+        # the scheduler carries a secret sieve: blob-only RPC scans
+        # never need one, the admission webhook's image scans do
         from .sched import ScanScheduler
-        scheduler = ScanScheduler(config=cfg, backend=args.backend)
+        from .secret.batch import BatchSecretScanner
+        scheduler = ScanScheduler(
+            config=cfg, backend=args.backend,
+            secret_scanner=BatchSecretScanner(backend=args.backend))
     cache = make_cache(args.cache_dir)
     try:
-        memo = None if args.no_memo else _server_memo(args, cache)
+        memo = None if args.no_memo else _server_memo(args, cache,
+                                                      injector)
     except (RedisError, S3Error, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
         if scheduler is not None:
@@ -1589,6 +1777,7 @@ def run_server(args) -> int:
         return 1
     from .obs.profiler import DeviceTraceError, device_trace
     window = float(os.environ.get("TRIVY_TPU_PROFILE_SECONDS", "60"))
+    adm_runner = None
     try:
         with device_trace(args.profile_out, backend=args.backend,
                           max_seconds=window) as trace:
@@ -1601,6 +1790,9 @@ def run_server(args) -> int:
                 memo=memo, replica_name=args.replica_name or args.listen,
                 compile_cache_dir=args.compile_cache,
                 backend=args.backend)
+            server.fault_injector = injector
+            server.admission, adm_runner = _admission_controller(
+                args, server)
             if server.compile_cache:
                 # the boot's split, one JSON line (the DB load, the
                 # kernels' build and load, the warm launches, manifest
@@ -1619,6 +1811,8 @@ def run_server(args) -> int:
                               drain_timeout_s=args.drain_timeout,
                               on_tick=trace.step)
             finally:
+                if adm_runner is not None:
+                    adm_runner.close()
                 if scheduler is not None:
                     scheduler.close()
     except DeviceTraceError as e:
@@ -1627,7 +1821,228 @@ def run_server(args) -> int:
     return 0
 
 
-def _server_memo(args, cache):
+def _admission_policy(args):
+    """The ``AdmissionPolicy`` of ``--admission-policy`` and
+    ``--admission-fail``; ``ValueError`` for a malformed one."""
+    from .watch import AdmissionPolicy
+    return AdmissionPolicy.parse(args.admission_policy,
+                                 fail=args.admission_fail)
+
+
+def _admission_controller(args, server) -> tuple:
+    """Mount POST /k8s/admission (ref cli.py ``_admission_controller``):
+    an ``AdmissionController`` whose scans ride the server's scheduler
+    (a runner with a scheduler of its own on a ``--sched off``
+    server), store (hot-swap aware), cache and findings memo, on
+    ``--backend``. Returns (controller, runner); the caller closes the
+    runner."""
+    from .watch import AdmissionController, dir_resolver
+    resolver = dir_resolver(args.images_dir) if args.images_dir else None
+    runner = BatchScanRunner(
+        store=server.store, cache=server.cache, backend=args.backend,
+        sched=(server.scheduler if server.scheduler is not None
+               else "on"),
+        # honored when this runner builds its own scheduler (the
+        # --sched off server case); a shared scheduler already
+        # carries the flag via _sched_config
+        dispatch_depth=args.dispatch_depth, memo=server.memo)
+    controller = AdmissionController(
+        runner, store=server.store, memo=server.memo,
+        policy=_admission_policy(args), resolver=resolver,
+        default_deadline_s=args.admission_deadline)
+    return controller, runner
+
+
+def run_watch(args) -> int:
+    """``watch`` (ref cli.py ``run_watch``): the event-driven
+    continuous-scanning runtime (docs/serving.md "Continuous scanning &
+    admission control") — an event source feeds the debounced watch
+    loop, scans ride the continuous-batching scheduler on
+    ``--backend`` with the watch tenant identity, and (when listening)
+    the HTTP plane serves the registry-notification webhook,
+    /metrics and /k8s/admission. ``--fault-spec event-storm`` pushes
+    the seeded storm over the targets and drains. SIGTERM closes the
+    loop, which drains; the ``{"watch": stats}`` line goes to
+    stderr. ``cuda`` without a card raises before any scan."""
+    import signal
+
+    from .db.compiled import SwappableStore
+    from .watch import (SyntheticSource, WatchConfig, WatchLoop,
+                        WebhookSource, dir_resolver, make_event_storm)
+
+    checks = _split(args.security_checks)
+    if args.backend == "cuda":
+        resolve_device(args.backend)     # no card: no scan at all
+    try:
+        injector = _fault_injector(args)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    if not _configure_misconf(args, checks):
+        return 1
+    try:
+        patterns = _file_patterns(args.file_patterns)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    opt = _artifact_option(args.backend, checks, args.secret_config,
+                           None, _split(args.skip_dirs),
+                           _split(args.skip_files), patterns)
+    sources = _sources(args, checks, opt, scheduled=True,
+                       injector=injector)
+    if sources is None:
+        return 1
+    cache, memo, store = sources
+    holder = SwappableStore(store if store is not None
+                            else AdvisoryStore())
+    _trace_out(args)
+    try:
+        sched_config = _sched_config(args)
+    except ValueError as e:
+        print(f"error: --tenant-config/--tenant-budget: {e}",
+              file=sys.stderr)
+        return 2
+    targets = list(args.target)
+    resolver = dir_resolver(args.images_dir) if args.images_dir else None
+    spec_text = (args.watch_source or "webhook").strip()
+    kind, _, rest = spec_text.partition(":")
+    if kind == "synthetic":
+        if not targets:
+            print("error: the synthetic source needs image-tarball "
+                  "targets", file=sys.stderr)
+            return 2
+        kw = {"rate": 5.0, "n": 0, "seed": 20260804, "dup": 0.25}
+        for pair in rest.split(","):
+            pair = pair.strip()
+            if not pair:
+                continue
+            k, eq, v = pair.partition("=")
+            if not eq or k not in kw:
+                print(f"error: bad --watch-source entry {pair!r}",
+                      file=sys.stderr)
+                return 2
+            try:
+                kw[k] = type(kw[k])(v)
+            except (TypeError, ValueError):
+                print(f"error: bad --watch-source value {v!r}",
+                      file=sys.stderr)
+                return 2
+        source = SyntheticSource(
+            targets, rate=kw["rate"], n_events=int(kw["n"]),
+            seed=int(kw["seed"]), dup_rate=kw["dup"],
+            tenant=args.watch_tenant, priority=args.watch_priority)
+    elif kind == "webhook":
+        source = WebhookSource(resolver=resolver,
+                               tenant=args.watch_tenant,
+                               priority=args.watch_priority)
+    else:
+        print(f"error: unknown --watch-source {spec_text!r} "
+              "(want webhook or synthetic[:k=v,...])", file=sys.stderr)
+        return 2
+    if injector is not None and injector.spec.wants_event_storm() and \
+            (not isinstance(source, WebhookSource) or not targets):
+        print("error: event-storm needs the webhook source and "
+              "image-tarball targets", file=sys.stderr)
+        return 2
+    host, _, port = args.listen.rpartition(":")
+    if args.listen and not port.isdigit():
+        print(f"error: --listen needs host:port, got {args.listen!r}",
+              file=sys.stderr)
+        return 2
+    if args.listen:
+        try:
+            _admission_policy(args)
+        except ValueError as e:
+            print(f"error: --admission-policy: {e}", file=sys.stderr)
+            return 2
+
+    runner = BatchScanRunner(
+        store=holder, cache=cache, backend=args.backend,
+        secret_scanner=opt.secret_scanner, sched=sched_config,
+        artifact_option=opt, fault_injector=injector, memo=memo)
+    loop = WatchLoop(runner, source, WatchConfig(
+        debounce_s=max(0.0, args.debounce_ms) / 1000.0,
+        max_inflight=max(1, args.max_inflight),
+        tenant=args.watch_tenant, priority=args.watch_priority,
+        checkpoint_path=args.checkpoint),
+        options=_scan_options(args, checks))
+    httpd = worker = adm_runner = server = None
+    try:
+        if args.listen:
+            from .rpc.server import ScanServer, serve
+            server = ScanServer(store=holder, cache=cache,
+                                token=args.auth_token,
+                                token_header=args.token_header,
+                                sched=runner.scheduler, memo=memo,
+                                backend=args.backend)
+            if isinstance(source, WebhookSource):
+                server.watch_source = source
+            server.admission, adm_runner = _admission_controller(
+                args, server)
+            httpd, worker = serve(host or "127.0.0.1", int(port), server,
+                                  db_watch_prefix=args.compiled_db)
+            print(f"trivy-tpu watch listening on {args.listen}",
+                  file=sys.stderr, flush=True)
+        elif memo is not None:
+            # no HTTP plane attached the memo to the store's hot
+            # swap: attach it here so a swap still re-matches
+            from .db.lifecycle import attach_memo
+            attach_memo(holder, memo)
+        if injector is not None and injector.spec.wants_event_storm():
+            storm = make_event_storm(injector.spec, targets)
+            # storm repositories are the target tarballs' basenames —
+            # resolve them back to the listed targets (falling through
+            # to the --images-dir resolver for anything else), or every
+            # storm event would shed unresolvable and the drill would
+            # prove nothing about debounce/backpressure
+            by_ref = {os.path.basename(p): p for p in targets}
+            outer = source.resolver
+
+            def storm_resolver(ref, digest="", _outer=outer):
+                hit = by_ref.get(ref.split(":")[0])
+                if hit is not None:
+                    return hit
+                return _outer(ref, digest) if _outer else None
+
+            source.resolver = storm_resolver
+            for body in storm:
+                source.push_notification(body)
+            print(f"fault-spec: pushed {len(storm)} storm "
+                  f"notifications (seed={injector.spec.seed})",
+                  file=sys.stderr)
+            source.close()       # the storm IS the stream: drain + exit
+        stop = []
+        try:
+            signal.signal(signal.SIGTERM,
+                          lambda *_: (stop.append(1), loop.close()))
+        except ValueError:
+            pass                 # not the main thread (tests)
+        try:
+            while loop.step():
+                if args.max_events and \
+                        loop.counters["events"] >= args.max_events:
+                    break
+                if stop:
+                    break
+        except KeyboardInterrupt:
+            pass
+        stats = loop.drain()
+    finally:
+        if httpd is not None:
+            httpd.shutdown()
+            httpd.server_close()
+        if worker is not None:
+            worker.stop()
+        if adm_runner is not None:
+            adm_runner.close()
+        if server is not None:
+            server.close()
+        runner.close()
+    print(json.dumps({"watch": stats}, indent=2), file=sys.stderr)
+    return 0
+
+
+def _server_memo(args, cache, injector=None):
     """The server's findings memo: on the blob cache's tier
     (``--cache-dir``), where ``--memo-cache`` says, else in memory —
     every request of a server can read what an earlier one recorded
@@ -1636,6 +2051,7 @@ def _server_memo(args, cache):
     return make_findings_memo(cache=cache, cache_dir=args.cache_dir,
                               uri=args.memo_cache or (
                                   "" if args.cache_dir else "memory"),
+                              fault_injector=injector,
                               backend=args.backend)
 
 

@@ -179,10 +179,9 @@ def entry_checksum(entry: dict) -> str:
 
 
 def verdict_sig(ctx: str, image: str, policy: str) -> str:
-    """Admission-verdict cache key (the reference's
-    ``watch/admission.py``, ROADMAP A.9g): the memo context signature
-    folds the advisory generation (and rule-set / guard-config /
-    scanner-version) in, so a ``db update`` hot swap strands cached
-    admission verdicts exactly like findings entries — the new
-    generation keys differently and recomputes."""
+    """Admission-verdict cache key (``watch/admission.py``): the memo
+    context signature folds the advisory generation (and rule-set /
+    guard-config / scanner-version) in, so a ``db update`` hot swap
+    strands cached admission verdicts exactly like findings entries —
+    the new generation keys differently and recomputes."""
     return _sha(cjson(["admission", ctx, image, policy]), 40)

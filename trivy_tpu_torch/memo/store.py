@@ -16,9 +16,9 @@ lookup into a miss (recompute) and a store into a drop — there is no
 path through the memo that turns an outage into an exception, and no
 local mirror to fill (the recompute IS the fallback, so an outage
 costs warm throughput, never correctness). Each degraded op is a
-``memo_degraded`` event. The optional fault injector hook (duck-typed:
-``on_cache_op(op, key)``) makes a cache outage drill hit the memo tier
-the same way it hits the blob cache.
+``memo_degraded`` event. The optional fault injector hook
+(``faults.FaultInjector.on_cache_op(op, key)``) makes a cache outage
+drill hit the memo tier the same way it hits the blob cache.
 """
 
 from __future__ import annotations

@@ -15,11 +15,16 @@ so either package's client talks to either package's server. One
 departure: a Scan body's ``backend`` picks where the request runs —
 ``cuda``, ``cpu`` or ``cpu-ref``, with the reference's ``tpu`` (its
 clients' default) taken as the card — and any other value answers
-400, never a silent CPU run. The routes whose owners are later
-ROADMAP items answer as the reference's server does without them
-(404: ``/impact``, ``/metrics/federate``, ``/k8s/admission``,
-``/registry/notifications``); ``/metrics/snapshot`` and ``/clock``
-(the federation pull and the clock probe, A.9i) answer 404 too.
+400, never a silent CPU run. ``POST /registry/notifications`` (a
+``watch.WebhookSource``) and ``POST /k8s/admission`` (a
+``watch.AdmissionController``) answer when the server holds their
+owner, 404 otherwise, as the reference's; a ``fault_injector``
+(``faults.FaultInjector``, ``--fault-spec``) decides per POST whether
+to answer 500 unprocessed or to drop the response after processing.
+The routes whose owners are later ROADMAP items answer as the
+reference's server does without them (404: ``/impact``,
+``/metrics/federate``); ``/metrics/snapshot`` and ``/clock`` (the
+federation pull and the clock probe, A.9i) answer 404 too.
 """
 
 from __future__ import annotations
@@ -238,7 +243,8 @@ class ScanServer:
                  tracer=None, slos=None, memo=None,
                  replica_name: str = "self",
                  compile_cache_dir: str = "",
-                 backend: str = "cuda"):
+                 backend: str = "cuda", admission=None,
+                 watch_source=None):
         if backend == "cuda":
             from .. import resolve_device
             resolve_device(backend)         # no card: fail the boot
@@ -271,6 +277,9 @@ class ScanServer:
         # draining replica has quiesced
         self._inflight = 0
         self._inflight_lock = threading.Lock()
+        # fault_injector: faults.FaultInjector (or None); the HTTP
+        # handler consults it per POST (--fault-spec)
+        self.fault_injector = None
         self.scheduler = None
         self._owns_scheduler = False
         if hasattr(sched, "submit"):        # a ScanScheduler
@@ -323,9 +332,15 @@ class ScanServer:
         # GET /debug/profile (TRIVY_TPU_PROFILE=off disables)
         from ..obs.profiler import get_profiler
         self.profiler = get_profiler()
-        # the routes of the continuous-scanning front-ends (A.9g), the
-        # fleet federation (A.9i) and the impact index (A.9g) answer
-        # 404, as the reference's server does without their owners
+        # continuous scanning (docs/serving.md "Continuous scanning &
+        # admission control"): admission: watch.AdmissionController
+        # answering POST /k8s/admission (404 when unset);
+        # watch_source: watch.WebhookSource fed by POST
+        # /registry/notifications (404 when unset). The fleet
+        # federation (A.9i) and the impact index (g.2) answer 404, as
+        # the reference's server does without their owners
+        self.admission = admission
+        self.watch_source = watch_source
         self.replica_name = replica_name
         # elastic lifecycle (docs/serving.md "Elastic lifecycle"):
         # the hot-digest recency book (exported on GET /handoff so a
@@ -656,6 +671,8 @@ class ScanServer:
             # them too
             from ..watch.metrics import WATCH_METRICS
             out["watch"] = WATCH_METRICS.snapshot()
+        if self.admission is not None:
+            out["admission_controller"] = self.admission.stats()
         if "slo" not in out:
             out["slo"] = self.slo.snapshot()
         if "cost" not in out:
@@ -951,6 +968,15 @@ def _make_handler(server: ScanServer):
         def do_POST(self):
             if not self._authorized():
                 return
+            inj = server.fault_injector
+            action = inj.rpc_action(self.path) if inj is not None \
+                else "ok"
+            if action == "error":
+                # injected transport fault BEFORE processing — the
+                # client's 5xx retry covers it
+                self._reply(500, {"code": "injected",
+                                  "msg": "injected rpc error"})
+                return
             try:
                 length = int(self.headers.get("Content-Length") or 0)
             except ValueError:
@@ -972,6 +998,17 @@ def _make_handler(server: ScanServer):
             try:
                 body = json.loads(raw or b"{}")
             except ValueError:
+                if self.path.split("?", 1)[0] == \
+                        "/registry/notifications" and \
+                        server.watch_source is not None:
+                    # the notification route's always-200 contract
+                    # covers non-JSON poison too: a registry
+                    # redelivers on non-2xx forever; count it as
+                    # one malformed envelope and move on
+                    self._reply(200,
+                                server.watch_source
+                                .push_notification(None))
+                    return
                 self._reply(400, {"code": "malformed",
                                   "msg": "invalid json body"})
                 return
@@ -988,9 +1025,24 @@ def _make_handler(server: ScanServer):
             if tp_hdr and isinstance(body, dict) \
                     and not body.get("traceparent"):
                 body["traceparent"] = tp_hdr
-            # the registry notification and K8s admission webhooks
-            # (A.9g) are not routes yet: 404 below, as the reference's
-            # without their owners
+            # continuous-scanning routes (docs/serving.md): the
+            # registry notification webhook and the K8s admission
+            # webhook answer their own protocols, not twirp
+            if self.path.split("?", 1)[0] == \
+                    "/registry/notifications":
+                if server.watch_source is None:
+                    self._reply(404, {"code": "bad_route",
+                                      "msg": self.path})
+                    return
+                # always 200: a registry redelivers on non-2xx, and
+                # a poison envelope must not be redelivered forever —
+                # malformed events are counted and dropped
+                self._reply(
+                    200, server.watch_source.push_notification(body))
+                return
+            if self.path.split("?", 1)[0] == "/k8s/admission":
+                self._handle_admission(body)
+                return
             if self.path.split("?", 1)[0] == "/prefetch":
                 # drain-handoff adoption (docs/serving.md "Elastic
                 # lifecycle"): book the migrating working set; the
@@ -1058,7 +1110,57 @@ def _make_handler(server: ScanServer):
                 self._reply(500, {"code": "internal",
                                   "msg": str(e)})
                 return
+            if action == "drop":
+                # injected lost response AFTER processing: the work
+                # happened, the client never hears back — exactly the
+                # case Scan idempotency keys exist for
+                self.close_connection = True
+                return
             self._reply(200, out)
+
+        def _handle_admission(self, body: dict) -> None:
+            """POST /k8s/admission: AdmissionReview in, review out.
+            The apiserver's ``?timeout=10s`` query parameter bounds
+            the verdict; the fail stance decides what a miss answers —
+            only the explicit ``408`` stance surfaces the deadline as
+            HTTP, handing the decision to the webhook's K8s-side
+            ``failurePolicy``."""
+            from urllib.parse import parse_qs, urlsplit
+
+            from ..watch.admission import (AdmissionUnavailable,
+                                           MalformedReview)
+            if server.admission is None:
+                self._reply(404, {"code": "bad_route",
+                                  "msg": self.path})
+                return
+            deadline_s = 0.0
+            q = parse_qs(urlsplit(self.path).query)
+            if q.get("timeout"):
+                raw = q["timeout"][0].strip()
+                try:
+                    deadline_s = float(raw[:-1]) \
+                        if raw.endswith("s") else float(raw)
+                except (TypeError, ValueError):
+                    self._reply(400, {"code": "malformed",
+                                      "msg": "bad timeout= value"})
+                    return
+            try:
+                doc = server.admission.review(body,
+                                              deadline_s=deadline_s)
+            except MalformedReview as e:
+                self._reply(400, {"code": "malformed",
+                                  "msg": str(e)})
+                return
+            except AdmissionUnavailable as e:
+                self._reply(408, {"code": "deadline_exceeded",
+                                  "msg": str(e)})
+                return
+            except Exception as e:      # noqa: BLE001
+                log.warning("admission review failed: %r", e)
+                self._reply(500, {"code": "internal",
+                                  "msg": str(e)})
+                return
+            self._reply(200, doc)
 
     return Handler
 

@@ -144,13 +144,11 @@ class BatchScanRunner:
         # tracer: obs.trace.Tracer — per-request span trees on both
         # paths
         self.tracer = tracer if tracer is not None else get_tracer()
-        # fault_injector: duck-typed (on_device_dispatch(names),
-        # on_host_analyze(name), on_image_load(name), and
-        # on_blob_chunk(digest, offset) for a registry's streams) —
-        # threads into the scheduler's device dispatch, this runner's
-        # host phases and the registry client's blob fetches; the
-        # reference's faults/ package and --fault-spec are ROADMAP
-        # A.9h
+        # fault_injector: faults.FaultInjector (or None; --fault-spec)
+        # — threads into the scheduler's device dispatch
+        # (on_device_dispatch), this runner's host phases
+        # (on_host_analyze, on_image_load) and the registry client's
+        # blob fetches (on_blob_chunk)
         self.fault_injector = fault_injector
         # sched: "off" = the direct single-batch ladder below;
         # "on"/SchedConfig/ScanScheduler = continuous batching with

@@ -343,7 +343,8 @@ class SchedMetrics:
         # process-wide like the rest
         from ..memo.metrics import MEMO_METRICS
         out["memo"] = MEMO_METRICS.snapshot()
-        # The reference's "watch" section (the admission watch's
-        # WATCH_METRICS) is not ported yet and is absent here, not
-        # zero: ROADMAP A.9g.
+        # watch/admission counters (docs/serving.md "Continuous
+        # scanning") — process-wide like the rest
+        from ..watch.metrics import WATCH_METRICS
+        out["watch"] = WATCH_METRICS.snapshot()
         return out

@@ -104,12 +104,11 @@ class ScanScheduler:
         check_mesh(mesh, backend)
         self.mesh = mesh
         self.secret_scanner = secret_scanner
-        # fault_injector: optional injector (duck-typed:
-        # on_device_dispatch(names)) consulted at the top of every
+        # fault_injector: faults.FaultInjector (or None), whose
+        # on_device_dispatch(names) is consulted at the top of every
         # device dispatch so injected device failures exercise the
         # bisect/quarantine machinery — on the card they are the only
-        # failures that may (_isolable); the reference's
-        # trivy_tpu.faults.FaultInjector is ROADMAP A.9
+        # failures that may (_isolable)
         self.fault_injector = None
         # tracer: obs.trace.Tracer — every admitted request gets a
         # root span with per-stage children (docs/observability.md)

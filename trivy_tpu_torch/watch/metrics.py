@@ -8,9 +8,10 @@ process, and the numbers an operator alerts on
 ``trivy_tpu_admission_{allow,deny,fail_open,timeout}_total``, the
 event-lag and admission-latency histograms) are cumulative totals on
 ``GET /metrics`` — JSON and Prometheus text alike, on both sched
-modes. The scan server reports the snapshot (and the Prometheus
-histograms) before the watch loop and the webhook that feed it are
-ported (ROADMAP A.9g).
+modes. The watch loop (``loop.py``), the registry notification source
+(``source.py``) and the admission controller (``admission.py``) feed
+it; the scan server reports the snapshot and the Prometheus
+histograms.
 """
 
 from __future__ import annotations
