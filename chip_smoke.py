@@ -53,7 +53,11 @@ Builds the port's hand-written kernels (``trivy_tpu_torch/csrc``, one
    (``BackgroundCLI``); its report must equal the in-process one. It
    prints each step's seconds, jobs and hits, and
    the device ops, busy ms and idle share of one profiled warm scan.
-5. fs phase: the corpus goes into a ``debian 12`` root (400 dpkg
+5. fs phase (it and the image phase, which runs first, run in a
+   process of their own on the sbom phase's npz,
+   ``PhaseWorker("entries")``, beside the fleet and memo phases;
+   ``profile_lock`` keeps two processes from profiling the card at
+   once): the corpus goes into a ``debian 12`` root (400 dpkg
    packages, a ``package-lock.json`` of 1,500 npm packages, a
    ``requirements.txt`` of 400 and a ``go.mod`` of 300, the store's
    own names, Zipf-skewed) and the ``fs`` entry (``scan_fs``: walk,
@@ -115,9 +119,9 @@ Builds the port's hand-written kernels (``trivy_tpu_torch/csrc``, one
    and idle share, the last over the profiled run's wall time and over
    the median unprofiled warm scan's (the profiler stretches the
    first).
-7. fleet phase: 16 ``docker save`` targets (``fleet_targets``: the same
+7. fleet phase: 8 ``docker save`` targets (``fleet_targets``: the same
    base and a shared secret layer in every image, lockfiles of their
-   own drawn from the store's packages, the corpus in quarters, one per
+   own drawn from the store's packages, the corpus in halves, one per
    group of four images, one image again under a second tag, one
    truncated tar) go through the fleet runtime's direct path
    (``BatchScanRunner(sched="off").scan_paths``: every image analyzed
@@ -143,7 +147,8 @@ Builds the port's hand-written kernels (``trivy_tpu_torch/csrc``, one
    runner's ``last_stats``, the same targets' time alone, and the
    profiled fleet's busy ms and idle share.
 
-8. sched phase: the fleet phase's 16 targets go through the
+8. sched phase (in the registry worker, below, before the registry
+   phase): the fleet phase's 8 targets go through the
    continuous-batching scheduler (``BatchScanRunner(sched=SchedConfig(
    dispatch_depth=2)).scan_paths``: every target one request, loaded,
    analyzed and joined on the scheduler's host workers, coalesced into
@@ -192,8 +197,9 @@ Builds the port's hand-written kernels (``trivy_tpu_torch/csrc``, one
    the breaker open). ``python -m trivy_tpu_torch image <ref>
    --cache-backend redis://...`` on the sbom phase's npz, beside the
    phase, equals the same ref scanned in this process. The phase runs
-   in a process of its own, started after the sched phase, beside the
-   memo and server phases. The same process then runs the watch loop
+   in a process of its own (``PhaseWorker("registry")``), started after
+   the fleet phase, beside the memo and server phases, after the sched
+   phase in the same process. The same process then runs the watch loop
    (``watch_phase``): one Docker Distribution push envelope per
    pushable target (``smoke/fleet:<i>``, resolved to its tar by the
    ``--images-dir`` naming), bursts of repushes and malformed entries,
@@ -204,14 +210,14 @@ Builds the port's hand-written kernels (``trivy_tpu_torch/csrc``, one
 
 8c. fault drill and watch storm (``drill_cli``, ``storm_cli``), two
    CLI processes on the sbom phase's npz beside the memo and server
-   phases: ``image <the 16 targets> --fault-spec
+   phases: ``image <the 8 targets> --fault-spec
    standard-outage:poison=<target 3>,hostile-ingest`` (a cache outage
    under the breaker, one transient device fault, the poisoned target,
    the hostile corpus appended) must exit 1 with every clean slot's
    report the fleet phase's, the poisoned slot alone quarantined and
    degraded, every hostile artifact in its ``EXPECTED_STATUS``, the
    transient fault healed on the card (one host fallback: the poisoned
-   slot's); ``watch <the 15 pushable tars> --fault-spec event-storm``
+   slot's); ``watch <the 7 pushable tars> --fault-spec event-storm``
    must exit 0 with balanced books. Each prints its ``dfa_blockmask``
    launches (``CLI_COUNTED``).
 
@@ -228,7 +234,7 @@ Builds the port's hand-written kernels (``trivy_tpu_torch/csrc``, one
    shards joined and one shard alone, in turns. After the vuln phase:
    its jobs through ``dispatch_jobs(mesh=...)``, the DB's device
    copies dropped first, must give the ``cpu-ref`` list with one upload
-   per distinct device. After the sched phase: the fleet phase's 16
+   per distinct device. After the sched phase: the fleet phase's 8
    targets through ``BatchScanRunner(mesh=...)``, direct at depth 2 and
    scheduled, must give the fleet phase's reports, one sieve launch
    per device per sieve, no quarantine, no host fallback and no upload;
@@ -237,7 +243,7 @@ Builds the port's hand-written kernels (``trivy_tpu_torch/csrc``, one
    split the reduced fleet, each with its own 20,000-row fixture DB
    (reduced: each host compiles its own DB), and their union must
    equal one single-host run.
-10. memo phase (``memo_phase``): the 16 targets behind a
+10. memo phase (``memo_phase``): the 8 targets behind a
    ``SwappableStore`` of the vuln phase's DB, with a findings memo on
    an ``FSMemoStore`` directory: cold, then warm (a second memo
    instance on it, a new runner and blob cache, through the scheduler)
@@ -262,7 +268,7 @@ Builds the port's hand-written kernels (``trivy_tpu_torch/csrc``, one
    --token --admission-policy deny:CRITICAL --images-dir``: its boot
    builds both kernels into DIR and warm-launches
    them on zero inputs (the split printed). ``image --server`` in a
-   CLI subprocess on the first target, then the 16 targets through
+   CLI subprocess on the first target, then the 8 targets through
    ``scan_image(remote=)`` from four client threads, must give the
    fleet phase's in-process card reports; a second round finds 0
    missing blobs, launches no sieve and is served from the server's
@@ -323,6 +329,7 @@ from __future__ import annotations
 
 import atexit
 import contextlib
+import fcntl
 import gzip
 import hashlib
 import io
@@ -575,14 +582,34 @@ def device_profile(fn) -> tuple:
     return out, ops, wall_ms
 
 
+# the lock file that keeps two of this script's processes from
+# profiling the card at once (``fcntl.flock``): ``profile_spans`` holds
+# it around a capture, a ``BackgroundCLI`` with ``--profile-out`` from
+# its start to its exit; "" until the work directory exists (no other
+# process of the script runs before)
+_PROFILE_LOCK = ""
+
+
+@contextlib.contextmanager
+def profile_lock():
+    """The profiling lock held (nothing without ``_PROFILE_LOCK``)."""
+    if not _PROFILE_LOCK:
+        yield
+        return
+    with open(_PROFILE_LOCK, "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        yield
+
+
 def profile_spans(fn) -> tuple:
     """(fn(), [(device operation, start us, end us)], its wall ms on
     the host clock): the operations are the CUDA activity
     ``torch.profiler`` records, kernels and copies; a kernel is named
-    up to its template arguments."""
+    up to its template arguments. The capture holds ``profile_lock``."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile_lock(), \
+            profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
@@ -2659,7 +2686,7 @@ def image_phase(device, cdb, n_pkgs: dict, files: list, planted: dict,
 
 # --- the fleet: several images in one batch ---------------------------
 
-FLEET_IMAGES = 16               # targets: distinct images, a twin, a broken tar
+FLEET_IMAGES = 8                # targets: distinct images, a twin, a broken tar
 FLEET_GROUP = 4                 # images that share one part of the corpus
 FLEET_HISTORY = (
     ("/bin/sh -c #(nop) ADD file:3b16ab4a8e1ec1fa in / ", False),
@@ -2862,20 +2889,21 @@ def obs_fleet(tracer, traced: dict, runs: dict,
     }
 
 
-def fleet_phase(device, cdb, n_pkgs: dict, files: list, pending: list,
-                work_dir: str, keep: dict = None) -> dict:
+def fleet_phase(device, cdb, n_pkgs: dict, files: list, work_dir: str,
+                keep: dict = None) -> dict:
     """The fleet runtime's direct path (``BatchScanRunner`` with
     ``sched="off"``: every image analyzed and joined, ONE sieve over
     every image's missing non-base layers, the interval match in waves
     kept in flight by a ``DispatchRing`` on a CUDA side stream) on the
     vuln phase's DB, over ``FLEET_IMAGES`` docker-save targets
     (``fleet_targets``: a shared base, a shared secret layer, lockfiles
-    of their own, the corpus in quarters, a twin under a second tag, a
+    of their own, the corpus in halves, a twin under a second tag, a
     truncated tar). Cold into a fresh ``MemoryCache`` at each depth of
     ``FLEET_DEPTHS``, twice at depth 2 on the warm cache (no sieve: a
     re-sweep after a DB update; untraced, then on the process tracer),
     once more cold at depth 2 untraced, and one profiled cold fleet at
-    depth 2 (after every CLI in ``pending`` that profiles has exited).
+    depth 2 (under ``profile_lock``: after a CLI beside it that
+    profiles has exited).
     Every run's reports must be equal, equal to a ``scan_image_report``
     on the card of the first target and the twin alone; the twin's must be its image's
     but for the name and tag, the broken tar must fail alone; each
@@ -2926,11 +2954,6 @@ def fleet_phase(device, cdb, n_pkgs: dict, files: list, pending: list,
     runs["cold_d2_off"] = run_fleet(paths, cdb, backend, card,
                                     MemoryCache(), 2,
                                     tracer=Tracer(enabled=False))
-    # no two processes profile the card at once: a CLI beside this
-    # phase with --profile-out exits first
-    for cli in pending:
-        if cli.profiles:
-            cli.wait()
     tracer = Tracer()
     sm0 = SECRET_METRICS.snapshot()
     prof, ops, wall_ms = device_profile(lambda: run_fleet(
@@ -3478,21 +3501,36 @@ class BackgroundCLI:
     def __init__(self, name: str, argv: list, work_dir: str, check,
                  stdout: str = "", rc: int = 0):
         self.name, self.check, self.rc = name, check, rc
-        self.profiles = "--profile-out" in argv
         self._err_path = os.path.join(work_dir, f"{name}.cli.stderr")
         self._err = open(self._err_path, "w")
         self._out = open(stdout, "w") if stdout else subprocess.DEVNULL
+        # a CLI that profiles the card holds the profiling lock until
+        # it exits
+        self._lock = None
+        if "--profile-out" in argv and _PROFILE_LOCK:
+            self._lock = open(_PROFILE_LOCK, "a")
+            fcntl.flock(self._lock, fcntl.LOCK_EX)
         self.t0, self.t_exit = time.perf_counter(), None
-        self.proc = subprocess.Popen(
-            [sys.executable] + argv,
-            cwd=os.path.dirname(os.path.abspath(__file__)),
-            stdout=self._out, stderr=self._err, text=True)
+        try:
+            self.proc = subprocess.Popen(
+                [sys.executable] + argv,
+                cwd=os.path.dirname(os.path.abspath(__file__)),
+                stdout=self._out, stderr=self._err, text=True)
+        except BaseException:
+            self._unlock()
+            raise
         _CHILDREN.append(self.proc)
         self._waiter = threading.Thread(target=self._wait, daemon=True)
         self._waiter.start()
 
+    def _unlock(self) -> None:
+        if self._lock is not None:
+            self._lock.close()
+            self._lock = None
+
     def _wait(self) -> None:
         self.proc.wait()
+        self._unlock()
         self.t_exit = time.perf_counter()
 
     def wait(self, timeout_s: float = 600.0) -> None:
@@ -3863,7 +3901,7 @@ def mesh_dispatch_phase(device, cdb, vuln: dict, mesh) -> dict:
 
 
 def mesh_fleet_phase(device, cdb, fleet: dict, mesh, work_dir: str) -> dict:
-    """The fleet phase's 16 targets through ``BatchScanRunner(mesh=...)``
+    """The fleet phase's 8 targets through ``BatchScanRunner(mesh=...)``
     (the runner's own sharded secret scanner), once direct at depth 2
     (the same fleet on one device: the fleet phase's cold fleet), and
     once scheduled
@@ -4020,9 +4058,11 @@ LIFECYCLE_ROWS = 20_000         # the CLI lifecycle's trivy-db (reduced)
 
 
 def memo_entries(memo) -> dict:
-    """{key: entry} of every entry in ``memo``'s store."""
+    """{key: entry} of every entry in ``memo``'s store (the impact
+    index's image records beside them are not memo entries)."""
+    from trivy_tpu_torch.impact import is_impact_key
     keys = memo.store.keys()
-    return {k: memo._load(k) for k in keys}
+    return {k: memo._load(k) for k in keys if not is_impact_key(k)}
 
 
 def queried_pairs(entry: dict, cdb) -> set:
@@ -4121,20 +4161,36 @@ def memo_phase(device, cdb, fleet: dict, work_dir: str,
        interval waves collected on the calling thread), which no other
        phase drives.
 
+    3. the impact index (``impact/``) on the writer from the cold
+       fleet on, with an ``ImpactPusher`` onto a ``WebhookSource``:
+       its postings equal ``brute_force_invert`` of the directory on
+       each generation; the swap's push events are exactly the images
+       whose layers the delta newly affects (a (package, CVE) pair a
+       layer did not have on the first generation; the brute force
+       before and after); then a ``WatchLoop`` over a scheduled
+       ``BatchScanRunner`` on the card (with the writer) re-scans the
+       pushed images: every result equals the no-memo fleet's report
+       on the second generation, one ``dfa_blockmask`` launch per
+       batch with candidates (``push_rescans``).
+
     (The memory store's cold and warm fleets are the scan server
     phase's rounds, through its scheduler.) Every memo fleet must give
     the fleet phase's reports on the first generation, and launch
     ``dfa_blockmask`` once (a new blob cache; the scheduled one at
     least once). Prints the walls, the swap's split and the
     re-match's device ms. ``keep`` (optional) receives the second
-    generation (``db``, its device copies dropped) and the no-memo
-    fleet's reports on it (``texts``), for the server phase."""
+    generation (``db``, its device copies dropped), the no-memo
+    fleet's reports on it (``texts``) and the directory (``memo_dir``,
+    its secret scanner ``scanner``), for the server phase."""
     from trivy_tpu_torch.artifact import MemoryCache
     from trivy_tpu_torch.db import CompiledDB
     from trivy_tpu_torch.db.compiled import (SwappableStore,
                                              resident_snapshot)
     from trivy_tpu_torch.db.lifecycle import attach_memo
+    from trivy_tpu_torch.impact import (ImpactIndex, ImpactPusher,
+                                        brute_force_invert)
     from trivy_tpu_torch.memo import MEMO_METRICS, make_findings_memo
+    from trivy_tpu_torch.watch import WebhookSource
     backend = device.type
     t_phase = time.perf_counter()
     paths, want, card = fleet["plan"]["paths"], fleet["texts"], \
@@ -4188,12 +4244,27 @@ def memo_phase(device, cdb, fleet: dict, work_dir: str,
                               backend=backend)
     if memo.backend != backend:
         raise AssertionError(f"memo re-matches on {memo.backend}")
+    # the impact index on the writer, its pushes recorded on the way
+    # into the source
+    source, pushed = WebhookSource(), []
+    push_events = source.push_events
+    source.push_events = lambda evs: (pushed.extend(evs),
+                                      push_events(evs))[1]
+    index = ImpactIndex(store=memo.store, name="memo-phase",
+                        pusher=ImpactPusher(source))
+    memo.attach_impact(index)
     runs["fs_cold"] = fleet_run(memo, "fs_cold")
     reader = make_findings_memo(uri=memo_dir, secret_scanner=card,
                                 backend=backend)
-    runs["fs_warm_sched"] = fleet_run(reader, "fs_warm_sched",
-                                      sched=True)
+    # the brute force beside the reader's fleet (the writer is idle)
+    runs["fs_warm_sched"], before, brute_s = beside(
+        lambda: fleet_run(reader, "fs_warm_sched", sched=True),
+        lambda: brute_force_invert(memo, cdb))
+    brute_s = [brute_s]
     del reader
+    if index.postings_snapshot() != before or not before["postings"]:
+        raise AssertionError("impact: the index after the cold fleet != "
+                             "the brute-force inversion (or empty)")
     check(runs["fs_cold"], "fs_cold", want, False)
     check(runs["fs_warm_sched"], "fs_warm_sched", want, True)
     if not runs["fs_cold"]["memo"]["stores"]:
@@ -4246,18 +4317,33 @@ def memo_phase(device, cdb, fleet: dict, work_dir: str,
         raise AssertionError(f"the re-match did not run on the card: "
                              f"{sorted(ops)}")
     n_kern, kernel_ms = op_totals(kernels)
-    runs["after_swap_no_memo"] = fleet_run(None, "after_swap_no_memo",
-                                           depth=1)
+    # the brute force on the new generation beside the fleet without
+    # a memo (the writer is idle)
+    runs["after_swap_no_memo"], after, t_after = beside(
+        lambda: fleet_run(None, "after_swap_no_memo", depth=1),
+        lambda: brute_force_invert(memo, new))
+    brute_s.append(t_after)
     if not runs["after_swap_no_memo"]["jobs"]:
         raise AssertionError("the depth-1 fleet dispatched no job")
     runs["after_swap_memo"] = fleet_run(memo, "after_swap_memo")
     new_texts = runs["after_swap_no_memo"]["texts"]
     check(runs["after_swap_memo"], "after_swap_memo", new_texts, True)
+    if index.postings_snapshot() != after:
+        raise AssertionError("impact: the index after the swap != the "
+                             "brute-force inversion on the new generation")
+    push = push_rescans(device, holder, memo, card, paths, new_texts,
+                        source, pushed, newly_affected(before, after),
+                        out.get("push_images", 0))
+    push["brute_force_s"] = brute_s
+    push["index"] = {k: v for k, v in index.stats().items()
+                     if k in ("entries", "pairs", "cves", "images",
+                              "maintenance_s", "push_images")}
     if cdb.device_stats()["uploads"] != up0:
         raise AssertionError("a memo fleet uploaded the old tables again")
     new.invalidate_device()
     if keep is not None:
-        keep.update(db=new, texts=new_texts)
+        keep.update(db=new, texts=new_texts, memo_dir=memo_dir,
+                    scanner=card)
     del new
 
     return {
@@ -4281,8 +4367,106 @@ def memo_phase(device, cdb, fleet: dict, work_dir: str,
                  "device_ops": n_ops, "device_ms": busy_ms,
                  "kernels": n_kern, "kernel_ms": kernel_ms,
                  "ops_us": ops},
-        "launches": {k: r["launches"] for k, r in runs.items()},
+        "push": push,
+        "launches": {**{k: r["launches"] for k, r in runs.items()},
+                     "push_rescans": push["launches"]},
         "phase_s": time.perf_counter() - t_phase}
+
+
+def beside(run, side) -> tuple:
+    """``run()`` with ``side()`` on a thread beside it: (run's result,
+    side's result, side's seconds); either's exception raises here."""
+    box: dict = {}
+
+    def work() -> None:
+        t0 = time.perf_counter()
+        try:
+            box["out"] = side()
+        except BaseException as e:      # noqa: BLE001 — raised below
+            box["error"] = e
+        box["s"] = time.perf_counter() - t0
+
+    t = threading.Thread(target=work)
+    t.start()
+    try:
+        out = run()
+    finally:
+        t.join()
+    if "error" in box:
+        raise box["error"]
+    return out, box["out"], box["s"]
+
+
+def newly_affected(before: dict, after: dict) -> list:
+    """The images of ``after`` (a postings snapshot) that carry a layer
+    with a (package, CVE) pair it did not have in ``before``: what a
+    hot swap from one to the other must push."""
+    had = {(pkg, cve): set(blobs) for pkg, cve, blobs in before["postings"]}
+    new_blobs = {b for pkg, cve, blobs in after["postings"]
+                 for b in blobs if b not in had.get((pkg, cve), ())}
+    return sorted(img for img, _tenant, blobs in after["images"]
+                  if new_blobs & set(blobs))
+
+
+def push_rescans(device, holder, memo, card, paths: list, texts: list,
+                 source, pushed: list, want: list, counted: int) -> dict:
+    """The hot swap's push events (``pushed``, recorded on their way
+    into ``source``): their images must be ``want`` and their number
+    the swap's ``push_images``; then a ``WatchLoop`` over a scheduled
+    ``BatchScanRunner`` on the card, with the memo, re-scans them:
+    every result equals ``texts`` (the second generation's reports),
+    one ``dfa_blockmask`` launch per batch with candidates, no
+    quarantine or host fallback."""
+    from trivy_tpu_torch.impact import IMPACT_RESCAN_PRIORITY
+    from trivy_tpu_torch.ops.dfa_cuda import dfa_blockmask
+    from trivy_tpu_torch.runtime import BatchScanRunner
+    from trivy_tpu_torch.sched import SchedConfig
+    from trivy_tpu_torch.watch import WatchConfig, WatchLoop
+    got = sorted(e.path for e in pushed)
+    if not want or got != want or counted != len(pushed) or \
+            {e.priority for e in pushed} != {IMPACT_RESCAN_PRIORITY}:
+        raise AssertionError(f"impact push: {got} pushed ({counted} "
+                             f"counted), the delta newly affects {want}")
+    source.close()
+    runner = BatchScanRunner(store=holder, backend=device.type,
+                             secret_scanner=card, memo=memo,
+                             sched=SchedConfig(dispatch_depth=2))
+    sched = runner.scheduler
+    batches, launch = [], sched._launch
+
+    def counting(reqs, *args, **kwargs):
+        batches.append(sum(len(r.work.candidates) for r in reqs))
+        return launch(reqs, *args, **kwargs)
+
+    sched._launch = counting
+    loop = WatchLoop(runner, source, WatchConfig(debounce_s=WATCH_DEBOUNCE_S,
+                                                 keep_results=True))
+    dfa_blockmask.launches = 0
+    try:
+        t0 = time.perf_counter()
+        stats = loop.run()
+        wall = time.perf_counter() - t0
+        counters = sched.stats()["counters"]
+    finally:
+        runner.close()
+    launches = dfa_blockmask.launches
+    if stats["scans"] != len(want) or stats["failed"] or \
+            sorted(r.name for r in loop.results.values()) != want:
+        raise AssertionError(f"impact push re-scans: {stats}")
+    for r in loop.results.values():
+        if _sorted_json(report_text(r.report)) != \
+                texts[paths.index(r.name)]:
+            raise AssertionError(f"impact push: {r.name}'s re-scan != the "
+                                 f"second generation's report")
+    with_candidates = sum(1 for n in batches if n)
+    if launches != with_candidates or counters.get("quarantined") or \
+            counters.get("host_fallbacks"):
+        raise AssertionError(f"impact push: {launches} launches for "
+                             f"{with_candidates} batches with candidates, "
+                             f"counters {counters}")
+    return {"images": len(want), "events": len(pushed), "wall_s": wall,
+            "stats": stats, "launches": launches, "batches": len(batches),
+            "batches_with_candidates": with_candidates}
 
 
 def _recording(fn, box: dict):
@@ -4392,6 +4576,8 @@ class ServerProc:
             stdout=self._out, stderr=subprocess.STDOUT, text=True)
         _CHILDREN.append(self.proc)
         self.t_ready = None
+        self.statuses: list = []          # /healthz statuses, in turn
+        self.log_at_ready = ""            # the log at the first answer
         self._poller = threading.Thread(target=self._poll_ready,
                                         daemon=True)
         self._poller.start()
@@ -4400,11 +4586,34 @@ class ServerProc:
         deadline = self.t0 + SERVER_READY_S
         while self.proc.poll() is None and time.perf_counter() < deadline:
             try:
-                self.get("/healthz", timeout=5)
+                self.statuses.append(self.get("/healthz",
+                                              timeout=5)["status"])
                 self.t_ready = time.perf_counter() - self.t0
+                self.log_at_ready = self.text()
                 return
             except OSError:
                 time.sleep(0.2)
+
+    def wait_ok(self, timeout_s: float = 60.0) -> float:
+        """Seconds from the start until ``/healthz`` says ``ok`` (after
+        ``warming``, while a prewarm walks), each status kept."""
+        self.wait_ready()
+        t_end = time.perf_counter() + timeout_s
+        while self.statuses[-1] != "ok":
+            if time.perf_counter() > t_end:
+                raise AssertionError(f"the server stayed {self.statuses}")
+            time.sleep(0.02)
+            status = self.get("/healthz", timeout=5)["status"]
+            if status != self.statuses[-1]:
+                self.statuses.append(status)
+        return time.perf_counter() - self.t0
+
+    def get_text(self, path: str, timeout: float = 60.0) -> str:
+        import urllib.request
+        req = urllib.request.Request(self.url + path,
+                                     headers={"Trivy-Token": SERVER_TOKEN})
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.read().decode()
 
     def text(self) -> str:
         with open(self.log) as f:
@@ -4620,6 +4829,292 @@ def drain_under_load(srv: ServerProc, record: dict) -> dict:
             "probe": {k: probe.count(k) for k in sorted(set(probe))}}
 
 
+# --- the impact index, the prewarm and federation on the server -------
+
+PREWARM_DEADLINE_S = 10          # the restart's --prewarm-deadline
+IMPACT_CLIENTS = 4               # threads asking GET /impact at once
+FEDERATED_CVES = 256             # seeded CVEs the federation gate asks
+
+
+def report_cves(texts: list) -> dict:
+    """{CVE id: [index of each report in ``texts`` that lists it]}
+    (None, the broken tar's, lists none)."""
+    out: dict = {}
+    for i, text in enumerate(texts):
+        for res in (json.loads(text).get("Results") or []) if text else []:
+            for v in res.get("Vulnerabilities") or []:
+                out.setdefault(v["VulnerabilityID"], set()).add(i)
+    return {cve: sorted(ix) for cve, ix in sorted(out.items())}
+
+
+def impact_answers(snapshot: dict, cves) -> dict:
+    """Each CVE's ``GET /impact`` answer as an index holding exactly
+    ``snapshot`` (``brute_force_invert``'s postings and images), no
+    ring slice, gives it."""
+    by_cve: dict = {}
+    for pkg, cve, blobs in snapshot["postings"]:
+        by_cve.setdefault(cve, []).append((pkg, blobs))
+    out = {}
+    for cve in cves:
+        rows = by_cve.get(cve, [])
+        layers = sorted({b for _, bs in rows for b in bs})
+        out[cve] = {"cve": cve, "packages": sorted({p for p, _ in rows}),
+                    "layers": layers,
+                    "images": sorted([img, t] for img, t, bs
+                                     in snapshot["images"]
+                                     if set(bs) & set(layers)),
+                    "complete": True}
+    return out
+
+
+def tier_invert(memo_dir: str, db, backend: str) -> tuple:
+    """``brute_force_invert`` of a server's memo directory under ``db``
+    (the server's memo carries no secret scanner, so this reader keys
+    as it does), and its seconds."""
+    from trivy_tpu_torch.impact import brute_force_invert
+    from trivy_tpu_torch.memo import make_findings_memo
+    t0 = time.perf_counter()
+    snap = brute_force_invert(make_findings_memo(uri=memo_dir,
+                                                 backend=backend), db)
+    return snap, time.perf_counter() - t0
+
+
+def query_impact(url: str, cves) -> tuple:
+    """``GET /impact?cve=`` for each CVE from ``IMPACT_CLIENTS``
+    threads, each on one kept-alive connection: ({cve: answer}, each
+    query's latency)."""
+    import http.client
+    import urllib.parse
+    addr = urllib.parse.urlsplit(url)
+    local, conns = threading.local(), []
+
+    def ask(cve: str) -> tuple:
+        t0 = time.perf_counter()
+        conn = getattr(local, "conn", None)
+        if conn is None:
+            conn = local.conn = http.client.HTTPConnection(
+                addr.hostname, addr.port, timeout=60)
+            conns.append(conn)
+        conn.request("GET", "/impact?cve=" + urllib.parse.quote(cve, safe=""),
+                     headers={"Trivy-Token": SERVER_TOKEN})
+        resp = conn.getresponse()
+        body = resp.read()
+        if resp.status != 200:
+            raise AssertionError(f"GET /impact?cve={cve}: {resp.status} "
+                                 f"{body[:200]!r}")
+        return cve, json.loads(body), time.perf_counter() - t0
+
+    try:
+        with ThreadPoolExecutor(IMPACT_CLIENTS) as ex:
+            rows = list(ex.map(ask, list(cves)))
+    finally:
+        for conn in conns:
+            conn.close()
+    return {c: d for c, d, _ in rows}, [t for _, _, t in rows]
+
+
+def impact_gate(srv, cves: dict, paths: list, snap: dict,
+                name: str) -> dict:
+    """``GET /impact`` for each CVE of ``cves`` ({CVE: indices of the
+    targets whose reports list it}): each answer equals ``snap``'s (the
+    brute-force inversion of the server's memo directory under its
+    generation), complete, with each of those targets among its
+    images."""
+    t0 = time.perf_counter()
+    got, lat = query_impact(srv.url, cves)
+    wall = time.perf_counter() - t0
+    want = impact_answers(snap, cves)
+    for cve, ix in cves.items():
+        images = {img for img, _ in got[cve]["images"]}
+        if got[cve] != want[cve] or \
+                not {paths[i] for i in ix} <= images:
+            raise AssertionError(f"impact {name}: {cve}: {got[cve]} != "
+                                 f"the brute force {want[cve]} (targets "
+                                 f"{ix})")
+    lat.sort()
+    return {"cves": len(cves), "answers": got,
+            "images_per_answer_max": max(len(a["images"])
+                                         for a in got.values()),
+            "query_s": {"n": len(lat), "median": lat[len(lat) // 2],
+                        "max": lat[-1], "wall": wall,
+                        "clients": IMPACT_CLIENTS}}
+
+
+def swap_cves(before: dict, after: dict, texts: list) -> tuple:
+    """The CVEs asked after a swap: every CVE of ``texts`` (the second
+    generation's reports), and how many of them the swap changed (the
+    brute force ``before`` and ``after`` differ in their packages or
+    layers; the images an admission review added since are no change
+    of the swap's). Returns ({CVE: target indices}, the changed
+    count)."""
+    cves = report_cves(texts)
+    a0, a1 = impact_answers(before, cves), impact_answers(after, cves)
+    return cves, sum(1 for c in cves
+                     if (a0[c]["packages"], a0[c]["layers"])
+                     != (a1[c]["packages"], a1[c]["layers"]))
+
+
+def federation_peer(device, db, memo_dir: str, scanner) -> dict:
+    """A replica in this process, on the card: a ``ScanServer`` (``c``)
+    over ``db`` with the memo phase's directory as its memo and an
+    impact index rebuilt from it, served on a free 127.0.0.1 port.
+    ``stop()`` ends it."""
+    from trivy_tpu_torch.impact import ImpactIndex
+    from trivy_tpu_torch.memo import make_findings_memo
+    from trivy_tpu_torch.rpc.server import ScanServer, serve
+    memo = make_findings_memo(uri=memo_dir, secret_scanner=scanner,
+                              backend=device.type)
+    index = ImpactIndex(store=memo.store, name="c")
+    rebuilt = index.rebuild(memo, db)
+    if not rebuilt["complete"] or not rebuilt["entries"]:
+        raise AssertionError(f"federation peer: rebuild {rebuilt}")
+    srv = ScanServer(store=db, memo=memo, impact=index, token=SERVER_TOKEN,
+                     replica_name="c", backend=device.type)
+    httpd, _ = serve(port=0, server=srv)
+    stopped: list = []
+
+    def stop() -> None:
+        if not stopped:
+            stopped.append(True)
+            httpd.shutdown()
+            httpd.server_close()
+            srv.close()
+    return {"url": f"http://127.0.0.1:{httpd.server_address[1]}",
+            "stop": stop, "rebuild": rebuilt}
+
+
+def fleet_slo_gate(srv, peer_url: str) -> dict:
+    """``/slo``'s ``fleet`` on the federating server equals
+    ``verdicts_from_export(merge_exports(...))`` of its own and the
+    peer's ``/metrics/snapshot`` exports, taken inside one 10 s bucket
+    (the verdicts' age coordinate)."""
+    import urllib.request
+
+    from trivy_tpu_torch.obs.slo import merge_exports, verdicts_from_export
+
+    def snapshot(url: str) -> dict:
+        req = urllib.request.Request(url + "/metrics/snapshot",
+                                     headers={"Trivy-Token": SERVER_TOKEN})
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            return json.loads(resp.read())
+
+    for _ in range(3):
+        b0 = int(time.monotonic() / 10.0)
+        fleet = srv.get("/slo")["fleet"]
+        exports = [snapshot(srv.url)["slo_export"],
+                   snapshot(peer_url)["slo_export"]]
+        want = verdicts_from_export(merge_exports(exports))
+        if int(time.monotonic() / 10.0) == b0:
+            break
+    if fleet["slos"] != want or not fleet["complete"] or \
+            fleet["replicas"] != 2:
+        raise AssertionError(f"fleet SLO: {fleet} != {want}")
+    return {"slo_ok": fleet["slo_ok"], "replicas": fleet["replicas"],
+            "verdicts": [{k: v[k] for k in ("name", "ok", "good", "bad")}
+                         for v in fleet["slos"]]}
+
+
+def federation_gate(srv, peer: dict, cves) -> dict:
+    """The federating restart ``srv`` (``--federate-peers c=...``) and
+    the in-process replica ``peer``: ``/metrics/federate`` carries both
+    replicas' samples under ``replica`` labels; the fleet SLO
+    (``fleet_slo_gate``); ``federated_impact`` over both is the union
+    of their answers, complete, for ``FEDERATED_CVES`` seeded CVEs of
+    ``cves``; after the peer stops the next scrape
+    still answers with it down, and ``federated_impact`` is partial;
+    ``http_clock_probe`` + ``estimate_offset`` against ``/clock``
+    bound the offset by half the best round trip."""
+    from trivy_tpu_torch.impact import federated_impact
+    from trivy_tpu_torch.obs.propagate import (estimate_offset,
+                                               http_clock_probe)
+    reps = [("b", srv.url), ("c", peer["url"])]
+    rng = np.random.default_rng(SEED + 170)
+    pool = sorted(cves)
+    cves = sorted(rng.choice(pool, size=min(FEDERATED_CVES, len(pool)),
+                             replace=False).tolist())
+    t0 = time.perf_counter()
+    text = srv.get_text("/metrics/federate")
+    scrape_s = time.perf_counter() - t0
+    for needle in ('trivy_tpu_federate_peer_up{replica="c"} 1',
+                   "trivy_tpu_fleet_complete 1"):
+        if needle not in text:
+            raise AssertionError(f"federate: no {needle!r}")
+    labelled = {r: sum(1 for ln in text.splitlines()
+                       if f'{{replica="{r}"' in ln and not ln.startswith("#"))
+                for r in ("b", "c")}
+    if not all(labelled.values()):
+        raise AssertionError(f"federate: samples by replica {labelled}")
+    slo = fleet_slo_gate(srv, peer["url"])
+    b_ans, _ = query_impact(srv.url, cves)
+    c_ans, _ = query_impact(peer["url"], cves)
+    for cve in cves:
+        fed = federated_impact(reps, cve, token=SERVER_TOKEN, timeout_s=30)
+        union = {
+            "packages": sorted(set(b_ans[cve]["packages"])
+                               | set(c_ans[cve]["packages"])),
+            "layers": sorted(set(b_ans[cve]["layers"])
+                             | set(c_ans[cve]["layers"])),
+            "images": sorted(map(list, {tuple(x) for x in
+                                        b_ans[cve]["images"]
+                                        + c_ans[cve]["images"]}))}
+        if {k: fed[k] for k in union} != union or not fed["complete"]:
+            raise AssertionError(f"federated impact {cve}: {fed} != the "
+                                 f"union {union}")
+    est = estimate_offset(http_clock_probe(srv.url, token=SERVER_TOKEN),
+                          samples=8)
+    if est.error_bound_s > est.rtt_s / 2 or \
+            abs(est.offset_s) > est.error_bound_s + 0.05:
+        raise AssertionError(f"clock: {est}")
+    peer["stop"]()
+    down = srv.get_text("/metrics/federate")
+    partial = federated_impact(reps, next(iter(cves)), token=SERVER_TOKEN,
+                               timeout_s=5)
+    rows = {r["replica"]: r for r in partial["replicas"]}
+    if 'trivy_tpu_federate_peer_up{replica="c"} 0' not in down or \
+            "trivy_tpu_fleet_complete 0" not in down or \
+            partial["complete"] or rows["c"]["up"] or not rows["b"]["up"]:
+        raise AssertionError(f"federation after the peer stopped: "
+                             f"{partial['replicas']}")
+    return {"samples_by_replica": labelled, "scrape_s": scrape_s,
+            "fleet_slo": slo, "federated_cves": len(cves),
+            "clock": {"offset_s": est.offset_s,
+                      "error_bound_s": est.error_bound_s,
+                      "rtt_s": est.rtt_s, "samples": est.samples},
+            "after_peer_stopped": {"peer_up": 0, "impact_complete": False,
+                                   "stale": 'peer_stale{replica="c"} 1'
+                                   in down}}
+
+
+def prewarm_gate(srv, memo_dir: str, argv: list) -> dict:
+    """The restart's pre-join prewarm (``--replica-name b
+    --prewarm-members a``): ``/healthz`` said ``warming`` before ``ok``,
+    or its log already held the walk's line when ``/healthz`` first
+    answered (the walk ended before the first probe); the keys and
+    bytes it staged are ``prewarm_ranges(["a"], "b", ...)`` over the
+    tier's listing; complete, inside its deadline."""
+    from trivy_tpu_torch.memo import FSMemoStore
+    from trivy_tpu_torch.router.lifecycle import prewarm_ranges
+    ok_s = srv.wait_ok()
+    store = FSMemoStore(memo_dir)
+    keys, complete = store.scan_keys("")
+    mine = prewarm_ranges(["a"], "b", keys)
+    want = {"prewarm_runs": 1, "prewarm_keys": len(mine),
+            "prewarm_bytes": sum(len(store.get(k)) for k in mine),
+            "prewarm_deadline_exceeded": 0, "prewarm_cold_joins": 0}
+    life = srv.get("/metrics")["lifecycle"]
+    walked_first = "prewarm as b:" in srv.log_at_ready
+    if {k: life[k] for k in want} != want or not complete or \
+            not mine or life["warming"] or \
+            not ("warming" in srv.statuses or walked_first):
+        raise AssertionError(f"prewarm: {life} != {want}, statuses "
+                             f"{srv.statuses}")
+    return {"keys": life["prewarm_keys"], "bytes": life["prewarm_bytes"],
+            "seconds": life["prewarm_seconds"], "tier_keys": len(keys),
+            "statuses": srv.statuses, "walk_ended_before_first_probe":
+                walked_first, "ok_s": ok_s,
+            "members": argv[argv.index("--prewarm-members") + 1]}
+
+
 def server_boot(device, work_dir: str, fleet: dict) -> dict:
     """Step 1 of the server phase, started before the memo phase so
     that the boot's npz load and builds run beside it: the sbom phase's
@@ -4627,7 +5122,9 @@ def server_boot(device, work_dir: str, fleet: dict) -> dict:
     server`` started on it with ``--compile-cache DIR --sched on
     --token --admission-policy deny:CRITICAL --images-dir`` (the fleet
     phase's targets as ``smoke/fleet:<i>``, ``link_images``;
-    ``ServerProc``). Returns what ``server_phase`` needs."""
+    ``ServerProc``), its memo on a directory tier (``--memo-cache``)
+    with the impact index (``--impact-index --replica-name a``).
+    Returns what ``server_phase`` needs."""
     import shutil
     d = os.path.join(work_dir, "server")
     os.makedirs(d)
@@ -4638,45 +5135,64 @@ def server_boot(device, work_dir: str, fleet: dict) -> dict:
     images = os.path.join(d, "images")
     paths = fleet["plan"]["paths"]
     refs = link_images(paths, list(range(len(paths))), images)
+    memo_dir = os.path.join(d, "memo-tier")
     argv = ["--compiled-db", prefix, "--compile-cache", cc, "--backend",
             device.type, "--sched", "on", "--db-watch-interval", "1",
-            "--admission-policy", "deny:CRITICAL", "--images-dir", images]
+            "--admission-policy", "deny:CRITICAL", "--images-dir", images,
+            "--memo-cache", memo_dir, "--impact-index"]
     return {"dir": d, "prefix": prefix, "argv": argv, "copy_s": copy_s,
-            "refs": refs,
-            "srv": ServerProc(argv, os.path.join(d, "server1.log"))}
+            "refs": refs, "memo_dir": memo_dir,
+            "srv": ServerProc(argv + ["--replica-name", "a"],
+                              os.path.join(d, "server1.log"))}
 
 
-def server_phase(device, svc: dict, fleet: dict, gen2: dict,
+def server_phase(device, cdb, svc: dict, fleet: dict, gen2: dict,
                  work_dir: str, during_swap, during_restart) -> dict:
     """The scan server and its clients on the card:
 
     1. the server ``server_boot`` started: its boot builds both
        kernels into DIR and warm-launches them (the split printed),
        then listens;
-    2. ``image --server`` in a CLI subprocess on the first target
-       (while this process writes the memo phase's second generation
-       beside the watched prefix), then the fleet phase's 16 targets
-       through ``scan_image(remote=)`` from four concurrent clients:
-       every report equal to the fleet phase's in-process card report
-       of the same tar (each equal to its image scanned alone), the
-       broken tar failing in its client; a second client round must
-       find 0 missing blobs, launch no sieve and be served from the
-       server's memo (0 misses, 0 interval jobs); then the admission
-       webhook (``admission_reviews``);
+    2. the fleet phase's 8 targets through ``scan_image(remote=)``
+       from four concurrent clients (``image --server`` in a CLI
+       subprocess on the first target beside them): every report equal
+       to the fleet phase's in-process card report of the same tar
+       (each equal to its image scanned alone), the broken tar failing
+       in its client; a second client round must find 0 missing blobs,
+       launch no sieve and be served from the server's memo (0 misses,
+       0 interval jobs); beside that round, which changes nothing of the
+       index, ``GET /impact`` for every CVE of the targets' reports
+       (``impact_gate``: each answer the brute-force inversion of the
+       server's memo directory under the same generation ``cdb``), one
+       ``impact`` CLI process on one of them and the memo phase's
+       second generation written beside the watched prefix; then the
+       admission webhook (``admission_reviews``);
     3. the second generation renamed onto the watched prefix: the
        server swaps it in (its memo re-matched; ``during_swap()`` runs
        in this process meanwhile), and the reports after it equal the
        memo phase's in-process fleet on that generation, from the memo
        (0 misses, 0 interval jobs);
-    4. SIGTERM with the targets' Scan RPCs in flight
+    4. a second server, ``b``, started on the same prefix, DIR and memo
+       tier, joining ``a`` (``--prewarm-members a``) and federating an
+       in-process replica ``c`` on the card (``federation_peer``); while
+       it boots: ``a``'s impact answers after the swap for every CVE
+       of the second generation's reports equal the brute force on
+       that generation (the index migrated through the re-match;
+       ``swap_cves`` counts the CVEs it changed), with
+       ``during_restart()`` in this process beside them; then SIGTERM
+       on ``a`` with the targets' Scan RPCs in flight
        (``drain_under_load``);
-    5. the same server restarted, with the same flags, on the same
-       prefix and DIR (``during_restart()`` runs in this process while
-       it boots): its boot loads the second generation and has
-       manifest hits only, no build; the first target through it gives
-       the second generation's report, and an admission review of
-       another target is a scan on its card (``admission_cold``); then
-       SIGTERM, exit 0.
+    5. ``b`` (a restart of the server on the same compile cache): its
+       boot loads the second generation and has manifest hits only, no
+       build; its prewarm walks the keys ``prewarm_ranges`` gives it
+       (``prewarm_gate``); its index, rebuilt from the tier, answers
+       every one of those CVEs as ``a`` did after the swap, asked
+       beside the rest: the first target through it gives the second
+       generation's report, and an admission review of another target
+       is a scan on its card (``admission_cold``); then the federation gates
+       (``federation_gate``: the merged exposition, the fleet SLO, the
+       impact union, partial answers once ``c`` stops, the clock
+       offset); then SIGTERM, exit 0.
 
     Client-side ``dfa_blockmask`` launches are counted per round."""
     from trivy_tpu_torch.ops.dfa_cuda import dfa_blockmask
@@ -4686,7 +5202,7 @@ def server_phase(device, svc: dict, fleet: dict, gen2: dict,
         fleet["plan"]["broken"]
     d, prefix, srv = svc["dir"], svc["prefix"], svc["srv"]
     out: dict = {"copy_s": svc["copy_s"]}
-    servers = [srv]
+    servers, peer = [srv], None
     try:
         out["boot_ready_s"] = srv.wait_ready()
         boot = srv.boot_split()
@@ -4696,8 +5212,8 @@ def server_phase(device, svc: dict, fleet: dict, gen2: dict,
             raise AssertionError(f"the first boot: {boot}")
         out["boot"] = boot
 
-        # the CLI, in its own process, on the first target, while the
-        # second generation is written beside the watched prefix
+        # the CLI, in its own process, on the first target, beside the
+        # cold round
         report = os.path.join(d, "cli.report.json")
 
         def cli_check(_err: str) -> dict:
@@ -4713,10 +5229,6 @@ def server_phase(device, svc: dict, fleet: dict, gen2: dict,
              "--server", srv.url, "--token", SERVER_TOKEN, "--backend",
              backend, "--format", "json", "--output", report], d,
             cli_check)
-        t0 = time.perf_counter()
-        gen2.pop("db").save(prefix + "-next")
-        out["gen2_save_s"] = time.perf_counter() - t0
-        out["cli_wall_s"] = cli.finish()["wall_s"]
 
         rounds, launches = {}, {}
 
@@ -4759,7 +5271,49 @@ def server_phase(device, svc: dict, fleet: dict, gen2: dict,
             raise AssertionError(f"the cold round pushed "
                                  f"{first['missing']} blobs, launched "
                                  f"{launches['cold']} sieves")
-        one_round("second_client", want, warm=True)
+        out["cli_wall_s"] = cli.finish()["wall_s"]
+        index_cold = srv.get("/metrics")["impact"]
+
+        # beside the second (warm) round, which changes nothing of the
+        # index (every query a memo hit, every image record the same):
+        # every CVE of the reports asked of the server, the impact CLI
+        # in a process of its own on one of them, and the second
+        # generation written beside the watched prefix
+        cves1 = report_cves(want)
+        cve0 = next(iter(cves1))
+        cli_out = os.path.join(d, "impact.cli.stdout")
+        answers: dict = {}
+
+        def impact_cli_check(_err: str) -> dict:
+            with open(cli_out) as f:
+                if json.loads(f.read()) != answers[cve0]:
+                    raise AssertionError("the impact CLI's output != the "
+                                         "route's answer")
+            return {"cve": cve0}
+
+        impact_cli = BackgroundCLI(
+            "impact", ["-m", "trivy_tpu_torch", "impact", "--server",
+                       srv.url, "--cve", cve0, "--token", SERVER_TOKEN],
+            d, impact_cli_check, stdout=cli_out)
+
+        def gate1() -> tuple:
+            snap, brute = tier_invert(svc["memo_dir"], cdb, backend)
+            return impact_gate(srv, cves1, paths, snap,
+                               "after the cold rounds"), snap, brute
+
+        _, ((imp, snap1, brute1), _, out["gen2_save_s"]), _ = beside(
+            lambda: one_round("second_client", want, warm=True),
+            lambda: beside(gate1, lambda: gen2["db"].save(prefix + "-next")))
+        answers.update(imp.pop("answers"))
+        imp["brute_force_s"] = brute1
+        imp["cli"] = impact_cli.finish()
+        imp["maintenance_s"] = index_cold["maintenance_s"]
+        imp["maintenance_share_of_cold_round"] = \
+            index_cold["maintenance_s"] / first["wall_s"]
+        imp["index"] = {k: index_cold[k] for k in (
+            "entries", "pairs", "cves", "images", "updates",
+            "image_updates", "persist_puts", "rebuilds")}
+        out["impact"] = imp
         out["admission"] = admission_reviews(srv, want, svc["refs"],
                                              broken)
         print("admission on the server: " + json.dumps(out["admission"]),
@@ -4788,12 +5342,30 @@ def server_phase(device, svc: dict, fleet: dict, gen2: dict,
         record: dict = {}
         one_round("after_swap", gen2["texts"], warm=True, record=record)
         metrics = srv.get("/metrics")
-        out["drain"] = drain_under_load(srv, record)
 
-        # the same server restarted on the same prefix and DIR
-        srv2 = ServerProc(svc["argv"], os.path.join(d, "server2.log"))
+        # a second server, "b", on the same prefix, DIR and memo tier,
+        # joining "a" and federating a replica in this process; it boots
+        # while "a" answers the gate after the swap and drains
+        peer = federation_peer(device, gen2["db"], gen2["memo_dir"],
+                               gen2["scanner"])
+        argv2 = svc["argv"] + [
+            "--replica-name", "b", "--prewarm-members", "a",
+            "--prewarm-deadline", str(PREWARM_DEADLINE_S),
+            "--federate-peers", f"c={peer['url']}"]
+        srv2 = ServerProc(argv2, os.path.join(d, "server2.log"))
         servers.append(srv2)
-        during_restart()
+
+        def gate2() -> tuple:
+            snap2, brute2 = tier_invert(svc["memo_dir"], gen2["db"], backend)
+            cves2, n_changed = swap_cves(snap1, snap2, gen2["texts"])
+            return impact_gate(srv, cves2, paths, snap2, "after the swap"), \
+                brute2, n_changed
+
+        (swapped, brute2, n_changed), _, _ = beside(gate2, during_restart)
+        out["impact_after_swap"] = {
+            **{k: v for k, v in swapped.items() if k != "answers"},
+            "brute_force_s": brute2, "changed": n_changed}
+        out["drain"] = drain_under_load(srv, record)
         out["restart_ready_s"] = srv2.wait_ready()
         boot2 = srv2.boot_split()
         if boot2["misses"] or not boot2["hits"] or \
@@ -4801,18 +5373,51 @@ def server_phase(device, svc: dict, fleet: dict, gen2: dict,
                 not boot2["db_load_s"]:
             raise AssertionError(f"the restart: {boot2}")
         out["restart"] = boot2
-        dfa_blockmask.launches = 0
-        one = server_fleet(paths[:1], srv2.url, backend, broken=-1,
-                           clients=1)
-        launches["restart"] = dfa_blockmask.launches
-        if one["texts"][0] != gen2["texts"][0]:
-            raise AssertionError("the restarted server's report != the "
-                                 "second generation's")
-        out["restart_scan_s"] = one["wall_s"]
-        # a review the restarted server has seen nothing of: a scan on
-        # its card
-        out["admission_cold"] = admission_cold(srv2, gen2["texts"][1],
-                                               svc["refs"][1])
+        out["prewarm"] = prewarm_gate(srv2, svc["memo_dir"], argv2)
+
+        def restart_tail() -> None:
+            dfa_blockmask.launches = 0
+            one = server_fleet(paths[:1], srv2.url, backend, broken=-1,
+                               clients=1)
+            launches["restart"] = dfa_blockmask.launches
+            if one["texts"][0] != gen2["texts"][0]:
+                raise AssertionError("the restarted server's report != the "
+                                     "second generation's")
+            out["restart_scan_s"] = one["wall_s"]
+            # a review the restarted server has seen nothing of: a scan
+            # on its card
+            out["admission_cold"] = admission_cold(srv2, gen2["texts"][1],
+                                                   svc["refs"][1])
+            out["federation"] = federation_gate(srv2, peer,
+                                                swapped["answers"])
+            out["federation"]["peer_rebuild"] = peer["rebuild"]
+
+        # its index, rebuilt from the tier at boot, asked every CVE
+        # beside the rest of the restart's gates: the first server's
+        # answers after the swap (the server's index is not sliced by
+        # the ring, as the reference's run_server sets no owner)
+        def ask_rebuilt() -> tuple:
+            t0 = time.perf_counter()
+            got, lat = query_impact(srv2.url, swapped["answers"])
+            return got, sorted(lat), time.perf_counter() - t0
+
+        (rebuilt, lat, wall), _, _ = beside(ask_rebuilt, restart_tail)
+        peer = None
+        out["impact_rebuilt"] = {"cves": len(lat), "median":
+                                 lat[len(lat) // 2], "max": lat[-1],
+                                 "wall": wall}
+        if rebuilt != swapped["answers"]:
+            raise AssertionError("the restart's rebuilt index != the first "
+                                 "server's answers after the swap")
+        from trivy_tpu_torch.router.ring import Ring
+        ring = Ring()
+        for m in ("a", "b"):
+            ring.add(m)
+        out["prewarm"]["rebuilt_layers_b_owns"] = len(
+            {b for a in rebuilt.values() for b in a["layers"]
+             if ring.owner(b) == "b"})
+        out["prewarm"]["rebuilt_layers"] = len(
+            {b for a in rebuilt.values() for b in a["layers"]})
         out["restart_rc"] = srv2.stop()
         if out["restart_rc"] != 0:
             raise AssertionError(f"the restarted server exited "
@@ -4820,6 +5425,8 @@ def server_phase(device, svc: dict, fleet: dict, gen2: dict,
     finally:
         for s in servers:
             s.kill()
+        if peer is not None:
+            peer["stop"]()
     sched = {k: metrics[k] for k in (
         "counters", "batch", "queue_depth_max", "device_busy_s",
         "device_time_s", "host_busy_s", "overlap_ratio", "backend")
@@ -5134,6 +5741,28 @@ def run_refs(refs: list, db, backend: str, scanner, cache,
     return out
 
 
+def report_diff(texts: list, base: list) -> list:
+    """Where two lists of JSON reports differ, for an error message:
+    per differing target, each result's target and class with its
+    finding counts on either side, where they differ."""
+    out = []
+    for i, (a, b) in enumerate(zip(texts, base)):
+        if a == b:
+            continue
+        counts = []
+        for text in (a, b):
+            doc = json.loads(text) if text else {}
+            counts.append({f"{r.get('Target')}|{r.get('Class')}": [
+                len(r.get(k) or []) for k in (
+                    "Vulnerabilities", "Secrets", "Misconfigurations",
+                    "Licenses")] for r in doc.get("Results") or []})
+        diff = {t: [counts[0].get(t), counts[1].get(t)]
+                for t in sorted(set(counts[0]) | set(counts[1]))
+                if counts[0].get(t) != counts[1].get(t)}
+        out.append({"target": i, "results": diff or "same counts"})
+    return out[:4]
+
+
 def unnamed(text: str, name: str) -> str:
     """A JSON report text with its target's name (``ArtifactName``, and
     in each result's ``Target``) replaced and its ``RepoTags``,
@@ -5240,7 +5869,7 @@ def remote_cache(kind: str, url: str, backend: str):
 def registry_phase(device, cdb, fleet: dict, work_dir: str,
                    db_path: str) -> dict:
     """Scanning straight from a registry, and the remote blob caches, on
-    the fleet phase's 16 targets: the 15 that can be pushed (not the
+    the fleet phase's 8 targets: the 7 that can be pushed (not the
     truncated tar) are served from the port's ``LocalRegistry`` on
     127.0.0.1, target ``REGISTRY_GZIP`` with gzipped layers. Through
     ``BatchScanRunner.scan_registry_refs`` on the card:
@@ -5427,7 +6056,7 @@ def registry_phase(device, cdb, fleet: dict, work_dir: str,
             texts = [t.replace(treg.host, reg.host) for t in texts]
         if texts != base:
             raise AssertionError(f"registry {k}: reports != the streamed "
-                                 f"cold fleet's")
+                                 f"cold fleet's: {report_diff(texts, base)}")
     for i, k in enumerate(pushed):
         if unnamed(base[i], refs[i]) != unnamed(want[k], paths[k]):
             raise AssertionError(f"registry: target {k}'s report != its "
@@ -5507,33 +6136,27 @@ def registry_phase(device, cdb, fleet: dict, work_dir: str,
     return out
 
 
-class RegistryWorker:
-    """``registry_phase`` in a process of its own (``python chip_smoke.py
-    --registry-phase SPEC``) on the sbom phase's npz, started after the
-    sched phase on the targets and reports the fleet phase kept, and
-    run beside the memo and server phases: its launches are counted in that process, so
-    nothing beside it touches its counts. ``finish`` waits for it,
-    fails on a non-zero exit, and returns the phase's result with the
-    process's wall and its npz load."""
+class PhaseWorker:
+    """A phase in a process of its own (``python chip_smoke.py --phase
+    NAME SPEC``, ``phase_worker``) on the sbom phase's npz, beside the
+    phases of this process: its launches are counted in that process,
+    so nothing beside it touches its counts. ``spec`` (JSON) is what
+    the phase needs besides the npz. ``finish`` waits for it, prints
+    its standard output, fails on a non-zero exit, and returns the
+    phase's result with the process's wall and its npz load."""
 
-    def __init__(self, fleet: dict, work_dir: str, db_path: str,
-                 backend: str):
-        d = os.path.join(work_dir, "registry-worker")
+    def __init__(self, name: str, work_dir: str, spec: dict):
+        d = os.path.join(work_dir, f"{name}-worker")
         os.makedirs(d)
-        texts = os.path.join(d, "texts.json")
-        with open(texts, "w") as f:
-            json.dump(fleet["texts"], f)
         self.out = os.path.join(d, "out.json")
-        spec = os.path.join(d, "spec.json")
-        with open(spec, "w") as f:
-            json.dump({"plan": fleet["plan"],
-                       "texts": texts, "db_path": db_path,
-                       "work_dir": d, "backend": backend,
-                       "out": self.out}, f)
+        path = os.path.join(d, "spec.json")
+        with open(path, "w") as f:
+            json.dump({**spec, "work_dir": d, "out": self.out,
+                       "profile_lock": _PROFILE_LOCK}, f)
         self.log = os.path.join(d, "stdout")
         self.cli = BackgroundCLI(
-            "registry", [os.path.abspath(__file__), "--registry-phase",
-                         spec], d, lambda err: {}, stdout=self.log)
+            name, [os.path.abspath(__file__), "--phase", name, path], d,
+            lambda err: {}, stdout=self.log)
 
     def finish(self, timeout_s: float = 900.0) -> dict:
         try:
@@ -5547,31 +6170,63 @@ class RegistryWorker:
         return out
 
 
-def registry_worker(spec_path: str) -> int:
-    """The ``--registry-phase SPEC`` process: ``registry_phase`` on the
-    npz, the fleet phase's targets and reports that SPEC names, then
-    ``watch_phase`` on the same; the result goes to SPEC's ``out``."""
+def registry_work(spec: dict, cdb) -> dict:
+    """The registry worker: ``sched_phase`` on what the fleet phase
+    kept (``spec``: its targets, reports and failures, the reduced
+    fleet's), the DB's tables resident first as in the fleet phase;
+    then ``registry_phase`` and ``watch_phase`` on the same targets.
+    The sched phase's result rides under ``sched``."""
     from trivy_tpu_torch.cli import secret_scanner
+    device = torch.device(spec["backend"])
+    fleet = {**spec, "scanner": secret_scanner(backend=device.type)}
+    cdb.device_tables(device)
+    sched = sched_phase(device, cdb, fleet)
+    print("sched phase: " + json.dumps(sched), flush=True)
+    out = registry_phase(device, cdb, fleet, spec["work_dir"],
+                         spec["db_path"])
+    out["watch"] = watch_phase(device, cdb, fleet, spec["work_dir"])
+    print("watch loop (in the registry worker): " + json.dumps(
+        out["watch"]), flush=True)
+    return {**out, "sched": sched}
+
+
+def entry_work(spec: dict, cdb) -> dict:
+    """The entry worker: the image and fs phases on the corpus (made
+    again from ``SEED``) and ``spec``'s package counts, their CLI
+    processes finished."""
+    device = torch.device(spec["backend"])
+    files, planted = make_corpus(N_FILES, SEED)
+    work, db_path, pending = spec["work_dir"], spec["db_path"], []
+    # the image phase first: its CLI, which profiles the card, runs
+    # (holding the profiling lock) while the fleet phase runs its
+    # unprofiled fleets
+    img = image_phase(device, cdb, spec["n_pkgs"], files, planted, work,
+                      db_path, pending)
+    print("image phase: " + json.dumps(img), flush=True)
+    fs = fs_phase(device, cdb, spec["n_pkgs"], files, planted, work,
+                  db_path, pending)
+    print("fs phase: " + json.dumps(fs), flush=True)
+    return {"fs": fs, "image": img, "clis": finish_clis(pending)}
+
+
+PHASE_WORKERS = {"registry": registry_work, "entries": entry_work}
+
+
+def phase_worker(name: str, spec_path: str) -> int:
+    """The ``--phase NAME SPEC`` process: the npz SPEC names loaded,
+    then ``PHASE_WORKERS[NAME]``; its result, with the load's seconds,
+    goes to SPEC's ``out``."""
     from trivy_tpu_torch.db import CompiledDB
+    global _PROFILE_LOCK
     atexit.register(_kill_children)
     with open(spec_path) as f:
         spec = json.load(f)
-    backend = spec["backend"]
+    _PROFILE_LOCK = spec["profile_lock"]
     t0 = time.perf_counter()
     cdb = CompiledDB.load(spec["db_path"])
     load_s = time.perf_counter() - t0
-    with open(spec["texts"]) as f:
-        texts = json.load(f)
-    fleet = {"plan": spec["plan"], "texts": texts,
-             "scanner": secret_scanner(backend=backend)}
-    out = registry_phase(torch.device(backend), cdb, fleet,
-                         spec["work_dir"], spec["db_path"])
+    out = PHASE_WORKERS[name](spec, cdb)
     out["npz_load_s"] = load_s
-    # the watch loop in the same process, which holds the npz
-    out["watch"] = watch_phase(torch.device(backend), cdb, fleet,
-                               spec["work_dir"])
-    print("watch loop (in the registry worker): " + json.dumps(
-        out["watch"]), flush=True)
     with open(spec["out"], "w") as f:
         json.dump(out, f)
     return 0
@@ -5659,7 +6314,7 @@ def verdict_text(ref: str, counts: dict, deny: tuple, source: str) -> str:
 
 def drill_cli(fleet: dict, work_dir: str, db_path: str,
               backend: str) -> "BackgroundCLI":
-    """``image <the fleet's 16 targets> --fault-spec
+    """``image <the fleet's 8 targets> --fault-spec
     standard-outage:poison=<target DRILL_VICTIM>,hostile-ingest
     --sched-stats --format json`` on the sbom phase's npz, in a process
     of its own (``CLI_COUNTED``). The check, at ``finish``: the exit
@@ -5743,7 +6398,7 @@ def drill_cli(fleet: dict, work_dir: str, db_path: str,
 
 def storm_cli(fleet: dict, work_dir: str, db_path: str,
               backend: str) -> "BackgroundCLI":
-    """``watch <the 15 pushable tars> --watch-source webhook --listen
+    """``watch <the 7 pushable tars> --watch-source webhook --listen
     127.0.0.1:0 --fault-spec event-storm`` on the sbom phase's npz, in a
     process of its own (``CLI_COUNTED``): the seeded storm (256 pushes
     over 8 digests, 8 malformed envelopes) pushed, the loop drained.
@@ -5787,7 +6442,7 @@ def watch_phase(device, cdb, fleet: dict, work_dir: str) -> dict:
     ``WatchLoop(keep_results=True)`` on the card over a
     ``BatchScanRunner`` with the scheduler. Gates: every result equals
     the fleet phase's card report of its tar; each burst scanned once
-    (15 scans, 12 deduped, nothing shed or failed; the books balance);
+    (7 scans, 12 deduped, nothing shed or failed; the books balance);
     one ``dfa_blockmask`` launch per scheduled batch with candidates;
     no quarantine, no host fallback."""
     from trivy_tpu_torch.ops.dfa_cuda import dfa_blockmask
@@ -6195,6 +6850,7 @@ def resident_rows(cdb) -> list:
 
 
 def main() -> int:
+    global _PROFILE_LOCK
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -6224,7 +6880,7 @@ def main() -> int:
               f"ISETP, LOP3, LDS): {loops}", flush=True)
 
     t0 = time.perf_counter()
-    files, planted = make_corpus(N_FILES, SEED)
+    files, _ = make_corpus(N_FILES, SEED)
     print(f"corpus: {len(files)} files in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     kern, batches = kernel_phase(files, device)
@@ -6247,27 +6903,25 @@ def main() -> int:
     print("mesh phase, dispatch_jobs: " + json.dumps(mesh_disp), flush=True)
     os.makedirs(dfa_cuda.BUILD_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=dfa_cuda.BUILD_DIR) as work:
+        _PROFILE_LOCK = os.path.join(work, "profile.lock")
         db_path, pending = os.path.join(work, "cdb"), []
         sb = sbom_phase(device, cdb, n_pkgs, work, pending)
         print("sbom phase: " + json.dumps(sb), flush=True)
-        fs = fs_phase(device, cdb, n_pkgs, files, planted, work, db_path,
-                      pending)
-        print("fs phase: " + json.dumps(fs), flush=True)
-        img = image_phase(device, cdb, n_pkgs, files, planted, work,
-                          db_path, pending)
-        print("image phase: " + json.dumps(img), flush=True)
+        # the fs and image phases in a process of its own on the npz,
+        # beside the fleet and memo phases
+        entries = PhaseWorker("entries", work, {
+            "backend": device.type, "db_path": db_path,
+            "n_pkgs": {k: int(v) for k, v in n_pkgs.items()}})
         kept: dict = {}
-        fleet = fleet_phase(device, cdb, n_pkgs, files, pending, work,
-                            kept)
+        fleet = fleet_phase(device, cdb, n_pkgs, files, work, kept)
         print("fleet phase: " + json.dumps(fleet), flush=True)
-        clis = finish_clis(pending)
-        print(f"CLI processes on the npz, beside the phases ({gpu}): "
-              + json.dumps(clis), flush=True)
-        sched = sched_phase(device, cdb, kept)
-        print("sched phase: " + json.dumps(sched), flush=True)
-        # the registry phase in a process of its own, beside the memo
-        # and server phases (the sched phase has the card to itself)
-        registry = RegistryWorker(kept, work, db_path, device.type)
+        # the sched phase, then the registry phase, in a process of
+        # their own, beside the memo and server phases
+        registry = PhaseWorker("registry", work, {
+            "backend": device.type, "db_path": db_path,
+            **{k: kept[k] for k in (
+                "plan", "texts", "failed", "rplan", "red_texts",
+                "checks_texts", "off_wall_s")}})
         # the fault drill and the watch storm in processes of their own,
         # beside the memo and server phases
         drills = [drill_cli(kept, work, db_path, device.type),
@@ -6296,14 +6950,24 @@ def main() -> int:
             print(f"rekor ({gpu}): " + json.dumps(rekor), flush=True)
             beside["rekor"] = rekor
 
-        server = server_phase(device, svc, kept, gen2, work, during_swap,
-                              during_restart)
+        server = server_phase(device, cdb, svc, kept, gen2, work,
+                              during_swap, during_restart)
         del kept, gen2, svc
         print("server phase: " + json.dumps(server), flush=True)
         drilled = finish_clis(drills)
         print(f"fault drill and watch storm CLIs, beside the memo and "
               f"server phases ({gpu}): " + json.dumps(drilled), flush=True)
+        ent = entries.finish()
+        fs, img = ent["fs"], ent["image"]
+        clis = {**finish_clis(pending), **ent["clis"]}
+        print(f"CLI processes on the npz, beside the phases ({gpu}): "
+              + json.dumps(clis), flush=True)
+        print("entry worker (the fs and image phases, a process of its "
+              "own beside the fleet and memo phases): " + json.dumps(
+                  {k: ent[k] for k in ("npz_load_s", "process_wall_s")}),
+              flush=True)
         reg = registry.finish()
+        sched = reg.pop("sched")
         print("registry phase (a process of its own, beside the memo "
               "and server phases): " + json.dumps(reg), flush=True)
         mesh_fleet, life, rekor = beside["mesh_fleet"], beside["life"], \
@@ -6472,6 +7136,7 @@ def main() -> int:
           f"{sw['kernels']} kernels, {sw['kernel_ms']:.3f} ms "
           f"({sw['device_ms']:.3f} ms busy with the staging copy); "
           f"{memo['reports_changed_by_the_delta']} reports changed; "
+          f"impact push: {json.dumps(memo['push'])}; "
           f"lifecycle CLI (reduced, {life['rows']} rows): "
           f"{json.dumps(life['cli_wall_s'])} s; sbom CLI process split: "
           f"{json.dumps(clis['sbom']['split'])}", flush=True)
@@ -6537,6 +7202,32 @@ def main() -> int:
           f"{server['gen2_save_s']:.1f} s); drain "
           f"{json.dumps(server['drain'])}; /metrics "
           + json.dumps(server["metrics"]), flush=True)
+    imp, pw = server["impact"], server["prewarm"]
+    print(f"impact index on the server ({gpu}; GET /impact for each of "
+          f"the {imp['cves']} CVEs of the targets' reports == the brute "
+          f"force over its memo directory): query median "
+          f"{imp['query_s']['median'] * 1e3:.2f} ms, max "
+          f"{imp['query_s']['max'] * 1e3:.2f} ms; maintenance "
+          f"{imp['maintenance_s']:.4f} s in the cold round's "
+          f"{rounds['cold']['wall_s']:.2f} s wall "
+          f"({100 * imp['maintenance_share_of_cold_round']:.3f} %, the "
+          f"reference designs for < 2 %); brute force "
+          f"{imp['brute_force_s']:.2f} s; index "
+          f"{json.dumps(imp['index'])}; impact CLI "
+          f"{imp['cli']['wall_s']:.1f} s beside it; after the swap "
+          f"{json.dumps(server['impact_after_swap'])} == the brute force on "
+          f"the second generation", flush=True)
+    print(f"prewarm on the restart ({gpu}): {pw['keys']} keys, "
+          f"{pw['bytes']} bytes in {pw['seconds']:.4f} s of the tier's "
+          f"{pw['tier_keys']} (== prewarm_ranges(['a'], 'b', ...)); "
+          f"/healthz {pw['statuses']} (the walk ended before the first "
+          f"probe: {pw['walk_ended_before_first_probe']}); ready "
+          f"{server['restart_ready_s']:.1f} s, ok {pw['ok_s']:.1f} s; "
+          f"rebuilt index == the first server's after the swap "
+          f"({pw['rebuilt_layers']} layers, {pw['rebuilt_layers_b_owns']} "
+          f"of them b's on the ring of a and b)", flush=True)
+    print(f"federation ({gpu}): " + json.dumps(server["federation"]),
+          flush=True)
     print("host memory (this process and its subprocesses, sampled each "
           "second): " + json.dumps(memory.summary()), flush=True)
     print(f"script: {time.perf_counter() - t_script:.1f} s", flush=True)
@@ -6548,6 +7239,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--registry-phase"]:
-        sys.exit(registry_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--phase"]:
+        sys.exit(phase_worker(sys.argv[2], sys.argv[3]))
     sys.exit(main())

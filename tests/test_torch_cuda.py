@@ -12,7 +12,10 @@ card; busy spans stamped by CUDA events, a traced fleet's launches,
 and the ``torch.profiler`` device trace; the scan server's boot
 (both kernels built into its compile cache once, a second boot only
 loading them, the zero-input warm launches inert) and a Scan RPC run
-on the card equal to the same scan on the CPU.
+on the card equal to the same scan on the CPU; the impact index of
+card scans and of the card's hot swap equal to ``cpu-ref``'s, a prewarm
+staging the resident tables on the card, and two federated replicas on
+the card.
 Every output is an integer mask or an exact finding, so every
 comparison is exact equality.
 
@@ -1557,3 +1560,151 @@ def test_streamed_fleet_on_the_card_equals_cpu_ref(cuda, tmp_path, sched):
         reg.stop()
     assert out["cuda"] == out["cpu-ref"]
     assert all("secret" in d for _, d in out["cuda"])
+
+
+# --- the impact index, the prewarm and federation on the card ----------
+
+def test_impact_index_of_card_scans_equals_cpu_ref(cuda, tmp_path):
+    """An impact index maintained by a memo fleet on the card, and
+    migrated through the hot swap's re-match on the card, snapshots as
+    its brute-force inversion and as the same sequence on ``cpu-ref``;
+    the swap pushes the same images."""
+    from chip_smoke import (delta_pairs, make_advisory_store, memo_entries,
+                            mutate_store)
+    from trivy_tpu_torch.db.compiled import SwappableStore
+    from trivy_tpu_torch.db.lifecycle import attach_memo
+    from trivy_tpu_torch.impact import (ImpactIndex, ImpactPusher,
+                                        brute_force_invert)
+    from trivy_tpu_torch.memo import FindingsMemo
+    from trivy_tpu_torch.runtime import BatchScanRunner
+    from trivy_tpu_torch.watch import WebhookSource
+    store, _, plan = _memo_fleet(tmp_path, 91)
+    outs = {}
+    for backend in ("cuda", "cpu-ref"):
+        old = CompiledDB.compile(store)
+        memo = FindingsMemo(backend=backend)
+        src = WebhookSource()
+        idx = ImpactIndex(store=memo.store, pusher=ImpactPusher(src))
+        memo.attach_impact(idx)
+        runner = BatchScanRunner(store=old, backend=backend, memo=memo)
+        try:
+            runner.scan_paths(plan["paths"])
+        finally:
+            runner.close()
+        first = idx.postings_snapshot()
+        assert first == brute_force_invert(memo, old) and first["postings"]
+        pairs = delta_pairs(memo_entries(memo), old, n_entries=2)
+        store2, _ = make_advisory_store(3000, 91)
+        mutate_store(store2, pairs, 93)
+        new = CompiledDB.compile(store2)
+        sw = SwappableStore(old)
+        attach_memo(sw, memo)
+        sw.swap(new)
+        second = idx.postings_snapshot()
+        assert second == brute_force_invert(memo, new)
+        pushed = []
+        while True:
+            ev = src.get(timeout=0.0)
+            if ev is None:
+                break
+            pushed.append(ev.path)
+        outs[backend] = (first, second, sorted(pushed))
+    assert outs["cuda"] == outs["cpu-ref"]
+
+
+def test_prewarm_on_the_card_stages_the_resident_tables(cuda, tmp_path):
+    """A server given ``prewarm_members`` on ``cuda`` stages its DB's
+    resident tables on the card and walks its slice of the memo tier
+    before ``/healthz`` says ``ok``."""
+    from chip_smoke import make_advisory_store
+    from trivy_tpu_torch.memo import FindingsMemo, FSMemoStore
+    from trivy_tpu_torch.router.lifecycle import LIFECYCLE_METRICS
+    from trivy_tpu_torch.rpc.server import ScanServer
+    cdb = CompiledDB.compile(make_advisory_store(2000, 95)[0])
+    tier = FSMemoStore(str(tmp_path))
+    for i in range(40):
+        tier.put(f"{i:040x}", b"verdict" * (1 + i % 3))
+    LIFECYCLE_METRICS.reset()
+    srv = ScanServer(store=cdb, memo=FindingsMemo(tier, backend="cuda"),
+                     prewarm_members=["a"], replica_name="b",
+                     backend="cuda")
+    try:
+        t0 = time.monotonic()
+        while srv.health()["status"] == "warming":
+            assert time.monotonic() - t0 < 60
+            time.sleep(0.01)
+        snap = LIFECYCLE_METRICS.snapshot()
+        assert any(str(k).startswith("cuda") for k in cdb._device)
+        assert snap["prewarm_runs"] == 1 and snap["prewarm_keys"] > 0
+        assert snap["prewarm_cold_joins"] == 0
+    finally:
+        srv.close()
+        LIFECYCLE_METRICS.reset()
+
+
+def test_federated_card_replicas(cuda, tmp_path):
+    """Two replicas on the card, each with its memo and impact index
+    over half of a fleet: a front federating the other serves both
+    replicas' samples and a complete fleet verdict; ``federated_impact``
+    over both is the union of their answers; once the other stops, the
+    scrape still answers with it down and the impact answer is
+    partial."""
+    import urllib.request
+
+    from trivy_tpu_torch.impact import ImpactIndex, federated_impact
+    from trivy_tpu_torch.memo import FindingsMemo
+    from trivy_tpu_torch.obs.federate import Federator
+    from trivy_tpu_torch.rpc.server import ScanServer, serve
+    from trivy_tpu_torch.runtime import BatchScanRunner
+    _, cdb, plan = _memo_fleet(tmp_path, 97)
+    paths = [p for i, p in enumerate(plan["paths"]) if i != plan["broken"]]
+    servers, urls, indexes = [], [], []
+    try:
+        for name, half in (("a", paths[::2]), ("b", paths[1::2])):
+            memo = FindingsMemo(backend="cuda")
+            idx = ImpactIndex(store=memo.store, name=name)
+            memo.attach_impact(idx)
+            runner = BatchScanRunner(store=cdb, backend="cuda", memo=memo)
+            try:
+                runner.scan_paths(half)
+            finally:
+                runner.close()
+            fed = Federator([("a", urls[0])]) if urls else None
+            srv = ScanServer(store=cdb, memo=memo, impact=idx,
+                             replica_name=name, federator=fed,
+                             backend="cuda")
+            httpd, _ = serve(port=0, server=srv)
+            servers.append((httpd, srv))
+            urls.append(f"http://127.0.0.1:{httpd.server_address[1]}")
+            indexes.append(idx)
+        with urllib.request.urlopen(urls[1] + "/metrics/federate",
+                                    timeout=60) as resp:
+            text = resp.read().decode()
+        assert '{replica="a"' in text and '{replica="b"' in text
+        assert "trivy_tpu_fleet_complete 1" in text
+        cves = sorted({c for idx in indexes
+                       for _p, c, _b in idx.postings_snapshot()["postings"]})
+        assert cves
+        reps = [("a", urls[0]), ("b", urls[1])]
+        for cve in cves[:8]:
+            out = federated_impact(reps, cve)
+            qa, qb = indexes[0].query(cve), indexes[1].query(cve)
+            assert out["complete"]
+            assert out["layers"] == sorted(set(qa["layers"])
+                                           | set(qb["layers"]))
+            assert out["images"] == sorted(qa["images"] + qb["images"])
+        httpd, srv = servers.pop(0)
+        httpd.shutdown()
+        httpd.server_close()
+        srv.close()
+        with urllib.request.urlopen(urls[1] + "/metrics/federate",
+                                    timeout=60) as resp:
+            text = resp.read().decode()
+        assert 'trivy_tpu_federate_peer_up{replica="a"} 0' in text
+        assert federated_impact(reps, cves[0], timeout_s=2.0)[
+            "complete"] is False
+    finally:
+        for httpd, srv in servers:
+            httpd.shutdown()
+            httpd.server_close()
+            srv.close()

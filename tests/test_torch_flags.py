@@ -223,7 +223,9 @@ def test_timeout_from_env_is_a_duration(inputs, tmp_path, monkeypatch):
     The reference refuses the value for every subcommand: its env
     binding also reaches ``impact --timeout``, a float of seconds
     (``trivy_tpu/cli.py:693``), and a duration is no float there. The
-    port has no ``impact`` subcommand and keeps the duration."""
+    port's ``impact --timeout`` takes the env value only when ``impact``
+    runs (``tests/test_torch_impact.py`` holds that run to the
+    reference's exit 2), so its scans keep the duration."""
     def slow(args):
         time.sleep(5)
         return 0

@@ -180,6 +180,14 @@ WATCH_SLICE = ("faults/__init__.py", "faults/spec.py", "faults/inject.py",
                "k8s/__init__.py", "utils/synth.py", "rpc/server.py",
                "artifact/resilient.py", "sched/metrics.py", "cli.py")
 
+# the impact index, the prewarm and the federation plane
+FLEET_SLICE = ("impact/__init__.py", "impact/index.py", "impact/metrics.py",
+               "impact/push.py", "impact/federate.py", "router/__init__.py",
+               "router/ring.py", "router/lifecycle.py", "memo/warmth.py",
+               "memo/findings.py", "obs/federate.py", "obs/slo.py",
+               "obs/cost.py", "obs/propagate.py", "parallel/simhost.py",
+               "runtime/batch.py", "flag.py")
+
 
 def _covered(modules) -> None:
     import importlib
@@ -243,23 +251,29 @@ def test_the_scans_cover_the_watch_slice():
     _covered(WATCH_SLICE)
 
 
+def test_the_scans_cover_the_fleet_slice():
+    _covered(FLEET_SLICE)
+
+
 def test_server_entry_runs_without_jax():
-    """``python -m trivy_tpu_torch server`` parses, refuses a flag of a
-    later item by name and exits, without loading JAX or the JAX
-    package."""
+    """``python -m trivy_tpu_torch server`` parses its fleet flags (the
+    peer list through ``obs/federate.py``), refuses ``--impact-index``
+    without the memo (exit 2, as the reference) and exits, without
+    loading JAX or the JAX package."""
     code = ("import sys\n"
             "from trivy_tpu_torch.cli import main\n"
-            "rc = main(['server', '--backend', 'cpu', '--prewarm-members', "
-            "'x'])\n"
+            "rc = main(['server', '--backend', 'cpu', '--sched', 'off', "
+            "'--no-memo', '--federate-peers', 'a=http://127.0.0.1:1', "
+            "'--impact-index', '--prewarm-members', 'x'])\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'trivy_tpu'))\n"
             "print(rc, bad)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
-    assert proc.stdout.split() == ["1", "[]"]
-    assert "--prewarm-members is not ported yet (ROADMAP A.9g/h)" in \
-        proc.stderr
+    assert proc.stdout.split() == ["2", "[]"]
+    assert "error: --impact-index needs the findings memo (drop " \
+        "--no-memo)" in proc.stderr
 
 
 def test_simhost_entry_runs_without_jax():

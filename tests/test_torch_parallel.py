@@ -391,8 +391,8 @@ def test_two_simulated_hosts_equal_reference_single_host(tmp_path):
     each scanning its LPT slice on a CPU mesh of two, agree on the
     global layout, and the union of their reports equals the
     reference's single-host run; each output carries its host's span
-    export (``timeline``), and the keys that need ``obs/propagate.py``
-    (ROADMAP A.9i) are refused by name."""
+    export (``timeline``), and the spec keys ``traceparent`` and
+    ``clock_port_file`` act as the reference's."""
     from trivy_tpu.parallel.simhost import run_simhost as rrun
     from trivy_tpu_torch.parallel.simhost import run_simhost as trun
     paths = make_fleet(tmp_path, 6)
@@ -435,13 +435,27 @@ def test_two_simulated_hosts_equal_reference_single_host(tmp_path):
         for i, rep in zip(o["indices"], o["reports"]):
             merged[i] = rep
     assert [merged[i] for i in range(len(paths))] == single["reports"]
-    for key in ("traceparent", "clock_port_file"):
-        # both need obs/propagate.py (the ClockServer, the trace
-        # context), ROADMAP A.9i
-        with pytest.raises(NotImplementedError,
-                           match=f"{key}.*ROADMAP A.9i"):
-            trun({**spec, "backend": "cpu", key: "x"},
-                 tmulti.HostTopology())
+    # the trace context roots the host's spans under the caller's span
+    # (its scans join that trace), the clock file publishes a
+    # ClockServer's port: each key as in the reference's run
+    tid, sid = "ab" * 16, "cd" * 8
+    keyed = {}
+    for name, run, topo in (("ref", rrun, rmulti.HostTopology()),
+                            ("port", trun, tmulti.HostTopology())):
+        port_file = str(tmp_path / f"{name}.clock")
+        out = run({**spec, "backend": "cpu",
+                   "traceparent": f"00-{tid}-{sid}-01",
+                   "clock_port_file": port_file}, topo)
+        with open(port_file, encoding="utf-8") as f:
+            clock_port = int(f.read())
+        scans = [sp for sp in out["timeline"]["spans"]
+                 if sp["trace_id"] == tid and sp["is_root"]
+                 and sp["name"] == "scan"]
+        keyed[name] = (out["reports"], out["trace"]["trace_id"],
+                       out["trace"]["remote_parent"], clock_port > 0,
+                       len(scans))
+    assert keyed["port"] == keyed["ref"] == (
+        single["reports"], tid, sid, True, len(paths))
 
 
 _JOIN = """

@@ -363,7 +363,8 @@ def test_cli_scan_via_server_equals_reference(tmp_path, server, entry,
 def test_server_subcommand_drains_on_sigterm(tmp_path):
     """``python -m trivy_tpu_torch server``: listens, answers a scan,
     and on SIGTERM drains and exits 0; a cuda server without a card
-    fails its boot, and a flag of a later item is refused by name."""
+    fails its boot, and a malformed peer list is refused before the
+    listener."""
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
@@ -403,8 +404,10 @@ def test_server_subcommand_drains_on_sigterm(tmp_path):
             proc.communicate()
     for argv, want in (
             (["--backend", "cuda"], "CUDA is not available"),
-            (["--backend", "cpu", "--federate-peers", "a=http://x:1"],
-             "--federate-peers is not ported yet (ROADMAP A.9i)")):
+            (["--backend", "cpu", "--sched", "off", "--federate-peers",
+              "a=ftp://x:1"],
+             "error: --federate-peers: peer 'a=ftp://x:1': expected "
+             "name=http://host:port")):
         done = subprocess.run(
             [sys.executable, "-m", "trivy_tpu_torch", "server",
              "--listen", "127.0.0.1:1"] + argv, cwd=str(tmp_path),
@@ -412,43 +415,36 @@ def test_server_subcommand_drains_on_sigterm(tmp_path):
         assert done.returncode != 0 and want in done.stderr
 
 
-def _refused_server_flags():
-    from trivy_tpu_torch.cli import _SERVER_REFUSED
-    return [(flag, item) for flag, _, item in _SERVER_REFUSED]
-
-
 # server flags refused by name until their items were ported (fault
-# injection and continuous scanning): a valid value now passes, and the
-# run goes on to the --listen check
+# injection, continuous scanning, the impact index, the prewarm and
+# federation): a valid value now passes, and the run goes on to the
+# --listen check (None: a flag without a value)
 LIFTED_SERVER_FLAGS = {("--fault-spec", "A.9h"): "rpc-flaky",
                        ("--admission-policy", "A.9g"): "audit",
                        ("--admission-fail", "A.9g"): "closed",
                        ("--admission-deadline", "A.9g"): "5",
-                       ("--images-dir", "A.9g"): "imgs"}
+                       ("--images-dir", "A.9g"): "imgs",
+                       ("--impact-index", "A.9g"): None,
+                       ("--prewarm-members", "A.9g/h"): "a,b",
+                       ("--prewarm-deadline", "A.9g/h"): "2.5",
+                       ("--federate-peers", "A.9i"): "a=http://127.0.0.1:1",
+                       ("--federate-timeout", "A.9i"): "0.5",
+                       ("--federate-stale-after", "A.9i"): "30"}
 
 
-@pytest.mark.parametrize("flag,item", _refused_server_flags() +
-                         sorted(LIFTED_SERVER_FLAGS))
+@pytest.mark.parametrize("flag,item", sorted(LIFTED_SERVER_FLAGS))
 def test_server_refuses_later_flags_by_name(flag, item, tmp_path):
-    """Each server flag of a later ROADMAP item, given any value, is
-    refused by name before the DB is read; a flag whose item is ported
-    is no longer refused."""
+    """Every server flag that a later ROADMAP item once refused by name
+    is ported: given a valid value it is no longer refused, and the run
+    goes on to the ``--listen`` check before the DB is read."""
     from trivy_tpu_torch.cli import main as tmain
-    if (flag, item) in LIFTED_SERVER_FLAGS:
-        code, _, err = _main(tmain, [
-            "server", "--backend", "cpu", "--listen", "127.0.0.1:x",
-            "--compiled-db", str(tmp_path / "none"), flag,
-            LIFTED_SERVER_FLAGS[(flag, item)]])
-        assert code == 2 and "--listen needs host:port" in err
-        assert "not ported" not in err and "advisory db" not in err
-        return
-    value = [] if flag == "--impact-index" else ["0"]
-    code, _, err = _main(tmain, ["server", "--backend", "cpu",
-                                 "--compiled-db", str(tmp_path / "none"),
-                                 flag] + value)
-    assert code == 1
-    assert f"{flag} is not ported yet (ROADMAP {item})" in err
-    assert "advisory db" not in err
+    value = LIFTED_SERVER_FLAGS[(flag, item)]
+    code, _, err = _main(tmain, [
+        "server", "--backend", "cpu", "--listen", "127.0.0.1:x",
+        "--compiled-db", str(tmp_path / "none"), flag] +
+        ([] if value is None else [value]))
+    assert code == 2 and "--listen needs host:port" in err
+    assert "not ported" not in err and "advisory db" not in err
 
 
 # --- admission caps, idempotency, drain ------------------------------

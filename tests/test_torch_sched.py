@@ -633,6 +633,57 @@ def test_concurrent_submitters_get_their_own_reports(fleet):
     assert [got[i] for i in range(4)] == [[want[i]] for i in range(4)]
 
 
+def test_a_blob_put_meanwhile_keeps_its_patch(fleet):
+    """Two scheduled requests whose images share the secret layer both
+    find its blob missing; the first puts it and patches its secret in
+    before the second puts its own analysis of it. The second put is
+    skipped, so the patched blob stays the one the first request's
+    finish reads (a second, unpatched copy replaced it, and a report
+    lost the shared secret, now and then on a busy host)."""
+    from trivy_tpu_torch.artifact import MemoryCache
+    from trivy_tpu_torch.artifact.image import load_image
+    from trivy_tpu_torch.runtime.batch import _SchedImageArtifact
+    paths = fleet["plan"]["paths"][:2]
+    runner = TRunner(store=fleet["stores"]["compiled"][1], backend="cpu",
+                     sched=_sched_cfg("port"))
+    cache, sched = MemoryCache(), runner.scheduler
+    opt = runner._image_opt(True)
+
+    def artifact(path):
+        a = _SchedImageArtifact(load_image(path), cache, opt)
+        a._sched = sched
+        a._sched_req = tsched.ScanRequest(path, analyze=lambda r: None)
+        return a
+
+    first, second = artifact(paths[0]), artifact(paths[1])
+    missing_blobs = cache.missing_blobs
+    patched: list = []
+    turns = iter([True])
+
+    def first_runs_meanwhile(artifact_id, blob_ids):
+        out = missing_blobs(artifact_id, blob_ids)
+        if next(turns, False):
+            # the second request has taken its missing blobs; the
+            # first analyzes, puts and patches the shared layers
+            ref = first.inspect()
+            shared = set(ref.blob_ids) & set(out[1])
+            for blob_id in shared:
+                cache.get_blob(blob_id).secrets = ["patched"]
+            patched.extend(shared)
+        return out
+
+    cache.missing_blobs = first_runs_meanwhile
+    try:
+        ref = second.inspect()
+    finally:
+        runner.close()
+    assert len(patched) >= 2      # the base, the secret layer, the corpus
+    assert set(patched) <= set(ref.blob_ids)
+    assert all(cache.get_blob(b).secrets == ["patched"] for b in patched)
+    # the log of puts empties once no inspect is in flight
+    assert sched._analysis_puts == {} and sched._inspects == []
+
+
 def test_scheduler_books_balance_under_a_storm():
     """Many submitters, more host workers than cores and a short
     switch interval: every request resolves to its own result exactly

@@ -256,7 +256,10 @@ class ImageArtifact:
             blob.opaque_dirs = opq_dirs
             blob.whiteout_files = wh_files
             post_handle(blob)
-            self.cache.put_blob(blob_ids[i], blob)
+            self._put_blob(blob_ids[i], blob)
+
+    def _put_blob(self, blob_id: str, blob) -> None:
+        self.cache.put_blob(blob_id, blob)
 
     def _analyze_layers(self, todo: list, layer_results: list,
                         all_candidates: list, base: set) -> None:

@@ -1411,8 +1411,7 @@ def _watch_flags(sp) -> None:
 
 def _server_flags(srv) -> None:
     """``server``'s flags (ref cli.py ``build_parser``), with the
-    port's ``--backend``. The flags of later ROADMAP items are parsed
-    and refused by name (``_server_refused``)."""
+    port's ``--backend``."""
     srv.add_argument("--listen", default="127.0.0.1:4954")
     srv.add_argument("--token", dest="auth_token", default="")
     srv.add_argument("--token-header", default="Trivy-Token")
@@ -1430,6 +1429,12 @@ def _server_flags(srv) -> None:
                      help="findings-memo backend override: 'memory', a "
                      "directory, redis:// or s3:// (default: under "
                      "--cache-dir, else in memory)")
+    srv.add_argument("--impact-index", action="store_true",
+                     help="maintain the inverted (package, CVE) -> "
+                     "layers -> images findings index as a write-"
+                     "through side effect of the memo tier, rebuild "
+                     "it from the shared tier on boot, and serve "
+                     "GET /impact?cve=; requires the memo")
     srv.add_argument("--backend", default="cuda", choices=BACKENDS,
                      help="where the scheduler's dispatch and the boot "
                      "warm-up run: cuda (default), cpu or cpu-ref; a "
@@ -1466,13 +1471,39 @@ def _server_flags(srv) -> None:
     srv.add_argument("--slo-config", default="",
                      help="service-level objectives (burn-rate "
                      "verdicts at GET /slo)")
+    srv.add_argument("--federate-peers", default="",
+                     help="metrics/SLO federation: "
+                     "'name=http://host:port,...' (or bare URLs); "
+                     "this replica then serves the merged fleet "
+                     "exposition at GET /metrics/federate and fleet "
+                     "burn-rate verdicts under GET /slo 'fleet'")
+    srv.add_argument("--federate-timeout", type=float, default=2.0,
+                     help="per-peer snapshot-pull timeout in seconds; "
+                     "a slow peer is marked stale, never awaited past "
+                     "this")
+    srv.add_argument("--federate-stale-after", type=float, default=60.0,
+                     help="seconds after which a peer's last-good "
+                     "snapshot stops counting as fresh (the peer is "
+                     "exported with trivy_tpu_federate_peer_stale=1)")
     srv.add_argument("--replica-name", default="",
-                     help="this replica's name (default: the --listen "
-                     "address)")
+                     help="this replica's name: its ring identity and "
+                     "its value of the federated 'replica' label "
+                     "(default: the --listen address)")
     srv.add_argument("--compile-cache", default="",
                      help="build (or load) both kernels into DIR/kernels "
                      "and warm-launch them at boot, before the server "
                      "listens; a later boot on DIR builds nothing")
+    srv.add_argument("--prewarm-members", default="",
+                     help="comma-separated names of the replicas "
+                     "already on the routing ring: before /healthz "
+                     "reports ready this replica computes its post-"
+                     "join key ranges, walks the shared memo tier "
+                     "for them, and stages its resident tables on "
+                     "--backend; requires the memo")
+    srv.add_argument("--prewarm-deadline", type=float, default=5.0,
+                     help="prewarm walk bound in seconds — past it the "
+                     "replica joins cold instead of wedging the "
+                     "scale-up")
     srv.add_argument("--profile-out", default="",
                      help="torch.profiler trace of the server's first "
                      "TRIVY_TPU_PROFILE_SECONDS (default 60) plus the "
@@ -1489,15 +1520,6 @@ def _server_flags(srv) -> None:
                      "local tarballs named <ref with /:@ as _>.tar; "
                      "without it admission misses apply the fail "
                      "stance")
-    # refused by name (ROADMAP A.9g, i): None unless given
-    srv.add_argument("--impact-index", action="store_true", default=None,
-                     help=argparse.SUPPRESS)
-    for flag in ("--prewarm-members", "--federate-peers"):
-        srv.add_argument(flag, default=None, help=argparse.SUPPRESS)
-    for flag in ("--federate-timeout", "--federate-stale-after",
-                 "--prewarm-deadline"):
-        srv.add_argument(flag, type=float, default=None,
-                         help=argparse.SUPPRESS)
     # the global flags but --timeout (a server runs until stopped)
     srv.add_argument("--config", "-c", default="",
                      help="config file (default: trivy.yaml)")
@@ -1505,17 +1527,6 @@ def _server_flags(srv) -> None:
     srv.add_argument("--debug", "-d", action="store_true")
     srv.add_argument("--log-format", default="text",
                      choices=["text", "json"])
-
-
-# server flags of later ROADMAP items, each refused by name
-_SERVER_REFUSED = (
-    ("--impact-index", "impact_index", "A.9g"),
-    ("--prewarm-members", "prewarm_members", "A.9g/h"),
-    ("--federate-peers", "federate_peers", "A.9i"),
-    ("--prewarm-deadline", "prewarm_deadline", "A.9g/h"),
-    ("--federate-timeout", "federate_timeout", "A.9i"),
-    ("--federate-stale-after", "federate_stale_after", "A.9i"),
-)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -1600,6 +1611,17 @@ def build_parser() -> argparse.ArgumentParser:
     _watch_flags(watch)
     _scan_flags(watch)
     _tree_flags(watch)
+    imp = sub.add_parser(
+        "impact", help="ask a replica server which layers and images "
+        "a CVE affects (GET /impact?cve=)")
+    imp.add_argument("--server", required=True,
+                     help="server base URL")
+    imp.add_argument("--cve", required=True)
+    imp.add_argument("--token", dest="auth_token", default="")
+    imp.add_argument("--token-header", default="Trivy-Token")
+    # seconds, a float as the reference's; TRIVY_TIMEOUT reaches it
+    # only when `impact` runs, so the scans keep their duration
+    imp.add_argument("--timeout", type=float, default=5.0).env_local = True
     return ap
 
 
@@ -1649,6 +1671,8 @@ def _dispatch(args) -> int:
         return _run_db(args)
     if args.command == "server":
         return run_server(args)
+    if args.command == "impact":
+        return run_impact(args)
     if args.generate_default_config:
         return _generate_default_config(args)
     if args.command in ("client", "c"):
@@ -1673,13 +1697,23 @@ def _dispatch(args) -> int:
     return _run_fs(args)
 
 
-def _server_refused(args) -> str:
-    """The server flags still to be ported, by ROADMAP item."""
-    for flag, dest, item in _SERVER_REFUSED:
-        value = getattr(args, dest, None)
-        if value not in (None, "") and value is not False:
-            return f"{flag} is not ported yet (ROADMAP {item})"
-    return ""
+def run_impact(args) -> int:
+    """``impact --server URL --cve ID`` (ref cli.py ``run_impact``): one
+    HTTP query against a replica's slice. A partial answer
+    (``complete: false``) still exits 0 — Federator semantics; the
+    flag is the caller's signal."""
+    import urllib.error
+    from .impact.federate import fetch_impact
+    try:
+        out = fetch_impact(args.server, args.cve,
+                           token=args.auth_token,
+                           token_header=args.token_header,
+                           timeout_s=args.timeout)
+    except (urllib.error.URLError, OSError, ValueError) as e:
+        print(f"error: impact query: {e}", file=sys.stderr)
+        return 1
+    print(json.dumps(out, indent=2, sort_keys=True))
+    return 0
 
 
 def run_server(args) -> int:
@@ -1691,14 +1725,14 @@ def run_server(args) -> int:
     drains (``rpc/server.py::serve_forever``). ``--fault-spec`` reaches
     the RPC handler and the memo; ``POST /k8s/admission`` answers
     from ``--admission-policy`` with images resolved under
-    ``--images-dir``. A flag of a later item is refused before any
-    work; ``cuda`` without a card, and a kernel that does not build at
+    ``--images-dir``. ``--impact-index`` rebuilds the index from the
+    memo tier at boot and serves ``GET /impact``; ``--prewarm-members``
+    walks this replica's post-join slice of the tier before
+    ``/healthz`` says ``ok``; ``--federate-peers`` serves ``GET
+    /metrics/federate`` and the fleet verdicts under ``/slo``. ``cuda``
+    without a card, and a kernel that does not build at
     ``--compile-cache``, fail the boot."""
     from .rpc.server import ScanServer, serve_forever
-    refused = _server_refused(args)
-    if refused:
-        print(f"error: {refused}", file=sys.stderr)
-        return 1
     host, _, port = args.listen.rpartition(":")
     if not port.isdigit():
         print(f"error: --listen needs host:port, got {args.listen!r}",
@@ -1714,6 +1748,20 @@ def run_server(args) -> int:
     except ValueError as e:
         print(f"error: --admission-policy: {e}", file=sys.stderr)
         return 2
+    from .obs.federate import Federator, parse_peers
+    try:
+        peers = parse_peers(args.federate_peers)
+    except ValueError as e:
+        print(f"error: --federate-peers: {e}", file=sys.stderr)
+        return 2
+    prewarm_members = [m.strip() for m in args.prewarm_members.split(",")
+                       if m.strip()]
+    for flag, wanted in (("--impact-index", args.impact_index),
+                         ("--prewarm-members", prewarm_members)):
+        if wanted and args.no_memo:
+            print(f"error: {flag} needs the findings memo (drop "
+                  "--no-memo)", file=sys.stderr)
+            return 2
     if args.backend == "cuda":
         resolve_device(args.backend)     # no card: fail the boot
     t0 = time.perf_counter()
@@ -1767,6 +1815,10 @@ def run_server(args) -> int:
             config=cfg, backend=args.backend,
             secret_scanner=BatchSecretScanner(backend=args.backend))
     cache = make_cache(args.cache_dir)
+    federator = Federator(
+        peers, token=args.auth_token, token_header=args.token_header,
+        timeout_s=args.federate_timeout,
+        stale_after_s=args.federate_stale_after) if peers else None
     try:
         memo = None if args.no_memo else _server_memo(args, cache,
                                                       injector)
@@ -1775,6 +1827,14 @@ def run_server(args) -> int:
         if scheduler is not None:
             scheduler.close()
         return 1
+    impact = None
+    if args.impact_index:
+        from .impact import ImpactIndex
+        impact = ImpactIndex(store=memo.store,
+                             name=args.replica_name or args.listen)
+        # a restarted / rescheduled replica recovers its slice from
+        # the shared memo tier before taking queries
+        impact.rebuild(memo, store)
     from .obs.profiler import DeviceTraceError, device_trace
     window = float(os.environ.get("TRIVY_TPU_PROFILE_SECONDS", "60"))
     adm_runner = None
@@ -1789,7 +1849,9 @@ def run_server(args) -> int:
                 slos=None if scheduler is not None else slos,
                 memo=memo, replica_name=args.replica_name or args.listen,
                 compile_cache_dir=args.compile_cache,
-                backend=args.backend)
+                backend=args.backend, federator=federator, impact=impact,
+                prewarm_members=prewarm_members,
+                prewarm_deadline_s=args.prewarm_deadline)
             server.fault_injector = injector
             server.admission, adm_runner = _admission_controller(
                 args, server)

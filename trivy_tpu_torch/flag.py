@@ -135,13 +135,38 @@ def walk_parsers(parser):
                     yield from walk_parsers(sub)
 
 
+def _command_parser(parser, argv):
+    """The subcommand parser ``argv`` names (its first positional
+    token, past the top level's ``--config FILE``), or None."""
+    argv = list(argv or [])
+    i = 0
+    while i < len(argv):
+        tok = argv[i]
+        i += 1
+        if tok in ("--config", "-c"):
+            i += 1
+        elif not tok.startswith("-"):
+            for action in parser._actions:
+                choices = getattr(action, "choices", None)
+                if isinstance(choices, dict) and tok in choices:
+                    return choices[tok]
+            return None
+    return None
+
+
 def apply_external_defaults(parser, argv) -> None:
     """Rewrite parser defaults from env + config file so explicit CLI
-    flags still win (viper's layering, options.go:140-162)."""
+    flags still win (viper's layering, options.go:140-162). A flag
+    marked ``env_local`` takes its env/config value only when its own
+    subcommand runs (``impact --timeout``, seconds, beside the scans'
+    ``--timeout`` durations: one ``TRIVY_TIMEOUT`` fits only one)."""
     config = _load_config_file(argv or [])
+    running = _command_parser(parser, argv)
     for p in walk_parsers(parser):
         for action in p._actions:
             if not action.option_strings:
+                continue
+            if getattr(action, "env_local", False) and p is not running:
                 continue
             longs = [o for o in action.option_strings
                      if o.startswith("--")]

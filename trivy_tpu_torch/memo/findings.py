@@ -31,8 +31,10 @@ on the memo's ``backend``: ``cuda`` unless the caller asked for
 
 The lookup, the store and the hot swap's re-match record the
 reference's ``memo_lookup``, ``memo_store`` and ``delta_rematch``
-phase spans on the active span. Not here yet: the reference's
-inverted impact index (``attach_impact``, ``impact/``, ROADMAP A.9g).
+phase spans on the active span. ``attach_impact`` wires the
+inverted impact index (``impact/index.py``): every entry store,
+corrupt drop and hot-swap migration maintains it as a side effect,
+and a swap's newly affected images go out as push events.
 """
 
 from __future__ import annotations
@@ -82,7 +84,8 @@ class MemoPlan:
     refs: list = field(default_factory=list)       # keep ids stable
     queries_hit: int = 0
     queries_miss: int = 0
-    # the generation this partition keyed against
+    # the generation this partition keyed against — resolve derives
+    # impact-index postings from stored entries under the SAME db
     db: object = None
 
 
@@ -120,6 +123,16 @@ class FindingsMemo:
         self._lock = threading.Lock()
         self._journal: set = set()
         self._ctx_cache: dict = {}
+        # optional inverted impact index (impact/index.py): memo
+        # stores/evictions/migrations mirror into it write-through
+        self.impact = None
+
+    def attach_impact(self, index) -> None:
+        """Wire an :class:`impact.index.ImpactIndex`: every entry
+        store, corrupt drop, and hot-swap migration from here on
+        maintains the inverted (package, CVE) → layers index as a
+        side effect."""
+        self.impact = index
 
     # ---- context ----
 
@@ -166,6 +179,8 @@ class FindingsMemo:
             log.warning("dropping corrupt memo entry %s: %r",
                         key[:16], e)
             self.store.delete(key)
+            if self.impact is not None:
+                self.impact.drop_entry(key)
             return None
         with self._lock:
             self._journal.add(key)
@@ -228,6 +243,14 @@ class FindingsMemo:
         plan = MemoPlan()
         plan.db = db
         drop: set = set()
+        if self.impact is not None:
+            # image → memoizable-layer edge for the inverted index
+            # (tenant rides PreparedScan from the server's scope)
+            self.impact.observe_image(
+                getattr(target, "name", "")
+                or getattr(target, "artifact_id", ""),
+                sorted(groups),
+                tenant=getattr(prepared, "tenant", ""))
         with phase_span("memo_lookup", layers=len(groups),
                         queries=len(queries)):
             for bid, qs in groups.items():
@@ -309,6 +332,12 @@ class FindingsMemo:
                         sub["n"] = n_jobs
                         entry["subs"][qsig] = sub
                     self._store(key, entry)
+                    if self.impact is not None and \
+                            plan.db is not None:
+                        from ..impact.index import entry_postings
+                        self.impact.set_entry(
+                            key, entry["blob"],
+                            entry_postings(entry, plan.db))
         return detected + plan.hits
 
     # ---- db hot swap ----
@@ -382,9 +411,10 @@ class FindingsMemo:
         t0 = time.perf_counter()
         for key in keys:
             if key.startswith("impact-"):
-                # the reference's impact-index image records ride the
-                # same store but are not memo entries — _load would
-                # reject their envelope as corrupt and DELETE them
+                # impact-index image records ride the same store
+                # (impact.index.IMPACT_KEY_PREFIX) but are not memo
+                # entries — _load would reject their envelope as
+                # corrupt and DELETE them
                 continue
             entry = self._load(key)
             if entry is None or entry.get("ctx") != old_ctx:
@@ -399,6 +429,10 @@ class FindingsMemo:
             if not touched:
                 t1 = time.perf_counter()
                 self._store(new_key, entry)
+                if self.impact is not None:
+                    # delta-untouched: same advisory content, same
+                    # verdicts — postings carry over by rename
+                    self.impact.rename_entry(key, new_key)
                 self._drop_old(key, new_key)
                 t_store += time.perf_counter() - t1
                 out["migrated"] += 1
@@ -428,10 +462,22 @@ class FindingsMemo:
                 updates[ui][2]["subs"][qsig]["hits"].append(li)
         t_rematch = time.perf_counter() - t0 - t_store
         t1 = time.perf_counter()
+        new_blobs: set = set()
         for new_key, old_key, entry in updates:
             for sub in entry["subs"].values():
                 sub["hits"] = sorted(sub.get("hits", []))
             self._store(new_key, entry)
+            if self.impact is not None:
+                from ..impact.index import entry_postings
+                # rename first so the set_entry diff runs against
+                # the old postings — only genuinely NEW (pkg, CVE)
+                # pairs trigger the push stream
+                self.impact.rename_entry(old_key, new_key)
+                added = self.impact.set_entry(
+                    new_key, entry["blob"],
+                    entry_postings(entry, new_db))
+                if added:
+                    new_blobs.add(entry["blob"])
             self._drop_old(old_key, new_key)
         t_store += time.perf_counter() - t1
         out["rematch_entries"] = len(updates)
@@ -444,6 +490,10 @@ class FindingsMemo:
         MEMO_METRICS.inc("migrated_entries", out["migrated"])
         MEMO_METRICS.inc("delta_rematched", out["invalidated_subs"])
         MEMO_METRICS.inc("delta_invalidated", out["dropped_subs"])
+        if self.impact is not None and new_blobs:
+            # each shard emits its newly-affected image set as
+            # high-priority, tenant-scoped re-scans (impact/push.py)
+            out["push_images"] = self.impact.emit_push(new_blobs)
         if updates or out["migrated"]:
             log.info("memo hot-swap: %d migrated, %d re-matched "
                      "entries (%d jobs), %d subs invalidated",
@@ -458,6 +508,10 @@ class FindingsMemo:
         if old_key == new_key:
             return
         self.store.delete(old_key)
+        if self.impact is not None:
+            # no-op when the entry was renamed first — covers any
+            # future caller that drops without migrating
+            self.impact.drop_entry(old_key)
         with self._lock:
             self._journal.discard(old_key)
 

@@ -10,8 +10,8 @@ spans' CUDA event stamps (``busy.py``) and the device trace import
 torch when they run. ``prom.py`` renders the scan server's
 ``/metrics`` as Prometheus text, ``procstats.py`` reads the process's
 own RSS, fds and threads, and ``propagate.py`` carries a trace context
-across the RPC seam; fleet federation (``federate.py``) and the
-clock-offset half of ``propagate.py`` are ROADMAP A.9i.
+across the process seams and estimates clock offsets between them;
+``federate.py`` merges a replica fleet's expositions and SLO verdicts.
 """
 
 from .cost import (COST_LEDGER, CostLedger, TenantBudget, balance,

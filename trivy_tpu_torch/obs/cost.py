@@ -31,10 +31,10 @@ inside its own WFQ lane) — the grammar mirrors ``--tenant-config``
 (:func:`parse_budget_config`).
 
 ``export_state`` is the age-keyed export that the scan server's
-``GET /costs`` carries; the rest of the federation half of the
-reference (``merge_cost_exports``, ``fetch_costs``,
-``federated_costs``: the ``/costs`` rollup across replicas) comes
-with ROADMAP A.9i.
+``GET /costs`` carries; :func:`merge_cost_exports` sums N replicas'
+exports and :func:`federated_costs` is the fleet rollup over their
+``/costs`` (partial answers with a ``complete`` flag, never an
+error).
 """
 
 from __future__ import annotations
@@ -337,6 +337,54 @@ class CostLedger:
                 "cum": cum, "buckets": buckets}
 
 
+def merge_cost_exports(exports) -> dict:
+    """Sum N replicas' :meth:`CostLedger.export_state` payloads by
+    (tenant) and (age, tenant) — same-age buckets across replicas
+    cover the same trailing wall interval, so addition is the whole
+    merge. Tenant rows past the cap fold into ``other`` (the
+    cardinality rule holds fleet-wide, not just per replica). Malformed entries
+    are dropped, never fatal."""
+    cum: dict = {}
+    buckets: dict = {}
+
+    def fold(table: dict, tenant: str) -> dict:
+        # top-K + other: the fleet-wide merge honors the same
+        # cardinality cap as each replica's own books
+        if tenant not in table and \
+                len(table) >= MAX_COST_TENANTS:
+            tenant = "other"
+        return table.setdefault(tenant, _zero_vec())
+
+    def add(table: dict, tenant, vec) -> None:
+        if not isinstance(tenant, str) or not isinstance(vec, dict):
+            return
+        row = fold(table, tenant[:64])
+        for k in VECTOR_KEYS:
+            try:
+                row[k] += float(vec.get(k, 0.0))
+            except (TypeError, ValueError):
+                continue
+        return
+
+    for exp in exports:
+        if not isinstance(exp, dict):
+            continue
+        for tenant, vec in (exp.get("cum") or {}).items():
+            add(cum, tenant, vec)
+        for age, table in (exp.get("buckets") or {}).items():
+            if not isinstance(table, dict):
+                continue
+            try:
+                age_key = str(int(age))
+            except (TypeError, ValueError):
+                continue
+            dst = buckets.setdefault(age_key, {})
+            for tenant, vec in table.items():
+                add(dst, tenant, vec)
+    return {"schema": 1, "bucket_s": _BUCKET_S,
+            "cum": cum, "buckets": buckets}
+
+
 def balance(attributed_s: float, measured_s: float,
             tolerance: float = 0.02) -> dict:
     """The accounting identity as a verdict: attributed per-tenant
@@ -356,6 +404,104 @@ def balance(attributed_s: float, measured_s: float,
             "attributed_s": round(attributed_s, 6),
             "measured_s": round(measured_s, 6),
             "skew": round(skew, 6), "tolerance": tolerance}
+
+
+# the process-wide books every scheduler/scanner charges into
+# (mirroring RING_METRICS, MEMO_METRICS et al.)
+COST_LEDGER = CostLedger()
+
+
+def fetch_costs(url: str, token: str = "",
+                token_header: str = "Trivy-Token",
+                timeout_s: float = 2.0) -> dict:
+    """One replica's ``GET /costs`` — raises on transport/decode
+    failure (the fan-out absorbs it into a down row)."""
+    import urllib.request
+    req = urllib.request.Request(url.rstrip("/") + "/costs")
+    if token:
+        req.add_header(token_header, token)
+    with urllib.request.urlopen(req, timeout=timeout_s) as resp:
+        doc = json.loads(resp.read().decode("utf-8"))
+    if not isinstance(doc, dict):
+        raise ValueError("costs answer is not a JSON object")
+    return doc
+
+
+def federated_costs(replicas, token: str = "",
+                    token_header: str = "Trivy-Token",
+                    timeout_s: float = 2.0, fan_in: int = 8,
+                    fetch=None) -> dict:
+    """Fleet cost rollup over ``[(name, url), ...]`` — Federator
+    semantics (obs/federate.py): bounded fan-in, per-peer timeout, partial
+    answers with a ``complete`` flag, never an error. ``fetch(url)
+    -> dict`` is injectable so unit tests exercise the merge
+    without sockets."""
+    fetch = fetch or (lambda u: fetch_costs(
+        u, token=token, token_header=token_header,
+        timeout_s=timeout_s))
+    replicas = list(replicas)
+    rows: list = [None] * len(replicas)
+    sem = threading.Semaphore(max(1, int(fan_in)))
+
+    def work(i: int, name: str, url: str) -> None:
+        with sem:
+            try:
+                doc = fetch(url)
+            except Exception as e:  # noqa: BLE001 — a down peer is
+                # the condition federation exists to absorb: mark
+                # it, answer partially
+                rows[i] = {"replica": name, "up": False,
+                           "complete": False, "error": repr(e)}
+                return
+            rows[i] = {"replica": name, "up": True,
+                       "complete": bool(doc.get("complete", True)),
+                       "error": "", "answer": doc}
+
+    threads = [threading.Thread(target=work, args=(i, n, u),
+                                daemon=True)
+               for i, (n, u) in enumerate(replicas)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        # second-layer backstop over the per-fetch timeout, so a
+        # wedged socket cannot wedge the rollup
+        t.join(timeout_s * 2 + 1.0)
+    for i, (name, _url) in enumerate(replicas):
+        if rows[i] is None:
+            rows[i] = {"replica": name, "up": False,
+                       "complete": False, "error": "query timeout"}
+
+    exports = []
+    measured_s = 0.0
+    for row in rows:
+        answer = row.get("answer")
+        if not answer:
+            continue
+        if isinstance(answer.get("export"), dict):
+            exports.append(answer["export"])
+        try:
+            measured_s += float(answer.get("measured_device_s", 0.0))
+        except (TypeError, ValueError):
+            pass
+    merged = merge_cost_exports(exports)
+    tenants = {}
+    for t, vec in sorted(merged["cum"].items()):
+        tenants[t] = {k: round(v, 6) for k, v in vec.items()}
+        tenants[t]["device_s"] = round(device_seconds(vec), 6)
+    attributed_s = sum(device_seconds(v)
+                       for v in merged["cum"].values())
+    complete = all(r["up"] and r["complete"] for r in rows) \
+        if rows else True
+    return {
+        "tenants": tenants,
+        "attributed_device_s": round(attributed_s, 6),
+        "measured_device_s": round(measured_s, 6),
+        "balance": balance(attributed_s, measured_s),
+        "complete": complete,
+        "replicas": [{k: r[k] for k in
+                      ("replica", "up", "complete", "error")}
+                     for r in rows],
+    }
 
 
 # the process-wide books every scheduler/scanner charges into

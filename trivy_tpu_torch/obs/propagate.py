@@ -1,23 +1,35 @@
-"""Cross-process trace propagation (reference:
-``trivy_tpu/obs/propagate.py``, its context half; docs/observability.md
-"Fleet plane").
+"""Cross-process trace propagation + clock-offset handshake — the
+fleet plane's transport layer (reference: ``trivy_tpu/obs/propagate.py``;
+docs/observability.md "Fleet plane").
 
-**TraceContext** — a W3C-traceparent-style context
-(``00-<trace_id>-<parent_span_id>-01``) carried across the RPC seam:
-the client injects the active span's context into a Scan body (or the
-``Traceparent`` header), and the server roots the request's span tree
-under it. Ids are validated with the same ``^[0-9a-f]{8,64}$``
-discipline as :mod:`obs.trace` (fullmatch — they end up in
-flight-recorder dump file names), so a hostile header degrades to "no
-context", never to a bad id.
+Two independent pieces:
 
-The clock-offset handshake (``ClockServer``, ``ClockClient``,
-``estimate_offset``, the server's ``GET /clock``) comes with the fleet
-plane, ROADMAP A.9i.
+* **TraceContext** — a W3C-traceparent-style context
+  (``00-<trace_id>-<parent_span_id>-01``) carried across every
+  process seam: RPC Scan bodies (or the ``Traceparent`` header), the
+  simhost spec file, and watch notification envelopes. Ids are
+  validated with the same ``^[0-9a-f]{8,64}$`` discipline as
+  :mod:`obs.trace` (fullmatch — they end up in flight-recorder dump
+  file names), so a hostile header degrades to "no context", never
+  to a bad id.
+
+* **Clock-offset estimation** — a tiny monotonic-clock handshake
+  (:class:`ClockServer` over TCP for simulated hosts, ``GET /clock``
+  on the scan server) plus :func:`estimate_offset`: midpoint-of-RTT
+  over the minimum-RTT sample, so ``local ≈ remote + offset`` with
+  error bounded by rtt/2. Monotonic only — wall clocks never enter
+  timeline math.
+
+Import-light: stdlib only at module scope.
 """
 
 from __future__ import annotations
 
+import json
+import os
+import socket
+import threading
+import time
 from dataclasses import dataclass
 from typing import Optional
 
@@ -133,3 +145,168 @@ def extract(body, headers=None) -> TraceContext:
     if _valid_id(legacy):
         return TraceContext(trace_id=legacy)
     return EMPTY_CONTEXT
+
+
+# --- monotonic clock-offset handshake -----------------------------
+
+@dataclass(frozen=True)
+class OffsetEstimate:
+    """``local_mono ≈ remote_mono + offset_s``, with the midpoint
+    error bounded by ``error_bound_s`` (= best rtt / 2): the remote
+    stamp was taken somewhere inside the probe's [t0, t1] window."""
+
+    offset_s: float
+    error_bound_s: float
+    rtt_s: float
+    samples: int
+
+
+def estimate_offset(probe, samples: int = 8) -> OffsetEstimate:
+    """Pairwise clock-offset estimate from ``samples`` round trips of
+    ``probe()`` (a callable returning the peer's ``time.monotonic()``
+    as float). Uses the minimum-RTT sample — the one with the
+    tightest error bound — and the midpoint-of-RTT convention:
+    ``offset = (t0+t1)/2 - remote``."""
+    best_rtt, best_offset = None, 0.0
+    n = 0
+    for _ in range(max(1, int(samples))):
+        t0 = time.monotonic()
+        remote = float(probe())
+        t1 = time.monotonic()
+        n += 1
+        rtt = max(0.0, t1 - t0)
+        if best_rtt is None or rtt < best_rtt:
+            best_rtt = rtt
+            best_offset = (t0 + t1) / 2.0 - remote
+    return OffsetEstimate(offset_s=best_offset,
+                          error_bound_s=(best_rtt or 0.0) / 2.0,
+                          rtt_s=best_rtt or 0.0, samples=n)
+
+
+class ClockServer:
+    """Line-oriented TCP clock responder a simulated host runs so the
+    coordinating process can handshake offsets while the host scans:
+    every received line is answered with ``{"mono": <monotonic>}\\n``.
+    Daemon threads, bounded to loopback by default, closed
+    idempotently."""
+
+    def __init__(self, addr: str = "127.0.0.1", port: int = 0):
+        self._sock = socket.create_server((addr, port))
+        self._sock.settimeout(0.25)
+        self.addr = addr
+        self.port = self._sock.getsockname()[1]
+        self._closed = False
+        self.requests = 0
+        self._thread = threading.Thread(
+            target=self._serve, name="trivy-tpu-clock", daemon=True)
+        self._thread.start()
+
+    def write_port_file(self, path: str) -> None:
+        """Publish the bound port atomically (tmp + rename), so a
+        parent polling the file never reads a partial write."""
+        tmp = f"{path}.tmp.{os.getpid()}"
+        with open(tmp, "w", encoding="utf-8") as f:
+            f.write(str(self.port))
+        os.replace(tmp, path)
+
+    def _serve(self) -> None:
+        while not self._closed:
+            try:
+                conn, _ = self._sock.accept()
+            except socket.timeout:
+                continue
+            except OSError:
+                return
+            t = threading.Thread(target=self._answer, args=(conn,),
+                                 daemon=True)
+            t.start()
+
+    def _answer(self, conn) -> None:
+        try:
+            conn.settimeout(5.0)
+            buf = b""
+            while not self._closed:
+                chunk = conn.recv(256)
+                if not chunk:
+                    return
+                buf += chunk
+                while b"\n" in buf:
+                    _, buf = buf.split(b"\n", 1)
+                    self.requests += 1
+                    line = json.dumps(
+                        {"mono": time.monotonic()}) + "\n"
+                    conn.sendall(line.encode("ascii"))
+        except OSError:
+            pass
+        finally:
+            try:
+                conn.close()
+            except OSError:
+                pass
+
+    def close(self) -> None:
+        self._closed = True
+        try:
+            self._sock.close()
+        except OSError:
+            pass
+
+
+class ClockClient:
+    """One persistent connection to a :class:`ClockServer`; its
+    bound :meth:`probe` feeds :func:`estimate_offset` (a persistent
+    connection keeps RTT jitter down versus connect-per-sample)."""
+
+    def __init__(self, addr: str, port: int, timeout_s: float = 2.0):
+        self._sock = socket.create_connection(
+            (addr, int(port)), timeout=timeout_s)
+        self._buf = b""
+
+    def probe(self) -> float:
+        self._sock.sendall(b"\n")
+        while b"\n" not in self._buf:
+            chunk = self._sock.recv(256)
+            if not chunk:
+                raise ConnectionError("clock server closed")
+            self._buf += chunk
+        line, self._buf = self._buf.split(b"\n", 1)
+        return float(json.loads(line.decode("ascii"))["mono"])
+
+    def close(self) -> None:
+        try:
+            self._sock.close()
+        except OSError:
+            pass
+
+
+def read_port_file(path: str, timeout_s: float = 10.0) -> int:
+    """Poll for a :meth:`ClockServer.write_port_file` publication."""
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        try:
+            with open(path, "r", encoding="utf-8") as f:
+                text = f.read().strip()
+            if text:
+                return int(text)
+        except (OSError, ValueError):
+            pass
+        time.sleep(0.01)
+    raise TimeoutError(f"clock port file {path!r} never appeared")
+
+
+def http_clock_probe(url: str, token: str = "",
+                     timeout_s: float = 2.0):
+    """A probe() over the RPC server's ``GET /clock`` route, for
+    offset handshakes between fleet replicas (returns a callable for
+    :func:`estimate_offset`)."""
+    import urllib.request
+
+    def probe() -> float:
+        req = urllib.request.Request(url.rstrip("/") + "/clock")
+        if token:
+            req.add_header("Trivy-Token", token)
+        with urllib.request.urlopen(req, timeout=timeout_s) as resp:
+            doc = json.loads(resp.read().decode("utf-8"))
+        return float(doc["mono"])
+
+    return probe

@@ -24,9 +24,11 @@ the tenancy layer's shed accounting, not availability events.
 Clock discipline: the ring keys and window math are
 ``time.monotonic`` only; wall time appears solely as exemplar labels.
 
-The federation half of the reference (``export_state``,
-``merge_exports``, ``verdicts_from_export``) comes with the serving
-plane, ROADMAP A.9.
+Fleet federation (``obs/federate.py``): :meth:`SloEngine.export_state`
+serializes the bucket ring keyed by AGE, :func:`merge_exports` sums N
+replicas' exports and :func:`verdicts_from_export` recomputes the
+burn rates over the merge — the same math as one engine fed the
+union event stream.
 """
 
 from __future__ import annotations
@@ -403,3 +405,152 @@ class SloEngine:
     def snapshot(self) -> dict:
         """The /metrics shape: verdict list + dump counter."""
         return {"slos": self.verdicts(), "dumps": self.dumps}
+
+    # --- fleet federation (docs/observability.md "Fleet plane") ---
+
+    def export_state(self, now=None) -> dict:
+        """Serializable ring state for federation. Buckets are keyed
+        by AGE (now_bucket - bucket) rather than the raw monotonic
+        bucket index, because monotonic clocks share no epoch across
+        processes — age is the only transferable coordinate, and it
+        keeps the export monotonic-only per the clock rule."""
+        if now is None:
+            now = time.monotonic()
+        now_bucket = int(now / _BUCKET_S)
+        with self._lock:
+            slos = []
+            for book in self._books.values():
+                s = book.slo
+                slos.append({
+                    "slo": {"name": s.name, "kind": s.kind,
+                            "objective": s.objective,
+                            "threshold_s": s.threshold_s,
+                            "tenant": s.tenant,
+                            "min_priority": s.min_priority},
+                    "good": book.good,
+                    "bad": book.bad,
+                    "buckets": [[now_bucket - b, g, bd]
+                                for b, (g, bd) in
+                                book.ring.items()],
+                    "exemplar_trace_ids": [e.trace_id for e in
+                                           book.exemplars],
+                })
+        return {"bucket_s": _BUCKET_S, "slos": slos}
+
+
+def merge_exports(exports: list) -> dict:
+    """Sum N replicas' :meth:`SloEngine.export_state` documents by
+    (SLO name, bucket age). The first export's SLO definition wins
+    per name — a fleet is expected to run one config; a replica
+    mid-rolling-deploy just contributes its counts."""
+    merged: dict = {}
+    order: list = []
+    for ex in exports:
+        if not isinstance(ex, dict):
+            continue
+        entries = ex.get("slos")
+        if not isinstance(entries, list):
+            continue
+        for entry in entries:
+            # peer documents arrive over the network: a malformed
+            # entry is dropped, never allowed to poison the merge
+            if not isinstance(entry, dict):
+                continue
+            slo = entry.get("slo") or {}
+            if not isinstance(slo, dict):
+                continue
+            name = str(slo.get("name") or "")
+            if not name:
+                continue
+            slot = merged.get(name)
+            if slot is None:
+                slot = merged[name] = {
+                    "slo": dict(slo), "good": 0, "bad": 0,
+                    "_ages": {}, "exemplar_trace_ids": []}
+                order.append(name)
+            slot["good"] += int(entry.get("good") or 0)
+            slot["bad"] += int(entry.get("bad") or 0)
+            for age, g, bd in entry.get("buckets") or []:
+                acc = slot["_ages"].setdefault(int(age), [0, 0])
+                acc[0] += int(g)
+                acc[1] += int(bd)
+            for tid in entry.get("exemplar_trace_ids") or []:
+                if tid not in slot["exemplar_trace_ids"] and \
+                        len(slot["exemplar_trace_ids"]) < \
+                        _EXEMPLARS:
+                    slot["exemplar_trace_ids"].append(tid)
+    slos = []
+    for name in order:
+        slot = merged[name]
+        ages = slot.pop("_ages")
+        slot["buckets"] = [[a, g, bd] for a, (g, bd) in
+                           sorted(ages.items())]
+        slos.append(slot)
+    return {"bucket_s": _BUCKET_S, "slos": slos}
+
+
+def verdicts_from_export(export: dict, now=None,
+                         fast_burn: float = FAST_WINDOWS[3],
+                         slow_burn: float = SLOW_WINDOWS[3]) -> list:
+    """Recompute the multi-window burn rates over an exported (or
+    merged) bucket set — the SAME `_burn` math `verdicts()` runs, so
+    a federated verdict over N replicas equals a single engine fed
+    the union event stream (the unit tests prove byte-equality of
+    ok/burn/good/bad). Trip latches are per-engine state and are
+    reported from the merged counts' instantaneous view."""
+    if now is None:
+        now = time.monotonic()
+    now_bucket = int(now / _BUCKET_S)
+    out = []
+    for entry in (export or {}).get("slos") or []:
+        cfg = dict(entry.get("slo") or {})
+        try:
+            slo = SLO(name=str(cfg.get("name") or "slo"),
+                      kind=str(cfg.get("kind") or "availability"),
+                      objective=float(cfg.get("objective") or 0.99),
+                      threshold_s=float(cfg.get("threshold_s")
+                                        or 0.0),
+                      tenant=str(cfg.get("tenant") or ""),
+                      min_priority=int(cfg.get("min_priority")
+                                       or -(10 ** 9)))
+        except ValueError:
+            continue
+        book = _Book(slo=slo)
+        for age, g, bd in entry.get("buckets") or []:
+            slot = book.ring.setdefault(now_bucket - int(age),
+                                        [0, 0])
+            slot[0] += int(g)
+            slot[1] += int(bd)
+        burns = {
+            "5m": SloEngine._burn(book, now, FAST_WINDOWS[1]),
+            "1h": SloEngine._burn(book, now, FAST_WINDOWS[2]),
+            "30m": SloEngine._burn(book, now, SLOW_WINDOWS[1]),
+            "6h": SloEngine._burn(book, now, SLOW_WINDOWS[2]),
+        }
+        fast_thr, slow_thr = _trip_thresholds(
+            slo.kind, fast_burn, slow_burn)
+        fast = burns["5m"] >= fast_thr and burns["1h"] >= fast_thr
+        slow = burns["30m"] >= slow_thr and \
+            burns["6h"] >= slow_thr
+        verdict = {
+            "name": slo.name,
+            "kind": slo.kind,
+            "objective": slo.objective,
+            "ok": not (fast or slow),
+            "burn": {k: round(v, 4) for k, v in burns.items()},
+            "fast_tripped": fast,
+            "slow_tripped": slow,
+            "good": int(entry.get("good") or 0),
+            "bad": int(entry.get("bad") or 0),
+            "exemplar_trace_ids": list(
+                entry.get("exemplar_trace_ids") or []),
+        }
+        if slo.kind == "latency":
+            verdict["threshold_s"] = slo.threshold_s
+        if slo.kind == "efficiency":
+            verdict["efficiency"] = round(_window_share(
+                book, now, FAST_WINDOWS[1]), 4)
+        if slo.tenant:
+            verdict["tenant"] = slo.tenant
+        out.append(verdict)
+    return out

@@ -355,8 +355,8 @@ def from_tracer(tracer, window=None) -> Timeline:
 # --- fleet merge ----------------------------------------------------
 #
 # N processes export their spans (plus their monotonic epoch), the
-# coordinator estimates pairwise clock offsets (the reference's
-# obs/propagate.py, ROADMAP A.9i) and merges everything onto ONE
+# coordinator estimates pairwise clock offsets
+# (obs/propagate.py::estimate_offset) and merges everything onto ONE
 # aligned monotonic axis. Each host
 # keeps its own exact partition; the only new cause is
 # ``peer_straggler`` — idle a host spent with no local explanation
@@ -440,9 +440,8 @@ def export_tracer(tracer, process: str = "") -> dict:
 
 def load_export(doc: dict, offset_s: float = 0.0) -> list:
     """Hydrate one export back into Timeline-compatible spans, with
-    ``offset_s`` (local ≈ remote + offset; the reference estimates it
-    in ``obs/propagate.py::estimate_offset``, ROADMAP A.9i)
-    applied."""
+    ``offset_s`` (local ≈ remote + offset, as
+    ``obs/propagate.py::estimate_offset`` estimates it) applied."""
     return [SpanLite(d, offset_s=offset_s)
             for d in (doc.get("spans") or [])]
 

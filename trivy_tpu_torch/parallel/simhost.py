@@ -25,12 +25,15 @@ mesh: the first min(N, visible) cards, or the CPU named N times.
 Resident advisory tables are compiled per process: each host places
 its own copy, which is the per-host replication of the real pod.
 
-The output's ``timeline`` is this process's span export
-(``obs/timeline.py::export_tracer``), the unit the reference's
-``MergedTimeline`` aligns. The reference's spec keys ``traceparent``
-and ``clock_port_file`` (the cross-process trace context and the
-``ClockServer`` that the parent estimates clock offsets against, both
-in ``obs/propagate.py``) are ROADMAP A.9i and are refused by name.
+Fleet observability (docs/observability.md "Fleet plane"): an
+optional spec ``"traceparent"`` roots this process's span tree under
+the parent's span — the parent's flight recorder then names every
+host in ONE cross-process trace. ``"clock_port_file"`` starts a
+monotonic ``ClockServer`` and writes its port, so the parent can
+estimate this process's clock offset pairwise. The output's
+``trace`` carries the ids for child-link checks and ``timeline`` is
+this process's span export (``obs/timeline.py::export_tracer``), the
+unit ``MergedTimeline`` aligns.
 """
 
 from __future__ import annotations
@@ -38,11 +41,6 @@ from __future__ import annotations
 import json
 import os
 import sys
-
-UNPORTED_KEYS = {
-    "traceparent": "obs/propagate.py's trace context (ROADMAP A.9i)",
-    "clock_port_file": "obs/propagate.py's ClockServer (ROADMAP A.9i)"}
-
 
 def _normalized(results) -> list:
     out = []
@@ -73,17 +71,14 @@ def run_simhost(spec: dict, topo=None) -> dict:
     assign, indices, reports, trace, timeline}. Importable (a test
     calls it in-process for the single-host arm)."""
     from ..db import AdvisoryStore, CompiledDB
+    from ..obs.propagate import (EMPTY_CONTEXT, ClockServer,
+                                 parse_traceparent)
     from ..obs.timeline import export_tracer
     from ..obs.trace import get_tracer
     from ..runtime import BatchScanRunner
     from .multihost import (host_shard_layout, local_indices,
                             topology_from_env)
 
-    for key, what in UNPORTED_KEYS.items():
-        if spec.get(key):
-            raise NotImplementedError(
-                f"simhost spec key {key!r} needs {what}, which is not "
-                f"ported yet")
     topo = topology_from_env() if topo is None else topo
     paths = list(spec["paths"])
     volumes = [os.path.getsize(p) for p in paths]
@@ -105,9 +100,23 @@ def run_simhost(spec: dict, topo=None) -> dict:
         store=cdb, backend=backend, mesh=mesh,
         dispatch_depth=int(spec.get("dispatch_depth") or 2))
 
+    clock = None
+    port_file = str(spec.get("clock_port_file") or "")
+    if port_file:
+        clock = ClockServer()
+        clock.write_port_file(port_file)
+
     tracer = get_tracer()
     process = f"host{topo.process_id}"
-    root = tracer.start_span("simhost", attrs={"process": process})
+    ctx = parse_traceparent(
+        str(spec.get("traceparent") or "")) or EMPTY_CONTEXT
+    # the simhost root: a LOCAL root span (it completes this
+    # process's bucket) carrying the parent process's span as its
+    # remote parent, so the merged trace links across the seam
+    root = tracer.start_span(
+        "simhost", trace_id=ctx.trace_id,
+        remote_parent=ctx.parent_span_id,
+        attrs={"process": process})
     try:
         with root.activate():
             results = runner.scan_paths([paths[i] for i in mine])
@@ -115,6 +124,9 @@ def run_simhost(spec: dict, topo=None) -> dict:
     except BaseException:
         root.end(status="failed")
         raise
+    finally:
+        if clock is not None:
+            clock.close()
     return {
         "process_id": topo.process_id,
         "num_processes": topo.num_processes,
@@ -122,7 +134,8 @@ def run_simhost(spec: dict, topo=None) -> dict:
         "indices": mine,
         "reports": _normalized(results),
         "trace": {"trace_id": root.trace_id,
-                  "root_span_id": root.span_id},
+                  "root_span_id": root.span_id,
+                  "remote_parent": ctx.parent_span_id},
         "timeline": export_tracer(tracer, process=process),
     }
 

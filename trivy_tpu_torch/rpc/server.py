@@ -21,10 +21,14 @@ clients' default) taken as the card — and any other value answers
 owner, 404 otherwise, as the reference's; a ``fault_injector``
 (``faults.FaultInjector``, ``--fault-spec``) decides per POST whether
 to answer 500 unprocessed or to drop the response after processing.
-The routes whose owners are later ROADMAP items answer as the
-reference's server does without them (404: ``/impact``,
-``/metrics/federate``); ``/metrics/snapshot`` and ``/clock`` (the
-federation pull and the clock probe, A.9i) answer 404 too.
+The fleet routes are the reference's: ``GET /impact?cve=`` answers
+from an ``impact.ImpactIndex`` (404 without one), ``GET
+/metrics/federate`` from an ``obs.federate.Federator`` (404 without
+peers), ``GET /metrics/snapshot`` is the pull a federating front
+makes and ``GET /clock`` the monotonic clock probe. With
+``prewarm_members`` the server walks its post-join slice of the
+shared memo tier and stages its resident tables before ``/healthz``
+says ``ok`` (``warming`` until then).
 """
 
 from __future__ import annotations
@@ -244,7 +248,9 @@ class ScanServer:
                  replica_name: str = "self",
                  compile_cache_dir: str = "",
                  backend: str = "cuda", admission=None,
-                 watch_source=None):
+                 watch_source=None, federator=None, impact=None,
+                 prewarm_members=None,
+                 prewarm_deadline_s: float = 5.0):
         if backend == "cuda":
             from .. import resolve_device
             resolve_device(backend)         # no card: fail the boot
@@ -336,18 +342,29 @@ class ScanServer:
         # admission control"): admission: watch.AdmissionController
         # answering POST /k8s/admission (404 when unset);
         # watch_source: watch.WebhookSource fed by POST
-        # /registry/notifications (404 when unset). The fleet
-        # federation (A.9i) and the impact index (g.2) answer 404, as
-        # the reference's server does without their owners
+        # /registry/notifications (404 when unset)
         self.admission = admission
         self.watch_source = watch_source
+        # fleet federation (docs/observability.md "Fleet plane"):
+        # an obs.federate.Federator makes this replica a federating
+        # front — GET /metrics/federate pulls every peer's snapshot
+        # and serves the merged exposition + fleet SLO verdicts
+        self.federator = federator
         self.replica_name = replica_name
+        # inverted impact index (docs/serving.md "CVE impact
+        # queries"): GET /impact?cve= answers this replica's owned
+        # slice; the memo maintains the index write-through
+        self.impact = impact
+        if impact is not None and memo is not None:
+            memo.attach_impact(impact)
         # elastic lifecycle (docs/serving.md "Elastic lifecycle"):
         # the hot-digest recency book (exported on GET /handoff so a
-        # drain's ring successors prefetch the moving working set)
-        # and the boot-time kernel build + warm launch into a
-        # persistent build directory. The pre-join memo prewarm
-        # (``warming`` on /healthz) is ROADMAP A.9g/h.
+        # drain's ring successors prefetch the moving working set),
+        # the boot-time kernel build + warm launch into a persistent
+        # build directory, and the pre-join memo prewarm that keeps
+        # /healthz in the ``warming`` state until the post-join key
+        # ranges are staged (or the deadline bounds the walk into a
+        # cold join)
         from ..memo.warmth import HotSet
         self.hot = HotSet()
         self._warming = False
@@ -361,6 +378,57 @@ class ScanServer:
             self.compile_cache = boot_precompile(
                 cache_dir=compile_cache_dir, dfa_table=sieve.table,
                 run_specs=tuple(sieve.plan.run_specs), backend=backend)
+        if prewarm_members and self.memo is not None:
+            self._warming = True
+            threading.Thread(
+                target=self._prewarm,
+                args=(list(prewarm_members),
+                      max(0.0, prewarm_deadline_s)),
+                daemon=True,
+                name="scan-server-prewarm").start()
+
+    def _prewarm(self, members, deadline_s: float) -> None:
+        """Pre-join prewarm: the memo KEYSPACE is partitioned by
+        hashing key strings on the post-join ring (deterministic
+        cross-process, like request routing — though keys hash
+        independently of the route digests), the resident advisory
+        and DFA tables are staged on the server's device (the card
+        on ``cuda``; ``cpu-ref`` reads no resident tensor), and the
+        owned slice is walked out of the shared tier (staging page
+        and transport caches and proving reachability). Only then
+        does /healthz flip from ``warming`` — bounded by
+        ``deadline_s``, so a degraded memo tier costs warmth, never
+        the scale-up."""
+        from ..memo.warmth import range_walk
+        from ..router.lifecycle import LIFECYCLE_METRICS
+        from ..router.ring import Ring
+        LIFECYCLE_METRICS.inc("prewarm_runs")
+        try:
+            ring = Ring()
+            for m in members:
+                ring.add(str(m))
+            ring.add(self.replica_name)
+            if self.backend != "cpu-ref":
+                from ..ops.resident import prewarm_resident
+                prewarm_resident(self.backend)
+            res = range_walk(
+                self.memo.store,
+                lambda k: ring.owner(k) == self.replica_name,
+                deadline_s)
+            LIFECYCLE_METRICS.inc("prewarm_keys", res["keys"])
+            LIFECYCLE_METRICS.inc("prewarm_bytes", res["bytes"])
+            LIFECYCLE_METRICS.add_seconds(res["seconds"])
+            if res["deadline_exceeded"]:
+                LIFECYCLE_METRICS.inc("prewarm_deadline_exceeded")
+            if not res["complete"]:
+                LIFECYCLE_METRICS.inc("prewarm_cold_joins")
+            log.info("prewarm as %s: %d keys, %d bytes in %.3f s "
+                     "(complete=%s)", self.replica_name, res["keys"],
+                     res["bytes"], res["seconds"], res["complete"])
+        finally:
+            # ready is unconditional: prewarm buys warmth, it never
+            # gates liveness past its deadline
+            self._warming = False
 
     def build_info(self) -> dict:
         """The trivy_tpu_build_info identity labels (also mirrored
@@ -673,6 +741,10 @@ class ScanServer:
             out["watch"] = WATCH_METRICS.snapshot()
         if self.admission is not None:
             out["admission_controller"] = self.admission.stats()
+        if self.impact is not None:
+            # inverted-index gauges + maintenance counters
+            # (docs/serving.md "CVE impact queries")
+            out["impact"] = self.impact.stats()
         if "slo" not in out:
             out["slo"] = self.slo.snapshot()
         if "cost" not in out:
@@ -698,6 +770,8 @@ class ScanServer:
         out["trace"] = dict(self.tracer.stats(),
                             recorder=self.tracer.recorder.stats())
         out["build_info"] = self.build_info()
+        if self.federator is not None:
+            out["federation"] = self.federator.stats()
         return out
 
     def metrics_text(self, openmetrics: bool = False) -> str:
@@ -728,9 +802,36 @@ class ScanServer:
 
     def slo_verdicts(self) -> dict:
         """The ``GET /slo`` payload: per-SLO burn rates, trip state
-        and exemplar trace ids (docs/observability.md). The fleet
-        verdicts of a federating front are ROADMAP A.9i."""
-        return self.slo.snapshot()
+        and exemplar trace ids (docs/observability.md). A federating
+        front also answers the fleet question — ``fleet.slo_ok`` is
+        burn math over every replica's merged event buckets, with
+        ``complete: false`` flagging a partial view (peer down or
+        stale) rather than pretending the fleet is healthy."""
+        out = self.slo.snapshot()
+        if self.federator is not None:
+            rows = self.federator.collect()
+            out["fleet"] = self.federator.fleet_slo(
+                self.slo.export_state(), rows)
+        return out
+
+    def metrics_snapshot(self) -> dict:
+        """The ``GET /metrics/snapshot`` payload a federating front
+        pulls: replica identity, the full prom exposition, the SLO
+        engine's age-keyed bucket export (monotonic-only, so the
+        front can rebase it onto its own clock), and the cost
+        ledger's export in the same coordinate — the autoscaler
+        reads fleet cost-per-scan from it without a second pull."""
+        from ..obs.cost import COST_LEDGER
+        measured = self.scheduler.metrics.device_time_s() \
+            if self.scheduler is not None else 0.0
+        return {"name": self.replica_name,
+                "build_info": self.build_info(),
+                "prom": self.metrics_text(),
+                "slo_export": self.slo.export_state(),
+                "cost_export": {
+                    "export": COST_LEDGER.export_state(),
+                    "measured_device_s": round(measured, 6)},
+                "mono": time.monotonic()}
 
     def costs(self) -> dict:
         """The ``GET /costs`` payload: this replica's per-tenant
@@ -756,6 +857,30 @@ class ScanServer:
         """Collapsed-stack host profile over the last ``seconds``
         (whole ring when None) for ``GET /debug/profile``."""
         return self.profiler.collapsed(seconds)
+
+    def federate_text(self) -> str:
+        """The ``GET /metrics/federate`` exposition: this replica's
+        families merged with every reachable peer's, each sample
+        carrying a bounded-cardinality ``replica`` label, plus the
+        fleet SLO verdict gauges. Raises LookupError when the server
+        was started without ``--federate-peers``."""
+        if self.federator is None:
+            raise LookupError("federation not configured")
+        rows = self.federator.collect()
+        fleet = self.federator.fleet_slo(
+            self.slo.export_state(), rows)
+        return self.federator.render(
+            self.replica_name, self.metrics_text(), rows,
+            fleet=fleet)
+
+    def impact_query(self, cve: str) -> dict:
+        """The ``GET /impact?cve=`` payload: this replica's owned
+        slice of layers/images affected by one CVE. Raises
+        LookupError when the server runs without an impact index
+        (mirrors ``federate_text``'s unconfigured contract)."""
+        if self.impact is None:
+            raise LookupError("impact index not configured")
+        return self.impact.query(cve)
 
     # ---- dispatch ----
 
@@ -826,6 +951,9 @@ class DBWorker(threading.Thread):
 def _make_handler(server: ScanServer):
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"
+        # a reply's head and body go out in two writes: without this,
+        # a kept-alive client waits for its delayed ACK on each answer
+        disable_nagle_algorithm = True
 
         def log_message(self, fmt, *args):
             log.debug("http: " + fmt, *args)
@@ -860,16 +988,36 @@ def _make_handler(server: ScanServer):
         def do_GET(self):
             if self.path == "/healthz":
                 self._reply(200, server.health())
-            elif self.path == "/metrics/federate":
-                # the fleet exposition of a federating front (A.9i):
-                # token-gated, then 404 as the reference's without
-                # --federate-peers
+            elif self.path == "/metrics/snapshot":
+                # the federation pull: replica identity + prom text
+                # + age-keyed SLO bucket export, token-protected like
+                # every operational route
                 if not self._authorized():
                     return
-                self._reply(404, {
-                    "code": "bad_route",
-                    "msg": "federation not configured "
-                           "(--federate-peers)"})
+                self._reply(200, server.metrics_snapshot())
+            elif self.path == "/metrics/federate":
+                # fleet exposition: this replica merged with every
+                # reachable peer, one replica label per sample
+                if not self._authorized():
+                    return
+                try:
+                    text = server.federate_text()
+                except LookupError:
+                    self._reply(404, {
+                        "code": "bad_route",
+                        "msg": "federation not configured "
+                               "(--federate-peers)"})
+                    return
+                self._reply_text(
+                    200, text,
+                    "text/plain; version=0.0.4; charset=utf-8")
+            elif self.path == "/clock":
+                # monotonic clock probe for pairwise offset
+                # estimation (obs/propagate.py): token-protected —
+                # a clock readout fingerprints process uptime
+                if not self._authorized():
+                    return
+                self._reply(200, {"mono": time.monotonic()})
             elif self.path == "/metrics":
                 # /healthz stays open (probes), but the operational
                 # detail in /metrics honors the server token
@@ -934,22 +1082,26 @@ def _make_handler(server: ScanServer):
                     200, server.profile_text(seconds),
                     "text/plain; charset=utf-8")
             elif self.path.startswith("/impact"):
-                # the CVE impact query (A.9g): token-gated, a missing
-                # cve= is malformed, else 404 as the reference's
-                # without --impact-index
+                # CVE impact query (docs/serving.md "CVE impact
+                # queries"): this replica's owned index slice —
+                # token-gated operational data like /metrics
                 if not self._authorized():
                     return
                 from urllib.parse import parse_qs, urlsplit
                 q = parse_qs(urlsplit(self.path).query)
-                if not (q.get("cve") or [""])[0].strip():
+                cve = (q.get("cve") or [""])[0].strip()
+                if not cve:
                     self._reply(400, {"code": "malformed",
                                       "msg": "missing cve= query "
                                              "parameter"})
                     return
-                self._reply(404, {
-                    "code": "bad_route",
-                    "msg": "impact index not configured "
-                           "(--impact-index)"})
+                try:
+                    self._reply(200, server.impact_query(cve[:256]))
+                except LookupError:
+                    self._reply(404, {
+                        "code": "bad_route",
+                        "msg": "impact index not configured "
+                               "(--impact-index)"})
             elif self.path.startswith("/trace/"):
                 # per-request trace lookup (docs/observability.md):
                 # operational detail, so it honors the token too

@@ -39,8 +39,9 @@ path: each ref streams (``artifact/stream.py``: layer blobs inflate
 into the scan as they arrive, and the warm layers that ``blob_keyer``
 finds in the cache are never fetched) or, with ``streaming=False``,
 is pulled whole first (``artifact/registry.py``); on the scheduled
-path the ref is loaded inside the request's analyze. The reference's
-ambient trace context (``obs/propagate.py``) is A.9i.
+path the ref is loaded inside the request's analyze. A scan run under
+an active span (the simhost root, a propagated watch submission)
+joins that span's trace (``obs/propagate.py::current_context``).
 
 Both paths trace every image as a request (``obs/trace.py``): on the
 direct path its root has ``analyze`` (with the ``join`` of prepare),
@@ -519,10 +520,16 @@ class BatchScanRunner:
                                 jobs=prepared.jobs, patch=patch,
                                 finish=finish, deps=deps)
 
-        # The reference folds an ambient propagated trace context
-        # (obs/propagate.py::current_context) into a request that
-        # names no trace of its own; nothing in the port opens such a
-        # context yet (ROADMAP A.9), so every request starts its own.
+        if not trace_id and not parent_span_id:
+            # ambient fleet context (obs/propagate.py): a scan
+            # submitted under an active span — the simhost root, a
+            # watch event's propagated context — joins that trace
+            # instead of starting an unlinked one
+            from ..obs.propagate import current_context
+            ctx = current_context()
+            if ctx is not None:
+                trace_id = ctx.trace_id
+                parent_span_id = ctx.parent_span_id
         return ScanRequest(name=name or getattr(image, "name", ""),
                            analyze=analyze,
                            deadline_s=getattr(options, "deadline_s",
@@ -552,6 +559,13 @@ class BatchScanRunner:
         # tree is analyze → device (the fleet-shared dispatch window)
         # → report
         tracer = self.tracer
+        # ambient fleet context (obs/propagate.py): scans launched
+        # under an active span (the simhost root, a propagated watch
+        # submission) join that trace — per-image roots become its
+        # remote-style children; with no ambient span the behavior
+        # is identical to the single-process path
+        from ..obs.propagate import current_context
+        amb = current_context()
         slots, failures = [], {}     # [(input idx, artifact)]
         roots: dict = {}             # input idx -> root span
         opt = self._image_opt(scan_secrets)
@@ -560,7 +574,10 @@ class BatchScanRunner:
         analyze_s = join_s = 0.0
         for idx, img in enumerate(images):
             name = getattr(img, "name", "")
-            root = roots[idx] = tracer.start_request(name)
+            root = roots[idx] = tracer.start_request(
+                name,
+                trace_id=amb.trace_id if amb else "",
+                parent_span_id=amb.parent_span_id if amb else "")
             a = _CollectingImageArtifact(img, self.cache, opt)
             sp = tracer.child(root, "analyze")
             t1 = time.perf_counter()
@@ -947,10 +964,29 @@ class _SchedImageArtifact(_CollectingImageArtifact):
     """Collecting artifact that additionally announces which cache
     blobs this request will patch — registered with the scheduler
     BEFORE put_blob runs, so concurrent requests sharing a layer
-    always see either the patched blob or the pending-write event."""
+    always see either the patched blob or the pending-write event —
+    and that puts a blob another request analyzed and put meanwhile
+    never again (``Scheduler.put_analyzed_blob``): a second, unpatched
+    copy would replace the first request's patch under its finish."""
 
     _sched = None
     _sched_req = None
+    _since = -1
+
+    def inspect(self):
+        if self._sched is None:
+            return super().inspect()
+        self._since = self._sched.inspect_began()
+        try:
+            return super().inspect()
+        finally:
+            self._sched.inspect_ended(self._since)
+
+    def _put_blob(self, blob_id: str, blob) -> None:
+        if self._sched is None:
+            return super()._put_blob(blob_id, blob)
+        self._sched.put_analyzed_blob(self.cache, blob_id, blob,
+                                      self._since)
 
     def _inspect_layers(self, todo, blob_ids, base):
         self._sched_blob_ids = blob_ids

@@ -167,6 +167,13 @@ class ScanScheduler:
         # blob id → patch event of the request that will write it
         self._blob_lock = threading.Lock()
         self._pending_blobs: dict = {}
+        # analysis puts while an inspect is in flight: blob id → the
+        # put's sequence number; an inspect's missing-blob check is
+        # stamped with the sequence number it began at
+        self._put_lock = threading.Lock()
+        self._put_seq = 0
+        self._analysis_puts: dict = {}
+        self._inspects: list = []
 
     # --- lifecycle ---
 
@@ -375,6 +382,38 @@ class ScanScheduler:
                         ev is not request.patched_event:
                     out.append(ev)
             return out
+
+    def inspect_began(self) -> int:
+        """Stamp an inspect before its missing-blob check; pass the
+        stamp to ``put_analyzed_blob`` and ``inspect_ended``."""
+        with self._put_lock:
+            self._inspects.append(self._put_seq)
+            return self._put_seq
+
+    def inspect_ended(self, since: int) -> None:
+        with self._put_lock:
+            self._inspects.remove(since)
+            # a put at or before the oldest stamp still in flight can
+            # never be skipped again: every later check saw it
+            lo = min(self._inspects, default=self._put_seq)
+            self._analysis_puts = {b: n for b, n in
+                                   self._analysis_puts.items() if n > lo}
+
+    def put_analyzed_blob(self, cache, blob_id: str, blob,
+                          since: int) -> bool:
+        """Put a blob this request analyzed (its secrets not patched
+        yet) unless another request put the same blob after this
+        inspect's missing-blob check (``since``). That copy is the same
+        analysis and may carry its request's secret patch already; a
+        second put would replace it with an unpatched one under a
+        reader that waits on no one. Returns whether it was put."""
+        with self._put_lock:
+            if self._analysis_puts.get(blob_id, -1) > since:
+                return False
+            cache.put_blob(blob_id, blob)
+            self._put_seq += 1
+            self._analysis_puts[blob_id] = self._put_seq
+            return True
 
     def _clear_blob_writes(self, request: ScanRequest) -> None:
         blobs = getattr(request, "_registered_blobs", ())
