@@ -279,13 +279,25 @@ Builds the port's hand-written kernels (``trivy_tpu_torch/csrc``, one
    verdict cache with no launch (``admission_reviews``). The memo
    phase's second generation renamed onto the prefix
    is swapped in (the mesh fleet phase runs meanwhile), and the
-   reports after it equal the in-process fleet on that generation. A
-   SIGTERM with Scans in flight answers them, 503s the next, exits 0.
-   The same server restarted on the same prefix and DIR (the
-   lifecycle phase and the Rekor line run meanwhile) has manifest
-   hits only, builds nothing, and gives the second generation's
-   report. The client-side ``dfa_blockmask`` launches are counted per
-   round. A writers line (the image phase's reduced card report in
+   reports after it equal the in-process fleet on that generation.
+   The same server restarted on the same prefix, DIR and blob
+   directory (the lifecycle phase and the Rekor line run meanwhile)
+   has manifest hits only, builds nothing, and gives the second
+   generation's report. Then the scan router (``route_arm``:
+   ``python -m trivy_tpu_torch route`` in front of both servers) must
+   route the 8 targets to their reports, one of them cold on its
+   replica (client sieve, interval jobs on the replica's card), answer
+   ``/impact`` with the union of both replicas', drain the replica
+   that carries the traffic under routed Scans with zero loss (it
+   answers its in-flight Scans, 503s the next, exits 0; the router
+   replays onto the other), balance its books on ``/metrics`` and its
+   text exposition, and, restarted with ``--fault-spec replica-flaky``
+   in front of the other alone, give each client one result through
+   the dropped answers. The client-side ``dfa_blockmask`` launches
+   are counted per round. Beside the memo phase, on the host only, a
+   router with ``--scaler subprocess`` over two sim replicas of the
+   port loses one to SIGKILL mid-storm and answers every Scan 200
+   (``sim_route_arm``). A writers line (the image phase's reduced card report in
    every ported format and a template, each equal to ``cpu-ref``'s)
    and a Rekor line (an ``fs`` scan whose unpackaged executable is
    found through a stub Rekor log on 127.0.0.1, equal to ``cpu-ref``'s)
@@ -4553,14 +4565,14 @@ SERVER_SWAP_S = 600             # the watched prefix's swap's bound
 
 
 class ServerProc:
-    """``python -m trivy_tpu_torch server`` in a subprocess on a free
-    127.0.0.1 port, its output in ``log`` (never a pipe that could
-    fill). A daemon thread polls ``/healthz`` from the start, so the
-    time to ready is the server's whatever this process does
-    meanwhile. ``stop`` sends SIGTERM and waits; ``kill`` ends it
-    whatever it is doing (the phase's ``finally``)."""
+    """``python -m trivy_tpu_torch server`` (or ``command``: ``route``)
+    in a subprocess on a free 127.0.0.1 port, its output in ``log``
+    (never a pipe that could fill). A daemon thread polls ``/healthz``
+    from the start, so the time to ready is the server's whatever this
+    process does meanwhile. ``stop`` sends SIGTERM and waits; ``kill``
+    ends it whatever it is doing (the phase's ``finally``)."""
 
-    def __init__(self, argv: list, log: str):
+    def __init__(self, argv: list, log: str, command: str = "server"):
         import socket
         with socket.socket() as s:
             s.bind(("127.0.0.1", 0))
@@ -4570,7 +4582,7 @@ class ServerProc:
         self._out = open(log, "w")
         self.t0 = time.perf_counter()
         self.proc = subprocess.Popen(
-            [sys.executable, "-m", "trivy_tpu_torch", "server", "--listen",
+            [sys.executable, "-m", "trivy_tpu_torch", command, "--listen",
              f"127.0.0.1:{self.port}", "--token", SERVER_TOKEN] + argv,
             cwd=os.path.dirname(os.path.abspath(__file__)),
             stdout=self._out, stderr=subprocess.STDOUT, text=True)
@@ -4608,10 +4620,13 @@ class ServerProc:
                 self.statuses.append(status)
         return time.perf_counter() - self.t0
 
-    def get_text(self, path: str, timeout: float = 60.0) -> str:
+    def get_text(self, path: str, timeout: float = 60.0,
+                 accept: str = "") -> str:
         import urllib.request
-        req = urllib.request.Request(self.url + path,
-                                     headers={"Trivy-Token": SERVER_TOKEN})
+        headers = {"Trivy-Token": SERVER_TOKEN}
+        if accept:
+            headers["Accept"] = accept
+        req = urllib.request.Request(self.url + path, headers=headers)
         with urllib.request.urlopen(req, timeout=timeout) as resp:
             return resp.read().decode()
 
@@ -4672,10 +4687,13 @@ def _scan_doc(results, os_found) -> str:
                       sort_keys=True)
 
 
-def _remote_clients(url: str, retries: int = 10, record=None):
+def _remote_clients(url: str, retries: int = 10, record=None,
+                    routed=None):
     """A ``RemoteCache`` that counts the blobs the server said were
     missing, and a ``RemoteScanner`` that keeps each Scan's target and
-    reply in ``record`` (by target name) when given."""
+    reply in ``record`` (by target name) when given, and in ``routed``
+    what a router said of the Scan: the replica that answered, whether
+    the router replayed it, and the idempotency key the client sent."""
     from trivy_tpu_torch.rpc.client import RemoteCache, RemoteScanner
 
     class CountingCache(RemoteCache):
@@ -4687,10 +4705,22 @@ def _remote_clients(url: str, retries: int = 10, record=None):
             return out
 
     class RecordingScanner(RemoteScanner):
+        last_reply = ("", {})
+
+        def call(self, path, body, deadline_s=0.0):
+            out = super().call(path, body, deadline_s=deadline_s)
+            self.last_reply = (body.get("idempotency_key", ""), out)
+            return out
+
         def scan(self, target, options):
             out = super().scan(target, options)
             if record is not None:
                 record[target.name] = (target, options, _scan_doc(*out))
+            if routed is not None:
+                key, reply = self.last_reply
+                routed[target.name] = {
+                    "replica": self.last_routed_replica, "key": key,
+                    "replayed": bool(reply.get("replayed"))}
             return out
 
     kw = dict(token=SERVER_TOKEN, timeout_s=120.0, max_retries=retries)
@@ -4698,14 +4728,16 @@ def _remote_clients(url: str, retries: int = 10, record=None):
 
 
 def server_fleet(paths: list, url: str, backend: str, broken: int,
-                 clients: int = SERVER_CLIENTS, record=None) -> dict:
+                 clients: int = SERVER_CLIENTS, record=None,
+                 routed=None) -> dict:
     """The targets through ``scan_image(remote=...)`` — what ``image
     --server`` runs — from ``clients`` threads, each with its own
     secret scanner and clients, target i on thread i % clients. Returns
     the reports (None for the broken tar, which must fail to load in
     the client), the Scan RPC latencies, the blobs the server said were
-    missing and the wall; ``record`` receives each Scan's target and
-    reply (``_remote_clients``)."""
+    missing and the wall; ``record`` and ``routed`` receive each Scan's
+    target and reply, and what a router said of it
+    (``_remote_clients``)."""
     from trivy_tpu_torch.cli import ImageLoadError, scan_image, \
         secret_scanner
     texts = [None] * len(paths)
@@ -4713,7 +4745,7 @@ def server_fleet(paths: list, url: str, backend: str, broken: int,
     scanners = [secret_scanner(backend=backend) for _ in range(clients)]
 
     def work(c: int) -> None:
-        cache, remote = _remote_clients(url, record=record)
+        cache, remote = _remote_clients(url, record=record, routed=routed)
         for i in range(c, len(paths), clients):
             steps = {}
             try:
@@ -4744,31 +4776,101 @@ def server_fleet(paths: list, url: str, backend: str, broken: int,
                       "max": rpc_s[-1]}}
 
 
-SERVER_DRAIN_SCANS = 4          # Scan RPCs in flight at the SIGTERM
+# --- the scan router in front of the two card servers ----------------
+
+ROUTE_COLD = 2                  # the target whose own layers are evicted
+ROUTE_IMPACT_CVES = 64          # seeded CVEs asked through the router
+ROUTE_WAVE2 = 2                 # routed Scans per item after the SIGTERM
+ROUTE_FLAKY_EVERY = 2           # the fault arm's replica_flaky_every
+ROUTE_FLAKY_SCANS = 4           # Scan RPCs through the faulted router
 
 
-def drain_under_load(srv: ServerProc, record: dict) -> dict:
-    """SIGTERM with scans in flight: ``SERVER_DRAIN_SCANS`` targets'
-    Scan RPCs (the targets and replies ``record`` kept from the last
-    round) sent at once from a thread each, SIGTERM once ``/healthz``
-    counts half of them in flight, then a probe that sends an empty
-    Scan (no blobs:
-    milliseconds when admitted) in a loop. A scan sent before the
-    signal must finish with its reply or, when it reached the server
-    after the drain began, be answered 503; at least one must have
-    finished after the signal; the probe must be answered 503 while
-    the drain runs, and the server must exit 0."""
+def evict_layers(url: str, blob_ids: list, memo_dir: str = "") -> dict:
+    """What a cache eviction leaves: ``blob_ids`` dropped from the
+    replicas' shared blob cache (``DeleteBlobs`` through ``url``, a
+    replica or the router) and, given the memo tier's directory, every
+    memo entry of those layers from it. The next scan of an image with
+    those layers is cold on whichever replica takes it: its client
+    walks and sieves them again, and the replica matches their
+    packages on its card."""
+    from trivy_tpu_torch.impact.index import is_impact_key
+    from trivy_tpu_torch.memo import FSMemoStore
+    cache, _ = _remote_clients(url)
+    cache.delete_blobs(list(blob_ids))
+    dropped = 0
+    if memo_dir:
+        store = FSMemoStore(memo_dir)
+        for key in store.keys():
+            raw = None if is_impact_key(key) else store.get(key)
+            if raw and json.loads(raw)["entry"].get("blob") in blob_ids:
+                store.delete(key)
+                dropped += 1
+    return {"blobs": len(blob_ids), "memo_entries": dropped}
+
+
+def router_books(router: ServerProc) -> dict:
+    """The router's books from its JSON ``/metrics``, checked against
+    its text exposition read just after (``render_router``'s lines
+    parse, and each request counter there equals the JSON's); both
+    must balance: every accepted request in exactly one terminal
+    counter, none lost."""
+    books = router.get("/metrics")["router"]
+    text = router.get_text("/metrics", accept="text/plain")
+    seen = {}
+    for ln in text.splitlines():
+        if ln.startswith("trivy_tpu_router_") and not ln.startswith("#"):
+            name, value = ln.rsplit(" ", 1)
+            seen[name] = float(value)
+    want = {"trivy_tpu_router_accepted_total": books["accepted"],
+            "trivy_tpu_router_lost": books["lost"],
+            **{f'trivy_tpu_router_requests_total{{outcome="{k}"}}': books[k]
+               for k in ("ok", "degraded", "timeout", "rate_limited",
+                         "unavailable", "failed")},
+            **{f'trivy_tpu_router_routing_total{{kind="{k}"}}': books[k]
+               for k in ("forwards", "failovers", "replays", "spills",
+                         "conn_errors", "drain_redirects")}}
+    got = {k: seen.get(k) for k in want}
+    if got != {k: float(v) for k, v in want.items()} or books["lost"] or \
+            books["accepted"] != books["terminal"]:
+        raise AssertionError(f"router books: JSON {books}, text {got}")
+    return {k: books[k] for k in (
+        "accepted", "ok", "unavailable", "failed", "forwards", "failovers",
+        "replays", "spills", "conn_errors", "drain_redirects", "lost")}
+
+
+def _delta(after: dict, before: dict) -> dict:
+    return {k: after[k] - before.get(k, 0) for k in after}
+
+
+def routed_drain(victim: ServerProc, victim_name: str, survivor: str,
+                 router: ServerProc, items: list) -> dict:
+    """The zero-loss drain through the router: every recorded target's
+    Scan RPC sent through the router at once, a thread each; SIGTERM on
+    ``victim`` (the ring owner of the targets' shared base layer) once
+    it holds one of them; then each item sent again through the router
+    (``ROUTE_WAVE2`` times, new work while the victim drains and after
+    it exits, sent once the victim's ``/healthz`` says ``draining``)
+    and a probe that sends an empty Scan straight to the victim in a
+    loop. Gates: every routed Scan ends with its report;
+    one served by the victim finished after the signal (the drain kept
+    its in-flight work); every Scan sent after the signal was answered
+    by ``survivor``, and so was every one the router replayed (the same
+    raw body: the same idempotency key, ``replayed`` in the answer): at
+    least one; the probe
+    was answered 503 while the drain ran, the victim exited 0, and the
+    router's books balance. The drain's timings as before: listener
+    closed and exit, from the signal."""
     import signal
 
     from trivy_tpu_torch.rpc.client import RPCError
     from trivy_tpu_torch.scan.local import ScanTarget
-    items = list(record.values())[:SERVER_DRAIN_SCANS]
-    outcomes: dict = {}
+    outcomes, lock = [], threading.Lock()
     go = threading.Event()
 
-    def send(k: int) -> None:
-        target, options, want = items[k]
-        _, scanner = _remote_clients(srv.url, retries=1)
+    def send(item, wave: int) -> None:
+        target, options, want = item
+        routed: dict = {}
+        _, scanner = _remote_clients(router.url, retries=4, routed=routed)
         go.wait()
         t0 = time.perf_counter()
         try:
@@ -4776,27 +4878,39 @@ def drain_under_load(srv: ServerProc, record: dict) -> dict:
             kind = "ok" if got == want else "differs"
         except RPCError as e:
             kind = str(e.code)
-        outcomes[k] = (kind, t0, time.perf_counter())
+        with lock:
+            outcomes.append((wave, kind, t0, time.perf_counter(),
+                             routed.get(target.name, {})))
 
-    threads = [threading.Thread(target=send, args=(k,))
-               for k in range(len(items))]
+    b0 = router_books(router)
+    threads = [threading.Thread(target=send, args=(it, 1)) for it in items]
     for t in threads:
         t.start()
     probe: list = []
     try:
         go.set()
         deadline = time.perf_counter() + 120
-        while srv.get("/healthz", timeout=10)["inflight"] < \
-                len(items) // 2:
-            if time.perf_counter() > deadline or \
-                    len(outcomes) == len(items):
-                raise AssertionError("no scans in flight to drain")
+        while victim.get("/healthz", timeout=10)["inflight"] < 1:
+            if time.perf_counter() > deadline or len(outcomes) == len(items):
+                raise AssertionError("no routed scan in flight to drain")
         t_sig = time.perf_counter()
-        srv.proc.send_signal(signal.SIGTERM)
-        _, scanner = _remote_clients(srv.url, retries=1)
-        empty = ScanTarget(name="drain-probe", artifact_id="",
-                           blob_ids=[])
-        while srv.proc.poll() is None and len(probe) < 10000:
+        victim.proc.send_signal(signal.SIGTERM)
+        # new work once the victim refuses it (its drain flag is up)
+        while victim.proc.poll() is None:
+            try:
+                if victim.get("/healthz", timeout=10)["draining"]:
+                    break
+            except OSError:
+                break
+            time.sleep(0.02)
+        wave2 = [threading.Thread(target=send, args=(it, 2))
+                 for it in items for _ in range(ROUTE_WAVE2)]
+        for t in wave2:
+            t.start()
+        threads += wave2
+        _, scanner = _remote_clients(victim.url, retries=1)
+        empty = ScanTarget(name="drain-probe", artifact_id="", blob_ids=[])
+        while victim.proc.poll() is None and len(probe) < 10000:
             try:
                 scanner.scan(empty, items[0][1])
                 probe.append("ok")
@@ -4805,28 +4919,318 @@ def drain_under_load(srv: ServerProc, record: dict) -> dict:
                 if e.code != 503:
                     break
         closed_s = time.perf_counter() - t_sig
-        rc = srv.proc.wait(timeout=300)
+        rc = victim.proc.wait(timeout=300)
         exit_s = time.perf_counter() - t_sig
     finally:
         go.set()
         for t in threads:
-            t.join(timeout=300)
+            t.join(timeout=600)
     if rc != 0:
         raise AssertionError(f"the drained server exited {rc}: "
-                             f"{srv.text()[-2000:]}")
-    sent_before = [o for o in outcomes.values() if o[1] < t_sig]
-    if len(outcomes) != len(items) or \
-            any(o[0] not in ("ok", "503") for o in sent_before) or \
-            not any(o[0] == "ok" and o[2] > t_sig for o in sent_before):
-        raise AssertionError(f"scans sent before SIGTERM: {outcomes}")
+                             f"{victim.text()[-2000:]}")
+    books = _delta(router_books(router), b0)
+    kept = [o for o in outcomes if o[0] == 1 and o[4].get("replica") ==
+            victim_name and o[3] > t_sig]
+    after = [o for o in outcomes if o[2] > t_sig]
+    replayed = [o for o in outcomes if o[4].get("replayed")]
+    if len(outcomes) != len(items) * (1 + ROUTE_WAVE2) or \
+            any(o[1] != "ok" for o in outcomes) or not kept or \
+            any(o[4].get("replica") != survivor for o in after + replayed) \
+            or not replayed or books["replays"] < len(replayed) or \
+            books["ok"] != len(outcomes):
+        raise AssertionError(f"routed drain: {outcomes}, books {books}")
     if "503" not in probe:
         raise AssertionError(f"no 503 while draining: {probe[:20]}")
-    return {"exit_rc": rc, "exit_s": exit_s, "listener_closed_s": closed_s,
-            "scans": len(items),
-            "finished_after_signal": sum(1 for o in sent_before
-                                         if o[0] == "ok" and o[2] > t_sig),
-            "refused": sum(1 for o in sent_before if o[0] == "503"),
+    return {"victim": victim_name, "exit_rc": rc, "exit_s": exit_s,
+            "listener_closed_s": closed_s, "scans": len(outcomes),
+            "finished_on_the_victim_after_signal": len(kept),
+            "replayed": len(replayed),
+            "books": books,
             "probe": {k: probe.count(k) for k in sorted(set(probe))}}
+
+
+def route_fault_arm(router: ServerProc, survivor: ServerProc,
+                    items: list) -> dict:
+    """The second, short-lived router (``start_routers``: ``route
+    --fault-spec replica-flaky:replica_flaky_every=ROUTE_FLAKY_EVERY``
+    in front of ``survivor`` alone), under ``ROUTE_FLAKY_SCANS`` Scan
+    RPCs one after another:
+    each dropped answer ends its request 503 at the router (no other
+    owner), the client retries with the same idempotency key and the
+    replica answers the retry from its idempotency window. Gates: each
+    client gets one result, equal to its report; the replica's window
+    served as many replays as the router answered 503 (one per drop);
+    the books balance; SIGTERM exits 0."""
+    t0 = time.perf_counter()
+    try:
+        router.wait_ready()
+        idem0 = survivor.get("/metrics")["idempotency"]["hits"]
+        for target, options, want in items[:ROUTE_FLAKY_SCANS]:
+            _, scanner = _remote_clients(router.url, retries=6)
+            if _scan_doc(*scanner.scan(target, options)) != want:
+                raise AssertionError("the faulted router's answer != the "
+                                     "target's report")
+        replays = survivor.get("/metrics")["idempotency"]["hits"] - idem0
+        books = router_books(router)
+        if books["unavailable"] < 1 or books["unavailable"] != replays or \
+                books["ok"] != ROUTE_FLAKY_SCANS:
+            raise AssertionError(f"route fault arm: books {books}, "
+                                 f"{replays} replays from the window")
+        rc = router.stop()
+    finally:
+        router.kill()
+    if rc != 0:
+        raise AssertionError(f"the faulted router exited {rc}")
+    return {"books": books, "window_replays": replays, "exit_rc": rc,
+            "wall_s": time.perf_counter() - t0}
+
+
+def start_routers(servers: dict, base: str, d: str) -> dict:
+    """The route arm's two routers, started as soon as both servers
+    answer, so that their start-up runs beside the restart's gates:
+    ``route --replicas a=URL,b=URL`` (its prober every 30 s: the drain
+    is found by its 503s), and the fault arm's ``route --fault-spec
+    replica-flaky:replica_flaky_every=ROUTE_FLAKY_EVERY`` in front of
+    the replica the ring does not give ``base`` (the fleet's shared
+    base layer), which survives the drain. Returns {"route", "fault",
+    "owner", "survivor"}."""
+    from trivy_tpu_torch.router.ring import Ring
+    ring = Ring()
+    for n in servers:
+        ring.add(n)
+    owner = ring.owner(base)
+    survivor = next(n for n in servers if n != owner)
+    route = ServerProc(
+        ["--replicas", ",".join(f"{n}={s.url}" for n, s in servers.items()),
+         "--probe-interval", "30"], os.path.join(d, "route.log"),
+        command="route")
+    fault = ServerProc(
+        ["--replicas", f"{survivor}={servers[survivor].url}",
+         "--fault-spec",
+         f"replica-flaky:replica_flaky_every={ROUTE_FLAKY_EVERY}"],
+        os.path.join(d, "route-fault.log"), command="route")
+    return {"route": route, "fault": fault, "owner": owner,
+            "survivor": survivor}
+
+
+def route_arm(servers: dict, routers: dict, paths: list, texts: list,
+              broken: int, record: dict, cves: list, memo_dir: str,
+              backend: str) -> dict:
+    """The scan router (``python -m trivy_tpu_torch route --replicas
+    a=URL,b=URL``, the real CLI, its output in a log; ``start_routers``)
+    in front of the server phase's two card servers, both up on the
+    second generation and one blob cache:
+
+    1. **parity**: ``ROUTE_COLD``'s own layers evicted through the
+       router (``evict_layers``: their blobs and memo entries), then
+       the fleet's targets from four clients through the router URL:
+       every report equals the second generation's, the broken tar
+       fails in its client; each answer names its replica, and where
+       the router booked no spill it is the one the port's ``Ring``
+       gives the route key (the base layer); the evicted target is cold
+       on its replica: the clients launch ``dfa_blockmask`` and the
+       replicas run interval jobs on their cards;
+    2. ``GET /impact`` through the router for ``ROUTE_IMPACT_CVES``
+       seeded CVEs of the second generation: each the union of a's and
+       b's answers;
+    3. the zero-loss drain of the ring owner of the fleet's base layer,
+       which carries the traffic (``routed_drain``);
+    4. the router's books on ``/metrics`` and its text exposition
+       (``router_books``), then SIGTERM: exit 0;
+    5. the route fault arm in front of the other replica alone
+       (``route_fault_arm``).
+
+    Returns the arm's numbers; ``launches`` counts the clients'
+    ``dfa_blockmask`` launches of step 1."""
+    from trivy_tpu_torch.impact.federate import fetch_impact
+    from trivy_tpu_torch.ops.dfa_cuda import dfa_blockmask
+    from trivy_tpu_torch.router.ring import Ring
+    t_arm = time.perf_counter()
+    out: dict = {}
+    router, owner, survivor = routers["route"], routers["owner"], \
+        routers["survivor"]
+    try:
+        out["ready_s"] = router.wait_ready()
+        ring = Ring()
+        for n in servers:
+            ring.add(n)
+        items = list(record.values())
+        base = {t.blob_ids[0] for t, _, _ in items}
+        cold = record[paths[ROUTE_COLD]][0]
+        out["evicted"] = evict_layers(router.url, cold.blob_ids[2:],
+                                      memo_dir)
+        m0 = {n: s.get("/metrics") for n, s in servers.items()}
+        b0 = router_books(router)
+        dfa_blockmask.launches = 0
+        routed: dict = {}
+        fleet = server_fleet(paths, router.url, backend, broken,
+                             routed=routed)
+        launches = dfa_blockmask.launches
+        books = _delta(router_books(router), b0)
+        m1 = {n: s.get("/metrics") for n, s in servers.items()}
+        bad = [i for i, (a, b) in enumerate(zip(fleet["texts"], texts))
+               if a != b]
+        if bad:
+            raise AssertionError(f"routed round: the reports of targets "
+                                 f"{bad} differ")
+        owners = {p: ring.owner(record[p][0].blob_ids[0]) for p in routed}
+        off = sorted(p for p in routed if routed[p]["replica"] != owners[p])
+        jobs = sum(m1[n]["batch"]["interval_jobs"] -
+                   m0[n]["batch"]["interval_jobs"] for n in servers)
+        misses = sum(m1[n]["memo"]["misses"] - m0[n]["memo"]["misses"]
+                     for n in servers)
+        if set(r["replica"] for r in routed.values()) - set(servers) or \
+                len(off) > books["spills"] or books["failovers"] or \
+                launches < 1 or fleet["missing"] < 1 or jobs < 1 or \
+                misses < 1:
+            raise AssertionError(
+                f"routed round: replicas {routed}, owners {owners}, books "
+                f"{books}, {launches} sieves, {fleet['missing']} missing "
+                f"blobs, {jobs} interval jobs, {misses} memo misses")
+        out["parity"] = {
+            "wall_s": fleet["wall_s"], "rpc_s": fleet["rpc_s"],
+            "missing": fleet["missing"], "interval_jobs": jobs,
+            "memo_misses": misses, "launches": launches,
+            "replicas": {n: sum(1 for r in routed.values()
+                                if r["replica"] == n) for n in servers},
+            "owner_of_the_base": sorted({ring.owner(b) for b in base}),
+            "off_owner": len(off), "books": books}
+
+        # the federated /impact through the router, while both are up
+        rng = np.random.default_rng(SEED + 18)
+        asked = sorted(rng.choice(sorted(cves), min(ROUTE_IMPACT_CVES,
+                                                    len(cves)),
+                                  replace=False).tolist())
+        t0 = time.perf_counter()
+        for cve in asked:
+            got = fetch_impact(router.url, cve, token=SERVER_TOKEN,
+                               timeout_s=60)
+            parts = [fetch_impact(s.url, cve, token=SERVER_TOKEN,
+                                  timeout_s=60) for s in servers.values()]
+            images = {}
+            for part in parts:
+                images.update((i, t) for i, t in part["images"])
+            want = {"packages": sorted({x for p in parts
+                                        for x in p["packages"]}),
+                    "layers": sorted({x for p in parts for x in p["layers"]}),
+                    "images": sorted([i, t] for i, t in images.items()),
+                    "complete": True}
+            if {k: got[k] for k in want} != want:
+                raise AssertionError(f"router /impact?cve={cve}: {got} != "
+                                     f"the union {want}")
+        out["impact"] = {"cves": len(asked),
+                         "wall_s": time.perf_counter() - t0}
+
+        # the zero-loss drain of the replica that carries the traffic
+        out["drain"] = routed_drain(servers[owner], owner, survivor,
+                                    router, items)
+        out["books"] = router_books(router)
+        out["exit_rc"] = router.stop()
+        if out["exit_rc"] != 0:
+            raise AssertionError(f"the router exited {out['exit_rc']}")
+    finally:
+        router.kill()
+    out["fault"] = route_fault_arm(routers["fault"], servers[survivor],
+                                   items)
+    out["survivor"] = survivor
+    out["launches"] = launches
+    out["arm_s"] = time.perf_counter() - t_arm
+    return out
+
+
+SIM_STORM = 64                  # Scans of the host-only kill arm
+SIM_STORM_THREADS = 8
+
+
+def _children_of(pid: int) -> list:
+    """The pids whose parent is ``pid`` (read off /proc)."""
+    out = []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/status") as f:
+                ppid = next(int(ln.split()[1]) for ln in f
+                            if ln.startswith("PPid:"))
+        except (OSError, StopIteration, ValueError):
+            continue
+        if ppid == pid:
+            out.append(int(entry))
+    return out
+
+
+def sim_route_arm(work_dir: str) -> dict:
+    """The router's kill arm, on the host only (no card): ``route
+    --scaler subprocess --scaler-min 2`` brings up two sim replicas of
+    the port (``python -m trivy_tpu_torch.router.sim``, children of the
+    router), then ``SIM_STORM`` keyed Scans from ``SIM_STORM_THREADS``
+    threads, and one replica SIGKILLed at the ``replica-kill``
+    scenario's seeded instant (``FaultInjector.replica_kill_due`` on the
+    count of answered Scans). Gates: every Scan ends 200, the books
+    balance with the replays that carried the dead replica's work, and
+    SIGTERM stops the router (exit 0) and its other replica."""
+    import signal
+    import urllib.request
+
+    from trivy_tpu_torch.faults import FaultInjector
+    t0 = time.perf_counter()
+    router = ServerProc(["--scaler", "subprocess", "--scaler-min", "2",
+                         "--scaler-interval", "3600"],
+                        os.path.join(work_dir, "route-sim.log"),
+                        command="route")
+    try:
+        ready_s = router.wait_ready()
+        sims = _children_of(router.proc.pid)
+        if len(sims) != 2:
+            raise AssertionError(f"the router's sim replicas: {sims}")
+        inj = FaultInjector("replica-kill")
+        statuses, lock, done = [], threading.Lock(), [0]
+        keys = [hashlib.sha256(f"storm:{i}".encode()).hexdigest()
+                for i in range(SIM_STORM)]
+
+        def worker(chunk) -> None:
+            for k in chunk:
+                body = json.dumps({"idempotency_key": k[:32],
+                                   "target": f"img:{k[:12]}",
+                                   "blob_ids": [f"sha256:{k}"]}).encode()
+                req = urllib.request.Request(
+                    router.url + "/twirp/trivy.scanner.v1.Scanner/Scan",
+                    data=body, headers={"Trivy-Token": SERVER_TOKEN})
+                try:
+                    with urllib.request.urlopen(req, timeout=60) as resp:
+                        status = resp.status
+                except OSError as e:
+                    status = getattr(e, "code", repr(e))
+                with lock:
+                    statuses.append(status)
+                    done[0] += 1
+                    if inj.replica_kill_due(done[0]):
+                        os.kill(sims[0], signal.SIGKILL)
+
+        threads = [threading.Thread(target=worker,
+                                    args=(keys[i::SIM_STORM_THREADS],))
+                   for i in range(SIM_STORM_THREADS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        books = router_books(router)
+        if statuses != [200] * SIM_STORM or \
+                inj.counters["replica_kills"] != 1 or \
+                books["accepted"] != SIM_STORM or books["ok"] != SIM_STORM \
+                or books["conn_errors"] < 1 or books["replays"] < 1:
+            raise AssertionError(f"sim kill arm: {statuses}, books {books}")
+        rc = router.stop()
+    finally:
+        router.kill()
+    time.sleep(0.5)
+    left = [p for p in sims if os.path.exists(f"/proc/{p}")]
+    if rc != 0 or left:
+        raise AssertionError(f"the sim router exited {rc}, its replicas "
+                             f"{left} still ran")
+    return {"ready_s": ready_s, "books": books,
+            "killed_at": inj.spec.replica_kill_after,
+            "wall_s": time.perf_counter() - t0}
 
 
 # --- the impact index, the prewarm and federation on the server -------
@@ -5123,8 +5527,10 @@ def server_boot(device, work_dir: str, fleet: dict) -> dict:
     --token --admission-policy deny:CRITICAL --images-dir`` (the fleet
     phase's targets as ``smoke/fleet:<i>``, ``link_images``;
     ``ServerProc``), its memo on a directory tier (``--memo-cache``)
-    with the impact index (``--impact-index --replica-name a``).
-    Returns what ``server_phase`` needs."""
+    with the impact index (``--impact-index --replica-name a``), its
+    blobs in a directory (``--cache-dir``) that the phase's second
+    server shares: behind the router either may take a session's
+    Scan. Returns what ``server_phase`` needs."""
     import shutil
     d = os.path.join(work_dir, "server")
     os.makedirs(d)
@@ -5139,7 +5545,8 @@ def server_boot(device, work_dir: str, fleet: dict) -> dict:
     argv = ["--compiled-db", prefix, "--compile-cache", cc, "--backend",
             device.type, "--sched", "on", "--db-watch-interval", "1",
             "--admission-policy", "deny:CRITICAL", "--images-dir", images,
-            "--memo-cache", memo_dir, "--impact-index"]
+            "--memo-cache", memo_dir, "--impact-index", "--cache-dir",
+            os.path.join(d, "blobs")]
     return {"dir": d, "prefix": prefix, "argv": argv, "copy_s": copy_s,
             "refs": refs, "memo_dir": memo_dir,
             "srv": ServerProc(argv + ["--replica-name", "a"],
@@ -5179,20 +5586,26 @@ def server_phase(device, cdb, svc: dict, fleet: dict, gen2: dict,
        of the second generation's reports equal the brute force on
        that generation (the index migrated through the re-match;
        ``swap_cves`` counts the CVEs it changed), with
-       ``during_restart()`` in this process beside them; then SIGTERM
-       on ``a`` with the targets' Scan RPCs in flight
-       (``drain_under_load``);
-    5. ``b`` (a restart of the server on the same compile cache): its
-       boot loads the second generation and has manifest hits only, no
-       build; its prewarm walks the keys ``prewarm_ranges`` gives it
-       (``prewarm_gate``); its index, rebuilt from the tier, answers
-       every one of those CVEs as ``a`` did after the swap, asked
-       beside the rest: the first target through it gives the second
-       generation's report, and an admission review of another target
-       is a scan on its card (``admission_cold``); then the federation gates
+       ``during_restart()`` in this process beside them;
+    5. ``b`` (a restart of the server on the same compile cache, DIR
+       and blob directory): its boot loads the second generation and
+       has manifest hits only, no build; its prewarm walks the keys
+       ``prewarm_ranges`` gives it (``prewarm_gate``); its index,
+       rebuilt from the tier, answers every one of those CVEs as ``a``
+       did after the swap, asked beside the rest: the first target
+       through it gives the second generation's report, and an
+       admission review of a target whose own layers were evicted from
+       the shared blob cache is a scan on its card
+       (``admission_cold``); then the federation gates
        (``federation_gate``: the merged exposition, the fleet SLO, the
        impact union, partial answers once ``c`` stops, the clock
-       offset); then SIGTERM, exit 0.
+       offset);
+    6. the scan router in front of ``a`` and ``b`` (``route_arm``):
+       the routed round's parity, a cold target, the federated
+       ``/impact``, the zero-loss SIGTERM drain of the replica that
+       carries the traffic (the drain's gates: exit 0, its timings),
+       the router's books, the route fault arm in front of the other;
+       then SIGTERM on that one, exit 0.
 
     Client-side ``dfa_blockmask`` launches are counted per round."""
     from trivy_tpu_torch.ops.dfa_cuda import dfa_blockmask
@@ -5365,8 +5778,10 @@ def server_phase(device, cdb, svc: dict, fleet: dict, gen2: dict,
         out["impact_after_swap"] = {
             **{k: v for k, v in swapped.items() if k != "answers"},
             "brute_force_s": brute2, "changed": n_changed}
-        out["drain"] = drain_under_load(srv, record)
         out["restart_ready_s"] = srv2.wait_ready()
+        routers = start_routers({"a": srv, "b": srv2}, next(iter(
+            record.values()))[0].blob_ids[0], d)
+        servers += [routers["route"], routers["fault"]]
         boot2 = srv2.boot_split()
         if boot2["misses"] or not boot2["hits"] or \
                 any(v["built"] for v in boot2["build"].values()) or \
@@ -5384,8 +5799,10 @@ def server_phase(device, cdb, svc: dict, fleet: dict, gen2: dict,
                 raise AssertionError("the restarted server's report != the "
                                      "second generation's")
             out["restart_scan_s"] = one["wall_s"]
-            # a review the restarted server has seen nothing of: a scan
-            # on its card
+            # a review of a target whose own layers left the shared
+            # blob cache: a scan on the restarted server's card
+            out["admission_evicted"] = evict_layers(
+                srv2.url, record[paths[1]][0].blob_ids[2:])
             out["admission_cold"] = admission_cold(srv2, gen2["texts"][1],
                                                    svc["refs"][1])
             out["federation"] = federation_gate(srv2, peer,
@@ -5418,10 +5835,17 @@ def server_phase(device, cdb, svc: dict, fleet: dict, gen2: dict,
              if ring.owner(b) == "b"})
         out["prewarm"]["rebuilt_layers"] = len(
             {b for a in rebuilt.values() for b in a["layers"]})
-        out["restart_rc"] = srv2.stop()
-        if out["restart_rc"] != 0:
-            raise AssertionError(f"the restarted server exited "
-                                 f"{out['restart_rc']}")
+        route = route_arm({"a": srv, "b": srv2}, routers, paths,
+                          gen2["texts"], broken, record,
+                          sorted(swapped["answers"]), svc["memo_dir"],
+                          backend)
+        out["drain"] = route.pop("drain")
+        out["route"] = route
+        last = {"a": srv, "b": srv2}[route["survivor"]]
+        out["survivor_rc"] = last.stop()
+        if out["survivor_rc"] != 0:
+            raise AssertionError(f"server {route['survivor']} exited "
+                                 f"{out['survivor_rc']}")
     finally:
         for s in servers:
             s.kill()
@@ -6929,26 +7353,31 @@ def main() -> int:
         # the scan server boots beside the memo phase
         svc = server_boot(device, work, kept)
         gen2: dict = {}
-        memo = memo_phase(device, cdb, kept, work, kept["off_wall_s"],
-                          keep=gen2)
+        # the router's host-only kill arm beside the memo phase
+        memo, sim_arm, _ = beside(
+            lambda: memo_phase(device, cdb, kept, work, kept["off_wall_s"],
+                               keep=gen2),
+            lambda: sim_route_arm(work))
         print("memo phase: " + json.dumps(memo), flush=True)
-        beside: dict = {}
+        print("router kill arm (host only, sim replicas, beside the memo "
+              "phase): " + json.dumps(sim_arm), flush=True)
+        side: dict = {}
 
         def during_swap() -> None:
-            beside["mesh_fleet"] = mesh_fleet_phase(device, cdb, kept,
+            side["mesh_fleet"] = mesh_fleet_phase(device, cdb, kept,
                                                     mesh, work)
             print("mesh phase, fleet (beside the server's swap): "
-                  + json.dumps(beside["mesh_fleet"]), flush=True)
+                  + json.dumps(side["mesh_fleet"]), flush=True)
 
         def during_restart() -> None:
-            beside["life"] = lifecycle_phase(device.type, work)
+            side["life"] = lifecycle_phase(device.type, work)
             print("lifecycle phase (beside the server's restart): "
-                  + json.dumps(beside["life"]), flush=True)
+                  + json.dumps(side["life"]), flush=True)
             dfa_cuda.dfa_blockmask.launches = 0
             rekor = rekor_line(cdb, device.type, n_pkgs, work)
             rekor["launches"] = dfa_cuda.dfa_blockmask.launches
             print(f"rekor ({gpu}): " + json.dumps(rekor), flush=True)
-            beside["rekor"] = rekor
+            side["rekor"] = rekor
 
         server = server_phase(device, cdb, svc, kept, gen2, work,
                               during_swap, during_restart)
@@ -6970,8 +7399,8 @@ def main() -> int:
         sched = reg.pop("sched")
         print("registry phase (a process of its own, beside the memo "
               "and server phases): " + json.dumps(reg), flush=True)
-        mesh_fleet, life, rekor = beside["mesh_fleet"], beside["life"], \
-            beside["rekor"]
+        mesh_fleet, life, rekor = side["mesh_fleet"], side["life"], \
+            side["rekor"]
 
     note = "no single PyTorch call computes this function"
     # every run of the main paths, each counted from 0 (timing loops
@@ -6988,7 +7417,8 @@ def main() -> int:
                 "mesh_fleet": sum(mesh_fleet["launches"].values()),
                 "memo": sum(memo["launches"].values()),
                 "rekor": rekor["launches"],
-                "server_clients": sum(server["launches"].values())}
+                "server_clients": sum(server["launches"].values()),
+                "route": server["route"]["launches"]}
     code_runs = {"run_blockmask": lit["launches"],
                  "sharded_blockmask":
                      mesh_kern["code_blockmask"]["launches"],
@@ -7228,6 +7658,18 @@ def main() -> int:
           f"of them b's on the ring of a and b)", flush=True)
     print(f"federation ({gpu}): " + json.dumps(server["federation"]),
           flush=True)
+    ra = server["route"]
+    print(f"scan router ({gpu}; route --replicas a,b in front of the two "
+          f"card servers, the real CLI): arm {ra['arm_s']:.1f} s (no server "
+          f"boot of its own), router ready {ra['ready_s']:.1f} s; routed "
+          f"round " + json.dumps(ra["parity"]) + f"; evicted before it "
+          f"{json.dumps(ra['evicted'])}; dfa_blockmask launches on the "
+          f"route path {ra['launches']}; /impact through the router "
+          f"{json.dumps(ra['impact'])} == the union of a's and b's; the drain "
+          f"of {server['drain']['victim']} through it on the scan server "
+          f"line; books {json.dumps(ra['books'])};"
+          f" fault arm in front of {ra['survivor']} "
+          f"{json.dumps(ra['fault'])}", flush=True)
     print("host memory (this process and its subprocesses, sampled each "
           "second): " + json.dumps(memory.summary()), flush=True)
     print(f"script: {time.perf_counter() - t_script:.1f} s", flush=True)

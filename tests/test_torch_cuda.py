@@ -1708,3 +1708,76 @@ def test_federated_card_replicas(cuda, tmp_path):
             httpd.shutdown()
             httpd.server_close()
             srv.close()
+
+
+def test_routed_scan_over_two_card_servers(cuda):
+    """A Scan RPC through the port's router front over two card
+    ``ScanServer``s equals the direct card scan; draining the replica
+    that served fails the same scan over to the other, equal again,
+    with the router's books balanced (``lost == 0``)."""
+    from trivy_tpu_torch.router import (HealthProber, RouterServer,
+                                        ScanRouter, serve_router)
+    from trivy_tpu_torch.router.metrics import ROUTER_METRICS
+    from trivy_tpu_torch.rpc.client import RemoteCache, RemoteScanner
+    from trivy_tpu_torch.rpc.server import ScanServer, serve
+    from trivy_tpu_torch.scan.local import ScanTarget
+    from trivy_tpu_torch.types import ScanOptions
+    from trivy_tpu_torch.types.artifact import (OS, BlobInfo, Package,
+                                                PackageInfo)
+    store = AdvisoryStore()
+    rng = np.random.default_rng(15)
+    pkgs = []
+    for i in range(64):
+        store.put_advisory("alpine 3.9", f"p{i}", f"CVE-2021-{i}",
+                           {"FixedVersion": f"{int(rng.integers(1, 5))}.0-r0"})
+        store.put_vulnerability(f"CVE-2021-{i}", {"Severity": "HIGH"})
+        v = f"{int(rng.integers(1, 5))}.0"
+        pkgs.append(Package(name=f"p{i}", version=v, release="r1",
+                            src_name=f"p{i}", src_version=v,
+                            src_release="r1"))
+    blob = BlobInfo(os=OS(family="alpine", name="3.9.4"),
+                    package_infos=[PackageInfo(packages=pkgs)])
+    cdb = CompiledDB.compile(store)
+    ROUTER_METRICS.reset()
+    servers, replicas, stops = [], [], []
+    try:
+        for name in ("a", "b"):
+            srv = ScanServer(store=cdb, sched="on", backend="cuda")
+            httpd, _ = serve(port=0, server=srv)
+            stops += [srv.close, httpd.server_close, httpd.shutdown]
+            url = f"http://127.0.0.1:{httpd.server_address[1]}"
+            RemoteCache(url, timeout_s=60).put_blob("sha256:b", blob)
+            servers.append(srv)
+            replicas.append((name, url))
+        router = ScanRouter(replicas)
+        front = RouterServer(router)
+        httpd_r, _ = serve_router(front, port=0)
+        stops += [front.close, httpd_r.shutdown]
+        target = ScanTarget(name="img", artifact_id="sha256:a",
+                            blob_ids=["sha256:b"])
+        opts = ScanOptions(security_checks=["vuln"], backend="cuda")
+
+        def doc(out):
+            return json.dumps([r.to_dict() for r in out[0]], sort_keys=True)
+
+        direct = doc(RemoteScanner(replicas[0][1], timeout_s=60).scan(
+            target, opts))
+        scanner = RemoteScanner(
+            f"http://127.0.0.1:{httpd_r.server_address[1]}", timeout_s=60,
+            max_retries=4, backoff_base_s=0.01)
+        assert doc(scanner.scan(target, opts)) == direct
+        assert "CVE-2021-" in direct
+        serving = scanner.last_routed_replica
+        assert serving == router.ring.owner("sha256:b")
+        servers["ab".index(serving)].begin_drain()
+        assert doc(scanner.scan(target, opts)) == direct
+        assert scanner.last_routed_replica != serving
+        HealthProber(router).probe_once()
+        assert router.replica(serving).draining
+        books = ROUTER_METRICS.snapshot()
+        assert books["lost"] == 0 and books["ok"] == 2 and \
+            books["replays"] == 1 and books["drain_redirects"] == 1
+    finally:
+        for fn in reversed(stops):
+            fn()
+        ROUTER_METRICS.reset()

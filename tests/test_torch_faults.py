@@ -126,17 +126,37 @@ def test_subseeds_equal_the_reference_on_seeded_inputs():
             [s.seed for s in rspecs(text)]
 
 
-def test_route_faults_fail_up_front_in_the_port():
-    """The route scenarios parse as in the reference, but the port's
-    injector refuses them: the router they drill is not ported, and an
-    ignored spec would be a drill that injected nothing."""
-    for text in ("replica-kill", "replica-flaky",
-                 "event-storm,replica-kill", "replica_flaky_every=2"):
-        spec = tfaults.parse_fault_spec(text)
-        assert spec.wants_route_faults()
-        with pytest.raises(ValueError, match="router is not ported"):
-            tfaults.FaultInjector(spec)
-        rfaults.FaultInjector(text)          # the reference takes it
+def _route_draws(pkg, text: str, n: int = 48) -> tuple:
+    """The router site driven in one seeded order: each forward's
+    verdict over three replicas, whether a kill is due at each forward
+    count, and the counters after."""
+    inj = FAULTS[pkg].FaultInjector(FAULTS[pkg].parse_fault_spec(text))
+    out = []
+    for i in range(n):
+        out.append((inj.on_route_forward(f"r{i % 3}"),
+                    inj.replica_kill_due(i)))
+    return out, inj.stats(), inj.spec.wants_route_faults()
+
+
+@pytest.mark.parametrize("text", [
+    "replica-flaky", "replica-kill", "replica-flaky:seed=4",
+    "replica-flaky:replica_flaky_every=2,replica_flaky=r1",
+    "replica-kill:replica_kill_after=7,replica_kill=r2",
+    "replica_flaky_every=5", "event-storm,replica-kill",
+    "cache-outage"])
+def test_route_decisions_equal_the_reference(text):
+    """The router site of the port's injector (``on_route_forward``,
+    ``replica_kill_due``) draws the same drops — the scoped
+    ``replica_flaky`` included — fires the kill once at the same
+    forward count and ends with the same counters as the reference's;
+    a spec without route faults drops nothing and kills nothing."""
+    got = _both(lambda pkg: _route_draws(pkg, text))
+    assert got["ref"][0] == "ok"
+    assert got["port"] == got["ref"]
+    draws, stats, wants = got["port"][1]
+    assert wants == ("replica" in text)
+    assert stats["replica_kills"] == (1 if "kill" in text else 0)
+    assert (stats["route_drops"] > 0) == ("flaky" in text)
 
 
 # --- the injector's decisions -------------------------------------------
@@ -725,6 +745,61 @@ def test_injected_rpc_replies_equal_the_reference():
     assert bodies["port"][0][0] == 500 and bodies["port"][1] == "dropped"
 
 
+@pytest.mark.parametrize("spec", ["replica-flaky", "replica-kill:seed=3"])
+def test_server_takes_a_route_spec_as_the_reference(spec):
+    """A server given a route spec (``server --fault-spec replica-flaky``)
+    injects nothing at its own site, as the reference's: every POST is
+    answered in full and the injector's counters match."""
+    import http.client
+    bodies = {}
+    for pkg in PKGS:
+        inj = FAULTS[pkg].FaultInjector(spec)
+        srv, httpd, url = _rpc_server(pkg, injector=inj)
+        out = []
+        try:
+            port = httpd.server_address[1]
+            for path, body in (
+                    ("/twirp/trivy.cache.v1.Cache/MissingBlobs",
+                     {"artifact_id": "a", "blob_ids": ["b"]}),
+                    ("/twirp/trivy.scanner.v1.Scanner/Scan",
+                     {"target": "t", "artifact_id": "a", "blob_ids": [],
+                      "idempotency_key": "k1",
+                      "options": {"security_checks": ["vuln"],
+                                  "backend": "cpu"}}),
+                    ("/twirp/trivy.cache.v1.Cache/MissingBlobs",
+                     {"artifact_id": "a", "blob_ids": []})):
+                conn = http.client.HTTPConnection("127.0.0.1", port,
+                                                  timeout=10)
+                try:
+                    conn.request("POST", path, body=json.dumps(body),
+                                 headers={"Content-Type":
+                                          "application/json"})
+                    resp = conn.getresponse()
+                    out.append((resp.status, json.loads(resp.read())))
+                finally:
+                    conn.close()
+            out.append(inj.stats())
+        finally:
+            srv.close()
+            httpd.shutdown()
+        bodies[pkg] = out
+    assert bodies["port"] == bodies["ref"]
+    assert [b[0] for b in bodies["port"][:3]] == [200, 200, 200]
+    assert bodies["port"][3]["rpc_drops"] == 0 and \
+        bodies["port"][3]["rpc_errors"] == 0
+
+
+def test_server_cli_takes_a_route_spec(tmp_path):
+    """``server --fault-spec replica-kill`` is taken by both CLIs and the
+    run goes on to the ``--listen`` check (exit 2, the same line)."""
+    argv = ["server", "--listen", "127.0.0.1:x", "--fault-spec",
+            "replica-kill"]
+    got, want = _cli("port", argv + ["--backend", "cpu"]), _cli("ref", argv)
+    assert got[0] == want[0] == 2
+    assert got[2] == want[2] == ["error: --listen needs host:port, got "
+                                 "'127.0.0.1:x'"]
+
+
 # --- degraded reports -----------------------------------------------------
 
 def _degraded_report(pkg, degraded: bool):
@@ -807,11 +882,13 @@ def _cli(pkg, argv) -> tuple:
 @pytest.mark.parametrize("spec", [
     "poison-image:poison=img1.tar", "device-transient",
     "corrupt-layer:corrupt=img2.tar",
-    "standard-outage:poison=img1.tar"])
+    "standard-outage:poison=img1.tar", "replica-flaky", "replica-kill"])
 def test_cli_fault_spec_end_to_end(fleets, spec, tmp_path, monkeypatch):
     """``image a b c --fault-spec SPEC --format json`` on both packages:
     the same exit code, the same reports (statuses and causes
-    included), the same ``error:`` and ``warning:`` lines."""
+    included), the same ``error:`` and ``warning:`` lines. A route
+    spec runs the fleet as the reference's does: nothing of it fires
+    there."""
     monkeypatch.chdir(tmp_path)
     paths = fleets[8]["paths"][:4]
     argv = ["image", *paths, "--format", "json", "--backend", "cpu",
@@ -879,13 +956,12 @@ def test_single_target_entries_refuse_fault_spec(entry, fleets, tmp_path,
 @pytest.mark.parametrize("spec,want", [
     ("no-such-scenario", "unknown fault scenario"),
     ("cache-outage:bogus_key=1", "bad fault-spec entry"),
-    ("replica-kill", "router is not ported"),
     ("hostile-ingest:hostile=nope", "unknown hostile builder")])
 def test_cli_bad_spec_fails_up_front(fleets, spec, want, tmp_path,
                                      monkeypatch):
     """A malformed spec ends the fleet run with exit 1 and its
     ``error:`` line before any scan (the reference's ``main`` catches
-    it the same way), and so does a route scenario in the port."""
+    it the same way)."""
     import trivy_tpu_torch.cli as tcli
     monkeypatch.chdir(tmp_path)
 
@@ -897,6 +973,5 @@ def test_cli_bad_spec_fails_up_front(fleets, spec, want, tmp_path,
             "--fault-spec", spec]
     got = _cli("port", argv)
     assert got[0] == 1 and len(got[2]) == 1 and want in got[2][0]
-    if want != "router is not ported":
-        ref = _cli("ref", argv + ["--no-cache"])
-        assert ref[0] == 1 and ref[2][-1] == got[2][0]
+    ref = _cli("ref", argv + ["--no-cache"])
+    assert ref[0] == 1 and ref[2][-1] == got[2][0]

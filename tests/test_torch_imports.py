@@ -188,6 +188,12 @@ FLEET_SLICE = ("impact/__init__.py", "impact/index.py", "impact/metrics.py",
                "obs/cost.py", "obs/propagate.py", "parallel/simhost.py",
                "runtime/batch.py", "flag.py")
 
+# the scan router in front of the card servers
+ROUTER_SLICE = ("router/__init__.py", "router/metrics.py", "router/core.py",
+                "router/front.py", "router/scaler.py", "router/sim.py",
+                "router/ring.py", "router/lifecycle.py", "obs/prom.py",
+                "faults/inject.py", "cli.py")
+
 
 def _covered(modules) -> None:
     import importlib
@@ -255,6 +261,10 @@ def test_the_scans_cover_the_fleet_slice():
     _covered(FLEET_SLICE)
 
 
+def test_the_scans_cover_the_router_slice():
+    _covered(ROUTER_SLICE)
+
+
 def test_server_entry_runs_without_jax():
     """``python -m trivy_tpu_torch server`` parses its fleet flags (the
     peer list through ``obs/federate.py``), refuses ``--impact-index``
@@ -295,6 +305,62 @@ def test_simhost_entry_runs_without_jax():
     assert proc.stdout.split() == ["2", "[]"]
     assert "usage: python -m trivy_tpu_torch.parallel.simhost" in \
         proc.stderr
+
+
+def test_router_sim_entry_runs_without_jax_or_torch():
+    """``python -m trivy_tpu_torch.router.sim --port 0`` — the subprocess
+    replica of the router's scaler — binds, prints ``PORT <n>`` and
+    serves, without loading JAX, the JAX package or torch (its start-up
+    is a fleet's bring-up time); the patched sleep stands in for the
+    SIGINT that ends it."""
+    code = ("import runpy, sys, time\n"
+            "def stop(_s):\n"
+            "    raise KeyboardInterrupt\n"
+            "time.sleep = stop\n"
+            "sys.argv = ['sim', '--port', '0', '--name', 'r9']\n"
+            "try:\n"
+            "    runpy.run_module('trivy_tpu_torch.router.sim',\n"
+            "                     run_name='__main__')\n"
+            "except SystemExit as e:\n"
+            "    rc = e.code\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+            "             ('jax', 'jaxlib', 'trivy_tpu', 'torch'))\n"
+            "print(rc, bad)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    lines = proc.stdout.splitlines()
+    assert len(lines) == 2 and lines[0].startswith("PORT ")
+    assert int(lines[0].split()[1]) > 0
+    assert lines[1].split() == ["0", "[]"]
+
+
+def test_subprocess_controller_spawns_the_ports_sim(monkeypatch):
+    """``SubprocessReplicaController`` starts ``python -m
+    trivy_tpu_torch.router.sim`` (the reference's spawns its own
+    package's), reads its port and stops it."""
+    from trivy_tpu_torch.router import scaler
+    spawned = []
+    real = subprocess.Popen
+
+    def popen(argv, *a, **k):
+        spawned.append(list(argv))
+        return real(argv, *a, **k)
+
+    monkeypatch.setattr(subprocess, "Popen", popen)
+    ctrl = scaler.SubprocessReplicaController(prefix="imp")
+    name, url = ctrl.start()
+    try:
+        assert name == "imp-0" and url.startswith("http://127.0.0.1:")
+        assert spawned == [[sys.executable, "-m",
+                            "trivy_tpu_torch.router.sim", "--name",
+                            "imp-0", "--port", "0"]]
+        proc = ctrl.procs[name]
+        with open(f"/proc/{proc.pid}/cmdline", "rb") as f:
+            assert b"trivy_tpu_torch.router.sim" in f.read().split(b"\0")
+    finally:
+        ctrl.stop(name)
+    assert proc.poll() is not None and not ctrl.procs
 
 
 def test_no_import_statement_names_jax_or_the_jax_package():

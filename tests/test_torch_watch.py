@@ -1037,7 +1037,10 @@ def cli_fleet(tmp_path_factory):
     ["--watch-source", "synthetic:rate=1000,n=12,seed=7", "--listen", ""],
     ["--watch-source", "webhook", "--listen", "127.0.0.1:0",
      "--fault-spec", "event-storm:storm_events=24,storm_digests=3,"
-     "storm_malformed=2", "--debounce-ms", "20"]])
+     "storm_malformed=2", "--debounce-ms", "20"],
+    # a route spec: nothing of it fires in watch, as in the reference
+    ["--watch-source", "synthetic:rate=1000,n=12,seed=7", "--listen", "",
+     "--fault-spec", "replica-kill"]])
 def test_watch_cli_equals_the_reference(argv, cli_fleet, tmp_path,
                                         monkeypatch):
     """``watch`` with a seeded synthetic source, and with the

@@ -17,17 +17,18 @@ kernel is replaced by its plain PyTorch version.
 
 from __future__ import annotations
 
-import torch
-
 __version__ = "0.1.0"
 
 DEFAULT_DEVICE = "cuda"
 
 
-def resolve_device(device=None) -> torch.device:
+def resolve_device(device=None) -> "torch.device":
     """The device an entry point runs on: ``cuda`` unless the caller
     names another. Asking for CUDA on a machine without it raises —
-    a scan never drops to the CPU on its own."""
+    a scan never drops to the CPU on its own. torch is imported here,
+    not with the package: ``python -m trivy_tpu_torch.router.sim``
+    (a subprocess replica) starts without it."""
+    import torch
     dev = torch.device(DEFAULT_DEVICE if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

@@ -16,6 +16,7 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import threading
 from typing import Optional
 
 from ..types.convert import artifact_info_from_dict, blob_info_from_dict
@@ -118,7 +119,10 @@ class FSCache(MemoryCache):
 
     def _write(self, kind: str, key: str, obj) -> None:
         path = self._path(kind, key)
-        tmp = path + ".tmp"
+        # a temporary name of the writer's own: two writers of one key
+        # (two sessions pushing a shared layer, or two servers on one
+        # directory behind a router) must not share it
+        tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
         data = obj.to_dict() if hasattr(obj, "to_dict") else obj
         with open(tmp, "w", encoding="utf-8") as f:
             json.dump(data, f)

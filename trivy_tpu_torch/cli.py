@@ -689,8 +689,10 @@ def _configure_misconf(args, checks) -> bool:
 
 def _fault_injector(args):
     """--fault-spec → ``faults.FaultInjector``, or None. A malformed
-    spec, or one with route faults, raises ``ValueError`` (the callers
-    print it and exit 1, as the reference's ``main`` does)."""
+    spec raises ``ValueError`` (the callers print it and exit 1, as
+    the reference's ``main`` does). Route faults drill the scan
+    router (``route``); the fleet, ``server`` and ``watch`` take them
+    and inject nothing at their own sites, as the reference's do."""
     spec = getattr(args, "fault_spec", "")
     if not spec:
         return None
@@ -1611,11 +1613,16 @@ def build_parser() -> argparse.ArgumentParser:
     _watch_flags(watch)
     _scan_flags(watch)
     _tree_flags(watch)
+    _route_flags(sub.add_parser(
+        "route", help="run the scan-router front: consistent-hash "
+        "sharding over N server replicas with zero-loss failover and "
+        "SLO-driven autoscaling (docs/serving.md)"))
     imp = sub.add_parser(
-        "impact", help="ask a replica server which layers and images "
-        "a CVE affects (GET /impact?cve=)")
+        "impact", help="ask a replica server or the router fleet "
+        "front which layers and images a CVE affects "
+        "(GET /impact?cve=)")
     imp.add_argument("--server", required=True,
-                     help="server base URL")
+                     help="server or router base URL")
     imp.add_argument("--cve", required=True)
     imp.add_argument("--token", dest="auth_token", default="")
     imp.add_argument("--token-header", default="Trivy-Token")
@@ -1623,6 +1630,50 @@ def build_parser() -> argparse.ArgumentParser:
     # only when `impact` runs, so the scans keep their duration
     imp.add_argument("--timeout", type=float, default=5.0).env_local = True
     return ap
+
+
+def _route_flags(rt) -> None:
+    """The ``route`` subcommand's flags (ref cli.py ``route``). It
+    serves no device itself: the replicas hold the cards, so it takes
+    no ``--backend``."""
+    rt.add_argument("--listen", default="127.0.0.1:4955")
+    rt.add_argument("--replicas", default="",
+                    help="backend replicas, "
+                    "'name=http://host:port,...' (or bare URLs) — "
+                    "same syntax as --federate-peers; may be empty "
+                    "when --scaler brings the fleet up")
+    rt.add_argument("--token", dest="auth_token", default="",
+                    help="shared fleet token: required from "
+                    "clients AND presented to replicas")
+    rt.add_argument("--token-header", default="Trivy-Token")
+    rt.add_argument("--vnodes", type=int, default=64,
+                    help="virtual nodes per replica on the hash "
+                    "ring")
+    rt.add_argument("--capacity-factor", type=float, default=1.25,
+                    help="bounded-load cap: a replica takes at "
+                    "most ceil(cf * (inflight+1) / n) requests "
+                    "before the hot digest spills to the next "
+                    "ring owner")
+    rt.add_argument("--probe-interval", type=float, default=1.0,
+                    help="seconds between /healthz probes of each "
+                    "replica (drain visibility, breaker recovery)")
+    rt.add_argument("--upstream-timeout", type=float, default=300.0,
+                    help="per-forward upstream timeout in seconds; "
+                    "a timed-out replica is failed over with the "
+                    "same idempotency key")
+    rt.add_argument("--scaler", default="off",
+                    choices=["off", "sim", "subprocess"],
+                    help="SLO-driven autoscaler: 'subprocess' "
+                    "spawns sim replicas as child processes "
+                    "(python -m trivy_tpu_torch.router.sim); "
+                    "production wires its own ReplicaController")
+    rt.add_argument("--scaler-min", type=int, default=1)
+    rt.add_argument("--scaler-max", type=int, default=8)
+    rt.add_argument("--scaler-interval", type=float, default=2.0)
+    rt.add_argument("--fault-spec", default="",
+                    help="inject deterministic router faults "
+                    "(replica-flaky response drops; "
+                    "docs/robustness.md)")
 
 
 def main(argv=None) -> int:
@@ -1671,6 +1722,8 @@ def _dispatch(args) -> int:
         return _run_db(args)
     if args.command == "server":
         return run_server(args)
+    if args.command == "route":
+        return run_route(args)
     if args.command == "impact":
         return run_impact(args)
     if args.generate_default_config:
@@ -1713,6 +1766,114 @@ def run_impact(args) -> int:
         print(f"error: impact query: {e}", file=sys.stderr)
         return 1
     print(json.dumps(out, indent=2, sort_keys=True))
+    return 0
+
+
+def run_route(args) -> int:
+    """``route`` (ref cli.py ``run_route``): the fleet front
+    (docs/serving.md "Scan router & autoscaling") — consistent-hash
+    sharding by layer digest across the --replicas set, /healthz
+    probing, breaker ejection, zero-loss failover, optional SLO-driven
+    autoscaling. SIGTERM shuts the listener and the prober (and the
+    scaler) and exits 0. One departure: the sim replicas a ``--scaler
+    subprocess`` started are stopped on the way out (the reference's
+    outlive it)."""
+    import signal
+    import threading
+
+    from .obs.federate import parse_peers
+    from .router import (Autoscaler, HealthProber, RouterServer,
+                         ScalerPolicy, ScanRouter,
+                         SimReplicaController,
+                         SubprocessReplicaController, serve_router)
+    from .router.scaler import federated_verdicts
+
+    host, _, port = args.listen.rpartition(":")
+    if not port.isdigit():
+        print(f"error: --listen needs host:port, got "
+              f"{args.listen!r}", file=sys.stderr)
+        return 2
+    try:
+        replicas = parse_peers(args.replicas) \
+            if args.replicas else []
+    except ValueError as e:
+        print(f"error: --replicas: {e}", file=sys.stderr)
+        return 2
+    if not replicas and args.scaler == "off":
+        print("error: --replicas is empty and --scaler off: "
+              "nothing to route to", file=sys.stderr)
+        return 2
+    try:
+        injector = _fault_injector(args)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    if injector is not None and \
+            not injector.spec.wants_route_faults():
+        print("error: --fault-spec on the route command wants a "
+              "router scenario (replica-flaky / replica-kill)",
+              file=sys.stderr)
+        return 2
+    try:
+        router = ScanRouter(
+            replicas, token=args.auth_token,
+            token_header=args.token_header,
+            vnodes=args.vnodes,
+            capacity_factor=args.capacity_factor,
+            timeout_s=args.upstream_timeout,
+            fault_injector=injector)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    prober = HealthProber(router, interval_s=args.probe_interval)
+    prober.start()
+    scaler = controller = None
+    if args.scaler != "off":
+        controller = SimReplicaController() \
+            if args.scaler == "sim" \
+            else SubprocessReplicaController()
+        policy = ScalerPolicy(
+            min_replicas=max(0, args.scaler_min),
+            max_replicas=max(1, args.scaler_max),
+            interval_s=args.scaler_interval)
+        scaler = Autoscaler(
+            router, controller, policy=policy,
+            verdict_fn=federated_verdicts(
+                router, token=args.auth_token))
+        # bring the fleet to the floor before serving
+        while len(router.replicas()) < policy.min_replicas:
+            name, url = controller.start()
+            router.add_replica(name, url)
+        scaler.start()
+    front = RouterServer(router, token=args.auth_token,
+                         token_header=args.token_header,
+                         prober=prober, scaler=scaler)
+    httpd, _ = serve_router(front, host or "127.0.0.1", int(port))
+    print(f"trivy-tpu router listening on {args.listen} "
+          f"(fronting {len(router.replicas())} replicas)", flush=True)
+    stop = threading.Event()
+
+    def _term(signum, frame):
+        stop.set()
+
+    try:
+        signal.signal(signal.SIGTERM, _term)
+    except ValueError:
+        pass                    # not the main thread (tests)
+    try:
+        while not stop.wait(1.0):
+            pass
+    except KeyboardInterrupt:
+        pass
+    finally:
+        httpd.shutdown()
+        front.close()
+        if controller is not None:
+            # the replicas this front's scaler started go with it
+            live = getattr(controller, "procs", None)
+            for name in sorted(controller.replicas if live is None
+                               else live):
+                controller.stop(name)
     return 0
 
 

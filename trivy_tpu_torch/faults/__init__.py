@@ -9,9 +9,10 @@ to — the circuit-broken cache fallback (``artifact/resilient.py``),
 poison-image quarantine in the scheduler, degraded-mode reports,
 idempotent RPC retries, graceful drain — under reproducible failure,
 from the tests and the CLI (``--fault-spec`` on the ``image`` fleet,
-``server`` and ``watch``). The route faults (``replica-kill``,
-``replica-flaky``) need the scan router, which is not ported: the
-injector refuses them up front.
+``server``, ``watch`` and ``route``). The route faults
+(``replica-kill``, ``replica-flaky``) drill the scan router
+(``router/``); the other entries take them and inject nothing at
+their own sites, as the reference's do.
 """
 
 from .hostile import (BUILDERS as HOSTILE_BUILDERS, EXPECTED_STATUS,

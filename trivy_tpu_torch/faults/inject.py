@@ -1,5 +1,5 @@
 """Fault injector: the imperative half of the fault layer (copied from
-``trivy_tpu/faults/inject.py`` but for the router site).
+``trivy_tpu/faults/inject.py``).
 
 A :class:`FaultInjector` holds one :class:`FaultSpec` plus the seeded
 RNG and per-site counters, and is consulted at the pipeline's failure
@@ -18,11 +18,11 @@ domains:
 * **registry** — :meth:`on_blob_chunk` drops blob streams mid-body;
 * **rpc** — :meth:`rpc_action` decides per POST whether to answer
   500 before processing or to process and then drop the response
-  (the lost-response case idempotency keys exist for).
-
-The router site of the reference (``on_route_forward``,
-``replica_kill_due``) waits for the scan router: a spec with route
-faults raises ``ValueError`` here instead of injecting nothing.
+  (the lost-response case idempotency keys exist for);
+* **router** — :meth:`on_route_forward` drops every Nth forwarded
+  response (replica-flaky) and :meth:`replica_kill_due` tells the
+  harness when to kill a backend mid-storm (replica-kill), both
+  drilling the scan router's replay-based failover.
 
 On the card the scheduler lets only a :class:`DeviceFault` raised at
 :meth:`on_device_dispatch` go down its bisect / quarantine ladder
@@ -78,12 +78,6 @@ class FaultInjector:
     def __init__(self, spec):
         if not isinstance(spec, FaultSpec):
             spec = parse_fault_spec(spec)
-        if spec.wants_route_faults():
-            raise ValueError(
-                f"fault scenario {spec.scenario or 'custom'!r} sets "
-                "route faults (replica_kill_after/replica_flaky_every), "
-                "which drill the scan router; the router is not ported "
-                "yet (ROADMAP h.2)")
         self.spec = spec
         self._rng = random.Random(spec.seed)
         self._lock = threading.Lock()
@@ -93,8 +87,6 @@ class FaultInjector:
                          "stalls": 0, "rpc_posts": 0,
                          "rpc_errors": 0, "rpc_drops": 0,
                          "memo_loads": 0, "memo_corruptions": 0,
-                         # the router site's counters stay (always 0)
-                         # so stats() has the reference's keys
                          "routed_forwards": 0, "route_drops": 0,
                          "replica_kills": 0, "blob_chunks": 0,
                          "blob_stream_faults": 0}
@@ -244,6 +236,46 @@ class FaultInjector:
             self._inc("device_faults")
             raise DeviceFault(
                 f"injected transient device error (dispatch #{n})")
+
+    # --- router site (docs/serving.md "Scan router & autoscaling") ---
+
+    def on_route_forward(self, replica: str) -> str:
+        """'ok' | 'drop' — consulted by the router AFTER a forward
+        completed: 'drop' discards the replica's response (the work
+        happened, the client never hears back), forcing the replay-
+        with-same-idempotency-key failover path. ``replica_flaky``
+        scopes the drops to one named replica."""
+        spec = self.spec
+        n = self._inc("routed_forwards")
+        if not spec.replica_flaky_every:
+            return "ok"
+        if spec.replica_flaky and replica != spec.replica_flaky:
+            return "ok"
+        if n % spec.replica_flaky_every == 0:
+            self._inc("route_drops")
+            add_event("fault_injected", site="router",
+                      kind="response-drop", replica=replica)
+            return "drop"
+        return "ok"
+
+    def replica_kill_due(self, forwards: int) -> bool:
+        """replica-kill scenario: True exactly once, the first time
+        the router's forward count reaches the seeded instant — the
+        HARNESS (bench kill arm, tests) then kills the victim
+        replica's process; the spec only carries when."""
+        spec = self.spec
+        if not spec.replica_kill_after:
+            return False
+        if forwards < spec.replica_kill_after:
+            return False
+        with self._lock:
+            if self.counters["replica_kills"]:
+                return False
+            self.counters["replica_kills"] += 1
+        add_event("fault_injected", site="router",
+                  kind="replica-kill",
+                  replica=spec.replica_kill or "(harness pick)")
+        return True
 
     # --- rpc site ---
 

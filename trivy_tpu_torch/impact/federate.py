@@ -2,8 +2,8 @@
 ``trivy_tpu/impact/federate.py``; docs/serving.md "CVE impact queries
 & push re-scans").
 
-A federating front (the router, ROADMAP A.9h.2, or any caller with a
-replica list) answers ``GET /impact?cve=`` by fanning the query
+A federating front (the router's, ``router/front.py``, or any caller
+with a replica list) answers ``GET /impact?cve=`` by fanning the query
 out to every replica's local slice and unioning the answers —
 Federator semantics throughout (obs/federate.py): bounded fan-in,
 per-peer timeout, and a ``complete`` flag that goes False the moment

@@ -26,8 +26,7 @@ The families, names and bytes are the reference's, with one
 departure: ``trivy_tpu_build_info`` labels the torch and CUDA
 versions (``torch_version``, ``cuda_version``, as
 ``sched/metrics.py::build_info`` reports them) where the reference
-labels ``jax_version``. The scan router's exposition
-(``render_router``) comes with the router (ROADMAP A.9h).
+labels ``jax_version``.
 """
 
 from __future__ import annotations
@@ -821,3 +820,121 @@ def render_prometheus(stats: dict, phase_hists=None,
         w.lines.append("# EOF")
     return "\n".join(w.lines) + "\n"
 
+
+def render_router(stats: dict, hists=None) -> str:
+    """Text exposition for the scan-router front's ``GET /metrics``
+    (docs/serving.md "Scan router & autoscaling"). Separate from
+    :func:`render_prometheus` on purpose: the router is a different
+    process with a different metrics surface, and the replica
+    servers' byte-stable exposition must not grow families it never
+    serves. Input is ``RouterServer.metrics()`` — the router books
+    (exactly-once terminal outcomes), per-replica gauges, ring and
+    scaler state."""
+    w = _Writer()
+    r = stats.get("router") or {}
+    p = f"{_PREFIX}_router"
+
+    w.scalar(f"{p}_accepted_total", "counter",
+             "Requests accepted for routing; each ends in exactly "
+             "one terminal outcome (the books-balance invariant).",
+             r.get("accepted", 0))
+    w.header(f"{p}_requests_total", "counter",
+             "Terminal outcomes of accepted requests.")
+    for outcome in ("ok", "degraded", "timeout", "rate_limited",
+                    "unavailable", "failed"):
+        w.sample(f"{p}_requests_total", [("outcome", outcome)],
+                 r.get(outcome, 0))
+    w.scalar(f"{p}_lost", "gauge",
+             "accepted - terminal; zero at quiesce, anything else "
+             "is a lost request.", r.get("lost", 0))
+    w.header(f"{p}_routing_total", "counter",
+             "Routing mechanics by kind.")
+    for kind in ("forwards", "failovers", "replays", "spills",
+                 "conn_errors", "drain_redirects"):
+        w.sample(f"{p}_routing_total", [("kind", kind)],
+                 r.get(kind, 0))
+    w.header(f"{p}_fleet_events_total", "counter",
+             "Ring-churn, ejection/recovery and probe events.")
+    for kind in ("ring_churn", "ejections", "recoveries", "probes",
+                 "probe_failures"):
+        w.sample(f"{p}_fleet_events_total", [("kind", kind)],
+                 r.get(kind, 0))
+    w.header(f"{p}_scaler_events_total", "counter",
+             "Autoscaler decisions and drain lifecycle.")
+    for kind in ("scale_ups", "scale_downs", "scale_holds",
+                 "drains_started", "drain_kills"):
+        w.sample(f"{p}_scaler_events_total", [("kind", kind)],
+                 r.get(kind, 0))
+
+    replicas = stats.get("replicas") or []
+    w.scalar(f"{p}_replicas", "gauge",
+             "Replicas on the ring.", len(replicas))
+    w.scalar(f"{p}_replicas_routable", "gauge",
+             "Replicas eligible for NEW work (not draining, not "
+             "warming, breaker closed).",
+             len(stats.get("routable") or []))
+    w.header(f"{p}_replica_inflight", "gauge",
+             "Router-tracked in-flight requests per replica.")
+    for rep in replicas:
+        w.sample(f"{p}_replica_inflight",
+                 [("replica", rep.get("name", ""))],
+                 rep.get("inflight", 0))
+    w.header(f"{p}_replica_draining", "gauge",
+             "Replica drain state (1 = no NEW work).")
+    for rep in replicas:
+        w.sample(f"{p}_replica_draining",
+                 [("replica", rep.get("name", ""))],
+                 1 if rep.get("draining") else 0)
+    w.header(f"{p}_replica_warming", "gauge",
+             "Replica prewarm state (1 = joined the ring, not yet "
+             "admitted; flips on the first ready health probe).")
+    for rep in replicas:
+        w.sample(f"{p}_replica_warming",
+                 [("replica", rep.get("name", ""))],
+                 1 if rep.get("warming") else 0)
+    w.header(f"{p}_replica_breaker_state", "gauge",
+             "Circuit-breaker state per replica (one-hot).")
+    for rep in replicas:
+        state = (rep.get("breaker") or {}).get("state", "closed")
+        for s in _BREAKER_STATES:
+            w.sample(f"{p}_replica_breaker_state",
+                     [("replica", rep.get("name", "")),
+                      ("state", s)], 1 if s == state else 0)
+
+    lifecycle = stats.get("lifecycle") or {}
+    if lifecycle:
+        # elastic-lifecycle counters booked by THIS process: the
+        # autoscaler's drain-handoff orchestration (docs/serving.md
+        # "Elastic lifecycle"); replica-side prewarm counters live
+        # on each replica's own /metrics
+        for k, help_ in (
+                ("handoff_published",
+                 "Hot digests pulled from draining replicas."),
+                ("handoff_prefetched",
+                 "Handoff digests adopted by ring successors."),
+                ("handoff_abandoned",
+                 "Handoff digests no successor adopted."),
+                ("prewarm_keys",
+                 "Memo keys staged by prewarm walks."),
+                ("prewarm_bytes",
+                 "Memo payload bytes staged by prewarm walks."),
+                ("prewarm_seconds",
+                 "Wall seconds spent in prewarm walks."),
+                ("prewarm_deadline_exceeded",
+                 "Prewarm walks cut short by the deadline.")):
+            w.scalar(f"{_PREFIX}_{k}_total", "counter", help_,
+                     lifecycle.get(k))
+
+    w.scalar(f"{p}_affinity_entries", "gauge",
+             "Cache-session affinity entries (id -> route key).",
+             stats.get("affinity_entries", 0))
+    # latency histograms ride the RAW bucket shape
+    # (RouterMetrics.hist_snapshot), not the quantile summary the
+    # JSON snapshot carries
+    _histograms(w, "router_latency", "stage", hists or {},
+                "Router latency: route_latency = end-to-end wall "
+                "time, upstream_latency = time waiting on the "
+                "upstream replica; the difference is attributed "
+                "router overhead.")
+    _process_gauges(w, stats.get("process") or {})
+    return "\n".join(w.lines) + "\n"

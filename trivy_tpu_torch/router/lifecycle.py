@@ -17,8 +17,8 @@ docs/serving.md "Elastic lifecycle").
   :func:`plan_handoff` says where each digest lands once the victim
   leaves (a ring WITHOUT the victim), :func:`fetch_handoff` pulls the
   set and ``_post_json`` pushes a successor's ``POST /prefetch``
-  batch. The orchestration that drives them from a router
-  (``run_handoff``) comes with ``router/`` (ROADMAP A.9h.2).
+  batch; :func:`run_handoff` drives them from a router's scale-down
+  (``scaler.py::Autoscaler``).
 
 Stdlib-only, like the reference: the planning functions are pure and
 agree across processes and packages without coordination.
@@ -181,3 +181,54 @@ def fetch_handoff(url: str,
     if not isinstance(doc, dict):
         return []
     return [str(d) for d in doc.get("digests") or []][:HANDOFF_CAP]
+
+
+def run_handoff(router, victim: str,
+                timeout_s: float = 5.0) -> dict:
+    """Drain-handoff orchestration, called right after ``victim`` is
+    marked draining: pull its hot-digest set, plan successors on the
+    victim-less ring, push ``POST /prefetch`` to each. Books every
+    digest exactly once (prefetched or abandoned) into
+    :data:`LIFECYCLE_METRICS`; returns the summary the scaler/soak
+    report logs. Failure anywhere degrades to the pre-handoff world
+    (successors fault cold) — never blocks the drain."""
+    vh = router.replica(victim)
+    summary = {"victim": victim, "published": 0,
+               "prefetched": 0, "abandoned": 0, "successors": {}}
+    if vh is None:
+        return summary
+    digests = fetch_handoff(vh.url, timeout_s=timeout_s)
+    if not digests:
+        return summary
+    # hottest-first for the successors' bounded warm sets
+    digests = list(reversed(digests))
+    summary["published"] = len(digests)
+    LIFECYCLE_METRICS.inc("handoff_published", len(digests))
+    members = [h.name for h in router.replicas()
+               if h.name != victim and not h.draining]
+    plan = plan_handoff(members + [victim], victim, digests)
+    for successor in sorted(plan):
+        batch = plan[successor]
+        sh = router.replica(successor)
+        doc = _post_json(sh.url + "/prefetch", {"digests": batch},
+                         timeout_s) if sh is not None else None
+        accepted = 0
+        if doc is not None:
+            try:
+                accepted = max(0, min(len(batch),
+                                      int(doc.get("accepted") or 0)))
+            except (TypeError, ValueError):
+                accepted = 0
+        summary["successors"][successor] = accepted
+        summary["prefetched"] += accepted
+        summary["abandoned"] += len(batch) - accepted
+    # digests whose successor vanished mid-plan are abandoned too
+    planned = sum(len(v) for v in plan.values())
+    summary["abandoned"] += len(digests) - planned
+    LIFECYCLE_METRICS.inc("handoff_prefetched",
+                          summary["prefetched"])
+    LIFECYCLE_METRICS.inc("handoff_abandoned", summary["abandoned"])
+    log.info("handoff from %s: %d published, %d prefetched, "
+             "%d abandoned", victim, summary["published"],
+             summary["prefetched"], summary["abandoned"])
+    return summary
