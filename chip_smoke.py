@@ -302,6 +302,33 @@ Builds the port's hand-written kernels (``trivy_tpu_torch/csrc``, one
    and a Rekor line (an ``fs`` scan whose unpackaged executable is
    found through a stub Rekor log on 127.0.0.1, equal to ``cpu-ref``'s)
    ride on the image and lifecycle steps.
+12. the remaining subcommands. ``k8s`` at the fleet's full width
+   (``k8s_clis``, CLI processes beside the memo and server phases):
+   manifests naming the 8 targets by their ``--images-dir`` names, a
+   Pod sharing one target's image, a CronJob whose image no tarball
+   answers and a Role; ``k8s DIR --images-dir D --security-checks
+   vuln,secret,config --format json`` on the sbom phase's npz must give
+   each workload its target's fleet report, the truncated target and
+   the ghost their errors, every manifest its misconfiguration results,
+   with one ``dfa_blockmask`` launch for the cluster; ``--compliance
+   nsa --format json`` and the ``summary`` table (config only) must
+   equal the same reports made in this process; a 2-target cluster of
+   the reduced fleet gives one report on the card and ``cpu-ref``
+   (``k8s_card_vs_ref``, in the registry worker). ``repo`` on the fs
+   phase's full tree, committed into a git repository and cloned
+   (``repo_cli``; the directory itself where there is no ``git``), in a
+   CLI process: the fs phase's full-tree results, one launch; the
+   reduced tree gives one report on the card and ``cpu-ref``
+   (``repo_card_vs_ref``). ``module``, ``plugin``, ``aws`` and
+   ``version`` (``ExtensionArm``, CLI processes beside the server
+   phase): a module installed, then a reduced ``fs`` tree on
+   the card equal to ``cpu-ref`` with the module's analyzer result and
+   post-scan edit; a shell plugin installed and run by its bare name;
+   ``aws`` on a seeded account state equal to ``scan_account``;
+   ``version``. Last, with nothing beside it (its verdicts read the
+   wall clock), ``soak --scenario soak-smoke`` (``soak_cli``: a routed
+   fleet of CPU sim replicas on the host) must exit 0: books balanced,
+   trips exact, the leak audit ok.
 
 The obs checks ride on those runs: the fleet phase's cold and warm
 fleets run on the process tracer, as a user's do, and once more each
@@ -2135,6 +2162,11 @@ def fs_phase(device, cdb, n_pkgs: dict, files: list, planted: dict,
                           **idle_shares(busy_ms, wall_ms, warm_steps),
                           "ops_us": ops}}
 
+    # the repo entry on the full tree in a new process, beside the rest
+    # of the phase: the tree committed into a git repository and cloned
+    pending.append(repo_cli(full, work_dir, db_path, backend,
+                            {"text": text}))
+
     # the secret check alone: the checks of the earlier slice phase
     dfa_blockmask.launches = 0
     stext, ssteps, sstats = scan_tree(full, None, backend, card,
@@ -2203,6 +2235,7 @@ def fs_phase(device, cdb, n_pkgs: dict, files: list, planted: dict,
     if len(set(texts.values())) != 1:
         raise AssertionError("reduced tree: cuda, cpu and cpu-ref differ")
     out["reduced"] = {b: r[1]["total_s"] for b, r in red.items()}
+    out["repo"] = repo_card_vs_ref(device, cdb, reduced, work_dir)
 
     # the real entry point in a new process, on the sbom phase's npz
     report_path = os.path.join(work_dir, "fs.report.json")
@@ -3508,10 +3541,11 @@ class BackgroundCLI:
     on a core of their own. ``finish`` waits for the exit, fails on a
     code other than ``rc`` and returns ``{"wall_s", **check(stderr)}``;
     the wall is from the start to the exit, on a host shared with the
-    phases beside it. Output goes to files in ``work_dir``."""
+    phases beside it. Output goes to files in ``work_dir``; ``env``
+    adds to the environment the process inherits."""
 
     def __init__(self, name: str, argv: list, work_dir: str, check,
-                 stdout: str = "", rc: int = 0):
+                 stdout: str = "", rc: int = 0, env: dict = None):
         self.name, self.check, self.rc = name, check, rc
         self._err_path = os.path.join(work_dir, f"{name}.cli.stderr")
         self._err = open(self._err_path, "w")
@@ -3527,7 +3561,8 @@ class BackgroundCLI:
             self.proc = subprocess.Popen(
                 [sys.executable] + argv,
                 cwd=os.path.dirname(os.path.abspath(__file__)),
-                stdout=self._out, stderr=self._err, text=True)
+                stdout=self._out, stderr=self._err, text=True,
+                env={**os.environ, **(env or {})})
         except BaseException:
             self._unlock()
             raise
@@ -4957,10 +4992,13 @@ def route_fault_arm(router: ServerProc, survivor: ServerProc,
     RPCs one after another:
     each dropped answer ends its request 503 at the router (no other
     owner), the client retries with the same idempotency key and the
-    replica answers the retry from its idempotency window. Gates: each
-    client gets one result, equal to its report; the replica's window
-    served as many replays as the router answered 503 (one per drop);
-    the books balance; SIGTERM exits 0."""
+    replica answers the retry from its idempotency window. A retry that
+    comes while the router still holds the replica out after the drop
+    is answered 503 without a forward. Gates: each client gets one
+    result, equal to its report; the replica's window served one replay
+    per dropped answer (the router's ``conn_errors``); every other 503
+    is a request the router forwarded to no replica; the books balance;
+    SIGTERM exits 0."""
     t0 = time.perf_counter()
     try:
         router.wait_ready()
@@ -4972,8 +5010,10 @@ def route_fault_arm(router: ServerProc, survivor: ServerProc,
                                      "target's report")
         replays = survivor.get("/metrics")["idempotency"]["hits"] - idem0
         books = router_books(router)
-        if books["unavailable"] < 1 or books["unavailable"] != replays or \
-                books["ok"] != ROUTE_FLAKY_SCANS:
+        unforwarded = books["accepted"] - books["forwards"]
+        if books["conn_errors"] < 1 or books["conn_errors"] != replays or \
+                books["unavailable"] != books["conn_errors"] + unforwarded \
+                or books["ok"] != ROUTE_FLAKY_SCANS:
             raise AssertionError(f"route fault arm: books {books}, "
                                  f"{replays} replays from the window")
         rc = router.stop()
@@ -6611,6 +6651,9 @@ def registry_work(spec: dict, cdb) -> dict:
     out["watch"] = watch_phase(device, cdb, fleet, spec["work_dir"])
     print("watch loop (in the registry worker): " + json.dumps(
         out["watch"]), flush=True)
+    out["k8s"] = k8s_card_vs_ref(device, cdb, fleet, spec["work_dir"])
+    print("k8s, reduced cluster, card == cpu-ref (in the registry "
+          "worker): " + json.dumps(out["k8s"]), flush=True)
     return {**out, "sched": sched}
 
 
@@ -7077,6 +7120,545 @@ def admission_reviews(srv, want: list, refs: dict, broken: int) -> dict:
 
 # --- the report writers and the Rekor lookup --------------------------
 
+# --- the remaining subcommands: k8s, repo, soak, module, plugin, aws ----
+
+K8S_TWIN = 0                    # the fleet target a second workload shares
+K8S_GHOST = "smoke/ghost:1"     # a ref no tarball in the images dir answers
+K8S_KINDS = ("Deployment", "StatefulSet", "DaemonSet", "Job", "ReplicaSet",
+             "ReplicationController", "CronJob", "Pod")
+K8S_CHECKS = "vuln,secret,config"
+SOAK_WALL_S = 300               # the soak-smoke CLI's bound (about 20 s)
+
+
+def _workload(kind: str, name: str, image: str, privileged: bool) -> dict:
+    """A manifest of ``kind`` whose pod spec runs ``image``."""
+    pod = {"containers": [{"name": "app", "image": image,
+                           "securityContext": {"privileged": privileged}}]}
+    if kind == "Pod":
+        spec = pod
+    elif kind == "CronJob":
+        spec = {"schedule": "0 3 * * *",
+                "jobTemplate": {"spec": {"template": {"spec": pod}}}}
+    else:
+        spec = {"template": {"spec": pod}}
+    return {"apiVersion": "v1", "kind": kind,
+            "metadata": {"name": name, "namespace": "smoke"}, "spec": spec}
+
+
+def retargeted(results, src: str = "", dst: str = "") -> str:
+    """``results`` (a report's ``Results``) as sorted JSON, with the
+    artifact name ``src`` (in the OS result's target) written ``dst``
+    when ``src`` is given."""
+    text = json.dumps(results or [], sort_keys=True)
+    return text.replace(src, dst) if src else text
+
+
+def k8s_manifests(paths: list, d: str, indices=None) -> tuple:
+    """A cluster's manifests under ``d/cluster``: one workload per fleet
+    target of ``indices`` (every target by default), its kind drawn in
+    turn from ``K8S_KINDS``, naming ``smoke/fleet:<i>`` (``link_images``
+    links those names into ``d/images``); a Pod sharing target
+    ``K8S_TWIN``'s image; a CronJob whose image (``K8S_GHOST``) no
+    tarball answers; and a Role. Returns (manifest dir, images dir,
+    {workload name: its target index, None for the ghost})."""
+    indices = list(range(len(paths))) if indices is None else indices
+    refs = link_images(paths, indices, os.path.join(d, "images"))
+    cluster = os.path.join(d, "cluster")
+    os.makedirs(cluster)
+    docs, owners = [], {}
+    for n, i in enumerate(indices):
+        docs.append(_workload(K8S_KINDS[n % len(K8S_KINDS)], f"w{i}",
+                              refs[i], privileged=n % 2 == 0))
+        owners[f"w{i}"] = i
+    docs.append(_workload("Pod", "twin", refs[indices[K8S_TWIN]], False))
+    owners["twin"] = indices[K8S_TWIN]
+    docs.append(_workload("CronJob", "ghost", K8S_GHOST, True))
+    owners["ghost"] = None
+    docs.append({"apiVersion": "rbac.authorization.k8s.io/v1",
+                 "kind": "Role", "metadata": {"name": "reader",
+                                              "namespace": "smoke"},
+                 "rules": [{"apiGroups": [""], "resources": ["pods"],
+                            "verbs": ["get"]}]})
+    for n, doc in enumerate(docs):
+        with open(os.path.join(cluster, f"{n:02d}.json"), "w") as f:
+            json.dump(doc, f)
+    return cluster, os.path.join(d, "images"), owners
+
+
+def _k8s_config_report(cluster: str):
+    """The config-only ``K8sScanner`` report of ``cluster`` on the host
+    (no image is scanned): what ``k8s --security-checks config`` renders
+    after its filters, and the unfiltered results compliance maps."""
+    import copy
+    from trivy_tpu_torch.k8s import K8sScanner, ManifestClient
+    from trivy_tpu_torch.scan import filter_results
+    from trivy_tpu_torch.types import Severity
+    report = K8sScanner(security_checks=["config"]).scan(
+        ManifestClient(cluster))
+    raw = [copy.deepcopy(res) for r in report.misconfigurations
+           for res in r.results]
+    sevs = [Severity.parse(s) for s in
+            "UNKNOWN,LOW,MEDIUM,HIGH,CRITICAL".split(",")]
+    for r in report.misconfigurations:
+        filter_results(r.results, sevs)
+    return report, raw
+
+
+def k8s_clis(fleet: dict, work_dir: str, db_path: str,
+             backend: str) -> list:
+    """The ``k8s`` entry at the fleet's full width, three CLI processes
+    beside the memo and server phases. ``k8s DIR --images-dir D
+    --security-checks vuln,secret,config --format json`` on the sbom
+    phase's npz (``CLI_COUNTED``): every workload's image results equal
+    the fleet phase's card report of its target (the twin Pod's too),
+    the truncated target's workload and the ghost end in their errors,
+    every manifest has its misconfiguration results, and the whole
+    cluster is one fleet: one ``dfa_blockmask`` launch. Then
+    ``--compliance nsa --format json`` and the ``summary`` table, config
+    only (no DB, no device work), each equal to the same report made in
+    this process."""
+    from trivy_tpu_torch.compliance import build_report, load_spec
+    from trivy_tpu_torch.k8s.report import render_summary
+    plan, want = fleet["plan"], fleet["texts"]
+    d = os.path.join(work_dir, "k8s")
+    cluster, images, owners = k8s_manifests(plan["paths"], d)
+    out = {k: os.path.join(d, f"{k}.out") for k in
+           ("json", "nsa", "summary")}
+
+    def check(err: str) -> dict:
+        counted = _counted(err)
+        with open(out["json"]) as f:
+            doc = json.load(f)
+        vulns = {r["Name"]: r for r in doc.get("Vulnerabilities") or []}
+        if set(vulns) != set(owners):
+            raise AssertionError(f"k8s: workloads {sorted(vulns)}")
+        for name, i in owners.items():
+            r = vulns[name]
+            if i is None:
+                if r.get("Error") != f"image not resolvable: {K8S_GHOST}":
+                    raise AssertionError(f"k8s: the ghost ended {r}")
+            elif i == plan["broken"]:
+                if not r.get("Error") or "Results" in r:
+                    raise AssertionError("k8s: the truncated target did "
+                                         "not fail")
+            elif retargeted(r.get("Results"), os.path.join(
+                    images, f"smoke_fleet_{i}.tar"), plan["paths"][i]) != \
+                    retargeted(json.loads(want[i]).get("Results")):
+                raise AssertionError(f"k8s: workload {name}'s results != "
+                                     f"the fleet's report of target {i}")
+        kinds = sorted(r["Kind"] for r in doc.get("Misconfigurations") or [])
+        if len(kinds) != len(owners) + 1 or "Role" not in kinds:
+            raise AssertionError(f"k8s: misconfiguration resources {kinds}")
+        failed = sum(1 for r in doc["Misconfigurations"]
+                     for res in r.get("Results") or []
+                     for m in res.get("Misconfigurations") or []
+                     if m.get("Status") == "FAIL")
+        if not failed or counted["dfa_blockmask_launches"] != 1:
+            raise AssertionError(f"k8s: {failed} failed checks, "
+                                 f"{counted} launches")
+        return {"launches": counted["dfa_blockmask_launches"],
+                "workloads": len(owners), "failed_checks": failed,
+                "resources": len(vulns) + len(kinds)}
+
+    made: dict = {}
+
+    def config_report() -> tuple:
+        if not made:
+            made["report"] = _k8s_config_report(cluster)
+        return made["report"]
+
+    def nsa_check(err: str) -> dict:
+        with open(out["nsa"]) as f:
+            nsa = json.load(f)
+        if nsa != build_report(load_spec("nsa"),
+                               config_report()[1]).to_dict():
+            raise AssertionError("k8s --compliance nsa != in-process")
+        return {"controls": {c["ID"]: c["Status"]
+                             for c in nsa["Controls"]}}
+
+    def summary_check(err: str) -> dict:
+        with open(out["summary"]) as f:
+            if f.read() != render_summary(config_report()[0]):
+                raise AssertionError("k8s summary table != in-process")
+        return {}
+
+    common = ["k8s", cluster, "--backend", backend]
+    return [
+        BackgroundCLI("k8s", ["-c", CLI_COUNTED, *common, "--images-dir",
+                              images, "--compiled-db", db_path,
+                              "--security-checks", K8S_CHECKS, "--format",
+                              "json", "--output", out["json"]], d, check),
+        BackgroundCLI("k8s_nsa", ["-m", "trivy_tpu_torch", *common,
+                                  "--security-checks", "config",
+                                  "--compliance", "nsa", "--format",
+                                  "json", "--output", out["nsa"]], d,
+                      nsa_check),
+        BackgroundCLI("k8s_summary", ["-m", "trivy_tpu_torch", *common,
+                                      "--security-checks", "config",
+                                      "--output", out["summary"]], d,
+                      summary_check)]
+
+
+def k8s_card_vs_ref(device, cdb, fleet: dict, work_dir: str) -> dict:
+    """A 2-target cluster of the reduced fleet (``k8s_manifests`` over
+    its first two targets, the twin Pod and the ghost) through
+    ``K8sScanner`` on the card and on ``cpu-ref``: equal reports, one
+    ``dfa_blockmask`` launch on the card."""
+    from trivy_tpu_torch.k8s import K8sScanner, ManifestClient
+    from trivy_tpu_torch.ops.dfa_cuda import dfa_blockmask
+    d = os.path.join(work_dir, "k8s-reduced")
+    cluster, images, owners = k8s_manifests(fleet["rplan"]["paths"], d,
+                                            indices=[0, 1])
+
+    def scan(backend: str) -> str:
+        return json.dumps(K8sScanner(
+            store=cdb, backend=backend, images_dir=images,
+            security_checks=K8S_CHECKS.split(",")).scan(
+                ManifestClient(cluster)).to_dict(), sort_keys=True)
+
+    dfa_blockmask.launches = 0
+    t0 = time.perf_counter()
+    card = scan(device.type)
+    wall = time.perf_counter() - t0
+    launches = dfa_blockmask.launches
+    if launches != 1:
+        raise AssertionError(f"k8s on the card launched {launches} "
+                             f"dfa_blockmask")
+    if card != scan("cpu-ref"):
+        raise AssertionError("k8s: the card's report != cpu-ref's")
+    if '"VulnerabilityID"' not in card:
+        raise AssertionError("k8s: no vulnerability on the reduced cluster")
+    return {"launches": launches, "workloads": len(owners), "wall_s": wall}
+
+
+def commit_tree(tree: str, git_dir: str) -> bool:
+    """Commit every file of ``tree`` into a new git repository at
+    ``git_dir`` (the work tree stays as it is). False where there is no
+    ``git``."""
+    import shutil
+    if shutil.which("git") is None:
+        return False
+    base = ["git", "--git-dir", git_dir, "--work-tree", tree,
+            "-c", "user.name=smoke", "-c", "user.email=smoke@localhost"]
+    for args in (["init", "-q"], ["add", "-A"],
+                 ["commit", "-q", "-m", "smoke tree"]):
+        subprocess.run(base + args, check=True, capture_output=True)
+    listed = subprocess.run(base + ["ls-files"], check=True,
+                            capture_output=True, text=True).stdout
+    on_disk = sum(len(names) for _, _, names in os.walk(tree))
+    if len(listed.splitlines()) != on_disk:
+        raise AssertionError(f"git committed {len(listed.splitlines())} "
+                             f"of {on_disk} files")
+    return True
+
+
+def repo_cli(tree: str, work_dir: str, db_path: str, backend: str,
+             want: dict) -> "BackgroundCLI":
+    """``repo <the tree's git repository> --format json`` on the sbom
+    phase's npz (``CLI_COUNTED``): the clone goes through the ``fs``
+    path, one ``dfa_blockmask`` launch; its ``Results`` must equal
+    ``want["text"]``'s (the fs phase's full-tree card report, set by the
+    time the CLI is finished). Without ``git`` the tree is scanned as a
+    plain directory, and the result says which ran."""
+    git_dir = os.path.join(work_dir, "fs-full.git")
+    cloned = commit_tree(tree, git_dir)
+    target = git_dir if cloned else tree
+    report = os.path.join(work_dir, "repo.report.json")
+
+    def check(err: str) -> dict:
+        counted = _counted(err)
+        with open(report) as f:
+            doc = json.load(f)
+        if retargeted(doc.get("Results"), target, tree) != retargeted(
+                json.loads(want["text"]).get("Results")) or \
+                doc["ArtifactType"] != "repository":
+            raise AssertionError("the repo CLI's report != the fs phase's "
+                                 "full-tree report")
+        if counted["dfa_blockmask_launches"] != 1:
+            raise AssertionError(f"repo: {counted} launches")
+        return {"launches": counted["dfa_blockmask_launches"],
+                "ran": "git clone" if cloned else "plain directory",
+                "results": len(doc.get("Results") or [])}
+
+    return BackgroundCLI("repo", ["-c", CLI_COUNTED, "repo", target,
+                                  "--compiled-db", db_path, "--backend",
+                                  backend, "--format", "json", "--output",
+                                  report], work_dir, check)
+
+
+def repo_card_vs_ref(device, cdb, tree: str, work_dir: str) -> dict:
+    """``scan_repo`` of ``tree`` (the fs phase's reduced tree, committed
+    into a repository of its own, or the directory without ``git``) on
+    the card and on ``cpu-ref``: equal filtered reports, one
+    ``dfa_blockmask`` launch on the card."""
+    from trivy_tpu_torch.cli import filter_report, scan_repo, secret_scanner
+    from trivy_tpu_torch.ops.dfa_cuda import dfa_blockmask
+    git_dir = os.path.join(work_dir, "fs-reduced.git")
+    target = git_dir if commit_tree(tree, git_dir) else tree
+
+    def scan(backend: str) -> str:
+        return json.dumps(filter_report(scan_repo(
+            target, cdb, backend,
+            scanner=secret_scanner(backend=backend))).to_dict(),
+            sort_keys=True)
+
+    dfa_blockmask.launches = 0
+    card = scan(device.type)
+    launches = dfa_blockmask.launches
+    if launches != 1 or card != scan("cpu-ref"):
+        raise AssertionError(f"repo on the reduced tree: {launches} "
+                             f"launches, the card's report == cpu-ref's: "
+                             f"{card == scan('cpu-ref')}")
+    return {"launches": launches,
+            "ran": "git clone" if target == git_dir else "plain directory"}
+
+
+def soak_cli(work_dir: str) -> "BackgroundCLI":
+    """``soak --scenario soak-smoke --report R``: the routed fleet of CPU
+    sim replicas through the smoke scenario (every step kind, one
+    designed trip), on the host. The script runs it with nothing beside
+    it: its verdict reads the wall clock. The check: exit 0 (books
+    balanced, trips exact, the audit ok), the report's stable view."""
+    d = os.path.join(work_dir, "soak")
+    os.makedirs(d)
+    report = os.path.join(d, "report.json")
+
+    def check(err: str) -> dict:
+        with open(report) as f:
+            doc = json.load(f)
+        st = doc["stable"]
+        if not (st["books_balanced"] and st["trips_exact"]
+                and st["audit_ok"]) or st["lost"]:
+            raise AssertionError(f"soak: {st}")
+        c = doc["books"]["counters"]
+        return {"stable": st, "wall_s_report": doc["wall"]["duration_s"],
+                "first_trip_t": doc["slo"]["trip"]["first_trip_t"],
+                "sustained": doc["throughput"]["sustained"],
+                "counters": {k: c[k] for k in (
+                    "scans_ok", "scans_failed", "scans_shed", "kills",
+                    "scale_ups", "scale_downs", "hot_swaps")}}
+
+    return BackgroundCLI("soak", ["-m", "trivy_tpu_torch", "soak",
+                                  "--scenario", "soak-smoke", "--report",
+                                  report], d, check)
+
+
+# an extension module: analyzes *.flag files and marks every result's
+# target (both as the module handshake of module/__init__.py has them)
+SMOKE_MODULE = '''
+name = "smoke-flagger"
+version = 1
+api_version = 1
+is_analyzer = True
+is_post_scanner = True
+required_files = [r"\\.flag$"]
+
+
+def analyze(path, content):
+    return {"type": "smoke-flag", "data": {"bytes": len(content)}}
+
+
+def post_scan(results):
+    for r in results:
+        r.target = "[smoke] " + r.target
+    return results
+'''
+SMOKE_PLUGIN = "smoke-hello"
+PLUGIN_EXIT = 7
+
+
+def seeded_account(seed: int) -> dict:
+    """An exported AWS account state (the ``aws --account-state`` shape)
+    with every flag drawn from ``seed``; access keys are years old or in
+    the far future, so the rotation check does not read today's date."""
+    rng = np.random.default_rng(seed)
+
+    def flag() -> bool:
+        return bool(rng.integers(0, 2))
+
+    return {"state": {"aws": {
+        "s3": {"buckets": [
+            {"name": f"bucket-{i}", "encryption": {"enabled": flag()},
+             "publicAccessBlock": {k: flag() for k in (
+                 "blockPublicAcls", "blockPublicPolicy",
+                 "ignorePublicAcls", "restrictPublicBuckets")}}
+            for i in range(6)]},
+        "ec2": {"securityGroups": [
+            {"name": f"sg-{i}", "ingressRules": [
+                {"cidrs": [("0.0.0.0/0", "10.0.0.0/8")[int(flag())]],
+                 "fromPort": 20 + i, "toPort": 30}]} for i in range(4)],
+            "volumes": [{"id": f"vol-{i}", "encryption": {
+                "enabled": flag()}} for i in range(4)]},
+        "iam": {"rootUser": {"accessKeys": ["AKIA"] if flag() else []},
+                "users": [{"name": f"user-{i}", "consoleAccess": flag(),
+                           "mfaActive": flag(), "accessKeys": [
+                               {"active": True, "creationDate": (
+                                   "2016-01-01T00:00:00Z",
+                                   "2999-01-01T00:00:00Z")[int(flag())]}]}
+                          for i in range(5)],
+                "passwordPolicy": {
+                    "minimumLength": int(8 + 4 * rng.integers(0, 3))}},
+        "rds": {"instances": [
+            {"id": f"db-{i}", "encryption": {"enabled": flag()},
+             "publiclyAccessible": flag(),
+             "backupRetentionPeriodDays": int(rng.integers(0, 8))}
+            for i in range(3)]},
+        "eks": {"clusters": [
+            {"name": f"eks-{i}", "publicAccess": {"enabled": flag(),
+                                                  "cidrs": ["0.0.0.0/0"]},
+             "encryption": {"secrets": flag(), "kmsKeyId": "k"},
+             "logging": {"api": True, "audit": flag()}}
+            for i in range(2)]},
+        "cloudtrail": {"trails": [{"name": "main", "isLogging": flag(),
+                                   "enableLogFileValidation": flag(),
+                                   "kmsKeyId": ""}]},
+        "kms": {"keys": [{"id": f"key-{i}", "rotationEnabled": flag()}
+                         for i in range(3)]}}}}
+
+
+class ExtensionArm:
+    """The ``module``, ``plugin``, ``aws`` and ``version`` subcommands,
+    CLI processes beside the server phase. The constructor (on a
+    thread) installs ``SMOKE_MODULE`` into a module directory and a
+    shell plugin into a plugin directory of this run (``module install``,
+    ``plugin install``), then starts: a reduced ``fs`` tree (the fs
+    phase's reduced tree with ``*.flag`` files) on the card
+    (``CLI_COUNTED``) and on ``cpu-ref``, both loading the module; the
+    plugin by its bare name; ``aws`` on ``seeded_account``; ``version``.
+    ``finish`` checks them: the card's fs report equals ``cpu-ref``'s
+    and carries the module's analyzer result (a ``custom`` result) and
+    post-scan edit (every target marked), one ``dfa_blockmask`` launch;
+    the plugin's exit code and output are its own; the ``aws`` report's
+    results equal ``scan_account``'s in this process; ``version`` names
+    the package's."""
+
+    def __init__(self, work_dir: str, db_path: str, backend: str,
+                 n_pkgs: dict, files: list):
+        self.d = os.path.join(work_dir, "extensions")
+        os.makedirs(self.d)
+        self.db_path, self.backend = db_path, backend
+        self.n_pkgs, self.files = n_pkgs, files
+        self.env = {"TRIVY_MODULE_DIR": os.path.join(self.d, "modules"),
+                    "TRIVY_PLUGIN_DIR": os.path.join(self.d, "plugins")}
+        self.clis: list = []
+        self.installed: dict = {}
+        self.box: dict = {}
+        self.thread = threading.Thread(target=self._start)
+        self.thread.start()
+
+    def _path(self, name: str) -> str:
+        return os.path.join(self.d, name)
+
+    def _start(self) -> None:
+        try:
+            self._launch()
+        except BaseException as e:      # noqa: BLE001 — raised in finish
+            self.box["error"] = e
+
+    def _launch(self) -> None:
+        from trivy_tpu_torch import __version__
+        tree = self._path("tree")
+        flags = [(f"flags/f{i}.flag", b"flag %d\n" % i) for i in range(3)]
+        make_fs_tree(tree, FS_ROOTS["fs"], self.n_pkgs, SEED + 20,
+                     files=self.files[:FS_REDUCED] + flags)
+        with open(self._path("smoke_flagger.py"), "w") as f:
+            f.write(SMOKE_MODULE)
+        plugin = self._path("plugin-src")
+        os.makedirs(plugin)
+        with open(os.path.join(plugin, "plugin.yaml"), "w") as f:
+            f.write(f"name: {SMOKE_PLUGIN}\nversion: 1.0.0\nusage: smoke\n"
+                    "platforms:\n  - selector: {}\n    uri: ./hello.sh\n"
+                    "    bin: ./hello.sh\n")
+        with open(os.path.join(plugin, "hello.sh"), "w") as f:
+            f.write(f"#!/bin/sh\necho hello from {SMOKE_PLUGIN} \"$@\"\n"
+                    f"exit {PLUGIN_EXIT}\n")
+        os.chmod(os.path.join(plugin, "hello.sh"), 0o755)
+        with open(self._path("account.json"), "w") as f:
+            json.dump(seeded_account(SEED + 90), f)
+        for name, argv in (
+                ("module_install", ["module", "install",
+                                    self._path("smoke_flagger.py")]),
+                ("plugin_install", ["plugin", "install", plugin])):
+            out = self._path(f"{name}.stdout")
+            self.installed[name] = BackgroundCLI(
+                name, ["-m", "trivy_tpu_torch", *argv], self.d,
+                lambda err: {}, stdout=out, env=self.env).finish()
+            with open(out) as f:
+                self.installed[name]["stdout"] = f.read().strip()
+        fs = ["fs", tree, "--compiled-db", self.db_path, "--format",
+              "json"]
+        self.clis = [
+            BackgroundCLI("module_fs", ["-c", CLI_COUNTED, *fs, "--backend",
+                                        self.backend, "--output",
+                                        self._path("fs-card.json")],
+                          self.d, lambda err: {"launches": _counted(err)[
+                              "dfa_blockmask_launches"]}, env=self.env),
+            BackgroundCLI("module_fs_ref", ["-m", "trivy_tpu_torch", *fs,
+                                            "--backend", "cpu-ref",
+                                            "--output",
+                                            self._path("fs-ref.json")],
+                          self.d, lambda err: {}, env=self.env),
+            BackgroundCLI("plugin", ["-m", "trivy_tpu_torch", SMOKE_PLUGIN,
+                                     "a", "--format", "b"], self.d,
+                          lambda err: {}, stdout=self._path("plugin.out"),
+                          rc=PLUGIN_EXIT, env=self.env),
+            BackgroundCLI("aws", ["-m", "trivy_tpu_torch", "aws",
+                                  "--account-state",
+                                  self._path("account.json"), "--format",
+                                  "json", "--output", self._path("aws.json")],
+                          self.d, lambda err: {}),
+            BackgroundCLI("version", ["-m", "trivy_tpu_torch", "version"],
+                          self.d, lambda err: {},
+                          stdout=self._path("version.out"))]
+        self.version = f"trivy-tpu {__version__}"
+
+    def finish(self) -> dict:
+        from trivy_tpu_torch.cli import filter_report
+        from trivy_tpu_torch.cloud import load_account_state, scan_account
+        from trivy_tpu_torch.types import Metadata, Report
+        self.thread.join()
+        if "error" in self.box:
+            raise self.box["error"]
+        out = {**self.installed, **finish_clis(self.clis)}
+        with open(self._path("fs-card.json")) as f:
+            card = json.load(f)
+        with open(self._path("fs-ref.json")) as f:
+            ref = json.load(f)
+        targets = [r["Target"] for r in card.get("Results") or []]
+        custom = [c["Type"] for r in card.get("Results") or []
+                  if r["Class"] == "custom"
+                  for c in r.get("CustomResources") or []]
+        if card != ref or not targets or \
+                not all(t.startswith("[smoke] ") for t in targets) or \
+                custom != ["smoke-flag"] * 3 or \
+                out["module_fs"]["launches"] != 1:
+            raise AssertionError(f"module: the card's fs report == cpu-ref's "
+                                 f"{card == ref}, targets {targets[:3]}, "
+                                 f"custom {custom}, {out['module_fs']}")
+        with open(self._path("plugin.out")) as f:
+            said = f.read().strip()
+        if said != f"hello from {SMOKE_PLUGIN} a --format b":
+            raise AssertionError(f"plugin said {said!r}")
+        path = self._path("account.json")
+        want = filter_report(Report(
+            artifact_name=path, artifact_type="aws_account",
+            metadata=Metadata(), results=scan_account(
+                load_account_state(path))))
+        with open(self._path("aws.json")) as f:
+            aws = json.load(f)
+        if aws.get("Results") != want.to_dict().get("Results"):
+            raise AssertionError("the aws CLI's report != scan_account's")
+        with open(self._path("version.out")) as f:
+            if f.read().strip() != self.version:
+                raise AssertionError("version")
+        out["module_fs"]["custom_resources"] = len(custom)
+        out["aws"]["failed_checks"] = sum(
+            1 for r in aws["Results"] for m in r.get("Misconfigurations")
+            or [] if m.get("Status") == "FAIL")
+        out["plugin"]["said"] = said
+        return out
+
+
 WRITER_TEMPLATE = ('{{- range . -}}<testsuite name="{{ .Target }}" '
                    'tests="{{ len .Vulnerabilities }}">'
                    '{{- range .Vulnerabilities }}<testcase name='
@@ -7350,6 +7932,9 @@ def main() -> int:
         # beside the memo and server phases
         drills = [drill_cli(kept, work, db_path, device.type),
                   storm_cli(kept, work, db_path, device.type)]
+        # the k8s entry at the fleet's full width, CLI processes beside
+        # the memo and server phases
+        subcommands = k8s_clis(kept, work, db_path, device.type)
         # the scan server boots beside the memo phase
         svc = server_boot(device, work, kept)
         gen2: dict = {}
@@ -7361,6 +7946,8 @@ def main() -> int:
         print("memo phase: " + json.dumps(memo), flush=True)
         print("router kill arm (host only, sim replicas, beside the memo "
               "phase): " + json.dumps(sim_arm), flush=True)
+        # the extension subcommands, CLI processes beside the server phase
+        extension = ExtensionArm(work, db_path, device.type, n_pkgs, files)
         side: dict = {}
 
         def during_swap() -> None:
@@ -7386,6 +7973,11 @@ def main() -> int:
         drilled = finish_clis(drills)
         print(f"fault drill and watch storm CLIs, beside the memo and "
               f"server phases ({gpu}): " + json.dumps(drilled), flush=True)
+        k8s = finish_clis(subcommands)
+        extensions = extension.finish()
+        print(f"extension CLIs (module, plugin, aws, version), beside the "
+              f"server phase ({gpu}): " + json.dumps(extensions),
+              flush=True)
         ent = entries.finish()
         fs, img = ent["fs"], ent["image"]
         clis = {**finish_clis(pending), **ent["clis"]}
@@ -7399,6 +7991,11 @@ def main() -> int:
         sched = reg.pop("sched")
         print("registry phase (a process of its own, beside the memo "
               "and server phases): " + json.dumps(reg), flush=True)
+        # the soak harness last, with nothing beside it: its verdicts
+        # read the wall clock
+        soak = soak_cli(work).finish(SOAK_WALL_S)
+        print("soak --scenario soak-smoke (host only, CPU sim replicas, "
+              "nothing beside it): " + json.dumps(soak), flush=True)
         mesh_fleet, life, rekor = side["mesh_fleet"], side["life"], \
             side["rekor"]
 
@@ -7418,7 +8015,12 @@ def main() -> int:
                 "memo": sum(memo["launches"].values()),
                 "rekor": rekor["launches"],
                 "server_clients": sum(server["launches"].values()),
-                "route": server["route"]["launches"]}
+                "route": server["route"]["launches"],
+                "k8s_cli": k8s["k8s"]["launches"],
+                "k8s_card": reg["k8s"]["launches"],
+                "repo_cli": clis["repo"]["launches"],
+                "repo_card": fs["repo"]["launches"],
+                "module_fs_cli": extensions["module_fs"]["launches"]}
     code_runs = {"run_blockmask": lit["launches"],
                  "sharded_blockmask":
                      mesh_kern["code_blockmask"]["launches"],
@@ -7670,6 +8272,15 @@ def main() -> int:
           f"line; books {json.dumps(ra['books'])};"
           f" fault arm in front of {ra['survivor']} "
           f"{json.dumps(ra['fault'])}", flush=True)
+    print(f"k8s ({gpu}; k8s DIR --images-dir D at the fleet's full width "
+          f"in a CLI process, {K8S_CHECKS}): " + json.dumps(k8s["k8s"]) +
+          f"; compliance nsa and the summary table (config only) "
+          f"{json.dumps(k8s['k8s_nsa'])}, {json.dumps(k8s['k8s_summary'])}"
+          f"; the reduced cluster on the "
+          f"card == cpu-ref {json.dumps(reg['k8s'])}", flush=True)
+    print(f"repo ({gpu}; the fs phase's full tree in a CLI process): "
+          + json.dumps(clis["repo"]) + f"; the reduced tree on the card == "
+          f"cpu-ref {json.dumps(fs['repo'])}", flush=True)
     print("host memory (this process and its subprocesses, sampled each "
           "second): " + json.dumps(memory.summary()), flush=True)
     print(f"script: {time.perf_counter() - t_script:.1f} s", flush=True)

@@ -15,7 +15,8 @@ loading them, the zero-input warm launches inert) and a Scan RPC run
 on the card equal to the same scan on the CPU; the impact index of
 card scans and of the card's hot swap equal to ``cpu-ref``'s, a prewarm
 staging the resident tables on the card, and two federated replicas on
-the card.
+the card; the ``k8s`` and ``repo`` entries on the card against
+``cpu-ref``.
 Every output is an integer mask or an exact finding, so every
 comparison is exact equality.
 
@@ -1781,3 +1782,94 @@ def test_routed_scan_over_two_card_servers(cuda):
         for fn in reversed(stops):
             fn()
         ROUTER_METRICS.reset()
+
+
+def _k8s_cluster(tmp_path) -> tuple:
+    """Manifests naming a small seeded fleet's targets by their
+    ``--images-dir`` names: a Deployment per target, a Pod sharing the
+    first target's image, a CronJob whose image no tarball answers, and
+    a Role."""
+    cdb, plan = _small_fleet(tmp_path, n_images=3)
+    images = tmp_path / "images"
+    images.mkdir()
+    docs = []
+    for i, p in enumerate(plan["paths"]):
+        (images / f"smoke_fleet_{i}.tar").symlink_to(p)
+        docs.append({"apiVersion": "apps/v1", "kind": "Deployment",
+                     "metadata": {"name": f"app{i}", "namespace": "prod"},
+                     "spec": {"template": {"spec": {"containers": [
+                         {"name": "c", "image": f"smoke/fleet:{i}"}]}}}})
+    docs.append({"apiVersion": "v1", "kind": "Pod",
+                 "metadata": {"name": "twin"}, "spec": {"containers": [
+                     {"name": "c", "image": "smoke/fleet:0"}]}})
+    docs.append({"apiVersion": "batch/v1", "kind": "CronJob",
+                 "metadata": {"name": "ghost"}, "spec": {"jobTemplate": {
+                     "spec": {"template": {"spec": {"containers": [
+                         {"name": "c", "image": "smoke/ghost:1"}]}}}}}})
+    docs.append({"apiVersion": "rbac.authorization.k8s.io/v1",
+                 "kind": "Role", "metadata": {"name": "reader"},
+                 "rules": []})
+    cluster = tmp_path / "cluster"
+    cluster.mkdir()
+    for i, doc in enumerate(docs):
+        (cluster / f"{i:02d}.json").write_text(json.dumps(doc))
+    return cdb, str(cluster), str(images)
+
+
+def test_k8s_on_the_card_equals_cpu_ref(cuda, tmp_path):
+    """``K8sScanner`` on a small cluster: every image of the cluster in
+    one fleet on the card, one ``dfa_blockmask`` launch, the report equal
+    to ``cpu-ref``'s (the unresolvable ref ends in its error)."""
+    from trivy_tpu_torch.k8s import K8sScanner, ManifestClient
+    cdb, cluster, images = _k8s_cluster(tmp_path)
+
+    def scan(backend):
+        return json.dumps(K8sScanner(
+            store=cdb, backend=backend, images_dir=images,
+            security_checks=["vuln", "secret", "config"]).scan(
+                ManifestClient(cluster)).to_dict(), sort_keys=True)
+
+    want = scan("cpu-ref")
+    before = dfa_blockmask.launches
+    got = scan("cuda")
+    assert dfa_blockmask.launches - before == 1
+    assert got == want
+    doc = json.loads(got)
+    errors = {r["Name"]: r.get("Error") for r in doc["Vulnerabilities"]}
+    assert errors["ghost"] == "image not resolvable: smoke/ghost:1"
+    assert '"VulnerabilityID"' in got
+
+
+def test_repo_on_the_card_equals_cpu_ref(cuda, tmp_path):
+    """``scan_repo`` on a git repository of a small seeded tree (cloned
+    by ``git``), on the card and on ``cpu-ref``: one ``dfa_blockmask``
+    launch, equal filtered reports."""
+    import shutil
+    import subprocess
+    from chip_smoke import (FS_ROOTS, make_advisory_store, make_corpus,
+                            make_fs_tree)
+    from trivy_tpu_torch.cli import filter_report, scan_repo, secret_scanner
+    if shutil.which("git") is None:
+        pytest.skip("needs git")
+    store, n_pkgs = make_advisory_store(20000, 5)
+    cdb = CompiledDB.compile(store)
+    corpus, _ = make_corpus(128, 9)
+    tree = str(tmp_path / "tree")
+    make_fs_tree(tree, FS_ROOTS["fs"], n_pkgs, 20, 0.05, files=corpus)
+    git = str(tmp_path / "tree.git")
+    for args in (["init", "-q"], ["add", "-A"],
+                 ["-c", "user.name=t", "-c", "user.email=t@example.com",
+                  "commit", "-q", "-m", "tree"]):
+        subprocess.run(["git", "--git-dir", git, "--work-tree", tree]
+                       + args, check=True, capture_output=True)
+
+    def scan(backend):
+        return json.dumps(filter_report(scan_repo(
+            git, cdb, backend, scanner=secret_scanner(
+                backend=backend))).to_dict(), sort_keys=True)
+
+    want = scan("cpu-ref")
+    before = dfa_blockmask.launches
+    got = scan("cuda")
+    assert dfa_blockmask.launches - before == 1
+    assert got == want and '"VulnerabilityID"' in got

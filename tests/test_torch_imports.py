@@ -194,6 +194,14 @@ ROUTER_SLICE = ("router/__init__.py", "router/metrics.py", "router/core.py",
                 "router/ring.py", "router/lifecycle.py", "obs/prom.py",
                 "faults/inject.py", "cli.py")
 
+# the soak harness and the remaining subcommands (k8s with compliance,
+# repo, module, plugin, aws, version)
+SOAK_SLICE = ("soak/__init__.py", "soak/scenario.py", "soak/registry.py",
+              "soak/audit.py", "soak/runner.py", "k8s/__init__.py",
+              "k8s/report.py", "compliance.py", "artifact/remote.py",
+              "module/__init__.py", "plugin/__init__.py",
+              "cloud/__init__.py", "cli.py")
+
 
 def _covered(modules) -> None:
     import importlib
@@ -263,6 +271,10 @@ def test_the_scans_cover_the_fleet_slice():
 
 def test_the_scans_cover_the_router_slice():
     _covered(ROUTER_SLICE)
+
+
+def test_the_scans_cover_the_soak_and_subcommands_slice():
+    _covered(SOAK_SLICE)
 
 
 def test_server_entry_runs_without_jax():

@@ -55,6 +55,20 @@ Terraform, CloudFormation and Helm charts; ``--config-policy``,
 ``--helm-values``, ``--helm-set``, ``--trace``,
 ``--include-non-failures``) and ``license`` (license classification).
 
+``repo URL|DIR`` clones a git repository (``--branch``, ``--tag``,
+``--commit``; a plain directory is scanned where it is) and scans the
+checkout as ``fs`` does. ``k8s DIR`` scans exported manifests
+(``k8s/``): each object's manifest for misconfigurations, every
+workload image found under ``--images-dir`` as one fleet on the card,
+rendered as a summary, in full or as JSON, or mapped onto a compliance
+spec (``--compliance nsa|FILE``, ``compliance.py``). ``aws`` evaluates
+the built-in AWS checks over an exported account state (``cloud/``).
+``soak`` runs a soak scenario against a routed fleet of CPU sim
+replicas (``soak/``). ``module`` and ``plugin`` manage extension
+modules (loaded before every scan entry) and subprocess plugins (an
+unknown first word runs the plugin of that name); ``version`` (or no
+subcommand) prints the version.
+
 ``sbom`` scans a CycloneDX (JSON, XML, in-toto attestation) or SPDX
 (JSON, tag-value) document for vulnerabilities (the reference's
 ``trivy sbom BOM``): decode into one blob, the same prepare, dispatch
@@ -335,7 +349,8 @@ def scan_fs(root: str, store=None, backend: str = "cuda", *,
             secret_config: str = "trivy-secret.yaml",
             skip_dirs=(), skip_files=(), file_patterns=None,
             scanner=None, cache=None, memo=None, remote=None,
-            timings: dict = None, stats: dict = None) -> Report:
+            timings: dict = None, stats: dict = None,
+            artifact=LocalFSArtifact) -> Report:
     """Scan the directory tree under ``root`` and return the
     unfiltered report (ref cli.py ``run_fs``): ``LocalFSArtifact``
     inspect (walk, analyzers, one batched secret sieve) →
@@ -356,7 +371,9 @@ def scan_fs(root: str, store=None, backend: str = "cuda", *,
     ``misconf.configure`` installed. ``remote`` (an
     ``rpc.RemoteScanner``, with ``cache`` its ``RemoteCache``) runs
     the detection on a server, as ``scan_sbom`` takes it; the walk
-    and the secret sieve stay here. Raises before any host work when
+    and the secret sieve stay here. ``artifact(root, cache, option)``
+    makes the artifact that is inspected (``scan_repo`` passes the
+    git one). Raises before any host work when
     the sieve or the dispatch would run on ``cuda`` and there is no
     card, or ``scanner`` runs on another backend."""
     if _local_card(backend, security_checks, remote):
@@ -367,7 +384,7 @@ def scan_fs(root: str, store=None, backend: str = "cuda", *,
                               file_patterns)
     cache = MemoryCache() if cache is None else cache
     t0 = time.perf_counter()
-    ref = LocalFSArtifact(root, cache, option).inspect()
+    ref = artifact(root, cache, option).inspect()
     t["inspect_s"] = time.perf_counter() - t0
     _secret_timings(t, option, stats)
     options = ScanOptions(vuln_type=list(vuln_type),
@@ -379,6 +396,34 @@ def scan_fs(root: str, store=None, backend: str = "cuda", *,
                               ref, options, t, stats)
     return Report(artifact_name=root, artifact_type="filesystem",
                   metadata=Metadata(os=os_found), results=results)
+
+
+def scan_repo(url: str, store=None, backend: str = "cuda", *,
+              branch: str = "", tag: str = "", commit: str = "",
+              **kwargs) -> Report:
+    """Scan a git repository and return the unfiltered report (ref
+    cli.py ``run_repo``): ``artifact/remote.py::RemoteRepoArtifact``
+    clones ``url`` (a plain directory is scanned where it is), then the
+    ``fs`` path runs on the checkout (``scan_fs``, which takes
+    ``kwargs``): one secret sieve, one ``dispatch_jobs``. The clone is
+    removed afterwards. Raises ``artifact.remote.GitError`` when the
+    clone or the checkout fails."""
+    from .artifact.remote import RemoteRepoArtifact
+    made = []
+
+    def clone(root, cache, option):
+        made.append(RemoteRepoArtifact(root, cache, option=option,
+                                       branch=branch, tag=tag,
+                                       commit=commit))
+        return made[0]
+
+    try:
+        report = scan_fs(url, store, backend, artifact=clone, **kwargs)
+    finally:
+        for art in made:
+            art.clean()
+    report.artifact_type = "repository"
+    return report
 
 
 class ImageLoadError(ValueError):
@@ -738,9 +783,14 @@ def _run_sbom(args) -> int:
 
 
 def _run_fs(args) -> int:
+    """``fs``, ``rootfs``, ``config`` and ``repo`` (ref cli.py
+    ``run_fs``, ``run_repo``): ``repo`` clones its target first
+    (``scan_repo``) and ends a failed clone with its ``error:`` line."""
+    from .artifact.remote import GitError
     if _reject_unwired_fault_spec(args):
         return 2
-    if not os.path.isdir(args.target):
+    repo = args.command == "repo"
+    if not repo and not os.path.isdir(args.target):
         print(f"error: no such directory: {args.target}",
               file=sys.stderr)
         return 1
@@ -761,18 +811,21 @@ def _run_fs(args) -> int:
     if sources is None:
         return 1
     cache, memo, store = sources
+    kwargs = dict(security_checks=checks,
+                  vuln_type=_split(args.vuln_type),
+                  list_all_packages=_list_all(args),
+                  secret_config=args.secret_config,
+                  skip_dirs=opt.skip_dirs, skip_files=opt.skip_files,
+                  file_patterns=patterns, scanner=opt.secret_scanner,
+                  cache=cache, memo=memo, remote=_remote_scanner(args))
     try:
-        report = scan_fs(args.target, store, args.backend,
-                         security_checks=checks,
-                         vuln_type=_split(args.vuln_type),
-                         list_all_packages=_list_all(args),
-                         secret_config=args.secret_config,
-                         skip_dirs=opt.skip_dirs,
-                         skip_files=opt.skip_files,
-                         file_patterns=patterns,
-                         scanner=opt.secret_scanner, cache=cache,
-                         memo=memo, remote=_remote_scanner(args))
-    except _rpc_error() as e:
+        if repo:
+            report = scan_repo(args.target, store, args.backend,
+                               branch=args.branch, tag=args.tag,
+                               commit=args.commit, **kwargs)
+        else:
+            report = scan_fs(args.target, store, args.backend, **kwargs)
+    except (GitError, _rpc_error()) as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
     return _finish(args, report)
@@ -1540,7 +1593,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--config", "-c", default="",
                     help="config file (default: trivy.yaml when "
                     "present); flags also bind TRIVY_* env vars")
-    sub = ap.add_subparsers(dest="command", required=True)
+    sub = ap.add_subparsers(dest="command")
     img = sub.add_parser("image", help="scan a container image "
                          "(docker-save or OCI tarball, OCI layout "
                          "directory) for vulnerabilities and secrets")
@@ -1565,12 +1618,47 @@ def build_parser() -> argparse.ArgumentParser:
         fs.add_argument("target")
         _scan_flags(fs)
         _tree_flags(fs)
+    repo = sub.add_parser("repo", help="scan a remote or local git "
+                          "repository")
+    repo.add_argument("target", help="repo URL or local path")
+    repo.add_argument("--branch", default="")
+    repo.add_argument("--tag", default="")
+    repo.add_argument("--commit", default="")
+    _scan_flags(repo)
+    _tree_flags(repo)
     conf = sub.add_parser("config", aliases=["conf"],
                           help="scan the config files of a directory "
                           "tree for misconfigurations only")
     conf.add_argument("target")
     _scan_flags(conf)
     _tree_flags(conf)
+    k8s = sub.add_parser(
+        "k8s", help="scan kubernetes manifests/cluster state "
+        "(misconfigs on workloads; image vulns via --images-dir)")
+    k8s.add_argument("target",
+                     help="manifest file or directory of exported "
+                     "cluster manifests")
+    k8s.add_argument("--report", default="summary",
+                     choices=["summary", "all"])
+    k8s.add_argument("--images-dir", default="",
+                     help="directory of image tarballs named "
+                     "<ref with /:@ as _>.tar")
+    k8s.add_argument("--compliance", default="",
+                     help="compliance spec: built-in name (nsa) or "
+                     "a YAML spec file")
+    _scan_flags(k8s)
+    _tree_flags(k8s)
+    aws = sub.add_parser(
+        "aws", help="scan AWS account state (exported account-state "
+        "JSON; live API walk is a seam)")
+    aws.add_argument("--account-state", required=True,
+                     help="exported account state JSON (the "
+                     "account-state cache shape)")
+    aws.add_argument("--service", default="",
+                     help="comma-separated service filter "
+                     "(s3,ec2,iam,cloudtrail)")
+    _scan_flags(aws)
+    _tree_flags(aws)
 
     sb = sub.add_parser("sbom", help="scan an SBOM document "
                         "(CycloneDX/SPDX) for vulnerabilities")
@@ -1629,7 +1717,61 @@ def build_parser() -> argparse.ArgumentParser:
     # seconds, a float as the reference's; TRIVY_TIMEOUT reaches it
     # only when `impact` runs, so the scans keep their duration
     imp.add_argument("--timeout", type=float, default=5.0).env_local = True
+    _soak_flags(sub.add_parser(
+        "soak", help="run a registry-scale soak scenario against a "
+        "routed CPU-sim fleet: seeded synthetic registry, scripted "
+        "chaos on a compressed clock, fleet SLO + books + leak "
+        "verdicts (docs/robustness.md 'Soak & chaos testing')"))
+    plug = sub.add_parser("plugin", help="manage plugins")
+    plugsub = plug.add_subparsers(dest="plugin_command")
+    plugsub.add_parser("install", help="install from a local "
+                       "directory or archive").add_argument("source")
+    plugsub.add_parser("uninstall").add_argument("name")
+    plugsub.add_parser("list")
+    plugsub.add_parser("info").add_argument("name")
+    prun = plugsub.add_parser("run")
+    prun.add_argument("name")
+    prun.add_argument("plugin_args", nargs=argparse.REMAINDER)
+    mod = sub.add_parser("module", aliases=["m"],
+                         help="manage extension modules (ref "
+                         "app.go:693 NewModuleCommand)")
+    modsub = mod.add_subparsers(dest="module_command")
+    modsub.add_parser("install", aliases=["i"],
+                      help="install a module from a local .py file or "
+                      "a directory of them (the reference pulls from "
+                      "an OCI repo; the registry fetch is the egress "
+                      "seam)").add_argument("source")
+    modsub.add_parser("uninstall", aliases=["u"]).add_argument("name")
+    modsub.add_parser("list")
+    sub.add_parser("version", help="print version")
     return ap
+
+
+def _soak_flags(soak) -> None:
+    """The ``soak`` subcommand's flags (ref cli.py ``soak``). The fleet
+    is sim replicas on the host: it takes no ``--backend``."""
+    soak.add_argument("--scenario", default="soak-smoke",
+                      help="preset name (soak, soak-smoke) or a "
+                      "JSON ScenarioSpec file")
+    soak.add_argument("--replicas", type=int, default=3)
+    soak.add_argument("--seed", type=int, default=0,
+                      help="override the scenario seed (0 = keep)")
+    soak.add_argument("--duration", type=float, default=0.0,
+                      help="override virtual duration seconds")
+    soak.add_argument("--compression", type=float, default=0.0,
+                      help="override virtual-seconds-per-real-"
+                      "second")
+    soak.add_argument("--mode", default="inproc",
+                      choices=["inproc", "subprocess"],
+                      help="replica isolation: in-process sims or "
+                      "one OS process each")
+    soak.add_argument("--report", default="",
+                      help="write the full JSON report here "
+                      "(sort_keys; same-seed runs diff cleanly)")
+    soak.add_argument("--epoch", type=float, default=0.5,
+                      help="audit/verdict sampling period, real "
+                      "seconds")
+    soak.add_argument("--service-ms", type=float, default=3.0)
 
 
 def _route_flags(rt) -> None:
@@ -1681,13 +1823,23 @@ def main(argv=None) -> int:
     from ``TRIVY_<FLAG>`` and the config file, then the scan under
     ``--timeout``. A scan that runs past it ends with ``error: scan
     timeout of ... exceeded`` and exit 1; a malformed duration exits
-    2."""
+    2. A first word that names no subcommand runs the installed
+    plugin of that name (``plugin/``, app.go:96), if there is one."""
     from .flag import (ScanTimeout, apply_external_defaults,
                        parse_duration, scan_deadline)
     from .utils.log import set_format, set_level
     raw_argv = list(sys.argv[1:] if argv is None else argv)
+    if raw_argv and not raw_argv[0].startswith("-") and \
+            raw_argv[0] not in _KNOWN_COMMANDS:
+        from .plugin import run_with_args
+        code = run_with_args(raw_argv[0], raw_argv[1:])
+        if code is not None:
+            return code
     parser = build_parser()
-    apply_external_defaults(parser, raw_argv)
+    if raw_argv[:1] != ["plugin"]:
+        # plugin argv (its REMAINDER passthrough included) is never
+        # read for --config or rewritten by env defaults
+        apply_external_defaults(parser, raw_argv)
     args = parser.parse_args(raw_argv)
     set_level(debug=getattr(args, "debug", False),
               quiet=getattr(args, "quiet", False))
@@ -1717,7 +1869,22 @@ def main(argv=None) -> int:
         return 1
 
 
+_KNOWN_COMMANDS = ("image", "filesystem", "fs", "rootfs", "repo",
+                   "sbom", "k8s", "aws", "db", "server", "route",
+                   "watch", "plugin", "config", "conf", "module",
+                   "m", "client", "c", "impact", "soak",
+                   "version")
+
+# the entries before which the installed modules load (ref cli.py
+# ``_dispatch``)
+_MODULE_ENTRIES = ("image", "filesystem", "fs", "rootfs", "repo", "sbom",
+                   "k8s", "config", "conf", "client", "c")
+
+
 def _dispatch(args) -> int:
+    if args.command in (None, "version"):
+        print(f"trivy-tpu {__version__}")
+        return 0
     if args.command == "db":
         return _run_db(args)
     if args.command == "server":
@@ -1726,8 +1893,21 @@ def _dispatch(args) -> int:
         return run_route(args)
     if args.command == "impact":
         return run_impact(args)
+    if args.command == "soak":
+        return run_soak_cmd(args)
+    if args.command in ("module", "m"):
+        return run_module(args)
+    if args.command == "plugin":
+        return run_plugin(args)
     if args.generate_default_config:
         return _generate_default_config(args)
+    if args.command in _MODULE_ENTRIES:
+        from .module import Manager
+        Manager().load()
+    if args.command == "aws":
+        return run_aws(args)
+    if args.command == "k8s":
+        return run_k8s(args)
     if args.command in ("client", "c"):
         # deprecated alias for `image --server` (ref app.go:441-447:
         # --remote replaces --server; an explicit --server wins)
@@ -1766,6 +1946,225 @@ def run_impact(args) -> int:
         print(f"error: impact query: {e}", file=sys.stderr)
         return 1
     print(json.dumps(out, indent=2, sort_keys=True))
+    return 0
+
+
+def run_soak_cmd(args) -> int:
+    """``soak --scenario NAME|FILE`` (ref cli.py ``run_soak_cmd``): one
+    scenario, one routed fleet of CPU sim replicas, one verdict. Exit
+    0 iff books balance, designed trips trip exactly, and the leak
+    audit passes; a scenario that cannot be loaded is an ``error:``
+    line and exit 1, as the reference's ``main`` prints it."""
+    from .soak import load_scenario, run_soak
+    try:
+        scenario = load_scenario(args.scenario, seed=args.seed,
+                                 duration_s=args.duration,
+                                 compression=args.compression)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    report = run_soak(scenario, replicas=args.replicas,
+                      mode=args.mode, report_path=args.report,
+                      epoch_s=args.epoch,
+                      service_ms=args.service_ms)
+    stable = report["stable"]
+    trip = report["slo"]["trip"]
+    print(f"scenario {stable['scenario']} seed {stable['seed']} "
+          f"({stable['arrivals']} arrivals, "
+          f"{stable['steps']} steps, "
+          f"{report['wall']['duration_s']}s wall)")
+    print(f"  books: lost={stable['lost']} "
+          f"balanced={stable['books_balanced']}")
+    print(f"  slo:   trips_exact={stable['trips_exact']} "
+          f"dumps={trip['dumps']}")
+    print(f"  leak:  audit_ok={stable['audit_ok']}")
+    sustained = report["throughput"]["sustained"]
+    if sustained["seconds"]:
+        print(f"  ips:   {sustained['ips']} sustained over "
+              f"{sustained['seconds']}s steady state")
+    if args.report:
+        print(f"  report: {args.report}")
+    ok = (stable["books_balanced"] and stable["trips_exact"]
+          and stable["audit_ok"])
+    return 0 if ok else 1
+
+
+def run_aws(args) -> int:
+    """``aws --account-state FILE [--service s3,...]`` (ref cli.py
+    ``run_aws``): the built-in AWS checks over an exported account
+    state, on the host (no device work), written as every report is."""
+    from .cloud import KNOWN_SERVICES, load_account_state, scan_account
+    if _reject_unwired_fault_spec(args):
+        return 2
+    try:
+        state = load_account_state(args.account_state)
+    except (OSError, ValueError) as e:
+        print(f"error: account state: {e}", file=sys.stderr)
+        return 1
+    services = [s.strip().lower()
+                for s in args.service.split(",") if s.strip()]
+    unknown = [s for s in services if s not in KNOWN_SERVICES]
+    if unknown:
+        print(f"error: unknown service(s) {', '.join(unknown)}; "
+              f"choose from {', '.join(KNOWN_SERVICES)}",
+              file=sys.stderr)
+        return 2
+    report = Report(artifact_name=args.account_state,
+                    artifact_type="aws_account", metadata=Metadata(),
+                    results=scan_account(state, services or None))
+    return _finish(args, report)
+
+
+def run_module(args) -> int:
+    """``module install|uninstall|list`` (ref cli.py ``run_module``,
+    app.go:693) over ``TRIVY_MODULE_DIR``."""
+    from . import module as module_mod
+    cmd = args.module_command
+    if cmd in ("install", "i"):
+        try:
+            names = module_mod.install(args.source)
+        except (ValueError, OSError) as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 1
+        for name in names:
+            print(f"installed module {name}")
+        return 0
+    if cmd in ("uninstall", "u"):
+        if not module_mod.uninstall(args.name):
+            print(f"error: no such module: {args.name}",
+                  file=sys.stderr)
+            return 1
+        print(f"uninstalled module {args.name}")
+        return 0
+    if cmd == "list":
+        for stem, name, version in module_mod.list_installed():
+            print(f"{stem}\t{name}\t{version}")
+        return 0
+    print("usage: trivy-tpu module {install,uninstall,list}",
+          file=sys.stderr)
+    return 2
+
+
+def run_plugin(args) -> int:
+    """``plugin install|uninstall|list|info|run`` (ref cli.py
+    ``run_plugin``) over ``TRIVY_PLUGIN_DIR``; a plugin's exit code is
+    the command's."""
+    from . import plugin as plugin_mod
+    cmd = args.plugin_command
+    if cmd == "install":
+        try:
+            p = plugin_mod.install(args.source)
+        except (ValueError, OSError) as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 1
+        print(f"installed plugin {p.name} {p.version}")
+        return 0
+    if cmd == "uninstall":
+        if not plugin_mod.uninstall(args.name):
+            print(f"error: no such plugin: {args.name}",
+                  file=sys.stderr)
+            return 1
+        print(f"uninstalled plugin {args.name}")
+        return 0
+    if cmd == "list":
+        for p in plugin_mod.load_all():
+            print(f"{p.name}\t{p.version}\t{p.usage or p.description}")
+        return 0
+    if cmd == "info":
+        p = plugin_mod.load(args.name)
+        if p is None:
+            print(f"error: no such plugin: {args.name}",
+                  file=sys.stderr)
+            return 1
+        print(f"name: {p.name}\nversion: {p.version}\n"
+              f"usage: {p.usage}\ndescription: {p.description}")
+        return 0
+    if cmd == "run":
+        code = plugin_mod.run_with_args(args.name, args.plugin_args)
+        if code is None:
+            print(f"error: no such plugin: {args.name}",
+                  file=sys.stderr)
+            return 1
+        return code
+    print("error: unknown plugin subcommand", file=sys.stderr)
+    return 2
+
+
+def run_k8s(args) -> int:
+    """``k8s MANIFESTS [--images-dir DIR] [--compliance nsa|FILE]`` (ref
+    cli.py ``run_k8s``): ``k8s.ManifestClient`` enumerates the
+    manifests, ``K8sScanner`` scans each object's manifest for
+    misconfigurations and every workload image as one fleet
+    (``BatchScanRunner.scan_paths``: one ``dfa_blockmask`` launch for
+    the fleet's secret candidates and the interval match's waves, on
+    ``--backend``), then the filters, and the summary, full or JSON
+    report, or the compliance report of the unfiltered results."""
+    import copy
+    from .k8s import K8sScanner, ManifestClient
+    from .k8s.report import k8s_failed, write_k8s_report
+    if _reject_unwired_fault_spec(args):
+        return 2
+    if not os.path.exists(args.target):
+        print(f"error: no such path: {args.target}", file=sys.stderr)
+        return 1
+    if args.compliance and args.format not in ("table", "json"):
+        print(f"error: compliance reports support table/json, not "
+              f"{args.format}", file=sys.stderr)
+        return 2
+    checks = [c for c in args.security_checks.split(",") if c]
+    if args.backend == "cuda" and ("vuln" in checks or "secret" in checks):
+        resolve_device(args.backend)     # the images' scan needs the card
+    try:
+        store = load_store(args.db_fixtures, args.compiled_db,
+                           args.compile_db, args.cache_dir,
+                           args.skip_db_update) \
+            if "vuln" in checks else None
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    scanner = K8sScanner(store=store, backend=args.backend,
+                         images_dir=args.images_dir,
+                         security_checks=checks)
+    report = scanner.scan(ManifestClient(args.target))
+    compliance_results = [copy.deepcopy(res) for group in
+                          (report.misconfigurations,
+                           report.vulnerabilities)
+                          for r in group for res in r.results] \
+        if args.compliance else []
+    try:
+        policy = load_ignore_policy(args.ignore_policy)
+        for res in report.vulnerabilities + report.misconfigurations:
+            filter_results(
+                res.results, _severities(args.severity),
+                ignore_unfixed=args.ignore_unfixed,
+                ignored_ids=load_ignore_file(args.ignorefile),
+                policy=policy,
+                include_non_failures=args.include_non_failures)
+    except (OSError, IgnorePolicyError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    out = open(args.output, "w") if args.output else sys.stdout
+    try:
+        if args.compliance:
+            # compliance maps the RAW scan outcome — severity and
+            # non-failure filtering must not blank out controls
+            from .compliance import (build_report, load_spec,
+                                     write_compliance)
+            try:
+                spec = load_spec(args.compliance)
+            except (OSError, ValueError) as e:
+                print(f"error: compliance spec: {e}", file=sys.stderr)
+                return 1
+            write_compliance(build_report(spec, compliance_results),
+                             fmt=args.format, output=out)
+        else:
+            write_k8s_report(report, fmt=args.format, mode=args.report,
+                             output=out)
+    finally:
+        if args.output:
+            out.close()
+    if args.exit_code and k8s_failed(report):
+        return args.exit_code
     return 0
 
 

@@ -1,26 +1,95 @@
-"""Kubernetes image helpers (copied from ``trivy_tpu/k8s/__init__.py``:
-``_pod_spec``, ``_images``, ``images_from_object``, ``_sanitize_ref``
-and ``resolve_image_ref``).
+"""Kubernetes scanning (copied from ``trivy_tpu/k8s/__init__.py``;
+reference: pkg/k8s/{commands,scanner,report} + the external
+trivy-kubernetes enumerator).
 
-Only the helpers that the continuous-scanning front-ends share are
-here: the admission webhook (``watch/admission.py``) reads the images
-of a reviewed object with :func:`images_from_object`, and the
-``--images-dir`` resolvers (``watch/source.py::dir_resolver``) map a
-ref to a local tarball with :func:`resolve_image_ref`. The cluster
-scanner (``K8sScanner``, ``ManifestClient``, the report) and the
-``k8s`` subcommand are ROADMAP A.9j.
+The reference enumerates cluster artifacts (workload images + raw
+manifests) through the Kubernetes API and loops them SEQUENTIALLY
+through the artifact runner (scanner.go:58-78). Here the enumerator
+is a seam: ``ManifestClient`` walks exported/declared manifests (this
+environment has no cluster API; a live client plugs into the same
+``artifacts()`` contract), and the scan fans the whole artifact fleet
+through ``BatchScanRunner`` — one sieve dispatch and one interval
+dispatch for every image in the cluster (SURVEY §2.6's fleet case):
+on ``cuda`` one ``dfa_blockmask`` launch for every image's secret
+candidates and the resident interval match's waves.
+
+The image helpers (``images_from_object``, ``resolve_image_ref``) are
+shared with the continuous-scanning front-ends
+(``watch/admission.py``, ``watch/source.py::dir_resolver``).
 """
 
 from __future__ import annotations
 
+import logging
 import os
 import re
+from dataclasses import dataclass, field
 from typing import Optional
+
+from ..runtime import BatchScanRunner
+
+log = logging.getLogger("trivy_tpu_torch.k8s")
+
+try:
+    import yaml as yaml_mod
+except ImportError:              # pragma: no cover
+    yaml_mod = None
 
 # workload kinds that carry pod specs (trivy-kubernetes artifacts.go)
 WORKLOAD_KINDS = ("Pod", "Deployment", "StatefulSet", "DaemonSet",
                   "ReplicaSet", "ReplicationController", "Job",
                   "CronJob")
+
+
+@dataclass
+class Artifact:
+    """One cluster object (ref trivy-kubernetes artifacts.Artifact)."""
+
+    kind: str = ""
+    name: str = ""
+    namespace: str = ""
+    images: list = field(default_factory=list)
+    raw: dict = field(default_factory=dict)
+
+
+@dataclass
+class Resource:
+    """Per-object findings (ref pkg/k8s/report/report.go:58-69)."""
+
+    namespace: str = ""
+    kind: str = ""
+    name: str = ""
+    results: list = field(default_factory=list)
+    error: str = ""
+
+    def to_dict(self) -> dict:
+        d = {"Kind": self.kind, "Name": self.name}
+        if self.namespace:
+            d["Namespace"] = self.namespace
+        if self.results:
+            d["Results"] = [r.to_dict() for r in self.results]
+        if self.error:
+            d["Error"] = self.error
+        return d
+
+
+@dataclass
+class K8sReport:
+    """ref report.go:42-48."""
+
+    cluster_name: str = ""
+    vulnerabilities: list = field(default_factory=list)
+    misconfigurations: list = field(default_factory=list)
+
+    def to_dict(self) -> dict:
+        d = {"ClusterName": self.cluster_name}
+        if self.vulnerabilities:
+            d["Vulnerabilities"] = [r.to_dict()
+                                    for r in self.vulnerabilities]
+        if self.misconfigurations:
+            d["Misconfigurations"] = [
+                r.to_dict() for r in self.misconfigurations]
+        return d
 
 
 def _pod_spec(doc: dict) -> dict:
@@ -39,11 +108,54 @@ def _images(doc: dict) -> list:
 
 def images_from_object(doc: dict) -> list:
     """Pod-spec image references of one workload object — bare Pods
-    and every templated WORKLOAD_KIND alike, as the reference's
-    cluster scanner and admission webhook read them."""
+    and every templated WORKLOAD_KIND alike. Shared by the cluster
+    scanner and the admission webhook (watch/admission.py), so both
+    agree on what "the images of this object" means."""
     if not isinstance(doc, dict):
         return []
     return _images(doc)
+
+
+class ManifestClient:
+    """Artifact enumerator over manifest files — the stand-in for the
+    live-cluster client (same ``artifacts()`` contract)."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self.cluster_name = os.path.basename(
+            path.rstrip("/")) or path
+
+    def _files(self):
+        if os.path.isfile(self.path):
+            yield self.path
+            return
+        for dirpath, _, names in os.walk(self.path):
+            for name in sorted(names):
+                if name.endswith((".yaml", ".yml", ".json")):
+                    yield os.path.join(dirpath, name)
+
+    def artifacts(self) -> list:
+        out = []
+        for fp in self._files():
+            try:
+                with open(fp, "rb") as f:
+                    docs = list(yaml_mod.safe_load_all(
+                        f.read().decode("utf-8", "replace")))
+            except (OSError, yaml_mod.YAMLError) as e:
+                log.warning("skipping %s: %s", fp, e)
+                continue
+            for doc in docs:
+                if not isinstance(doc, dict) or "kind" not in doc:
+                    continue
+                meta = doc.get("metadata") or {}
+                out.append(Artifact(
+                    kind=doc.get("kind", ""),
+                    name=meta.get("name", ""),
+                    namespace=meta.get("namespace", ""),
+                    images=_images(doc)
+                    if doc.get("kind") in WORKLOAD_KINDS else [],
+                    raw=doc))
+        return out
 
 
 def _sanitize_ref(ref: str) -> str:
@@ -52,9 +164,9 @@ def _sanitize_ref(ref: str) -> str:
 
 def resolve_image_ref(images_dir: str, ref: str) -> Optional[str]:
     """image ref → local tarball named ``<ref with /:@ as _>.tar``
-    (the zero-egress stand-in for a registry pull). Every ``/`` of the
-    ref becomes ``_``, so a ref never names a path outside
-    ``images_dir``."""
+    (the zero-egress stand-in for a registry pull). ONE copy of the
+    naming contract — the cluster scanner and the watch/admission
+    resolvers (watch/source.dir_resolver) both call it."""
     if not images_dir:
         return None
     for cand in (f"{_sanitize_ref(ref)}.tar",
@@ -63,3 +175,105 @@ def resolve_image_ref(images_dir: str, ref: str) -> Optional[str]:
         if os.path.exists(path):
             return path
     return None
+
+
+class K8sScanner:
+    """ref pkg/k8s/scanner/scanner.go:30-78, with the sequential
+    artifact loop replaced by one fleet batch over every image."""
+
+    def __init__(self, store=None, backend: str = "cuda",
+                 images_dir: str = "", security_checks=None):
+        self.store = store
+        self.backend = backend
+        self.images_dir = images_dir
+        self.security_checks = security_checks or ["vuln", "config"]
+
+    def scan(self, client) -> K8sReport:
+        artifacts = client.artifacts()
+        report = K8sReport(cluster_name=client.cluster_name)
+
+        if "config" in self.security_checks or \
+                "rbac" in self.security_checks:
+            report.misconfigurations = [
+                self._scan_misconfig(a) for a in artifacts]
+
+        if "vuln" in self.security_checks or \
+                "secret" in self.security_checks:
+            report.vulnerabilities = self._scan_images(artifacts)
+        return report
+
+    # -- misconfigs: the manifests themselves --
+
+    def _scan_misconfig(self, artifact: Artifact) -> Resource:
+        from ..misconf import scan_config_files
+        from ..scan.local import _to_detected_misconf
+        from ..types import ConfigFile, Result
+        from ..types.report import ResultClass
+
+        raw = yaml_mod.safe_dump(artifact.raw).encode()
+        results = []
+        for mc in scan_config_files([ConfigFile(
+                type="yaml",
+                file_path=f"{artifact.namespace or 'default'}/"
+                          f"{artifact.kind}/{artifact.name}",
+                content=raw)]):
+            detected = [
+                _to_detected_misconf(f, "CRITICAL", "FAIL", mc.layer)
+                for f in mc.failures]
+            detected += [
+                _to_detected_misconf(s, "UNKNOWN", "PASS", mc.layer)
+                for s in mc.successes]
+            results.append(Result(
+                target=mc.file_path, class_=ResultClass.CONFIG,
+                type=mc.file_type, misconfigurations=detected))
+        return Resource(namespace=artifact.namespace,
+                        kind=artifact.kind, name=artifact.name,
+                        results=results)
+
+    # -- vulns: every image in the cluster, ONE batch --
+
+    def _scan_images(self, artifacts: list) -> list:
+        owners: list = []       # (artifact, ref, path|None)
+        paths: list = []
+        for a in artifacts:
+            for ref in a.images:
+                path = self._resolve(ref)
+                owners.append((a, ref, path))
+                if path and path not in paths:
+                    paths.append(path)   # shared images scan once
+        if not paths:
+            return [Resource(namespace=a.namespace, kind=a.kind,
+                             name=a.name,
+                             error=f"image not resolvable: {ref}")
+                    for a, ref, path in owners if path is None]
+
+        runner = BatchScanRunner(store=self.store,
+                                 backend=self.backend)
+        from ..types import ScanOptions
+        options = ScanOptions(
+            security_checks=[c for c in self.security_checks
+                             if c in ("vuln", "secret")],
+            backend=self.backend)
+        batch = runner.scan_paths(paths, options)
+        by_path = {p: r for p, r in zip(paths, batch)}
+
+        out = []
+        for a, ref, path in owners:
+            if path is None:
+                out.append(Resource(
+                    namespace=a.namespace, kind=a.kind, name=a.name,
+                    error=f"image not resolvable: {ref}"))
+                continue
+            res = by_path[path]
+            if res.error:
+                out.append(Resource(
+                    namespace=a.namespace, kind=a.kind, name=a.name,
+                    error=res.error))
+            else:
+                out.append(Resource(
+                    namespace=a.namespace, kind=a.kind, name=a.name,
+                    results=res.report.results))
+        return out
+
+    def _resolve(self, ref: str) -> Optional[str]:
+        return resolve_image_ref(self.images_dir, ref)

@@ -1,0 +1,93 @@
+"""K8s report rendering (copied from ``trivy_tpu/k8s/report.py``;
+reference: pkg/k8s/report/{summary,table,json}.go) — summary counts per resource, or the full per-resource
+results."""
+
+from __future__ import annotations
+
+import json
+
+from ..report.writer import _table
+
+_SEVS = ("CRITICAL", "HIGH", "MEDIUM", "LOW", "UNKNOWN")
+
+
+def _counts(results, attr) -> dict:
+    counts = {s: 0 for s in _SEVS}
+    for r in results:
+        for item in getattr(r, attr, []):
+            sev = getattr(item, "severity", "UNKNOWN")
+            if attr == "misconfigurations" and \
+                    getattr(item, "status", "") != "FAIL":
+                continue
+            counts[sev if sev in counts else "UNKNOWN"] += 1
+    return counts
+
+
+def render_summary(report) -> str:
+    lines = [f"Summary Report for {report.cluster_name}", ""]
+    rows = [("Namespace", "Resource",
+             "Vulnerabilities C/H/M/L/U",
+             "Misconfigurations C/H/M/L/U")]
+    vuln_by_key = {}
+    for res in report.vulnerabilities:
+        key = (res.namespace, f"{res.kind}/{res.name}")
+        vuln_by_key[key] = _counts(res.results, "vulnerabilities")
+    misc_by_key = {}
+    for res in report.misconfigurations:
+        key = (res.namespace, f"{res.kind}/{res.name}")
+        misc_by_key[key] = _counts(res.results, "misconfigurations")
+
+    def fmt(c):
+        if c is None:
+            return "-"
+        return "/".join(str(c[s]) for s in _SEVS)
+
+    for key in sorted(set(vuln_by_key) | set(misc_by_key)):
+        rows.append((key[0] or "default", key[1],
+                     fmt(vuln_by_key.get(key)),
+                     fmt(misc_by_key.get(key))))
+    if len(rows) == 1:
+        return lines[0] + "\nno resources found\n"
+    lines.extend(_table(rows))
+    lines.append("Severities: C=CRITICAL H=HIGH M=MEDIUM L=LOW "
+                 "U=UNKNOWN")
+    return "\n".join(lines) + "\n"
+
+
+def render_all(report) -> str:
+    """Full findings per resource via the standard table writer."""
+    from ..report.writer import render_table
+    from ..types import Metadata, Report
+    out = [f"Full Report for {report.cluster_name}"]
+    for res in report.misconfigurations + report.vulnerabilities:
+        if not res.results and not res.error:
+            continue
+        if res.error:
+            out.append(f"\n{res.kind}/{res.name}: error: "
+                       f"{res.error}")
+            continue
+        body = render_table(Report(results=res.results))
+        if body.strip():
+            out.append(body.rstrip("\n"))
+    return "\n".join(out) + "\n"
+
+
+def write_k8s_report(report, fmt: str = "table",
+                     mode: str = "summary", output=None) -> None:
+    import sys
+    out = output or sys.stdout
+    if fmt == "json":
+        json.dump(report.to_dict(), out, indent=2)
+        out.write("\n")
+    elif mode == "all":
+        out.write(render_all(report))
+    else:
+        out.write(render_summary(report))
+
+
+def k8s_failed(report) -> bool:
+    for res in report.vulnerabilities + report.misconfigurations:
+        for r in res.results:
+            if r.failed():
+                return True
+    return False
