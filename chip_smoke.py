@@ -221,6 +221,18 @@ Builds the port's hand-written kernels (``trivy_tpu_torch/csrc``, one
    must exit 0 with balanced books. Each prints its ``dfa_blockmask``
    launches (``CLI_COUNTED``).
 
+8d. lock-order witness (``witness_cli``): ``image <the 8 targets>
+   --sched-stats`` under ``TRIVY_TPU_LOCK_WITNESS=1``, no fault spec,
+   a third CLI process beside them: exit 1 with the truncated tar the
+   only failure, every other report the fleet phase's, no quarantine
+   and no host fallback, the sieve launched, and the witness's locks
+   wrapped and taken with no order cycle and no pool self-join. It
+   prints the witness's order graph, the edges of the card-only locks
+   (``CARD_LOCKS``) apart, and its wall beside the drill CLI's and the
+   sched phase's cold scheduled fleet's. The server phase's server
+   ``a`` runs under the witness too: its log must hold none of the
+   witness's errors.
+
 9. mesh phase, on a mesh of every visible card or, on one card, that
    card named four times (``smoke_mesh``: 2 × 2, data 2, rules 2),
    in three parts run where their inputs are at hand. After the
@@ -351,6 +363,13 @@ host seconds of the config collectors, the misconf post-handler and
 the license classifier, and the YAML inputs (Kubernetes and
 CloudFormation YAML, Helm charts) the misconf engine left unevaluated
 for want of PyYAML (the reference skips them too).
+
+From the start, beside the builds and the kernel and vuln phases,
+``python -m trivy_tpu_torch.analysis --json`` runs ``LINT_RUNS`` times
+over the checkout's port (``lint_clis``): each
+must exit 0 with no finding, the outputs must be byte-equal, and
+``files`` must be the package's ``*.py`` files. The lint line prints
+the counts and the suppressions by rule.
 
 A daemon thread samples the host's memory each second
 (``MemoryWatch``): below ``MEM_FLOOR_GIB`` available it stops the
@@ -4605,9 +4624,11 @@ class ServerProc:
     (never a pipe that could fill). A daemon thread polls ``/healthz``
     from the start, so the time to ready is the server's whatever this
     process does meanwhile. ``stop`` sends SIGTERM and waits; ``kill``
-    ends it whatever it is doing (the phase's ``finally``)."""
+    ends it whatever it is doing (the phase's ``finally``). ``env`` adds
+    to the environment the process inherits."""
 
-    def __init__(self, argv: list, log: str, command: str = "server"):
+    def __init__(self, argv: list, log: str, command: str = "server",
+                 env: dict = None):
         import socket
         with socket.socket() as s:
             s.bind(("127.0.0.1", 0))
@@ -4620,7 +4641,8 @@ class ServerProc:
             [sys.executable, "-m", "trivy_tpu_torch", command, "--listen",
              f"127.0.0.1:{self.port}", "--token", SERVER_TOKEN] + argv,
             cwd=os.path.dirname(os.path.abspath(__file__)),
-            stdout=self._out, stderr=subprocess.STDOUT, text=True)
+            stdout=self._out, stderr=subprocess.STDOUT, text=True,
+            env={**os.environ, **(env or {})})
         _CHILDREN.append(self.proc)
         self.t_ready = None
         self.statuses: list = []          # /healthz statuses, in turn
@@ -5570,7 +5592,9 @@ def server_boot(device, work_dir: str, fleet: dict) -> dict:
     with the impact index (``--impact-index --replica-name a``), its
     blobs in a directory (``--cache-dir``) that the phase's second
     server shares: behind the router either may take a session's
-    Scan. Returns what ``server_phase`` needs."""
+    Scan. The server runs under the lock-order witness
+    (``TRIVY_TPU_LOCK_WITNESS=1``). Returns what ``server_phase``
+    needs."""
     import shutil
     d = os.path.join(work_dir, "server")
     os.makedirs(d)
@@ -5590,7 +5614,8 @@ def server_boot(device, work_dir: str, fleet: dict) -> dict:
     return {"dir": d, "prefix": prefix, "argv": argv, "copy_s": copy_s,
             "refs": refs, "memo_dir": memo_dir,
             "srv": ServerProc(argv + ["--replica-name", "a"],
-                              os.path.join(d, "server1.log"))}
+                              os.path.join(d, "server1.log"),
+                              env={"TRIVY_TPU_LOCK_WITNESS": "1"})}
 
 
 def server_phase(device, cdb, svc: dict, fleet: dict, gen2: dict,
@@ -5645,7 +5670,10 @@ def server_phase(device, cdb, svc: dict, fleet: dict, gen2: dict,
        ``/impact``, the zero-loss SIGTERM drain of the replica that
        carries the traffic (the drain's gates: exit 0, its timings),
        the router's books, the route fault arm in front of the other;
-       then SIGTERM on that one, exit 0.
+       then SIGTERM on that one, exit 0;
+    7. ``a`` ran under the lock-order witness: its log holds no
+       ``LockOrderViolation`` and no ``PoolSelfJoinError``
+       (``witnessed_log``).
 
     Client-side ``dfa_blockmask`` launches are counted per round."""
     from trivy_tpu_torch.ops.dfa_cuda import dfa_blockmask
@@ -5891,6 +5919,8 @@ def server_phase(device, cdb, svc: dict, fleet: dict, gen2: dict,
             s.kill()
         if peer is not None:
             peer["stop"]()
+    out["witnessed_server"] = {"replica": "a",
+                               **witnessed_log(srv.text(), "server a")}
     sched = {k: metrics[k] for k in (
         "counters", "batch", "queue_depth_max", "device_busy_s",
         "device_time_s", "host_busy_s", "overlap_ratio", "backend")
@@ -6714,11 +6744,14 @@ ADMISSION_GHOST = "smoke/ghost:1"
 
 # ``python -c CLI_COUNTED ARGV``: ``cli.main(ARGV)`` as ``python -m
 # trivy_tpu_torch ARGV`` runs it, then one ``cli-counted: {json}`` line
-# on stderr with this process's ``dfa_blockmask`` launches and the stats
-# of every breaker ``FaultInjector.wrap_cache`` made
+# on stderr with this process's ``dfa_blockmask`` launches, the stats
+# of every breaker ``FaultInjector.wrap_cache`` made and, when the
+# lock-order witness is active (``TRIVY_TPU_LOCK_WITNESS=1``, installed
+# by the import of ``cli``), its stats and its order graph's edges
 CLI_COUNTED = """
 import json, sys
 from trivy_tpu_torch import cli
+from trivy_tpu_torch.analysis.witness import active_witness
 from trivy_tpu_torch.faults import FaultInjector
 from trivy_tpu_torch.ops.dfa_cuda import dfa_blockmask
 wrapped, wrap = [], FaultInjector.wrap_cache
@@ -6730,10 +6763,14 @@ def kept(self, cache, resilient=True):
 
 FaultInjector.wrap_cache = kept
 rc = cli.main(sys.argv[1:])
+witness = active_witness()
 print("cli-counted: " + json.dumps({
     "dfa_blockmask_launches": dfa_blockmask.launches,
     "breakers": [c.breaker_stats() for c in wrapped
-                 if hasattr(c, "breaker_stats")]}), file=sys.stderr)
+                 if hasattr(c, "breaker_stats")],
+    **({"witness": {"stats": witness.stats(),
+                    "edges": witness.graph.edges()}}
+       if witness is not None else {})}), file=sys.stderr)
 sys.exit(rc)
 """
 
@@ -6897,6 +6934,174 @@ def storm_cli(fleet: dict, work_dir: str, db_path: str,
                   "webhook", "--listen", "127.0.0.1:0", "--fault-spec",
                   "event-storm", "--compiled-db", db_path, "--backend",
                   backend], d, check)
+
+
+# the locks only the card path takes, by module and assignment: the
+# kernel libraries' build locks, the resident tables' staging lock, the
+# busy spans' anchor and the mesh's side streams
+CARD_LOCKS = (("ops/dfa_cuda.py", "_lib_lock = threading.Lock()"),
+              ("ops/keywords_cuda.py", "_lib_lock = threading.Lock()"),
+              ("ops/resident.py", "self._device_lock = threading.Lock()"),
+              ("obs/busy.py", "_ANCHOR_LOCK = threading.Lock()"),
+              ("parallel/mesh.py", "_SIDE_LOCK = threading.Lock()"))
+WITNESS_NEEDLES = ("LockOrderViolation", "PoolSelfJoinError",
+                   "lock-order cycle", "host-pool thread blocked")
+
+
+def card_lock_sites() -> dict:
+    """{witness site ``module:line``: label} of ``CARD_LOCKS``."""
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "trivy_tpu_torch")
+    out = {}
+    for rel, text in CARD_LOCKS:
+        with open(os.path.join(root, rel)) as f:
+            line = next(i for i, ln in enumerate(f, 1) if text in ln)
+        mod = "trivy_tpu_torch." + rel[:-3].replace("/", ".")
+        out[f"{mod}:{line}"] = f"{rel}::{text.split(' = ')[0]}"
+    return out
+
+
+def witnessed_log(text: str, who: str) -> dict:
+    """A witnessed process's output holds none of the witness's
+    errors (by class name or message)."""
+    found = [n for n in WITNESS_NEEDLES if n in text]
+    if found:
+        at = min(text.index(n) for n in found)
+        raise AssertionError(f"{who}: the lock-order witness raised "
+                             f"{found}: {text[max(0, at - 1500):at + 500]}")
+    return {"witness_errors": 0, "log_bytes": len(text)}
+
+
+def witness_cli(fleet: dict, work_dir: str, db_path: str,
+                backend: str) -> "BackgroundCLI":
+    """``image <the fleet's 8 targets> --compiled-db <the sbom phase's
+    npz> --sched-stats --format json`` under ``TRIVY_TPU_LOCK_WITNESS=1``
+    with no fault spec, in a process of its own (``CLI_COUNTED``). The
+    check: the exit code is the unwitnessed fleet's (1: the truncated
+    tar fails its own slot, alone); every other target's report equals
+    the fleet phase's card report of its tar; the scheduler quarantined
+    nothing and fell back to the host for nothing; the sieve launched;
+    the witness wrapped and took locks, saw no order cycle and no pool
+    self-join, and no witness error reached stderr. Returns the edges,
+    those with a card-only lock (``CARD_LOCKS``) apart."""
+    plan, want = fleet["plan"], fleet["texts"]
+    paths, broken = plan["paths"], plan["broken"]
+    d = os.path.join(work_dir, "witness")
+    os.makedirs(d)
+    report = os.path.join(d, "report.json")
+
+    def check(err: str) -> dict:
+        witnessed_log(err, "the witnessed fleet CLI")
+        counted = _counted(err)
+        stats, _ = json.JSONDecoder().raw_decode(err[err.index("\n{\n")
+                                                     + 1:])
+        with open(report) as f:
+            docs = {doc["ArtifactName"]: doc for doc in json.load(f)}
+        failed = {ln.split(": ", 2)[1] for ln in err.splitlines()
+                  if ln.startswith("error: ")}
+        if failed != {paths[broken]}:
+            raise AssertionError(f"witnessed fleet: failed {failed}")
+        bad = [i for i, p in enumerate(paths) if i != broken and (
+            p not in docs or
+            json.dumps(docs[p], sort_keys=True) != want[i])]
+        if bad or len(docs) != len(paths) - 1:
+            raise AssertionError(f"witnessed fleet: the reports of "
+                                 f"targets {bad} != the fleet phase's")
+        c = stats["counters"]
+        if c.get("quarantined") or c.get("host_fallbacks") or \
+                c.get("device_failures"):
+            raise AssertionError(f"witnessed fleet: counters {c}")
+        wit = counted.get("witness")
+        if wit is None:
+            raise AssertionError("witnessed fleet: no witness active")
+        st = wit["stats"]
+        if st["violations"] or st["pool_joins_checked"] or \
+                not st["wrapped_locks"] or not st["acquisitions"] or \
+                counted["dfa_blockmask_launches"] < 1:
+            raise AssertionError(f"witnessed fleet: witness {st}, "
+                                 f"launches "
+                                 f"{counted['dfa_blockmask_launches']}")
+        sites = card_lock_sites()
+        edges = [tuple(e) for e in wit["edges"]]
+        return {"launches": counted["dfa_blockmask_launches"],
+                "witness": st, "edges": edges,
+                "card_lock_edges": [
+                    [sites.get(a, a), sites.get(b, b)] for a, b in edges
+                    if a in sites or b in sites],
+                "card_locks_in_edges": sorted(
+                    {sites[s] for e in edges for s in e if s in sites}),
+                "counters": {k: c.get(k, 0) for k in (
+                    "submitted", "completed", "failed", "batches")}}
+
+    return BackgroundCLI(
+        "witness", ["-c", CLI_COUNTED, "image", *paths, "--compiled-db",
+                    db_path, "--backend", backend, "--format", "json",
+                    "--output", report, "--sched-stats"], d, check, rc=1,
+        env={"TRIVY_TPU_LOCK_WITNESS": "1"})
+
+
+# the lint over the checkout's port, host only
+LINT_RUNS = 2
+
+
+def port_py_files() -> int:
+    """The ``*.py`` files of ``trivy_tpu_torch/`` (caches and the
+    kernels' build directory, which holds this script's work files,
+    aside)."""
+    n = 0
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "trivy_tpu_torch")
+    for dirpath, dirs, names in os.walk(root):
+        dirs[:] = [x for x in dirs if x not in ("__pycache__", "_build")
+                   and not x.startswith(".")]
+        n += sum(name.endswith(".py") for name in names)
+    return n
+
+
+def lint_clis(work_dir: str) -> list:
+    """``python -m trivy_tpu_torch.analysis --json`` ``LINT_RUNS`` times
+    at once, each a ``BackgroundCLI`` that exits 0 and reports no
+    finding over every file of the package; ``lint_line`` compares
+    them."""
+    d = os.path.join(work_dir, "lint")
+    os.makedirs(d)
+    runs = []
+    for k in range(LINT_RUNS):
+        out = os.path.join(d, f"lint{k}.json")
+
+        def check(_err: str, out=out) -> dict:
+            with open(out) as f:
+                text = f.read()
+            doc = json.loads(text)
+            if not doc["ok"] or doc["findings"]:
+                raise AssertionError(f"lint: {doc['counts']} "
+                                     f"{doc['findings'][:5]}")
+            return {"text": text}
+
+        runs.append(BackgroundCLI(
+            f"lint{k}", ["-m", "trivy_tpu_torch.analysis", "--json"], d,
+            check, stdout=out))
+    return runs
+
+
+def lint_line(runs: list) -> dict:
+    """The lint runs finished: byte-equal outputs, ``files`` the
+    package's ``*.py`` files."""
+    done = [r.finish() for r in runs]
+    texts = {r["text"] for r in done}
+    doc = json.loads(done[0]["text"])
+    n = port_py_files()
+    if len(texts) != 1 or doc["files"] != n:
+        raise AssertionError(f"lint: {len(texts)} distinct outputs, "
+                             f"{doc['files']} files of {n}")
+    by_rule: dict = {}
+    for f in doc["suppressed"]:
+        by_rule[f["rule"]] = by_rule.get(f["rule"], 0) + 1
+    return {"runs": len(done), "byte_equal": True, "files": doc["files"],
+            "findings": len(doc["findings"]),
+            "suppressed": len(doc["suppressed"]),
+            "suppressed_by_rule": by_rule, "rules": doc["rules"],
+            "wall_s": [round(r["wall_s"], 3) for r in done]}
 
 
 def watch_phase(device, cdb, fleet: dict, work_dir: str) -> dict:
@@ -7338,8 +7543,12 @@ def commit_tree(tree: str, git_dir: str) -> bool:
     import shutil
     if shutil.which("git") is None:
         return False
+    # gc.auto=0: a commit of this many loose objects starts a detached
+    # ``git gc --auto`` that packs and deletes them while the repo CLI
+    # clones the repository (the clone then fails to copy an object)
     base = ["git", "--git-dir", git_dir, "--work-tree", tree,
-            "-c", "user.name=smoke", "-c", "user.email=smoke@localhost"]
+            "-c", "user.name=smoke", "-c", "user.email=smoke@localhost",
+            "-c", "gc.auto=0"]
     for args in (["init", "-q"], ["add", "-A"],
                  ["commit", "-q", "-m", "smoke tree"]):
         subprocess.run(base + args, check=True, capture_output=True)
@@ -7418,10 +7627,15 @@ def soak_cli(work_dir: str) -> "BackgroundCLI":
     sim replicas through the smoke scenario (every step kind, one
     designed trip), on the host. The script runs it with nothing beside
     it: its verdict reads the wall clock. The check: exit 0 (books
-    balanced, trips exact, the audit ok), the report's stable view."""
+    balanced, trips exact, the audit ok), the report's stable view; the
+    host's load average and the script's children still running when
+    it starts say whether anything did run beside it."""
     d = os.path.join(work_dir, "soak")
     os.makedirs(d)
     report = os.path.join(d, "report.json")
+    beside = {"load_1m_at_start": os.getloadavg()[0],
+              "children_running_at_start": sum(
+                  p.poll() is None for p in _CHILDREN)}
 
     def check(err: str) -> dict:
         with open(report) as f:
@@ -7431,7 +7645,8 @@ def soak_cli(work_dir: str) -> "BackgroundCLI":
                 and st["audit_ok"]) or st["lost"]:
             raise AssertionError(f"soak: {st}")
         c = doc["books"]["counters"]
-        return {"stable": st, "wall_s_report": doc["wall"]["duration_s"],
+        return {**beside, "stable": st,
+                "wall_s_report": doc["wall"]["duration_s"],
                 "first_trip_t": doc["slo"]["trip"]["first_trip_t"],
                 "sustained": doc["throughput"]["sustained"],
                 "counters": {k: c[k] for k in (
@@ -7857,6 +8072,7 @@ def resident_rows(cdb) -> list:
 
 def main() -> int:
     global _PROFILE_LOCK
+    import shutil
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -7869,6 +8085,12 @@ def main() -> int:
     gpu = gpu_line()
     print(gpu, flush=True)
     dfa_uploads = track_dfa_uploads()
+    # the lint over the checkout's port, host only, beside the builds
+    # and the kernel and vuln phases (the build directory, which holds
+    # its output, is not source to it)
+    os.makedirs(dfa_cuda.BUILD_DIR, exist_ok=True)
+    lint_dir = tempfile.mkdtemp(dir=dfa_cuda.BUILD_DIR)
+    lints = lint_clis(lint_dir)
     t0 = time.perf_counter()
     mods = (dfa_cuda, keywords_cuda)
     with ThreadPoolExecutor(len(mods)) as ex:
@@ -7907,7 +8129,6 @@ def main() -> int:
     mesh_disp = mesh_dispatch_phase(device, cdb, vkeep, mesh)
     del vkeep
     print("mesh phase, dispatch_jobs: " + json.dumps(mesh_disp), flush=True)
-    os.makedirs(dfa_cuda.BUILD_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=dfa_cuda.BUILD_DIR) as work:
         _PROFILE_LOCK = os.path.join(work, "profile.lock")
         db_path, pending = os.path.join(work, "cdb"), []
@@ -7932,6 +8153,9 @@ def main() -> int:
         # beside the memo and server phases
         drills = [drill_cli(kept, work, db_path, device.type),
                   storm_cli(kept, work, db_path, device.type)]
+        # the scheduled fleet under the lock-order witness, a CLI
+        # process beside them
+        witnessed = witness_cli(kept, work, db_path, device.type)
         # the k8s entry at the fleet's full width, CLI processes beside
         # the memo and server phases
         subcommands = k8s_clis(kept, work, db_path, device.type)
@@ -7973,6 +8197,12 @@ def main() -> int:
         drilled = finish_clis(drills)
         print(f"fault drill and watch storm CLIs, beside the memo and "
               f"server phases ({gpu}): " + json.dumps(drilled), flush=True)
+        wit = witnessed.finish()
+        lint = lint_line(lints)
+        shutil.rmtree(lint_dir, ignore_errors=True)
+        print("lint (python -m trivy_tpu_torch.analysis --json, host "
+              "only, beside the builds and the kernel and vuln phases): "
+              + json.dumps(lint), flush=True)
         k8s = finish_clis(subcommands)
         extensions = extension.finish()
         print(f"extension CLIs (module, plugin, aws, version), beside the "
@@ -8010,6 +8240,7 @@ def main() -> int:
                 "watch": reg["watch"]["launches"],
                 "drill_cli": drilled["drill"]["launches"],
                 "storm_cli": drilled["storm"]["launches"],
+                "witness_cli": wit["launches"],
                 "mesh_sieve": mesh_kern["dfa_blockmask"]["launches"],
                 "mesh_fleet": sum(mesh_fleet["launches"].values()),
                 "memo": sum(memo["launches"].values()),
@@ -8272,6 +8503,23 @@ def main() -> int:
           f"line; books {json.dumps(ra['books'])};"
           f" fault arm in front of {ra['survivor']} "
           f"{json.dumps(ra['fault'])}", flush=True)
+    sched_cold = sched["runs"]["cold0"]["wall_s"]
+    print(f"lock-order witness ({gpu}): the scheduled fleet of "
+          f"{sched['targets']} targets in a CLI "
+          f"process under TRIVY_TPU_LOCK_WITNESS=1, beside the memo and "
+          f"server phases: wall {wit['wall_s']:.1f} s (npz load and "
+          f"process start included; the unwitnessed fault drill's CLI, "
+          f"the same fleet in the same form beside it: "
+          f"{drilled['drill']['wall_s']:.1f} s; the sched phase's cold "
+          f"scheduled fleet in process, no drill, no witness: "
+          f"{sched_cold:.3f} s), {wit['launches']} dfa_blockmask "
+          f"launches, witness {json.dumps(wit['witness'])}, counters "
+          f"{json.dumps(wit['counters'])}; card-only locks in an edge "
+          f"{json.dumps(wit['card_locks_in_edges'])}, their edges "
+          f"{json.dumps(wit['card_lock_edges'])}; every edge "
+          f"{json.dumps(wit['edges'])}; server a witnessed through the "
+          f"server phase: {json.dumps(server['witnessed_server'])}",
+          flush=True)
     print(f"k8s ({gpu}; k8s DIR --images-dir D at the fleet's full width "
           f"in a CLI process, {K8S_CHECKS}): " + json.dumps(k8s["k8s"]) +
           f"; compliance nsa and the summary table (config only) "

@@ -202,6 +202,12 @@ SOAK_SLICE = ("soak/__init__.py", "soak/scenario.py", "soak/registry.py",
               "module/__init__.py", "plugin/__init__.py",
               "cloud/__init__.py", "cli.py")
 
+# the repo-invariant lint and the lock-order witness, and the CLI
+# that installs the witness
+ANALYSIS_SLICE = ("analysis/__init__.py", "analysis/__main__.py",
+                  "analysis/engine.py", "analysis/rules.py",
+                  "analysis/witness.py", "cli.py")
+
 
 def _covered(modules) -> None:
     import importlib
@@ -275,6 +281,10 @@ def test_the_scans_cover_the_router_slice():
 
 def test_the_scans_cover_the_soak_and_subcommands_slice():
     _covered(SOAK_SLICE)
+
+
+def test_the_scans_cover_the_analysis_slice():
+    _covered(ANALYSIS_SLICE)
 
 
 def test_server_entry_runs_without_jax():

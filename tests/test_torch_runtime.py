@@ -6,8 +6,11 @@ freeing its reservation), the host pool (order kept, no deadlock from
 a pool thread), and ``dispatch_jobs_async`` + ``collect_dispatch``
 equal to the port's and the reference's ``dispatch_jobs`` on seeded
 mixes of classic and resident jobs, at every wave size and depth
-tested, with no re-upload of the resident tables."""
+tested, with no re-upload of the resident tables. The ring's storm
+runs under the port's lock-order witness, and racing first submits
+start one drain thread."""
 
+import sys
 import threading
 import time
 
@@ -26,6 +29,8 @@ from trivy_tpu_torch.runtime.ring import (RING_METRICS, DispatchRing,
                                           TeeRingMetrics,
                                           resolve_dispatch_depth)
 from trivy_tpu_torch.utils import defer_gc
+from tests.torch_witness import (assert_witnessed_clean,
+                                 torch_lock_witness)  # noqa: F401
 
 
 # --- the ring (tests/test_async_rt.py:32-131) -----------------------
@@ -166,6 +171,90 @@ class TestDispatchRing:
         assert 0.0 <= snap["dispatch_overlap_ratio"] <= 1.0
         assert RING_METRICS.snapshot()["counters"]["slots_launched"] \
             - before >= 5
+
+
+def _drain_threads(name: str) -> int:
+    return sum(t.name == f"ring-{name}" for t in threading.enumerate())
+
+
+def _released_together(n: int, fn) -> None:
+    """``fn(k)`` on ``n`` threads that a barrier releases at once,
+    under a short switch interval (restored after)."""
+    bar = threading.Barrier(n)
+
+    def run(k):
+        bar.wait(10)
+        fn(k)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=run, args=(k,))
+                   for k in range(n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(old)
+
+
+def test_racing_first_submits_start_one_drain_thread():
+    """The first submits of a fresh ring, released together, start one
+    drain thread (checked and started under the ring's lock; before,
+    one ring in five started two, which collected out of FIFO order)."""
+    for trial in range(30):
+        name = f"t-first-{trial}"
+        ring = DispatchRing(depth=64, name=name, metrics=RingMetrics())
+        _released_together(16, lambda k: ring.submit(lambda p: p, k))
+        assert _drain_threads(name) == 1, trial
+        ring.close()
+
+
+def test_ring_storm_books_balance_under_the_witness(torch_lock_witness):
+    """Sixteen submitters on a fresh depth-3 ring, each launching 20
+    slots on its own thread, one collect in four raising: every slot
+    resolves exactly once to its own result or error, each submitter's
+    slots are collected in its order by one drain thread, the books
+    balance, and the witness sees no order cycle."""
+    rm = RingMetrics()
+    ring = DispatchRing(depth=3, name="t-storm", metrics=rm)
+    collected, got = [], {}
+    lock = threading.Lock()
+
+    def collect(p):
+        collected.append(p)             # the drain thread only
+        if p[1] % 4 == 3:
+            raise ValueError(f"bad {p}")
+        return p
+
+    def submitter(k):
+        slots = [ring.submit(collect, launch=lambda i=i: (k, i))
+                 for i in range(20)]
+        for i, slot in enumerate(slots):
+            try:
+                out = slot.wait(30)
+            except ValueError:
+                out = "error"
+            with lock:
+                got[(k, i)] = out
+
+    try:
+        _released_together(16, submitter)
+        assert _drain_threads("t-storm") == 1
+        assert ring.flush(30) and ring.in_flight() == 0
+    finally:
+        ring.close()
+    assert len(got) == 320
+    assert all(got[(k, i)] == ("error" if i % 4 == 3 else (k, i))
+               for k, i in got)
+    for k in range(16):
+        assert [i for kk, i in collected if kk == k] == list(range(20))
+    c = rm.snapshot()["counters"]
+    assert c["slots_launched"] == c["slots_collected"] == 320
+    assert c["slot_errors"] == 80
+    assert_witnessed_clean(torch_lock_witness)
 
 
 @pytest.mark.parametrize("env,arg,want", [("", 0, 2), ("3", 0, 3),

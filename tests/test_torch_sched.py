@@ -37,6 +37,8 @@ from tests.test_torch_fleet import (N_IMAGES, _norm, _out,  # noqa: F401
                                     _reset_secret_config, _run, fleet)
 from tests.test_torch_scan_local import _fast_yaml
 from tests.torch_threads import one_torch_thread  # noqa: F401
+from tests.torch_witness import (assert_witnessed_clean,
+                                 torch_lock_witness)  # noqa: F401
 from trivy_tpu.cli import main as rmain
 from trivy_tpu.faults import FaultInjector
 from trivy_tpu.runtime import BatchScanRunner as RRunner
@@ -609,7 +611,11 @@ def test_submit_path_raises_typed_backpressure(fleet):
     assert stats["tenants"]["alice"]["counters"]["rejected_rate"] == 1
 
 
-def test_concurrent_submitters_get_their_own_reports(fleet):
+def test_concurrent_submitters_get_their_own_reports(fleet,
+                                                    torch_lock_witness):
+    """Four clients through one runner, under the port's lock-order
+    witness: each gets its own report, and no lock-order cycle or
+    pool self-join is seen."""
     paths = fleet["plan"]["paths"][:4]
     runner = TRunner(store=fleet["stores"]["compiled"][1],
                      backend="cpu", sched=tsched.SchedConfig(
@@ -631,6 +637,7 @@ def test_concurrent_submitters_get_their_own_reports(fleet):
         runner.close()
     want = _ref_runs(fleet, "compiled")[1]
     assert [got[i] for i in range(4)] == [[want[i]] for i in range(4)]
+    assert_witnessed_clean(torch_lock_witness)
 
 
 def test_a_blob_put_meanwhile_keeps_its_patch(fleet):
@@ -684,11 +691,12 @@ def test_a_blob_put_meanwhile_keeps_its_patch(fleet):
     assert sched._analysis_puts == {} and sched._inspects == []
 
 
-def test_scheduler_books_balance_under_a_storm():
+def test_scheduler_books_balance_under_a_storm(torch_lock_witness):
     """Many submitters, more host workers than cores and a short
     switch interval: every request resolves to its own result exactly
     once, and the counters and tenant books balance (a lost update in
-    any of them breaks an equality below)."""
+    any of them breaks an equality below). Under the port's lock-order
+    witness: no order cycle, no pool self-join."""
     import os
     import sys
     s = tsched
@@ -736,6 +744,7 @@ def test_scheduler_books_balance_under_a_storm():
     assert sum(b["counters"]["admitted"] for b in books.values()) == 240
     assert all(b["counters"]["admitted"] == b["counters"]["ok"]
                and b["inflight"] == 0 for b in books.values())
+    assert_witnessed_clean(torch_lock_witness)
 
 
 # --- the CLI at its defaults ----------------------------------------------

@@ -1,0 +1,1073 @@
+"""The repo-invariant rule set (reference:
+``trivy_tpu/analysis/rules.py``), scoped to ``trivy_tpu_torch/``.
+
+Every rule encodes a bug class the reference shipped and then
+hand-fixed in review:
+
+* ``monotonic-clock``     — wall-clock arithmetic corrupts
+  span durations, timeline gaps, profiler buckets and SLO windows.
+* ``lock-discipline``     — ``SchedMetrics.snapshot`` called
+  the live depth gauge under its own lock (self-deadlock with any
+  metrics-touching gauge); generalized to a static lock-acquisition
+  graph with inter-module cycle detection.
+* ``hostpool-blocking``   — a host-pool task blocking on
+  ``pool.map`` of its own pool deadlocks once every worker is such
+  a task. Departure: a function also counts as guarded when a
+  function it calls checks the thread name (the port's
+  ``runtime/hostpool.py::on_pool_thread``).
+* ``donation-safety``     — the reference's donation rule (no read of a
+  buffer donated to a ``donate_argnums`` jit call), retargeted at
+  the port's counterpart of donation: a non-blocking copy keeps its
+  buffers in use until a wait, so its destination must not be read
+  and its pinned source must not be rewritten before one.
+* ``bare-except-at-seam`` — silent swallows at concurrency/IO seams
+  hide the exact failures the fault harness exists to surface.
+* ``unbounded-label-cardinality`` — every open-keyed
+  dict that becomes a prom label family needs a cap/fold
+  (``max_tenants`` → anon, span names → "other", profiler stacks →
+  ``<overflow>``).
+
+Shared machinery: one :class:`Index` built lazily over the whole
+module set — per-function lock scopes, a call graph with confident
+(exact or unanimous) name resolution, lock-nesting edges, and
+host-pool facts.
+
+Scoping convention: package paths (``trivy_tpu_torch/...``) honor each
+rule's directory scope; any other path (in-memory test fixtures) is
+always in scope for every rule.
+"""
+
+from __future__ import annotations
+
+import ast
+import re
+from typing import Iterable, List, Optional
+
+from .engine import Finding, ModuleInfo, Rule
+
+# method names owned by builtin containers / threading primitives:
+# never resolved by bare name — `d.get(...)` under a lock must not
+# match some analyzed class's locking `get`
+_DENY_METHODS = frozenset((
+    "get", "put", "pop", "push", "add", "set", "append", "extend",
+    "insert", "remove", "discard", "clear", "copy", "update",
+    "keys", "values", "items", "setdefault", "popitem", "popleft",
+    "appendleft", "count", "index", "sort", "reverse", "join",
+    "split", "strip", "format", "encode", "decode", "startswith",
+    "endswith", "replace", "lower", "upper", "wait", "notify",
+    "notify_all", "acquire", "release", "locked", "is_set",
+    "result", "done", "cancel", "exception", "read", "write",
+    "readline", "seek", "tell", "close", "flush", "open", "next",
+    "send", "get_nowait", "put_nowait", "qsize", "empty", "full",
+    "task_done", "map", "submit", "shutdown", "union", "render",
+))
+
+_CALLBACK_ATTR = re.compile(r"(_fn|_cb|_hook|_gauge)$")
+_METRICS_GLOBAL = re.compile(r"^[A-Z_]*METRICS$")
+_LOCK_CTORS = frozenset(("Lock", "RLock", "Condition"))
+_CAP_CONSTANTS = frozenset(("<overflow>", "other", "anon"))
+_METRICSY_CLASS = re.compile(r"(Metrics|Book|Histogram|Recorder)")
+_POOL_GUARD_NEEDLE = "trivy-hostpool"
+
+
+def _unparse(node) -> str:
+    try:
+        return ast.unparse(node)
+    except Exception:  # pragma: no cover — malformed node
+        return "<expr>"
+
+
+def _call_name(node: ast.Call) -> str:
+    """Terminal identifier of the callee (``x.y.z(...)`` -> z)."""
+    f = node.func
+    if isinstance(f, ast.Attribute):
+        return f.attr
+    if isinstance(f, ast.Name):
+        return f.id
+    return ""
+
+
+def _receiver_text(node: ast.Call) -> str:
+    f = node.func
+    if isinstance(f, ast.Attribute):
+        return _unparse(f.value)
+    return ""
+
+
+class FuncFacts:
+    """Per-function facts extracted once by the index."""
+
+    def __init__(self, module: str, rel: str, cls: str, name: str,
+                 node):
+        self.module = module
+        self.rel = rel
+        self.cls = cls
+        self.name = name
+        self.node = node
+        self.lineno = node.lineno
+        self.locks: set = set()           # lock ids acquired here
+        self.calls: list = []             # (held lock ids, Call)
+        self.pool_guard = False           # names trivy-hostpool
+        self.pool_check = False           # tests the thread name
+        self.pool_blocking: list = []     # (lineno, description)
+        self.pool_entries: list = []      # (lineno, callee expr)
+        self.params: set = set()
+
+    @property
+    def qualname(self) -> str:
+        base = f"{self.cls}.{self.name}" if self.cls else self.name
+        return f"{self.module}.{base}" if self.module else base
+
+
+class Index:
+    """Whole-tree facts shared by the rules (built once per run)."""
+
+    def __init__(self, modules: List[ModuleInfo]):
+        self.modules = {mi.name: mi for mi in modules}
+        self.funcs: dict = {}             # (module,cls,name)->facts
+        self.local_defs: dict = {}        # (module,cls,name)->[facts]
+        self.methods_by_name: dict = {}   # name -> [facts]
+        self.imports: dict = {}           # module->{local:(mod,orig)}
+        self.lock_attrs: dict = {}        # (module,cls)->{attr}
+        self.lock_globals: dict = {}      # module -> {name}
+        self.guard_consts: dict = {}      # module -> {name}
+        self.nest_edges: list = []        # (A, B, rel, lineno)
+        for mi in modules:
+            self._scan_declarations(mi)
+        for mi in modules:
+            self._scan_module_functions(mi)
+
+    # --- declaration pass ---
+
+    def _scan_declarations(self, mi: ModuleInfo) -> None:
+        imps: dict = {}
+        self.imports[mi.name] = imps
+        self.lock_globals.setdefault(mi.name, set())
+        consts = self.guard_consts.setdefault(mi.name, set())
+        for node in mi.tree.body:
+            # a module constant holding the thread-name prefix
+            # (runtime/hostpool.py's THREAD_PREFIX)
+            if isinstance(node, ast.Assign) and \
+                    isinstance(node.value, ast.Constant) and \
+                    isinstance(node.value.value, str) and \
+                    _POOL_GUARD_NEEDLE in node.value.value:
+                consts.update(t.id for t in node.targets
+                              if isinstance(t, ast.Name))
+        for node in ast.walk(mi.tree):
+            if isinstance(node, ast.ImportFrom):
+                src = self._resolve_from(mi, node)
+                for alias in node.names:
+                    imps[alias.asname or alias.name] = \
+                        (src, alias.name)
+            elif isinstance(node, ast.ClassDef):
+                attrs = self.lock_attrs.setdefault(
+                    (mi.name, node.name), set())
+                for sub in ast.walk(node):
+                    if isinstance(sub, ast.Assign) and \
+                            self._is_lock_ctor(sub.value):
+                        for t in sub.targets:
+                            if isinstance(t, ast.Attribute) and \
+                                    isinstance(t.value, ast.Name) \
+                                    and t.value.id == "self":
+                                attrs.add(t.attr)
+            elif isinstance(node, ast.Assign):
+                if self._is_lock_ctor(node.value):
+                    for t in node.targets:
+                        if isinstance(t, ast.Name):
+                            self.lock_globals[mi.name].add(t.id)
+
+    @staticmethod
+    def _resolve_from(mi: ModuleInfo, node: ast.ImportFrom) -> str:
+        if not node.level:
+            return node.module or ""
+        parts = mi.name.split(".")
+        # a leaf module (`pkg.sub.mod`) drops `level` trailing
+        # components; a package __init__ (whose dotted name IS the
+        # package) drops one fewer — `from .queue import x` inside
+        # pkg/sub/__init__.py resolves to pkg.sub.queue
+        drop = node.level - 1 if getattr(mi, "is_package", False) \
+            else node.level
+        base = parts[:len(parts) - drop] if drop <= len(parts) \
+            else []
+        if node.module:
+            base = base + node.module.split(".")
+        return ".".join(base)
+
+    @staticmethod
+    def _is_lock_ctor(value) -> bool:
+        return (isinstance(value, ast.Call)
+                and isinstance(value.func, ast.Attribute)
+                and isinstance(value.func.value, ast.Name)
+                and value.func.value.id == "threading"
+                and value.func.attr in _LOCK_CTORS)
+
+    # --- function pass ---
+
+    def _scan_module_functions(self, mi: ModuleInfo) -> None:
+        for node in mi.tree.body:
+            if isinstance(node,
+                          (ast.FunctionDef, ast.AsyncFunctionDef)):
+                self._scan_one(mi, "", node)
+            elif isinstance(node, ast.ClassDef):
+                for sub in node.body:
+                    if isinstance(
+                            sub,
+                            (ast.FunctionDef, ast.AsyncFunctionDef)):
+                        self._scan_one(mi, node.name, sub)
+
+    def _scan_one(self, mi: ModuleInfo, cls: str, node,
+                  nested: bool = False) -> None:
+        facts = FuncFacts(mi.name, mi.rel, cls, node.name, node)
+        facts.params = {a.arg for a in node.args.args
+                        if a.arg != "self"}
+        if nested:
+            # nested defs get a collision-proof key (two parents
+            # may each define a local `job`; dropping the second
+            # would blind the hostpool rule to its facts) and a
+            # by-name entry the resolver consults — bare-name
+            # calls resolve to EVERY same-named local def, which
+            # over-approximates reachability, the safe direction
+            # for a deadlock rule
+            self.funcs[(mi.name, cls,
+                        f"{node.name}@{node.lineno}")] = facts
+            self.local_defs.setdefault(
+                (mi.name, cls, node.name), []).append(facts)
+        else:
+            self.funcs[(mi.name, cls, node.name)] = facts
+            if cls:
+                self.methods_by_name.setdefault(
+                    node.name, []).append(facts)
+        pool_vars: set = set()
+        submit_seen = False
+
+        def lock_id(expr) -> Optional[str]:
+            if isinstance(expr, ast.Attribute) and \
+                    isinstance(expr.value, ast.Name) and \
+                    expr.value.id == "self" and cls and \
+                    expr.attr in self.lock_attrs.get(
+                        (mi.name, cls), ()):
+                return f"{mi.name}.{cls}.{expr.attr}"
+            if isinstance(expr, ast.Name) and \
+                    expr.id in self.lock_globals.get(mi.name, ()):
+                return f"{mi.name}.{expr.id}"
+            return None
+
+        def visit(n, held: tuple) -> None:
+            nonlocal submit_seen
+            if isinstance(n, (ast.With, ast.AsyncWith)):
+                acquired = []
+                for item in n.items:
+                    visit(item.context_expr, held)
+                    lid = lock_id(item.context_expr)
+                    if lid:
+                        facts.locks.add(lid)
+                        for h in held:
+                            if h != lid:
+                                self.nest_edges.append(
+                                    (h, lid, mi.rel, n.lineno))
+                        acquired.append(lid)
+                inner = held + tuple(acquired)
+                for st in n.body:
+                    visit(st, inner)
+                return
+            if isinstance(n,
+                          (ast.FunctionDef, ast.AsyncFunctionDef)) \
+                    and n is not node:
+                # nested def: its body runs when CALLED, not here —
+                # index it as its own function (the hostpool rule
+                # traverses call edges into it)
+                self._scan_one(mi, cls, n, nested=True)
+                return
+            if isinstance(n, ast.Call):
+                facts.calls.append((held, n))
+            if isinstance(n, ast.Assign):
+                if any(isinstance(c, ast.Call) and
+                       _call_name(c) == "get_host_pool"
+                       for c in ast.walk(n.value)):
+                    for t in n.targets:
+                        if isinstance(t, ast.Name):
+                            pool_vars.add(t.id)
+            for child in ast.iter_child_nodes(n):
+                visit(child, held)
+
+        for st in node.body:
+            visit(st, ())
+        facts.pool_guard = any(
+            isinstance(c, ast.Constant) and
+            isinstance(c.value, str) and
+            _POOL_GUARD_NEEDLE in c.value
+            for c in ast.walk(node))
+        facts.pool_check = any(
+            self._is_name_check(mi.name, c) for c in ast.walk(node))
+        # pool-blocking / pool-entry facts from the recorded calls
+        for _held, call in facts.calls:
+            name = _call_name(call)
+            recv = _receiver_text(call)
+            from_pool = recv in pool_vars or \
+                recv == "get_host_pool()"
+            if name == "map" and from_pool:
+                facts.pool_blocking.append(
+                    (call.lineno, f"{recv}.map(...)"))
+            if name == "submit" and from_pool:
+                submit_seen = True
+                if call.args:
+                    facts.pool_entries.append(
+                        (call.lineno, call.args[0]))
+            if name == "map_in_pool" and call.args:
+                facts.pool_entries.append(
+                    (call.lineno, call.args[0]))
+        if submit_seen:
+            for _held, call in facts.calls:
+                if _call_name(call) == "result":
+                    facts.pool_blocking.append(
+                        (call.lineno,
+                         "joins a future of the pool it was "
+                         "submitted from"))
+                    break
+
+    def _is_guard_operand(self, module: str, node) -> bool:
+        """The needle as a string, or a name bound to a module
+        constant that holds it (in this module or imported)."""
+        if isinstance(node, ast.Constant):
+            return isinstance(node.value, str) and \
+                _POOL_GUARD_NEEDLE in node.value
+        if not isinstance(node, ast.Name):
+            return False
+        if node.id in self.guard_consts.get(module, ()):
+            return True
+        imp = self.imports.get(module, {}).get(node.id)
+        return imp is not None and \
+            imp[1] in self.guard_consts.get(imp[0], ())
+
+    def _is_name_check(self, module: str, node) -> bool:
+        """``x.startswith(<needle>)`` or a comparison with the
+        needle: a test of the thread name, not a mere mention."""
+        if isinstance(node, ast.Call) and \
+                _call_name(node) == "startswith" and node.args:
+            return self._is_guard_operand(module, node.args[0])
+        if isinstance(node, ast.Compare):
+            return any(self._is_guard_operand(module, side)
+                       for side in [node.left] + node.comparators)
+        return False
+
+    # --- resolution ---
+
+    def resolve_call(self, module: str, cls: str,
+                     call: ast.Call) -> List[FuncFacts]:
+        """Confident candidates for a call's target: same-class
+        methods and module/import-resolved functions resolve
+        exactly; bare attribute calls resolve by method name only
+        when few (<=3) classes define it and the name is not a
+        builtin-container method."""
+        f = call.func
+        if isinstance(f, ast.Name):
+            facts = self.funcs.get((module, "", f.id)) or \
+                self.funcs.get((module, cls, f.id))
+            if facts is not None:
+                return [facts]
+            locals_ = self.local_defs.get((module, cls, f.id)) \
+                or (self.local_defs.get((module, "", f.id))
+                    if cls else None)
+            if locals_:
+                return list(locals_)
+            imp = self.imports.get(module, {}).get(f.id)
+            if imp:
+                facts = self.funcs.get((imp[0], "", imp[1]))
+                if facts is not None:
+                    return [facts]
+            return []
+        if isinstance(f, ast.Attribute):
+            if isinstance(f.value, ast.Name) and \
+                    f.value.id == "self" and cls:
+                facts = self.funcs.get((module, cls, f.attr))
+                if facts is not None:
+                    return [facts]
+            if f.attr in _DENY_METHODS:
+                return []
+            cands = self.methods_by_name.get(f.attr, [])
+            if 1 <= len(cands) <= 3:
+                return list(cands)
+        return []
+
+
+def get_index(ctx: dict) -> Index:
+    idx = ctx.get("index")
+    if idx is None:
+        idx = ctx["index"] = Index(ctx["modules"])
+    return idx
+
+
+def _in_scope(rel: str, prefixes, files=()) -> bool:
+    """Package paths honor the rule's directory scope; fixture
+    paths (outside the package) are always in scope."""
+    if not rel.startswith("trivy_tpu_torch/"):
+        return True
+    return rel in files or any(rel.startswith(p) for p in prefixes)
+
+
+# ---------------------------------------------------------------
+# monotonic-clock
+# ---------------------------------------------------------------
+
+
+class MonotonicClockRule(Rule):
+    """Flags ``time.time()`` used as an operand of arithmetic
+    (BinOp/UnaryOp/AugAssign). Storing wall time as a label is
+    fine; adding or subtracting it is never fine — a wall step
+    would corrupt the math (the reference's invariant, once a grep
+    over ``obs/`` only, now AST-exact and tree-wide)."""
+
+    name = "monotonic-clock"
+    summary = ("No time.time() arithmetic anywhere timing math "
+               "lives — wall time is labels only (PR-8).")
+
+    @staticmethod
+    def _is_wall_call(node) -> bool:
+        if not isinstance(node, ast.Call):
+            return False
+        f = node.func
+        return (isinstance(f, ast.Attribute) and f.attr == "time"
+                and isinstance(f.value, ast.Name)
+                and f.value.id == "time")
+
+    def check(self, mi: ModuleInfo,
+              ctx: dict) -> Iterable[Finding]:
+        for node in ast.walk(mi.tree):
+            if not self._is_wall_call(node):
+                continue
+            cur = node
+            flagged = False
+            while True:
+                parent = mi.parents.get(cur)
+                if parent is None or isinstance(parent, ast.stmt):
+                    flagged = isinstance(parent, ast.AugAssign)
+                    break
+                if isinstance(parent, (ast.BinOp, ast.UnaryOp)):
+                    flagged = True
+                    break
+                cur = parent
+            if flagged:
+                yield Finding(
+                    self.name, mi.rel, node.lineno,
+                    "time.time() used in arithmetic — durations "
+                    "and deadlines must use time.monotonic(); "
+                    "wall time may only be stored as a label")
+
+
+# ---------------------------------------------------------------
+# lock-discipline
+# ---------------------------------------------------------------
+
+
+class LockDisciplineRule(Rule):
+    """Builds a static lock-acquisition graph from ``with <lock>``
+    scopes. Flags (a) stored callables (``*_fn``/``*_cb``/
+    ``*_hook``/``*_gauge``) invoked under a held lock — the
+    gauge class, (b) metric-sink calls under a held lock, (c)
+    confidently resolved calls to another module's locking entry
+    point under a held lock, and — in ``finalize`` — (d) cycles in
+    the combined nesting + call-mediated lock-order graph."""
+
+    name = "lock-discipline"
+    summary = ("No gauge/metric callables or other modules' "
+               "locking entry points called under a held lock; no "
+               "lock-order cycles (PR-4).")
+
+    def check(self, mi: ModuleInfo,
+              ctx: dict) -> Iterable[Finding]:
+        idx = get_index(ctx)
+        edges = ctx.setdefault("lock_edges", [])
+        for (mod, cls, _name), facts in idx.funcs.items():
+            if mod != mi.name or facts.rel != mi.rel:
+                continue
+            for held, call in facts.calls:
+                if not held:
+                    continue
+                callee = _call_name(call)
+                recv = _receiver_text(call)
+                # (a) stored callable: the body is unknowable, so
+                # calling it under a lock imposes this lock on
+                # every future callback implementation
+                if _CALLBACK_ATTR.search(callee):
+                    yield Finding(
+                        self.name, mi.rel, call.lineno,
+                        f"stored callable {_unparse(call.func)}() "
+                        f"invoked while holding {self._fmt(held)} "
+                        "— call it outside the lock (PR-4 "
+                        "gauge-under-lock class)")
+                    continue
+                # (b) metric sinks take their own lock; calling
+                # one under a held lock imposes a cross-object
+                # lock order on every metrics implementation
+                if self._is_metric_recv(recv):
+                    yield Finding(
+                        self.name, mi.rel, call.lineno,
+                        f"metric call {_unparse(call.func)}() "
+                        f"while holding {self._fmt(held)} — move "
+                        "the metric update outside the lock")
+                    continue
+                # (c) resolved locking entry points: unanimous
+                # candidates only (a mixed candidate set is an
+                # ambiguous name, not evidence)
+                cands = idx.resolve_call(mi.name, cls, call)
+                if not cands or not all(c.locks for c in cands):
+                    continue
+                for c in cands:
+                    for m in sorted(c.locks):
+                        for h in held:
+                            if m != h:
+                                edges.append(
+                                    (h, m, mi.rel, call.lineno))
+                cross = sorted({c.qualname for c in cands
+                                if c.module != mi.name})
+                if cross:
+                    yield Finding(
+                        self.name, mi.rel, call.lineno,
+                        f"call to locking entry point "
+                        f"{cross[0]}() while holding "
+                        f"{self._fmt(held)} — another module's "
+                        "lock is acquired under this one")
+
+    @staticmethod
+    def _fmt(held: tuple) -> str:
+        return ", ".join(h.split(".", 1)[-1] for h in held)
+
+    @staticmethod
+    def _is_metric_recv(recv: str) -> bool:
+        if not recv:
+            return False
+        leaf = recv.split(".")[-1]
+        return bool(_METRICS_GLOBAL.match(leaf)) or \
+            leaf in ("metrics", "book", "_book")
+
+    def finalize(self, ctx: dict) -> Iterable[Finding]:
+        idx = get_index(ctx)
+        edges = list(ctx.get("lock_edges", ()))
+        edges += list(idx.nest_edges)
+        adj: dict = {}
+        site: dict = {}
+        for a, b, rel, line in edges:
+            adj.setdefault(a, set()).add(b)
+            site.setdefault((a, b), (rel, line))
+        seen_cycles: set = set()
+        for start in sorted(adj):
+            cyc = self._find_cycle(adj, start)
+            if not cyc:
+                continue
+            canon = self._canonical(cyc)
+            if canon in seen_cycles:
+                continue
+            seen_cycles.add(canon)
+            first_hop = cyc[1] if len(cyc) > 1 else cyc[0]
+            rel, line = site[(cyc[0], first_hop)]
+            path = " -> ".join(
+                c.split(".", 1)[-1] for c in cyc + (cyc[0],))
+            yield Finding(
+                self.name, rel, line,
+                f"lock-order cycle: {path} — two threads taking "
+                "these locks in opposite orders deadlock")
+
+    @staticmethod
+    def _find_cycle(adj: dict, start: str) -> Optional[tuple]:
+        stack = [(start, (start,))]
+        seen = set()
+        while stack:
+            node, path = stack.pop()
+            for nxt in sorted(adj.get(node, ())):
+                if nxt == start:
+                    return path
+                if nxt in seen or nxt in path:
+                    continue
+                seen.add(nxt)
+                stack.append((nxt, path + (nxt,)))
+        return None
+
+    @staticmethod
+    def _canonical(cyc: tuple) -> tuple:
+        i = cyc.index(min(cyc))
+        return cyc[i:] + cyc[:i]
+
+
+# ---------------------------------------------------------------
+# hostpool-blocking
+# ---------------------------------------------------------------
+
+
+class HostpoolBlockingRule(Rule):
+    """Every callable handed to the host pool (first argument of
+    ``map_in_pool`` / ``pool.submit``) is an entry; the rule walks
+    the call graph from each entry and flags any reachable
+    function that blocks on the pool (``pool.map``, submit-then-
+    ``result()``) WITHOUT the thread-name guard
+    (``"trivy-hostpool"`` check) that makes the blocking call fall
+    back inline on pool threads.
+
+    Departure from the reference: the guard may live one call away.
+    A function that calls a resolved function which tests the
+    thread name against the needle (a string, or a module constant
+    that holds it) is guarded, as ``map_in_pool`` is by
+    ``on_pool_thread()``. A callee that merely names the needle
+    (``thread_name_prefix=THREAD_PREFIX``) guards nobody."""
+
+    name = "hostpool-blocking"
+    summary = ("No function reachable from a host-pool task may "
+               "block on the pool it runs in (PR-5).")
+
+    def finalize(self, ctx: dict) -> Iterable[Finding]:
+        idx = get_index(ctx)
+        entries: list = []
+        for facts in idx.funcs.values():
+            for lineno, arg in facts.pool_entries:
+                for target in self._entry_targets(
+                        idx, facts.module, facts.cls, arg):
+                    entries.append((facts, lineno, target))
+        reported: set = set()
+        for src, lineno, entry in entries:
+            hit = self._reach_blocking(idx, entry)
+            if hit is None:
+                continue
+            blocker, bline, desc = hit
+            key = (entry.qualname, blocker.qualname)
+            if key in reported:
+                continue
+            reported.add(key)
+            yield Finding(
+                self.name, blocker.rel, bline,
+                f"{blocker.qualname}() blocks on the host pool "
+                f"({desc}) and is reachable from pool task "
+                f"{entry.qualname}() (submitted at "
+                f"{src.rel}:{lineno}) — a pool task joining its "
+                "own pool deadlocks under saturation (PR-5 class)")
+
+    @staticmethod
+    def _entry_targets(idx: Index, module: str, cls: str,
+                       arg) -> list:
+        if isinstance(arg, ast.Lambda):
+            out = []
+            for sub in ast.walk(arg.body):
+                if isinstance(sub, ast.Call):
+                    out.extend(idx.resolve_call(module, cls, sub))
+            return out
+        if isinstance(arg, (ast.Name, ast.Attribute)):
+            fake = ast.Call(func=arg, args=[], keywords=[])
+            return idx.resolve_call(module, cls, fake)
+        return []
+
+    @staticmethod
+    def _guarded(idx: Index, facts: FuncFacts) -> bool:
+        if facts.pool_guard or facts.pool_check:
+            return True
+        return any(c.pool_check
+                   for _held, call in facts.calls
+                   for c in idx.resolve_call(facts.module, facts.cls,
+                                             call))
+
+    @staticmethod
+    def _reach_blocking(idx: Index,
+                        entry: FuncFacts) -> Optional[tuple]:
+        stack = [entry]
+        seen = {entry.qualname}
+        while stack:
+            facts = stack.pop()
+            if facts.pool_blocking and \
+                    not HostpoolBlockingRule._guarded(idx, facts):
+                line, desc = facts.pool_blocking[0]
+                return facts, line, desc
+            for _held, call in facts.calls:
+                for c in idx.resolve_call(facts.module, facts.cls,
+                                          call):
+                    if c.qualname not in seen:
+                        seen.add(c.qualname)
+                        stack.append(c)
+        return None
+
+
+# ---------------------------------------------------------------
+# donation-safety
+# ---------------------------------------------------------------
+
+
+class DonationSafetyRule(Rule):
+    """The reference's donation rule, retargeted at the port's buffer
+    protocol. On the card nothing is donated; a non-blocking copy
+    (``dst.copy_(src, non_blocking=True)``, ``dst = x.to(...,
+    non_blocking=True)``) returns before the bytes move, so until
+    a wait (``.synchronize()``, ``.wait_event()``,
+    ``.wait_stream()``, ``.wait()`` on an event or stream) in the
+    same function:
+
+    * (a) a read of the destination reads bytes that may not have
+      landed — an attribute, a subscript, ``int(...)``,
+      ``np.asarray(...)`` or arithmetic;
+    * (b) a write to the pinned source (``src.copy_``, ``src[...] =
+      ``, an in-place ``*_`` method, a write through
+      ``src.numpy()``) rewrites bytes the copy may still read — the
+      slot-reuse hazard of a staging buffer.
+
+    As in the reference: a hand-off (a container literal, a return,
+    a bare call argument) is not a read, a rebinding ends the
+    hazard, and loads inside the copy's own argument list do not
+    count."""
+
+    name = "donation-safety"
+    summary = ("No read of a non-blocking copy's destination, nor "
+               "write to its pinned source, before a wait (the "
+               "port's counterpart of donation).")
+
+    SCOPE = ("trivy_tpu_torch/ops/", "trivy_tpu_torch/detect/",
+             "trivy_tpu_torch/parallel/")
+    FILES = ("trivy_tpu_torch/secret/batch.py",
+             "trivy_tpu_torch/runtime/ring.py")
+
+    _COPY_METHODS = frozenset(("to", "cuda"))
+    _WAITS = frozenset(("synchronize", "wait_event", "wait_stream"))
+    _WAITABLE = re.compile(r"(event|stream|^ev$|_ev$)", re.I)
+    # calls that read their argument's bytes; any other call taking
+    # the bare name is a hand-off
+    _READ_CALLS = frozenset((
+        "int", "float", "bool", "list", "tuple", "bytes", "sum",
+        "min", "max", "asarray", "array", "ascontiguousarray"))
+
+    def check(self, mi: ModuleInfo,
+              ctx: dict) -> Iterable[Finding]:
+        if not _in_scope(mi.rel, self.SCOPE, self.FILES):
+            return
+        seen: set = set()
+        for node in ast.walk(mi.tree):
+            if isinstance(node,
+                          (ast.FunctionDef, ast.AsyncFunctionDef)):
+                for f in self._check_function(mi, node):
+                    key = (f.line, f.message)
+                    if key not in seen:
+                        seen.add(key)
+                        yield f
+
+    @staticmethod
+    def _non_blocking(call: ast.Call) -> bool:
+        return any(kw.arg == "non_blocking" and not (
+            isinstance(kw.value, ast.Constant) and
+            not kw.value.value) for kw in call.keywords)
+
+    def _copies(self, mi: ModuleInfo, fn) -> list:
+        """``(dst, dst_def, src, call)`` per non-blocking copy;
+        ``dst_def`` is the Name node that binds ``dst`` (the
+        defining store, which is no rebinding)."""
+        out = []
+        for sub in ast.walk(fn):
+            if not (isinstance(sub, ast.Call) and
+                    isinstance(sub.func, ast.Attribute) and
+                    self._non_blocking(sub)):
+                continue
+            recv = sub.func.value
+            recv = recv.id if isinstance(recv, ast.Name) else None
+            if sub.func.attr == "copy_":
+                src = sub.args[0].id if sub.args and isinstance(
+                    sub.args[0], ast.Name) else None
+                out.append((recv, None, src, sub))
+            elif sub.func.attr in self._COPY_METHODS:
+                parent = mi.parents.get(sub)
+                dst = dst_def = None
+                if isinstance(parent, (ast.Assign, ast.AnnAssign)):
+                    targets = parent.targets \
+                        if isinstance(parent, ast.Assign) \
+                        else [parent.target]
+                    if len(targets) == 1 and \
+                            isinstance(targets[0], ast.Name):
+                        dst_def = targets[0]
+                        dst = dst_def.id
+                out.append((dst, dst_def, recv, sub))
+        return out
+
+    def _is_wait(self, call: ast.Call) -> bool:
+        name = _call_name(call)
+        if name in self._WAITS:
+            return True
+        return name == "wait" and bool(self._WAITABLE.search(
+            _receiver_text(call).split(".")[-1]))
+
+    def _is_read(self, mi: ModuleInfo, name: ast.Name) -> bool:
+        parent = mi.parents.get(name)
+        if isinstance(parent, (ast.Attribute, ast.Subscript)):
+            return parent.value is name
+        if isinstance(parent, (ast.BinOp, ast.UnaryOp, ast.Compare,
+                               ast.BoolOp)):
+            return True
+        if isinstance(parent, ast.Call) and name in parent.args:
+            return _call_name(parent) in self._READ_CALLS
+        return False
+
+    @staticmethod
+    def _writes(fn) -> list:
+        """``(var, lineno)`` per write to a named buffer."""
+        out = []
+        for sub in ast.walk(fn):
+            if isinstance(sub, ast.Call) and \
+                    isinstance(sub.func, ast.Attribute) and \
+                    isinstance(sub.func.value, ast.Name) and \
+                    sub.func.attr.endswith("_") and \
+                    not sub.func.attr.startswith("_"):
+                out.append((sub.func.value.id, sub.lineno))
+            targets = sub.targets if isinstance(sub, ast.Assign) \
+                else [sub.target] if isinstance(sub, ast.AugAssign) \
+                else ()
+            for t in targets:
+                if not isinstance(t, ast.Subscript):
+                    continue
+                base = t.value
+                if isinstance(base, ast.Call) and \
+                        _call_name(base) == "numpy" and \
+                        isinstance(base.func, ast.Attribute):
+                    base = base.func.value
+                if isinstance(base, ast.Name):
+                    out.append((base.id, t.lineno))
+        return out
+
+    def _check_function(self, mi: ModuleInfo, fn):
+        copies = self._copies(mi, fn)
+        if not copies:
+            return
+        stores: dict = {}         # var -> [Name store nodes]
+        loads: dict = {}          # var -> [Name load nodes]
+        waits: list = []          # wait Call nodes
+        for sub in ast.walk(fn):
+            if isinstance(sub, ast.Name):
+                d = stores if isinstance(sub.ctx, ast.Store) \
+                    else loads
+                d.setdefault(sub.id, []).append(sub)
+            elif isinstance(sub, ast.Call) and self._is_wait(sub):
+                waits.append(sub)
+        writes = self._writes(fn)
+        for dst, dst_def, src, call in copies:
+            # the copy is in flight once its call returns: loads on
+            # its own (possibly multi-line) argument list are the
+            # hand-off itself
+            end = getattr(call, "end_lineno", call.lineno) \
+                or call.lineno
+            inside = set(ast.walk(call))
+            wait_at = min((w.lineno for w in waits
+                           if w not in inside and w.lineno >= end),
+                          default=float("inf"))
+
+            def horizon(var, skip=None):
+                rebind = [n.lineno for n in stores.get(var, ())
+                          if n is not skip
+                          and n.lineno >= call.lineno]
+                return min([wait_at - 1] + rebind)
+
+            if dst is not None:
+                until = horizon(dst, dst_def)
+                bad = [n.lineno for n in loads.get(dst, ())
+                       if end < n.lineno <= until
+                       and self._is_read(mi, n)]
+                if bad:
+                    yield Finding(
+                        self.name, mi.rel, min(bad),
+                        f"buffer {dst!r} read before a wait after "
+                        f"the non-blocking copy into it at line "
+                        f"{call.lineno} — its bytes may not have "
+                        "landed (the port's donation class)")
+            if src is not None:
+                until = horizon(src)
+                bad = [ln for var, ln in writes
+                       if var == src and end < ln <= until]
+                if bad:
+                    yield Finding(
+                        self.name, mi.rel, min(bad),
+                        f"source {src!r} written before a wait "
+                        f"after its non-blocking copy at line "
+                        f"{call.lineno} — the copy may still read "
+                        "it (slot reuse, the port's donation class)")
+
+
+# ---------------------------------------------------------------
+# bare-except-at-seam
+# ---------------------------------------------------------------
+
+
+class BareExceptRule(Rule):
+    """Bare ``except:`` anywhere; additionally, at the concurrency
+    and IO seams, ``except Exception: pass`` (a silent swallow) —
+    the exact failure the fault harness exists to surface must not
+    vanish without a log line or a reasoned suppression."""
+
+    name = "bare-except-at-seam"
+    summary = ("No bare `except:` anywhere; no silent "
+               "`except Exception: pass` at concurrency/IO seams.")
+
+    # artifact/ covers the streaming-ingest modules
+    # (stream.py, localreg.py, registry.py); scan/ joined
+    # when the prepare seam became part of the streaming pipeline
+    # (docs/performance.md §9)
+    SEAMS = ("trivy_tpu_torch/rpc/", "trivy_tpu_torch/watch/",
+             "trivy_tpu_torch/sched/", "trivy_tpu_torch/runtime/",
+             "trivy_tpu_torch/artifact/", "trivy_tpu_torch/memo/",
+             "trivy_tpu_torch/obs/", "trivy_tpu_torch/guard/",
+             "trivy_tpu_torch/faults/", "trivy_tpu_torch/parallel/",
+             "trivy_tpu_torch/router/", "trivy_tpu_torch/impact/",
+             "trivy_tpu_torch/scan/")
+
+    @staticmethod
+    def _is_silent(handler: ast.ExceptHandler) -> bool:
+        for st in handler.body:
+            if isinstance(st, ast.Pass):
+                continue
+            if isinstance(st, ast.Expr) and isinstance(
+                    st.value, ast.Constant):
+                continue
+            return False
+        return True
+
+    @staticmethod
+    def _catches_everything(handler: ast.ExceptHandler) -> bool:
+        t = handler.type
+        names = []
+        if isinstance(t, ast.Name):
+            names = [t.id]
+        elif isinstance(t, ast.Tuple):
+            names = [e.id for e in t.elts
+                     if isinstance(e, ast.Name)]
+        return any(n in ("Exception", "BaseException")
+                   for n in names)
+
+    def check(self, mi: ModuleInfo,
+              ctx: dict) -> Iterable[Finding]:
+        at_seam = _in_scope(mi.rel, self.SEAMS)
+        for node in ast.walk(mi.tree):
+            if not isinstance(node, ast.ExceptHandler):
+                continue
+            if node.type is None:
+                yield Finding(
+                    self.name, mi.rel, node.lineno,
+                    "bare `except:` catches SystemExit/"
+                    "KeyboardInterrupt — name the exceptions")
+            elif at_seam and self._catches_everything(node) and \
+                    self._is_silent(node):
+                yield Finding(
+                    self.name, mi.rel, node.lineno,
+                    "silent `except Exception: pass` at a "
+                    "concurrency/IO seam — log, narrow, or "
+                    "suppress with the reason the swallow is safe")
+
+
+# ---------------------------------------------------------------
+# unbounded-label-cardinality
+# ---------------------------------------------------------------
+
+
+class LabelCardinalityRule(Rule):
+    """In metrics-flavored classes (name matches Metrics/Book/
+    Histogram/Recorder, or the class exports a snapshot/raw), a
+    parameter-keyed INSERT into a dict (plain subscript assign or
+    ``setdefault``) is an open key domain → an unbounded prom
+    label family — unless the class shows a cap/fold (a ``len()``
+    comparison or an overflow constant like ``"<overflow>"``/
+    ``"other"``/``"anon"``). ``d[k] += n`` is exempt: it raises on
+    unknown keys, so a literal-initialized dict stays capped by
+    construction."""
+
+    name = "unbounded-label-cardinality"
+    summary = ("Open-keyed metric/label dicts need a cardinality "
+               "cap or overflow fold (PR-7/PR-8); tenant-keyed "
+               "inserts need the fold in the same function.")
+
+    # tenant labels are held to a STRICTER, fail-closed standard
+    # (the cost plane ships tenant-keyed invoice books): an insert
+    # keyed by a tenant-named parameter must show the top-K +
+    # "other" fold evidence in the SAME function - cap evidence
+    # elsewhere in the class does not count, because a refactor
+    # that moves the capped path away silently unbounds the label
+    _TENANT_PARAM = re.compile(r"^tenant(_id|_name)?$")
+
+    def check(self, mi: ModuleInfo,
+              ctx: dict) -> Iterable[Finding]:
+        for node in mi.tree.body:
+            if not isinstance(node, ast.ClassDef):
+                continue
+            if not self._metricsy(node):
+                continue
+            class_cap = self._has_cap(node)
+            for fn in node.body:
+                if not isinstance(
+                        fn,
+                        (ast.FunctionDef, ast.AsyncFunctionDef)):
+                    continue
+                params = {a.arg for a in fn.args.args
+                          if a.arg != "self"}
+                fn_cap = self._fn_has_cap(fn)
+                for site, key in self._open_inserts(fn, params):
+                    if self._TENANT_PARAM.match(key):
+                        if not fn_cap:
+                            yield Finding(
+                                self.name, mi.rel, site,
+                                f"{node.name} books a tenant-"
+                                "labeled series with no top-K + "
+                                "\"other\" fold in this function "
+                                "— tenant cardinality checks "
+                                "fail closed: the fold must be "
+                                "visible at the insert site "
+                                "(PR-7/PR-8, cost-plane rule)")
+                    elif not class_cap:
+                        yield Finding(
+                            self.name, mi.rel, site,
+                            f"{node.name} inserts parameter-keyed "
+                            "entries into a label/counter dict "
+                            "with no cardinality cap or overflow "
+                            "fold — an open key domain becomes an "
+                            "unbounded prom label set (PR-7/PR-8 "
+                            "class)")
+
+    @staticmethod
+    def _metricsy(node: ast.ClassDef) -> bool:
+        if _METRICSY_CLASS.search(node.name):
+            return True
+        return any(isinstance(f, ast.FunctionDef) and f.name in
+                   ("snapshot", "raw", "hist_snapshot")
+                   for f in node.body)
+
+    @staticmethod
+    def _has_cap(node) -> bool:
+        for sub in ast.walk(node):
+            if isinstance(sub, ast.Constant) and \
+                    isinstance(sub.value, str) and \
+                    sub.value in _CAP_CONSTANTS:
+                return True
+            if isinstance(sub, ast.Compare):
+                for side in [sub.left] + list(sub.comparators):
+                    if isinstance(side, ast.Call) and \
+                            _call_name(side) == "len":
+                        return True
+        return False
+
+    @classmethod
+    def _fn_has_cap(cls, fn) -> bool:
+        # the same cap/fold evidence, scoped to ONE function — the
+        # fail-closed bar a tenant-keyed insert must clear
+        return cls._has_cap(fn)
+
+    @staticmethod
+    def _open_inserts(fn, params: set):
+        """Yields ``(lineno, key_param_name)`` per open insert."""
+        for sub in ast.walk(fn):
+            if isinstance(sub, ast.Assign):
+                for t in sub.targets:
+                    if isinstance(t, ast.Subscript) and \
+                            isinstance(t.slice, ast.Name) and \
+                            t.slice.id in params:
+                        yield sub.lineno, t.slice.id
+            elif isinstance(sub, ast.Call) and \
+                    isinstance(sub.func, ast.Attribute) and \
+                    sub.func.attr == "setdefault" and sub.args \
+                    and isinstance(sub.args[0], ast.Name) and \
+                    sub.args[0].id in params:
+                yield sub.lineno, sub.args[0].id
+
+
+def default_rules() -> list:
+    return [
+        MonotonicClockRule(),
+        LockDisciplineRule(),
+        HostpoolBlockingRule(),
+        DonationSafetyRule(),
+        BareExceptRule(),
+        LabelCardinalityRule(),
+    ]

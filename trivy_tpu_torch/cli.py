@@ -111,7 +111,16 @@ import sys
 import time
 from tarfile import TarError
 
-from . import __version__, resolve_device
+# opt-in runtime lock-order witness (analysis/witness.py):
+# TRIVY_TPU_LOCK_WITNESS=1 must install BEFORE the heavy submodule
+# imports below construct the metric-singleton locks
+# (DETECT/RING/SECRET_METRICS...), as the reference's CLI does —
+# witness.py itself imports only the standard library
+from .analysis.witness import maybe_install_from_env
+
+maybe_install_from_env()
+
+from . import __version__, resolve_device  # noqa: E402
 from .artifact import (ArtifactOption, FSCache, ImageArtifact,
                        LocalFSArtifact, MemoryCache, SBOMArtifact,
                        load_image)

@@ -123,9 +123,9 @@ class HostProfiler:
             t0 = time.process_time()
             try:
                 self.sample_once(skip_thread=me)
-            # the ~49Hz tick must never take the host down or pay
-            # logging on the hot path; a failed tick self-heals next
-            # period
+            # lint: disable=bare-except-at-seam -- the ~49Hz tick
+            # must never take the host down or pay logging on the
+            # hot path; a failed tick self-heals next period
             except Exception:       # noqa: BLE001 — the profiler
                 pass                # must never take the host down
             self.overhead_s += time.process_time() - t0

@@ -243,11 +243,15 @@ class DispatchRing:
     # --- lifecycle ---
 
     def _ensure_thread(self) -> None:
-        if self._thread is None:
-            self._thread = threading.Thread(
-                target=self._drain_loop,
-                name=f"ring-{self.name}", daemon=True)
-            self._thread.start()
+        # check and start under the cv: two first submits racing
+        # here started two drain threads, which collected out of
+        # FIFO order and overwrote each other's ``_collecting``
+        with self._cv:
+            if self._thread is None:
+                self._thread = threading.Thread(
+                    target=self._drain_loop,
+                    name=f"ring-{self.name}", daemon=True)
+                self._thread.start()
 
     def close(self, collect: bool = True) -> None:
         """Stop accepting slots. ``collect=True`` drains every slot
