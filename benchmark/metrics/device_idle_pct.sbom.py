@@ -1,0 +1,11 @@
+"""The device's idle share of the profiled SBOM service window."""
+from benchmark.metrics import device_idle_pct
+
+LAYER = "device"
+SOURCE = "device_trace"
+UNIT = "%"
+MOVES = "sboms_per_s"
+
+
+def read(trace):
+    return device_idle_pct(trace)
